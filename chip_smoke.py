@@ -5,23 +5,34 @@
     python3 chip_smoke.py --phases device,build,kernels
 
 Phases:
-  1. device  — the card's name and power limit (nvidia-smi); TF32 off.
-  2. build   — nvcc builds every kernel under paddle_tpu_torch/csrc/ (one
-               process per source, all at once) into
-               paddle_tpu_torch/build/kernels/, with ptxas's report.
-  3. kernels — each kernel against its plain PyTorch version at the
-               serving shapes, with its time, the plain version's time, a
-               PyTorch library call's time as a yardstick, and the bound;
-               planted faults of the plain version must fail the same gate.
-  4. engine  — LLaMA-2-7B widths (32 layers, bf16, random weights from a
-               seed) served by the paged LLMEngine: 12 requests, then a
-               shorter int8-cache run.  Launch counters are zeroed just
-               before each run and must match the work the run did.  For
-               the greedy outputs, the paged path's logits (teacher-forced)
-               must stay within LOGIT_TOL of the no-cache forward's, and
-               each token must be the forward's argmax but at near-ties.
-               Last, a few decode ticks with all 8 slots busy run under
-               torch.profiler: where a tick's time goes.
+  1. device       — the card's name and power limit (nvidia-smi); TF32 off.
+  2. build        — nvcc builds every kernel under paddle_tpu_torch/csrc/
+                    (one process per source, all at once) into
+                    paddle_tpu_torch/build/kernels/, with ptxas's report.
+  3. kernels      — each kernel against its plain PyTorch version at the
+                    main paths' shapes, with its time, the plain version's
+                    time, a PyTorch library call's time as a yardstick, and
+                    the bound; planted faults of the plain version must
+                    fail the same gate.
+  4. generate     — model.generate() at LLaMA-2-7B widths (32 layers, bf16,
+                    random weights from a seed): ids [4, 1024] (flash
+                    prefill) on a bf16 and an int8 cache, and ids [8, 256]
+                    (encoder prefill), 32 new tokens each, every decode
+                    step through the static decode kernel.
+  5. dense_engine — the dense LLMEngine on the same model: 12 requests
+                    with prompts in the buckets 64, 128, 256 and 2048,
+                    then 4 on an int8 cache at decode_chunk=4.
+  6. paged_engine — the paged LLMEngine on the same model: 12 requests,
+                    then 4 on an int8 pool.
+In phases 4-6 the launch counters are zeroed just before each run and must
+match the work the run did.  For the greedy outputs, each path's logits
+(teacher-forced) must stay within LOGIT_TOL (INT8_LOGIT_TOL on an int8
+cache) of the no-cache forward's with dense-math attention, and each token
+must be the forward's argmax but at near-ties.  Each engine phase ends with
+a few decode ticks of 8 busy slots under torch.profiler: where a tick's
+time goes.
+  7. ticks        — both engines' decode ticks, 8 busy slots, in turns
+                    (dense, paged, paged, dense), unprofiled.
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before
 that line.  Without CUDA, or without the repository beside this file, it
@@ -42,8 +53,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak
-# The engine phase's model and traffic: LLaMA-2-7B's depth, 12 requests on
-# a bf16 cache, then 4 on an int8 cache.
+# The main paths' model and the engines' traffic: LLaMA-2-7B's depth, 12
+# requests on a bf16 cache, then 4 on an int8 cache.
 LAYERS, REQUESTS, INT8_REQUESTS = 32, 12, 4
 # Kernel inputs: q ~ N(0, 2.5^2), k and v ~ N(0, 1).  With the 1/sqrt(D)
 # scale the scores spread by about 2.5, so the softmax is far from uniform
@@ -56,11 +67,29 @@ Q_STD = 2.5
 # H100 gave at most 2.9e-3 (bf16) and 4.5e-3 (int8); the planted faults
 # below come out at 0.29 or more.
 KERNEL_RTOL = {"bf16": 5e-3, "int8": 1e-2}
+# Flash's logsumexp output, absolute (values ~10 here): f32 sums of the
+# same bf16 products in another order differ by about 1e-5.
+LSE_TOL = 1e-3
+# kernel -> (its source, the TPU kernel it replaces)
+KERNELS = {
+    "paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
+                        "paddle_tpu/ops/decode_attention.py:313"),
+    "decode_attention": ("paddle_tpu_torch/csrc/decode_attention.cu",
+                         "paddle_tpu/ops/decode_attention.py:66"),
+    "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                        "paddle_tpu/ops/flash_attention.py:45"),
+    "encoder_attention": ("paddle_tpu_torch/csrc/encoder_attention.cu",
+                          "paddle_tpu/ops/encoder_attention.py:78"),
+}
 # Logit drift: max |paged-path logit - no-cache-forward logit| over every
 # generated position of the greedy requests (both bf16 through 32 layers,
 # rounding in different orders).  Logits here are ~N(0, 0.5); sound runs on
 # an H100 drift by at most 0.041.
 LOGIT_TOL = 0.1
+# The same drift with an int8 kv cache, against the same bf16 forward: the
+# cache rounds every K and V element to its row's absmax / 127, on top of
+# the bf16 differences above.
+INT8_LOGIT_TOL = 0.5
 
 
 def log(*a):
@@ -190,10 +219,201 @@ def paged_case(name, B, S, H, Hkv, offsets, quant, seed, ps=128, D=128, pages=No
                 bytes=nbytes, flops=flops)
 
 
-def kernel_phase():
+def bound(nbytes, flops):
+    """(bound ms, what bounds it): the larger of the bytes over the HBM rate
+    and the operations over the bf16 tensor-core rate."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gate(name, got, want, faults, tol, **extra):
+    """Common verdict of a kernel case: relative error to max |want| within
+    ``tol``, every planted fault (a wrong variant of the plain version)
+    outside it, and finite output."""
+    top = want.abs().max().item()
+    err = (got.float() - want).abs().max().item()
+    fault_rel = {k: (f - want).abs().max().item() / top for k, f in faults.items()}
+    finite = bool(torch.isfinite(got).all())
+    ok = (finite and err / top <= tol and min(fault_rel.values()) > tol
+          and extra.pop("ok", True))
+    return dict(name=name, max_abs_err=err, max_abs_want=top, rel_err=err / top,
+                fault_rel=fault_rel, finite=finite, tol=tol, ok=ok, **extra)
+
+
+def randn(g, shape, std=1.0):
+    return (torch.randn(*shape, generator=g, device="cuda") * std).bfloat16()
+
+
+def decode_case(name, B, H, Hkv, offsets, quant, seed, L=2048, D=128):
+    """Static decode kernel vs its plain version: S = 1 against a head-major
+    [B, Hkv, L, D] cache whose rows past each slot's valid length are
+    poisoned (1e4), so a read past the length shows."""
+    from paddle_tpu_torch.models.kv_cache import _quantize_kv
     from paddle_tpu_torch.ops import decode_attention as da
 
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = randn(g, (B, 1, H, D), Q_STD)
+    k, v = randn(g, (B, Hkv, L, D)), randn(g, (B, Hkv, L, D))
+    off = torch.tensor(offsets, dtype=torch.int64, device="cuda")
+    for b, o in enumerate(offsets):
+        k[b, :, o + 1:], v[b, :, o + 1:] = 1e4, 1e4
+    if quant:
+        (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+        scales = (ks.contiguous(), vs.contiguous())
+    else:
+        scales = (None, None)
+    lengths = (off + 1).to(torch.int32)
+    scale = 1.0 / D ** 0.5
+
+    def kernel():
+        return da.decode_attention_kernel(q, k, v, lengths, *scales, scale)
+
+    def plain():
+        return da._decode_dense(q, k, v, off, *scales, scale)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    f32 = [None if x is None else x.float() for x in scales]
+    k32, v32 = (k, v) if quant else (k.float(), v.float())
+
+    def oracle(qq, o):
+        return da._decode_dense(qq, k32, v32, o, *f32, scale)
+
+    want = oracle(q.float(), off)
+    res = gate(name, got, want, {"uniform_weights": oracle(torch.zeros_like(q.float()), off),
+                                 "causal_end_short": oracle(q.float(), off - 1)},
+               KERNEL_RTOL["int8" if quant else "bf16"], B=B, S=1, H=H, Hkv=Hkv, L=L,
+               D=D, cache="int8" if quant else "bf16", max_len=max(offsets) + 1)
+    res["ms"] = cuda_ms(kernel, 50)
+    res["plain_ms"] = cuda_ms(plain, 10)
+    # yardstick: SDPA on the dequantized, GQA-expanded cache with a length
+    # mask; timed here, never used by the port
+    kd, vd = (k.bfloat16() * scales[0].bfloat16()[..., None],
+              v.bfloat16() * scales[1].bfloat16()[..., None]) if quant else (k, v)
+    kd, vd = kd.repeat_interleave(H // Hkv, 1), vd.repeat_interleave(H // Hkv, 1)
+    mask = torch.arange(L, device="cuda")[None, None, None, :] <= off[:, None, None, None]
+    qh = q.transpose(1, 2)
+    res["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=mask), 50)
+    # least time: q and out once, the valid K/V rows (and scales) once, lengths
+    keys = sum(o + 1 for o in offsets)
+    nbytes = (2 * q.numel() * 2 + keys * Hkv * D * (1 if quant else 2) * 2
+              + (keys * Hkv * 4 * 2 if quant else 0) + B * 4)
+    res["bound_ms"], res["bound_by"] = bound(nbytes, 4.0 * D * H * keys)
+    return res
+
+
+def visible_pairs(Sq, Sk, causal):
+    """Query-key pairs a (bottom-right) causal or full attention computes."""
+    if not causal:
+        return Sq * Sk
+    off = Sk - Sq
+    return sum(min(Sk, i + off + 1) for i in range(Sq))
+
+
+def masked_attention(q, k, v, vis, scale):
+    """Dense attention in f32 over an explicit [Sq, Sk] visibility mask;
+    the planted faults are built from it."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.where(vis, s, torch.full_like(s, -1e30))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v.float())
+
+
+def seq_attention_case(name, kind, B, H, Sq, Sk, D, causal, seed):
+    """Flash or encoder kernel vs its plain version on q, k, v
+    [B, S, H, D]; planted faults are uniform weights and each row's key
+    range one short (its causal end, or the last key when not causal)."""
+    from paddle_tpu_torch.ops import encoder_attention as ea
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = randn(g, (B, Sq, H, D), Q_STD)
+    k, v = randn(g, (B, Sk, H, D)), randn(g, (B, Sk, H, D))
+    scale = 1.0 / D ** 0.5
+    if kind == "flash":
+        def kernel():
+            return fa.flash_attention_kernel(q, k, v, causal, scale)
+
+        def plain():
+            return fa._flash_dense(q, k, v, causal, scale)
+    else:
+        def kernel():
+            return ea.encoder_attention_kernel(q, k, v, scale, causal)
+
+        def plain():
+            return ea._encoder_dense(q, k, v, scale, causal)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ones = torch.ones(Sq, Sk, dtype=torch.bool, device="cuda")
+    if causal:
+        short = ones.tril(Sk - Sq - 1)
+    else:
+        short = ones.clone()
+        short[:, -1] = False
+    faults = {"uniform_weights": masked_attention(torch.zeros_like(q), k, v, ones, scale),
+              "causal_end_short": masked_attention(q, k, v, short, scale)}
+    extra = {}
+    if kind == "flash":
+        got, lse = got
+        want, want_lse = fa._flash_dense(q.float(), k.float(), v.float(), causal, scale)
+        lse_err = (lse.reshape(B, H, Sq) - want_lse).abs().max().item()
+        extra = dict(lse_max_abs_err=lse_err, lse_tol=LSE_TOL, ok=lse_err <= LSE_TOL)
+    else:
+        want = ea._encoder_dense(q.float(), k.float(), v.float(), scale, causal)
+    res = gate(name, got, want, faults, KERNEL_RTOL["bf16"], kind=kind, B=B, H=H, Sq=Sq,
+               Sk=Sk, D=D, causal=causal, **extra)
+    iters = 20
+    res["ms"] = cuda_ms(kernel, iters)
+    res["plain_ms"] = cuda_ms(plain, 5)
+    # yardstick: SDPA where it computes the same function (its is_causal is
+    # top-left aligned, so causal only at Sq == Sk); timed, never used
+    res["library_ms"] = None
+    if Sq == Sk or not causal:
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        res["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal), iters)
+    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + (B * H * Sq * 4 if kind == "flash" else 0)
+    res["bound_ms"], res["bound_by"] = bound(nbytes, 4.0 * D * B * H * visible_pairs(Sq, Sk, causal))
+    return res
+
+
+def kernel_phase():
+    """Every kernel against its plain version at the main paths' shapes.
+    Returns {kernel name: [case, ...]}; the first case of each is the one
+    its main path runs most."""
+    from paddle_tpu_torch.ops import decode_attention as da
+    from paddle_tpu_torch.ops import encoder_attention as ea
+    from paddle_tpu_torch.ops import flash_attention as fa
+
     ragged = [2047, 1500, 1100, 777, 512, 300, 129, 37]  # lengths <= 2048
+    out = {"decode_attention": [], "flash_attention": [], "encoder_attention": []}
+    for quant in (False, True):
+        tag = "int8" if quant else "bf16"
+        for name, H, Hkv, seed in ((f"7b_decode_{tag}", 32, 32, 11),
+                                   (f"70b_gqa_decode_{tag}", 64, 8, 12)):
+            out["decode_attention"].append(decode_case(name, 8, H, Hkv, ragged, quant, seed))
+            log_case("decode_attention", out["decode_attention"][-1])
+    for i, (name, B, H, Sq, Sk, D, causal) in enumerate([
+            ("7b_generate_s1024", 4, 32, 1024, 1024, 128, True),   # generate(ids[4, 1024])
+            ("7b_engine_s2048", 1, 32, 2048, 2048, 128, True),     # the engine's L bucket
+            ("bh32_s1024", 1, 32, 1024, 1024, 128, True),
+            ("bh64_s2048", 2, 32, 2048, 2048, 128, True),
+            ("bh64_s1024_d64", 2, 32, 1024, 1024, 64, True),
+            ("sq1024_sk2048_causal", 1, 32, 1024, 2048, 128, True),
+            ("sq1024_sk1536_full", 1, 32, 1024, 1536, 128, False)]):
+        out["flash_attention"].append(
+            seq_attention_case(name, "flash", B, H, Sq, Sk, D, causal, 20 + i))
+        log_case("flash_attention", out["flash_attention"][-1])
+    encoder_shapes = [(256, 128, True)] + [(S, D, c) for S in (128, 256, 512)
+                                           for D in (128, 64) for c in (True, False)
+                                           if (S, D, c) != (256, 128, True)]
+    for i, (S, D, causal) in enumerate(encoder_shapes):
+        H = 32 if D == 128 else 64  # hidden 4096 either way
+        out["encoder_attention"].append(seq_attention_case(
+            f"b8_s{S}_d{D}_{'causal' if causal else 'full'}", "encoder", 8, H, S, S, D,
+            causal, 40 + i))
+        log_case("encoder_attention", out["encoder_attention"][-1])
     cases = []
     for quant in (False, True):
         tag = "int8" if quant else "bf16"
@@ -208,29 +428,306 @@ def kernel_phase():
     # past the table
     cases.append(paged_case("7b_chunk256_past_table_bf16", 2, 256, 32, 32,
                             [2048, 384], False, 5, pages=17))
-    da.paged_attention_kernel.launches = 0  # comparison launches do not count
+    out["paged_attention"] = cases
     for c in cases:
-        log(f"  {c['name']:24s} err {c['max_abs_err']:.3e} of max {c['max_abs_want']:.3f}: "
-            f"rel {c['rel_err']:.3e} (tol {c['tol']}; planted faults "
-            + ", ".join(f"{k} {v:.3e}" for k, v in c["fault_rel"].items()) + ") "
-            f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
-            f"sdpa {c['library_ms']:.4f} ms  bound {c['bound_ms']:.4f} ms "
-            f"({c['bound_by']})  {'ok' if c['ok'] else 'FAIL'}")
-    return cases
+        log_case("paged_attention", c)
+    out["paged_attention"] = cases
+    # comparison launches do not count
+    for fn in (da.paged_attention_kernel, da.decode_attention_kernel,
+               fa.flash_attention_kernel, ea.encoder_attention_kernel):
+        fn.launches = 0
+    return out
 
 
-# ----------------------------------------------------------------- engine
+def log_case(kern, c):
+    lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
+    lse = f" lse err {c['lse_max_abs_err']:.2e}" if "lse_max_abs_err" in c else ""
+    log(f"  {kern:17s} {c['name']:26s} err {c['max_abs_err']:.3e} of max "
+        f"{c['max_abs_want']:.3f}: rel {c['rel_err']:.3e} (tol {c['tol']}; planted "
+        "faults " + ", ".join(f"{k} {v:.3e}" for k, v in c["fault_rel"].items())
+        + f"){lse} kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
+        f"sdpa {lib}  bound {c['bound_ms']:.4f} ms ({c['bound_by']})  "
+        f"{'ok' if c['ok'] else 'FAIL'}")
+
+
+# ------------------------------------------------------------- main paths
+
+def counters():
+    from paddle_tpu_torch.ops import decode_attention as da
+    from paddle_tpu_torch.ops import encoder_attention as ea
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    return {"paged_attention": da.paged_attention_kernel,
+            "decode_attention": da.decode_attention_kernel,
+            "flash_attention": fa.flash_attention_kernel,
+            "encoder_attention": ea.encoder_attention_kernel}
+
+
+def zero_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def prefill_kernel(cfg, B, S):
+    """The kernel a no-cache prefill of [B, S] tokens runs per layer: the
+    reference's routing (encoder, flash, or None for dense math)."""
+    from paddle_tpu_torch.nn.functional.attention import _reference_kernel
+
+    H, D = cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads
+    q = torch.empty(B, S, H, D, device="meta")
+    return _reference_kernel(q, q, None, True, "auto")
+
+
+@torch.no_grad()
+def forward_logits(model, prompt, out):
+    """The oracle, independent of every kernel under test: the no-cache
+    forward with dense-math attention over prompt + out[:-1], its logits at
+    the positions that produced out ([n, V] f32)."""
+    cfg = model.config
+    flash, cfg.use_flash_attention = cfg.use_flash_attention, False
+    try:
+        seq = torch.tensor(list(prompt) + list(out[:-1]), device=model.device)[None]
+        return model(seq)[0, len(prompt) - 1:].float()
+    finally:
+        cfg.use_flash_attention = flash
+
+
+def judge(cases, tol):
+    """cases: [(tokens, forward logits [n, V], path logits [n, V])].  The
+    path's logits must lie within ``tol`` of the forward's; each token must
+    be the forward's argmax, unless the forward's top-2 gap is under twice
+    the drift this run measured, the most by which two logits can trade
+    places."""
+    per, drift = [], []
+    for toks, want, path in cases:
+        d = (path - want).abs().amax(-1).tolist()
+        top2 = want.topk(2, dim=-1).values
+        per.append((toks, want.argmax(-1).tolist(), (top2[:, 0] - top2[:, 1]).tolist()))
+        drift += d
+    tie_tol = 2 * max(drift)
+    exact = ties = bad = under = 0
+    for toks, am, gaps in per:
+        for tok, a, gap in zip(toks, am, gaps):
+            under += gap < tie_tol
+            if tok == a:
+                exact += 1
+            elif gap < tie_tol:
+                ties += 1
+            else:
+                bad += 1
+    return dict(positions=len(drift), max_logit_drift=max(drift),
+                mean_logit_drift=sum(drift) / len(drift), logit_tol=tol,
+                tie_tol=tie_tol, share_gap_under_tie_tol=under / len(drift),
+                exact=exact, near_ties=ties, failures=bad,
+                ok=max(drift) <= tol and bad == 0)
+
+
+def launch_check(launches, expected):
+    return all(launches[k] == expected.get(k, 0) for k in launches) and any(launches.values())
+
+
+# --------------------------------------------------------------- generate
+
+@torch.no_grad()
+def static_path_logits(model, ids, out, cache_dtype):
+    """generate()'s own path, teacher-forced on its output: the prefill,
+    then one static-cache decode step per generated token but the last
+    ([B, n, V] f32)."""
+    from paddle_tpu_torch.models.generation import _to_static_caches
+
+    logits, caches = model.generate_step(ids)
+    caches = _to_static_caches(caches, ids, ids.shape[1] + out.shape[1], cache_dtype,
+                               None, 128, False)
+    rows = [logits[:, -1]]
+    for i in range(out.shape[1] - 1):
+        logits, caches = model.generate_step(out[:, i:i + 1].long(), caches=caches)
+        rows.append(logits[:, -1])
+    return torch.stack(rows, dim=1).float()
+
+
+def generate_run(model, name, B, S0, n_new, cache_dtype, seed):
+    cfg = model.config
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(1, cfg.vocab_size, (B, S0), generator=g).to(model.device)
+    # a short run first, so that the timed one pays no first launch of
+    # this cache's decode path
+    model.generate(ids[:, :8], max_new_tokens=2, cache_dtype=cache_dtype)
+    torch.cuda.synchronize()
+    zero_counts()                                        # the run starts here
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=n_new, cache_dtype=cache_dtype)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()                             # ... and ends here
+    L = cfg.num_hidden_layers
+    expected = {"decode_attention": L * (n_new - 1)}
+    kern = prefill_kernel(cfg, B, S0)
+    if kern:
+        expected[kern] = L
+    path = static_path_logits(model, ids, out, cache_dtype)
+    verdict = judge([(out[b].tolist(), forward_logits(model, ids[b].tolist(), out[b].tolist()),
+                      path[b]) for b in range(B)],
+                    INT8_LOGIT_TOL if cache_dtype else LOGIT_TOL)
+    valid = tuple(out.shape) == (B, n_new) and bool(((out >= 0) & (out < cfg.vocab_size)).all())
+    res = dict(path="generate", name=name, B=B, prompt=S0, new_tokens=n_new,
+               cache=cache_dtype or "bf16", prefill_kernel=kern, wall_s=wall,
+               decode_tok_per_s=B * (n_new - 1) / wall, launches=launches,
+               expected_launches=expected, replay_equal=bool(
+                   (path.argmax(-1) == out.long()).all()),
+               teacher_forced=verdict, valid_ids=valid)
+    res["ok"] = valid and launch_check(launches, expected) and verdict["ok"]
+    return res
+
+
+def generate_phase(model, card):
+    runs = [generate_run(model, "b4_s1024_bf16", 4, 1024, 32, None, 1),   # flash prefill
+            generate_run(model, "b4_s1024_int8", 4, 1024, 32, "int8", 1),
+            generate_run(model, "b8_s256_bf16", 8, 256, 32, None, 2)]    # encoder prefill
+    for r in runs:
+        tf = r["teacher_forced"]
+        log(f"  {r['name']}: prefill {r['prefill_kernel']}, wall {r['wall_s']:.3f} s "
+            f"({r['decode_tok_per_s']:.1f} tok/s incl. prefill); launches {r['launches']} "
+            f"(expected {r['expected_launches']}); drift max {tf['max_logit_drift']:.4f} "
+            f"(tol {tf['logit_tol']}), {tf['exact']} exact, {tf['near_ties']} near-ties, "
+            f"{tf['failures']} failures; replay equal {r['replay_equal']}; "
+            f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
+    return runs
+
+
+# ------------------------------------------------------------ dense engine
+
+@torch.no_grad()
+def dense_path_logits(model, eng, prompt, out):
+    """The dense engine's path for one request, teacher-forced at batch 1:
+    the bucket-padded prefill, its rows written into a static cache (int8
+    when the engine's is), then one per-slot decode step per generated
+    token but the last."""
+    from paddle_tpu_torch.models.kv_cache import _quantize_kv
+
+    n, dev, L = len(prompt), model.device, eng.L
+    Lb = eng._bucket(n)
+    ids = torch.zeros(1, Lb, dtype=torch.int64)
+    ids[0, :n] = torch.tensor(prompt)
+    logits, kvs = model.prefill_step(ids.to(dev), n - 1)
+    pos = torch.tensor([n], device=dev)
+    caches = []
+    for k, v in kvs:
+        H, D = k.shape[2], k.shape[3]
+        if eng.cache_dtype == "int8":
+            c = (torch.zeros(1, H, L, D, dtype=torch.int8, device=dev),
+                 torch.zeros(1, H, L, D, dtype=torch.int8, device=dev), pos,
+                 torch.full((1, H, L), 1e-8, device=dev), torch.full((1, H, L), 1e-8, device=dev))
+            (c[0][:, :, :Lb], c[3][:, :, :Lb]) = _quantize_kv(k.transpose(1, 2))
+            (c[1][:, :, :Lb], c[4][:, :, :Lb]) = _quantize_kv(v.transpose(1, 2))
+        else:
+            c = (torch.zeros(1, H, L, D, dtype=k.dtype, device=dev),
+                 torch.zeros(1, H, L, D, dtype=k.dtype, device=dev), pos)
+            c[0][:, :, :Lb], c[1][:, :, :Lb] = k.transpose(1, 2), v.transpose(1, 2)
+        caches.append(c)
+    rows = [logits[0, 0]]
+    for tok in out[:-1]:
+        logits, caches = model.generate_step(torch.tensor([[tok]], device=dev), caches=caches)
+        rows.append(logits[0, -1])
+    return torch.stack(rows).float()
+
+
+def dense_requests(rng, vocab, n_req, sampled_every):
+    """Prompts spread over the buckets 64, 128, 256 and L (2048)."""
+    spans = [(33, 64), (65, 128), (129, 256), (257, 2000)]
+    reqs = []
+    for i in range(n_req):
+        lo, hi = spans[i % 4]
+        reqs.append(dict(prompt=rng.integers(1, vocab, int(rng.integers(lo, hi + 1))).tolist(),
+                         max_new=int(rng.integers(32, 65)),
+                         sampled=sampled_every > 0 and i % sampled_every == sampled_every - 1))
+    return reqs
+
+
+def serve_dense(model, n_req, rng, cache_dtype, decode_chunk, sampled_every, check):
+    from paddle_tpu_torch.inference import LLMEngine
+
+    cfg = model.config
+    eng = LLMEngine(model, max_batch_slots=8, max_seq_len=2048, cache_dtype=cache_dtype,
+                    decode_chunk=decode_chunk,
+                    generator=torch.Generator(device=model.device).manual_seed(5))
+    warm = eng.warmup()
+    reqs = dense_requests(rng, cfg.vocab_size, n_req, sampled_every)
+    zero_counts()                                        # the run starts here
+    eng.start()
+    t0 = time.perf_counter()
+    futs = [eng.submit(r["prompt"], max_new_tokens=r["max_new"], do_sample=r["sampled"],
+                       temperature=0.8, top_p=0.9) for r in reqs]
+    outs = [f.result(timeout=900) for f in futs]
+    wall = time.perf_counter() - t0
+    eng.stop()
+    launches = read_counts()                             # ... and ends here
+    st = eng.stats()
+    L = cfg.num_hidden_layers
+    expected = {"decode_attention": L * st["decode_steps"]}
+    for Lb, count in st["prefill_buckets"].items():
+        kern = prefill_kernel(cfg, 1, Lb)
+        if kern:
+            expected[kern] = expected.get(kern, 0) + L * count
+    valid = all(len(o) == r["max_new"] and all(0 <= t < cfg.vocab_size for t in o)
+                for o, r in zip(outs, reqs))
+    res = dict(path="dense_engine", cache=cache_dtype or "bf16", decode_chunk=decode_chunk,
+               requests=n_req, warmup_s=warm, wall_s=wall, launches=launches,
+               expected_launches=expected, prefill_buckets=st["prefill_buckets"],
+               decode_ticks=st["decode_ticks"], decode_steps=st["decode_steps"],
+               decode_tokens=st["decode_tokens"], prefill_s=st["prefill_seconds"],
+               decode_s=st["decode_seconds"],
+               decode_tok_per_s=st["decode_tokens"] / max(st["decode_seconds"], 1e-9),
+               ttft_s=st["ttft_seconds"], prompt_tokens=sum(len(r["prompt"]) for r in reqs),
+               valid_ids=valid)
+    if check:
+        res["teacher_forced"] = judge(
+            [(o, forward_logits(model, r["prompt"], o), dense_path_logits(model, eng, r["prompt"], o))
+             for r, o in zip(reqs, outs) if not r["sampled"]],
+            INT8_LOGIT_TOL if cache_dtype else LOGIT_TOL)
+    res["ok"] = (valid and launch_check(launches, expected)
+                 and (not check or res["teacher_forced"]["ok"]))
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def dense_engine_phase(model, card):
+    import numpy as np
+
+    rng = np.random.default_rng(10)
+    runs = [serve_dense(model, REQUESTS, rng, None, 1, 4, True),
+            serve_dense(model, INT8_REQUESTS, rng, "int8", 4, 0, True)]
+    tick = decode_breakdown(model, "dense")
+    log(f"  dense decode tick, 8 slots at ~1k context: {json.dumps(tick)} [{card}]")
+    for r in runs:
+        log(f"  dense {r['cache']} decode_chunk={r['decode_chunk']}: {r['requests']} req, "
+            f"{r['prompt_tokens']} prompt tok, buckets {r['prefill_buckets']}, "
+            f"{r['decode_tokens']} decode tok in {r['decode_ticks']} ticks; launches "
+            f"{r['launches']} (expected {r['expected_launches']}); TTFT mean "
+            f"{r['ttft_s']['mean']:.3f} s p50 {r['ttft_s']['p50']:.3f} s; decode "
+            f"{r['decode_tok_per_s']:.1f} tok/s; wall {r['wall_s']:.1f} s; teacher-forced "
+            f"{r.get('teacher_forced')}; {'ok' if r['ok'] else 'FAIL'} [{card}]")
+    return runs, tick
+
+
+# ------------------------------------------------------------ paged engine
 
 @torch.no_grad()
 def paged_logits(model, prompt, out, chunk=256, ps=128):
     """The paged path's logits at each generated position of one request,
     teacher-forced: the prompt in prefill chunks, then one decode step for
-    each generated token but the last, on a one-slot bf16 pool."""
+    each generated token but the last, on a one-slot pool of the model's
+    dtype."""
     cfg, dev = model.config, model.device
     D = cfg.hidden_size // cfg.num_attention_heads
     npg = -(-(len(prompt) + len(out)) // ps)
+    dt = next(model.parameters()).dtype
     pools = [tuple(torch.zeros(npg + 1, cfg.num_key_value_heads, ps, D,
-                               dtype=torch.bfloat16, device=dev) for _ in range(2))
+                               dtype=dt, device=dev) for _ in range(2))
              for _ in range(cfg.num_hidden_layers)]
     tbl = torch.arange(1, npg + 1, dtype=torch.int32, device=dev)[None]
 
@@ -251,48 +748,14 @@ def paged_logits(model, prompt, out, chunk=256, ps=128):
     return torch.stack(rows).float()
 
 
-@torch.no_grad()
-def teacher_forced(model, reqs, outs):
-    """The engine's greedy tokens against one no-cache forward over each
-    prompt + out[:-1].  First the paged path's logits, teacher-forced, must
-    lie within LOGIT_TOL of the forward's.  Then each engine token must be
-    the forward's argmax, unless the forward's top-2 gap is under twice the
-    drift this run measured, the most by which two logits can trade places."""
-    per_req = []
-    for r, out in zip(reqs, outs):
-        seq = torch.tensor(list(r["prompt"]) + list(out[:-1]), device=model.device)[None]
-        want = model(seq)[0, len(r["prompt"]) - 1:].float()
-        drift = (paged_logits(model, r["prompt"], out) - want).abs().amax(-1)
-        top2 = want.topk(2, dim=-1).values
-        per_req.append((out, want.argmax(-1).tolist(), (top2[:, 0] - top2[:, 1]).tolist(),
-                        drift.tolist()))
-    drift = [d for *_, ds in per_req for d in ds]
-    tie_tol = 2 * max(drift)
-    exact = ties = bad = under = 0
-    for out, am, gaps, _ in per_req:
-        for tok, a, gap in zip(out, am, gaps):
-            under += gap < tie_tol
-            if tok == a:
-                exact += 1
-            elif gap < tie_tol:
-                ties += 1
-            else:
-                bad += 1
-    return dict(positions=len(drift), max_logit_drift=max(drift),
-                mean_logit_drift=sum(drift) / len(drift), logit_tol=LOGIT_TOL,
-                tie_tol=tie_tol, share_gap_under_tie_tol=under / len(drift),
-                exact=exact, near_ties=ties, failures=bad,
-                ok=max(drift) <= LOGIT_TOL and bad == 0)
-
-
-def serve(model, cfg, n_req, rng, cache_dtype, sampled_every, check):
+def serve_paged(model, n_req, rng, cache_dtype, sampled_every, check):
     from paddle_tpu_torch.inference import LLMEngine
-    from paddle_tpu_torch.ops import decode_attention as da
 
+    cfg = model.config
     eng = LLMEngine(model, max_batch_slots=8, max_seq_len=2048, kv_layout="paged",
                     page_size=128, prefill_chunk=256, prefix_cache=False,
                     cache_dtype=cache_dtype,
-                    generator=torch.Generator(device="cuda").manual_seed(5))
+                    generator=torch.Generator(device=model.device).manual_seed(5))
     warm = eng.warmup()
     reqs = []
     for i in range(n_req):
@@ -300,7 +763,7 @@ def serve(model, cfg, n_req, rng, cache_dtype, sampled_every, check):
         reqs.append(dict(prompt=rng.integers(1, cfg.vocab_size, n).tolist(),
                          max_new=int(rng.integers(32, 65)),
                          sampled=sampled_every > 0 and i % sampled_every == sampled_every - 1))
-    da.paged_attention_kernel.launches = 0          # the run starts here
+    zero_counts()                                        # the run starts here
     eng.start()
     t0 = time.perf_counter()
     futs = [eng.submit(r["prompt"], max_new_tokens=r["max_new"],
@@ -309,13 +772,14 @@ def serve(model, cfg, n_req, rng, cache_dtype, sampled_every, check):
     outs = [f.result(timeout=900) for f in futs]
     wall = time.perf_counter() - t0
     eng.stop()
-    launches = da.paged_attention_kernel.launches   # ... and ends here
+    launches = read_counts()                             # ... and ends here
     st = eng.stats()
-    expected = cfg.num_hidden_layers * (st["prefill_chunks"] + st["decode_ticks"])
+    expected = {"paged_attention": cfg.num_hidden_layers * (st["prefill_chunks"]
+                                                            + st["decode_ticks"])}
     valid = all(len(o) == r["max_new"] and all(0 <= t < cfg.vocab_size for t in o)
                 for o, r in zip(outs, reqs))
-    res = dict(cache=cache_dtype or "bf16", requests=n_req, warmup_s=warm, wall_s=wall,
-               launches=launches, expected_launches=expected,
+    res = dict(path="paged_engine", cache=cache_dtype or "bf16", requests=n_req,
+               warmup_s=warm, wall_s=wall, launches=launches, expected_launches=expected,
                prefill_chunks=st["prefill_chunks"], decode_ticks=st["decode_ticks"],
                decode_tokens=st["decode_tokens"], prefill_s=st["prefill_seconds"],
                decode_s=st["decode_seconds"],
@@ -323,51 +787,62 @@ def serve(model, cfg, n_req, rng, cache_dtype, sampled_every, check):
                ttft_s=st["ttft_seconds"], prompt_tokens=sum(len(r["prompt"]) for r in reqs),
                valid_ids=valid, preemptions=st["preemptions"])
     if check:
-        greedy = [(r, o) for r, o in zip(reqs, outs) if not r["sampled"]]
-        res["teacher_forced"] = teacher_forced(model, *zip(*greedy))
-    res["ok"] = (valid and launches == expected and launches > 0
+        res["teacher_forced"] = judge(
+            [(o, forward_logits(model, r["prompt"], o), paged_logits(model, r["prompt"], o))
+             for r, o in zip(reqs, outs) if not r["sampled"]], LOGIT_TOL)
+    res["ok"] = (valid and launch_check(launches, expected)
                  and (not check or res["teacher_forced"]["ok"]))
+    del eng
+    torch.cuda.empty_cache()
     return res
 
 
-def decode_breakdown(model, cfg, ticks=8):
-    """Where one decode tick's time goes with all 8 slots decoding at about
-    1k tokens of context: host wall per tick (unprofiled, then under
-    torch.profiler) and the device time of the kernels the ticks ran, by
-    kind.  Informational: a profiler that records no device events gives
-    "not measured", not a failure."""
+def busy_engine(model, layout):
+    """An engine of either layout with all 8 slots decoding at about 1k
+    tokens of context."""
     import numpy as np
 
     from paddle_tpu_torch.inference import LLMEngine
 
-    eng = LLMEngine(model, max_batch_slots=8, max_seq_len=2048, kv_layout="paged",
-                    page_size=128, prefill_chunk=256, prefix_cache=False)
+    kw = (dict(kv_layout="paged", page_size=128, prefill_chunk=256, prefix_cache=False)
+          if layout == "paged" else {})
+    eng = LLMEngine(model, max_batch_slots=8, max_seq_len=2048, **kw)
     rng = np.random.default_rng(1)
     for _ in range(8):
-        eng.submit(rng.integers(1, cfg.vocab_size, 1000).tolist(), max_new_tokens=96)
+        eng.submit(rng.integers(1, model.config.vocab_size, 1000).tolist(), max_new_tokens=96)
     while eng.stats()["active_slots"] < 8:  # prefill every prompt
         eng.step()
+    return eng
+
+
+def tick_ms(eng, ticks):
+    """Host wall per decode tick, unprofiled, over ``ticks`` ticks."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(ticks):
         eng.step()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
-    res = dict(ticks=ticks, slots=8, wall_ms_per_tick=wall_ms)
+    return (time.perf_counter() - t0) * 1e3 / ticks
+
+
+def decode_breakdown(model, layout, ticks=8):
+    """Where one decode tick's time goes with all 8 slots busy: host wall
+    per tick (unprofiled, then under torch.profiler) and the device time of
+    the kernels the ticks ran, by kind.  Informational: a profiler that
+    records no device events gives "not measured", not a failure."""
+    eng = busy_engine(model, layout)
+    res = dict(layout=layout, ticks=ticks, slots=8, wall_ms_per_tick=tick_ms(eng, ticks))
     try:
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(ticks):
-                eng.step()
-            res["profiled_wall_ms_per_tick"] = (time.perf_counter() - t0) * 1e3 / ticks
+            res["profiled_wall_ms_per_tick"] = tick_ms(eng, ticks)
         kern = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         by_kind, by_name = {}, {}
         for e in kern:
             us = e.time_range.elapsed_us()
             low = e.name.lower()
-            kind = ("paged_attention" if "paged_attention" in low else
+            kind = ("attention" if "kv_attention" in low else
                     "matmul" if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma")) else
                     "other")
             by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / ticks
@@ -383,42 +858,73 @@ def decode_breakdown(model, cfg, ticks=8):
     except Exception as e:  # noqa: BLE001 - a measurement, not a phase
         res["device_ms_per_tick"] = f"not measured ({e!r})"
     eng.stop()
+    del eng
+    torch.cuda.empty_cache()
     return res
 
 
-def engine_phase(card):
+def paged_engine_phase(model, card):
     import numpy as np
 
+    rng = np.random.default_rng(0)
+    runs = [serve_paged(model, REQUESTS, rng, None, 4, True),
+            serve_paged(model, INT8_REQUESTS, rng, "int8", 0, False)]
+    tick = decode_breakdown(model, "paged")
+    log(f"  paged decode tick, 8 slots at ~1k context: {json.dumps(tick)} [{card}]")
+    for r in runs:
+        log(f"  paged {r['cache']}: {r['requests']} req, {r['prompt_tokens']} prompt tok, "
+            f"{r['decode_tokens']} decode tok; launches {r['launches']} "
+            f"(expected {r['expected_launches']}); TTFT mean {r['ttft_s']['mean']:.3f} s "
+            f"p50 {r['ttft_s']['p50']:.3f} s; decode {r['decode_tok_per_s']:.1f} tok/s; "
+            f"wall {r['wall_s']:.1f} s; teacher-forced {r.get('teacher_forced')}; "
+            f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
+    return runs, tick
+
+
+def ticks_phase(model, card):
+    """Both engines' decode ticks in turns (dense, paged, paged, dense),
+    unprofiled, in one process: the spread between the turns of one layout
+    bounds what a difference between the layouts can mean."""
+    runs = []
+    for layout in ("dense", "paged", "paged", "dense"):
+        eng = busy_engine(model, layout)
+        runs.append(dict(layout=layout, ticks=16, slots=8, wall_ms_per_tick=tick_ms(eng, 16)))
+        eng.stop()
+        del eng
+        torch.cuda.empty_cache()
+        log(f"  {layout:5s} decode tick, 8 slots at ~1k context: "
+            f"{runs[-1]['wall_ms_per_tick']:.2f} ms [{card}]")
+    return [], runs
+
+
+def build_model():
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    cfg = LlamaConfig.llama2_7b(num_hidden_layers=LAYERS, use_flash_attention=False,
-                                dtype="bfloat16")
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=LAYERS, dtype="bfloat16")
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda").eval()
     model.init_weights(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     log(f"  model: {model.num_params / 1e9:.3f} B params, {LAYERS} layers, bf16, "
         f"init {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    runs = [serve(model, cfg, REQUESTS, rng, None, 4, True),
-            serve(model, cfg, INT8_REQUESTS, rng, "int8", 0, False)]
-    for r in runs:
-        log(f"  {r['cache']}: {r['requests']} req, {r['prompt_tokens']} prompt tok, "
-            f"{r['decode_tokens']} decode tok; launches {r['launches']} "
-            f"(expected {r['expected_launches']}); TTFT mean {r['ttft_s']['mean']:.3f} s "
-            f"p50 {r['ttft_s']['p50']:.3f} s; decode {r['decode_tok_per_s']:.1f} tok/s; "
-            f"wall {r['wall_s']:.1f} s; teacher-forced {r.get('teacher_forced')}; "
-            f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
-    tick = decode_breakdown(model, cfg)
-    log(f"  decode tick, 8 slots at ~1k context: {json.dumps(tick)} [{card}]")
-    return runs, tick
+    return model
 
 
 # ------------------------------------------------------------------- main
 
+PHASES = ("device", "build", "kernels", "generate", "dense_engine", "paged_engine",
+          "ticks")
+PATH_TITLES = {"generate": "model.generate() on the static cache",
+               "dense_engine": "the dense LLMEngine",
+               "paged_engine": "the paged LLMEngine",
+               "ticks": "both engines' decode ticks in turns"}
+PATH_PHASES = {"dense_engine": dense_engine_phase, "paged_engine": paged_engine_phase,
+               "ticks": ticks_phase}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="device,build,kernels,engine")
+    ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -432,14 +938,15 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT))
     from paddle_tpu_torch.ops import _build
     report = {"card": card_line(), "kind": torch.cuda.get_device_name(0),
-              "count": torch.cuda.device_count()}
+              "count": torch.cuda.device_count(), "paths": []}
     ok = True
     log(f"[device] {report['card']} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {report['kind']} x{report['count']}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[device] TF32 off for matmul and cuDNN: float32 products run in full float32")
-    if phases & {"build", "kernels", "engine"}:
+    paths = [ph for ph in PHASES[3:] if ph in phases]
+    if phases & {"build", "kernels", *paths}:
         t0 = time.perf_counter()
         built = _build.build_all(ptxas_verbose="build" in phases)
         report["build_s"] = time.perf_counter() - t0
@@ -450,31 +957,43 @@ def main(argv=None):
                 if "registers" in line or "spill" in line:
                     log(f"[build]   {name}: {line.strip()}")
     if "kernels" in phases:
-        log("[kernels] paged_attention vs its plain version")
-        report["paged_attention"] = kernel_phase()
-        ok &= all(c["ok"] for c in report["paged_attention"])
-    if "engine" in phases:
-        log("[engine] LLaMA-2-7B widths through the paged LLMEngine")
-        report["engine"], report["decode_tick"] = engine_phase(report["card"])
-        ok &= all(r["ok"] for r in report["engine"])
+        log("[kernels] every kernel vs its plain version")
+        report["kernels"] = kernel_phase()
+        ok &= all(c["ok"] for cases in report["kernels"].values() for c in cases)
+    if paths:
+        model = build_model()
+        for ph in paths:
+            log(f"[{ph}] LLaMA-2-7B widths through {PATH_TITLES[ph]}")
+            if ph == "generate":
+                runs = generate_phase(model, report["card"])
+            else:
+                runs, report[f"{ph}_decode_tick"] = PATH_PHASES[ph](model, report["card"])
+            report["paths"] += runs
+            ok &= all(r["ok"] for r in runs)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     if not ok:
         log("chip_smoke: FAILED (see above)")
         return 1
-    if "paged_attention" in report:
-        main_case = report["paged_attention"][0]  # 7B bf16 decode: the main path's shape
-        launches = report["engine"][0]["launches"] if "engine" in report else 0
-        log(json.dumps({"kernels": [{
-            "name": "paged_attention", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-            "replaces": "paddle_tpu/ops/decode_attention.py:313",
-            "launches": launches,
-            "max_abs_err": max(c["max_abs_err"] for c in report["paged_attention"]),
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"]}]}))
+    if "kernels" in report:
+        # launches: the sum over every path's run (each zeroed just before)
+        launches = {}
+        for run in report["paths"]:
+            for k, n in run["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        line = []
+        for name, (source, replaces) in KERNELS.items():
+            cases = report["kernels"][name]
+            main_case = cases[0]  # the shape its main path runs most
+            line.append(dict(
+                name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches.get(name, 0),
+                max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+                bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+                library_ms=main_case["library_ms"]))
+        log(json.dumps({"kernels": line}))
     log(report["card"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": report["kind"],
                                              "count": report["count"]}}), flush=True)

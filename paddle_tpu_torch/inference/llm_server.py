@@ -1,31 +1,35 @@
-"""Continuous-batching LLM serving engine on the PAGED kv cache
-(counterpart of the paged subset of paddle_tpu/inference/llm_server.py).
+"""Continuous-batching LLM serving engine (counterpart of the dense and
+paged subsets of paddle_tpu/inference/llm_server.py).
 
-- a fixed pool of batch slots over a global page pool [P, Hkv, ps, D]
-  (bf16/f32, or int8 + f32 scale pools) plus per-slot page tables; page 0
-  is the trash page (models/kv_cache.py);
-- admission by FREE PAGES: the queue head waits until reclamation frees
-  enough pages for its prompt + first decode token;
-- CHUNKED PREFILL: one ``prefill_chunk``-token chunk per tick, interleaved
-  with decode ticks, so a long prompt never stalls running slots for more
-  than one chunk;
-- one decode step per tick for the whole pool: each slot carries its own
-  position, and the ragged paged-attention kernel masks per slot;
-- RECOMPUTE PREEMPTION: a slot whose next token finds no free page is
-  requeued with its generated tokens appended to its prompt, so
-  re-admission re-prefills and greedy decoding continues where it stopped;
-- completion by eos / max tokens frees the slot and its pages.
+A fixed pool of batch slots; each tick admits work, then decodes
+``decode_chunk`` tokens for every active slot, each slot at its own
+position.  Two kv layouts:
 
-The reference compiles its prefill-chunk and decode programs with jax.jit
-and donates the pools; here both are eager PyTorch and the pools update in
+- DENSE (``kv_layout=None`` or ``"dense"``): per-layer static buffers
+  [B, Hkv, L, D] (bf16/f32, or int8 + f32 scales [B, Hkv, L]).  A queued
+  request is admitted into a free slot with ONE bucket-padded prefill
+  (``prompt_buckets``, then L) whose k/v rows are written into the slot;
+  the decode step runs the static decode kernel.
+- PAGED (``kv_layout="paged"``): a global page pool [P, Hkv, ps, D] plus
+  per-slot page tables; page 0 is the trash page (models/kv_cache.py).
+  Admission by FREE PAGES (the queue head waits until reclamation frees
+  enough pages for its prompt + first decode token); CHUNKED PREFILL, one
+  ``prefill_chunk``-token chunk per tick interleaved with decode ticks;
+  RECOMPUTE PREEMPTION when a slot's next token finds no free page (it is
+  requeued with its generated tokens appended to its prompt).  Every
+  attention call is the ragged paged kernel.
+
+Completion by eos / max tokens / capacity frees the slot (and its pages).
+The reference compiles its prefill and decode programs with jax.jit and
+donates the caches; here both are eager PyTorch and the caches update in
 place.  ``step()`` pumps one tick; ``run_until_complete()`` drains;
 ``start()`` spawns the background pump.  Greedy tokens equal the reference
 engine's on the same weights (tests/test_torch_engine.py).
 
-Not ported yet, and raising NotImplementedError (ROADMAP.md Queue 1): the
-dense ``kv_layout``, the prefix cache (pass ``prefix_cache=False``),
-speculative decoding, LoRA adapters, constraints, kv tiers, the metrics
-exporter, and ``decode_chunk > 1``.
+Not ported yet, and raising NotImplementedError (ROADMAP.md Queue 1 items
+2 and 5): the prefix cache (pass ``prefix_cache=False`` on the paged
+layout), speculative decoding, LoRA adapters, constraints, kv tiers and
+the metrics exporter.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from ..framework.random import get_generator
-from ..models.kv_cache import pages_for
+from ..models.kv_cache import _quantize_kv, pages_for
 from ..ops.sampling import sample_rows
 
 __all__ = ["LLMEngine", "ServerOverloadedError", "DeadlineExceededError"]
@@ -94,22 +98,28 @@ class _Request:
 class LLMEngine:
     def __init__(self, model, max_batch_slots=4, max_seq_len=512,
                  cache_dtype=None, eos_token_id=None, pad_token_id=0,
+                 prompt_buckets=(32, 64, 128, 256),
                  decode_chunk=1, max_queue_len=None, clock=None,
                  kv_layout=None, page_size=128, num_pages=None,
                  prefill_chunk=None, prefix_cache=None, metrics_port=None,
                  spec_k=0, adapters=None, host_cache_pages=0,
                  generator=None):
-        """Arguments as in the reference engine.  ``kv_layout`` must be
-        ``"paged"`` and ``prefix_cache`` ``False``.  ``num_pages`` defaults
-        to full capacity (slots * max_seq_len / page_size + the trash page);
-        size it smaller to oversubscribe (preemption then recomputes).
-        ``generator`` is the torch.Generator sampled rows draw from (default:
-        the seeded generator of the model's device)."""
-        if kv_layout != "paged":
-            raise _not_ported(f"kv_layout={kv_layout!r} (the dense engine)",
-                              "the static decode kernel with generate() and "
-                              "the dense engine")
-        if prefix_cache is not False:
+        """Arguments as in the reference engine.  The paged layout needs
+        ``prefix_cache=False``; the dense one ignores ``page_size``,
+        ``num_pages`` and ``prefill_chunk``.  ``num_pages`` defaults to full
+        capacity (slots * max_seq_len / page_size + the trash page); size
+        it smaller to oversubscribe (preemption then recomputes).
+        ``decode_chunk`` decode steps run per tick (fewer near capacity).
+        ``generator`` is the torch.Generator sampled rows draw from
+        (default: the seeded generator of the model's device)."""
+        if kv_layout not in (None, "dense", "paged"):
+            raise ValueError(
+                f"kv_layout must be None, 'dense' or 'paged', got {kv_layout!r}")
+        self.paged = kv_layout == "paged"
+        if not self.paged and prefix_cache:
+            raise ValueError("prefix_cache requires kv_layout='paged' (sharing "
+                             "rides on the page tables)")
+        if self.paged and prefix_cache is not False:
             raise _not_ported("the prefix cache (pass prefix_cache=False)",
                               "prefix cache, spec decode, LoRA, constraints")
         if spec_k:
@@ -123,61 +133,65 @@ class LLMEngine:
                               "prefix cache, spec decode, LoRA, constraints")
         if metrics_port is not None:
             raise _not_ported("the metrics exporter", "serving plane")
-        if int(decode_chunk) != 1:
-            raise _not_ported("decode_chunk > 1", "serving plane")
         if cache_dtype not in (None, "int8"):
             raise ValueError(f"cache_dtype must be None or 'int8', got {cache_dtype!r}")
-        if not getattr(model, "_supports_paged_cache", False):
+        if self.paged and not getattr(model, "_supports_paged_cache", False):
             raise ValueError(f"{type(model).__name__} does not support the "
-                             "paged kv-cache layout")
-        if int(page_size) < 1:
+                             "paged kv-cache layout; use kv_layout=None")
+        if self.paged and int(page_size) < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         cfg = model.config
         self.model = model
         self.device = next(model.parameters()).device
         self.n_slots = int(max_batch_slots)
         self.ps = int(page_size)
-        self.kv_layout = "paged"
-        # pad L to the 128-token tile AND a whole number of pages
-        L = ((int(max_seq_len) + 127) // 128) * 128
-        unit = self.ps * 128 // np.gcd(self.ps, 128)
-        self.L = ((L + unit - 1) // unit) * unit
-        self.M = self.L // self.ps  # page-table width (max pages per slot)
-        P = int(num_pages) if num_pages is not None else self.n_slots * self.M + 1
-        self.num_pages = P = max(P, 2)  # trash page + one allocatable page
+        self.kv_layout = "paged" if self.paged else "dense"
+        self.decode_chunk = max(1, int(decode_chunk))
+        # pad L to the 128-token tile (and, paged, a whole number of pages)
+        self.L = ((int(max_seq_len) + 127) // 128) * 128
+        if self.paged:
+            unit = self.ps * 128 // np.gcd(self.ps, 128)
+            self.L = ((self.L + unit - 1) // unit) * unit
+        self.buckets = tuple(b for b in sorted(prompt_buckets) if b <= self.L) or (self.L,)
         self.cache_dtype = cache_dtype
         self.eos = -1 if eos_token_id is None else int(eos_token_id)
         self.pad = int(pad_token_id)
-        self.prefill_chunk = max(1, min(
-            int(prefill_chunk) if prefill_chunk is not None else 128, self.L))
         H = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
         D = cfg.hidden_size // cfg.num_attention_heads
         pdt = next(model.parameters()).dtype
         kv_dtype = torch.bfloat16 if pdt == torch.bfloat16 else torch.float32
-        dev, ps = self.device, self.ps
-
-        def zeros(dt):
-            return torch.zeros((P, H, ps, D), dtype=dt, device=dev)
-
+        dev, B = self.device, self.n_slots
+        if self.paged:
+            self.M = self.L // self.ps  # page-table width (max pages per slot)
+            P = int(num_pages) if num_pages is not None else B * self.M + 1
+            self.num_pages = P = max(P, 2)  # trash page + one allocatable page
+            self.prefill_chunk = max(1, min(
+                int(prefill_chunk) if prefill_chunk is not None else 128, self.L))
+            rows = (P, H, self.ps)  # page pools [P, H, ps(, D)]
+        else:
+            rows = (B, H, self.L)   # static buffers [B, H, L(, D)]
         if cache_dtype == "int8":
             self.caches = [
-                (zeros(torch.int8), zeros(torch.int8),
-                 torch.full((P, H, ps), 1e-8, dtype=torch.float32, device=dev),
-                 torch.full((P, H, ps), 1e-8, dtype=torch.float32, device=dev))
+                (torch.zeros(rows + (D,), dtype=torch.int8, device=dev),
+                 torch.zeros(rows + (D,), dtype=torch.int8, device=dev),
+                 torch.full(rows, 1e-8, dtype=torch.float32, device=dev),
+                 torch.full(rows, 1e-8, dtype=torch.float32, device=dev))
                 for _ in range(cfg.num_hidden_layers)]
         else:
-            self.caches = [(zeros(kv_dtype), zeros(kv_dtype))
+            self.caches = [tuple(torch.zeros(rows + (D,), dtype=kv_dtype, device=dev)
+                                 for _ in range(2))
                            for _ in range(cfg.num_hidden_layers)]
-        B = self.n_slots
-        # host-side allocator: page 0 is the trash page, never handed out;
-        # pop() order is deterministic (highest id first), as the reference
-        self._free_pages = list(range(1, P))
-        self._page_ref = np.zeros(P, np.int32)
-        self._slot_pages: list[list[int]] = [[] for _ in range(B)]
-        self._pt_host = np.zeros((B, self.M), np.int32)
-        self._pt_dev = torch.from_numpy(self._pt_host).to(dev)
-        self._pt_dirty = False
-        self._prefilling = None  # (request, slot, prompt tokens consumed)
+        if self.paged:
+            # host-side allocator: page 0 is the trash page, never handed
+            # out; pop() order is deterministic (highest id first), as the
+            # reference
+            self._free_pages = list(range(1, P))
+            self._page_ref = np.zeros(P, np.int32)
+            self._slot_pages: list[list[int]] = [[] for _ in range(B)]
+            self._pt_host = np.zeros((B, self.M), np.int32)
+            self._pt_dev = torch.from_numpy(self._pt_host).to(dev)
+            self._pt_dirty = False
+        self._prefilling = None  # paged: (request, slot, prompt tokens consumed)
         self.slot_pos = np.zeros(B, np.int32)
         self.slot_req: list[_Request | None] = [None] * B
         self.last_token = np.full(B, self.pad, np.int32)
@@ -194,9 +208,13 @@ class LLMEngine:
         self._stop_epoch = 0
         self._pump_error: BaseException | None = None
         self._lock = threading.Lock()
+        # prefill_chunks counts prefill calls: chunks (paged) or bucketed
+        # admissions (dense, also counted per bucket in prefill_buckets)
         self._counts = dict(submitted=0, admitted=0, completed=0, shed=0,
                             expired=0, preemptions=0, prefill_chunks=0,
-                            decode_ticks=0, decode_tokens=0, recompute_tokens=0)
+                            decode_ticks=0, decode_steps=0, decode_tokens=0,
+                            recompute_tokens=0)
+        self._bucket_counts: dict[int, int] = {}
         self._seconds = dict(prefill=0.0, decode=0.0)
         self._ttfts: list[float] = []
 
@@ -266,14 +284,16 @@ class LLMEngine:
         """Engine-local counters and timings (host clock around work that
         ends in a device sync)."""
         ttft = np.asarray(self._ttfts, np.float64)
+        layout = ({"kv_pages_in_use": int((self._page_ref > 0).sum()),
+                   "kv_pages_total": self.num_pages - 1} if self.paged else
+                  {"prefill_buckets": dict(sorted(self._bucket_counts.items()))})
         return {
             **self._counts,
+            **layout,
             "queue_depth": self._pending.qsize(),
             "active_slots": sum(r is not None for r in self.slot_req),
             "n_slots": self.n_slots,
             "kv_layout": self.kv_layout,
-            "kv_pages_in_use": int((self._page_ref > 0).sum()),
-            "kv_pages_total": self.num_pages - 1,
             "prefill_seconds": self._seconds["prefill"],
             "decode_seconds": self._seconds["decode"],
             "ttft_seconds": {"count": int(ttft.size),
@@ -311,24 +331,35 @@ class LLMEngine:
             self._stop = False
 
     def warmup(self):
-        """Run one prefill chunk and one decode step against the idle pool
-        (garbage rows land in the trash page), so the first request pays no
-        kernel build or first-launch cost.  Returns the wall seconds."""
+        """Run every prefill shape once, then one decode call at the
+        configured ``decode_chunk``, against the idle caches, so the first
+        request pays no kernel build or first-launch cost: one prefill
+        chunk (paged; garbage rows land in the trash page), or each prompt
+        bucket's prefill and slot write (dense; admission rewrites the
+        rows).  Returns the wall seconds."""
         t0 = time.perf_counter()
         with self._lock:
             if self._prefilling is not None or any(r is not None for r in self.slot_req):
                 raise RuntimeError("warmup() requires an idle engine")
             dev, B = self.device, self.n_slots
             with torch.no_grad():
-                ids = torch.full((1, self.prefill_chunk), self.pad, dtype=torch.int64, device=dev)
-                zero_row = torch.zeros((1, self.M), dtype=torch.int32, device=dev)
-                self.model.prefill_chunk_step(
-                    ids, self._paged_caches(torch.zeros(1, dtype=torch.int64, device=dev),
-                                            zero_row), 0)
-                tok = torch.full((B, 1), self.pad, dtype=torch.int64, device=dev)
-                pos = torch.zeros(B, dtype=torch.int64, device=dev)
-                zero_tbl = torch.zeros((B, self.M), dtype=torch.int32, device=dev)
-                self.model.generate_step(tok, caches=self._paged_caches(pos, zero_tbl))
+                if self.paged:
+                    ids = torch.full((1, self.prefill_chunk), self.pad,
+                                     dtype=torch.int64, device=dev)
+                    zero_row = torch.zeros((1, self.M), dtype=torch.int32, device=dev)
+                    self.model.prefill_chunk_step(
+                        ids, self._paged_caches(torch.zeros(1, dtype=torch.int64, device=dev),
+                                                zero_row), 0)
+                else:
+                    for Lb in self.buckets:
+                        ids = torch.full((1, Lb), self.pad, dtype=torch.int64, device=dev)
+                        _, kvs = self.model.prefill_step(ids, Lb - 1)
+                        self._write_slot(0, kvs)
+                tok = np.full((B, 1), self.pad, np.int64)
+                self._decode(tok, np.zeros(B, np.int64), [None] * B,
+                             max(1, min(self.decode_chunk, self.L - 1)),
+                             torch.zeros((B, self.M), dtype=torch.int32, device=dev)
+                             if self.paged else None)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
@@ -400,12 +431,13 @@ class LLMEngine:
             self._free_pages.append(page)
 
     def _release_pages(self, slot):
-        """Free every page a slot holds, point its table row at the trash
-        page and reset its length, so that while the slot is idle a decode
-        tick's kernel reads one key of it (finish / expiry / preemption /
-        stop)."""
+        """Reset a slot's length, so that while it is idle a decode tick's
+        kernel reads one key of it and writes rows 0.. of its own buffer
+        (dense) or of the trash page (paged); free every page it holds and
+        point its table row at the trash page (finish / expiry / preemption
+        / stop)."""
         self.slot_pos[slot] = 0
-        if not self._slot_pages[slot]:
+        if not self.paged or not self._slot_pages[slot]:
             return
         for page in self._slot_pages[slot]:
             self._decref(page)
@@ -462,6 +494,94 @@ class LLMEngine:
             else:
                 self._preempt_slot(i)
         return out
+
+    # ---------------------------------------------------- dense internals
+
+    def _bucket(self, n):
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.L
+
+    def _dense_caches(self, pos):
+        """Per-layer static tuples (k, v, pos[, ks, vs]) over the buffers."""
+        return [(c[0], c[1], pos) + tuple(c[2:]) for c in self.caches]
+
+    def _write_slot(self, slot, kvs):
+        """Write a prefill's per-layer (k, v) [1, Lb, H, D] into rows
+        [0, Lb) of a slot's static buffers (quantized for int8)."""
+        for c, (k, v) in zip(self.caches, kvs, strict=True):
+            Lb = k.shape[1]
+            for buf, sbuf, kv in ((c[0], c[2] if len(c) == 4 else None, k),
+                                  (c[1], c[3] if len(c) == 4 else None, v)):
+                hm = kv.transpose(1, 2)  # [1, H, Lb, D]
+                if sbuf is None:
+                    buf[slot:slot + 1, :, :Lb] = hm
+                else:
+                    q, scale = _quantize_kv(hm)
+                    buf[slot:slot + 1, :, :Lb] = q
+                    sbuf[slot:slot + 1, :, :Lb] = scale
+
+    def _admit(self):
+        """Dense admission: each free slot takes the next live queued
+        request with one bucket-padded prefill."""
+        free = [i for i, r in enumerate(self.slot_req) if r is None]
+        while free and not self._pending.empty():
+            try:
+                req = self._pending.get_nowait()
+            except queue.Empty:
+                return
+            if req.future.done():
+                continue  # cancelled by the caller
+            if req.deadline is not None and self._clock() > req.deadline:
+                self._counts["expired"] += 1
+                _fail_future(req.future, DeadlineExceededError(
+                    "request deadline expired while queued for admission"))
+                continue
+            slot = free.pop(0)
+            try:
+                self._admit_one(req, slot)
+            except Exception as e:
+                self.slot_req[slot] = None
+                self._release_pages(slot)
+                free.insert(0, slot)
+                _fail_future(req.future, e)
+
+    def _admit_one(self, req, slot):
+        n = req.prompt.size
+        Lb = self._bucket(n)
+        padded = np.full((1, Lb), self.pad, np.int64)
+        padded[0, :n] = req.prompt
+        dev = self.device
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            # causal attention: positions >= n never influence position
+            # n - 1, so the padded prefill's first n k/v rows are exact
+            logits, kvs = self.model.prefill_step(torch.from_numpy(padded).to(dev), n - 1)
+            row = logits[0, 0].float().cpu().numpy()
+            self._write_slot(slot, kvs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self._seconds["prefill"] += time.perf_counter() - t0
+        self._counts["prefill_chunks"] += 1
+        self._bucket_counts[Lb] = self._bucket_counts.get(Lb, 0) + 1
+        self._activate(slot, req, self._host_select(row, req))
+
+    def _activate(self, slot, req, tok):
+        """A prefill's last position gave the request's next token: the
+        slot starts decoding (or finishes at once)."""
+        first = not req.tokens  # a re-admission after preemption continues
+        req.tokens.append(tok)
+        self.slot_req[slot] = req
+        self.slot_pos[slot] = req.prompt.size
+        self.last_token[slot] = tok
+        self._counts["admitted"] += 1
+        if first and req.submit_ts is not None:
+            self._ttfts.append(max(0.0, self._clock() - req.submit_ts))
+        if tok == self.eos or len(req.tokens) >= req.max_new_tokens:
+            self._finish(slot)
+
+    # ---------------------------------------------------- paged admission
 
     def _start_prefill(self):
         free = [i for i, r in enumerate(self.slot_req) if r is None]
@@ -534,18 +654,8 @@ class LLMEngine:
         if done < n:
             self._prefilling = (req, slot, done)
             return
-        tok = self._host_select(row, req)
-        first = not req.tokens  # a re-admission after preemption continues
-        req.tokens.append(tok)
-        self.slot_req[slot] = req
-        self.slot_pos[slot] = n
-        self.last_token[slot] = tok
         self._prefilling = None
-        self._counts["admitted"] += 1
-        if first and req.submit_ts is not None:
-            self._ttfts.append(max(0.0, self._clock() - req.submit_ts))
-        if tok == self.eos or len(req.tokens) >= req.max_new_tokens:
-            self._finish(slot)
+        self._activate(slot, req, self._host_select(row, req))
 
     def _host_select(self, row, req):
         """First (admission) token on the host: the reference's order
@@ -567,27 +677,65 @@ class LLMEngine:
     def _step_locked(self):
         self._expire_queued()
         self._expire_slots()
-        if self._prefilling is None:
-            self._start_prefill()
-        if self._prefilling is not None:
-            self._prefill_tick()
+        if not self.paged:
+            self._admit()
+        else:
+            if self._prefilling is None:
+                self._start_prefill()
+            if self._prefilling is not None:
+                self._prefill_tick()
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not active:
             return 0
-        active = self._ensure_decode_pages(active, 1)
-        if not active:
-            return 0
-        dev, reqs = self.device, self.slot_req
+        # decode_chunk steps per tick, staying inside the cache: slots AT
+        # capacity were finished by the previous tick, so headroom >= 1
+        headroom = self.L - 1 - int(self.slot_pos[active].max())
+        eff = max(1, min(self.decode_chunk, headroom))
+        pt = None
+        if self.paged:
+            # grow page tables to cover this tick's writes; slots the pool
+            # cannot cover are preempted
+            active = self._ensure_decode_pages(active, eff)
+            if not active:
+                return 0
+            # decode sees a table with INACTIVE slots masked to the trash
+            # page: a mid-prefill slot already owns real pages, and the
+            # shared step's garbage scatter for it must not clobber its
+            # prompt rows
+            pt = self._pt_host.copy()
+            for i, r in enumerate(self.slot_req):
+                if r is None:
+                    pt[i, :] = 0
+            pt = torch.from_numpy(pt).to(self.device)
         t0 = time.perf_counter()
-        # decode sees a table with INACTIVE slots masked to the trash page: a
-        # mid-prefill slot already owns real pages, and the shared step's
-        # garbage scatter for it must not clobber its prompt rows
-        pt = self._pt_host.copy()
-        for i, r in enumerate(reqs):
-            if r is None:
-                pt[i, :] = 0
-        tokens = torch.from_numpy(self.last_token.astype(np.int64)[:, None]).to(dev)
-        pos = torch.from_numpy(self.slot_pos.astype(np.int64)).to(dev)
+        nxt = self._decode(self.last_token.astype(np.int64)[:, None],
+                           self.slot_pos.astype(np.int64), self.slot_req, eff, pt)
+        self._seconds["decode"] += time.perf_counter() - t0
+        self._counts["decode_ticks"] += 1
+        self._counts["decode_steps"] += eff
+        emitted = 0
+        for j in range(eff):
+            for i in active:
+                req = self.slot_req[i]
+                if req is None:
+                    continue  # finished earlier in this chunk: surplus
+                tok = int(nxt[i, j])
+                req.tokens.append(tok)
+                self.last_token[i] = tok
+                self.slot_pos[i] += 1
+                emitted += 1
+                if (tok == self.eos or len(req.tokens) >= req.max_new_tokens
+                        or self.slot_pos[i] >= self.L - 1):
+                    self._finish(i)
+        self._counts["decode_tokens"] += emitted
+        return emitted
+
+    def _decode(self, tokens, pos, reqs, steps, page_tbl):
+        """``steps`` decode steps for every slot (idle ones included, on
+        garbage that no live row reads), each step's tokens selected on
+        the device per the slot's knobs and fed to the next step.  Returns
+        the selected ids [B, steps] on the host: the call's one sync."""
+        dev = self.device
         do_s = torch.tensor([r is not None and r.do_sample for r in reqs], device=dev)
         temp = torch.tensor([r.temperature if r is not None else 1.0 for r in reqs],
                             dtype=torch.float32, device=dev)
@@ -595,26 +743,18 @@ class LLMEngine:
                             dtype=torch.int32, device=dev)
         topp = torch.tensor([r.top_p if r is not None else 1.0 for r in reqs],
                             dtype=torch.float32, device=dev)
+        tok = torch.from_numpy(tokens).to(dev)
+        p = torch.from_numpy(pos).to(dev)
+        out = []
         with torch.no_grad():
-            logits, _ = self.model.generate_step(
-                tokens, caches=self._paged_caches(pos, torch.from_numpy(pt).to(dev)))
-            nxt = sample_rows(logits[:, -1], self._gen, do_s, temp, topk, topp)
-        nxt = nxt.cpu().numpy().astype(np.int32)  # the tick's one host sync
-        self._seconds["decode"] += time.perf_counter() - t0
-        self._counts["decode_ticks"] += 1
-        emitted = 0
-        for i in active:
-            req = self.slot_req[i]
-            tok = int(nxt[i])
-            req.tokens.append(tok)
-            self.last_token[i] = tok
-            self.slot_pos[i] += 1
-            emitted += 1
-            if (tok == self.eos or len(req.tokens) >= req.max_new_tokens
-                    or self.slot_pos[i] >= self.L - 1):
-                self._finish(i)
-        self._counts["decode_tokens"] += emitted
-        return emitted
+            for _ in range(steps):
+                caches = (self._paged_caches(p, page_tbl) if self.paged
+                          else self._dense_caches(p))
+                logits, _ = self.model.generate_step(tok, caches=caches)
+                nxt = sample_rows(logits[:, -1], self._gen, do_s, temp, topk, topp)
+                out.append(nxt)
+                tok, p = nxt[:, None].long(), p + 1
+        return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
 
     def _expire_queued(self):
         """Fail expired (or drop caller-cancelled) requests anywhere in the

@@ -1,7 +1,11 @@
-"""Paged kv-cache layouts (counterpart of the paged half of
+"""Static and paged kv-cache layouts (counterpart of
 paddle_tpu/models/kv_cache.py).
 
-Two layouts, distinguished by tuple length:
+Four layouts, distinguished by tuple length:
+  (k_buf, v_buf, pos)                      — STATIC plain: head-major
+                                             [B, H, L, D] buffers
+  (k_q, v_q, pos, k_scale, v_scale)        — STATIC int8: per-(head, token)
+                                             absmax scales [B, H, L] f32
   (k_pages, v_pages, pos, page_tbl)        — PAGED plain: global page pool
                                              [P, H, page_size, D] + per-slot
                                              page tables [B, max_pages]
@@ -9,7 +13,12 @@ Two layouts, distinguished by tuple length:
    k_scale_pages, v_scale_pages)           — PAGED int8: per-(head, token)
                                              absmax scale pools [P, H, ps] f32
 
-Contract (as in the reference):
+``pos`` is the number of rows already written: a Python int or 0-d
+tensor (every row at the same depth: generate()) or a per-slot [B] tensor
+(continuous batching).  New k/v arrive from the projections as
+[B, S, H, D] and land at rows pos .. pos + S - 1 of each slot.
+
+Paged contract (as in the reference):
   - page 0 is the TRASH page: never allocated to a slot; unused page-table
     entries point at it, so padded scatters land there, and the attention
     never reads it for a live slot (its walk stops at the valid length).
@@ -17,10 +26,12 @@ Contract (as in the reference):
     page_tbl[b, t // page_size] at row t % page_size.
   - capacity follows actual sequence lengths: admission is by free pages.
 
-One difference: JAX updates the pools functionally (the engine donates them
-to the compiled step); the port scatters IN PLACE with ``index_put_``, so
-the returned pools are the same tensors that came in.  Static (3/5-tuple)
-layouts come with the generate() slice (ROADMAP.md).
+One difference: JAX updates the buffers and pools functionally (the
+engine donates them to the compiled step); the port writes IN PLACE (slice
+assignment or ``index_put_``), so the returned buffers are the same tensors
+that came in.  The static scatter needs every written row inside the
+buffer (pos + S <= L); the reference's out-of-bounds drop only serves the
+speculative verify, which is not ported (ROADMAP.md Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -41,6 +52,62 @@ def _quantize_kv(kv):
 def _to_head_major(kv):
     """[B, S, H, D] (projection layout) -> [B, H, S, D] (cache layout)."""
     return kv.permute(0, 2, 1, 3)
+
+
+def _scatter(buf, hm, offset):
+    """Write head-major new kv [B, H, S, ...] into the static buffer
+    [B, H, L, ...] in place at rows offset .. offset + S - 1: one offset
+    for every slot (an int or 0-d tensor) or one per slot ([B]).  Returns
+    the buffer."""
+    S = hm.shape[2]
+    if isinstance(offset, int):
+        buf[:, :, offset:offset + S] = hm
+        return buf
+    B, H = buf.shape[0], buf.shape[1]
+    dev = buf.device
+    off = torch.as_tensor(offset, device=dev).to(torch.int64)
+    rows = off.reshape(-1, 1, 1) + torch.arange(S, device=dev)[None, None, :]
+    bi = torch.arange(B, device=dev)[:, None, None]
+    hi = torch.arange(H, device=dev)[None, :, None]
+    buf.index_put_((bi, hi, rows.expand(B, 1, S)), hm)
+    return buf
+
+
+def update_plain_cache(cache, k, v, offset):
+    """Scatter new k/v [B, S, H, D] into the static (k_buf, v_buf, pos)
+    layout.  Returns (new_cache, k_buf, v_buf), the buffers head-major
+    [B, H, L, D]."""
+    S = k.shape[1]
+    k_buf, v_buf = cache[0], cache[1]
+    _scatter(k_buf, _to_head_major(k.to(k_buf.dtype)), offset)
+    _scatter(v_buf, _to_head_major(v.to(v_buf.dtype)), offset)
+    return (k_buf, v_buf, offset + S), k_buf, v_buf
+
+
+def update_quant_cache(cache, k, v, offset):
+    """Quantize (per head and token) and scatter new k/v [B, S, H, D] into
+    the static int8 5-tuple.  Returns (new_cache, k_q, v_q, k_scale,
+    v_scale)."""
+    S = k.shape[1]
+    k_buf, v_buf, _, k_sc, v_sc = cache
+    for buf, sbuf, kv in ((k_buf, k_sc, k), (v_buf, v_sc, v)):
+        kv_q, scale = _quantize_kv(_to_head_major(kv))
+        _scatter(buf, kv_q, offset)
+        _scatter(sbuf, scale, offset)
+    return (k_buf, v_buf, offset + S, k_sc, v_sc), k_buf, v_buf, k_sc, v_sc
+
+
+def static_attention_update(cache, q, k, v, offset):
+    """Scatter new k/v [B, S, H, D] into the static cache, then attend q
+    against it (the static decode kernel on CUDA, the plain version on the
+    CPU).  Returns (new_cache, out [B, S, Hq, D])."""
+    from ..ops.decode_attention import decode_attention
+
+    if len(cache) == 5:
+        new_cache, k_q, v_q, k_sc, v_sc = update_quant_cache(cache, k, v, offset)
+        return new_cache, decode_attention(q, k_q, v_q, offset, k_sc, v_sc)
+    new_cache, k_b, v_b = update_plain_cache(cache, k, v, offset)
+    return new_cache, decode_attention(q, k_b, v_b, offset)
 
 
 def pages_for(n_tokens, page_size):

@@ -1,13 +1,14 @@
 """LLaMA-2 family (counterpart of paddle_tpu/models/llama.py).
 
 RMSNorm + RoPE + GQA + SwiGLU as in the reference.  Ported here: the
-no-cache forward (the reference's dense ``backend="math"`` attention) and
-the PAGED 4/6-tuple caches that the serving engine drives through the
-ragged paged-attention kernel.  Not ported yet, and raising: the static
-3/5-tuple and growing (k, v) caches (the generate() slice), tensor and
-sequence parallelism (the distributed slice), the training loss, and the
-flash/encoder attention kernels the reference picks for some no-cache
-shapes on its accelerator (see nn/functional/attention.py).
+no-cache forward and the prefill bootstrap, whose attention routes as the
+reference's does (nn/functional/attention.py: the encoder or flash kernel on
+CUDA where the reference runs its Pallas kernel, dense math elsewhere);
+the growing (k, v) cache; the STATIC 3/5-tuple caches of generate() and the
+dense engine (the static decode kernel); and the PAGED 4/6-tuple caches of
+the paged engine (the ragged paged kernel).  Not ported yet, and raising:
+tensor and sequence parallelism (the distributed slice), the training loss,
+and an external attention mask together with a static or paged cache.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from torch import nn
 from .. import nn as pnn
 from ..core.device import resolve_device
 from ..nn import functional as F
-from .kv_cache import paged_attention_update
+from .kv_cache import paged_attention_update, static_attention_update
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -102,33 +103,41 @@ class LlamaAttention(nn.Module):
         self.v_proj = pnn.Linear(self.hidden_size, self.num_kv_heads * self.head_dim, **kw)
         self.o_proj = pnn.Linear(self.num_heads * self.head_dim, self.hidden_size, **kw)
 
-    def forward(self, hidden_states, rope, attn_mask=None, cache=None):
-        """cache: None (the no-cache forward; returns out) or a paged 4/6-tuple
-        (k_pages, v_pages, pos, page_tbl[, k_scale, v_scale]); returns
-        (out, new_cache)."""
+    def forward(self, hidden_states, rope, attn_mask=None, cache=None,
+                use_cache=False):
+        """cache: None, a growing (k, v) pair [B, S, Hkv, D], a static
+        3/5-tuple or a paged 4/6-tuple (models/kv_cache.py).  Returns out,
+        or (out, new_cache) when a cache is given or ``use_cache`` is set;
+        cache=None with use_cache is the prefill bootstrap, whose new cache
+        is the (k, v) pair of this call."""
         rope_cos, rope_sin = rope
         B, S = hidden_states.shape[0], hidden_states.shape[1]
         q = self.q_proj(hidden_states).reshape(B, S, self.num_heads, self.head_dim)
         k = self.k_proj(hidden_states).reshape(B, S, self.num_kv_heads, self.head_dim)
         v = self.v_proj(hidden_states).reshape(B, S, self.num_kv_heads, self.head_dim)
+        use_cache = use_cache or cache is not None
+        indexed = cache is not None and len(cache) in (3, 4, 5, 6)
+        if indexed:
+            offset = cache[2]
+        else:
+            offset = cache[0].shape[1] if cache is not None else 0
+        q = apply_rope(q, rope_cos, rope_sin, offset)
+        k = apply_rope(k, rope_cos, rope_sin, offset)
 
-        if cache is not None and len(cache) not in (4, 6):
-            raise NotImplementedError(
-                "static kv caches (and growing (k, v) ones) are not ported "
-                "yet (ROADMAP.md Queue 1: the static decode kernel with "
-                "generate() and the dense engine)")
-        if cache is not None:
+        if indexed:
             if attn_mask is not None:
                 raise NotImplementedError(
-                    "an external attention mask with a paged cache has no path "
-                    "in the reference either")
-            offset = cache[2]
-            q = apply_rope(q, rope_cos, rope_sin, offset)
-            k = apply_rope(k, rope_cos, rope_sin, offset)
-            new_cache, out = paged_attention_update(cache, q, k, v, offset)
+                    "an external attention mask with a static or paged cache is "
+                    "not ported (ROADMAP.md Queue 1 item 6: the rest of the "
+                    "surface)")
+            update = (paged_attention_update if len(cache) in (4, 6)
+                      else static_attention_update)
+            new_cache, out = update(cache, q, k, v, offset)
             return self.o_proj(out.reshape(B, S, -1)), new_cache
-        q = apply_rope(q, rope_cos, rope_sin, 0)
-        k = apply_rope(k, rope_cos, rope_sin, 0)
+        if cache is not None:  # the growing cache: append this call's rows
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
+        new_cache = (k, v)
         if self.num_kv_heads != self.num_heads:
             rep = self.num_heads // self.num_kv_heads
             k = k.repeat_interleave(rep, dim=2)
@@ -137,7 +146,8 @@ class LlamaAttention(nn.Module):
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None,
             backend=backend)
-        return self.o_proj(out.reshape(B, S, -1))
+        out = self.o_proj(out.reshape(B, S, -1))
+        return (out, new_cache) if use_cache else out
 
 
 class LlamaMLP(nn.Module):
@@ -163,15 +173,16 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = pnn.RMSNorm(config.hidden_size,
                                                     config.rms_norm_eps, **kw)
 
-    def forward(self, x, rope, attn_mask=None, cache=None):
+    def forward(self, x, rope, attn_mask=None, cache=None, use_cache=False):
         h = self.input_layernorm(x)
-        if cache is None:
-            attn_out = self.self_attn(h, rope, attn_mask)
+        use_cache = use_cache or cache is not None
+        if use_cache:
+            attn_out, cache = self.self_attn(h, rope, attn_mask, cache, True)
         else:
-            attn_out, cache = self.self_attn(h, rope, attn_mask, cache)
+            attn_out = self.self_attn(h, rope, attn_mask)
         x = x + attn_out
         x = x + self.mlp(self.post_attention_layernorm(x))
-        return x if cache is None else (x, cache)
+        return (x, cache) if use_cache else x
 
 
 class LlamaModel(nn.Module):
@@ -190,24 +201,29 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_sin", torch.from_numpy(sin).to(device=device, dtype=dtype),
                              persistent=False)
 
-    def forward(self, input_ids, attn_mask=None, caches=None):
-        """caches=None: the no-cache forward, returns hidden states.  With one
-        paged cache tuple per layer: returns (hidden, new_caches)."""
+    def forward(self, input_ids, attn_mask=None, caches=None, use_cache=False):
+        """caches=None and use_cache=False: the no-cache forward, returns
+        hidden states.  caches=None with use_cache=True is the prefill
+        bootstrap; otherwise one cache per layer.  Both return (hidden,
+        new_caches)."""
         x = self.embed_tokens(input_ids.long())
         rope = (self.rope_cos, self.rope_sin)
-        if caches is None:
+        if caches is None and not use_cache:
             for layer in self.layers:
                 x = layer(x, rope, attn_mask)
             return self.norm(x)
+        if caches is None:
+            caches = [None] * len(self.layers)
         new_caches = []
         for layer, cache in zip(self.layers, caches, strict=True):
-            x, cache = layer(x, rope, attn_mask, cache)
+            x, cache = layer(x, rope, attn_mask, cache, use_cache=True)
             new_caches.append(cache)
         return self.norm(x), new_caches
 
 
 class LlamaForCausalLM(nn.Module):
-    _supports_paged_cache = True  # LlamaAttention understands the paged tuples
+    _supports_quant_cache = True  # LlamaAttention understands the 5-tuple
+    _supports_paged_cache = True  # ... and the paged 4/6-tuples
 
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         """``device`` defaults to cuda (raises without it; pass "cpu" for the
@@ -252,12 +268,21 @@ class LlamaForCausalLM(nn.Module):
                 "flash attention forward/backward with training)")
         return self.lm_head(self.llama(input_ids))
 
-    def generate_step(self, input_ids, caches):
-        """Decode step over paged caches: logits of the LAST position
-        [B, 1, V] and the updated caches.  (The reference's caches=None
-        prefill bootstrap feeds the static caches of the generate() slice.)"""
-        hidden, caches = self.llama(input_ids, caches=caches)
+    def generate_step(self, input_ids, caches=None):
+        """Prefill (caches=None: returns per-layer (k, v) [B, S, Hkv, D]) or
+        a decode step over static, paged or growing caches: logits of the
+        LAST position [B, 1, V] and the updated caches."""
+        hidden, caches = self.llama(input_ids, caches=caches, use_cache=True)
         return self.lm_head(hidden[:, -1:]), caches
+
+    def prefill_step(self, input_ids, last_index):
+        """Bucket-padded prefill (dense-engine admission): the prompt is
+        padded past ``last_index``, so the next-token logits are taken
+        there (causal attention keeps positions <= last_index exact under
+        the padding).  Returns (logits [B, 1, V], per-layer (k, v))."""
+        hidden, caches = self.llama(input_ids, use_cache=True)
+        i = int(last_index)
+        return self.lm_head(hidden[:, i:i + 1]), caches
 
     def prefill_chunk_step(self, input_ids, caches, last_index):
         """One CHUNK of a paged prefill: input_ids [B, C] are the next C prompt
@@ -267,3 +292,23 @@ class LlamaForCausalLM(nn.Module):
         hidden, caches = self.llama(input_ids, caches=caches)
         i = int(last_index)
         return self.lm_head(hidden[:, i:i + 1]), caches
+
+    def generate(self, input_ids, max_new_tokens=32, do_sample=False,
+                 temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
+                 pad_token_id=0, cache_dtype=None, kv_layout=None,
+                 page_size=128, share_prefix=False, spec_k=0,
+                 spec_drafter=None, adapter_id=None, adapters=None,
+                 token_mask_fn=None, generator=None):
+        """Autoregressive decoding: a prefill, then one decode step per
+        token over a static (or, with kv_layout="paged", paged) kv cache
+        (models/generation.py).  ``generator`` is the torch.Generator that
+        sampled tokens draw from (default: the model device's seeded one)."""
+        from .generation import generate as _gen
+
+        return _gen(self, input_ids, max_new_tokens, do_sample, temperature,
+                    top_k, top_p, eos_token_id, pad_token_id,
+                    cache_dtype=cache_dtype, kv_layout=kv_layout,
+                    page_size=page_size, share_prefix=share_prefix,
+                    spec_k=spec_k, spec_drafter=spec_drafter,
+                    adapter_id=adapter_id, adapters=adapters,
+                    token_mask_fn=token_mask_fn, generator=generator)

@@ -1,15 +1,22 @@
 """Attention functionals (counterpart of paddle_tpu/nn/functional/attention.py).
 
-Only the dense path (the reference's ``_dense_sdpa``) is ported.  Where the
-reference dispatches to a Pallas kernel on its accelerator — the
-short-sequence encoder kernel or flash attention — the port has no Hopper
-kernel yet, so a CUDA tensor on those shapes raises instead of quietly
-running the dense math (ROADMAP.md, Queue 2: flash attention and the encoder
-kernel).  CPU tensors take the dense path, as the reference does off-TPU.
+``scaled_dot_product_attention`` routes exactly as the reference does on its
+accelerator, with CUDA in the accelerator's place: with ``backend="auto"``
+and no mask, the short-sequence encoder kernel for self-attention at
+S % 128 == 0, S <= 512, D in {64, 128}; flash attention at S >= 1024 on
+tileable lengths, D in {64, 128, 256}; the dense math (``_dense_sdpa``)
+everywhere else.  ``backend="flash"`` asks for flash on any device where the
+lengths tile, as in the reference.  The gates are the reference's, measured
+on its TPU; new ones wait for H100 ledger lines.  CPU tensors take the dense
+path, as the reference does off its accelerator.
 """
 from __future__ import annotations
 
 import torch
+
+from ...ops.encoder_attention import encoder_attention
+from ...ops.encoder_attention import supported as _encoder_supported
+from ...ops.flash_attention import flash_attention, supports_seq
 
 
 def _dense_sdpa(q, k, v, mask, is_causal, scale):
@@ -36,21 +43,19 @@ def _dense_sdpa(q, k, v, mask, is_causal, scale):
 
 
 def _reference_kernel(q, k, attn_mask, is_causal, backend):
-    """Name of the Pallas kernel the reference would pick for these shapes
-    on its accelerator (its encoder and flash admission rules), or None."""
-    if backend == "flash":
-        return "flash_attention"
-    if backend != "auto" or attn_mask is not None:
+    """Name of the kernel the reference picks for these shapes on its
+    accelerator (its encoder and flash admission rules), or None for the
+    dense math."""
+    if attn_mask is not None or backend not in ("auto", "flash"):
         return None
     S, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
-    if S == Sk and S % 128 == 0 and S <= 512 and D in (64, 128):
+    if backend == "auto" and _encoder_supported(q.shape[0] * q.shape[2], S, D, Sk):
         return "encoder_attention"
-
-    def tileable(n):
-        return n % 128 == 0 or (n <= 512 and n % 8 == 0)
-
-    if (S >= 1024 and tileable(S) and tileable(Sk)
-            and (not is_causal or S <= Sk) and D in (64, 128, 256)):
+    tiles = supports_seq(S) and supports_seq(Sk)
+    causal_ok = not is_causal or S <= Sk
+    if backend == "flash" and tiles and causal_ok:
+        return "flash_attention"
+    if S >= 1024 and tiles and causal_ok and D in (64, 128, 256):
         return "flash_attention"
     return None
 
@@ -59,19 +64,17 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, scale=None, backend="auto"):
     """query/key/value: [batch, seq, num_heads, head_dim] (paddle layout).
-    ``backend="math"`` is the dense path on any device; ``"auto"`` and
-    ``"flash"`` raise on CUDA where the reference would run a kernel that
-    is not ported yet."""
+    ``backend="math"`` is the dense path on any device; ``"auto"`` launches
+    the encoder or flash kernel on CUDA where the reference would run its
+    Pallas kernel; ``"flash"`` takes flash on any device (CPU tensors then
+    run its plain version)."""
     if dropout_p and training:
         raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP.md Queue 2: the "
-            "encoder slice, _prng Philox)")
-    if query.is_cuda:
-        kern = _reference_kernel(query, key, attn_mask, is_causal, backend)
-        if kern is not None:
-            raise NotImplementedError(
-                f"the reference runs its {kern} Pallas kernel on these shapes; "
-                "its Hopper port does not exist yet (ROADMAP.md Queue 2). "
-                "Use backend='math' (use_flash_attention=False) for the dense "
-                "path.")
+            "attention dropout is not ported yet (ROADMAP.md Queue 2 item 4: "
+            "_prng Philox, with the encoder slice)")
+    kern = _reference_kernel(query, key, attn_mask, is_causal, backend)
+    if kern == "encoder_attention" and query.is_cuda:
+        return encoder_attention(query, key, value, scale=scale, causal=is_causal)
+    if kern == "flash_attention" and (query.is_cuda or backend == "flash"):
+        return flash_attention(query, key, value, causal=is_causal, scale=scale)
     return _dense_sdpa(query, key, value, attn_mask, is_causal, scale)

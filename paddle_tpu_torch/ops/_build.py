@@ -106,3 +106,23 @@ def load(name: str) -> ctypes.CDLL:
         path = build_all([name])[name]["path"]
         lib = _libs[name] = ctypes.CDLL(path)
     return lib
+
+
+def launch(name: str, argtypes, *args) -> None:
+    """Call ``<name>_launch(*args)`` of kernel ``name`` (each source exports
+    one, returning a cudaError_t) and raise RuntimeError with the CUDA
+    error string unless it returned 0.  ``argtypes`` are the ctypes types:
+    c_void_p for every pointer and the stream, or ctypes would pass them as
+    32-bit ints."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        msg = getattr(lib, f"{name}_error_string")
+        msg.argtypes = [ctypes.c_int]
+        msg.restype = ctypes.c_char_p
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + getattr(lib, f"{name}_error_string")(err).decode())

@@ -1,20 +1,25 @@
-"""Ragged paged attention (counterpart of the paged half of
+"""Decode attention over static and paged kv caches (counterpart of
 paddle_tpu/ops/decode_attention.py).
 
-The kv cache is a global page pool [P, Hkv, page_size, D] plus per-slot page
-tables [B, max_pages]; page 0 is the trash page (models/kv_cache.py).  ONE
-attention entry serves every query block the paged engine produces — S = 1
-decode ticks and S = C prefill chunks at any per-slot offset: query s of
-slot b attends keys [0, offset[b] + s].
+Two cache layouts, one attention contract: query position s of slot b
+attends the first offset[b] + s + 1 positions of its cache (offset a scalar
+or a per-slot [B] vector), and query head h reads kv head h // (H / Hkv).
+- STATIC: head-major k/v [B, Hkv, L, D] (int8 with f32 scales [B, Hkv, L]),
+  the layout of generate() and the dense engine: ``decode_attention``.
+- PAGED: a global page pool [P, Hkv, page_size, D] plus per-slot page
+  tables [B, max_pages]; page 0 is the trash page (models/kv_cache.py):
+  ``paged_decode_attention``.  One entry serves every query block the
+  paged engine produces, S = 1 decode ticks and S = C prefill chunks.
 
-``paged_decode_attention`` dispatches on the tensor's device and nothing
-else: a CPU tensor takes the plain version (``_paged_dense``: gather the
-pages, then dense math), a CUDA tensor launches the Hopper kernel
-(``csrc/paged_attention.cu``) or raises on a dtype or shape the kernel does
-not take.  There is no fallback from the kernel to the plain version.  The
-reference's ``off_tile`` and ``query_rows_over_vmem`` gates encode TPU
-tiling and VMEM limits; the Hopper kernel takes every shape the engine
-produces, so they do not apply.
+Both dispatch on the tensor's device and nothing else: a CPU tensor takes
+the plain version (``_decode_dense``; ``_paged_dense`` gathers the pages
+first), a CUDA tensor launches its Hopper kernel (``csrc/decode_attention.cu``,
+``csrc/paged_attention.cu``) or raises on a dtype or shape the kernel does
+not take.  There is no fallback from a kernel to a plain version.  The
+reference's gates encode TPU measurements and tiling, so they are not
+copied: its ``B*H <= 192`` static-kernel gate (a v5e timing) and its
+``off_tile`` / ``query_rows_over_vmem`` paged gates.  Both Hopper kernels
+take every shape the engines produce, S > 1 included (per-row causal ends).
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from . import _build
 
 NEG_INF = -1e30
 
-__all__ = ["gather_pages", "paged_decode_attention", "paged_attention_kernel"]
+__all__ = ["decode_attention", "decode_attention_kernel", "gather_pages",
+           "paged_decode_attention", "paged_attention_kernel"]
 
 
 def gather_pages(pool, page_tbl):
@@ -84,23 +90,48 @@ def _paged_dense(q, k_pages, v_pages, offset, page_tbl, k_scale, v_scale,
                          gather_pages(v_pages, page_tbl), off, *scales, scale)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-
-
-def _lib():
-    lib = _build.load("paged_attention")
-    if lib.paged_attention_launch.argtypes is None:
-        lib.paged_attention_launch.argtypes = _ARGTYPES
-        lib.paged_attention_launch.restype = ctypes.c_int
-        lib.paged_attention_error_string.argtypes = [ctypes.c_int]
-        lib.paged_attention_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check(cond, msg):
     if not cond:
-        raise ValueError(f"paged attention kernel: {msg}")
+        raise ValueError(f"attention kernel: {msg}")
+
+
+def _check_kv(q, k, v, k_scale, v_scale, kv_shape):
+    """Shared checks of the two kv-cache kernels: q [B, S, H, D] bf16 on
+    CUDA with D = 128; k/v contiguous ``kv_shape`` bf16, or int8 with
+    contiguous f32 scales of ``kv_shape[:3]``.  Returns (q contiguous,
+    quant)."""
+    B, S, H, D = q.shape
+    Hkv = kv_shape[1]
+    quant = k_scale is not None
+    dev = q.device
+    _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
+    _check(q.dtype == torch.bfloat16, f"q dtype {q.dtype}, need bfloat16")
+    _check(D == 128, f"head dim {D}, the kernels are built for 128")
+    _check(Hkv > 0 and H % Hkv == 0, f"H={H} is not a multiple of Hkv={Hkv}")
+    want = torch.int8 if quant else torch.bfloat16
+    for name, t in (("k", k), ("v", v)):
+        _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
+        _check(t.dtype == want, f"{name} dtype {t.dtype}, need {want}")
+        _check(tuple(t.shape) == tuple(kv_shape),
+               f"{name} shape {tuple(t.shape)}, need {tuple(kv_shape)}")
+        _check(t.is_contiguous() and t.data_ptr() % 16 == 0,
+               f"{name} must be contiguous and 16-byte aligned")
+    if quant:
+        _check(v_scale is not None, "k_scale given without v_scale")
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            _check(t.device == dev and t.dtype == torch.float32
+                   and tuple(t.shape) == tuple(kv_shape[:3]) and t.is_contiguous(),
+                   f"{name} must be contiguous float32 {tuple(kv_shape[:3])} on {dev}")
+    return q.contiguous(), quant
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PAGED_ARGS = [_PTR] * 8 + [_INT] * 7 + [ctypes.c_float, _INT, _PTR]
+_DECODE_ARGS = [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _INT, _PTR]
 
 
 def paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl,
@@ -113,26 +144,8 @@ def paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl,
     launch adds one to ``paged_attention_kernel.launches``."""
     B, S, H, D = q.shape
     P, Hkv, ps = k_pages.shape[:3]
-    quant = k_scale is not None
+    q, quant = _check_kv(q, k_pages, v_pages, k_scale, v_scale, (P, Hkv, ps, D))
     dev = q.device
-    _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
-    _check(q.dtype == torch.bfloat16, f"q dtype {q.dtype}, need bfloat16")
-    _check(D == 128, f"head dim {D}, the kernel is built for 128")
-    _check(Hkv > 0 and H % Hkv == 0, f"H={H} is not a multiple of Hkv={Hkv}")
-    want = torch.int8 if quant else torch.bfloat16
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
-        _check(t.dtype == want, f"{name} dtype {t.dtype}, need {want}")
-        _check(tuple(t.shape) == (P, Hkv, ps, D),
-               f"{name} shape {tuple(t.shape)}, need {(P, Hkv, ps, D)}")
-        _check(t.is_contiguous() and t.data_ptr() % 16 == 0,
-               f"{name} must be contiguous and 16-byte aligned")
-    if quant:
-        _check(v_scale is not None, "k_scale given without v_scale")
-        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-            _check(t.device == dev and t.dtype == torch.float32
-                   and tuple(t.shape) == (P, Hkv, ps) and t.is_contiguous(),
-                   f"{name} must be contiguous float32 {(P, Hkv, ps)} on {dev}")
     _check(page_tbl.dim() == 2 and page_tbl.shape[0] == B,
            f"page_tbl shape {tuple(page_tbl.shape)}, need ({B}, M)")
     _check(page_tbl.device == dev and lengths.device == dev,
@@ -140,28 +153,72 @@ def paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl,
     _check(lengths.shape == (B,), f"lengths shape {tuple(lengths.shape)}")
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    q = q.contiguous()
     page_tbl = page_tbl.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    lib = _lib()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.paged_attention_launch(
+        _build.launch(
+            "paged_attention", _PAGED_ARGS,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None,
             lengths.data_ptr(), page_tbl.data_ptr(), out.data_ptr(),
             B, S, H, Hkv, D, ps, page_tbl.shape[1], float(scale), int(quant),
-            stream)
-    if err != 0:
-        raise RuntimeError("paged attention kernel launch failed: "
-                           + lib.paged_attention_error_string(err).decode())
+            _stream(dev))
     paged_attention_kernel.launches += 1
     return out
 
 
 paged_attention_kernel.launches = 0
+
+
+def decode_attention_kernel(q, k, v, lengths, k_scale=None, v_scale=None,
+                            scale=None):
+    """Launch ``csrc/decode_attention.cu`` on CUDA tensors.
+
+    q [B, S, H, D] bf16; head-major caches k/v [B, Hkv, L, D] bf16, or int8
+    with f32 scales [B, Hkv, L]; lengths [B] (= offset + S); D = 128.
+    Returns [B, S, H, D] bf16.  Raises ValueError on anything else.  Every
+    launch adds one to ``decode_attention_kernel.launches``."""
+    B, S, H, D = q.shape
+    Hkv, L = k.shape[1], k.shape[2]
+    q, quant = _check_kv(q, k, v, k_scale, v_scale, (B, Hkv, L, D))
+    dev = q.device
+    _check(lengths.device == dev and lengths.shape == (B,),
+           f"lengths must be [{B}] on q's device")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        _build.launch(
+            "decode_attention", _DECODE_ARGS,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None,
+            lengths.data_ptr(), out.data_ptr(),
+            B, S, H, Hkv, D, L, float(scale), int(quant), _stream(dev))
+    decode_attention_kernel.launches += 1
+    return out
+
+
+decode_attention_kernel.launches = 0
+
+
+def decode_attention(q, k, v, offset, k_scale=None, v_scale=None, scale=None):
+    """Attention of q [B, S, H, D] against a head-major STATIC cache
+    k/v [B, Hkv, L, D] whose first offset + s + 1 positions are visible to
+    query position s (offset a scalar or a per-slot [B] vector).  int8
+    caches pass per-(head, token) scales [B, Hkv, L].  CPU tensors take the
+    plain version; CUDA tensors the Hopper kernel.  Returns [B, S, H, D] in
+    q's dtype."""
+    B, S, H, D = q.shape
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    if q.device.type == "cpu":
+        return _decode_dense(q, k, v, offset, k_scale, v_scale, scale)
+    lengths = (_offsets(offset, B, q.device) + S).to(torch.int32)
+    return decode_attention_kernel(q, k, v, lengths, k_scale, v_scale, scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, offset, page_tbl,

@@ -1,10 +1,13 @@
-"""Port parity: paddle_tpu_torch's paged LLMEngine against the JAX reference
-engine on the CPU, in f32, with the same weights.
+"""Port parity: paddle_tpu_torch's LLMEngine, paged and dense, against the
+JAX reference engine on the CPU, in f32, with the same weights.
 
-Greedy tokens must be EQUAL, request by request: more requests than slots,
-prompts spanning several prefill chunks and pages, plain and int8 pools,
-and a page pool small enough to force a recompute preemption.  The
-reference engine runs its Pallas paged kernel in interpret mode.  Sampled
+Greedy tokens must be EQUAL, request by request.  Paged: more requests
+than slots, prompts spanning several prefill chunks and pages, plain and
+int8 pools, a page pool small enough to force a recompute preemption, and
+``decode_chunk=4`` across page boundaries.  Dense: prompts in every prompt
+bucket and past them, slot reuse, an int8 cache, and ``decode_chunk=4``
+with an eos mid-chunk.  The reference engine runs its Pallas kernels in
+interpret mode.  Sampled
 tokens differ between the frameworks (their random streams differ), so the
 sampler is checked through ``mask_logits`` numerically and by where its
 draws land.
@@ -60,6 +63,9 @@ RUNS = {
     # 384 positions and 256-token chunks: the second chunk of the 300-token
     # prompt pads past the page table (rows 384..511)
     "chunk_past_table": (dict(max_seq_len=300, prefill_chunk=256), (300, 200), 8),
+    # 4 decode steps per tick: the 120- and 250-token slots cross pages
+    # 128 and 256 inside a tick
+    "decode_chunk4": (dict(decode_chunk=4), (120, 250), 11),
 }
 
 
@@ -77,6 +83,48 @@ def test_greedy_tokens_equal_reference_engine(pair, run):
     assert st["kv_pages_in_use"] == 0  # every page came back
     if run == "preempt":
         assert st["preemptions"] >= 1 and st["recompute_tokens"] > 0
+
+
+DENSE = dict(max_batch_slots=2, max_seq_len=512)
+DENSE_RUNS = {
+    # 5 requests on 2 slots, so slots are reused: one prompt in each bucket
+    # (32, 64, 128, 256) and one past them (the L = 512 bucket)
+    "buckets": (dict(), (20, 50, 100, 200, 300), 6),
+    "int8": (dict(cache_dtype="int8"), (50, 300), 6),
+    "decode_chunk4": (dict(decode_chunk=4), (20, 100), 10),
+}
+
+
+@pytest.mark.parametrize("run", sorted(DENSE_RUNS))
+def test_dense_greedy_tokens_equal_reference_engine(pair, run):
+    jm, tm = pair
+    kw, lens, max_new = DENSE_RUNS[run]
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(1, 1024, n).astype(np.int32) for n in lens]
+    jeng = JEngine(jm, **DENSE, **kw)
+    jfuts = [jeng.submit(p, max_new_tokens=max_new) for p in prompts]
+    jeng.run_until_complete()
+    eng = LLMEngine(tm, **DENSE, **kw)
+    futs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    eng.run_until_complete()
+    assert [f.result() for f in futs] == [f.result() for f in jfuts]
+    st = eng.stats()
+    assert st["kv_layout"] == "dense" and st["completed"] == len(prompts)
+    assert st["prefill_buckets"] == {eng._bucket(n): 1 for n in lens}
+
+
+def test_dense_decode_chunk_stops_at_eos_mid_chunk(pair):
+    """decode_chunk=4 with an eos inside the second chunk: the surplus
+    tokens of the chunk are dropped, as in the reference."""
+    jm, tm = pair
+    prompt = np.random.RandomState(9).randint(1, 1024, 40).astype(np.int32)
+    base = LLMEngine(tm, **DENSE).generate(prompt, max_new_tokens=10)
+    eos = base[5]
+    want = JEngine(jm, **DENSE, decode_chunk=4, eos_token_id=eos).generate(
+        prompt, max_new_tokens=10)
+    got = LLMEngine(tm, **DENSE, decode_chunk=4, eos_token_id=eos).generate(
+        prompt, max_new_tokens=10)
+    assert got == want == base[:base.index(eos) + 1]
 
 
 def test_pool_too_small_is_rejected(pair):
@@ -151,9 +199,10 @@ def test_sampled_requests_finish_with_valid_ids(pair):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_layout=None), dict(kv_layout="dense"), dict(prefix_cache=None),
-    dict(prefix_cache=True), dict(spec_k=2), dict(adapters=[]),
-    dict(host_cache_pages=4), dict(metrics_port=0), dict(decode_chunk=4)],
+    dict(kv_layout=None, spec_k=2), dict(kv_layout="dense", adapters=[]),
+    dict(prefix_cache=None), dict(prefix_cache=True), dict(spec_k=2),
+    dict(adapters=[]), dict(host_cache_pages=4), dict(metrics_port=0),
+    dict(kv_layout=None, metrics_port=0)],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_engine_options_raise(pair, kw):
     _, tm = pair

@@ -190,9 +190,11 @@ def test_unported_options_raise():
     ids = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="training loss"):
         tm(ids, labels=ids)
-    static = (torch.zeros(1, 4, 8, 32), torch.zeros(1, 4, 8, 32), 0)
-    growing = static[:2]
-    for cache in (static, growing):
-        with pytest.raises(NotImplementedError, match="static kv caches"):
-            tm.generate_step(ids, caches=[cache, cache])
+    # a static cache takes no external attention mask (nor does a paged one)
+    cfg = tm.config
+    static = (torch.zeros(1, cfg.num_key_value_heads, 128, 32),
+              torch.zeros(1, cfg.num_key_value_heads, 128, 32), 0)
+    with pytest.raises(NotImplementedError, match="external attention mask"):
+        tm.llama(ids, attn_mask=torch.ones(4, 4, dtype=torch.bool),
+                 caches=[static, static])
     assert tkv.TRASH_PAGE == 0
