@@ -9,11 +9,11 @@ Phases:
   2. build        — nvcc builds every kernel under paddle_tpu_torch/csrc/
                     (one process per source, all at once) into
                     paddle_tpu_torch/build/kernels/, with ptxas's report.
-  3. kernels      — each kernel against its plain PyTorch version at the
-                    main paths' shapes, with its time, the plain version's
-                    time, a PyTorch library call's time as a yardstick, and
-                    the bound; planted faults of the plain version must
-                    fail the same gate.
+  3. kernels      — each kernel, forward and backward, against its plain
+                    PyTorch version at the main paths' shapes, with its
+                    time, the plain version's time, a PyTorch library
+                    call's time as a yardstick, and the bound; planted
+                    faults of the plain version must fail the same gate.
   4. generate     — model.generate() at LLaMA-2-7B widths (32 layers, bf16,
                     random weights from a seed): ids [4, 1024] (flash
                     prefill) on a bf16 and an int8 cache, and ids [8, 256]
@@ -24,8 +24,8 @@ Phases:
                     then 4 on an int8 cache at decode_chunk=4.
   6. paged_engine — the paged LLMEngine on the same model: 12 requests,
                     then 4 on an int8 pool.
-In phases 4-6 the launch counters are zeroed just before each run and must
-match the work the run did.  For the greedy outputs, each path's logits
+In phases 4-6 and 8 the launch counters are zeroed just before each run
+and must match the work the run did.  For the greedy outputs, each path's logits
 (teacher-forced) must stay within LOGIT_TOL (INT8_LOGIT_TOL on an int8
 cache) of the no-cache forward's with dense-math attention, and each token
 must be the forward's argmax but at near-ties.  Each engine phase ends with
@@ -33,6 +33,17 @@ a few decode ticks of 8 busy slots under torch.profiler: where a tick's
 time goes.
   7. ticks        — both engines' decode ticks, 8 busy slots, in turns
                     (dense, paged, paged, dense), unprofiled.
+  8. train        — bench.py's training configuration (hidden 2048, 12
+                    layers, bf16, random weights and tokens from seed 0)
+                    through TrainStep + AdamW(3e-4, weight_decay=0.01):
+                    first every parameter's gradient through the kernels
+                    against dense-math attention at 2 layers (S 2048 runs
+                    flash, S 512 the encoder kernels); then B 8 x S 2048,
+                    3 warm-up and 10 timed steps on one batch (flash
+                    forward, dq and dkv 12 launches a step), one of them
+                    profiled; then B 32 x S 512 at accum_steps=2 with
+                    ClipGradByGlobalNorm(1.0) (encoder forward and backward
+                    24 a step).  Each loss finite, the last below the first.
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before
 that line.  Without CUDA, or without the repository beside this file, it
@@ -43,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -80,7 +92,20 @@ KERNELS = {
                         "paddle_tpu/ops/flash_attention.py:45"),
     "encoder_attention": ("paddle_tpu_torch/csrc/encoder_attention.cu",
                           "paddle_tpu/ops/encoder_attention.py:78"),
+    "flash_attention_dq": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                           "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_dkv": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "paddle_tpu/ops/flash_attention.py:153"),
+    "encoder_attention_bwd": ("paddle_tpu_torch/csrc/encoder_attention_bwd.cu",
+                              "paddle_tpu/ops/encoder_attention.py:101"),
 }
+# Backward kernels vs their plain versions: max |kernel - plain| over max
+# |plain|, for each of dQ, dK and dV, with dO ~ N(0, 1).  The kernels round
+# dS (and, for flash's dV, P) to bf16 where the reference does and write
+# bf16; the plain version runs in f32 on the same bf16 values.  Sound runs
+# on an H100 gave at most 4.6e-3; the planted faults below come out at
+# 0.157 or more (dlse ignored is the closest).
+BWD_RTOL = 1e-2
 # Logit drift: max |paged-path logit - no-cache-forward logit| over every
 # generated position of the greedy requests (both bf16 through 32 layers,
 # rounding in different orders).  Logits here are ~N(0, 0.5); sound runs on
@@ -378,14 +403,174 @@ def seq_attention_case(name, kind, B, H, Sq, Sk, D, causal, seed):
     return res
 
 
+def masked_attention_bwd(q, k, v, do, vis, scale, dlse=None, dsum_zero=False):
+    """Dense attention backward in f32 over an explicit [Sq, Sk] visibility
+    mask, written from the math (P = softmax(S), O = P V, dsum = rowsum(dO
+    O) - dlse); the planted faults are built from it.  Returns (dq, dk,
+    dv) in f32."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.softmax(torch.where(vis, s, torch.full_like(s, -1e30)), -1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    dsum = torch.einsum("bqhd,bqhd->bhq", dof, o)
+    if dlse is not None:
+        dsum = dsum - dlse
+    if dsum_zero:
+        dsum = torch.zeros_like(dsum)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - dsum[..., None])
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", p, dof))
+
+
+def bwd_gate(name, gots, wants, faults, tol, **extra):
+    """Verdict on a set of gradients (dq, dk, dv or a subset): each within
+    ``tol`` of max |its plain|, and every planted fault outside it in at
+    least one of them."""
+    def rel(a, w):
+        return (a.float() - w).abs().max().item() / w.abs().max().item()
+
+    errs = [(g.float() - w).abs().max().item() for g, w in zip(gots, wants)]
+    rels = [rel(g, w) for g, w in zip(gots, wants)]
+    fault_rel = {k: max(rel(f, w) for f, w in zip(fs, wants)) for k, fs in faults.items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in gots)
+    ok = finite and max(rels) <= tol and min(fault_rel.values()) > tol
+    return dict(name=name, max_abs_err=max(errs),
+                max_abs_want=max(w.abs().max().item() for w in wants), rel_err=max(rels),
+                grad_rel=rels, fault_rel=fault_rel, finite=finite, tol=tol, ok=ok, **extra)
+
+
+def sdpa_bwd_ms(q, k, v, do, causal, iters):
+    """The yardstick: torch.autograd.grad of one SDPA output with the same
+    dO, the forward excluded (timed, never called by the port)."""
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+    doh = do.transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
+                   iters)
+
+
+def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
+    """The flash backward kernels (dq, dkv) vs ``_flash_bwd_dense`` on O and
+    LSE from the plain forward; planted faults: dsum taken as 0, each
+    row's key range one short, and (with dlse) dlse ignored."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = randn(g, (B, Sq, H, D), Q_STD)
+    k, v = randn(g, (B, Sk, H, D)), randn(g, (B, Sk, H, D))
+    do = randn(g, (B, Sq, H, D))
+    scale = 1.0 / D ** 0.5
+    o32, lse = fa._flash_dense(q.float(), k.float(), v.float(), causal, scale)
+    o = o32.bfloat16()
+    dlse = (torch.randn(B, H, Sq, generator=g, device="cuda") if with_dlse else None)
+    args = (q, k, v, o, do, lse, causal, scale, dlse)
+    dq = fa.flash_attention_dq_kernel(*args)
+    dk, dv = fa.flash_attention_dkv_kernel(*args)
+    torch.cuda.synchronize()
+    want = fa._flash_bwd_dense(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                               causal, scale, dlse)
+    ones = torch.ones(Sq, Sk, dtype=torch.bool, device="cuda")
+    vis = ones.tril(Sk - Sq) if causal else ones
+    if causal:
+        short = ones.tril(Sk - Sq - 1)
+    else:
+        short = ones.clone()
+        short[:, -1] = False
+    faults = {"dsum_zero": masked_attention_bwd(q, k, v, do, vis, scale, dlse, dsum_zero=True),
+              "causal_end_short": masked_attention_bwd(q, k, v, do, short, scale, dlse)}
+    if with_dlse:
+        faults["dlse_ignored"] = masked_attention_bwd(q, k, v, do, vis, scale)
+    shape = dict(kind="flash", B=B, H=H, Sq=Sq, Sk=Sk, D=D, causal=causal, dlse=with_dlse)
+    res = {"dq": bwd_gate(name, (dq,), want[:1], {f: t[:1] for f, t in faults.items()},
+                          BWD_RTOL, **shape),
+           "dkv": bwd_gate(name, (dk, dv), want[1:], {f: t[1:] for f, t in faults.items()},
+                           BWD_RTOL, **shape)}
+    iters = 10
+    plain_ms = cuda_ms(lambda: fa._flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse), 3)
+    library_ms = (None if with_dlse or (causal and Sq != Sk)
+                  else sdpa_bwd_ms(q, k, v, do, causal, iters))
+    pairs = B * H * visible_pairs(Sq, Sk, causal)
+    nq, nk = B * Sq * H * D * 2, B * Sk * H * D * 2     # bytes of one q-side / k-side tensor
+    nstat = B * H * Sq * 4 * (2 if with_dlse else 1)
+    ins = 3 * nq + 2 * nk + nstat                       # q, o, dO, k, v, lse (, dlse)
+    for key, fn, out_bytes, ops in (
+            ("dq", lambda: fa.flash_attention_dq_kernel(*args), nq, 6.0 * D * pairs),
+            ("dkv", lambda: fa.flash_attention_dkv_kernel(*args), 2 * nk, 8.0 * D * pairs)):
+        r = res[key]
+        r["ms"] = cuda_ms(fn, iters)
+        r["plain_ms"], r["library_ms"] = plain_ms, library_ms
+        r["bound_ms"], r["bound_by"] = bound(ins + out_bytes, ops)
+    res["function_bound_ms"], res["function_bound_by"] = bound(ins + nq + 2 * nk,
+                                                               10.0 * D * pairs)
+    return res
+
+
+def encoder_bwd_case(name, B, H, S, D, causal, seed):
+    """The encoder backward kernel vs ``_encoder_bwd_dense``; planted faults:
+    dsum taken as 0 and each row's key range one short."""
+    from paddle_tpu_torch.ops import encoder_attention as ea
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = randn(g, (B, S, H, D), Q_STD)
+    k, v, do = randn(g, (B, S, H, D)), randn(g, (B, S, H, D)), randn(g, (B, S, H, D))
+    scale = 1.0 / D ** 0.5
+
+    def kernel():
+        return ea.encoder_attention_bwd_kernel(q, k, v, do, scale, causal)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = ea._encoder_bwd_dense(q.float(), k.float(), v.float(), do.float(), scale, causal)
+    ones = torch.ones(S, S, dtype=torch.bool, device="cuda")
+    vis = ones.tril() if causal else ones
+    if causal:
+        short = ones.tril(-1)
+        short[0, 0] = True  # row 0 keeps its one key
+    else:
+        short = ones.clone()
+        short[:, -1] = False
+    faults = {"dsum_zero": masked_attention_bwd(q, k, v, do, vis, scale, dsum_zero=True),
+              "causal_end_short": masked_attention_bwd(q, k, v, do, short, scale)}
+    res = bwd_gate(name, got, want, faults, BWD_RTOL, kind="encoder", B=B, H=H, Sq=S, Sk=S,
+                   D=D, causal=causal)
+    res["ms"] = cuda_ms(kernel, 10)
+    res["plain_ms"] = cuda_ms(lambda: ea._encoder_bwd_dense(q, k, v, do, scale, causal), 3)
+    res["library_ms"] = sdpa_bwd_ms(q, k, v, do, causal, 10)
+    n = B * S * H * D * 2
+    res["bound_ms"], res["bound_by"] = bound(7 * n, 10.0 * D * B * H * visible_pairs(S, S, causal))
+    return res
+
+
+def bwd_kernel_cases():
+    """Backward cases: {kernel name: [case, ...]}, the training shapes first."""
+    out = {"flash_attention_dq": [], "flash_attention_dkv": [], "encoder_attention_bwd": []}
+    for i, (name, B, H, Sq, Sk, D, causal, dlse) in enumerate([
+            ("train_s2048", 8, 16, 2048, 2048, 128, True, False),   # the bench's step
+            ("7b_heads_s2048", 1, 32, 2048, 2048, 128, True, False),
+            ("bh64_s1024_d64", 2, 32, 1024, 1024, 64, True, False),
+            ("sq1024_sk2048_causal", 1, 32, 1024, 2048, 128, True, False),
+            ("sq1024_sk1536_full", 1, 32, 1024, 1536, 128, False, False),
+            ("s2048_dlse", 2, 16, 2048, 2048, 128, True, True)]):
+        r = flash_bwd_case(name, B, H, Sq, Sk, D, causal, 60 + i, dlse)
+        for key in ("dq", "dkv"):
+            r[key]["function_bound_ms"] = r["function_bound_ms"]
+            out[f"flash_attention_{key}"].append(r[key])
+            log_case(f"flash_attention_{key}", r[key])
+    for i, (S, D, H, causal) in enumerate([(512, 128, 16, True), (128, 128, 16, True),
+                                           (256, 128, 16, True), (512, 64, 32, True),
+                                           (512, 128, 16, False)]):
+        name = "train_s512" if i == 0 else f"b16_s{S}_d{D}_{'causal' if causal else 'full'}"
+        out["encoder_attention_bwd"].append(encoder_bwd_case(name, 16, H, S, D, causal, 80 + i))
+        log_case("encoder_attention_bwd", out["encoder_attention_bwd"][-1])
+    return out
+
+
 def kernel_phase():
     """Every kernel against its plain version at the main paths' shapes.
     Returns {kernel name: [case, ...]}; the first case of each is the one
     its main path runs most."""
-    from paddle_tpu_torch.ops import decode_attention as da
-    from paddle_tpu_torch.ops import encoder_attention as ea
-    from paddle_tpu_torch.ops import flash_attention as fa
-
     ragged = [2047, 1500, 1100, 777, 512, 300, 129, 37]  # lengths <= 2048
     out = {"decode_attention": [], "flash_attention": [], "encoder_attention": []}
     for quant in (False, True):
@@ -401,7 +586,8 @@ def kernel_phase():
             ("bh64_s2048", 2, 32, 2048, 2048, 128, True),
             ("bh64_s1024_d64", 2, 32, 1024, 1024, 64, True),
             ("sq1024_sk2048_causal", 1, 32, 1024, 2048, 128, True),
-            ("sq1024_sk1536_full", 1, 32, 1024, 1536, 128, False)]):
+            ("sq1024_sk1536_full", 1, 32, 1024, 1536, 128, False),
+            ("train_s2048", 8, 16, 2048, 2048, 128, True)]):       # the train phase's
         out["flash_attention"].append(
             seq_attention_case(name, "flash", B, H, Sq, Sk, D, causal, 20 + i))
         log_case("flash_attention", out["flash_attention"][-1])
@@ -414,6 +600,9 @@ def kernel_phase():
             f"b8_s{S}_d{D}_{'causal' if causal else 'full'}", "encoder", 8, H, S, S, D,
             causal, 40 + i))
         log_case("encoder_attention", out["encoder_attention"][-1])
+    out["encoder_attention"].append(seq_attention_case(  # the train phase's microbatch
+        "train_s512", "encoder", 16, 16, 512, 512, 128, True, 59))
+    log_case("encoder_attention", out["encoder_attention"][-1])
     cases = []
     for quant in (False, True):
         tag = "int8" if quant else "bf16"
@@ -431,18 +620,17 @@ def kernel_phase():
     out["paged_attention"] = cases
     for c in cases:
         log_case("paged_attention", c)
-    out["paged_attention"] = cases
-    # comparison launches do not count
-    for fn in (da.paged_attention_kernel, da.decode_attention_kernel,
-               fa.flash_attention_kernel, ea.encoder_attention_kernel):
-        fn.launches = 0
+    out.update(bwd_kernel_cases())
+    zero_counts()  # comparison launches do not count
     return out
 
 
 def log_case(kern, c):
     lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
     lse = f" lse err {c['lse_max_abs_err']:.2e}" if "lse_max_abs_err" in c else ""
-    log(f"  {kern:17s} {c['name']:26s} err {c['max_abs_err']:.3e} of max "
+    if "grad_rel" in c:
+        lse += " per grad " + "/".join(f"{r:.2e}" for r in c["grad_rel"])
+    log(f"  {kern:21s} {c['name']:26s} err {c['max_abs_err']:.3e} of max "
         f"{c['max_abs_want']:.3f}: rel {c['rel_err']:.3e} (tol {c['tol']}; planted "
         "faults " + ", ".join(f"{k} {v:.3e}" for k, v in c["fault_rel"].items())
         + f"){lse} kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
@@ -460,7 +648,10 @@ def counters():
     return {"paged_attention": da.paged_attention_kernel,
             "decode_attention": da.decode_attention_kernel,
             "flash_attention": fa.flash_attention_kernel,
-            "encoder_attention": ea.encoder_attention_kernel}
+            "encoder_attention": ea.encoder_attention_kernel,
+            "flash_attention_dq": fa.flash_attention_dq_kernel,
+            "flash_attention_dkv": fa.flash_attention_dkv_kernel,
+            "encoder_attention_bwd": ea.encoder_attention_bwd_kernel}
 
 
 def zero_counts():
@@ -897,6 +1088,243 @@ def ticks_phase(model, card):
     return [], runs
 
 
+# ------------------------------------------------------------------ train
+
+# The repo's single-chip training configuration (bench.py _bench_llama):
+# LLaMA at hidden 2048, 12 layers, 16 heads of 128, vocab 32000, bf16, flash
+# attention (738.3 M parameters), AdamW(3e-4, weight_decay=0.01), a batch of
+# 8 x 2048 random tokens.
+TRAIN_CFG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+                 num_hidden_layers=12, num_attention_heads=16, num_key_value_heads=16,
+                 max_position_embeddings=2048, dtype="bfloat16", use_flash_attention=True)
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# Gradient parity, kernels against dense math: max |g_kernel - g_dense| over
+# max |g_dense|, per parameter, two bf16 models on the same weights and
+# batch.  Both round every activation to bf16, in different places (the
+# dense path takes its scores in bf16, the kernels in f32), so the gate is
+# set from the measured spread; a gradient that misses a term (the planted
+# faults of the kernel phase) is off by 0.16 or more.
+GRAD_RTOL = 5e-2
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def train_model(layers, device="cuda", **over):
+    """The training configuration at ``layers`` layers, random weights from
+    seed 0."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**{**TRAIN_CFG, "num_hidden_layers": layers, **over})
+    model = LlamaForCausalLM(cfg, device=device)
+    model.init_weights(torch.Generator(device=device).manual_seed(0))
+    return model
+
+
+def token_batch(cfg, B, S, seed, device):
+    """Random ids and labels [B, S] from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    return ids.to(device), labels.to(device)
+
+
+def lm_loss(model):
+    """bench.py's loss: cross entropy of the [B * S, V] logits."""
+    from paddle_tpu_torch.nn import functional as F
+
+    V = model.config.vocab_size
+
+    def loss_fn(ids, labels):
+        return F.cross_entropy(model(ids).reshape(-1, V), labels.reshape(-1))
+
+    return loss_fn
+
+
+def grad_parity(model, B, S, seed, expected):
+    """Every parameter's gradient through the kernels against the same
+    model's with dense-math attention (use_flash_attention=False), an
+    oracle that runs none of the kernels under test."""
+    cfg = model.config
+    ids, labels = token_batch(cfg, B, S, seed, model.device)
+    names, params = zip(*model.named_parameters())
+    loss_fn = lm_loss(model)
+    grads, launches, losses = {}, {}, {}
+    try:
+        for kern in (True, False):
+            cfg.use_flash_attention = kern
+            zero_counts()
+            loss = loss_fn(ids, labels)
+            grads[kern] = torch.autograd.grad(loss, params)
+            sync()
+            launches[kern], losses[kern] = read_counts(), float(loss.detach())
+    finally:
+        cfg.use_flash_attention = True
+    rel = {n: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+           for n, a, b in zip(names, grads[True], grads[False])}
+    worst = max(rel, key=rel.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads[True])
+    ordered = sorted(rel.values())
+    return dict(B=B, S=S, layers=cfg.num_hidden_layers, loss_kernels=losses[True],
+                loss_dense=losses[False], max_rel=rel[worst], worst_param=worst,
+                median_rel=ordered[len(ordered) // 2], tol=GRAD_RTOL, finite=finite,
+                launches=launches[True], expected_launches=expected,
+                dense_launches=launches[False],
+                ok=(finite and rel[worst] <= GRAD_RTOL and launch_check(launches[True], expected)
+                    and not any(launches[False].values())))
+
+
+def train_kind(name):
+    low = name.lower()
+    if "flash_fwd_kernel" in low or "encoder_fwd_kernel" in low:
+        return "attention_fwd"
+    if any(w in low for w in ("dq_kernel", "dkv_kernel", "dsum_kernel")):
+        return "attention_bwd"
+    if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")):
+        return "matmul"
+    return "other"
+
+
+def train_profile(step, batch):
+    """One step under torch.profiler: device time by kind (matmul, attention
+    forward and backward, the optimizer, other) and the busy share.  The
+    optimizer's kernels are those that start inside the device span of
+    TrainStep's "TrainStep.optimizer" label.  Informational: a profiler that
+    records no device events gives "not measured", not a failure."""
+    res = {}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(*batch)
+            sync()
+            res["profiled_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = [(e.time_range.start, e.time_range.end) for e in dev
+                 if e.name == "TrainStep.optimizer"]
+        kern = [e for e in dev if not e.name.startswith("TrainStep.")]
+        by_kind = dict.fromkeys(("matmul", "attention_fwd", "attention_bwd", "optimizer",
+                                 "other"), 0.0)
+        by_name = {}
+        for e in kern:
+            kind = train_kind(e.name)
+            if kind == "other" and any(a <= e.time_range.start < b for a, b in spans):
+                kind = "optimizer"
+            ms = e.time_range.elapsed_us() / 1e3
+            by_kind[kind] += ms
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        res["optimizer_from"] = ("device span of TrainStep.optimizer" if spans else
+                                 "not measured: no device span of TrainStep.optimizer, "
+                                 "its kernels count as other")
+        if kern:
+            busy = sum(by_kind.values())
+            res.update(device_ms=busy, device_ms_by_kind=by_kind, kernels=len(kern),
+                       busy_share=busy / res["profiled_wall_ms"],
+                       top_kernels=sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+        else:
+            res["device_ms"] = "not measured (no device events)"
+    except Exception as e:  # noqa: BLE001 - a measurement, not a phase
+        res["device_ms"] = f"not measured ({e!r})"
+    return res
+
+
+def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP,
+              accum_steps=1, grad_clip=None, profiled=False):
+    """TrainStep + AdamW(3e-4, weight_decay=0.01) on one fixed batch:
+    ``warmup`` steps, then ``steps`` timed ones with the launch counters
+    zeroed just before; ``per_step`` is each kernel's expected launches per
+    step."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = model.config
+    step = TrainStep(model, lm_loss(model), AdamW(3e-4, weight_decay=0.01, grad_clip=grad_clip),
+                     accum_steps=accum_steps)
+    batch = token_batch(cfg, B, S, seed, model.device)
+    losses = [float(step(*batch)) for _ in range(warmup)]
+    sync()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()                                        # the run starts here
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))               # the host waits for the loss
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts()                             # ... and ends here
+    step_ms = sorted(ms)[len(ms) // 2]
+    tokens = B * S
+    # bench.py's count: 6 N per token, plus the causal attention products
+    flops = (6 * model.num_params * tokens
+             + 3 * 2 * B * S * S * cfg.hidden_size * cfg.num_hidden_layers)
+    expected = {k: n * steps for k, n in per_step.items()}
+    res = dict(path="train", name=name, B=B, S=S, accum_steps=accum_steps,
+               grad_clip=repr(grad_clip), layers=cfg.num_hidden_layers,
+               params=model.num_params, warmup=warmup, steps=steps, losses=losses,
+               step_ms=step_ms, step_ms_all=ms, tokens_per_s=tokens / step_ms * 1e3,
+               flops_per_step=flops, mfu=flops / (step_ms / 1e3) / H100_BF16_FLOPS,
+               peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                               if torch.cuda.is_available() else None),
+               launches=launches, expected_launches=expected)
+    res["ok"] = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                 and launch_check(launches, expected))
+    if profiled:
+        res["profile"] = train_profile(step, batch)
+    return res
+
+
+def train_phase(card, device="cuda", layers=12, parity_layers=2, **over):
+    """Gradient parity at ``parity_layers`` layers (S 2048: flash; S 512:
+    encoder), then the training runs at ``layers``: B 8 x S 2048, and B 32 x
+    S 512 at accum_steps=2 with ClipGradByGlobalNorm(1.0) (the same 16,384
+    tokens a step)."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    small = train_model(parity_layers, device, **over)
+    L = parity_layers
+    parity = [grad_parity(small, 2, 2048, 3, {"flash_attention": L, "flash_attention_dq": L,
+                                              "flash_attention_dkv": L}),
+              grad_parity(small, 2, 512, 4, {"encoder_attention": L,
+                                             "encoder_attention_bwd": L})]
+    del small
+    for r in parity:
+        log(f"  grad parity S {r['S']}, {r['layers']} layers: max rel {r['max_rel']:.3e} "
+            f"({r['worst_param']}), median {r['median_rel']:.3e} (tol {r['tol']}); loss "
+            f"{r['loss_kernels']:.4f} vs dense {r['loss_dense']:.4f}; launches "
+            f"{r['launches']} (expected {r['expected_launches']}); "
+            f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = train_model(layers, device, **over)
+    sync()
+    log(f"  model: {model.num_params / 1e6:.1f} M params, {layers} layers, "
+        f"{model.config.dtype}, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs = [train_run(model, "b8_s2048", 8, 2048, 0, {"flash_attention": layers,
+                                                      "flash_attention_dq": layers,
+                                                      "flash_attention_dkv": layers},
+                      profiled=True),
+            train_run(model, "b32_s512_accum2_clip", 32, 512, 1,
+                      {"encoder_attention": 2 * layers, "encoder_attention_bwd": 2 * layers},
+                      steps=5, accum_steps=2, grad_clip=ClipGradByGlobalNorm(1.0))]
+    del model
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    for r in runs:
+        log(f"  {r['name']}: step {r['step_ms']:.1f} ms (median of {r['steps']}), "
+            f"{r['tokens_per_s']:.0f} tok/s, MFU {r['mfu']:.4f}, peak "
+            f"{(r['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; loss {r['losses'][0]:.4f} -> "
+            f"{r['losses'][-1]:.4f}; launches {r['launches']} (expected "
+            f"{r['expected_launches']}); profile {json.dumps(r.get('profile'))}; "
+            f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
+    return parity, runs
+
+
 def build_model():
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
@@ -913,7 +1341,7 @@ def build_model():
 # ------------------------------------------------------------------- main
 
 PHASES = ("device", "build", "kernels", "generate", "dense_engine", "paged_engine",
-          "ticks")
+          "ticks", "train")
 PATH_TITLES = {"generate": "model.generate() on the static cache",
                "dense_engine": "the dense LLMEngine",
                "paged_engine": "the paged LLMEngine",
@@ -960,9 +1388,10 @@ def main(argv=None):
         log("[kernels] every kernel vs its plain version")
         report["kernels"] = kernel_phase()
         ok &= all(c["ok"] for cases in report["kernels"].values() for c in cases)
-    if paths:
+    serving = [ph for ph in paths if ph != "train"]
+    if serving:
         model = build_model()
-        for ph in paths:
+        for ph in serving:
             log(f"[{ph}] LLaMA-2-7B widths through {PATH_TITLES[ph]}")
             if ph == "generate":
                 runs = generate_phase(model, report["card"])
@@ -970,6 +1399,13 @@ def main(argv=None):
                 runs, report[f"{ph}_decode_tick"] = PATH_PHASES[ph](model, report["card"])
             report["paths"] += runs
             ok &= all(r["ok"] for r in runs)
+        del model
+        torch.cuda.empty_cache()
+    if "train" in paths:
+        log("[train] bench.py's LLaMA training configuration through TrainStep + AdamW")
+        report["train_grad_parity"], runs = train_phase(report["card"])
+        report["paths"] += runs
+        ok &= all(r["ok"] for r in report["train_grad_parity"] + runs)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

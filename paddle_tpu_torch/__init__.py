@@ -7,9 +7,13 @@ on a ported path is a kernel written by hand for Hopper under ``csrc/``,
 built at first use (``ops/_build.py``); its plain PyTorch version serves
 CPU tensors and is the kernel's oracle.
 
-Ported so far: the paged serving path — ``models.llama`` on the paged kv
-cache, the ragged paged-attention kernel (``ops.decode_attention``) and the
-paged ``inference.LLMEngine``.  ROADMAP.md lists what is still to port.
+Ported so far: serving — ``models.llama`` with ``generate()`` on the
+static and paged kv caches and the dense and paged ``inference.LLMEngine``
+(the decode, paged, flash and encoder attention kernels of ``ops``); and
+training — ``LlamaForCausalLM(ids, labels=)`` under ``jit.TrainStep`` with
+the ``optimizer`` package and ``nn`` clipping, through the flash and
+encoder attention backward kernels.  ROADMAP.md lists what is still to
+port.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,13 @@
-"""Carry weights from the reference (paddle_tpu) to the port.
+"""Carry weights between the reference (paddle_tpu) and the port.
 
 The reference's ``state_dict()`` and the port's share parameter names
 (``llama.layers.0.self_attn.q_proj.weight`` ...).  The one layout change is
 the Linear weight: Paddle stores ``[in, out]`` (``y = x @ W``), torch's
 ``nn.Linear`` ``[out, in]``, so Linear weights are transposed on the way.
 The reference arrays arrive as numpy (``np.asarray`` of each value), so
-this module imports neither JAX nor the reference package.
+this module imports neither JAX nor the reference package;
+``to_reference_state`` goes the other way, so that the port's trained
+parameters can be compared with the reference's.
 """
 from __future__ import annotations
 
@@ -52,3 +54,19 @@ def load_reference_state(model, ref_state):
     """Convert the reference's numpy state and load it into ``model``."""
     model.load_state_dict(convert_state_dict(ref_state, model), strict=True)
     return model
+
+
+def to_reference_state(model):
+    """The port's ``model.state_dict()`` in the reference's layout:
+    ``{name: np.ndarray}`` on the host, Linear weights transposed back to
+    ``[in, out]``.  bf16 values come back as f32 (exactly: numpy has no
+    bfloat16); every other dtype as it is."""
+    linear = _linear_weight_names(model)
+    out = {}
+    for name, t in model.state_dict().items():
+        t = t.detach().to("cpu")
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        arr = t.numpy()
+        out[name] = np.ascontiguousarray(arr.T if name in linear else arr)
+    return out

@@ -6,9 +6,11 @@ reference's does (nn/functional/attention.py: the encoder or flash kernel on
 CUDA where the reference runs its Pallas kernel, dense math elsewhere);
 the growing (k, v) cache; the STATIC 3/5-tuple caches of generate() and the
 dense engine (the static decode kernel); and the PAGED 4/6-tuple caches of
-the paged engine (the ragged paged kernel).  Not ported yet, and raising:
-tensor and sequence parallelism (the distributed slice), the training loss,
-and an external attention mask together with a static or paged cache.
+the paged engine (the ragged paged kernel); and the training loss
+(``LlamaForCausalLM(ids, labels=)``), differentiable through the same
+routing.  Not ported yet, and raising: tensor and sequence parallelism
+(the distributed slice), and an external attention mask together with a
+static or paged cache.
 """
 from __future__ import annotations
 
@@ -262,11 +264,16 @@ class LlamaForCausalLM(nn.Module):
         return self
 
     def forward(self, input_ids, labels=None):
-        if labels is not None:
-            raise NotImplementedError(
-                "the training loss is not ported yet (ROADMAP.md Queue 1: "
-                "flash attention forward/backward with training)")
-        return self.lm_head(self.llama(input_ids))
+        """Logits [B, S, V]; with ``labels`` [B, S], ``(loss, logits)``: the
+        mean cross entropy of every position's logits against its label
+        (no shift, rows labelled -100 ignored), as the reference computes
+        it."""
+        logits = self.lm_head(self.llama(input_ids))
+        if labels is None:
+            return logits
+        V = self.config.vocab_size
+        loss = F.cross_entropy(logits.reshape(-1, V), labels.reshape(-1), ignore_index=-100)
+        return loss, logits
 
     def generate_step(self, input_ids, caches=None):
         """Prefill (caches=None: returns per-layer (k, v) [B, S, Hkv, D]) or

@@ -8,7 +8,10 @@ tileable lengths, D in {64, 128, 256}; the dense math (``_dense_sdpa``)
 everywhere else.  ``backend="flash"`` asks for flash on any device where the
 lengths tile, as in the reference.  The gates are the reference's, measured
 on its TPU; new ones wait for H100 ledger lines.  CPU tensors take the dense
-path, as the reference does off its accelerator.
+path, as the reference does off its accelerator.  Every path is
+differentiable: the encoder and flash kernels are ``torch.autograd.Function``s
+whose backward launches their backward kernels (the dense math is plain
+autograd), so training takes the same routing as inference.
 """
 from __future__ import annotations
 

@@ -108,14 +108,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, argtypes, *args) -> None:
-    """Call ``<name>_launch(*args)`` of kernel ``name`` (each source exports
-    one, returning a cudaError_t) and raise RuntimeError with the CUDA
+def launch(name: str, argtypes, *args, entry: str | None = None) -> None:
+    """Call ``<entry>_launch(*args)`` of kernel source ``name`` (``entry``
+    defaults to ``name``; a source with several entry points names each,
+    and all return a cudaError_t) and raise RuntimeError with the CUDA
     error string unless it returned 0.  ``argtypes`` are the ctypes types:
     c_void_p for every pointer and the stream, or ctypes would pass them as
     32-bit ints."""
     lib = load(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, f"{entry or name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -124,5 +125,5 @@ def launch(name: str, argtypes, *args) -> None:
         msg.restype = ctypes.c_char_p
     err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
+        raise RuntimeError(f"{entry or name} kernel launch failed: "
                            + getattr(lib, f"{name}_error_string")(err).decode())

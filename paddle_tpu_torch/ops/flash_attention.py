@@ -1,4 +1,4 @@
-"""FlashAttention forward (counterpart of the forward half of
+"""FlashAttention forward and backward (counterpart of
 paddle_tpu/ops/flash_attention.py).
 
 ``flash_attention(q, k, v, causal, scale)`` and ``flash_attention_with_lse``
@@ -8,16 +8,22 @@ per-query natural-log logsumexp [B, H, Sq] in f32.  Causal masks are
 bottom-right aligned (query i sees keys <= i + Sk - Sq), and causal with
 Sq > Sk raises, as the reference's admission does.
 
-A CPU tensor takes the plain version ``_flash_dense``; a CUDA tensor
-launches ``csrc/flash_attention.cu`` (bf16, D in {64, 128}) or raises.  The
-reference's block-size rules (``_auto_block``, ``block_q``/``block_k``,
-its autotune hook) describe TPU tiling, not the function: the Hopper kernel
-picks its own tiles and masks its ragged edge, so they are not carried
-over.  ``supports_seq`` stays, because the SDPA routing reads it.
+Both are ``torch.autograd.Function``s with the reference's recompute
+backward (``_dq_kernel``, ``_dkv_kernel``): the forward saves q, k, v, O and
+the f32 LSE; the backward recomputes P = exp(S - lse), takes dsum =
+rowsum(dO * O) - dlse, and returns dQ, dK and dV, with dS = P (dP - dsum)
+and, for dV, P rounded to the input dtype as the reference rounds them.
+``flash_attention_with_lse`` honours the LSE's cotangent (ring attention's
+combine needs it).
 
-Forward only: calling with autograd on raises until the recompute backward
-(``_dq_kernel``, ``_dkv_kernel``) is ported with training (ROADMAP.md
-Queue 1 item 3).
+A CPU tensor takes the plain versions, ``_flash_dense`` forward and
+``_flash_bwd_dense`` backward; a CUDA tensor launches
+``csrc/flash_attention.cu`` forward and ``csrc/flash_attention_bwd.cu``
+backward (bf16, D in {64, 128}) or raises.  The reference's block-size
+rules (``_auto_block``, ``block_q``/``block_k``, its autotune hook) describe
+TPU tiling, not the function: the Hopper kernels pick their own tiles and
+mask their ragged edge, so they are not carried over.  ``supports_seq``
+stays, because the SDPA routing reads it.
 """
 from __future__ import annotations
 
@@ -29,8 +35,8 @@ from . import _build
 
 NEG_INF = -1e30
 
-__all__ = ["flash_attention", "flash_attention_with_lse",
-           "flash_attention_kernel", "supports_seq"]
+__all__ = ["flash_attention", "flash_attention_with_lse", "flash_attention_kernel",
+           "flash_attention_dq_kernel", "flash_attention_dkv_kernel", "supports_seq"]
 
 
 def supports_seq(seq):
@@ -39,24 +45,76 @@ def supports_seq(seq):
     return seq % 128 == 0 or (seq <= 512 and seq % 8 == 0)
 
 
-def _flash_dense(q, k, v, causal, scale):
-    """Plain version: (O [B, Sq, H, D] in q's dtype, LSE [B, H, Sq] f32).
-    Scores in f32; p is rounded to v's dtype before P.V, as the kernel
-    does."""
+def _scores(q, k, causal, scale):
+    """f32 scores [B, H, Sq, Sk], masked to NEG_INF past each row's causal
+    end."""
     Sq, Sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         vis = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril(Sk - Sq)
         s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def _flash_dense(q, k, v, causal, scale):
+    """Plain version: (O [B, Sq, H, D] in q's dtype, LSE [B, H, Sq] f32).
+    Scores in f32; p is rounded to v's dtype before P.V, as the kernel
+    does."""
+    s = _scores(q, k, causal, scale)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None]).to(v.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
     return o.to(q.dtype), lse
 
 
+def _flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse=None):
+    """Plain backward, in the reference's order (``_dq_kernel`` and
+    ``_dkv_kernel``) and in f32 on the given values: P = exp(S - lse), dsum
+    = rowsum(dO * O) - dlse, dV = round(P)^T dO, dP = dO V^T, dS =
+    round(P (dP - dsum)), dQ = dS K * scale, dK = dS^T Q * scale, where
+    round() is a cast to the input dtype (a no-op in f32).  lse and dlse
+    are [B, H, Sq] f32.  Returns (dq, dk, dv) in the inputs' dtypes."""
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None].float())
+    dof = do.float()
+    dsum = torch.einsum("bqhd,bqhd->bhq", dof, o.float())
+    if dlse is not None:
+        dsum = dsum - dlse.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = (p * (dp - dsum[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check(cond, msg):
     if not cond:
         raise ValueError(f"flash attention kernel: {msg}")
+
+
+def _check_inputs(tensors, B, Sq, Sk, H, D, causal):
+    """The kernels' common admission: CUDA, bf16, D in {64, 128}, the
+    shapes, 16-byte aligned storage."""
+    dev = tensors["q"].device
+    _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
+    _check(D in (64, 128), f"head dim {D}, the kernel is built for 64 and 128")
+    for name, t in tensors.items():
+        S = Sk if name in ("k", "v") else Sq
+        _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
+        _check(t.dtype == torch.bfloat16, f"{name} dtype {t.dtype}, need bfloat16")
+        _check(tuple(t.shape) == (B, S, H, D),
+               f"{name} shape {tuple(t.shape)}, need {(B, S, H, D)}")
+    _check(Sq > 0 and Sk > 0, "empty sequence")
+    _check(not causal or Sq <= Sk, f"causal needs Sq <= Sk, got {Sq} > {Sk}")
+
+
+def _ptrs(*tensors):
+    """data_ptr()s of contiguous tensors; the kernels load 16 bytes a thread."""
+    out = []
+    for t in tensors:
+        _check(t.data_ptr() % 16 == 0, "storage not 16-byte aligned")
+        out.append(t.data_ptr())
+    return out
 
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
@@ -70,24 +128,15 @@ def flash_attention_kernel(q, k, v, causal=False, scale=None):
     launch adds one to ``flash_attention_kernel.launches``."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    dev = q.device
-    _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
-    _check(D in (64, 128), f"head dim {D}, the kernel is built for 64 and 128")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
-        _check(t.dtype == torch.bfloat16, f"{name} dtype {t.dtype}, need bfloat16")
-    _check(tuple(k.shape) == (B, Sk, H, D) and tuple(v.shape) == (B, Sk, H, D),
-           f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)}, need {(B, Sk, H, D)}")
-    _check(Sq > 0 and Sk > 0, "empty sequence")
-    _check(not causal or Sq <= Sk, f"causal needs Sq <= Sk, got {Sq} > {Sk}")
+    _check_inputs({"q": q, "k": k, "v": v}, B, Sq, Sk, H, D, causal)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
+    dev = q.device
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     lse = torch.empty(B * H, Sq, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _build.launch("flash_attention", _ARGS, q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, Sq, Sk,
+        _build.launch("flash_attention", _ARGS, *_ptrs(q, k, v, o, lse), B, H, Sq, Sk,
                       D, float(scale), int(bool(causal)),
                       torch.cuda.current_stream(dev).cuda_stream)
     flash_attention_kernel.launches += 1
@@ -96,15 +145,105 @@ def flash_attention_kernel(q, k, v, causal=False, scale=None):
 
 flash_attention_kernel.launches = 0
 
+# q, k, v, o, dO, lse, dlse, dsum scratch, then the outputs
+_BWD_HEAD = [ctypes.c_void_p] * 8
+_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
-def _forward(q, k, v, causal, scale):
+
+def _bwd_args(q, k, v, o, do, lse, dlse, causal, scale):
+    """Checked, contiguous inputs of the two backward kernels and the
+    pointers they share: (tensors, head pointers, shape, scale)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash attention backward is not ported yet (ROADMAP.md "
-            "Queue 1 item 3: flash attention forward/backward with "
-            "training); call it under torch.no_grad()")
+    _check_inputs({"q": q, "k": k, "v": v, "o": o, "do": do}, B, Sq, Sk, H, D, causal)
+    stats = {"lse": lse} if dlse is None else {"lse": lse, "dlse": dlse}
+    for name, t in stats.items():
+        _check(t.device == q.device and t.dtype == torch.float32
+               and t.numel() == B * H * Sq,
+               f"{name} must be f32 [B * H, Sq] = {B * H * Sq} values on {q.device}")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dlse = None if dlse is None else dlse.contiguous()
+    dsum = torch.empty(B * H, Sq, dtype=torch.float32, device=q.device)
+    head = _ptrs(q, k, v, o, do, lse) + [None if dlse is None else dlse.data_ptr(),
+                                         dsum.data_ptr()]
+    keep = (q, k, v, o, do, lse, dlse, dsum)  # alive until the launch is queued
+    return keep, head, (B, H, Sq, Sk, D), float(scale)
+
+
+def flash_attention_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None):
+    """Launch ``flash_attention_dq`` of ``csrc/flash_attention_bwd.cu`` (the
+    port of ``_dq_kernel``) on CUDA tensors: q, o, do [B, Sq, H, D], k, v
+    [B, Sk, H, D] bf16, lse (and the optional dlse) f32 with B * H * Sq
+    values.  Returns dQ [B, Sq, H, D] bf16.  Raises ValueError on anything
+    else.  Every launch adds one to ``flash_attention_dq_kernel.launches``."""
+    keep, head, shape, scale = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale)
+    dq = torch.empty_like(keep[0])
+    dev = dq.device
+    with torch.cuda.device(dev):
+        _build.launch("flash_attention_bwd", _BWD_HEAD + [ctypes.c_void_p] + _BWD_TAIL,
+                      *head, *_ptrs(dq), *shape, scale, int(bool(causal)),
+                      torch.cuda.current_stream(dev).cuda_stream, entry="flash_attention_dq")
+    flash_attention_dq_kernel.launches += 1
+    return dq
+
+
+flash_attention_dq_kernel.launches = 0
+
+
+def flash_attention_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None):
+    """Launch ``flash_attention_dkv`` of ``csrc/flash_attention_bwd.cu`` (the
+    port of ``_dkv_kernel``), with the inputs of
+    ``flash_attention_dq_kernel``.  Returns (dK, dV) [B, Sk, H, D] bf16.
+    Every launch adds one to ``flash_attention_dkv_kernel.launches``."""
+    keep, head, shape, scale = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale)
+    dk, dv = torch.empty_like(keep[1]), torch.empty_like(keep[2])
+    dev = dk.device
+    with torch.cuda.device(dev):
+        _build.launch("flash_attention_bwd", _BWD_HEAD + [ctypes.c_void_p] * 2 + _BWD_TAIL,
+                      *head, *_ptrs(dk, dv), *shape, scale, int(bool(causal)),
+                      torch.cuda.current_stream(dev).cuda_stream, entry="flash_attention_dkv")
+    flash_attention_dkv_kernel.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv_kernel.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """O and LSE of flash attention, with the recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        B, Sq, H, _ = q.shape
+        if q.device.type == "cpu":
+            o, lse = _flash_dense(q, k, v, causal, scale)
+        else:
+            o, lse = flash_attention_kernel(q, k, v, causal, scale)
+            lse = lse.reshape(B, H, Sq)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:  # only the LSE reached the loss
+            do = torch.zeros_like(o)
+        if q.device.type == "cpu":
+            dq, dk, dv = _flash_bwd_dense(q, k, v, o, lse, do, ctx.causal, ctx.scale, dlse)
+        else:
+            args = (q, k, v, o, do, lse, ctx.causal, ctx.scale, dlse)
+            dq = flash_attention_dq_kernel(*args)
+            dk, dv = flash_attention_dkv_kernel(*args)
+        return dq, dk, dv, None, None
+
+
+def _forward(q, k, v, causal, scale):
+    Sq, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
     if causal and Sq > Sk:
         # queries 0..Sq-Sk-1 would see no key at all; the dense path is the
         # tool for that shape, as in the reference
@@ -113,18 +252,17 @@ def _forward(q, k, v, causal, scale):
             f"Sk={Sk}; use the dense SDPA path")
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    if q.device.type == "cpu":
-        return _flash_dense(q, k, v, causal, scale)
-    o, lse = flash_attention_kernel(q, k, v, causal, scale)
-    return o, lse.reshape(B, H, Sq)
+    return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
-    """q [B, Sq, H, D], k/v [B, Sk, H, D] -> O [B, Sq, H, D]."""
+    """q [B, Sq, H, D], k/v [B, Sk, H, D] -> O [B, Sq, H, D];
+    differentiable through the recompute backward."""
     return _forward(q, k, v, causal, scale)[0]
 
 
 def flash_attention_with_lse(q, k, v, causal=False, scale=None):
     """Like flash_attention, plus the per-query logsumexp [B, H, Sq] (f32),
-    the hook for blockwise combines (ring attention)."""
+    the hook for blockwise combines (ring attention); the backward honours
+    the LSE's cotangent."""
     return _forward(q, k, v, causal, scale)

@@ -1,21 +1,27 @@
-"""Port parity: paddle_tpu_torch's encoder attention forward against the
-JAX reference on the CPU, in f32.
+"""Port parity: paddle_tpu_torch's encoder attention, forward and backward,
+against the JAX reference on the CPU, in f32.
 
-The port's plain ``_encoder_dense`` (what CPU tensors take, and the oracle
-of the Hopper kernel in chip_smoke.py) is held against the reference's
-Pallas ``encoder_attention`` in interpret mode at dropout rate 0, on the
-same numpy-seeded inputs.  Tolerance 1e-5 absolute, as the reference's own
-test (tests/test_encoder_attention.py): f32 on both sides.
+The port's plain ``_encoder_dense`` and ``_encoder_bwd_dense`` (what CPU
+tensors take, and the oracles of the Hopper kernels in chip_smoke.py) are
+held against the reference's Pallas ``encoder_attention`` in interpret mode
+at dropout rate 0, on the same numpy-seeded inputs.  Tolerance 1e-5
+absolute on the output and 1e-4 on the gradients, as the reference's own
+test (tests/test_encoder_attention.py): f32 on both sides.  The gradients
+are of sum(o * cos(o)).
 """
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
+import paddle_tpu.nn.functional as JF
 from paddle_tpu.ops import encoder_attention as jea
+from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops import encoder_attention as tea
 
 TOL = 1e-5
+GRAD_TOL = 1e-4
 
 
 def _qkv(S, D, B=1, H=2, seed=0):
@@ -32,6 +38,50 @@ def test_plain_matches_reference_kernel(S, D, causal):
                                  causal=causal)
     got = tea.encoder_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def _ref_grads(fn, q, k, v):
+    def loss(q, k, v):
+        o = fn(q, k, v)
+        o = getattr(o, "_value", o)
+        return jnp.sum(o * jnp.cos(o))
+    return jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+
+
+def _port_grads(fn, q, k, v):
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    o = fn(*ts)
+    (o * o.cos()).sum().backward()
+    return [t.grad for t in ts]
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [128, 256])
+def test_backward_matches_reference_kernel(S, D, causal):
+    """dQ, dK, dV through the port's Function (its plain backward on CPU
+    tensors) against jax.grad of the reference's _bwd_kernel at rate 0."""
+    q, k, v = _qkv(S, D, seed=S + D + 1)
+    before = tea.encoder_attention_bwd_kernel.launches
+    got = _port_grads(lambda *a: tea.encoder_attention(*a, causal=causal), q, k, v)
+    want = _ref_grads(lambda *a: jea.encoder_attention(*a, causal=causal), q, k, v)
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+    assert tea.encoder_attention_bwd_kernel.launches == before
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_sdpa_auto_grads_match_reference(causal):
+    """SDPA(backend="auto") at an encoder shape: the gradients through the
+    port's routing equal those through the reference's (off the
+    accelerator both take the dense math)."""
+    q, k, v = _qkv(128, 64, B=2, seed=11)
+    got = _port_grads(lambda *a: TF.scaled_dot_product_attention(*a, is_causal=causal), q, k, v)
+    want = _ref_grads(lambda *a: JF.scaled_dot_product_attention(*a, is_causal=causal), q, k, v)
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=f"d{name}")
 
 
 def test_dropout_raises_until_philox_is_ported():
@@ -58,3 +108,7 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="not a CUDA device"):
         tea.encoder_attention_kernel(q, k, v)
     assert tea.encoder_attention_kernel.launches == before
+    before = tea.encoder_attention_bwd_kernel.launches
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tea.encoder_attention_bwd_kernel(q, k, v, q)
+    assert tea.encoder_attention_bwd_kernel.launches == before

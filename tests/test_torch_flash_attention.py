@@ -1,17 +1,21 @@
-"""Port parity: paddle_tpu_torch's flash attention forward and the SDPA
-routing against the JAX reference on the CPU, in f32.
+"""Port parity: paddle_tpu_torch's flash attention, forward and backward,
+and the SDPA routing against the JAX reference on the CPU, in f32.
 
-The port's plain ``_flash_dense`` (what CPU tensors take, and the oracle of
-the Hopper kernel in chip_smoke.py) is held against the reference's Pallas
-``flash_attention`` and ``flash_attention_with_lse`` in interpret mode, on
-the same numpy-seeded inputs.  Tolerance 2e-5 on O and on the logsumexp,
-as the reference's own flash tests (tests/test_flash_attention.py): both
-sides compute in f32 and differ in summation order only.
+The port's plain ``_flash_dense`` and ``_flash_bwd_dense`` (what CPU
+tensors take, and the oracles of the Hopper kernels in chip_smoke.py) are
+held against the reference's Pallas ``flash_attention`` and
+``flash_attention_with_lse`` in interpret mode, on the same numpy-seeded
+inputs.  Tolerance 2e-5 on O and on the logsumexp, and 2e-4 on dQ, dK and
+dV, as the reference's own flash tests (tests/test_flash_attention.py):
+both sides compute in f32 and differ in summation order only.  The
+gradients are taken of the reference's non-trivial cotangent, sum(o *
+cos(o)), plus a random weighting of the logsumexp where it is returned.
 """
 import importlib
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -23,6 +27,7 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 # the module: paddle_tpu.ops re-exports its function under the same name
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
 TOL = 2e-5
+GRAD_TOL = 2e-4
 
 
 def _qkv(Sq, Sk, D, B=1, H=2, seed=0):
@@ -67,13 +72,85 @@ def test_causal_longer_query_raises():
         jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)
 
 
+def _ref_grads(q, k, v, causal, w=None):
+    """jax.grad of sum(o * cos o) (+ sum(lse * w)) through the reference's
+    Pallas kernels in interpret mode."""
+    def loss(q, k, v):
+        if w is None:
+            o = jfa.flash_attention(q, k, v, causal=causal, interpret=True)
+            return jnp.sum(o * jnp.cos(o))
+        o, lse = jfa.flash_attention_with_lse(q, k, v, causal=causal, interpret=True)
+        return jnp.sum(o * jnp.cos(o)) + jnp.sum(lse * w)
+    return jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+
+
+def _port_grads(q, k, v, causal, w=None, needs=(True, True, True)):
+    ts = [torch.from_numpy(a).requires_grad_(n) for a, n in zip((q, k, v), needs)]
+    if w is None:
+        o = tfa.flash_attention(*ts, causal=causal)
+        loss = (o * o.cos()).sum()
+    else:
+        o, lse = tfa.flash_attention_with_lse(*ts, causal=causal)
+        loss = (o * o.cos()).sum() + (lse * torch.from_numpy(w)).sum()
+    loss.backward()
+    return [t.grad for t in ts]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_matches_reference_kernels(case):
+    """dQ, dK, dV through the port's Function (its plain backward on CPU
+    tensors) against jax.grad of the reference's _dq_kernel/_dkv_kernel."""
+    Sq, Sk, D, causal = CASES[case]
+    q, k, v = _qkv(Sq, Sk, D, seed=5)
+    before = (tfa.flash_attention_dq_kernel.launches, tfa.flash_attention_dkv_kernel.launches)
+    got = _port_grads(q, k, v, causal)
+    for g, want, name in zip(got, _ref_grads(q, k, v, causal), "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+    after = (tfa.flash_attention_dq_kernel.launches, tfa.flash_attention_dkv_kernel.launches)
+    assert after == before  # CPU tensors never reach a kernel
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_lse_cotangent_matches_reference(causal):
+    """flash_attention_with_lse honours a non-zero LSE cotangent (the ring
+    attention combine's backward), Sq < Sk."""
+    q, k, v = _qkv(128, 256, 64, seed=6)
+    w = np.random.RandomState(7).randn(1, 2, 128).astype(np.float32)
+    got = _port_grads(q, k, v, causal, w)
+    for g, want, name in zip(got, _ref_grads(q, k, v, causal, jnp.asarray(w)), "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+
+
 def test_autograd_raises_until_the_backward_is_ported():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(128, 128, 64))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tfa.flash_attention(q, k, v, causal=True)
+    """The backward is ported: autograd through flash_attention no longer
+    raises, and a gradient for q alone matches the reference's; under
+    no_grad the forward runs as before."""
+    q, k, v = _qkv(128, 128, 64)
+    got = _port_grads(q, k, v, True, needs=(True, False, False))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(_ref_grads(q, k, v, True)[0]),
+                               rtol=GRAD_TOL, atol=GRAD_TOL)
+    assert got[1] is None and got[2] is None
     with torch.no_grad():
-        assert tfa.flash_attention(q, k, v, causal=True).shape == q.shape
+        assert tfa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   causal=True).shape == q.shape
+
+
+def test_plain_backward_rounds_where_the_reference_rounds():
+    """In bf16 the plain backward rounds P to bf16 for dV and dS for dQ/dK,
+    as _dq_kernel/_dkv_kernel do: equal to the f32 version on the bf16
+    values up to those roundings, not bit-equal to it."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(128, 128, 64, seed=8))
+    o, lse = tfa._flash_dense(q, k, v, True, 0.125)
+    do = torch.from_numpy(np.random.RandomState(9).randn(1, 128, 2, 64).astype(np.float32))
+    bf = tfa._flash_bwd_dense(q, k, v, o, lse, do.bfloat16(), True, 0.125)
+    f32 = tfa._flash_bwd_dense(q.float(), k.float(), v.float(), o.float(), lse,
+                               do.bfloat16().float(), True, 0.125)
+    for a, b in zip(bf, f32):
+        assert a.dtype == torch.bfloat16
+        rel = ((a.float() - b).abs().max() / b.abs().max()).item()
+        assert 0 < rel < 2e-2
 
 
 def test_supports_seq_matches_reference():
@@ -123,3 +200,14 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="not a CUDA device"):
         tfa.flash_attention_kernel(q, k, v, causal=True)
     assert tfa.flash_attention_kernel.launches == before
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+def test_backward_kernel_wrappers_reject_cpu_tensors(which):
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(128, 128, 64))
+    lse = torch.zeros(1, 2, 128)
+    fn = getattr(tfa, f"flash_attention_{which}_kernel")
+    before = fn.launches
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        fn(q, k, v, q, q, lse, causal=True)
+    assert fn.launches == before

@@ -28,6 +28,9 @@ sys.path.insert(0, sys.argv[1])
 import paddle_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
                                                "paddle_tpu_torch.")]
+for needed in ("jit.train_step", "jit._step_impl", "optimizer.optimizer", "nn.clip",
+               "nn.functional.loss"):  # the training slice's modules
+    assert "paddle_tpu_torch." + needed in names, needed
 for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1] + "/chip_smoke.py")
@@ -44,7 +47,7 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, leaked = out.stdout.split(" ", 1)
-    assert int(n) >= 25  # every module of slices 1 and 2 was imported
+    assert int(n) >= 32  # every module of slices 1 to 3 was imported
     assert leaked.strip() == "[]"
 
 
@@ -88,10 +91,10 @@ def test_kernel_sources_ship_as_package_data():
 
     text = (ROOT / "pyproject.toml").read_text()
     assert '"paddle_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
-    kernels = ["decode_attention", "encoder_attention", "flash_attention",
-               "paged_attention"]
+    kernels = ["decode_attention", "encoder_attention", "encoder_attention_bwd",
+               "flash_attention", "flash_attention_bwd", "paged_attention"]
     assert _build.sources() == kernels  # one library per .cu, built at first use
     for name in kernels:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
-    for header in ("kv_attention.cuh", "mma_attention.cuh"):
+    for header in ("attention_bwd.cuh", "kv_attention.cuh", "mma_attention.cuh"):
         assert (PKG / "csrc" / header).is_file()

@@ -183,13 +183,23 @@ def _prefill_then_decode(jm, tm, quant):
                 np.testing.assert_allclose(b.numpy()[live], a[live], rtol=TOL, atol=TOL)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(pair):
+    """What still raises; and ``labels=``, which no longer does: the port's
+    (loss, logits) equal the reference's (no shift, -100 ignored)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LlamaForCausalLM(LlamaConfig.tiny(tensor_parallel=True), device="cpu")
+    jm, tm_, _ = pair
+    rng = np.random.RandomState(4)
+    ids = rng.randint(0, 1024, (2, 16)).astype(np.int64)
+    labels = rng.randint(0, 1024, (2, 16)).astype(np.int64)
+    labels[1, 3:9] = -100
+    jloss, jlogits = jm(Tensor(jnp.asarray(ids)), labels=Tensor(jnp.asarray(labels)))
+    loss, logits = tm_(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits._value),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(float(loss.detach()), float(np.asarray(jloss._value)), rtol=TOL)
     tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="training loss"):
-        tm(ids, labels=ids)
     # a static cache takes no external attention mask (nor does a paged one)
     cfg = tm.config
     static = (torch.zeros(1, cfg.num_key_value_heads, 128, 32),
