@@ -14,6 +14,11 @@ Phases:
                     time, the plain version's time, a PyTorch library
                     call's time as a yardstick, and the bound; planted
                     faults of the plain version must fail the same gate.
+                    The dropout kernels (fused LN, encoder attention at
+                    rate 0.1) see the same seed tensor as their plain
+                    versions, record their keep fraction and state the
+                    bytes and Philox floors; the Philox function gives its
+                    known answers on the card.
   4. generate     — model.generate() at LLaMA-2-7B widths (32 layers, bf16,
                     random weights from a seed): ids [4, 1024] (flash
                     prefill) on a bf16 and an int8 cache, and ids [8, 256]
@@ -24,7 +29,7 @@ Phases:
                     then 4 on an int8 cache at decode_chunk=4.
   6. paged_engine — the paged LLMEngine on the same model: 12 requests,
                     then 4 on an int8 pool.
-In phases 4-6 and 8 the launch counters are zeroed just before each run
+In phases 4-6, 8 and 9 the launch counters are zeroed just before each run
 and must match the work the run did.  For the greedy outputs, each path's logits
 (teacher-forced) must stay within LOGIT_TOL (INT8_LOGIT_TOL on an int8
 cache) of the no-cache forward's with dense-math attention, and each token
@@ -44,6 +49,16 @@ time goes.
                     profiled; then B 32 x S 512 at accum_steps=2 with
                     ClipGradByGlobalNorm(1.0) (encoder forward and backward
                     24 a step).  Each loss finite, the last below the first.
+  9. ernie        — bench.py's ERNIE-base pretraining (BertConfig.base(),
+                    bf16, B 512 x S 128, 20 masked positions, dropout 0.1,
+                    random weights and batch from seed 0): gradient parity
+                    of every parameter against the composed/dense paths at
+                    2 layers and rate 0; the same loss from the same seed();
+                    the eval forward's MLM logits at 12 layers against the
+                    composed forward's; then TrainStep + AdamW(1e-4,
+                    weight_decay=0.01), 2 warm-up and 8 timed steps, fused
+                    LN forward and backward 24 and encoder forward and
+                    backward 12 launches a step, one step profiled.
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before
 that line.  Without CUDA, or without the repository beside this file, it
@@ -98,6 +113,8 @@ KERNELS = {
                             "paddle_tpu/ops/flash_attention.py:153"),
     "encoder_attention_bwd": ("paddle_tpu_torch/csrc/encoder_attention_bwd.cu",
                               "paddle_tpu/ops/encoder_attention.py:101"),
+    "fused_ln": ("paddle_tpu_torch/csrc/fused_ln.cu", "paddle_tpu/ops/fused_ln.py:55"),
+    "fused_ln_bwd": ("paddle_tpu_torch/csrc/fused_ln.cu", "paddle_tpu/ops/fused_ln.py:77"),
 }
 # Backward kernels vs their plain versions: max |kernel - plain| over max
 # |plain|, for each of dQ, dK and dV, with dO ~ N(0, 1).  The kernels round
@@ -115,6 +132,26 @@ LOGIT_TOL = 0.1
 # cache rounds every K and V element to its row's absmax / 127, on top of
 # the bf16 differences above.
 INT8_LOGIT_TOL = 0.5
+
+
+# Dropout: ERNIE's rate on hidden states and attention probabilities.  Each
+# dropout case's keep fraction must lie within KEEP_SIGMAS binomial
+# standard deviations of 1 - rate.
+DROP_RATE = 0.1
+KEEP_SIGMAS = 5.0
+# Philox's floor: 40 32-bit multiplies a call (10 rounds of 2 mul.lo and
+# 2 mul.hi) over the card's integer multiply rate, 64 INT32 lanes a SM (half
+# its 128 FP32 lanes) x 132 SMs x 1.98 GHz, the clock of the 67 TFLOP/s f32
+# peak.  Elementwise f32 work counts against that f32 peak.
+H100_INT32_OPS = 16.7e12
+H100_F32_FLOPS = 67e12
+PHILOX_MULS = 40
+# Philox4x32-10 known answers (Random123): (counter, key) -> words.
+PHILOX_KAT = [((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+              ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+               (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+              ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+               (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1))]
 
 
 def log(*a):
@@ -247,8 +284,7 @@ def paged_case(name, B, S, H, Hkv, offsets, quant, seed, ps=128, D=128, pages=No
 def bound(nbytes, flops):
     """(bound ms, what bounds it): the larger of the bytes over the HBM rate
     and the operations over the bf16 tensor-core rate."""
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bound3(nbytes, tc_flops=flops)[:2]
 
 
 def gate(name, got, want, faults, tol, **extra):
@@ -441,11 +477,12 @@ def bwd_gate(name, gots, wants, faults, tol, **extra):
                 grad_rel=rels, fault_rel=fault_rel, finite=finite, tol=tol, ok=ok, **extra)
 
 
-def sdpa_bwd_ms(q, k, v, do, causal, iters):
+def sdpa_bwd_ms(q, k, v, do, causal, iters, dropout_p=0.0):
     """The yardstick: torch.autograd.grad of one SDPA output with the same
     dO, the forward excluded (timed, never called by the port)."""
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+    out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, dropout_p=dropout_p,
+                                                           is_causal=causal)
     doh = do.transpose(1, 2)
     return cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
                    iters)
@@ -543,6 +580,232 @@ def encoder_bwd_case(name, B, H, S, D, causal, seed):
     return res
 
 
+def bound3(nbytes, tc_flops=0.0, f32_flops=0.0, philox_calls=0):
+    """(bound ms, what bounds it, the floors): the largest of the bytes over
+    the HBM rate, tensor-core and f32 operations over their peaks, and the
+    Philox calls' multiplies over the integer rate."""
+    floors = dict(bytes_ms=nbytes / H100_BYTES_PER_S * 1e3,
+                  tensor_core_ms=tc_flops / H100_BF16_FLOPS * 1e3,
+                  f32_ms=f32_flops / H100_F32_FLOPS * 1e3,
+                  philox_ms=philox_calls * PHILOX_MULS / H100_INT32_OPS * 1e3)
+    top = max(floors.values())
+    return top, "bytes" if floors["bytes_ms"] >= top else "operations", floors
+
+
+def keep_check(keep, rate):
+    """Keep fraction of a mask and its distance from 1 - rate in binomial
+    standard deviations."""
+    n = keep.numel()
+    frac = keep.float().mean().item()
+    sig = abs(frac - (1.0 - rate)) / math.sqrt(rate * (1.0 - rate) / n)
+    return dict(keep_fraction=frac, keep_elements=n, keep_sigmas=sig,
+                ok=sig <= KEEP_SIGMAS)
+
+
+def add_keep(keep, rate, *cases):
+    """Record the mask's keep fraction in each case, which fails with it."""
+    kc = keep_check(keep, rate)
+    for c in cases:
+        c.update({k: v for k, v in kc.items() if k != "ok"}, ok=c["ok"] and kc["ok"])
+
+
+def seed_pair(g):
+    """An int32 [2] seed pair on the card from generator ``g``."""
+    return torch.randint(0, 2**32, (2,), generator=g, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
+
+
+def philox_case():
+    """The Philox device function on the card: Random123's known answers,
+    and 65,536 random (counter, key) rows against the torch twin."""
+    from paddle_tpu_torch.ops import _prng
+    from paddle_tpu_torch.ops.fused_ln import philox_kernel
+
+    def i32(rows):
+        return torch.tensor(rows, dtype=torch.int64, device="cuda").to(torch.int32)
+
+    got = philox_kernel(i32([list(c) + list(k) for c, k, _ in PHILOX_KAT]))
+    want = i32([list(w) for _, _, w in PHILOX_KAT])
+    g = torch.Generator(device="cuda").manual_seed(99)
+    rows = torch.randint(0, 2**32, (65536, 6), generator=g, device="cuda", dtype=torch.int64)
+    twin = torch.stack(_prng.philox4x32(*rows.unbind(1)), 1)
+    dev = philox_kernel(rows.to(torch.int32)).to(torch.int64) & 0xFFFFFFFF
+    res = dict(name="philox_known_answers",
+               known_answers=[" ".join(f"{x & 0xFFFFFFFF:08x}" for x in r)
+                              for r in got.tolist()],
+               known_answers_equal=bool((got == want).all()),
+               random_rows=rows.shape[0], twin_mismatches=int((dev != twin).sum()))
+    res["ok"] = res["known_answers_equal"] and res["twin_mismatches"] == 0
+    log(f"  philox known answers {res['known_answers']} equal {res['known_answers_equal']}; "
+        f"{res['random_rows']} random rows vs the torch twin: {res['twin_mismatches']} "
+        f"mismatches {'ok' if res['ok'] else 'FAIL'}")
+    return res
+
+
+def fused_ln_case(name, n, h, dtype, rate, seed, eps=1e-12):
+    """The fused-LN forward and backward kernels vs their plain versions on
+    the card, with the same seed tensor.  Planted faults: gamma ignored and
+    the statistics of the row beside; with dropout, the mask read one
+    column over, the seed words swapped and (backward) no mask."""
+    from paddle_tpu_torch.ops import fused_ln as fl
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    x = torch.randn(n, h, generator=g, device="cuda").to(dt)
+    y = torch.randn(n, h, generator=g, device="cuda").to(dt)
+    gamma = (1.0 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(dt)
+    beta = (0.1 * torch.randn(h, generator=g, device="cuda")).to(dt)
+    dz = torch.randn(n, h, generator=g, device="cuda").to(dt)
+    sd = seed_pair(g)
+    keep = fl.dropout_keep(sd, n, h, rate) if rate > 0 else None
+    shape = dict(n=n, h=h, dtype=dtype, rate=rate)
+
+    def plain(k=keep, gm=gamma, xx=x, sdd=sd):
+        return fl._fused_ln_dense(xx, y, gm, beta, sdd, rate, eps, True, k)
+
+    out, s = fl.fused_ln_kernel(x, y, gamma, beta, sd, rate, eps)
+    torch.cuda.synchronize()
+    want, want_s = plain()
+    ones = torch.ones_like(gamma)
+    faults = {"gamma_ignored": plain(gm=ones)[0]}
+    if rate > 0:
+        faults["mask_shifted"] = plain(k=keep.roll(1, -1))[0]
+        faults["seeds_swapped"] = plain(k=fl.dropout_keep(sd.flip(0), n, h, rate))[0]
+    else:
+        faults["residual_dropped"] = plain(xx=torch.zeros_like(x))[0]
+    fwd = gate(name, out.float(), want.float(), {k: f.float() for k, f in faults.items()},
+               KERNEL_RTOL["bf16"], **shape)
+    s_err = (s.float() - want_s.float()).abs().max().item()
+    fwd.update(s_max_abs_err=s_err, ok=fwd["ok"] and s_err <= KERNEL_RTOL["bf16"]
+               * want_s.float().abs().max().item())
+
+    def bwd_plain(k=keep, gm=gamma, ss=want_s, r=rate):
+        dx, dy, dgp, dbp = fl._fused_ln_bwd_dense(ss, gm, dz, sd, r, eps, True, k)
+        return dx.float(), dy.float(), dgp.sum(0), dbp.sum(0)
+
+    dx, dy, dgp, dbp = fl.fused_ln_bwd_kernel(want_s, gamma, dz, sd, rate, eps)
+    torch.cuda.synchronize()
+    gots = (dx, dy, dgp.sum(0), dbp.sum(0))
+    bfaults = {"gamma_ignored": bwd_plain(gm=ones),
+               "stats_of_row_beside": bwd_plain(ss=want_s.roll(1, 0))}
+    if rate > 0:
+        bfaults.update(mask_shifted=bwd_plain(k=keep.roll(1, -1)),
+                       seeds_swapped=bwd_plain(k=fl.dropout_keep(sd.flip(0), n, h, rate)),
+                       no_mask=bwd_plain(r=0.0))
+    bwd = bwd_gate(name, gots, bwd_plain(), bfaults, BWD_RTOL, **shape)
+    if rate > 0:
+        add_keep(keep, rate, fwd, bwd)
+    esz = x.element_size()
+    calls = n * h // 4 if rate > 0 else 0
+    fwd["ms"] = cuda_ms(lambda: fl.fused_ln_kernel(x, y, gamma, beta, sd, rate, eps), 20)
+    fwd["plain_ms"] = cuda_ms(plain, 3)
+    tF = torch.nn.functional
+    fwd["library_ms"] = cuda_ms(lambda: tF.layer_norm(x + tF.dropout(y, rate), (h,), gamma,
+                                                      beta, eps), 20)
+    fwd["bound_ms"], fwd["bound_by"], fwd["floors"] = bound3(
+        4 * n * h * esz + 2 * h * gamma.element_size(), f32_flops=10.0 * n * h,
+        philox_calls=calls)
+    bwd["ms"] = cuda_ms(lambda: fl.fused_ln_bwd_kernel(want_s, gamma, dz, sd, rate, eps), 20)
+    bwd["plain_ms"] = cuda_ms(bwd_plain, 3)
+    xr, yr, gr, br = (t.detach().clone().requires_grad_(True) for t in (x, y, gamma, beta))
+    lib_out = tF.layer_norm(xr + tF.dropout(yr, rate), (h,), gr, br, eps)
+    bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, (xr, yr, gr, br), dz,
+                                                            retain_graph=True), 20)
+    nb = -(-n // fl.BWD_ROWS)
+    bwd["bound_ms"], bwd["bound_by"], bwd["floors"] = bound3(
+        4 * n * h * esz + h * gamma.element_size() + 2 * nb * h * 4,
+        f32_flops=16.0 * n * h, philox_calls=calls)
+    return fwd, bwd
+
+
+def encoder_dropout_case(name, B, H, S, D, causal, seed, rate=DROP_RATE):
+    """The encoder forward and backward kernels with dropout vs their plain
+    versions on the card, with the same seed tensor.  Planted faults: the
+    mask read one key over, the seed words swapped and (backward) no
+    mask."""
+    from paddle_tpu_torch.ops import encoder_attention as ea
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = randn(g, (B, S, H, D), Q_STD)
+    k, v, do = randn(g, (B, S, H, D)), randn(g, (B, S, H, D)), randn(g, (B, S, H, D))
+    sd = seed_pair(g)
+    scale = 1.0 / D ** 0.5
+    keep = ea.dropout_keep(sd, B, H, S, rate)
+    f32 = [t.float() for t in (q, k, v, do)]
+    shape = dict(kind="encoder", B=B, H=H, Sq=S, Sk=S, D=D, causal=causal, rate=rate)
+
+    def plain(kp=keep):
+        # v in bf16, so that the oracle rounds the kept, scaled probabilities
+        # to bf16 before P.V as the reference kernel and this one do: a
+        # probability scaled past 1 by 1 / (1 - rate) rounds in steps of 2^-7,
+        # twice those below 1, so an f32 P would add a rounding difference
+        # the rate-0 cases do not have.  The products and the output stay f32.
+        return ea._encoder_dense(f32[0], f32[1], v, scale, causal, kp, rate)
+
+    got = ea.encoder_attention_kernel(q, k, v, scale, causal, sd, rate)
+    torch.cuda.synchronize()
+    swapped = ea.dropout_keep(sd.flip(0), B, H, S, rate)
+    fwd = gate(name, got, plain(), {"mask_shifted": plain(keep.roll(1, -1)),
+                                    "seeds_swapped": plain(swapped)},
+               KERNEL_RTOL["bf16"], **shape)
+
+    def bwd_plain(kp=keep, r=rate):
+        return ea._encoder_bwd_dense(*f32, scale, causal, kp, r)
+
+    gots = ea.encoder_attention_bwd_kernel(q, k, v, do, scale, causal, sd, rate)
+    torch.cuda.synchronize()
+    bwd = bwd_gate(name, gots, bwd_plain(), {"mask_shifted": bwd_plain(keep.roll(1, -1)),
+                                             "seeds_swapped": bwd_plain(swapped),
+                                             "no_mask": bwd_plain(None, 0.0)},
+                   BWD_RTOL, **shape)
+    add_keep(keep, rate, fwd, bwd)
+    pairs = B * H * visible_pairs(S, S, causal)
+    calls = pairs // 4  # one Philox call serves 4 probabilities
+    n = B * S * H * D * 2
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    for c, kern, pl, nbytes, ops, draws in (
+            (fwd, lambda: ea.encoder_attention_kernel(q, k, v, scale, causal, sd, rate),
+             lambda: ea._encoder_dense(q, k, v, scale, causal, keep, rate), 4 * n, 4.0, 1),
+            (bwd, lambda: ea.encoder_attention_bwd_kernel(q, k, v, do, scale, causal, sd, rate),
+             lambda: ea._encoder_bwd_dense(q, k, v, do, scale, causal, keep, rate), 7 * n,
+             10.0, 3)):
+        c["ms"] = cuda_ms(kern, 10)
+        c["plain_ms"] = cuda_ms(pl, 3)
+        c["bound_ms"], c["bound_by"], c["floors"] = bound3(
+            nbytes, tc_flops=ops * D * pairs, philox_calls=draws * calls)
+    # yardsticks: SDPA with the same dropout rate (its own mask); timed, never used
+    fwd["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, dropout_p=rate, is_causal=causal), 10)
+    bwd["library_ms"] = sdpa_bwd_ms(q, k, v, do, causal, 10, dropout_p=rate)
+    return fwd, bwd
+
+
+def dropout_kernel_cases():
+    """The ERNIE path's kernels with dropout: {kernel name: [case, ...]},
+    the ERNIE shape first, and the Philox check."""
+    out = {"fused_ln": [], "fused_ln_bwd": []}
+    for i, (name, n, h, dtype, rate) in enumerate([
+            ("ernie_bf16_drop", 65536, 768, "bf16", DROP_RATE),   # the ERNIE step's
+            ("ernie_bf16_rate0", 65536, 768, "bf16", 0.0),        # the eval forward's
+            ("ernie_f32_drop", 65536, 768, "f32", DROP_RATE),
+            ("h1024_bf16_drop", 16384, 1024, "bf16", DROP_RATE)]):
+        fwd, bwd = fused_ln_case(name, n, h, dtype, rate, 90 + i)
+        out["fused_ln"].append(fwd)
+        out["fused_ln_bwd"].append(bwd)
+        log_case("fused_ln", fwd)
+        log_case("fused_ln_bwd", bwd)
+    enc = {"encoder_attention": [], "encoder_attention_bwd": []}
+    for i, (name, B, H, S, D, causal) in enumerate([
+            ("ernie_drop", 512, 12, 128, 64, False),       # the ERNIE step's
+            ("b8_s512_d128_causal_drop", 8, 16, 512, 128, True)]):
+        fwd, bwd = encoder_dropout_case(name, B, H, S, D, causal, 95 + i)
+        enc["encoder_attention"].append(fwd)
+        enc["encoder_attention_bwd"].append(bwd)
+        log_case("encoder_attention", fwd)
+        log_case("encoder_attention_bwd", bwd)
+    return out, enc
+
+
 def bwd_kernel_cases():
     """Backward cases: {kernel name: [case, ...]}, the training shapes first."""
     out = {"flash_attention_dq": [], "flash_attention_dkv": [], "encoder_attention_bwd": []}
@@ -621,15 +884,25 @@ def kernel_phase():
     for c in cases:
         log_case("paged_attention", c)
     out.update(bwd_kernel_cases())
+    fused, enc = dropout_kernel_cases()
+    out.update(fused)
+    for kern, cases in enc.items():  # the ERNIE step's shape first
+        out[kern] = cases[:1] + out[kern] + cases[1:]
+    out["philox"] = [philox_case()]
     zero_counts()  # comparison launches do not count
     return out
 
 
 def log_case(kern, c):
+    if "ms" not in c:
+        return
     lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
     lse = f" lse err {c['lse_max_abs_err']:.2e}" if "lse_max_abs_err" in c else ""
     if "grad_rel" in c:
         lse += " per grad " + "/".join(f"{r:.2e}" for r in c["grad_rel"])
+    if "keep_fraction" in c:
+        lse += (f" keep {c['keep_fraction']:.6f} ({c['keep_sigmas']:.2f} sigma) floors "
+                + ", ".join(f"{k} {v:.4f}" for k, v in c["floors"].items()))
     log(f"  {kern:21s} {c['name']:26s} err {c['max_abs_err']:.3e} of max "
         f"{c['max_abs_want']:.3f}: rel {c['rel_err']:.3e} (tol {c['tol']}; planted "
         "faults " + ", ".join(f"{k} {v:.3e}" for k, v in c["fault_rel"].items())
@@ -644,6 +917,7 @@ def counters():
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import encoder_attention as ea
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ln as fl
 
     return {"paged_attention": da.paged_attention_kernel,
             "decode_attention": da.decode_attention_kernel,
@@ -651,7 +925,9 @@ def counters():
             "encoder_attention": ea.encoder_attention_kernel,
             "flash_attention_dq": fa.flash_attention_dq_kernel,
             "flash_attention_dkv": fa.flash_attention_dkv_kernel,
-            "encoder_attention_bwd": ea.encoder_attention_bwd_kernel}
+            "encoder_attention_bwd": ea.encoder_attention_bwd_kernel,
+            "fused_ln": fl.fused_ln_kernel,
+            "fused_ln_bwd": fl.fused_ln_bwd_kernel}
 
 
 def zero_counts():
@@ -1178,6 +1454,8 @@ def grad_parity(model, B, S, seed, expected):
 
 def train_kind(name):
     low = name.lower()
+    if "fused_ln_fwd_kernel" in low or "fused_ln_bwd_kernel" in low:
+        return low[low.index("fused_ln_"):][:12]  # fused_ln_fwd / fused_ln_bwd
     if "flash_fwd_kernel" in low or "encoder_fwd_kernel" in low:
         return "attention_fwd"
     if any(w in low for w in ("dq_kernel", "dkv_kernel", "dsum_kernel")):
@@ -1207,8 +1485,8 @@ def train_profile(step, batch):
         spans = [(e.time_range.start, e.time_range.end) for e in dev
                  if e.name == "TrainStep.optimizer"]
         kern = [e for e in dev if not e.name.startswith("TrainStep.")]
-        by_kind = dict.fromkeys(("matmul", "attention_fwd", "attention_bwd", "optimizer",
-                                 "other"), 0.0)
+        by_kind = dict.fromkeys(("matmul", "attention_fwd", "attention_bwd", "fused_ln_fwd",
+                                 "fused_ln_bwd", "optimizer", "other"), 0.0)
         by_name = {}
         for e in kern:
             kind = train_kind(e.name)
@@ -1325,6 +1603,272 @@ def train_phase(card, device="cuda", layers=12, parity_layers=2, **over):
     return parity, runs
 
 
+# ------------------------------------------------------------------ ernie
+
+# bench.py _bench_ernie's configuration: ErnieForPretraining(BertConfig.base())
+# (hidden 768, 12 layers, 12 heads of 64, intermediate 3072, vocab 30522,
+# dropout 0.1 on hidden states and attention probabilities, LayerNorm eps
+# 1e-12), bf16, AdamW(1e-4, weight_decay=0.01), B 512 x S 128 with 20 masked
+# positions a sequence, random weights and batch from seed 0.
+ERNIE_B, ERNIE_S, ERNIE_P = 512, 128, 20
+ERNIE_WARMUP, ERNIE_STEPS = 2, 8
+# The eval forward's MLM logits against the composed/dense forward's.  With
+# the decoder tied to an N(0, 1) embedding the logits spread by about
+# sqrt(768) = 28 (LLaMA's by 0.5), so LOGIT_TOL applies in units of the
+# logits' standard deviation: max |kernel - composed| <= LOGIT_TOL * std.
+
+
+class composed_paths:
+    """Inside: attention takes the dense math and the dropout + add + LN
+    the composed math, on every device, so that a run goes through no
+    kernel under test (the oracle of the ernie phase).  The port has no
+    switch of its own for this, as the reference has none."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.nn.functional import attention, norm
+
+        self._saved = (attention._reference_kernel, norm._use_fused_kernel)
+        attention._reference_kernel = lambda *a, **k: None
+        norm._use_fused_kernel = lambda *a, **k: False
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.nn.functional import attention, norm
+
+        attention._reference_kernel, norm._use_fused_kernel = self._saved
+        return False
+
+
+def ernie_model(layers, device="cuda", dtype=torch.bfloat16, dropout=True, **over):
+    """ErnieForPretraining at bench.py's widths and ``layers`` layers,
+    random weights from seed 0; ``dropout=False`` zeroes both rates."""
+    from paddle_tpu_torch.models import BertConfig, ErnieForPretraining
+
+    if not dropout:
+        over = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0, **over)
+    model = ErnieForPretraining(BertConfig.base(num_hidden_layers=layers, **over),
+                                device=device, dtype=dtype)
+    model.init_weights(torch.Generator(device=device).manual_seed(0))
+    return model
+
+
+def ernie_batch(cfg, B, S, P, seed, device):
+    """bench.py _bench_ernie's batch: int32 ids and segment ids [B, S], P
+    distinct masked positions a row, their labels [B, P] and NSP labels
+    [B, 1]."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    seg = (rng.rand(B, S) > 0.5).astype(np.int32)
+    pos = np.stack([rng.choice(S, P, replace=False) for _ in range(B)]).astype(np.int32)
+    labels = rng.randint(0, cfg.vocab_size, (B, P)).astype(np.int32)
+    nsp = rng.randint(0, 2, (B, 1)).astype(np.int32)
+    return [torch.from_numpy(a).to(device) for a in (ids, seg, pos, labels, nsp)]
+
+
+def ernie_loss(model):
+    def loss_fn(ids, seg, pos, labels, nsp):
+        loss, _ = model(ids, token_type_ids=seg, masked_lm_labels=labels,
+                        next_sentence_label=nsp, masked_positions=pos)
+        return loss
+
+    return loss_fn
+
+
+def ernie_flops(cfg, B, S, P):
+    """bench.py's count for the masked recipe: encoder matmuls on every
+    token, the MLM transform and tied decoder on the B * P masked rows, the
+    pooler and NSP head per sequence, and the bidirectional attention."""
+    h, L = cfg.hidden_size, cfg.num_hidden_layers
+    enc = L * (h * 3 * h + h * h + 2 * h * cfg.intermediate_size)
+    head = h * h + h * cfg.vocab_size
+    pooled = h * h + h * 2
+    return (6 * enc * B * S + 6 * head * B * P + 6 * pooled * B
+            + 3 * 4 * B * S * S * h * L)
+
+
+def ernie_per_layer(L):
+    return {"fused_ln": 2 * L, "fused_ln_bwd": 2 * L, "encoder_attention": L,
+            "encoder_attention_bwd": L}
+
+
+def ernie_grad_parity(model, batch):
+    """Every parameter's gradient through the kernels against the same
+    model's through the composed/dense paths, at rate 0."""
+    L = model.config.num_hidden_layers
+    names, params = zip(*model.named_parameters())
+    loss_fn = ernie_loss(model)
+    grads, launches, losses = {}, {}, {}
+    def grad(loss):  # the task-type embedding takes no part without task ids
+        got = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, got)]
+
+    for kern in (True, False):
+        zero_counts()
+        if kern:
+            loss = loss_fn(*batch)
+            grads[kern] = grad(loss)
+        else:
+            with composed_paths():
+                loss = loss_fn(*batch)
+                grads[kern] = grad(loss)
+        sync()
+        launches[kern], losses[kern] = read_counts(), float(loss.detach())
+    rel = {n: ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)
+               ).item() for n, a, b in zip(names, grads[True], grads[False])}
+    worst = max(rel, key=rel.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads[True])
+    ordered = sorted(rel.values())
+    expected = ernie_per_layer(L)
+    return dict(layers=L, B=batch[0].shape[0], loss_kernels=losses[True],
+                loss_composed=losses[False], max_rel=rel[worst], worst_param=worst,
+                median_rel=ordered[len(ordered) // 2], tol=GRAD_RTOL, finite=finite,
+                launches=launches[True], expected_launches=expected,
+                composed_launches=launches[False],
+                ok=(finite and rel[worst] <= GRAD_RTOL and launch_check(launches[True], expected)
+                    and not any(launches[False].values())))
+
+
+@torch.no_grad()
+def ernie_determinism(model, batch):
+    """At rate 0.1: the same seed() gives the same loss and MLM logits
+    twice, another seed another loss.  The model's loss is bf16, whose
+    steps are 0.5 at a loss near 115, coarser than what another mask moves
+    it by, so the check reads the MLM cross entropy of the logits in f32."""
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch import seed
+
+    ids, seg, pos, labels, nsp = batch
+    got, f32, logits = [], [], []
+    for s in (1, 1, 2):
+        seed(s)
+        loss, mlm = model(ids, token_type_ids=seg, masked_lm_labels=labels,
+                          next_sentence_label=nsp, masked_positions=pos)
+        got.append(float(loss))
+        f32.append(float(tF.cross_entropy(mlm.float(), labels.reshape(-1).long())))
+        logits.append(mlm)
+    same = bool(torch.equal(logits[0], logits[1]))
+    return dict(losses=got, mlm_losses_f32=f32, same_seed_logits_equal=same,
+                other_seed_logits_equal=bool(torch.equal(logits[0], logits[2])),
+                ok=same and got[0] == got[1] and f32[0] == f32[1] and f32[2] != f32[0])
+
+
+@torch.no_grad()
+def ernie_eval(model, batch):
+    """The eval forward at full depth: MLM logits through the kernels (rate
+    0: the fused-LN forward and encoder forward at rate 0) against the
+    composed/dense forward's."""
+    model.eval()
+    ids, seg, pos = batch[:3]
+    zero_counts()
+    logits, nsp = model(ids, token_type_ids=seg, masked_positions=pos)
+    sync()
+    launches = read_counts()
+    with composed_paths():
+        want, want_nsp = model(ids, token_type_ids=seg, masked_positions=pos)
+    model.train()
+    L = model.config.num_hidden_layers
+    drift = (logits.float() - want.float()).abs().max().item()
+    std = want.float().std().item()
+    expected = {"fused_ln": 2 * L, "encoder_attention": L}
+    return dict(layers=L, logits_shape=list(logits.shape), max_logit_drift=drift,
+                logit_std=std, drift_in_std=drift / std, logit_tol_in_std=LOGIT_TOL,
+                nsp_drift=(nsp.float() - want_nsp.float()).abs().max().item(),
+                finite=bool(torch.isfinite(logits).all()), launches=launches,
+                expected_launches=expected,
+                ok=(bool(torch.isfinite(logits).all()) and drift <= LOGIT_TOL * std
+                    and launch_check(launches, expected)))
+
+
+def ernie_train(model, batch, steps=ERNIE_STEPS, warmup=ERNIE_WARMUP, profiled=True):
+    """TrainStep + AdamW(1e-4, weight_decay=0.01) on one fixed batch at
+    dropout 0.1: ``warmup`` steps, then ``steps`` timed ones with the
+    launch counters zeroed just before."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = model.config
+    step = TrainStep(model, ernie_loss(model), AdamW(1e-4, weight_decay=0.01))
+    losses = [float(step(*batch)) for _ in range(warmup)]
+    sync()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()                                        # the run starts here
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))               # the host waits for the loss
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts()                             # ... and ends here
+    B, S = batch[0].shape
+    P = batch[2].shape[1]
+    step_ms = sorted(ms)[len(ms) // 2]
+    flops = ernie_flops(cfg, B, S, P)
+    expected = {k: n * steps for k, n in ernie_per_layer(cfg.num_hidden_layers).items()}
+    res = dict(path="ernie", name=f"b{B}_s{S}_p{P}_drop{cfg.hidden_dropout_prob}", B=B, S=S,
+               masked_per_seq=P, layers=cfg.num_hidden_layers, params=model.num_params,
+               warmup=warmup, steps=steps, losses=losses, step_ms=step_ms, step_ms_all=ms,
+               tokens_per_s=B * S / step_ms * 1e3, flops_per_step=flops,
+               mfu=flops / (step_ms / 1e3) / H100_BF16_FLOPS,
+               peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                               if torch.cuda.is_available() else None),
+               launches=launches, expected_launches=expected)
+    res["ok"] = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                 and launch_check(launches, expected))
+    if profiled:
+        res["profile"] = train_profile(step, batch)
+    return res
+
+
+def ernie_phase(card, device="cuda", layers=12, parity_layers=2, B=ERNIE_B, S=ERNIE_S,
+                P=ERNIE_P, dtype=torch.bfloat16, **over):
+    """bench.py's ERNIE pretraining: gradient parity at ``parity_layers``
+    layers and rate 0, determinism at rate 0.1, the eval forward and the
+    training run at ``layers`` layers."""
+    small = ernie_model(parity_layers, device, dtype, dropout=False, **over)
+    batch = ernie_batch(small.config, B, S, P, 0, device)
+    parity = ernie_grad_parity(small, batch)
+    del small
+    log(f"  grad parity, {parity['layers']} layers, rate 0: max rel {parity['max_rel']:.3e} "
+        f"({parity['worst_param']}), median {parity['median_rel']:.3e} (tol {parity['tol']}); "
+        f"loss {parity['loss_kernels']:.4f} vs composed {parity['loss_composed']:.4f}; "
+        f"launches {parity['launches']} (expected {parity['expected_launches']}); "
+        f"{'ok' if parity['ok'] else 'FAIL'} [{card}]")
+    small = ernie_model(parity_layers, device, dtype, **over)
+    determinism = ernie_determinism(small, batch)
+    del small
+    log(f"  determinism at rate 0.1: losses {determinism['losses']}, MLM in f32 "
+        f"{determinism['mlm_losses_f32']}; same-seed logits equal "
+        f"{determinism['same_seed_logits_equal']}, other-seed logits equal "
+        f"{determinism['other_seed_logits_equal']}; "
+        f"{'ok' if determinism['ok'] else 'FAIL'} [{card}]")
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = ernie_model(layers, device, dtype, **over)
+    sync()
+    log(f"  model: {model.num_params / 1e6:.1f} M params, {layers} layers, {dtype}, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    ev = ernie_eval(model, batch)
+    log(f"  eval forward, {ev['layers']} layers: MLM logits {ev['logits_shape']}, drift max "
+        f"{ev['max_logit_drift']:.4f} = {ev['drift_in_std']:.4f} std (std "
+        f"{ev['logit_std']:.3f}; tol {LOGIT_TOL} std); launches {ev['launches']} (expected "
+        f"{ev['expected_launches']}); {'ok' if ev['ok'] else 'FAIL'} [{card}]")
+    run = ernie_train(model, batch, profiled=device != "cpu")
+    del model
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    log(f"  {run['name']}: step {run['step_ms']:.2f} ms (median of {run['steps']}), "
+        f"{run['tokens_per_s']:.0f} tok/s, MFU {run['mfu']:.4f}, peak "
+        f"{(run['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; loss {run['losses'][0]:.4f} -> "
+        f"{run['losses'][-1]:.4f}; launches {run['launches']} (expected "
+        f"{run['expected_launches']}); profile {json.dumps(run.get('profile'))}; "
+        f"{'ok' if run['ok'] else 'FAIL'} [{card}]")
+    return dict(grad_parity=parity, determinism=determinism, eval=ev), [run]
+
+
 def build_model():
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
@@ -1341,7 +1885,7 @@ def build_model():
 # ------------------------------------------------------------------- main
 
 PHASES = ("device", "build", "kernels", "generate", "dense_engine", "paged_engine",
-          "ticks", "train")
+          "ticks", "train", "ernie")
 PATH_TITLES = {"generate": "model.generate() on the static cache",
                "dense_engine": "the dense LLMEngine",
                "paged_engine": "the paged LLMEngine",
@@ -1388,7 +1932,7 @@ def main(argv=None):
         log("[kernels] every kernel vs its plain version")
         report["kernels"] = kernel_phase()
         ok &= all(c["ok"] for cases in report["kernels"].values() for c in cases)
-    serving = [ph for ph in paths if ph != "train"]
+    serving = [ph for ph in paths if ph not in ("train", "ernie")]
     if serving:
         model = build_model()
         for ph in serving:
@@ -1406,6 +1950,11 @@ def main(argv=None):
         report["train_grad_parity"], runs = train_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in report["train_grad_parity"] + runs)
+    if "ernie" in paths:
+        log("[ernie] bench.py's ERNIE-base pretraining through TrainStep + AdamW")
+        report["ernie_checks"], runs = ernie_phase(report["card"])
+        report["paths"] += runs
+        ok &= all(r["ok"] for r in list(report["ernie_checks"].values()) + runs)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

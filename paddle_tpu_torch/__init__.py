@@ -12,8 +12,13 @@ static and paged kv caches and the dense and paged ``inference.LLMEngine``
 (the decode, paged, flash and encoder attention kernels of ``ops``); and
 training — ``LlamaForCausalLM(ids, labels=)`` under ``jit.TrainStep`` with
 the ``optimizer`` package and ``nn`` clipping, through the flash and
-encoder attention backward kernels.  ROADMAP.md lists what is still to
-port.
+encoder attention backward kernels; and BERT/ERNIE pretraining
+(``models.bert``) through the fused dropout + add + LayerNorm kernels and
+the encoder attention kernels with their Philox dropout.  ``seed(s)``
+reseeds every device's generator, and with it every dropout mask.
+ROADMAP.md lists what is still to port.
 """
+
+from .framework.random import seed  # noqa: F401
 
 __version__ = "0.1.0"

@@ -31,6 +31,12 @@
 // Masks are bottom-right aligned as in the forward: query i sees key j iff
 // j <= i + Sk - Sq.  Rows past the sequence are staged as zeros and masked,
 // so they add nothing.
+//
+// Encoder dropout (seed given): with keep the forward's mask (regenerated
+// from the seed pair by keep_pair / keep_pair_t of mma_attention.cuh, the
+// same bits whichever way a tile is held), P_d = where(keep, P / (1 -
+// rate), 0) and dP = where(keep, dO V^T / (1 - rate), 0): dV = P_d^T dO,
+// dsum = rowsum(dP * P), dS = P (dP - dsum).
 #pragma once
 
 #include "mma_attention.cuh"
@@ -52,6 +58,9 @@ struct Grad {
   int B, H, Sq, Sk;
   float scale;
   int causal;
+  const int* seed;          // encoder dropout: int32 [2] seed pair, or null (no dropout)
+  uint32_t thresh;          // keep iff the element's Philox word < thresh
+  float inv_keep;           // 1 / (1 - rate)
 };
 
 template <int D>
@@ -208,6 +217,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Grad p) {
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kBK, row0 = q0 + 16 * warp;
   const size_t stat0 = (size_t)(b * p.H + h) * p.Sq;
+  const bool drop = ENCODER && p.seed;
+  const uint2 key = drop ? philox::key(p.seed) : make_uint2(0u, 0u);
 
   stage_rows<D>(sm.x1, p.q, b, h, q0, p.Sq, p.H, tid);
   stage_rows<D>(sm.x2, p.dO, b, h, q0, p.Sq, p.H, tid);
@@ -229,6 +240,10 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Grad p) {
         float s[2][4], dp[2][4];
         xyt_chunk<D>(s, xq, &sm.y1[0][0], kk, g, t);
         xyt_chunk<D>(dp, xd, &sm.y2[0][0], kk, g, t);
+        if (drop)
+          apply_keep(dp[0], dp[1],
+                     keep_pair(key, b * p.H + h, row0, kb + 16 * kk, g, t, p.thresh),
+                     p.inv_keep);
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           float mx = kNegInf;
@@ -236,8 +251,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Grad p) {
           for (int j = 0; j < 2; ++j)
 #pragma unroll
             for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
-              const int key = kb + 16 * kk + 8 * j + 2 * t + (e & 1);
-              s[j][e] = visible(p, row0 + g + 8 * hr, key) ? s[j][e] * p.scale : kNegInf;
+              const int col = kb + 16 * kk + 8 * j + 2 * t + (e & 1);
+              s[j][e] = visible(p, row0 + g + 8 * hr, col) ? s[j][e] * p.scale : kNegInf;
               mx = fmaxf(mx, s[j][e]);
             }
           const float m_new = fmaxf(m[hr], quad_max(mx));
@@ -291,12 +306,16 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Grad p) {
       float s[2][4], dp[2][4];
       xyt_chunk<D>(s, xq, &sm.y1[0][0], kk, g, t);
       xyt_chunk<D>(dp, xd, &sm.y2[0][0], kk, g, t);
+      if (drop)
+        apply_keep(dp[0], dp[1],
+                   keep_pair(key, b * p.H + h, row0, kb + 16 * kk, g, t, p.thresh),
+                   p.inv_keep);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int hr = e >> 1, key = kb + 16 * kk + 8 * j + 2 * t + (e & 1);
-          const float ds = visible(p, row0 + g + 8 * hr, key)
+          const int hr = e >> 1, col = kb + 16 * kk + 8 * j + 2 * t + (e & 1);
+          const float ds = visible(p, row0 + g + 8 * hr, col)
                                ? __expf(s[j][e] * p.scale - lse[hr]) * (dp[j][e] - dsum[hr])
                                : 0.f;
           s[j][e] = ENCODER ? ds * p.scale : ds;
@@ -326,6 +345,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Grad p) {
   const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * kBK, key0 = k0 + 16 * warp;
   const size_t stat0 = (size_t)(b * p.H + h) * p.Sq;
+  const bool drop = ENCODER && p.seed;
+  const uint2 key = drop ? philox::key(p.seed) : make_uint2(0u, 0u);
 
   stage_rows<D>(sm.x1, p.k, b, h, k0, p.Sk, p.H, tid);
   stage_rows<D>(sm.x2, p.v, b, h, k0, p.Sk, p.H, tid);
@@ -353,6 +374,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Grad p) {
       float s[2][4], dp[2][4];
       xyt_chunk<D>(s, xk, &sm.y1[0][0], kk, g, t);
       xyt_chunk<D>(dp, xv, &sm.y2[0][0], kk, g, t);
+      const uint32_t keep =
+          drop ? keep_pair_t(key, b * p.H + h, qb + 16 * kk, key0, g, t, p.thresh) : 0u;
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -361,9 +384,16 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Grad p) {
           const float pr = visible(p, qb + qi, key0 + g + 8 * (e >> 1))
                                ? __expf(s[j][e] * p.scale - sm.lse[qi])
                                : 0.f;
-          const float ds = pr * (dp[j][e] - sm.dsum[qi]);
-          s[j][e] = pr;
-          dp[j][e] = ENCODER ? ds * p.scale : ds;
+          if (drop) {  // P_d for dV; the masked dP for dS
+            const bool kept = (keep >> (4 * j + e)) & 1;
+            const float ds = pr * ((kept ? dp[j][e] * p.inv_keep : 0.f) - sm.dsum[qi]);
+            s[j][e] = kept ? pr * p.inv_keep : 0.f;
+            dp[j][e] = ds * p.scale;
+          } else {
+            const float ds = pr * (dp[j][e] - sm.dsum[qi]);
+            s[j][e] = pr;
+            dp[j][e] = ENCODER ? ds * p.scale : ds;
+          }
         }
       uint32_t a[4];
       if (ENCODER) {

@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace mma_attention {
 
 constexpr int kWarps = 4;
@@ -46,6 +48,9 @@ struct Problem {
   int B, H, Sq, Sk;
   float scale;
   int causal;              // bottom-right: query i sees keys <= i + Sk - Sq
+  const int* seed;         // encoder dropout: int32 [2] seed pair, or null (no dropout)
+  uint32_t thresh;         // keep iff the element's Philox word < thresh
+  float inv_keep;          // 1 / (1 - rate)
 };
 
 template <int D>
@@ -187,6 +192,52 @@ __device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&pr)[kBK /
       mma_16816(o[dn], pa, b0, b1);
       mma_16816(o[dn + 1], pa, b2, b3);
     }
+  }
+}
+
+// Dropout keep bits of 16 x 16 tiles of the [B * H, S, S] probabilities
+// (philox.cuh: element (bh, i, j) reads counter (oct(i), oct(j), bh, 0),
+// word 2 * ((i >> 3) & 1) + ((j >> 3) & 1)).  A pair of accumulators a, b
+// holds this thread's 8 elements of a tile; bit 4 * (0 for a, 1 for b) + e
+// is element e's.
+//
+// keep_pair: rows i0 .. i0 + 15 (queries), columns j0 .. j0 + 15 (keys), a
+// the columns j0 .. j0 + 7; element e at row i0 + g + 8 (e >> 1), column
+// + 2t + (e & 1): the S and dP tiles of the forward and the dQ kernel.
+__device__ __forceinline__ uint32_t keep_pair(uint2 key, int bh, int i0, int j0, int g, int t,
+                                              uint32_t thresh) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const uint4 w = philox::encoder_words(key, bh, i0 + g, j0 + 2 * t + c);
+    bits |= (w.x < thresh) << c | (w.z < thresh) << (2 + c) | (w.y < thresh) << (4 + c) |
+            (w.w < thresh) << (6 + c);
+  }
+  return bits;
+}
+
+// keep_pair_t: the transposed tile of the dK/dV kernel, rows k0 .. k0 + 15
+// (keys), columns q0 .. q0 + 15 (queries), a the queries q0 .. q0 + 7;
+// element e at key k0 + g + 8 (e >> 1), query + 2t + (e & 1).
+__device__ __forceinline__ uint32_t keep_pair_t(uint2 key, int bh, int q0, int k0, int g, int t,
+                                                uint32_t thresh) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const uint4 w = philox::encoder_words(key, bh, q0 + 2 * t + c, k0 + g);
+    bits |= (w.x < thresh) << c | (w.y < thresh) << (2 + c) | (w.z < thresh) << (4 + c) |
+            (w.w < thresh) << (6 + c);
+  }
+  return bits;
+}
+
+// x = where(keep, x * mul, 0) over a pair's 8 elements.
+__device__ __forceinline__ void apply_keep(float (&a)[4], float (&b)[4], uint32_t bits,
+                                           float mul) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    a[e] = (bits >> e) & 1 ? a[e] * mul : 0.f;
+    b[e] = (bits >> (4 + e)) & 1 ? b[e] * mul : 0.f;
   }
 }
 

@@ -1,4 +1,5 @@
-from .activation import silu  # noqa: F401
+from .activation import gelu, silu, tanh  # noqa: F401
 from .attention import scaled_dot_product_attention  # noqa: F401
+from .common import dropout  # noqa: F401
 from .loss import cross_entropy  # noqa: F401
-from .norm import rms_norm  # noqa: F401
+from .norm import fused_dropout_add_layer_norm, layer_norm, rms_norm  # noqa: F401

@@ -1,4 +1,4 @@
-"""Linear and Embedding (counterpart of paddle_tpu/nn/layer/common.py).
+"""Linear, Embedding and Dropout (counterpart of paddle_tpu/nn/layer/common.py).
 
 These are ``torch.nn.Linear``/``Embedding`` with the reference's
 initializers and a Paddle-style ``bias_attr``.  One layout difference: the
@@ -12,6 +12,8 @@ import math
 
 import torch
 from torch import nn
+
+from ..functional.common import dropout
 
 
 class Linear(nn.Linear):
@@ -42,3 +44,18 @@ class Embedding(nn.Embedding):
     def reset_parameters(self, generator=None):
         with torch.no_grad():
             self.weight.normal_(0.0, 1.0, generator=generator)
+
+
+class Dropout(nn.Module):
+    """``F.dropout`` with this layer's p, axis and mode, active in training
+    mode (``self.training``) only."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+
+    def forward(self, x):
+        return dropout(x, self.p, axis=self.axis, training=self.training, mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"

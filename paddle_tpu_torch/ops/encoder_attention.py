@@ -1,27 +1,29 @@
-"""Fused short-sequence self-attention at dropout rate 0, forward and
-backward (counterpart of paddle_tpu/ops/encoder_attention.py).
+"""Fused short-sequence self-attention with dropout of the probabilities,
+forward and backward (counterpart of paddle_tpu/ops/encoder_attention.py).
 
 ``encoder_attention(q, k, v, seed, scale, dropout_rate, causal)`` takes
-q/k/v [B, S, H, D] (paddle layout) and returns softmax(scale * q k^T) v
-[B, S, H, D], each row's softmax taken whole (max and sum first, then the
-normalised probabilities rounded to v's dtype before P.V), optionally
-causal.  ``supported`` keeps the reference's admission: self-attention
+q/k/v [B, S, H, D] (paddle layout) and returns dropout(softmax(scale *
+q k^T)) v [B, S, H, D], each row's softmax taken whole (max and sum first,
+then the normalised probabilities, masked and scaled by 1 / (1 - rate),
+rounded to v's dtype before P.V), optionally causal.  The mask is Philox
+from the int32 [2] ``seed`` (``ops/_prng.py``: element (bh, i, j) of the
+[B * H, S, S] probabilities reads counter (oct(i), oct(j), bh, 0)), not the
+TPU's bits.  ``supported`` keeps the reference's admission: self-attention
 only (Sq == Sk), S % 128 == 0, S <= 512, D in {64, 128}; the reference's
 heads-per-step choice (``pick_g``, a VMEM budget) is TPU tiling, and no
 admitted shape ever failed it.
 
-It is a ``torch.autograd.Function`` that saves only q, k and v, as the
-reference does: the backward (``_bwd_kernel``) recomputes P, then dV =
-P^T dO and dP = dO V^T in f32, dS = P (dP - rowsum(dP * P)) * scale rounded
-to the input dtype, dQ = dS K and dK = dS^T Q.
+It is a ``torch.autograd.Function`` that saves only q, k, v and the seed,
+as the reference does: the backward (``_bwd_kernel``) recomputes P and
+regenerates the mask, then dV = P_d^T dO with P_d = where(keep, P / (1 -
+rate), 0) and dP = where(keep, dO V^T / (1 - rate), 0) in f32, dS = P (dP -
+rowsum(dP * P)) * scale rounded to the input dtype, dQ = dS K and dK = dS^T
+Q.  Nothing of size [B * H, S, S] is stored.
 
 A CPU tensor takes the plain versions, ``_encoder_dense`` forward and
 ``_encoder_bwd_dense`` backward; a CUDA tensor launches
 ``csrc/encoder_attention.cu`` forward and ``csrc/encoder_attention_bwd.cu``
-backward (bf16) or raises.  Not ported yet, and raising
-NotImplementedError: dropout (the reference draws its mask from an
-in-kernel PRNG; ROADMAP.md Queue 2 item 4, with the encoder slice, Queue 1
-item 4).
+backward (bf16) or raises.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._prng import encoder_bits, keep_mask, launch_args
 
 NEG_INF = -1e30
 
@@ -56,22 +59,33 @@ def _probs(q, k, scale, causal):
     return torch.softmax(s, dim=-1)
 
 
-def _encoder_dense(q, k, v, scale, causal):
-    """Plain version: p rounded to v's dtype before P.V.  Returns
-    [B, S, H, D] in q's dtype."""
-    p = _probs(q, k, scale, causal).to(v.dtype)
+def dropout_keep(seed, B, H, S, rate):
+    """The keep mask [B, H, S, S] of a call with this seed and rate (the
+    kernels' bits, ops/_prng.py)."""
+    return keep_mask(encoder_bits(seed, B * H, S), rate).reshape(B, H, S, S)
+
+
+def _drop(x, keep, rate):
+    return x if keep is None else torch.where(keep, x * (1.0 / (1.0 - rate)), 0.0)
+
+
+def _encoder_dense(q, k, v, scale, causal, keep=None, rate=0.0):
+    """Plain version: p masked by ``keep`` [B, H, S, S] (None: no dropout)
+    and scaled by 1 / (1 - rate), then rounded to v's dtype before P.V.
+    Returns [B, S, H, D] in q's dtype."""
+    p = _drop(_probs(q, k, scale, causal), keep, rate).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)
 
 
-def _encoder_bwd_dense(q, k, v, do, scale, causal):
-    """Plain backward in the order of the reference's ``_bwd_kernel`` at
-    rate 0: dV = P^T dO and dP = dO V^T in f32, dS = P (dP - rowsum(dP *
-    P)) * scale, rounded to the input dtype before dQ = dS K and dK = dS^T
-    Q.  Returns (dq, dk, dv) in the inputs' dtypes."""
+def _encoder_bwd_dense(q, k, v, do, scale, causal, keep=None, rate=0.0):
+    """Plain backward in the order of the reference's ``_bwd_kernel``: dV =
+    P_d^T dO and dP = where(keep, dO V^T / (1 - rate), 0) in f32, dS = P
+    (dP - rowsum(dP * P)) * scale, rounded to the input dtype before dQ =
+    dS K and dK = dS^T Q.  Returns (dq, dk, dv) in the inputs' dtypes."""
     p = _probs(q, k, scale, causal)
     dof = do.float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", _drop(p, keep, rate), dof)
+    dp = _drop(torch.einsum("bqhd,bkhd->bhqk", dof, v.float()), keep, rate)
     ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(q.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
@@ -84,7 +98,8 @@ def _check(cond, msg):
 
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
+    ctypes.c_void_p]
 
 
 def _check_inputs(tensors):
@@ -107,10 +122,11 @@ def _check_inputs(tensors):
     return out
 
 
-def encoder_attention_kernel(q, k, v, scale=None, causal=False):
+def encoder_attention_kernel(q, k, v, scale=None, causal=False, seed=None, rate=0.0):
     """Launch ``csrc/encoder_attention.cu`` on CUDA tensors: q/k/v
-    [B, S, H, D] bf16 with a ``supported`` shape.  Returns O [B, S, H, D]
-    bf16.  Raises ValueError on anything else.  Every launch adds one to
+    [B, S, H, D] bf16 with a ``supported`` shape; with ``rate`` > 0, dropout
+    from ``seed`` (int32 [2] on q's device).  Returns O [B, S, H, D] bf16.
+    Raises ValueError on anything else.  Every launch adds one to
     ``encoder_attention_kernel.launches``."""
     q, k, v = _check_inputs({"q": q, "k": k, "v": v})
     B, S, H, D = q.shape
@@ -118,10 +134,12 @@ def encoder_attention_kernel(q, k, v, scale=None, causal=False):
         scale = 1.0 / (D ** 0.5)
     o = torch.empty_like(q)
     dev = q.device
+    sp, thresh, inv = launch_args(seed, rate, 1.0 / (1.0 - rate), dev)
     with torch.cuda.device(dev):
         _build.launch("encoder_attention", _ARGS, q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), o.data_ptr(), B, H, S, D, float(scale),
-                      int(bool(causal)), torch.cuda.current_stream(dev).cuda_stream)
+                      int(bool(causal)), sp, thresh, float(inv),
+                      torch.cuda.current_stream(dev).cuda_stream)
     encoder_attention_kernel.launches += 1
     return o
 
@@ -129,15 +147,17 @@ def encoder_attention_kernel(q, k, v, scale=None, causal=False):
 encoder_attention_kernel.launches = 0
 
 _BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
+    ctypes.c_void_p]
 
 
-def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False):
-    """Launch ``csrc/encoder_attention_bwd.cu`` (the port of ``_bwd_kernel``
-    at rate 0) on CUDA tensors: q/k/v/do [B, S, H, D] bf16 with a
-    ``supported`` shape.  Returns (dQ, dK, dV) [B, S, H, D] bf16.  Raises
-    ValueError on anything else.  Every launch adds one to
-    ``encoder_attention_bwd_kernel.launches``."""
+def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=None,
+                                 rate=0.0):
+    """Launch ``csrc/encoder_attention_bwd.cu`` (the port of ``_bwd_kernel``)
+    on CUDA tensors: q/k/v/do [B, S, H, D] bf16 with a ``supported`` shape,
+    and the forward's ``seed`` and ``rate``.  Returns (dQ, dK, dV)
+    [B, S, H, D] bf16.  Raises ValueError on anything else.  Every launch
+    adds one to ``encoder_attention_bwd_kernel.launches``."""
     q, k, v, do = _check_inputs({"q": q, "k": k, "v": v, "do": do})
     B, S, H, D = q.shape
     if scale is None:
@@ -148,10 +168,11 @@ def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False):
     lse = torch.empty(B * H, S, dtype=torch.float32, device=dev)
     dsum = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    sp, thresh, inv = launch_args(seed, rate, 1.0 / (1.0 - rate), dev)
     with torch.cuda.device(dev):
         _build.launch("encoder_attention_bwd", _BWD_ARGS,
                       *(t.data_ptr() for t in (q, k, v, do, lse, dsum, dq, dk, dv)),
-                      B, H, S, D, float(scale), int(bool(causal)),
+                      B, H, S, D, float(scale), int(bool(causal)), sp, thresh, float(inv),
                       torch.cuda.current_stream(dev).cuda_stream)
     encoder_attention_bwd_kernel.launches += 1
     return dq, dk, dv
@@ -160,41 +181,48 @@ def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False):
 encoder_attention_bwd_kernel.launches = 0
 
 
+def _plain_keep(q, seed, rate):
+    B, S, H, _ = q.shape
+    return dropout_keep(seed, B, H, S, rate) if rate > 0.0 else None
+
+
 class _EncoderAttention(torch.autograd.Function):
-    """Encoder attention at rate 0; saves only q, k and v."""
+    """Encoder attention; saves only q, k, v and the seed pair."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale, ctx.causal = scale, causal
+    def forward(ctx, q, k, v, seed, scale, rate, causal):
+        ctx.save_for_backward(q, k, v, seed)
+        ctx.scale, ctx.rate, ctx.causal = scale, rate, causal
         if q.device.type == "cpu":
-            return _encoder_dense(q, k, v, scale, causal)
-        return encoder_attention_kernel(q, k, v, scale, causal)
+            return _encoder_dense(q, k, v, scale, causal, _plain_keep(q, seed, rate), rate)
+        return encoder_attention_kernel(q, k, v, scale, causal, seed, rate)
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        q, k, v, seed = ctx.saved_tensors
         if q.device.type == "cpu":
-            dq, dk, dv = _encoder_bwd_dense(q, k, v, do, ctx.scale, ctx.causal)
+            dq, dk, dv = _encoder_bwd_dense(q, k, v, do, ctx.scale, ctx.causal,
+                                            _plain_keep(q, seed, ctx.rate), ctx.rate)
         else:
-            dq, dk, dv = encoder_attention_bwd_kernel(q, k, v, do, ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None
+            dq, dk, dv = encoder_attention_bwd_kernel(q, k, v, do, ctx.scale, ctx.causal,
+                                                      seed, ctx.rate)
+        return dq, dk, dv, None, None, None, None
 
 
 def encoder_attention(q, k, v, seed=None, scale=None, dropout_rate=0.0,
                       causal=False):
-    """q/k/v [B, S, H, D] -> [B, S, H, D].  ``seed`` is accepted for the
-    reference's signature; it only matters with dropout, which raises."""
+    """q/k/v [B, S, H, D] -> [B, S, H, D].  ``seed``: int32 [2] on q's
+    device, required when ``dropout_rate`` > 0."""
     b, s, h, d = q.shape
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "encoder attention dropout is not ported yet (ROADMAP.md Queue 2 "
-            "item 4: the _prng Philox function, with the encoder slice, "
-            "Queue 1 item 4)")
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("encoder_attention: dropout_rate > 0 requires a seed")
+    if seed is None:
+        seed = torch.zeros(2, dtype=torch.int32, device=q.device)
     if not supported(b * h, s, d, k.shape[1]):
         raise ValueError(
             f"encoder_attention: shape B*H={b * h} S={s} D={d} unsupported "
             "(need S%128==0, S<=512, D in (64,128)) - use the dense SDPA path")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    return _EncoderAttention.apply(q, k, v, float(scale), bool(causal))
+    return _EncoderAttention.apply(q, k, v, seed, float(scale), float(dropout_rate),
+                                   bool(causal))

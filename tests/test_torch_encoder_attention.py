@@ -4,10 +4,13 @@ against the JAX reference on the CPU, in f32.
 The port's plain ``_encoder_dense`` and ``_encoder_bwd_dense`` (what CPU
 tensors take, and the oracles of the Hopper kernels in chip_smoke.py) are
 held against the reference's Pallas ``encoder_attention`` in interpret mode
-at dropout rate 0, on the same numpy-seeded inputs.  Tolerance 1e-5
-absolute on the output and 1e-4 on the gradients, as the reference's own
-test (tests/test_encoder_attention.py): f32 on both sides.  The gradients
-are of sum(o * cos(o)).
+at dropout rate 0, on the same numpy-seeded inputs.  With dropout, whose
+bits differ between the platforms by design, they are held against a jnp
+composition of the reference kernel's math (``_fwd_kernel``: softmax, then
+where(keep, p / (1 - rate), 0), then P.V) fed the port's own Philox mask,
+and its ``jax.grad``.  Tolerance 1e-5 absolute on the output and 1e-4 on
+the gradients, as the reference's own test (tests/test_encoder_attention.py):
+f32 on both sides.  The gradients are of sum(o * cos(o)).
 """
 import numpy as np
 import pytest
@@ -84,10 +87,82 @@ def test_sdpa_auto_grads_match_reference(causal):
                                    err_msg=f"d{name}")
 
 
-def test_dropout_raises_until_philox_is_ported():
+def _ref_dropout_math(keep, rate, causal, scale):
+    """The reference _fwd_kernel's math in jnp, on [B, S, H, D], with an
+    explicit keep mask [B, H, S, S]."""
+    def fn(q, k, v):
+        s = jnp.einsum("bqhd,bkhd->bhqk", q, k) * scale
+        if causal:
+            S = q.shape[1]
+            s = s + jnp.where(jnp.arange(S)[:, None] >= jnp.arange(S)[None, :], 0.0, -1e30)
+        m = jnp.max(s, axis=-1, keepdims=True)
+        e = jnp.exp(s - m)
+        p = e / jnp.sum(e, axis=-1, keepdims=True)
+        p = jnp.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
+        return jnp.einsum("bhqk,bkhd->bqhd", p.astype(v.dtype), v)
+    return fn
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("S,D", [(128, 64), (256, 128)])
+def test_dropout_matches_reference_math_with_the_ports_mask(S, D, causal):
+    """Rate 0.1: forward and dQ, dK, dV through the port's Function (its
+    plain versions on CPU tensors), the mask regenerated in the backward
+    from the saved seed, against jax.grad of the reference kernel's math
+    fed the same mask."""
+    rate, B, H = 0.1, 2, 2
+    q, k, v = _qkv(S, D, B=B, H=H, seed=S + D + 7)
+    seed = torch.tensor([S * 7, -D], dtype=torch.int32)
+    keep = tea.dropout_keep(seed, B, H, S, rate)
+    kc = keep.float().mean().item()
+    assert abs(kc - (1 - rate)) < 5 * (rate * (1 - rate) / keep.numel()) ** 0.5
+    fn = _ref_dropout_math(jnp.asarray(keep.numpy()), rate, causal, 1.0 / D ** 0.5)
+    want = fn(*(jnp.asarray(a) for a in (q, k, v)))
+    got = tea.encoder_attention(*(torch.from_numpy(a) for a in (q, k, v)), seed=seed,
+                                dropout_rate=rate, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    gots = _port_grads(lambda *a: tea.encoder_attention(*a, seed=seed, dropout_rate=rate,
+                                                        causal=causal), q, k, v)
+    wants = _ref_grads(fn, q, k, v)
+    for g, w, name in zip(gots, wants, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+    # and a mask one key over is far outside the tolerance
+    off = _ref_dropout_math(jnp.asarray(keep.roll(1, -1).numpy()), rate, causal, 1.0 / D ** 0.5)
+    assert np.abs(np.asarray(off(*(jnp.asarray(a) for a in (q, k, v)))) - got.numpy()).max() > 0.05
+
+
+def test_dropout_needs_a_seed_and_routes_like_the_reference():
     q, k, v = (torch.from_numpy(a) for a in _qkv(128, 64))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        tea.encoder_attention(q, k, v, seed=torch.tensor([3, 9]), dropout_rate=0.1)
+    with pytest.raises(ValueError, match="requires a seed"):
+        tea.encoder_attention(q, k, v, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="requires a seed"):
+        jea.encoder_attention(*(jnp.asarray(a) for a in _qkv(128, 64)), dropout_rate=0.1)
+    from paddle_tpu_torch.nn.functional.attention import _reference_kernel
+
+    enc = torch.empty(2, 128, 12, 64, device="meta")
+    long = torch.empty(1, 2048, 16, 128, device="meta")
+    assert _reference_kernel(enc, enc, None, False, "auto", dropout=True) == "encoder_attention"
+    assert _reference_kernel(long, long, None, True, "auto") == "flash_attention"
+    assert _reference_kernel(long, long, None, True, "auto", dropout=True) is None
+    assert _reference_kernel(long, long, None, True, "flash", dropout=True) is None
+
+
+def test_sdpa_dropout_on_cpu_takes_the_dense_math():
+    """CPU tensors with dropout: the dense path masks the probabilities
+    (eval turns it off); the gradients flow through the same mask."""
+    from paddle_tpu_torch import seed
+
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(128, 64, B=2))
+    seed(5)
+    a = TF.scaled_dot_product_attention(q, k, v, dropout_p=0.5)
+    seed(5)
+    b = TF.scaled_dot_product_attention(q, k, v, dropout_p=0.5)
+    c = TF.scaled_dot_product_attention(q, k, v, dropout_p=0.5, training=False)
+    d = TF.scaled_dot_product_attention(q, k, v)
+    assert torch.equal(a, b) and torch.equal(c, d) and not torch.allclose(a, d)
+    a.sum().backward()
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
 def test_admission_matches_reference():

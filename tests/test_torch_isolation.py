@@ -29,7 +29,9 @@ import paddle_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
                                                "paddle_tpu_torch.")]
 for needed in ("jit.train_step", "jit._step_impl", "optimizer.optimizer", "nn.clip",
-               "nn.functional.loss"):  # the training slice's modules
+               "nn.functional.loss",  # the training slice's modules
+               "models.bert", "ops.fused_ln", "ops._prng", "nn.layer.norm",
+               "nn.functional.common"):  # the encoder slice's
     assert "paddle_tpu_torch." + needed in names, needed
 for name in names:
     importlib.import_module(name)
@@ -47,7 +49,7 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, leaked = out.stdout.split(" ", 1)
-    assert int(n) >= 32  # every module of slices 1 to 3 was imported
+    assert int(n) >= 36  # every module of slices 1 to 4 was imported
     assert leaked.strip() == "[]"
 
 
@@ -92,9 +94,10 @@ def test_kernel_sources_ship_as_package_data():
     text = (ROOT / "pyproject.toml").read_text()
     assert '"paddle_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
     kernels = ["decode_attention", "encoder_attention", "encoder_attention_bwd",
-               "flash_attention", "flash_attention_bwd", "paged_attention"]
+               "flash_attention", "flash_attention_bwd", "fused_ln", "paged_attention"]
     assert _build.sources() == kernels  # one library per .cu, built at first use
     for name in kernels:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
-    for header in ("attention_bwd.cuh", "kv_attention.cuh", "mma_attention.cuh"):
+    for header in ("attention_bwd.cuh", "kv_attention.cuh", "mma_attention.cuh",
+                   "philox.cuh"):
         assert (PKG / "csrc" / header).is_file()
