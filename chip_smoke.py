@@ -18,7 +18,10 @@ Phases:
                     rate 0.1) see the same seed tensor as their plain
                     versions, record their keep fraction and state the
                     bytes and Philox floors; the Philox function gives its
-                    known answers on the card.
+                    known answers on the card.  The fused conv + BN
+                    kernels run at ResNet-50's four stage shapes (forward
+                    with the fold, backward with and without it) and give
+                    the same bits twice.
   4. generate     — model.generate() at LLaMA-2-7B widths (32 layers, bf16,
                     random weights from a seed): ids [4, 1024] (flash
                     prefill) on a bf16 and an int8 cache, and ids [8, 256]
@@ -29,7 +32,7 @@ Phases:
                     then 4 on an int8 cache at decode_chunk=4.
   6. paged_engine — the paged LLMEngine on the same model: 12 requests,
                     then 4 on an int8 pool.
-In phases 4-6, 8 and 9 the launch counters are zeroed just before each run
+In phases 4-6 and 8-10 the launch counters are zeroed just before each run
 and must match the work the run did.  For the greedy outputs, each path's logits
 (teacher-forced) must stay within LOGIT_TOL (INT8_LOGIT_TOL on an int8
 cache) of the no-cache forward's with dense-math attention, and each token
@@ -59,6 +62,16 @@ time goes.
                     weight_decay=0.01), 2 warm-up and 8 timed steps, fused
                     LN forward and backward 24 and encoder forward and
                     backward 12 launches a step, one step profiled.
+ 10. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
+                    reaches the fused 1x1-conv + BN kernels: first one
+                    bottleneck block at each stage's shape, fused against
+                    composed in f32 (output, every gradient, running
+                    statistics); then resnet50(num_classes=1000,
+                    data_format="NHWC"), bf16, batch 128 at 224 x 224,
+                    Momentum(0.1, 0.9) through TrainStep, 5 warm-up and 20
+                    timed steps on one batch (fused conv + BN forward 16
+                    and backward 32 launches a step), one step profiled;
+                    then the eval forward (no fused launch).
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before
 that line.  Without CUDA, or without the repository beside this file, it
@@ -115,6 +128,10 @@ KERNELS = {
                               "paddle_tpu/ops/encoder_attention.py:101"),
     "fused_ln": ("paddle_tpu_torch/csrc/fused_ln.cu", "paddle_tpu/ops/fused_ln.py:55"),
     "fused_ln_bwd": ("paddle_tpu_torch/csrc/fused_ln.cu", "paddle_tpu/ops/fused_ln.py:77"),
+    "fused_conv_bn": ("paddle_tpu_torch/csrc/fused_conv_bn.cu",
+                      "paddle_tpu/ops/fused_conv_bn.py:66"),
+    "fused_conv_bn_bwd": ("paddle_tpu_torch/csrc/fused_conv_bn.cu",
+                          "paddle_tpu/ops/fused_conv_bn.py:139"),
 }
 # Backward kernels vs their plain versions: max |kernel - plain| over max
 # |plain|, for each of dQ, dK and dV, with dO ~ N(0, 1).  The kernels round
@@ -461,9 +478,9 @@ def masked_attention_bwd(q, k, v, do, vis, scale, dlse=None, dsum_zero=False):
 
 
 def bwd_gate(name, gots, wants, faults, tol, **extra):
-    """Verdict on a set of gradients (dq, dk, dv or a subset): each within
-    ``tol`` of max |its plain|, and every planted fault outside it in at
-    least one of them."""
+    """Verdict on a set of outputs (the gradients dq, dk, dv or a subset;
+    y, s1 and s2 of a forward): each within ``tol`` of max |its plain|,
+    and every planted fault outside it in at least one of them."""
     def rel(a, w):
         return (a.float() - w).abs().max().item() / w.abs().max().item()
 
@@ -471,7 +488,8 @@ def bwd_gate(name, gots, wants, faults, tol, **extra):
     rels = [rel(g, w) for g, w in zip(gots, wants)]
     fault_rel = {k: max(rel(f, w) for f, w in zip(fs, wants)) for k, fs in faults.items()}
     finite = all(bool(torch.isfinite(g).all()) for g in gots)
-    ok = finite and max(rels) <= tol and min(fault_rel.values()) > tol
+    ok = (finite and max(rels) <= tol and min(fault_rel.values()) > tol
+          and extra.pop("ok", True))
     return dict(name=name, max_abs_err=max(errs),
                 max_abs_want=max(w.abs().max().item() for w in wants), rel_err=max(rels),
                 grad_rel=rels, fault_rel=fault_rel, finite=finite, tol=tol, ok=ok, **extra)
@@ -830,6 +848,193 @@ def bwd_kernel_cases():
     return out
 
 
+# ---------------------------------------------------------- fused conv + BN
+
+# ResNet-50's bottleneck 1x1 convs at bench.py's batch and resolution (128 x
+# 224^2): per stage, conv3's input [N, H, W', K] with wv valid columns (the
+# W' ladder 56/56, 28/32, 14/16, 7/8) and K -> C; the backward kernel also
+# runs without the fold (conv1) at each of these shapes and at stage 2's
+# first conv1, [128, 56, 56, 256] -> 128, at its block's input resolution.
+CONV_STAGES = [("stage1", 56, 56, 56, 64, 256), ("stage2", 28, 32, 28, 128, 512),
+               ("stage3", 14, 16, 14, 256, 1024), ("stage4", 7, 8, 7, 512, 2048)]
+CONV1_SHAPE = ("stage2_conv1", 56, 56, 56, 256, 128)
+RESNET_B = 128
+# Kernel vs plain, relative to max |plain| per output.  y and dx are bf16 on
+# both sides: where the kernel's f32 sum and the plain version's (cuBLAS,
+# the same bf16 products in another order) fall on either side of a
+# rounding boundary an element moves by one bf16 step, up to 2^-7 of it,
+# so every output is gated at CONV_RTOL = 1e-2; the f32 outputs (s1, s2,
+# dW, dscale, doffset) differ by f32 summation order only.  The planted
+# faults come out at 0.10 or more (the ds1 term of a backward without the
+# fold dropped is the closest).  The f32 case: every output is f32 on both
+# sides (measured on an H100: within 2e-6 of max).
+CONV_RTOL = 1e-2
+F32_RTOL = 1e-4
+
+
+def conv_bn_inputs(H, Wp, wv, K, C, dt, seed, N=RESNET_B, fold=True):
+    """x ~ N(0, 1) (pad columns non-zero with the fold, zero without, as
+    conv1's input holds them), w ~ N(0, 1 / K), scale 1 + 0.2 N, offset
+    0.2 N (so the ReLU cuts and pad columns would be non-zero without the
+    mask), dy ~ N(0, 1), ds1 and ds2 ~ 0.3 N: their terms in dy_tot are of
+    dy's size, so that dropping one shows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    x = rn(N, H, Wp, K).to(dt)
+    if not fold:
+        x[:, :, wv:] = 0
+    w2 = (rn(K, C) / math.sqrt(K)).to(dt)
+    sc, of = 1.0 + 0.2 * rn(1, K), 0.2 * rn(1, K)
+    return x, w2, sc, of, rn(N, H, Wp, C).to(dt), 0.3 * rn(C), 0.3 * rn(C)
+
+
+def conv_bn_fwd_case(name, H, Wp, wv, K, C, dtype, seed):
+    """The forward kernel (with the fold, ReLU) against ``_fwd_fold_dense``;
+    planted faults: scale ignored, ReLU dropped and, with pad columns, the
+    pad mask dropped."""
+    from paddle_tpu_torch.ops import fused_conv_bn as fcb
+
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    x, w2, sc, of, _, _, _ = conv_bn_inputs(H, Wp, wv, K, C, dt, seed)
+    M = x.shape[0] * H * Wp
+
+    def kernel():
+        return fcb.fused_conv_bn_kernel(x, w2, sc, of, True, wv)
+
+    def plain(scc=sc, relu=True, wvv=wv):
+        return fcb._fwd_fold_dense(x, w2, scc, of, relu, wvv)
+
+    got = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = plain()
+    faults = {"scale_ignored": plain(scc=torch.ones_like(sc)), "relu_dropped": plain(relu=False)}
+    if wv < Wp:
+        faults["pad_mask_dropped"] = plain(wvv=Wp)
+    res = bwd_gate(name, got, want, faults, CONV_RTOL if dtype == "bf16" else F32_RTOL,
+                   ok=same, same_bits=same, M=M, K=K, C=C, wv=wv, Wp=Wp, dtype=dtype)
+    res["ms"] = cuda_ms(kernel, 10)
+    res["plain_ms"] = cuda_ms(plain, 3)
+    live = (torch.arange(Wp, device="cuda") < wv).reshape(1, 1, Wp, 1)
+
+    def library():  # the same function from PyTorch library calls (a yardstick)
+        a = torch.where(live, torch.relu(x.float() * sc.reshape(-1) + of.reshape(-1)), 0.0)
+        yl = torch.matmul(a.to(dt).reshape(-1, K), w2).float()
+        return yl.sum(0), (yl * yl).sum(0)
+
+    res["library_ms"] = cuda_ms(library, 10)
+    esz = x.element_size()
+    nbytes = (M * K + M * C + K * C) * esz + 2 * K * 4 + 2 * C * 4
+    flops = 2.0 * M * K * C
+    res["bound_ms"], res["bound_by"], res["floors"] = (
+        bound3(nbytes, tc_flops=flops) if dtype == "bf16" else bound3(nbytes, f32_flops=flops))
+    return res
+
+
+def conv_bn_bwd_case(name, H, Wp, wv, K, C, dtype, fold, seed):
+    """The backward kernel against ``_bwd_dense`` on the plain forward's y;
+    planted faults: the ds2 term dropped from dy_tot, and with the fold the
+    scale ignored and the ReLU mask dropped from the backward (without it,
+    the ds1 term dropped), and with pad columns the pad mask dropped."""
+    from paddle_tpu_torch.ops import fused_conv_bn as fcb
+
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    x, w2, sc, of, dy, ds1, ds2 = conv_bn_inputs(H, Wp, wv, K, C, dt, seed, fold=fold)
+    sc, of = (sc, of) if fold else (None, None)
+    N = x.shape[0]
+    M = N * H * Wp
+    y = (fcb._fwd_fold_dense(x, w2, sc, of, True, wv) if fold else fcb._fwd_plain(x, w2))[0]
+
+    def kernel():
+        return fcb.fused_conv_bn_bwd_kernel(dy, y, x, w2, sc, of, ds1, ds2, True, wv)
+
+    def plain(scc=sc, d1=ds1, d2=ds2, wvv=wv):
+        return fcb._bwd_dense(dy, y, x, w2, scc, of, d1, d2, True, wvv)
+
+    def no_relu_mask():  # the fold's backward without its ReLU mask
+        x2 = x.reshape(-1, K)
+        dyt = fcb._dyt(dy.reshape(-1, C), y.reshape(-1, C), ds1, ds2, Wp, wv).float()
+        _, xf = fcb._fold(x2, sc, of, True, Wp, wv)
+        g = dyt @ w2.float().T
+        return ((g * sc.reshape(-1)).to(dt).reshape(x.shape), xf.float().T @ dyt,
+                (g * x2.float()).sum(0)[None], g.sum(0)[None])
+
+    n_out = 4 if fold else 2
+    got = kernel()[:n_out]
+    again = kernel()[:n_out]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = plain()[:n_out]
+    zeros = torch.zeros_like(ds2)
+    faults = {"ds2_term_dropped": plain(d2=zeros)}
+    if fold:
+        faults.update(scale_ignored=plain(scc=torch.ones_like(sc)), relu_mask_dropped=no_relu_mask())
+    else:
+        faults["ds1_term_dropped"] = plain(d1=zeros)
+    if wv < Wp:
+        faults["pad_mask_dropped"] = plain(wvv=Wp)
+    faults = {k: f[:n_out] for k, f in faults.items()}
+    res = bwd_gate(name, got, want, faults, CONV_RTOL if dtype == "bf16" else F32_RTOL,
+                   ok=same, same_bits=same, M=M, K=K, C=C, wv=wv, Wp=Wp, dtype=dtype, fold=fold)
+    res["ms"] = cuda_ms(kernel, 10)
+    res["plain_ms"] = cuda_ms(plain, 3)
+    # yardstick: autograd of the same function composed of library calls
+    xr, wr = x.detach().requires_grad_(True), w2.detach().requires_grad_(True)
+    leaves = [xr, wr]
+    a = xr
+    if fold:
+        sr, orr = sc.detach().requires_grad_(True), of.detach().requires_grad_(True)
+        leaves += [sr, orr]
+        live = (torch.arange(Wp, device="cuda") < wv).reshape(1, 1, Wp, 1)
+        a = torch.where(live, torch.relu(xr.float() * sr.reshape(-1) + orr.reshape(-1)),
+                        0.0).to(dt)
+    yl = torch.matmul(a.reshape(-1, K), wr)
+    yf = yl.float()
+    outs = (yl, yf.sum(0), (yf * yf).sum(0))
+    cts = (dy.reshape(-1, C), ds1, ds2)
+    res["library_ms"] = cuda_ms(lambda: torch.autograd.grad(outs, leaves, cts, retain_graph=True),
+                                5)
+    esz = x.element_size()
+    aff = 4 * K * 4 if fold else 0  # scale and offset in, dscale and doffset out
+    nbytes = (2 * M * C + 2 * M * K + K * C) * esz + K * C * 4 + 2 * C * 4 + aff
+    _, splits, _ = fcb._geometry(M, K, C, dtype == "bf16")
+    # what this design moves beyond the bound: the dW pass reads dy, y and x
+    # again, and its per-split dW partials are written and summed
+    res["design_extra_bytes"] = (2 * M * C + M * K) * esz + 2 * splits * K * C * 4
+    flops = 4.0 * M * K * C
+    res["bound_ms"], res["bound_by"], res["floors"] = (
+        bound3(nbytes, tc_flops=flops) if dtype == "bf16" else bound3(nbytes, f32_flops=flops))
+    return res
+
+
+def conv_bn_kernel_cases():
+    """The ResNet path's kernels: {kernel name: [case, ...]}, stage 1's
+    conv3 (the most bytes, three launches each way a step) first."""
+    out = {"fused_conv_bn": [], "fused_conv_bn_bwd": []}
+    for i, (stage, H, Wp, wv, K, C) in enumerate(CONV_STAGES):
+        fwd = conv_bn_fwd_case(f"{stage}_conv3_bf16", H, Wp, wv, K, C, "bf16", 110 + i)
+        out["fused_conv_bn"].append(fwd)
+        log_case("fused_conv_bn", fwd)
+        torch.cuda.empty_cache()
+    fwd = conv_bn_fwd_case("stage4_conv3_f32", *CONV_STAGES[3][1:], "f32", 115)
+    out["fused_conv_bn"].append(fwd)
+    log_case("fused_conv_bn", fwd)
+    cases = [(f"{st}_conv3_bf16", shape, "bf16", True) for st, *shape in CONV_STAGES]
+    cases += [(f"{st}_nofold_bf16", shape, "bf16", False) for st, *shape in CONV_STAGES]
+    cases += [(f"{CONV1_SHAPE[0]}_nofold_bf16", CONV1_SHAPE[1:], "bf16", False),
+              ("stage4_conv3_f32", CONV_STAGES[3][1:], "f32", True)]
+    for i, (name, shape, dtype, fold) in enumerate(cases):
+        bwd = conv_bn_bwd_case(name, *shape, dtype, fold, 120 + i)
+        out["fused_conv_bn_bwd"].append(bwd)
+        log_case("fused_conv_bn_bwd", bwd)
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_phase():
     """Every kernel against its plain version at the main paths' shapes.
     Returns {kernel name: [case, ...]}; the first case of each is the one
@@ -889,6 +1094,7 @@ def kernel_phase():
     for kern, cases in enc.items():  # the ERNIE step's shape first
         out[kern] = cases[:1] + out[kern] + cases[1:]
     out["philox"] = [philox_case()]
+    out.update(conv_bn_kernel_cases())
     zero_counts()  # comparison launches do not count
     return out
 
@@ -917,6 +1123,7 @@ def counters():
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import encoder_attention as ea
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_conv_bn as fcb
     from paddle_tpu_torch.ops import fused_ln as fl
 
     return {"paged_attention": da.paged_attention_kernel,
@@ -927,7 +1134,9 @@ def counters():
             "flash_attention_dkv": fa.flash_attention_dkv_kernel,
             "encoder_attention_bwd": ea.encoder_attention_bwd_kernel,
             "fused_ln": fl.fused_ln_kernel,
-            "fused_ln_bwd": fl.fused_ln_bwd_kernel}
+            "fused_ln_bwd": fl.fused_ln_bwd_kernel,
+            "fused_conv_bn": fcb.fused_conv_bn_kernel,
+            "fused_conv_bn_bwd": fcb.fused_conv_bn_bwd_kernel}
 
 
 def zero_counts():
@@ -1465,12 +1674,17 @@ def train_kind(name):
     return "other"
 
 
-def train_profile(step, batch):
-    """One step under torch.profiler: device time by kind (matmul, attention
-    forward and backward, the optimizer, other) and the busy share.  The
-    optimizer's kernels are those that start inside the device span of
-    TrainStep's "TrainStep.optimizer" label.  Informational: a profiler that
-    records no device events gives "not measured", not a failure."""
+TRAIN_KINDS = ("matmul", "attention_fwd", "attention_bwd", "fused_ln_fwd", "fused_ln_bwd",
+               "optimizer", "other")
+
+
+def train_profile(step, batch, kind=train_kind, kinds=TRAIN_KINDS, span_kinds=("other",)):
+    """One step under torch.profiler: device time by ``kind`` of kernel
+    name (LLaMA and ERNIE: matmul, attention forward and backward, fused LN,
+    the optimizer, other) and the busy share.  The optimizer's kernels are
+    those of ``span_kinds`` that start inside the device span of
+    TrainStep's "TrainStep.optimizer" label.  Informational: a profiler
+    that records no device events gives "not measured", not a failure."""
     res = {}
     try:
         from torch.profiler import ProfilerActivity, profile
@@ -1485,15 +1699,14 @@ def train_profile(step, batch):
         spans = [(e.time_range.start, e.time_range.end) for e in dev
                  if e.name == "TrainStep.optimizer"]
         kern = [e for e in dev if not e.name.startswith("TrainStep.")]
-        by_kind = dict.fromkeys(("matmul", "attention_fwd", "attention_bwd", "fused_ln_fwd",
-                                 "fused_ln_bwd", "optimizer", "other"), 0.0)
+        by_kind = dict.fromkeys(kinds, 0.0)
         by_name = {}
         for e in kern:
-            kind = train_kind(e.name)
-            if kind == "other" and any(a <= e.time_range.start < b for a, b in spans):
-                kind = "optimizer"
+            k = kind(e.name)
+            if k in span_kinds and any(a <= e.time_range.start < b for a, b in spans):
+                k = "optimizer"
             ms = e.time_range.elapsed_us() / 1e3
-            by_kind[kind] += ms
+            by_kind[k] += ms
             by_name[e.name] = by_name.get(e.name, 0.0) + ms
         res["optimizer_from"] = ("device span of TrainStep.optimizer" if spans else
                                  "not measured: no device span of TrainStep.optimizer, "
@@ -1510,6 +1723,24 @@ def train_profile(step, batch):
     return res
 
 
+def timed_steps(step, batch, steps, warmup):
+    """``warmup`` steps, then ``steps`` timed ones on the host clock, each
+    ending in reading the loss, with the launch counters zeroed just before
+    the timed steps and read just after (and the peak memory reset).
+    Returns (every loss, ms per timed step, launches)."""
+    losses = [float(step(*batch)) for _ in range(warmup)]
+    sync()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()                                        # the run starts here
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))               # the host waits for the loss
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, read_counts()                     # ... and ends here
+
+
 def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP,
               accum_steps=1, grad_clip=None, profiled=False):
     """TrainStep + AdamW(3e-4, weight_decay=0.01) on one fixed batch:
@@ -1523,17 +1754,7 @@ def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN
     step = TrainStep(model, lm_loss(model), AdamW(3e-4, weight_decay=0.01, grad_clip=grad_clip),
                      accum_steps=accum_steps)
     batch = token_batch(cfg, B, S, seed, model.device)
-    losses = [float(step(*batch)) for _ in range(warmup)]
-    sync()
-    if torch.cuda.is_available():
-        torch.cuda.reset_peak_memory_stats()
-    zero_counts()                                        # the run starts here
-    ms = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        losses.append(float(step(*batch)))               # the host waits for the loss
-        ms.append((time.perf_counter() - t0) * 1e3)
-    launches = read_counts()                             # ... and ends here
+    losses, ms, launches = timed_steps(step, batch, steps, warmup)
     step_ms = sorted(ms)[len(ms) // 2]
     tokens = B * S
     # bench.py's count: 6 N per token, plus the causal attention products
@@ -1791,17 +2012,7 @@ def ernie_train(model, batch, steps=ERNIE_STEPS, warmup=ERNIE_WARMUP, profiled=T
 
     cfg = model.config
     step = TrainStep(model, ernie_loss(model), AdamW(1e-4, weight_decay=0.01))
-    losses = [float(step(*batch)) for _ in range(warmup)]
-    sync()
-    if torch.cuda.is_available():
-        torch.cuda.reset_peak_memory_stats()
-    zero_counts()                                        # the run starts here
-    ms = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        losses.append(float(step(*batch)))               # the host waits for the loss
-        ms.append((time.perf_counter() - t0) * 1e3)
-    launches = read_counts()                             # ... and ends here
+    losses, ms, launches = timed_steps(step, batch, steps, warmup)
     B, S = batch[0].shape
     P = batch[2].shape[1]
     step_ms = sorted(ms)[len(ms) // 2]
@@ -1869,6 +2080,227 @@ def ernie_phase(card, device="cuda", layers=12, parity_layers=2, B=ERNIE_B, S=ER
     return dict(grad_parity=parity, determinism=determinism, eval=ev), [run]
 
 
+# ----------------------------------------------------------------- resnet
+
+# bench.py _bench_resnet's configuration in NHWC (the layout whose training
+# reaches the fused kernels): resnet50(num_classes=1000, data_format="NHWC"),
+# bf16, a batch of 128 random 224 x 224 images in [-1, 1) with random
+# labels, Momentum(0.1, 0.9), CrossEntropyLoss on f32 logits, random weights
+# from seed 0; 5 warm-up and 20 timed steps on one batch.
+RESNET_S, RESNET_WARMUP, RESNET_STEPS = 224, 5, 20
+RESNET_TRAIN_FLOPS = 3 * 4.1e9  # bench.py's count a 224^2 image: 3 x the forward
+# Block parity on the card, fused against composed, f32 with TF32 off: the
+# reference test's own bounds (tests/test_fused_conv_bn.py:78-131): output
+# within 1e-4 of max |composed|, each parameter's gradient within 2e-3 of
+# its max, running statistics within 1e-5.
+BLOCK_TOL = dict(out=1e-4, grad=2e-3, stats=1e-5)
+# (name, inplanes, planes, stride, H, wv_in, W'_in): a block at each stage's
+# shape; the strided ones enter stages 2-4 and make their pad columns.
+RESNET_BLOCKS = [("stage1_block1", 256, 64, 1, 56, 56, 56),
+                 ("stage2_block0", 256, 128, 2, 56, 56, 56),
+                 ("stage3_block0", 512, 256, 2, 28, 28, 32),
+                 ("stage4_block0", 1024, 512, 2, 14, 14, 16)]
+RESNET_KINDS = ("conv", "fused_conv_bn", "matmul", "bn_elementwise", "optimizer", "other")
+
+
+def resnet_kind(name):
+    """Kind of a kernel of the ResNet step, by name: cuDNN's convolutions,
+    the fused conv + BN kernels, matrix products (fc and conv1's forward),
+    BN's and the rest's elementwise and reduction kernels, other."""
+    low = name.lower()
+    if any(k in low for k in ("fwd_bf16", "dx_bf16", "dw_bf16", "gemm_f32")):
+        return "fused_conv_bn"
+    if any(k in low for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
+        return "conv"
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")):
+        return "matmul"
+    if any(k in low for k in ("elementwise", "reduce", "vectorized", "unrolled", "pool")):
+        return "bn_elementwise"
+    return "other"
+
+
+class forced_fused:
+    """Inside: the fused ResNet path on CPU tensors too (its rehearsal)."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        from paddle_tpu_torch.vision.models import _fused_resnet as FR
+
+        self._saved = FR.FORCE
+        FR.FORCE = self._saved or self.on
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.vision.models import _fused_resnet as FR
+
+        FR.FORCE = self._saved
+        return False
+
+
+def block_parity(spec, device, N):
+    """One bottleneck block, fused (forward_fused on the W'-padded input)
+    against composed (forward on the valid columns), the same f32 weights:
+    the output, every parameter's gradient of sum(z^2), and the running
+    statistics.  Launches: the fused run's, the composed run's."""
+    import copy
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.vision.models.resnet import BottleneckBlock
+
+    name, inplanes, planes, stride, H, wv_in, wp_in = spec
+    torch.manual_seed(11)
+    ds = None
+    if stride != 1 or inplanes != planes * 4:
+        ds = nn.Sequential(nn.Conv2D(inplanes, planes * 4, 1, stride=stride, bias_attr=False,
+                                     data_format="NHWC", device=device),
+                           nn.BatchNorm2D(planes * 4, data_format="NHWC", device=device))
+    fused = BottleneckBlock(inplanes, planes, stride, ds, data_format="NHWC",
+                            device=device).train()
+    composed = copy.deepcopy(fused)
+    g = torch.Generator(device=device).manual_seed(12)
+    x = torch.zeros(N, H, wp_in, inplanes, device=device)
+    x[:, :, :wv_in] = torch.rand(N, H, wv_in, inplanes, generator=g, device=device) - 0.5
+    wv_out = wv_in // stride
+    wp_out = -(-wv_out // 8) * 8
+    zero_counts()
+    with forced_fused(device == "cpu"):
+        zf = fused.forward_fused(x, wv_in, wv_out, wp_out)
+        (zf.float() ** 2).sum().backward()
+    sync()
+    launches = read_counts()
+    zero_counts()
+    zc = composed(x[:, :, :wv_in].contiguous())
+    (zc.float() ** 2).sum().backward()
+    sync()
+    composed_launches = read_counts()
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+    out_rel = rel(zf[:, :, :wv_out], zc)
+    pad_zero = bool((zf[:, :, wv_out:] == 0).all())
+    cp = dict(composed.named_parameters())
+    grad_rel = {n: rel(p.grad, cp[n].grad) for n, p in fused.named_parameters()}
+    cb = dict(composed.named_buffers())
+    stats_err = max((b.float() - cb[n].float()).abs().max().item()
+                    for n, b in fused.named_buffers())
+    worst = max(grad_rel, key=grad_rel.get)
+    expected = {"fused_conv_bn": 1, "fused_conv_bn_bwd": 2}
+    return dict(name=name, N=N, out_rel=out_rel, pad_zero=pad_zero, max_grad_rel=grad_rel[worst],
+                worst_param=worst, stats_max_abs_err=stats_err, tol=BLOCK_TOL,
+                launches=launches, expected_launches=expected,
+                composed_launches=composed_launches,
+                ok=(out_rel <= BLOCK_TOL["out"] and pad_zero
+                    and grad_rel[worst] <= BLOCK_TOL["grad"]
+                    and stats_err <= BLOCK_TOL["stats"]
+                    and (device == "cpu" or launch_check(launches, expected))
+                    and not any(composed_launches.values())))
+
+
+def resnet_batch(B, S, dtype, device, seed=0):
+    """bench.py's batch in NHWC: images [B, S, S, 3] uniform in [-1, 1), int32
+    labels in [0, 1000)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.rand(B, S, S, 3) * 2 - 1).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 1000, (B,)).astype(np.int32))
+    return x.to(device=device, dtype=dtype), y.to(device)
+
+
+def resnet_train(model, batch, steps, warmup, profiled):
+    """TrainStep + Momentum(0.1, 0.9) on one fixed batch: ``warmup`` steps,
+    then ``steps`` timed ones with the launch counters zeroed just before."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+
+    ce = CrossEntropyLoss()
+
+    def loss_fn(x, y):
+        return ce(model(x).float(), y)
+
+    step = TrainStep(model, loss_fn, Momentum(learning_rate=0.1, momentum=0.9))
+    losses, ms, launches = timed_steps(step, batch, steps, warmup)
+    B, S = batch[0].shape[0], batch[0].shape[1]
+    step_ms = sorted(ms)[len(ms) // 2]
+    flops = RESNET_TRAIN_FLOPS * B * (S / 224) ** 2
+    expected = {"fused_conv_bn": 16 * steps, "fused_conv_bn_bwd": 32 * steps}
+    finite_stats = all(bool(torch.isfinite(b).all()) for b in model.buffers())
+    res = dict(path="resnet", name=f"resnet50_nhwc_b{B}_s{S}", B=B, S=S, warmup=warmup,
+               steps=steps, losses=losses, step_ms=step_ms, step_ms_all=ms,
+               images_per_s=B / step_ms * 1e3, flops_per_step=flops,
+               mfu=flops / (step_ms / 1e3) / H100_BF16_FLOPS, params=model.num_params,
+               peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                               if torch.cuda.is_available() else None),
+               running_stats_finite=finite_stats, launches=launches,
+               expected_launches=expected)
+    res["ok"] = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                 and finite_stats and launch_check(launches, expected))
+    if profiled:
+        res["profile"] = train_profile(step, batch, resnet_kind, RESNET_KINDS,
+                                       ("other", "bn_elementwise"))
+    return res
+
+
+@torch.no_grad()
+def resnet_eval(model, batch):
+    """The eval forward: finite logits [B, 1000], no fused launch (eval runs
+    the composed layers, as in the reference)."""
+    model.eval()
+    zero_counts()
+    logits = model(batch[0])
+    sync()
+    launches = read_counts()
+    model.train()
+    return dict(logits_shape=list(logits.shape), finite=bool(torch.isfinite(logits).all()),
+                launches=launches,
+                ok=bool(torch.isfinite(logits).all()) and not any(launches.values()))
+
+
+def resnet_phase(card, device="cuda", B=RESNET_B, S=RESNET_S, steps=RESNET_STEPS,
+                 warmup=RESNET_WARMUP, dtype=torch.bfloat16, block_batch=4, blocks=None):
+    """Block parity at each stage's shape (f32), then bench.py's ResNet-50
+    training in NHWC through TrainStep + Momentum, and its eval forward."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    parity = []
+    for spec in RESNET_BLOCKS if blocks is None else blocks:
+        r = block_parity(spec, device, block_batch)
+        parity.append(r)
+        log(f"  block parity {r['name']} (batch {r['N']}, f32): out {r['out_rel']:.2e}, worst "
+            f"grad {r['max_grad_rel']:.2e} ({r['worst_param']}), stats "
+            f"{r['stats_max_abs_err']:.2e} (tol {r['tol']}); pad columns zero "
+            f"{r['pad_zero']}; launches {r['launches']} (expected {r['expected_launches']}), "
+            f"composed {r['composed_launches']}; {'ok' if r['ok'] else 'FAIL'} [{card}]")
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = resnet50(num_classes=1000, data_format="NHWC", device=device, dtype=dtype)
+    model.init_weights(torch.Generator(device=device).manual_seed(0))
+    batch = resnet_batch(B, S, dtype, device)
+    sync()
+    log(f"  model: {model.num_params / 1e6:.2f} M params, NHWC, {dtype}, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    with forced_fused(device == "cpu"):
+        run = resnet_train(model, batch, steps, warmup, profiled=device != "cpu")
+    ev = resnet_eval(model, batch)
+    del model
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    log(f"  {run['name']}: step {run['step_ms']:.2f} ms (median of {run['steps']}), "
+        f"{run['images_per_s']:.1f} images/s, MFU {run['mfu']:.4f}, peak "
+        f"{(run['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; loss {run['losses'][0]:.4f} -> "
+        f"{run['losses'][-1]:.4f}; launches {run['launches']} (expected "
+        f"{run['expected_launches']}); profile {json.dumps(run.get('profile'))}; "
+        f"{'ok' if run['ok'] else 'FAIL'} [{card}]")
+    log(f"  eval forward: logits {ev['logits_shape']} finite {ev['finite']}; launches "
+        f"{ev['launches']} (expected none); {'ok' if ev['ok'] else 'FAIL'} [{card}]")
+    return dict(block_parity=parity, eval=ev), [run]
+
+
 def build_model():
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
@@ -1885,7 +2317,7 @@ def build_model():
 # ------------------------------------------------------------------- main
 
 PHASES = ("device", "build", "kernels", "generate", "dense_engine", "paged_engine",
-          "ticks", "train", "ernie")
+          "ticks", "train", "ernie", "resnet")
 PATH_TITLES = {"generate": "model.generate() on the static cache",
                "dense_engine": "the dense LLMEngine",
                "paged_engine": "the paged LLMEngine",
@@ -1924,15 +2356,18 @@ def main(argv=None):
         report["build_s"] = time.perf_counter() - t0
         log(f"[build] {', '.join(built)} in {report['build_s']:.1f} s "
             f"-> {_build.BUILD_DIR}")
+        report["ptxas"] = {}
         for name, b in built.items():
             for line in b["log"].splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build]   {name}: {line.strip()}")
+                if any(w in line for w in ("registers", "spill", "entry function")):
+                    report["ptxas"].setdefault(name, []).append(line.strip())
     if "kernels" in phases:
         log("[kernels] every kernel vs its plain version")
         report["kernels"] = kernel_phase()
         ok &= all(c["ok"] for cases in report["kernels"].values() for c in cases)
-    serving = [ph for ph in paths if ph not in ("train", "ernie")]
+    serving = [ph for ph in paths if ph not in ("train", "ernie", "resnet")]
     if serving:
         model = build_model()
         for ph in serving:
@@ -1955,6 +2390,12 @@ def main(argv=None):
         report["ernie_checks"], runs = ernie_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in list(report["ernie_checks"].values()) + runs)
+    if "resnet" in paths:
+        log("[resnet] bench.py's ResNet-50 in NHWC through TrainStep + Momentum")
+        report["resnet_checks"], runs = resnet_phase(report["card"])
+        report["paths"] += runs
+        ok &= all(r["ok"] for r in report["resnet_checks"]["block_parity"]
+                  + [report["resnet_checks"]["eval"]] + runs)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -14,8 +14,11 @@ training — ``LlamaForCausalLM(ids, labels=)`` under ``jit.TrainStep`` with
 the ``optimizer`` package and ``nn`` clipping, through the flash and
 encoder attention backward kernels; and BERT/ERNIE pretraining
 (``models.bert``) through the fused dropout + add + LayerNorm kernels and
-the encoder attention kernels with their Philox dropout.  ``seed(s)``
-reseeds every device's generator, and with it every dropout mask.
+the encoder attention kernels with their Philox dropout; and ResNet
+training (``vision.models``, ``nn.Conv2D``/``BatchNorm2D``/pooling) whose
+NHWC bottlenecks run the fused 1x1-conv + BatchNorm kernels forward and
+backward (``ops.fused_conv_bn``).  ``seed(s)`` reseeds every device's
+generator, and with it every dropout mask.
 ROADMAP.md lists what is still to port.
 """
 

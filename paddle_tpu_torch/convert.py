@@ -1,9 +1,14 @@
 """Carry weights between the reference (paddle_tpu) and the port.
 
-The reference's ``state_dict()`` and the port's share parameter names
-(``llama.layers.0.self_attn.q_proj.weight`` ...).  The one layout change is
-the Linear weight: Paddle stores ``[in, out]`` (``y = x @ W``), torch's
+The reference's ``state_dict()`` and the port's share parameter and buffer
+names (``llama.layers.0.self_attn.q_proj.weight``, ``layer1.0.conv1.weight``,
+``layer1.0.downsample.1._mean`` ...: the port's ``nn.Sequential`` names its
+children 0, 1 as the reference's does).  The one layout change is the
+Linear weight: Paddle stores ``[in, out]`` (``y = x @ W``), torch's
 ``nn.Linear`` ``[out, in]``, so Linear weights are transposed on the way.
+Convolution weights are ``[Cout, Cin / groups, kh, kw]`` in both and
+BatchNorm's running buffers (``_mean``, ``_variance``) are state in both,
+so they cross as they are.
 The reference arrays arrive as numpy (``np.asarray`` of each value), so
 this module imports neither JAX nor the reference package;
 ``to_reference_state`` goes the other way, so that the port's trained

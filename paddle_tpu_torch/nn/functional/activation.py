@@ -17,3 +17,8 @@ def gelu(x, approximate=False):
 
 def tanh(x):
     return torch.tanh(x)
+
+
+def relu(x):
+    """max(x, 0)."""
+    return torch.relu(x)

@@ -15,8 +15,59 @@ from __future__ import annotations
 import torch
 
 from ...ops import fused_ln as _fused
+from ...optimizer.optimizer import _like
 from ...ops._prng import draw_seed
 from .common import _keep, _mask_mul
+
+
+@torch.no_grad()
+def update_running(running_mean, running_var, mean, var, n, momentum):
+    """The reference's running-statistics update, in place:
+    ``running = momentum * running + (1 - momentum) * stat`` with the
+    variance debiased by n / (n - 1); ``mean`` and ``var`` are the f32
+    batch statistics.  On bf16 buffers ``momentum * running`` rounds
+    momentum to bf16 (0.8984375 for 0.9: ``_like``, as JAX rounds a weakly
+    typed scalar) and stays bf16, and the sum is taken in f32 and rounded
+    back, as JAX promotes it."""
+    factor = n / max(n - 1, 1)
+    running_mean.copy_(_like(momentum, running_mean) * running_mean
+                       + (1 - momentum) * mean.detach())
+    running_var.copy_(_like(momentum, running_var) * running_var
+                      + (1 - momentum) * (var.detach() * factor))
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None, training=False,
+               momentum=0.9, epsilon=1e-5, data_format="NCHW", use_global_stats=None,
+               name=None):
+    """BatchNorm over every axis but the channel one (axis 1 for "NC..."
+    formats, the last otherwise).  In training (unless
+    ``use_global_stats``) it normalises with the batch statistics and
+    updates ``running_mean`` and ``running_var`` in place; otherwise it
+    normalises with them."""
+    ch = 1 if data_format.startswith("NC") else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != ch)
+    use_batch_stats = training and not use_global_stats
+    if use_batch_stats:
+        vf = x.float()
+        n = 1
+        for i in axes:
+            n *= x.shape[i]
+        m = vf.sum(axes) / n
+        var = torch.clamp((vf * vf).sum(axes) / n - m * m, min=0.0)
+    else:
+        m, var = running_mean, running_var
+    scale = torch.rsqrt(var.float() + epsilon)
+    if weight is not None:
+        scale = scale * weight.float()
+    offset = -m.float() * scale
+    if bias is not None:
+        offset = offset + bias.float()
+    shape = [1] * x.dim()
+    shape[ch] = x.shape[ch]
+    out = x * scale.reshape(shape).to(x.dtype) + offset.reshape(shape).to(x.dtype)
+    if use_batch_stats and running_mean is not None:
+        update_running(running_mean, running_var, m, var, n, momentum)
+    return out
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):

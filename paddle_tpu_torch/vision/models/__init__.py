@@ -1,0 +1,6 @@
+"""Vision models (counterpart of paddle_tpu/vision/models): the ResNet
+family, with the fused 1x1-conv + BatchNorm path of NHWC training."""
+from .resnet import (BasicBlock, BottleneckBlock, ResNet, resnet18, resnet34,  # noqa: F401
+                     resnet50, resnet101, resnet152, resnext50_32x4d, resnext50_64x4d,
+                     resnext101_32x4d, resnext101_64x4d, resnext152_32x4d, resnext152_64x4d,
+                     wide_resnet50_2, wide_resnet101_2)

@@ -31,7 +31,10 @@ names = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
 for needed in ("jit.train_step", "jit._step_impl", "optimizer.optimizer", "nn.clip",
                "nn.functional.loss",  # the training slice's modules
                "models.bert", "ops.fused_ln", "ops._prng", "nn.layer.norm",
-               "nn.functional.common"):  # the encoder slice's
+               "nn.functional.common",  # the encoder slice's
+               "vision.models.resnet", "vision.models._fused_resnet", "ops.fused_conv_bn",
+               "nn.functional.conv", "nn.functional.pooling", "nn.layer.conv",
+               "nn.layer.pooling"):  # the ResNet slice's
     assert "paddle_tpu_torch." + needed in names, needed
 for name in names:
     importlib.import_module(name)
@@ -49,7 +52,7 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, leaked = out.stdout.split(" ", 1)
-    assert int(n) >= 36  # every module of slices 1 to 4 was imported
+    assert int(n) >= 46  # every module of slices 1 to 5 was imported
     assert leaked.strip() == "[]"
 
 
@@ -76,9 +79,12 @@ def test_default_device_is_cuda_and_raises_without_it():
     from paddle_tpu_torch.core.device import resolve_device
     from paddle_tpu_torch.framework.random import get_generator
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.vision.models import resnet50
 
     with pytest.raises(RuntimeError, match="CUDA"):
         LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resnet50(data_format="NHWC")
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda:0")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -94,7 +100,8 @@ def test_kernel_sources_ship_as_package_data():
     text = (ROOT / "pyproject.toml").read_text()
     assert '"paddle_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
     kernels = ["decode_attention", "encoder_attention", "encoder_attention_bwd",
-               "flash_attention", "flash_attention_bwd", "fused_ln", "paged_attention"]
+               "flash_attention", "flash_attention_bwd", "fused_conv_bn", "fused_ln",
+               "paged_attention"]
     assert _build.sources() == kernels  # one library per .cu, built at first use
     for name in kernels:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
