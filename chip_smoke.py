@@ -8,7 +8,9 @@ Phases:
   1. device       — the card's name and power limit (nvidia-smi); TF32 off.
   2. build        — nvcc builds every kernel under paddle_tpu_torch/csrc/
                     (one process per source, all at once) into
-                    paddle_tpu_torch/build/kernels/, with ptxas's report.
+                    paddle_tpu_torch/build/kernels/, with ptxas's report
+                    and the flash libraries' HGMMA (wgmma) and UTMALDG
+                    (TMA load) counts from cuobjdump -sass.
   3. kernels      — each kernel, forward and backward, against its plain
                     PyTorch version at the main paths' shapes, with its
                     time, the plain version's time, a PyTorch library
@@ -21,7 +23,9 @@ Phases:
                     known answers on the card.  The fused conv + BN
                     kernels run at ResNet-50's four stage shapes (forward
                     with the fold, backward with and without it) and give
-                    the same bits twice.
+                    the same bits twice, as does every flash forward (D 64,
+                    128 and 256), dq and dkv case; a flash library without
+                    HGMMA fails the phase.
   4. generate     — model.generate() at LLaMA-2-7B widths (32 layers, bf16,
                     random weights from a seed): ids [4, 1024] (flash
                     prefill) on a bf16 and an int8 cache, and ids [8, 256]
@@ -434,9 +438,12 @@ def seq_attention_case(name, kind, B, H, Sq, Sk, D, causal, seed):
     extra = {}
     if kind == "flash":
         got, lse = got
+        again = kernel()  # the same bits on a second run
+        same = bool(torch.equal(got, again[0]) and torch.equal(lse, again[1]))
         want, want_lse = fa._flash_dense(q.float(), k.float(), v.float(), causal, scale)
         lse_err = (lse.reshape(B, H, Sq) - want_lse).abs().max().item()
-        extra = dict(lse_max_abs_err=lse_err, lse_tol=LSE_TOL, ok=lse_err <= LSE_TOL)
+        extra = dict(lse_max_abs_err=lse_err, lse_tol=LSE_TOL, same_bits=same,
+                     ok=lse_err <= LSE_TOL and same)
     else:
         want = ea._encoder_dense(q.float(), k.float(), v.float(), scale, causal)
     res = gate(name, got, want, faults, KERNEL_RTOL["bf16"], kind=kind, B=B, H=H, Sq=Sq,
@@ -523,7 +530,11 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
     args = (q, k, v, o, do, lse, causal, scale, dlse)
     dq = fa.flash_attention_dq_kernel(*args)
     dk, dv = fa.flash_attention_dkv_kernel(*args)
+    dq2 = fa.flash_attention_dq_kernel(*args)  # the same bits on a second run
+    dk2, dv2 = fa.flash_attention_dkv_kernel(*args)
     torch.cuda.synchronize()
+    same = {"dq": bool(torch.equal(dq, dq2)),
+            "dkv": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))}
     want = fa._flash_bwd_dense(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
                                causal, scale, dlse)
     ones = torch.ones(Sq, Sk, dtype=torch.bool, device="cuda")
@@ -539,9 +550,9 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
         faults["dlse_ignored"] = masked_attention_bwd(q, k, v, do, vis, scale)
     shape = dict(kind="flash", B=B, H=H, Sq=Sq, Sk=Sk, D=D, causal=causal, dlse=with_dlse)
     res = {"dq": bwd_gate(name, (dq,), want[:1], {f: t[:1] for f, t in faults.items()},
-                          BWD_RTOL, **shape),
+                          BWD_RTOL, same_bits=same["dq"], ok=same["dq"], **shape),
            "dkv": bwd_gate(name, (dk, dv), want[1:], {f: t[1:] for f, t in faults.items()},
-                           BWD_RTOL, **shape)}
+                           BWD_RTOL, same_bits=same["dkv"], ok=same["dkv"], **shape)}
     iters = 10
     plain_ms = cuda_ms(lambda: fa._flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse), 3)
     library_ms = (None if with_dlse or (causal and Sq != Sk)
@@ -559,6 +570,13 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
         r["bound_ms"], r["bound_by"] = bound(ins + out_bytes, ops)
     res["function_bound_ms"], res["function_bound_by"] = bound(ins + nq + 2 * nk,
                                                                10.0 * D * pairs)
+
+    def autograd_bwd():  # the backward as _FlashAttention runs it: stats once, dq, dkv
+        stats = fa.flash_attention_bwd_stats(o, do, lse, dlse)
+        fa.flash_attention_dq_kernel(*args, stats=stats)
+        fa.flash_attention_dkv_kernel(*args, stats=stats)
+
+    res["backward_ms"] = cuda_ms(autograd_bwd, iters)
     return res
 
 
@@ -833,10 +851,12 @@ def bwd_kernel_cases():
             ("bh64_s1024_d64", 2, 32, 1024, 1024, 64, True, False),
             ("sq1024_sk2048_causal", 1, 32, 1024, 2048, 128, True, False),
             ("sq1024_sk1536_full", 1, 32, 1024, 1536, 128, False, False),
-            ("s2048_dlse", 2, 16, 2048, 2048, 128, True, True)]):
+            ("s2048_dlse", 2, 16, 2048, 2048, 128, True, True),
+            ("s264_ragged_causal", 2, 8, 264, 264, 128, True, False)]):
         r = flash_bwd_case(name, B, H, Sq, Sk, D, causal, 60 + i, dlse)
         for key in ("dq", "dkv"):
             r[key]["function_bound_ms"] = r["function_bound_ms"]
+            r[key]["backward_ms"] = r["backward_ms"]
             out[f"flash_attention_{key}"].append(r[key])
             log_case(f"flash_attention_{key}", r[key])
     for i, (S, D, H, causal) in enumerate([(512, 128, 16, True), (128, 128, 16, True),
@@ -1055,7 +1075,11 @@ def kernel_phase():
             ("bh64_s1024_d64", 2, 32, 1024, 1024, 64, True),
             ("sq1024_sk2048_causal", 1, 32, 1024, 2048, 128, True),
             ("sq1024_sk1536_full", 1, 32, 1024, 1536, 128, False),
-            ("train_s2048", 8, 16, 2048, 2048, 128, True)]):       # the train phase's
+            ("train_s2048", 8, 16, 2048, 2048, 128, True),         # the train phase's
+            ("d256_s1024_causal", 4, 16, 1024, 1024, 256, True),   # SDPA's D = 256 gate
+            ("d256_s1024_full", 4, 16, 1024, 1024, 256, False),
+            ("d256_sq1024_sk1536_causal", 1, 16, 1024, 1536, 256, True),
+            ("s264_ragged_causal", 2, 8, 264, 264, 128, True)]):   # rows past S, masked keys
         out["flash_attention"].append(
             seq_attention_case(name, "flash", B, H, Sq, Sk, D, causal, 20 + i))
         log_case("flash_attention", out["flash_attention"][-1])
@@ -1099,6 +1123,20 @@ def kernel_phase():
     return out
 
 
+# The flash libraries, whose SASS must hold wgmma (HGMMA) and TMA (UTMALDG).
+FLASH_LIBS = ("flash_attention", "flash_attention_bwd")
+
+
+def sass_counts(lib):
+    """HGMMA and UTMALDG instructions in a library's SASS (cuobjdump)."""
+    from paddle_tpu_torch.ops import _build
+
+    cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    return {"HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
+
+
 def log_case(kern, c):
     if "ms" not in c:
         return
@@ -1106,6 +1144,10 @@ def log_case(kern, c):
     lse = f" lse err {c['lse_max_abs_err']:.2e}" if "lse_max_abs_err" in c else ""
     if "grad_rel" in c:
         lse += " per grad " + "/".join(f"{r:.2e}" for r in c["grad_rel"])
+    if "same_bits" in c:
+        lse += f" same bits {c['same_bits']}"
+    if "backward_ms" in c:
+        lse += f" stats+dq+dkv {c['backward_ms']:.4f} ms"
     if "keep_fraction" in c:
         lse += (f" keep {c['keep_fraction']:.6f} ({c['keep_sigmas']:.2f} sigma) floors "
                 + ", ".join(f"{k} {v:.4f}" for k, v in c["floors"].items()))
@@ -1667,6 +1709,8 @@ def train_kind(name):
         return low[low.index("fused_ln_"):][:12]  # fused_ln_fwd / fused_ln_bwd
     if "flash_fwd_kernel" in low or "encoder_fwd_kernel" in low:
         return "attention_fwd"
+    # flash_dq_kernel, flash_dkv_kernel, flash_dsum_kernel (the wgmma
+    # backward and its statistics pass); the encoder's dq_kernel, dkv_kernel
     if any(w in low for w in ("dq_kernel", "dkv_kernel", "dsum_kernel")):
         return "attention_bwd"
     if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")):
@@ -2363,10 +2407,18 @@ def main(argv=None):
                     log(f"[build]   {name}: {line.strip()}")
                 if any(w in line for w in ("registers", "spill", "entry function")):
                     report["ptxas"].setdefault(name, []).append(line.strip())
+        report["sass"] = {name: sass_counts(built[name]["path"]) for name in FLASH_LIBS}
+        for name, n in report["sass"].items():
+            log(f"[build]   {name}: SASS {n['HGMMA']} HGMMA (wgmma), {n['UTMALDG']} UTMALDG "
+                "(TMA loads)")
     if "kernels" in phases:
         log("[kernels] every kernel vs its plain version")
         report["kernels"] = kernel_phase()
         ok &= all(c["ok"] for cases in report["kernels"].values() for c in cases)
+        hopper = all(n["HGMMA"] > 0 for n in report["sass"].values())
+        if not hopper:
+            log("[kernels] FAIL: a flash library has no HGMMA (wgmma) instruction")
+        ok &= hopper
     serving = [ph for ph in paths if ph not in ("train", "ernie", "resnet")]
     if serving:
         model = build_model()

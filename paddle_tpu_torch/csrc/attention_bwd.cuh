@@ -1,6 +1,6 @@
-// Attention backward kernels shared by flash_attention_bwd.cu and
-// encoder_attention_bwd.cu, on the `mma.sync.m16n8k16` bf16 fragments of
-// mma_attention.cuh (f32 accumulators).
+// Attention backward kernels of encoder_attention_bwd.cu, on the
+// `mma.sync.m16n8k16` bf16 fragments of mma_attention.cuh (f32
+// accumulators).
 //
 // Tiling: a block of 4 warps owns 64 rows of one (batch, head) -- query rows
 // for dQ, key rows for dK/dV -- and stages them once in shared memory (Q and
@@ -47,11 +47,9 @@ struct Grad {
   const __nv_bfloat16* q;   // [B, Sq, H, D]
   const __nv_bfloat16* k;   // [B, Sk, H, D]
   const __nv_bfloat16* v;   // [B, Sk, H, D]
-  const __nv_bfloat16* o;   // [B, Sq, H, D] (flash only)
   const __nv_bfloat16* dO;  // [B, Sq, H, D]
-  const float* dlse;        // [B * H, Sq] or null (flash only)
-  float* lse;               // [B * H, Sq]: read (flash) or written (encoder)
-  float* dsum;              // [B * H, Sq]: rowsum(dO * O) - dlse, or sum_j P dP
+  float* lse;               // [B * H, Sq], written by dq_kernel
+  float* dsum;              // [B * H, Sq]: sum_j P dP, written by dq_kernel
   __nv_bfloat16* dq;        // [B, Sq, H, D]
   __nv_bfloat16* dk;        // [B, Sk, H, D]
   __nv_bfloat16* dv;        // [B, Sk, H, D]
@@ -178,37 +176,16 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc
   }
 }
 
-// dsum[(b H + h) Sq + i] = sum_d dO[b, i, h, d] O[b, i, h, d] in f32, minus
-// dlse there when given: one warp per query row.
-template <int D>
-__global__ void __launch_bounds__(kThreads) dsum_kernel(Grad p) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= p.B * p.H * p.Sq) return;  // whole warps leave together
-  const int i = row % p.Sq, h = (row / p.Sq) % p.H, b = row / (p.Sq * p.H);
-  const size_t base = ((size_t)(b * p.Sq + i) * p.H + h) * D;
-  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(p.dO + base);
-  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(p.o + base);
-  float acc = 0.f;
-  for (int j = lane; j < D / 2; j += 32) {
-    const float2 a = __bfloat1622float2(x[j]), c = __bfloat1622float2(y[j]);
-    acc += a.x * c.x + a.y * c.y;
-  }
-#pragma unroll
-  for (int m = 16; m; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-  if (lane == 0) p.dsum[row] = acc - (p.dlse ? p.dlse[row] : 0.f);
-}
-
 // dQ for one 64-row query tile (grid: query tiles x H x B).  Per key tile up
 // to the causal end: P = exp(scale S - lse), dP = dO V^T, dS = P (dP - dsum)
-// rounded to bf16 -- times scale before the rounding when ENCODER (the
-// encoder reference's order), after the product otherwise -- and dQ += dS K.
+// times scale, rounded to bf16 (the encoder reference's order), and dQ +=
+// dS K.
 //
-// ENCODER: the forward saved no statistics, so a first walk over the same
-// key tiles finds each row's max m, sum l of exp(scale S - m) and sum of
-// exp(scale S - m) dP (online, rescaled as the max grows); then lse = m +
-// log l and dsum = sum_j P dP, which it also writes out for the dK/dV kernel.
-// Otherwise lse comes from the forward and dsum from dsum_kernel.
-template <int D, bool ENCODER>
+// The forward saved no statistics, so a first walk over the same key tiles
+// finds each row's max m, sum l of exp(scale S - m) and sum of exp(scale S
+// - m) dP (online, rescaled as the max grows); then lse = m + log l and
+// dsum = sum_j P dP, which it also writes out for the dK/dV kernel.
+template <int D>
 __global__ void __launch_bounds__(kThreads) dq_kernel(Grad p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdSmem<D>& sm = *reinterpret_cast<BwdSmem<D>*>(smem_raw);
@@ -217,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Grad p) {
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kBK, row0 = q0 + 16 * warp;
   const size_t stat0 = (size_t)(b * p.H + h) * p.Sq;
-  const bool drop = ENCODER && p.seed;
+  const bool drop = p.seed != nullptr;
   const uint2 key = drop ? philox::key(p.seed) : make_uint2(0u, 0u);
 
   stage_rows<D>(sm.x1, p.q, b, h, q0, p.Sq, p.H, tid);
@@ -228,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Grad p) {
   const int kend = p.causal ? min(p.Sk, qlast + p.Sk - p.Sq + 1) : p.Sk;
 
   float lse[2], dsum[2];
-  if (ENCODER) {
+  {  // the first walk
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};  // lane shares
     for (int kb = 0; kb < kend; kb += kBK) {
       __syncthreads();
@@ -284,13 +261,6 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Grad p) {
         p.dsum[stat0 + row] = dsum[hr];
       }
     }
-  } else {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = row0 + g + 8 * hr;
-      lse[hr] = row < p.Sq ? p.lse[stat0 + row] : 0.f;
-      dsum[hr] = row < p.Sq ? p.dsum[stat0 + row] : 0.f;
-    }
   }
 
   float dq[D / 8][4];
@@ -318,25 +288,24 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Grad p) {
           const float ds = visible(p, row0 + g + 8 * hr, col)
                                ? __expf(s[j][e] * p.scale - lse[hr]) * (dp[j][e] - dsum[hr])
                                : 0.f;
-          s[j][e] = ENCODER ? ds * p.scale : ds;
+          s[j][e] = ds * p.scale;
         }
       uint32_t a[4];
       chunk_a(a, s);
       ay<D>(dq, a, &sm.y1[0][0], kk, lane);
     }
   }
-  store_rows<D>(p.dq, dq, ENCODER ? 1.f : p.scale, b, h, row0, p.Sq, p.H, g, t);
+  store_rows<D>(p.dq, dq, 1.f, b, h, row0, p.Sq, p.H, g, t);
 }
 
 // dK and dV for one 64-row key tile (grid: key tiles x H x B), walking the
 // query tiles from the first that sees a key of the tile (the causal start)
 // to Sq.  Per query tile: P^T = exp(scale S^T - lse), dV += P^T dO, dP^T =
-// V dO^T, dS^T = P^T (dP^T - dsum) rounded to bf16 (scaled before the
-// rounding when ENCODER), dK += dS^T Q.  The flash reference rounds P to
-// bf16 for dV; the encoder reference takes P in f32 there, so ENCODER splits
-// P into two bf16 parts and runs the dV product twice.  Each block owns its
-// keys' dK and dV, so no atomics are needed and every run gives the same bits.
-template <int D, bool ENCODER>
+// V dO^T, dS^T = P^T (dP^T - dsum) times scale, rounded to bf16, dK +=
+// dS^T Q.  The encoder reference takes P in f32 for dV, so P is split into
+// two bf16 parts and the dV product runs twice.  Each block owns its keys'
+// dK and dV, so no atomics are needed and every run gives the same bits.
+template <int D>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(Grad p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdSmem<D>& sm = *reinterpret_cast<BwdSmem<D>*>(smem_raw);
@@ -345,7 +314,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Grad p) {
   const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * kBK, key0 = k0 + 16 * warp;
   const size_t stat0 = (size_t)(b * p.H + h) * p.Sq;
-  const bool drop = ENCODER && p.seed;
+  const bool drop = p.seed != nullptr;
   const uint2 key = drop ? philox::key(p.seed) : make_uint2(0u, 0u);
 
   stage_rows<D>(sm.x1, p.k, b, h, k0, p.Sk, p.H, tid);
@@ -392,23 +361,18 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Grad p) {
           } else {
             const float ds = pr * (dp[j][e] - sm.dsum[qi]);
             s[j][e] = pr;
-            dp[j][e] = ENCODER ? ds * p.scale : ds;
+            dp[j][e] = ds * p.scale;
           }
         }
-      uint32_t a[4];
-      if (ENCODER) {
-        uint32_t lo[4];
-        chunk_a_split(a, lo, s);
-        ay<D>(dv, lo, &sm.y2[0][0], kk, lane);
-      } else {
-        chunk_a(a, s);
-      }
+      uint32_t a[4], lo[4];
+      chunk_a_split(a, lo, s);
+      ay<D>(dv, lo, &sm.y2[0][0], kk, lane);
       ay<D>(dv, a, &sm.y2[0][0], kk, lane);
       chunk_a(a, dp);
       ay<D>(dk, a, &sm.y1[0][0], kk, lane);
     }
   }
-  store_rows<D>(p.dk, dk, ENCODER ? 1.f : p.scale, b, h, key0, p.Sk, p.H, g, t);
+  store_rows<D>(p.dk, dk, 1.f, b, h, key0, p.Sk, p.H, g, t);
   store_rows<D>(p.dv, dv, 1.f, b, h, key0, p.Sk, p.H, g, t);
 }
 

@@ -122,7 +122,7 @@ extern "C" int encoder_attention_launch(const void* q, const void* k, const void
     return (int)cudaErrorInvalidValue;
   const Problem p{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
                   static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-                  nullptr, B, H, S, S, scale, causal,
+                  B, H, S, S, scale, causal,
                   static_cast<const int*>(seed), thresh, inv_keep};
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

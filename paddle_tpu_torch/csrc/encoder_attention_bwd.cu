@@ -24,10 +24,10 @@
 // work at 989 TFLOP/s.
 //
 // What the design does about it: the products run on the tensor cores
-// (mma.sync m16n8k16 bf16, f32 accumulators), with the flash backward's
-// device code (attention_bwd.cuh).  The reference holds a head's whole
-// [S, S] block in VMEM; here a head's K and V (up to 256 KB) do not fit a
-// block's shared memory, so key tiles stream.  Two kernels, launched one
+// (mma.sync m16n8k16 bf16, f32 accumulators; attention_bwd.cuh).  The
+// reference holds a head's whole [S, S] block in VMEM; here a head's K and
+// V (up to 256 KB) do not fit a block's shared memory, so key tiles
+// stream.  Two kernels, launched one
 // after the other by the one entry point:
 //  1. per 64-row query tile: a first walk over the key tiles finds each
 //     row's max, sum and sum of P dP online (S = q k^T and dP = dO v^T per
@@ -59,9 +59,9 @@ using namespace mma_attention;
 template <int D>
 cudaError_t run(const Grad& p, cudaStream_t st) {
   const dim3 grid((p.Sq + kBK - 1) / kBK, p.H, p.B);
-  cudaError_t err = launch_bwd(dq_kernel<D, true>, grid, sizeof(BwdSmem<D>), st, p);
+  cudaError_t err = launch_bwd(dq_kernel<D>, grid, sizeof(BwdSmem<D>), st, p);
   if (err != cudaSuccess) return err;
-  return launch_bwd(dkv_kernel<D, true>, grid, sizeof(BwdSmem<D>), st, p);
+  return launch_bwd(dkv_kernel<D>, grid, sizeof(BwdSmem<D>), st, p);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
-// Tensor-core building blocks shared by flash_attention.cu and
-// encoder_attention.cu: warp-level `mma.sync.m16n8k16` bf16 products with
-// f32 accumulators, in the register layout of FlashAttention-2.
+// Tensor-core building blocks of encoder_attention.cu (and, through
+// attention_bwd.cuh, encoder_attention_bwd.cu): warp-level
+// `mma.sync.m16n8k16` bf16 products with f32 accumulators, in the register
+// layout of FlashAttention-2.
 //
 // Tiling: a block of 4 warps owns 64 query rows of one (batch, head), 16
 // rows per warp.  The warp keeps its Q rows in registers as A fragments for
@@ -44,7 +45,6 @@ struct Problem {
   const __nv_bfloat16* k;  // [B, Sk, H, D]
   const __nv_bfloat16* v;
   __nv_bfloat16* o;        // [B, Sq, H, D]
-  float* lse;              // [B * H, Sq] or null
   int B, H, Sq, Sk;
   float scale;
   int causal;              // bottom-right: query i sees keys <= i + Sk - Sq

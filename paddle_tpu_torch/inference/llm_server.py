@@ -207,7 +207,8 @@ class LLMEngine:
         self._stop = False
         self._stop_epoch = 0
         self._pump_error: BaseException | None = None
-        self._lock = threading.Lock()
+        # re-entrant: a future's done-callback may submit() from inside a tick
+        self._lock = threading.RLock()
         # prefill_chunks counts prefill calls: chunks (paged) or bucketed
         # admissions (dense, also counted per bucket in prefill_buckets)
         self._counts = dict(submitted=0, admitted=0, completed=0, shed=0,
@@ -255,11 +256,13 @@ class LLMEngine:
                 raise queue.Full
             self._pending.put_nowait(req)
         except queue.Full:
-            self._counts["shed"] += 1
+            with self._lock:  # the pump sheds under it too
+                self._counts["shed"] += 1
             raise ServerOverloadedError(
                 f"admission queue full ({self.max_queue_len} pending requests); "
                 "request rejected — retry with backoff") from None
-        self._counts["submitted"] += 1
+        with self._lock:
+            self._counts["submitted"] += 1
         if self._pump_error is not None or self._stop or self._stop_epoch != epoch:
             exc = RuntimeError("LLMEngine stopped while the request was being "
                                "submitted; resubmit")

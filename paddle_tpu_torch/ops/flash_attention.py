@@ -18,8 +18,9 @@ combine needs it).
 
 A CPU tensor takes the plain versions, ``_flash_dense`` forward and
 ``_flash_bwd_dense`` backward; a CUDA tensor launches
-``csrc/flash_attention.cu`` forward and ``csrc/flash_attention_bwd.cu``
-backward (bf16, D in {64, 128}) or raises.  The reference's block-size
+``csrc/flash_attention.cu`` forward (bf16, D in {64, 128, 256}) and
+``csrc/flash_attention_bwd.cu`` backward (bf16, D in {64, 128}; its dsum
+pass runs once per backward) or raises.  The reference's block-size
 rules (``_auto_block``, ``block_q``/``block_k``, its autotune hook) describe
 TPU tiling, not the function: the Hopper kernels pick their own tiles and
 mask their ragged edge, so they are not carried over.  ``supports_seq``
@@ -36,7 +37,8 @@ from . import _build
 NEG_INF = -1e30
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_attention_kernel",
-           "flash_attention_dq_kernel", "flash_attention_dkv_kernel", "supports_seq"]
+           "flash_attention_bwd_stats", "flash_attention_dq_kernel", "flash_attention_dkv_kernel",
+           "supports_seq"]
 
 
 def supports_seq(seq):
@@ -92,12 +94,30 @@ def _check(cond, msg):
         raise ValueError(f"flash attention kernel: {msg}")
 
 
-def _check_inputs(tensors, B, Sq, Sk, H, D, causal):
-    """The kernels' common admission: CUDA, bf16, D in {64, 128}, the
-    shapes, 16-byte aligned storage."""
+FWD_HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)
+
+
+def _check_head_dim(D, backward=False):
+    """The head dims the kernels are built for: 64, 128 and 256 forward,
+    64 and 128 backward."""
+    if backward and D == 256:
+        # dK and dV accumulators of 64 key rows x 256 f32 would take 256
+        # registers a thread on their own: the backward needs its own tiling
+        raise ValueError(
+            "flash attention kernel: head dim 256 has a forward kernel but no "
+            "backward one yet (ROADMAP Queue 2, item 8): train at head dim 64 or "
+            "128, or call the D = 256 forward without gradients")
+    dims = BWD_HEAD_DIMS if backward else FWD_HEAD_DIMS
+    _check(D in dims, f"head dim {D}, the kernel is built for {dims}")
+
+
+def _check_inputs(tensors, B, Sq, Sk, H, D, causal, backward=False):
+    """The kernels' common admission: CUDA, bf16, the head dim (see
+    ``_check_head_dim``), the shapes, 16-byte aligned storage."""
     dev = tensors["q"].device
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
-    _check(D in (64, 128), f"head dim {D}, the kernel is built for 64 and 128")
+    _check_head_dim(D, backward)
     for name, t in tensors.items():
         S = Sk if name in ("k", "v") else Sq
         _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
@@ -109,7 +129,7 @@ def _check_inputs(tensors, B, Sq, Sk, H, D, causal):
 
 
 def _ptrs(*tensors):
-    """data_ptr()s of contiguous tensors; the kernels load 16 bytes a thread."""
+    """data_ptr()s of contiguous tensors, 16-byte aligned as TMA needs."""
     out = []
     for t in tensors:
         _check(t.data_ptr() % 16 == 0, "storage not 16-byte aligned")
@@ -123,7 +143,7 @@ _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
 
 def flash_attention_kernel(q, k, v, causal=False, scale=None):
     """Launch ``csrc/flash_attention.cu`` on CUDA tensors: q [B, Sq, H, D],
-    k/v [B, Sk, H, D], bf16, D in {64, 128}.  Returns (O [B, Sq, H, D]
+    k/v [B, Sk, H, D], bf16, D in {64, 128, 256}.  Returns (O [B, Sq, H, D]
     bf16, LSE [B * H, Sq] f32).  Raises ValueError on anything else.  Every
     launch adds one to ``flash_attention_kernel.launches``."""
     B, Sq, H, D = q.shape
@@ -145,46 +165,87 @@ def flash_attention_kernel(q, k, v, causal=False, scale=None):
 
 flash_attention_kernel.launches = 0
 
-# q, k, v, o, dO, lse, dlse, dsum scratch, then the outputs
+# q, k, v, o, dO, lse, dlse, stats, then the outputs
 _BWD_HEAD = [ctypes.c_void_p] * 8
-_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def _bwd_args(q, k, v, o, do, lse, dlse, causal, scale):
+def _check_stats(stats, B, H, Sq, dev):
+    for name, t in stats.items():
+        _check(t.device == dev and t.dtype == torch.float32 and t.numel() == B * H * Sq,
+               f"{name} must be f32 [B * H, Sq] = {B * H * Sq} values on {dev}")
+
+
+def _stats_shape(B, H, Sq):
+    """The backward's statistics scratch: [2, B * H, Sq rounded up to 64]."""
+    return (2, B * H, -(-Sq // 64) * 64)
+
+
+def _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats):
     """Checked, contiguous inputs of the two backward kernels and the
-    pointers they share: (tensors, head pointers, shape, scale)."""
+    pointers they share: (tensors, head pointers, shape, scale, stats_ready).
+    Without ``stats`` the entry fills fresh scratch itself."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    _check_inputs({"q": q, "k": k, "v": v, "o": o, "do": do}, B, Sq, Sk, H, D, causal)
-    stats = {"lse": lse} if dlse is None else {"lse": lse, "dlse": dlse}
-    for name, t in stats.items():
-        _check(t.device == q.device and t.dtype == torch.float32
-               and t.numel() == B * H * Sq,
-               f"{name} must be f32 [B * H, Sq] = {B * H * Sq} values on {q.device}")
+    _check_inputs({"q": q, "k": k, "v": v, "o": o, "do": do}, B, Sq, Sk, H, D, causal,
+                  backward=True)
+    _check_stats({"lse": lse} if dlse is None else {"lse": lse, "dlse": dlse}, B, H, Sq,
+                 q.device)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     lse = lse.contiguous()
     dlse = None if dlse is None else dlse.contiguous()
-    dsum = torch.empty(B * H, Sq, dtype=torch.float32, device=q.device)
+    ready = stats is not None
+    if stats is None:
+        stats = torch.empty(_stats_shape(B, H, Sq), dtype=torch.float32, device=q.device)
+    _check(stats.dtype == torch.float32 and tuple(stats.shape) == _stats_shape(B, H, Sq)
+           and stats.is_contiguous() and stats.device == q.device,
+           f"stats must be contiguous f32 {_stats_shape(B, H, Sq)} on {q.device}")
     head = _ptrs(q, k, v, o, do, lse) + [None if dlse is None else dlse.data_ptr(),
-                                         dsum.data_ptr()]
-    keep = (q, k, v, o, do, lse, dlse, dsum)  # alive until the launch is queued
-    return keep, head, (B, H, Sq, Sk, D), float(scale)
+                                         stats.data_ptr()]
+    keep = (q, k, v, o, do, lse, dlse, stats)  # alive until the launch is queued
+    return keep, head, (B, H, Sq, Sk, D), float(scale), int(ready)
 
 
-def flash_attention_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None):
+def flash_attention_bwd_stats(o, do, lse, dlse=None):
+    """The backward's per-query statistics, by the dsum pass of
+    ``csrc/flash_attention_bwd.cu``: f32 [2, B * H, Sqp] (Sqp = Sq rounded
+    up to 64) holding lse * log2(e) and dsum = rowsum(dO * O) - dlse, zero
+    past Sq.  o, do [B, Sq, H, D] bf16 on the card; lse and dlse f32 with
+    B * H * Sq values (dlse may be None).  The autograd backward fills it
+    once and hands it to both kernels below."""
+    B, Sq, H, D = o.shape
+    _check_inputs({"q": o, "do": do}, B, Sq, Sq, H, D, False, backward=True)
+    _check_stats({"lse": lse} if dlse is None else {"lse": lse, "dlse": dlse}, B, H, Sq,
+                 o.device)
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    dlse = None if dlse is None else dlse.contiguous()
+    stats = torch.empty(_stats_shape(B, H, Sq), dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        _build.launch("flash_attention_bwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p], *_ptrs(o, do, lse),
+                      None if dlse is None else dlse.data_ptr(), stats.data_ptr(), B, H, Sq, D,
+                      torch.cuda.current_stream(o.device).cuda_stream,
+                      entry="flash_attention_dsum")
+    return stats
+
+
+def flash_attention_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None,
+                              stats=None):
     """Launch ``flash_attention_dq`` of ``csrc/flash_attention_bwd.cu`` (the
     port of ``_dq_kernel``) on CUDA tensors: q, o, do [B, Sq, H, D], k, v
-    [B, Sk, H, D] bf16, lse (and the optional dlse) f32 with B * H * Sq
-    values.  Returns dQ [B, Sq, H, D] bf16.  Raises ValueError on anything
-    else.  Every launch adds one to ``flash_attention_dq_kernel.launches``."""
-    keep, head, shape, scale = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale)
+    [B, Sk, H, D] bf16, D in {64, 128}, lse (and the optional dlse) f32 with
+    B * H * Sq values; ``stats`` from ``flash_attention_bwd_stats``, or None
+    to have the entry compute them first.  Returns dQ [B, Sq, H, D] bf16.
+    Raises ValueError on anything else.  Every launch adds one to
+    ``flash_attention_dq_kernel.launches``."""
+    keep, head, shape, scale, ready = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats)
     dq = torch.empty_like(keep[0])
     dev = dq.device
     with torch.cuda.device(dev):
         _build.launch("flash_attention_bwd", _BWD_HEAD + [ctypes.c_void_p] + _BWD_TAIL,
-                      *head, *_ptrs(dq), *shape, scale, int(bool(causal)),
+                      *head, *_ptrs(dq), *shape, scale, int(bool(causal)), ready,
                       torch.cuda.current_stream(dev).cuda_stream, entry="flash_attention_dq")
     flash_attention_dq_kernel.launches += 1
     return dq
@@ -193,17 +254,18 @@ def flash_attention_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None, dls
 flash_attention_dq_kernel.launches = 0
 
 
-def flash_attention_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None):
+def flash_attention_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None,
+                               stats=None):
     """Launch ``flash_attention_dkv`` of ``csrc/flash_attention_bwd.cu`` (the
     port of ``_dkv_kernel``), with the inputs of
     ``flash_attention_dq_kernel``.  Returns (dK, dV) [B, Sk, H, D] bf16.
     Every launch adds one to ``flash_attention_dkv_kernel.launches``."""
-    keep, head, shape, scale = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale)
+    keep, head, shape, scale, ready = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats)
     dk, dv = torch.empty_like(keep[1]), torch.empty_like(keep[2])
     dev = dk.device
     with torch.cuda.device(dev):
         _build.launch("flash_attention_bwd", _BWD_HEAD + [ctypes.c_void_p] * 2 + _BWD_TAIL,
-                      *head, *_ptrs(dk, dv), *shape, scale, int(bool(causal)),
+                      *head, *_ptrs(dk, dv), *shape, scale, int(bool(causal)), ready,
                       torch.cuda.current_stream(dev).cuda_stream, entry="flash_attention_dkv")
     flash_attention_dkv_kernel.launches += 1
     return dk, dv
@@ -237,8 +299,9 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = _flash_bwd_dense(q, k, v, o, lse, do, ctx.causal, ctx.scale, dlse)
         else:
             args = (q, k, v, o, do, lse, ctx.causal, ctx.scale, dlse)
-            dq = flash_attention_dq_kernel(*args)
-            dk, dv = flash_attention_dkv_kernel(*args)
+            stats = flash_attention_bwd_stats(o, do, lse, dlse)  # once for both kernels
+            dq = flash_attention_dq_kernel(*args, stats=stats)
+            dk, dv = flash_attention_dkv_kernel(*args, stats=stats)
         return dq, dk, dv, None, None
 
 

@@ -209,3 +209,40 @@ def test_unported_engine_options_raise(pair, kw):
     args = {**ENGINE, **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLMEngine(tm, **args)
+
+
+def test_threaded_submitters_count_every_call(pair):
+    """Eight threads submit at once against a running pump and a queue
+    small enough to shed: every accepted call counts as submitted, and shed
+    plus submitted is every attempt."""
+    import threading
+
+    _, tm = pair
+    eng = LLMEngine(tm, **ENGINE, max_queue_len=2).start()
+    accepted, shed, futures = [0] * 8, [0] * 8, [[] for _ in range(8)]
+    go = threading.Barrier(8)
+
+    def submitter(i):
+        go.wait()
+        for n in range(25):
+            try:
+                futures[i].append(eng.submit(np.arange(1, 4 + (i + n) % 5), max_new_tokens=1))
+                accepted[i] += 1
+            except ServerOverloadedError:
+                shed[i] += 1
+
+    threads = [threading.Thread(target=submitter, args=(i,)) for i in range(8)]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        for f in (f for fs in futures for f in fs):
+            f.result(timeout=120)
+    finally:
+        eng.stop()
+    stats = eng.stats()
+    assert sum(shed) > 0 and sum(accepted) > 0
+    assert stats["submitted"] == sum(accepted)
+    assert stats["shed"] == sum(shed)
+    assert stats["shed"] + stats["submitted"] == 8 * 25

@@ -46,6 +46,43 @@ CASES = {
 }
 
 
+D256_CASES = {
+    "causal_s128_d256": (128, 128, 256, True),
+    "full_s256_d256": (256, 256, 256, False),
+    "causal_sq128_sk256_d256": (128, 256, 256, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(D256_CASES))
+def test_plain_matches_reference_kernel_d256(case):
+    """D = 256, which the reference's SDPA sends to flash at S >= 1024 and
+    the port's Hopper forward now takes: the plain version (what a CPU
+    tensor runs, and the kernel's oracle on the card) against the
+    reference's Pallas kernel in interpret mode."""
+    Sq, Sk, D, causal = D256_CASES[case]
+    q, k, v = _qkv(Sq, Sk, D, seed=3)
+    want_o, want_lse = jfa.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, interpret=True)
+    t = torch.from_numpy
+    o, lse = tfa.flash_attention_with_lse(t(q), t(k), t(v), causal=causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=TOL, atol=TOL)
+
+
+def test_backward_admission_rejects_head_dim_256():
+    """The forward kernel takes D = 256, the backward kernels do not yet
+    (their dK and dV accumulators alone would take 256 registers a thread):
+    the admission says so and names the ROADMAP item."""
+    for D in tfa.FWD_HEAD_DIMS:
+        tfa._check_head_dim(D)
+    for D in tfa.BWD_HEAD_DIMS:
+        tfa._check_head_dim(D, backward=True)
+    with pytest.raises(ValueError, match="Queue 2, item 8"):
+        tfa._check_head_dim(256, backward=True)
+    with pytest.raises(ValueError, match="head dim 96"):
+        tfa._check_head_dim(96)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_matches_reference_kernel(case):
     Sq, Sk, D, causal = CASES[case]
@@ -184,6 +221,7 @@ def test_sdpa_flash_backend_matches_reference():
     ((1, 1024, 1024, 4, 128), dict(backend="math"), None),
     ((1, 1024, 1024, 4, 128), dict(mask=True), None),
     ((1, 256, 256, 4, 96), dict(backend="flash"), "flash_attention"),
+    ((1, 1024, 1024, 4, 256), {}, "flash_attention"),  # D = 256 takes flash too
 ], ids=lambda x: str(x) if not isinstance(x, tuple) else "x".join(map(str, x)))
 def test_sdpa_routing_follows_the_reference(shape, kw, want):
     B, Sq, Sk, H, D = shape

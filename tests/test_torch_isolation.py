@@ -106,5 +106,5 @@ def test_kernel_sources_ship_as_package_data():
     for name in kernels:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
     for header in ("attention_bwd.cuh", "kv_attention.cuh", "mma_attention.cuh",
-                   "philox.cuh"):
+                   "philox.cuh", "wgmma_attention.cuh"):
         assert (PKG / "csrc" / header).is_file()

@@ -275,16 +275,21 @@ def test_bottleneck_block_fused_matches_reference(stride, wv_in, wp_in):
         np.testing.assert_allclose(b.numpy(), jbuf[n], atol=1e-5, rtol=0, err_msg=n)
 
 
-def test_train_step_momentum_matches_reference():
+def _train_steps_match_reference(accum_steps=1):
+    """Three TrainStep + Momentum steps of both packages on the fused NHWC
+    path, ``accum_steps`` microbatches each: losses, the parameters'
+    displacement and every BatchNorm's running mean and variance."""
     jm, tm = _models("NHWC", seed=5)
     x, y = _batch("NHWC", seed=9)
     jce, tce = jnn.CrossEntropyLoss(), tnn.CrossEntropyLoss()
     jstep = paddle.jit.TrainStep(
         jm, lambda a, b: jce(jm(a), b),
-        paddle.optimizer.Momentum(learning_rate=LR, momentum=0.9, parameters=jm.parameters()))
+        paddle.optimizer.Momentum(learning_rate=LR, momentum=0.9, parameters=jm.parameters()),
+        accum_steps=accum_steps)
     tstep = tjit.TrainStep(tm, lambda a, b: tce(tm(a), b),
                            topt.Momentum(learning_rate=LR, momentum=0.9,
-                                         parameters=tm.parameters()))
+                                         parameters=tm.parameters()),
+                           accum_steps=accum_steps)
     xj, yj = paddle.to_tensor(x), paddle.to_tensor(y)
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     start = _ref_state(jm)
@@ -307,6 +312,17 @@ def test_train_step_momentum_matches_reference():
             np.testing.assert_allclose(got[n], ref[n], atol=5e-3, rtol=1e-3, err_msg=n)
         elif n.endswith("._variance"):
             np.testing.assert_allclose(got[n], ref[n], atol=5e-3, rtol=5e-3, err_msg=n)
+
+
+def test_train_step_momentum_matches_reference():
+    _train_steps_match_reference()
+
+
+def test_train_step_accum_steps_carries_batchnorm_buffers():
+    """accum_steps=2 with BatchNorm: the reference's scan carries the
+    running statistics from microbatch to microbatch, the port's eager loop
+    updates them in place per microbatch; both give the same buffers."""
+    _train_steps_match_reference(accum_steps=2)
 
 
 def test_nonstandard_width_takes_the_composed_path():
