@@ -9,8 +9,9 @@ Phases:
   2. build        — nvcc builds every kernel under paddle_tpu_torch/csrc/
                     (one process per source, all at once) into
                     paddle_tpu_torch/build/kernels/, with ptxas's report
-                    and the flash libraries' HGMMA (wgmma) and UTMALDG
-                    (TMA load) counts from cuobjdump -sass.
+                    and the flash and encoder libraries' HGMMA (wgmma) and
+                    UTMALDG (TMA load) counts from cuobjdump -sass; a
+                    spill in one of those four libraries fails the phase.
   3. kernels      — each kernel, forward and backward, against its plain
                     PyTorch version at the main paths' shapes, with its
                     time, the plain version's time, a PyTorch library
@@ -24,8 +25,13 @@ Phases:
                     kernels run at ResNet-50's four stage shapes (forward
                     with the fold, backward with and without it) and give
                     the same bits twice, as does every flash forward (D 64,
-                    128 and 256), dq and dkv case; a flash library without
-                    HGMMA fails the phase.
+                    128 and 256), dq and dkv case and every encoder forward
+                    (with its lse) and backward case; a flash or encoder
+                    library without HGMMA or UTMALDG fails the phase.  The
+                    encoder cases include q, k, v as the three strided
+                    slices of one packed [B, S, 3, H, D] tensor, fed to both
+                    kernels with no copy, and time the kernels and their
+                    SDPA yardsticks from CUDA-graph replays (device time).
   4. generate     — model.generate() at LLaMA-2-7B widths (32 layers, bf16,
                     random weights from a seed): ids [4, 1024] (flash
                     prefill) on a bf16 and an int8 cache, and ids [8, 256]
@@ -65,7 +71,8 @@ time goes.
                     composed forward's; then TrainStep + AdamW(1e-4,
                     weight_decay=0.01), 2 warm-up and 8 timed steps, fused
                     LN forward and backward 24 and encoder forward and
-                    backward 12 launches a step, one step profiled.
+                    backward 12 launches a step with no copy of q, k or v,
+                    one step profiled.
  10. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
                     reaches the fused 1x1-conv + BN kernels: first one
                     bottleneck block at each stage's shape, fused against
@@ -201,6 +208,39 @@ def cuda_ms(fn, iters):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def graph_ms(fn, iters=20, repeats=5, per_graph=10, stream=None):
+    """Device ms of one fn() from CUDA-graph replays: ``per_graph`` calls
+    captured in one graph (on ``stream``, where fn's autograd graph lives),
+    the graph replayed ``iters`` times between CUDA events, the least of
+    ``repeats`` such windows.  The host's launch and autograd cost stays
+    out, so a small call reads the card, not the host."""
+    s = stream or torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(per_graph):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    best = math.inf
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(repeats):
+        a.record()
+        for _ in range(iters):
+            g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        best = min(best, a.elapsed_time(b) / (iters * per_graph))
+    del g
+    torch.cuda.synchronize()
+    return best
 
 
 # ---------------------------------------------------------------- kernels
@@ -435,29 +475,35 @@ def seq_attention_case(name, kind, B, H, Sq, Sk, D, causal, seed):
         short[:, -1] = False
     faults = {"uniform_weights": masked_attention(torch.zeros_like(q), k, v, ones, scale),
               "causal_end_short": masked_attention(q, k, v, short, scale)}
-    extra = {}
+    got, lse = got
+    again = kernel()  # the same bits on a second run
+    same = bool(torch.equal(got, again[0]) and torch.equal(lse, again[1]))
     if kind == "flash":
-        got, lse = got
-        again = kernel()  # the same bits on a second run
-        same = bool(torch.equal(got, again[0]) and torch.equal(lse, again[1]))
         want, want_lse = fa._flash_dense(q.float(), k.float(), v.float(), causal, scale)
-        lse_err = (lse.reshape(B, H, Sq) - want_lse).abs().max().item()
-        extra = dict(lse_max_abs_err=lse_err, lse_tol=LSE_TOL, same_bits=same,
-                     ok=lse_err <= LSE_TOL and same)
     else:
         want = ea._encoder_dense(q.float(), k.float(), v.float(), scale, causal)
+        want_lse = ea._encoder_lse(q.float(), k.float(), scale, causal)
+    lse_err = (lse.reshape(B, H, Sq) - want_lse.reshape(B, H, Sq)).abs().max().item()
+    extra = dict(lse_max_abs_err=lse_err, lse_tol=LSE_TOL, same_bits=same,
+                 ok=lse_err <= LSE_TOL and same)
     res = gate(name, got, want, faults, KERNEL_RTOL["bf16"], kind=kind, B=B, H=H, Sq=Sq,
                Sk=Sk, D=D, causal=causal, **extra)
     iters = 20
-    res["ms"] = cuda_ms(kernel, iters)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+
+    if kind == "flash":
+        res["ms"] = cuda_ms(kernel, iters)
+    else:  # the kernel and its yardstick both from graph replays (device time)
+        res["ms"] = graph_ms(kernel)
     res["plain_ms"] = cuda_ms(plain, 5)
     # yardstick: SDPA where it computes the same function (its is_causal is
     # top-left aligned, so causal only at Sq == Sk); timed, never used
     res["library_ms"] = None
     if Sq == Sk or not causal:
-        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        res["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=causal), iters)
+        res["library_ms"] = cuda_ms(sdpa, iters) if kind == "flash" else graph_ms(sdpa)
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + (B * H * Sq * 4 if kind == "flash" else 0)
     res["bound_ms"], res["bound_by"] = bound(nbytes, 4.0 * D * B * H * visible_pairs(Sq, Sk, causal))
     return res
@@ -502,15 +548,26 @@ def bwd_gate(name, gots, wants, faults, tol, **extra):
                 grad_rel=rels, fault_rel=fault_rel, finite=finite, tol=tol, ok=ok, **extra)
 
 
-def sdpa_bwd_ms(q, k, v, do, causal, iters, dropout_p=0.0):
+def sdpa_bwd_ms(q, k, v, do, causal, iters, dropout_p=0.0, graph=False):
     """The yardstick: torch.autograd.grad of one SDPA output with the same
-    dO, the forward excluded (timed, never called by the port)."""
+    dO, the forward excluded (timed, never called by the port).  With
+    ``graph`` the backward is timed from CUDA-graph replays (graph_ms), the
+    forward run on the capture stream so that its backward lands there: the
+    card's time, not the host's autograd overhead."""
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, dropout_p=dropout_p,
-                                                           is_causal=causal)
     doh = do.transpose(1, 2)
-    return cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
-                   iters)
+    if not graph:
+        out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, dropout_p=dropout_p,
+                                                               is_causal=causal)
+        return cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
+                       iters)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, dropout_p=dropout_p,
+                                                               is_causal=causal)
+    return graph_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
+                    stream=s)
 
 
 def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
@@ -590,11 +647,15 @@ def encoder_bwd_case(name, B, H, S, D, causal, seed):
     k, v, do = randn(g, (B, S, H, D)), randn(g, (B, S, H, D)), randn(g, (B, S, H, D))
     scale = 1.0 / D ** 0.5
 
+    _, lse = ea.encoder_attention_kernel(q, k, v, scale, causal)
+
     def kernel():
-        return ea.encoder_attention_bwd_kernel(q, k, v, do, scale, causal)
+        return ea.encoder_attention_bwd_kernel(q, k, v, do, scale, causal, lse=lse)
 
     got = kernel()
+    again = kernel()  # the same bits on a second run
     torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     want = ea._encoder_bwd_dense(q.float(), k.float(), v.float(), do.float(), scale, causal)
     ones = torch.ones(S, S, dtype=torch.bool, device="cuda")
     vis = ones.tril() if causal else ones
@@ -607,10 +668,10 @@ def encoder_bwd_case(name, B, H, S, D, causal, seed):
     faults = {"dsum_zero": masked_attention_bwd(q, k, v, do, vis, scale, dsum_zero=True),
               "causal_end_short": masked_attention_bwd(q, k, v, do, short, scale)}
     res = bwd_gate(name, got, want, faults, BWD_RTOL, kind="encoder", B=B, H=H, Sq=S, Sk=S,
-                   D=D, causal=causal)
-    res["ms"] = cuda_ms(kernel, 10)
+                   D=D, causal=causal, same_bits=same, ok=same)
+    res["ms"] = graph_ms(kernel)
     res["plain_ms"] = cuda_ms(lambda: ea._encoder_bwd_dense(q, k, v, do, scale, causal), 3)
-    res["library_ms"] = sdpa_bwd_ms(q, k, v, do, causal, 10)
+    res["library_ms"] = sdpa_bwd_ms(q, k, v, do, causal, 10, graph=True)
     n = B * S * H * D * 2
     res["bound_ms"], res["bound_by"] = bound(7 * n, 10.0 * D * B * H * visible_pairs(S, S, causal))
     return res
@@ -754,21 +815,31 @@ def fused_ln_case(name, n, h, dtype, rate, seed, eps=1e-12):
     return fwd, bwd
 
 
-def encoder_dropout_case(name, B, H, S, D, causal, seed, rate=DROP_RATE):
+def encoder_dropout_case(name, B, H, S, D, causal, seed, rate=DROP_RATE, packed=False):
     """The encoder forward and backward kernels with dropout vs their plain
     versions on the card, with the same seed tensor.  Planted faults: the
     mask read one key over, the seed words swapped and (backward) no
-    mask."""
+    mask.  With ``packed``, q, k and v are the three strided slices of one
+    [B, S, 3, H, D] tensor (ERNIE's projection), fed to both kernels as
+    they are: no copy may be made.  Both kernels give the same bits twice."""
     from paddle_tpu_torch.ops import encoder_attention as ea
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = randn(g, (B, S, H, D), Q_STD)
-    k, v, do = randn(g, (B, S, H, D)), randn(g, (B, S, H, D)), randn(g, (B, S, H, D))
+    if packed:
+        qkv = randn(g, (B, S, 3, H, D))
+        qkv[:, :, 0] *= Q_STD
+        q, k, v = qkv.unbind(2)
+        do = randn(g, (B, S, H, D))
+    else:
+        q = randn(g, (B, S, H, D), Q_STD)
+        k, v, do = randn(g, (B, S, H, D)), randn(g, (B, S, H, D)), randn(g, (B, S, H, D))
     sd = seed_pair(g)
     scale = 1.0 / D ** 0.5
     keep = ea.dropout_keep(sd, B, H, S, rate)
     f32 = [t.float() for t in (q, k, v, do)]
-    shape = dict(kind="encoder", B=B, H=H, Sq=S, Sk=S, D=D, causal=causal, rate=rate)
+    shape = dict(kind="encoder", B=B, H=H, Sq=S, Sk=S, D=D, causal=causal, rate=rate,
+                 packed=packed)
+    copies0 = ea._check_inputs.copies
 
     def plain(kp=keep):
         # v in bf16, so that the oracle rounds the kept, scaled probabilities
@@ -778,41 +849,60 @@ def encoder_dropout_case(name, B, H, S, D, causal, seed, rate=DROP_RATE):
         # the rate-0 cases do not have.  The products and the output stay f32.
         return ea._encoder_dense(f32[0], f32[1], v, scale, causal, kp, rate)
 
-    got = ea.encoder_attention_kernel(q, k, v, scale, causal, sd, rate)
+    def fwd_kernel():
+        return ea.encoder_attention_kernel(q, k, v, scale, causal, sd, rate)
+
+    got, lse = fwd_kernel()
+    again = fwd_kernel()
     torch.cuda.synchronize()
+    same_fwd = bool(torch.equal(got, again[0]) and torch.equal(lse, again[1]))
+    lse_err = (lse - ea._encoder_lse(f32[0], f32[1], scale, causal)).abs().max().item()
     swapped = ea.dropout_keep(sd.flip(0), B, H, S, rate)
     fwd = gate(name, got, plain(), {"mask_shifted": plain(keep.roll(1, -1)),
                                     "seeds_swapped": plain(swapped)},
-               KERNEL_RTOL["bf16"], **shape)
+               KERNEL_RTOL["bf16"], same_bits=same_fwd, lse_max_abs_err=lse_err,
+               lse_tol=LSE_TOL, ok=same_fwd and lse_err <= LSE_TOL, **shape)
 
     def bwd_plain(kp=keep, r=rate):
         return ea._encoder_bwd_dense(*f32, scale, causal, kp, r)
 
-    gots = ea.encoder_attention_bwd_kernel(q, k, v, do, scale, causal, sd, rate)
+    def bwd_kernel():
+        return ea.encoder_attention_bwd_kernel(q, k, v, do, scale, causal, sd, rate, lse)
+
+    gots = bwd_kernel()
+    again = bwd_kernel()
     torch.cuda.synchronize()
+    same_bwd = all(torch.equal(a, b) for a, b in zip(gots, again))
+    copies = ea._check_inputs.copies - copies0
     bwd = bwd_gate(name, gots, bwd_plain(), {"mask_shifted": bwd_plain(keep.roll(1, -1)),
                                              "seeds_swapped": bwd_plain(swapped),
                                              "no_mask": bwd_plain(None, 0.0)},
-                   BWD_RTOL, **shape)
+                   BWD_RTOL, same_bits=same_bwd, ok=same_bwd, **shape)
+    for c in (fwd, bwd):
+        c["input_copies"] = copies
+        c["ok"] = c["ok"] and copies == 0
     add_keep(keep, rate, fwd, bwd)
     pairs = B * H * visible_pairs(S, S, causal)
     calls = pairs // 4  # one Philox call serves 4 probabilities
     n = B * S * H * D * 2
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    for c, kern, pl, nbytes, ops, draws in (
-            (fwd, lambda: ea.encoder_attention_kernel(q, k, v, scale, causal, sd, rate),
-             lambda: ea._encoder_dense(q, k, v, scale, causal, keep, rate), 4 * n, 4.0, 1),
-            (bwd, lambda: ea.encoder_attention_bwd_kernel(q, k, v, do, scale, causal, sd, rate),
+    # the function's least work: one Philox draw per element in each
+    # direction (what the kernels draw), q, k, v (+ dO) read and o (dq, dk,
+    # dv) written once
+    for c, kern, pl, nbytes, ops in (
+            (fwd, fwd_kernel,
+             lambda: ea._encoder_dense(q, k, v, scale, causal, keep, rate), 4 * n, 4.0),
+            (bwd, bwd_kernel,
              lambda: ea._encoder_bwd_dense(q, k, v, do, scale, causal, keep, rate), 7 * n,
-             10.0, 3)):
-        c["ms"] = cuda_ms(kern, 10)
+             10.0)):
+        c["ms"] = graph_ms(kern)
         c["plain_ms"] = cuda_ms(pl, 3)
         c["bound_ms"], c["bound_by"], c["floors"] = bound3(
-            nbytes, tc_flops=ops * D * pairs, philox_calls=draws * calls)
+            nbytes, tc_flops=ops * D * pairs, philox_calls=calls)
     # yardsticks: SDPA with the same dropout rate (its own mask); timed, never used
-    fwd["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kh, vh, dropout_p=rate, is_causal=causal), 10)
-    bwd["library_ms"] = sdpa_bwd_ms(q, k, v, do, causal, 10, dropout_p=rate)
+    fwd["library_ms"] = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, dropout_p=rate, is_causal=causal))
+    bwd["library_ms"] = sdpa_bwd_ms(q, k, v, do, causal, 10, dropout_p=rate, graph=True)
     return fwd, bwd
 
 
@@ -831,10 +921,12 @@ def dropout_kernel_cases():
         log_case("fused_ln", fwd)
         log_case("fused_ln_bwd", bwd)
     enc = {"encoder_attention": [], "encoder_attention_bwd": []}
-    for i, (name, B, H, S, D, causal) in enumerate([
-            ("ernie_drop", 512, 12, 128, 64, False),       # the ERNIE step's
-            ("b8_s512_d128_causal_drop", 8, 16, 512, 128, True)]):
-        fwd, bwd = encoder_dropout_case(name, B, H, S, D, causal, 95 + i)
+    for i, (name, B, H, S, D, causal, packed) in enumerate([
+            ("ernie_drop", 512, 12, 128, 64, False, False),       # the ERNIE step's
+            ("b8_s512_d128_causal_drop", 8, 16, 512, 128, True, False),
+            ("ernie_packed_qkv_drop", 512, 12, 128, 64, False, True),  # BERT's qkv views
+            ("b8_s512_d128_causal_packed_qkv_drop", 8, 16, 512, 128, True, True)]):
+        fwd, bwd = encoder_dropout_case(name, B, H, S, D, causal, 95 + i, packed=packed)
         enc["encoder_attention"].append(fwd)
         enc["encoder_attention_bwd"].append(bwd)
         log_case("encoder_attention", fwd)
@@ -1123,8 +1215,10 @@ def kernel_phase():
     return out
 
 
-# The flash libraries, whose SASS must hold wgmma (HGMMA) and TMA (UTMALDG).
-FLASH_LIBS = ("flash_attention", "flash_attention_bwd")
+# The libraries built on wgmma_attention.cuh, whose SASS must hold wgmma
+# (HGMMA) and TMA loads (UTMALDG), and whose ptxas report must show no spill.
+HOPPER_LIBS = ("flash_attention", "flash_attention_bwd", "encoder_attention",
+               "encoder_attention_bwd")
 
 
 def sass_counts(lib):
@@ -1146,6 +1240,8 @@ def log_case(kern, c):
         lse += " per grad " + "/".join(f"{r:.2e}" for r in c["grad_rel"])
     if "same_bits" in c:
         lse += f" same bits {c['same_bits']}"
+    if "input_copies" in c:
+        lse += f" input copies {c['input_copies']}"
     if "backward_ms" in c:
         lse += f" stats+dq+dkv {c['backward_ms']:.4f} ms"
     if "keep_fraction" in c:
@@ -1182,8 +1278,19 @@ def counters():
 
 
 def zero_counts():
+    from paddle_tpu_torch.ops import encoder_attention as ea
+
     for fn in counters().values():
         fn.launches = 0
+    ea._check_inputs.copies = 0
+
+
+def input_copies():
+    """Copies the encoder wrappers made of views TMA cannot read, since the
+    counters were last zeroed."""
+    from paddle_tpu_torch.ops import encoder_attention as ea
+
+    return ea._check_inputs.copies
 
 
 def read_counts():
@@ -1707,11 +1814,13 @@ def train_kind(name):
     low = name.lower()
     if "fused_ln_fwd_kernel" in low or "fused_ln_bwd_kernel" in low:
         return low[low.index("fused_ln_"):][:12]  # fused_ln_fwd / fused_ln_bwd
-    if "flash_fwd_kernel" in low or "encoder_fwd_kernel" in low:
+    if "flash_fwd_kernel" in low or "encoder_fwd" in low:
         return "attention_fwd"
     # flash_dq_kernel, flash_dkv_kernel, flash_dsum_kernel (the wgmma
-    # backward and its statistics pass); the encoder's dq_kernel, dkv_kernel
-    if any(w in low for w in ("dq_kernel", "dkv_kernel", "dsum_kernel")):
+    # backward and its statistics pass); the encoder's encoder_bwd_head
+    # (S = 128), encoder_dq and encoder_dkv (S > 128)
+    if any(w in low for w in ("dq_kernel", "dkv_kernel", "dsum_kernel", "encoder_bwd_head",
+                              "encoder_dq", "encoder_dkv")):
         return "attention_bwd"
     if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")):
         return "matmul"
@@ -1757,8 +1866,16 @@ def train_profile(step, batch, kind=train_kind, kinds=TRAIN_KINDS, span_kinds=("
                                  "its kernels count as other")
         if kern:
             busy = sum(by_kind.values())
+            # eager copies and adds (ERNIE's q/k/v copies and the qkv
+            # gradient's fills and adds were among them), all and bf16
+            copy_add = {}
+            for tag, word in (("direct_copy", "direct_copy_kernel"), ("add", "CUDAFunctor_add"),
+                              ("fill", "FillFunctor")):
+                named = [(n, ms) for n, ms in by_name.items() if word in n]
+                copy_add[tag] = sum(ms for _, ms in named)
+                copy_add[tag + "_bf16"] = sum(ms for n, ms in named if "BFloat16" in n)
             res.update(device_ms=busy, device_ms_by_kind=by_kind, kernels=len(kern),
-                       busy_share=busy / res["profiled_wall_ms"],
+                       busy_share=busy / res["profiled_wall_ms"], copy_add_ms=copy_add,
                        top_kernels=sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
         else:
             res["device_ms"] = "not measured (no device events)"
@@ -1799,6 +1916,7 @@ def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN
                      accum_steps=accum_steps)
     batch = token_batch(cfg, B, S, seed, model.device)
     losses, ms, launches = timed_steps(step, batch, steps, warmup)
+    copies = input_copies()
     step_ms = sorted(ms)[len(ms) // 2]
     tokens = B * S
     # bench.py's count: 6 N per token, plus the causal attention products
@@ -1812,7 +1930,7 @@ def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN
                flops_per_step=flops, mfu=flops / (step_ms / 1e3) / H100_BF16_FLOPS,
                peak_mem_bytes=(torch.cuda.max_memory_allocated()
                                if torch.cuda.is_available() else None),
-               launches=launches, expected_launches=expected)
+               launches=launches, expected_launches=expected, encoder_input_copies=copies)
     res["ok"] = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
                  and launch_check(launches, expected))
     if profiled:
@@ -2057,6 +2175,7 @@ def ernie_train(model, batch, steps=ERNIE_STEPS, warmup=ERNIE_WARMUP, profiled=T
     cfg = model.config
     step = TrainStep(model, ernie_loss(model), AdamW(1e-4, weight_decay=0.01))
     losses, ms, launches = timed_steps(step, batch, steps, warmup)
+    copies = input_copies()
     B, S = batch[0].shape
     P = batch[2].shape[1]
     step_ms = sorted(ms)[len(ms) // 2]
@@ -2069,9 +2188,11 @@ def ernie_train(model, batch, steps=ERNIE_STEPS, warmup=ERNIE_WARMUP, profiled=T
                mfu=flops / (step_ms / 1e3) / H100_BF16_FLOPS,
                peak_mem_bytes=(torch.cuda.max_memory_allocated()
                                if torch.cuda.is_available() else None),
-               launches=launches, expected_launches=expected)
+               launches=launches, expected_launches=expected, encoder_input_copies=copies)
+    # BERT's q, k, v are strided views of one packed projection: the
+    # encoder kernels must read them in place
     res["ok"] = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-                 and launch_check(launches, expected))
+                 and launch_check(launches, expected) and copies == 0)
     if profiled:
         res["profile"] = train_profile(step, batch)
     return res
@@ -2119,7 +2240,8 @@ def ernie_phase(card, device="cuda", layers=12, parity_layers=2, B=ERNIE_B, S=ER
         f"{run['tokens_per_s']:.0f} tok/s, MFU {run['mfu']:.4f}, peak "
         f"{(run['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; loss {run['losses'][0]:.4f} -> "
         f"{run['losses'][-1]:.4f}; launches {run['launches']} (expected "
-        f"{run['expected_launches']}); profile {json.dumps(run.get('profile'))}; "
+        f"{run['expected_launches']}); encoder input copies {run['encoder_input_copies']} "
+        f"(expected 0); profile {json.dumps(run.get('profile'))}; "
         f"{'ok' if run['ok'] else 'FAIL'} [{card}]")
     return dict(grad_parity=parity, determinism=determinism, eval=ev), [run]
 
@@ -2407,17 +2529,25 @@ def main(argv=None):
                     log(f"[build]   {name}: {line.strip()}")
                 if any(w in line for w in ("registers", "spill", "entry function")):
                     report["ptxas"].setdefault(name, []).append(line.strip())
-        report["sass"] = {name: sass_counts(built[name]["path"]) for name in FLASH_LIBS}
+        report["sass"] = {name: sass_counts(built[name]["path"]) for name in HOPPER_LIBS}
         for name, n in report["sass"].items():
             log(f"[build]   {name}: SASS {n['HGMMA']} HGMMA (wgmma), {n['UTMALDG']} UTMALDG "
                 "(TMA loads)")
+        spills = [f"{name}: {line}" for name in HOPPER_LIBS
+                  for line in report["ptxas"].get(name, [])
+                  if "spill" in line and not line.startswith("0 bytes stack frame, 0 bytes spill")]
+        report["hopper_spills"] = spills
+        if spills:
+            log("[build] FAIL: ptxas spills in a wgmma library: " + "; ".join(spills))
+            ok = False
     if "kernels" in phases:
         log("[kernels] every kernel vs its plain version")
         report["kernels"] = kernel_phase()
         ok &= all(c["ok"] for cases in report["kernels"].values() for c in cases)
-        hopper = all(n["HGMMA"] > 0 for n in report["sass"].values())
+        hopper = all(n["HGMMA"] > 0 and n["UTMALDG"] > 0 for n in report["sass"].values())
         if not hopper:
-            log("[kernels] FAIL: a flash library has no HGMMA (wgmma) instruction")
+            log("[kernels] FAIL: a flash or encoder library has no HGMMA (wgmma) or no "
+                "UTMALDG (TMA load) instruction")
         ok &= hopper
     serving = [ph for ph in paths if ph not in ("train", "ernie", "resnet")]
     if serving:

@@ -32,11 +32,11 @@
 //    probabilities (query i, key j, bh = b * H + h): counter
 //    (oct(i), oct(j), bh, 0) with oct(x) = (x >> 4) * 8 + (x & 7), word
 //    2 * ((i >> 3) & 1) + ((j >> 3) & 1).  One call serves rows {i, i + 8}
-//    times columns {j, j + 8} of a 16 x 16 tile.  An m16n8k16 accumulator
-//    thread holds exactly such a set (rows g and g + 8 of an n-tile pair,
-//    columns 2t + c and 8 + 2t + c), and so does the transposed tile of the
-//    dK/dV kernel (keys g and g + 8, queries 2t + c and 8 + 2t + c), so every
-//    kernel uses whole calls.
+//    times columns {j, j + 8} of a 16 x 16 tile.  A `wgmma` accumulator
+//    thread holds exactly such a set in each 16-column chunk (rows g and
+//    g + 8, columns 2t + c and 8 + 2t + c; encoder_wgmma.cuh), so every
+//    kernel draws whole calls, each once; the streamed encoder backward
+//    keeps the drawn bits for its transposed dK/dV tiles.
 #pragma once
 
 #include <stdint.h>

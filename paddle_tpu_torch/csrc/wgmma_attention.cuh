@@ -1,5 +1,6 @@
-// Hopper building blocks of the flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu): TMA loads into 128-byte-swizzled shared memory,
+// Hopper building blocks of the flash- and encoder-attention kernels
+// (flash_attention.cu, flash_attention_bwd.cu, and through
+// encoder_wgmma.cuh encoder_attention.cu, encoder_attention_bwd.cu): TMA loads into 128-byte-swizzled shared memory,
 // an mbarrier ring that keeps tiles in flight, warpgroup `wgmma` products
 // with f32 accumulators, and the online-softmax step.  sm_90a only (`wgmma`
 // exists for no other target).
@@ -15,8 +16,10 @@
 // dK/dV kernel spilled either way); 256 threads get up to 255, and the
 // dK/dV kernel at D = 128 needs about 250.
 //
-// Tiles in shared memory.  A tensor is [B, S, H, D] bf16, contiguous.  Its
-// TMA map (make_map) is 4-D over (D, H, S, B) with a box of (64, 1, rows,
+// Tiles in shared memory.  A tensor is [B, S, H, D] bf16, its last
+// dimension contiguous (the flash kernels take contiguous tensors, the
+// encoder kernels views with any 16-byte-multiple strides).  Its TMA map
+// (make_map) is 4-D over (D, H, S, B) with a box of (64, 1, rows,
 // 1): one box is `rows` rows of 64 bf16, 128 bytes a row, stored with the
 // 128-byte swizzle (16-byte chunk c of row r lands at chunk c ^ (r % 8)).
 // A rows x D tile is D / 64 such panels one after another, each 1024-byte
@@ -255,7 +258,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 
 // d (m64 x N, f32) = A B (+ d when acc), one k16 step.  ss: A and B from
 // shared memory, both K-major.  rs: A from registers, B MN-major (the
-// transpose bit), always accumulating.
+// transpose bit), always accumulating.  tt: A and B from shared memory,
+// both MN-major (both transpose bits): A is read as the transpose of a
+// tile whose rows run along the reduction, as the encoder backward reads
+// P_d and dS (rows = queries; a warpgroup's 64 keys are one panel) to form
+// P_d^T and dS^T.
 template <int N>
 struct Mma;
 
@@ -277,6 +284,14 @@ struct Mma<64> {
         : WGA_F32(0)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
+  static __device__ __forceinline__ void tt(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGA_R32
+        "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : WGA_F32(0)
+        : "l"(a), "l"(b), "r"(acc));
+  }
 };
 
 template <>
@@ -296,6 +311,14 @@ struct Mma<128> {
         "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
         : WGA_F32(0), WGA_F32(32)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void tt(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGA_R64
+        "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+        : WGA_F32(0), WGA_F32(32)
+        : "l"(a), "l"(b), "r"(acc));
   }
 };
 
@@ -439,13 +462,24 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The TMA map of a [B, S, H, D] bf16 tensor at `ptr` (16-byte aligned), with
+// Element strides of a [B, S, H, D] view whose last dimension is contiguous.
+struct Strides {
+  long long h, s, b;
+};
+
+inline Strides contiguous_strides(int S, int H, int D) {
+  return Strides{(long long)D, (long long)H * D, (long long)S * H * D};
+}
+
+// The TMA map of a [B, S, H, D] bf16 view at `ptr` (16-byte aligned) with
+// element strides `st` (each a multiple of 8, 16 bytes: TMA's rule), with
 // boxes of `rows` rows x 64 columns of one head and the 128-byte swizzle.
-inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows) {
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows,
+                            Strides st) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2, (cuuint64_t)S * H * D * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2, (cuuint64_t)st.b * 2};
   const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -453,6 +487,11 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same for a contiguous [B, S, H, D] tensor.
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows) {
+  return make_map(map, ptr, B, S, H, D, rows, contiguous_strides(S, H, D));
 }
 
 // Launch kernel<<<grid, kThreads, smem>>> after raising its dynamic shared

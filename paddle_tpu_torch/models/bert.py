@@ -98,7 +98,9 @@ class BertSelfAttention(nn.Module):
     def forward(self, x, mask=None):
         B, S = x.shape[0], x.shape[1]
         qkv = self.qkv(x).reshape(B, S, 3, self.num_heads, self.head_dim)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        # three strided views the kernels read in place; unbind's backward
+        # stacks the three gradients once
+        q, k, v = qkv.unbind(2)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, dropout_p=self.attn_drop if self.training else 0.0)
         return self.out(out.reshape(B, S, self.num_heads * self.head_dim))

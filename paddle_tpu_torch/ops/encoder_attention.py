@@ -13,17 +13,22 @@ only (Sq == Sk), S % 128 == 0, S <= 512, D in {64, 128}; the reference's
 heads-per-step choice (``pick_g``, a VMEM budget) is TPU tiling, and no
 admitted shape ever failed it.
 
-It is a ``torch.autograd.Function`` that saves only q, k, v and the seed,
-as the reference does: the backward (``_bwd_kernel``) recomputes P and
-regenerates the mask, then dV = P_d^T dO with P_d = where(keep, P / (1 -
-rate), 0) and dP = where(keep, dO V^T / (1 - rate), 0) in f32, dS = P (dP -
-rowsum(dP * P)) * scale rounded to the input dtype, dQ = dS K and dK = dS^T
-Q.  Nothing of size [B * H, S, S] is stored.
+It is a ``torch.autograd.Function`` that saves q, k, v and the seed, as
+the reference does, and on the card also the rows' logsumexp [B * H, S]
+f32 (which the backward kernels at S > 128 read).  The backward
+(``_bwd_kernel``) recomputes P and regenerates the mask, then dV = P_d^T dO
+with P_d = where(keep, P / (1 - rate), 0) and dP = where(keep, dO V^T /
+(1 - rate), 0) in f32, dS = P (dP - rowsum(dP * P)) * scale rounded to the
+input dtype, dQ = dS K and dK = dS^T Q.  Nothing of size [B * H, S, S] is
+stored.
 
 A CPU tensor takes the plain versions, ``_encoder_dense`` forward and
 ``_encoder_bwd_dense`` backward; a CUDA tensor launches
 ``csrc/encoder_attention.cu`` forward and ``csrc/encoder_attention_bwd.cu``
-backward (bf16) or raises.
+backward (bf16) or raises.  The kernels read q, k, v and dO through TMA
+with their own strides, so strided views such as the three slices of one
+packed [B, S, 3, H, D] projection launch without copies; only a view TMA
+cannot read (``tma_readable``) is copied, and counted.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ from ._prng import encoder_bits, keep_mask, launch_args
 NEG_INF = -1e30
 
 __all__ = ["encoder_attention", "encoder_attention_kernel",
-           "encoder_attention_bwd_kernel", "supported"]
+           "encoder_attention_bwd_kernel", "supported", "tma_readable"]
 
 
 def supported(bh, s, d, seq_kv=None):
@@ -69,6 +74,18 @@ def _drop(x, keep, rate):
     return x if keep is None else torch.where(keep, x * (1.0 / (1.0 - rate)), 0.0)
 
 
+def _encoder_lse(q, k, scale, causal):
+    """Plain version of the forward kernel's second output: each row's
+    natural-log logsumexp of the scaled (and causally masked) scores,
+    [B * H, S] f32."""
+    S = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s = s + torch.where(pos[:, None] >= pos[None, :], 0.0, NEG_INF)
+    return torch.logsumexp(s, dim=-1).reshape(-1, S)
+
+
 def _encoder_dense(q, k, v, scale, causal, keep=None, rate=0.0):
     """Plain version: p masked by ``keep`` [B, H, S, S] (None: no dropout)
     and scaled by 1 / (1 - rate), then rounded to v's dtype before P.V.
@@ -97,15 +114,33 @@ def _check(cond, msg):
         raise ValueError(f"encoder attention kernel: {msg}")
 
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
-    ctypes.c_void_p]
+def tma_readable(shape, strides, data_ptr, itemsize=2):
+    """Whether the kernels' TMA loads can read a [B, S, H, D] view in place:
+    the last dimension contiguous, the heads D apart, the row and batch
+    strides positive multiples of 16 bytes (or their dimension of size 1),
+    and the storage 16-byte aligned.  The three slices of one packed
+    [B, S, 3, H, D] tensor qualify; a transposed [B, H, S, D] tensor does
+    not."""
+    B, S, H, D = shape
+    sb, ss, sh, sd = strides
+    return (sd == 1 and (H == 1 or sh == D) and data_ptr % 16 == 0
+            and all(n == 1 or (st > 0 and st * itemsize % 16 == 0)
+                    for n, st in ((S, ss), (B, sb))))
+
+
+def _tma_strides(t):
+    """(head, row, batch) element strides of a TMA-readable view, with a
+    valid stand-in for a dimension of size 1."""
+    B, S, H, D = t.shape
+    ss = t.stride(1) if S > 1 else H * D
+    return D, ss, t.stride(0) if B > 1 else S * ss
 
 
 def _check_inputs(tensors):
     """The kernels' admission: CUDA, bf16, one [B, S, H, D] shape that
-    ``supported`` admits, 16-byte aligned storage.  Returns the tensors
-    made contiguous."""
+    ``supported`` admits.  Returns the tensors as they are where TMA can
+    read them (``tma_readable``), else a contiguous copy; each copy adds one
+    to ``_check_inputs.copies``."""
     q = tensors["q"]
     B, S, H, D = q.shape
     dev = q.device
@@ -117,63 +152,100 @@ def _check_inputs(tensors):
                f"{name} shape {tuple(t.shape)}, need {(B, S, H, D)}")
     _check(supported(B * H, S, D), f"S={S} D={D}: need S % 128 == 0, "
            "S <= 512, D in (64, 128)")
-    out = [t.contiguous() for t in tensors.values()]
-    _check(all(t.data_ptr() % 16 == 0 for t in out), "storage not 16-byte aligned")
+    out = []
+    for t in tensors.values():
+        if not tma_readable(tuple(t.shape), t.stride(), t.data_ptr(), t.element_size()):
+            t = t.clone(memory_format=torch.contiguous_format)  # fresh, aligned storage
+            _check_inputs.copies += 1
+            _check(t.data_ptr() % 16 == 0, "storage not 16-byte aligned")
+        out.append(t)
     return out
+
+
+_check_inputs.copies = 0
+
+
+def _strides(*ts):
+    return [st for t in ts for st in _tma_strides(t)]
+
+
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
+         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
+            ctypes.c_void_p])
 
 
 def encoder_attention_kernel(q, k, v, scale=None, causal=False, seed=None, rate=0.0):
     """Launch ``csrc/encoder_attention.cu`` on CUDA tensors: q/k/v
-    [B, S, H, D] bf16 with a ``supported`` shape; with ``rate`` > 0, dropout
-    from ``seed`` (int32 [2] on q's device).  Returns O [B, S, H, D] bf16.
-    Raises ValueError on anything else.  Every launch adds one to
+    [B, S, H, D] bf16 views with a ``supported`` shape (strided views that
+    ``tma_readable`` admits are read in place); with ``rate`` > 0, dropout
+    from ``seed`` (int32 [2] on q's device).  Returns (O [B, S, H, D] bf16,
+    contiguous, the rows' natural-log logsumexp [B * H, S] f32).  Raises
+    ValueError on anything else.  Every launch adds one to
     ``encoder_attention_kernel.launches``."""
     q, k, v = _check_inputs({"q": q, "k": k, "v": v})
     B, S, H, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    o = torch.empty_like(q)
     dev = q.device
+    o = torch.empty(B, S, H, D, dtype=q.dtype, device=dev)
+    lse = torch.empty(B * H, S, dtype=torch.float32, device=dev)
     sp, thresh, inv = launch_args(seed, rate, 1.0 / (1.0 - rate), dev)
     with torch.cuda.device(dev):
         _build.launch("encoder_attention", _ARGS, q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), o.data_ptr(), B, H, S, D, float(scale),
-                      int(bool(causal)), sp, thresh, float(inv),
-                      torch.cuda.current_stream(dev).cuda_stream)
+                      v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, S, D,
+                      *_strides(q, k, v), float(scale), int(bool(causal)), sp, thresh,
+                      float(inv), torch.cuda.current_stream(dev).cuda_stream)
     encoder_attention_kernel.launches += 1
-    return o
+    return o, lse
 
 
 encoder_attention_kernel.launches = 0
 
-_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
-    ctypes.c_void_p]
+_BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
+                ctypes.c_void_p])
+
+# At S = 128 one block of the backward holds a whole head and needs nothing
+# from the forward; longer rows take the streamed kernels, which read the
+# forward's lse.
+WHOLE_HEAD_S = 128
 
 
 def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=None,
-                                 rate=0.0):
+                                 rate=0.0, lse=None):
     """Launch ``csrc/encoder_attention_bwd.cu`` (the port of ``_bwd_kernel``)
-    on CUDA tensors: q/k/v/do [B, S, H, D] bf16 with a ``supported`` shape,
-    and the forward's ``seed`` and ``rate``.  Returns (dQ, dK, dV)
-    [B, S, H, D] bf16.  Raises ValueError on anything else.  Every launch
-    adds one to ``encoder_attention_bwd_kernel.launches``."""
+    on CUDA tensors: q/k/v/do [B, S, H, D] bf16 views with a ``supported``
+    shape, the forward's ``seed`` and ``rate`` and, at S > 128, its rows'
+    ``lse`` (the second output of ``encoder_attention_kernel``).
+    Returns (dQ, dK, dV) [B, S, H, D] bf16, contiguous.  Raises ValueError on
+    anything else.  Every launch adds one to
+    ``encoder_attention_bwd_kernel.launches``."""
     q, k, v, do = _check_inputs({"q": q, "k": k, "v": v, "do": do})
     B, S, H, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     dev = q.device
-    # per-row statistics (lse, rowsum(dP * P)) the kernel recomputes and
-    # passes from its dQ half to its dK/dV half
-    lse = torch.empty(B * H, S, dtype=torch.float32, device=dev)
-    dsum = torch.empty_like(lse)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = bits = None
+    if S > WHOLE_HEAD_S:
+        _check(lse is not None,
+               f"S={S} needs the forward's lse (encoder_attention_kernel's second output)")
+        _check(tuple(lse.shape) == (B * H, S) and lse.dtype == torch.float32
+               and lse.device == dev, "lse must be [B * H, S] f32 on q's device")
+        lse = lse.contiguous()
+        stats = torch.empty(2, B * H, S, dtype=torch.float32, device=dev)
+        if rate > 0.0:
+            bits = torch.empty(B * H * S * S // 8, dtype=torch.uint8, device=dev)
+    dq, dk, dv = (torch.empty(B, S, H, D, dtype=q.dtype, device=dev) for _ in range(3))
     sp, thresh, inv = launch_args(seed, rate, 1.0 / (1.0 - rate), dev)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         _build.launch("encoder_attention_bwd", _BWD_ARGS,
-                      *(t.data_ptr() for t in (q, k, v, do, lse, dsum, dq, dk, dv)),
-                      B, H, S, D, float(scale), int(bool(causal)), sp, thresh, float(inv),
-                      torch.cuda.current_stream(dev).cuda_stream)
+                      *(ptr(t) for t in (q, k, v, do, lse, stats, bits, dq, dk, dv)),
+                      B, H, S, D, *_strides(q, k, v, do), float(scale), int(bool(causal)),
+                      sp, thresh, float(inv), torch.cuda.current_stream(dev).cuda_stream)
     encoder_attention_bwd_kernel.launches += 1
     return dq, dk, dv
 
@@ -191,21 +263,23 @@ class _EncoderAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, seed, scale, rate, causal):
-        ctx.save_for_backward(q, k, v, seed)
         ctx.scale, ctx.rate, ctx.causal = scale, rate, causal
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, seed)
             return _encoder_dense(q, k, v, scale, causal, _plain_keep(q, seed, rate), rate)
-        return encoder_attention_kernel(q, k, v, scale, causal, seed, rate)
+        o, lse = encoder_attention_kernel(q, k, v, scale, causal, seed, rate)
+        ctx.save_for_backward(q, k, v, seed, lse)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, seed = ctx.saved_tensors
+        q, k, v, seed, *fwd = ctx.saved_tensors
         if q.device.type == "cpu":
             dq, dk, dv = _encoder_bwd_dense(q, k, v, do, ctx.scale, ctx.causal,
                                             _plain_keep(q, seed, ctx.rate), ctx.rate)
         else:
             dq, dk, dv = encoder_attention_bwd_kernel(q, k, v, do, ctx.scale, ctx.causal,
-                                                      seed, ctx.rate)
+                                                      seed, ctx.rate, *fwd)
         return dq, dk, dv, None, None, None, None
 
 

@@ -187,3 +187,95 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="not a CUDA device"):
         tea.encoder_attention_bwd_kernel(q, k, v, q)
     assert tea.encoder_attention_bwd_kernel.launches == before
+
+
+def _packed(S, D, B=1, H=2, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, S, 3, H, D) * 0.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("S,D", [(128, 64), (256, 128)])
+def test_packed_qkv_views_match_copies_and_reference(S, D, causal):
+    """ERNIE's attention takes q, k, v as the three strided slices of one
+    packed [B, S, 3, H, D] projection (``unbind(2)``): through the port's
+    Function they give the forward and the packed gradient that contiguous
+    copies give, and both match the reference's Pallas kernel (interpret
+    mode) and its jax.grad."""
+    packed = _packed(S, D, seed=S + D + (3 if causal else 5))
+    x = torch.from_numpy(packed).requires_grad_(True)
+    q, k, v = x.unbind(2)
+    assert not q.is_contiguous() and q.stride() == (S * 3 * 2 * D, 3 * 2 * D, D, 1)
+    o = tea.encoder_attention(q, k, v, causal=causal)
+    (o * o.cos()).sum().backward()
+    copies = [torch.from_numpy(np.ascontiguousarray(packed[:, :, i])) for i in range(3)]
+    want_o = tea.encoder_attention(*copies, causal=causal)
+    want_g = _port_grads(lambda *a: tea.encoder_attention(*a, causal=causal),
+                         *(c.numpy() for c in copies))
+    np.testing.assert_allclose(o.detach().numpy(), want_o.numpy(), rtol=1e-6, atol=1e-6)
+    for i, name in enumerate("qkv"):
+        np.testing.assert_allclose(x.grad[:, :, i].numpy(), want_g[i].numpy(), rtol=1e-6,
+                                   atol=1e-6, err_msg=f"d{name}")
+    ref = [jnp.asarray(c.numpy()) for c in copies]
+    np.testing.assert_allclose(o.detach().numpy(),
+                               np.asarray(jea.encoder_attention(*ref, causal=causal)),
+                               rtol=TOL, atol=TOL)
+    ref_g = _ref_grads(lambda *a: jea.encoder_attention(*a, causal=causal),
+                       *(c.numpy() for c in copies))
+    for i, name in enumerate("qkv"):
+        np.testing.assert_allclose(x.grad[:, :, i].numpy(), np.asarray(ref_g[i]), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=f"d{name}")
+
+
+def _view(kind):
+    """A [2, 128, 4, 64] bf16 view of each kind the kernels' admission sorts."""
+    B, S, H, D = 2, 128, 4, 64
+    if kind == "contiguous":
+        return torch.empty(B, S, H, D, dtype=torch.bfloat16)
+    if kind == "packed_slice":
+        return torch.empty(B, S, 3, H, D, dtype=torch.bfloat16).unbind(2)[1]
+    if kind == "one_batch_packed":
+        return torch.empty(1, S, 3, H, D, dtype=torch.bfloat16).unbind(2)[2]
+    if kind == "head_major_transposed":
+        return torch.empty(B, H, S, D, dtype=torch.bfloat16).transpose(1, 2)
+    if kind == "strided_last_dim":
+        return torch.empty(B, S, H, 2 * D, dtype=torch.bfloat16)[..., ::2]
+    if kind == "row_stride_not_16_bytes":
+        return torch.empty(B * S * (H * D + 4), dtype=torch.bfloat16).as_strided(
+            (B, S, H, D), (S * (H * D + 4), H * D + 4, D, 1))
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("kind,launches_as_is", [
+    ("contiguous", True), ("packed_slice", True), ("one_batch_packed", True),
+    ("head_major_transposed", False), ("strided_last_dim", False),
+    ("row_stride_not_16_bytes", False)])
+def test_tma_admission_of_views(kind, launches_as_is):
+    """Which views the kernels read in place (TMA: last dimension
+    contiguous, heads D apart, 16-byte row and batch strides) and which the
+    wrapper copies first; a pure function of shape, strides and address."""
+    t = _view(kind)
+    assert tea.tma_readable(tuple(t.shape), t.stride(), 0, t.element_size()) is launches_as_is
+    assert not tea.tma_readable(tuple(t.shape), t.stride(), 8, t.element_size())  # misaligned
+    if launches_as_is:
+        h, s, b = tea._tma_strides(t)
+        assert h == 64 and s % 8 == 0 and b % 8 == 0 and s > 0 and b > 0
+        if kind == "packed_slice":
+            assert (h, s, b) == (64, 3 * 4 * 64, 128 * 3 * 4 * 64)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("S,D", [(128, 64), (256, 128)])
+def test_plain_lse_matches_logsumexp_of_reference_scores(S, D, causal):
+    """The forward kernel's second output (each row's logsumexp, which the
+    backward at S > 128 reads): its plain version against
+    jax.nn.logsumexp of the reference kernel's scaled, masked scores."""
+    q, k, _ = _qkv(S, D, B=2, seed=S + D + 9)
+    scale = 1.0 / D ** 0.5
+    s = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), jnp.asarray(k)) * scale
+    if causal:
+        s = s + jea._causal_neg(S)[None, None]
+    want = np.asarray(jax.nn.logsumexp(s, axis=-1)).reshape(-1, S)
+    got = tea._encoder_lse(torch.from_numpy(q), torch.from_numpy(k), scale, causal)
+    assert got.shape == (2 * 2, S) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)

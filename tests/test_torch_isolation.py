@@ -105,6 +105,6 @@ def test_kernel_sources_ship_as_package_data():
     assert _build.sources() == kernels  # one library per .cu, built at first use
     for name in kernels:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
-    for header in ("attention_bwd.cuh", "kv_attention.cuh", "mma_attention.cuh",
-                   "philox.cuh", "wgmma_attention.cuh"):
+    for header in ("encoder_wgmma.cuh", "kv_attention.cuh", "philox.cuh",
+                   "wgmma_attention.cuh"):
         assert (PKG / "csrc" / header).is_file()
