@@ -9,9 +9,10 @@ Phases:
   2. build        — nvcc builds every kernel under paddle_tpu_torch/csrc/
                     (one process per source, all at once) into
                     paddle_tpu_torch/build/kernels/, with ptxas's report
-                    and the flash and encoder libraries' HGMMA (wgmma) and
-                    UTMALDG (TMA load) counts from cuobjdump -sass; a
-                    spill in one of those four libraries fails the phase.
+                    and the flash, encoder, decode and paged libraries'
+                    HGMMA (wgmma) and UTMALDG (TMA load) counts from
+                    cuobjdump -sass; a spill in one of those six libraries
+                    fails the phase.
   3. kernels      — each kernel, forward and backward, against its plain
                     PyTorch version at the main paths' shapes, with its
                     time, the plain version's time, a PyTorch library
@@ -26,8 +27,12 @@ Phases:
                     with the fold, backward with and without it) and give
                     the same bits twice, as does every flash forward (D 64,
                     128 and 256), dq and dkv case and every encoder forward
-                    (with its lse) and backward case; a flash or encoder
-                    library without HGMMA or UTMALDG fails the phase.  The
+                    (with its lse) and backward case, and every decode
+                    and paged case (head dims 64, 128 and 256, page sizes
+                    16, 24 and 128, lengths on split and page edges; the
+                    kernels and SDPA timed from CUDA-graph replays); one
+                    of those six libraries without HGMMA or UTMALDG fails
+                    the phase, naming it.  The
                     encoder cases include q, k, v as the three strided
                     slices of one packed [B, S, 3, H, D] tensor, fed to both
                     kernels with no copy, and time the kernels and their
@@ -284,6 +289,7 @@ def paged_case(name, B, S, H, Hkv, offsets, quant, seed, ps=128, D=128, pages=No
         return da._paged_dense(q, kp, vp, off, tbl, *scales, scale)
 
     got = kernel()
+    same_bits = bool(torch.equal(got, kernel()))  # split order, not arrival order
     torch.cuda.synchronize()
     # the oracle: the plain version in f32 on the same values
     f32 = [None if s is None else s.float() for s in scales]
@@ -303,7 +309,9 @@ def paged_case(name, B, S, H, Hkv, offsets, quant, seed, ps=128, D=128, pages=No
     tol = KERNEL_RTOL["int8" if quant else "bf16"]
     finite = bool(torch.isfinite(got).all())
     iters = 50 if S == 1 else 20
-    ms = cuda_ms(kernel, iters)
+    # device time from CUDA-graph replays; eager_ms (events around
+    # back-to-back calls) also holds the wrapper's host cost
+    ms, eager_ms = graph_ms(kernel), cuda_ms(kernel, iters)
     plain_ms = cuda_ms(plain, max(5, iters // 5))
     # yardstick: one SDPA call on the gathered (dequantized, GQA-expanded)
     # pages with a per-slot causal mask; timed here, never used by the port
@@ -318,8 +326,8 @@ def paged_case(name, B, S, H, Hkv, offsets, quant, seed, ps=128, D=128, pages=No
     mask = kpos[None, None, None, :] <= (off[:, None, None, None]
                                          + torch.arange(S, device=dev)[None, None, :, None])
     qh = q.transpose(1, 2)
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kg, vg, attn_mask=mask), iters)
+    library_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kg, vg, attn_mask=mask))
     # least time: bytes (q + out once, the K/V rows of the keys each kv head
     # must see, scales, table, lengths) and operations (QK and PV: 4 * D per
     # visible (query row, key) pair)
@@ -333,10 +341,10 @@ def paged_case(name, B, S, H, Hkv, offsets, quant, seed, ps=128, D=128, pages=No
     return dict(name=name, B=B, S=S, H=H, Hkv=Hkv, ps=ps, D=D,
                 pool="int8" if quant else "bf16", max_len=max(offsets) + S, pages=M,
                 max_abs_err=err, max_abs_want=top, rel_err=err / top,
-                fault_rel=fault_rel, finite=finite,
-                tol=tol, ok=(finite and err / top <= tol
+                fault_rel=fault_rel, finite=finite, same_bits=same_bits,
+                tol=tol, ok=(finite and same_bits and err / top <= tol
                              and min(fault_rel.values()) > tol),
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, flops=flops)
@@ -394,6 +402,7 @@ def decode_case(name, B, H, Hkv, offsets, quant, seed, L=2048, D=128):
         return da._decode_dense(q, k, v, off, *scales, scale)
 
     got = kernel()
+    same_bits = bool(torch.equal(got, kernel()))  # split order, not arrival order
     torch.cuda.synchronize()
     f32 = [None if x is None else x.float() for x in scales]
     k32, v32 = (k, v) if quant else (k.float(), v.float())
@@ -405,8 +414,9 @@ def decode_case(name, B, H, Hkv, offsets, quant, seed, L=2048, D=128):
     res = gate(name, got, want, {"uniform_weights": oracle(torch.zeros_like(q.float()), off),
                                  "causal_end_short": oracle(q.float(), off - 1)},
                KERNEL_RTOL["int8" if quant else "bf16"], B=B, S=1, H=H, Hkv=Hkv, L=L,
-               D=D, cache="int8" if quant else "bf16", max_len=max(offsets) + 1)
-    res["ms"] = cuda_ms(kernel, 50)
+               D=D, cache="int8" if quant else "bf16", max_len=max(offsets) + 1,
+               same_bits=same_bits, ok=same_bits)
+    res["ms"], res["eager_ms"] = graph_ms(kernel), cuda_ms(kernel, 50)  # as paged_case
     res["plain_ms"] = cuda_ms(plain, 10)
     # yardstick: SDPA on the dequantized, GQA-expanded cache with a length
     # mask; timed here, never used by the port
@@ -415,8 +425,8 @@ def decode_case(name, B, H, Hkv, offsets, quant, seed, L=2048, D=128):
     kd, vd = kd.repeat_interleave(H // Hkv, 1), vd.repeat_interleave(H // Hkv, 1)
     mask = torch.arange(L, device="cuda")[None, None, None, :] <= off[:, None, None, None]
     qh = q.transpose(1, 2)
-    res["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kd, vd, attn_mask=mask), 50)
+    res["library_ms"] = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=mask))
     # least time: q and out once, the valid K/V rows (and scales) once, lengths
     keys = sum(o + 1 for o in offsets)
     nbytes = (2 * q.numel() * 2 + keys * Hkv * D * (1 if quant else 2) * 2
@@ -1147,18 +1157,85 @@ def conv_bn_kernel_cases():
     return out
 
 
+RAGGED = [2047, 1500, 1100, 777, 512, 300, 129, 37]  # 8 slots' lengths <= 2048
+
+
+def split_edges(B, Hkv, cap=2048):
+    """Decode offsets whose lengths (offset + 1) fall exactly on the decode
+    regime's split boundaries (its plan for B slots and Hkv kv heads on
+    this card), on 128-key page boundaries and on the capacity, with one
+    slot at length 1."""
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    sk = da._split_plan(B, Hkv, cap, torch.cuda.get_device_properties(0).multi_processor_count)[1]
+    lengths = [sk, min(2 * sk, cap), 128, 256, sk + 1, 1, cap, 640][:B]
+    return [n - 1 for n in lengths]
+
+
+def decode_kernel_cases():
+    """The static decode kernel's cases: the main paths' LLaMA-2-7B and 70B
+    (GQA) widths at 8 ragged slots, bf16 and int8; GPT's heads (12 x 64)
+    and 16 heads of 256; lengths on split and page edges; and a cache of
+    2,000 rows (not whole 64-key tiles: loaded with cp.async)."""
+    cases = []
+    for quant in (False, True):
+        tag = "int8" if quant else "bf16"
+        for name, H, Hkv, D, seed in ((f"7b_decode_{tag}", 32, 32, 128, 11),
+                                      (f"70b_gqa_decode_{tag}", 64, 8, 128, 12),
+                                      (f"gpt_d64_decode_{tag}", 12, 12, 64, 13),
+                                      (f"d256_decode_{tag}", 16, 16, 256, 14)):
+            cases.append(decode_case(name, 8, H, Hkv, RAGGED, quant, seed, D=D))
+            log_case("decode_attention", cases[-1])
+    cases.append(decode_case("7b_decode_split_edges_bf16", 8, 32, 32, split_edges(8, 32),
+                             False, 15))
+    log_case("decode_attention", cases[-1])
+    cases.append(decode_case("7b_decode_l2000_bf16", 8, 32, 32, [min(o, 1999) for o in RAGGED],
+                             False, 16, L=2000))
+    log_case("decode_attention", cases[-1])
+    return cases
+
+
+def paged_kernel_cases():
+    """The paged kernel's cases: decode ticks and 256-token prefill chunks
+    at LLaMA-2-7B and 70B widths, bf16 and int8; GPT's heads and 16 heads
+    of 256; lengths on split and page edges; pages of 16 (TMA runs of a
+    page) and of 24 (loaded with cp.async); a chunk past the table."""
+    cases = []
+    for quant in (False, True):
+        tag = "int8" if quant else "bf16"
+        cases += [
+            paged_case(f"7b_decode_{tag}", 8, 1, 32, 32, RAGGED, quant, 1),
+            paged_case(f"7b_chunk256_{tag}", 2, 256, 32, 32, [1280, 384], quant, 2),
+            paged_case(f"70b_gqa_decode_{tag}", 8, 1, 64, 8, RAGGED, quant, 3),
+            paged_case(f"70b_gqa_chunk256_{tag}", 2, 256, 64, 8, [1280, 384], quant, 4),
+            paged_case(f"gpt_d64_decode_{tag}", 8, 1, 12, 12, RAGGED, quant, 6, D=64),
+            paged_case(f"d256_decode_{tag}", 8, 1, 16, 16, RAGGED, quant, 7, D=256),
+            paged_case(f"7b_chunk256_ps16_{tag}", 2, 256, 32, 32, [1280, 384], quant, 8, ps=16),
+        ]
+    # max_seq_len 2100 pads to 2176 positions (17 pages): the last 256-token
+    # chunk of a 2100-token prompt starts at 2048, and its padded rows reach
+    # past the table
+    cases += [
+        paged_case("7b_chunk256_past_table_bf16", 2, 256, 32, 32, [2048, 384], False, 5,
+                   pages=17),
+        paged_case("gpt_d64_chunk256_bf16", 2, 256, 12, 12, [1280, 384], False, 9, D=64),
+        paged_case("d256_chunk256_bf16", 2, 256, 16, 16, [1280, 384], False, 10, D=256),
+        paged_case("7b_decode_split_edges_bf16", 8, 1, 32, 32, split_edges(8, 32), False, 11,
+                   pages=16),
+        paged_case("7b_decode_ps24_int8", 8, 1, 32, 32, RAGGED, True, 12, ps=24),
+        paged_case("7b_chunk256_ps24_bf16", 2, 256, 32, 32, [1280, 384], False, 13, ps=24),
+    ]
+    for c in cases:
+        log_case("paged_attention", c)
+    return cases
+
+
 def kernel_phase():
     """Every kernel against its plain version at the main paths' shapes.
     Returns {kernel name: [case, ...]}; the first case of each is the one
     its main path runs most."""
-    ragged = [2047, 1500, 1100, 777, 512, 300, 129, 37]  # lengths <= 2048
-    out = {"decode_attention": [], "flash_attention": [], "encoder_attention": []}
-    for quant in (False, True):
-        tag = "int8" if quant else "bf16"
-        for name, H, Hkv, seed in ((f"7b_decode_{tag}", 32, 32, 11),
-                                   (f"70b_gqa_decode_{tag}", 64, 8, 12)):
-            out["decode_attention"].append(decode_case(name, 8, H, Hkv, ragged, quant, seed))
-            log_case("decode_attention", out["decode_attention"][-1])
+    out = {"decode_attention": decode_kernel_cases(), "flash_attention": [],
+           "encoder_attention": []}
     for i, (name, B, H, Sq, Sk, D, causal) in enumerate([
             ("7b_generate_s1024", 4, 32, 1024, 1024, 128, True),   # generate(ids[4, 1024])
             ("7b_engine_s2048", 1, 32, 2048, 2048, 128, True),     # the engine's L bucket
@@ -1187,23 +1264,7 @@ def kernel_phase():
     out["encoder_attention"].append(seq_attention_case(  # the train phase's microbatch
         "train_s512", "encoder", 16, 16, 512, 512, 128, True, 59))
     log_case("encoder_attention", out["encoder_attention"][-1])
-    cases = []
-    for quant in (False, True):
-        tag = "int8" if quant else "bf16"
-        cases += [
-            paged_case(f"7b_decode_{tag}", 8, 1, 32, 32, ragged, quant, 1),
-            paged_case(f"7b_chunk256_{tag}", 2, 256, 32, 32, [1280, 384], quant, 2),
-            paged_case(f"70b_gqa_decode_{tag}", 8, 1, 64, 8, ragged, quant, 3),
-            paged_case(f"70b_gqa_chunk256_{tag}", 2, 256, 64, 8, [1280, 384], quant, 4),
-        ]
-    # max_seq_len 2100 pads to 2176 positions (17 pages): the last 256-token
-    # chunk of a 2100-token prompt starts at 2048, and its padded rows reach
-    # past the table
-    cases.append(paged_case("7b_chunk256_past_table_bf16", 2, 256, 32, 32,
-                            [2048, 384], False, 5, pages=17))
-    out["paged_attention"] = cases
-    for c in cases:
-        log_case("paged_attention", c)
+    out["paged_attention"] = paged_kernel_cases()
     out.update(bwd_kernel_cases())
     fused, enc = dropout_kernel_cases()
     out.update(fused)
@@ -1218,7 +1279,7 @@ def kernel_phase():
 # The libraries built on wgmma_attention.cuh, whose SASS must hold wgmma
 # (HGMMA) and TMA loads (UTMALDG), and whose ptxas report must show no spill.
 HOPPER_LIBS = ("flash_attention", "flash_attention_bwd", "encoder_attention",
-               "encoder_attention_bwd")
+               "encoder_attention_bwd", "decode_attention", "paged_attention")
 
 
 def sass_counts(lib):
@@ -1244,6 +1305,8 @@ def log_case(kern, c):
         lse += f" input copies {c['input_copies']}"
     if "backward_ms" in c:
         lse += f" stats+dq+dkv {c['backward_ms']:.4f} ms"
+    if "eager_ms" in c:
+        lse += f" eager {c['eager_ms']:.4f} ms"
     if "keep_fraction" in c:
         lse += (f" keep {c['keep_fraction']:.6f} ({c['keep_sigmas']:.2f} sigma) floors "
                 + ", ".join(f"{k} {v:.4f}" for k, v in c["floors"].items()))
@@ -2544,11 +2607,12 @@ def main(argv=None):
         log("[kernels] every kernel vs its plain version")
         report["kernels"] = kernel_phase()
         ok &= all(c["ok"] for cases in report["kernels"].values() for c in cases)
-        hopper = all(n["HGMMA"] > 0 and n["UTMALDG"] > 0 for n in report["sass"].values())
-        if not hopper:
-            log("[kernels] FAIL: a flash or encoder library has no HGMMA (wgmma) or no "
+        missing = [name for name, n in report["sass"].items()
+                   if not (n["HGMMA"] > 0 and n["UTMALDG"] > 0)]
+        for name in missing:
+            log(f"[kernels] FAIL: the {name} library has no HGMMA (wgmma) or no "
                 "UTMALDG (TMA load) instruction")
-        ok &= hopper
+        ok &= not missing
     serving = [ph for ph in paths if ph not in ("train", "ernie", "resnet")]
     if serving:
         model = build_model()

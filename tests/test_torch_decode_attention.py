@@ -145,3 +145,83 @@ def test_kernel_wrapper_rejects_cpu_tensors():
             torch.from_numpy(q).bfloat16(), torch.from_numpy(k).bfloat16(),
             torch.from_numpy(v).bfloat16(), torch.tensor([6], dtype=torch.int32))
     assert tda.decode_attention_kernel.launches == before
+
+
+# --------------------------------------------------- head dims 64 and 256
+
+def _mk_dims(D, S, quant, B=3, H=8, Hkv=2, L=256, offsets=(0, 100, 250), seed=5):
+    """numpy inputs at head dim D (GQA rep 4), S query positions, the cache
+    int8 with the reference's own quantizer when ``quant``."""
+    rng = np.random.RandomState(seed)
+    q = (rng.randn(B, S, H, D) * 0.3).astype(np.float32)
+    k = (rng.randn(B, Hkv, L, D) * 0.3).astype(np.float32)
+    v = (rng.randn(B, Hkv, L, D) * 0.3).astype(np.float32)
+    off = np.minimum(np.asarray(offsets, np.int32), L - S)
+    ks = vs = None
+    if quant:
+        (k, ks), (v, vs) = jkv._quantize_kv(jnp.asarray(k)), jkv._quantize_kv(jnp.asarray(v))
+        k, v, ks, vs = (np.asarray(a) for a in (k, v, ks, vs))
+    return q, k, v, off, ks, vs
+
+
+@pytest.mark.parametrize("cache", ["plain", "int8"])
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("D", [64, 256])
+def test_plain_head_dims_match_reference(D, S, cache):
+    """The plain version at the head dims the kernels now take besides 128,
+    against the reference's own dispatch: its dense path at D = 64 (and at
+    S > 1), its Pallas kernel in interpret mode at D = 256, S = 1."""
+    quant = cache == "int8"
+    # the Pallas kernel rounds p * v_scale to bf16, a 2^-9 relative step
+    # that only averages out over many keys: int8 slots see 38 or more
+    q, k, v, off, ks, vs = _mk_dims(D, S, quant,
+                                    offsets=(37, 100, 250) if quant else (0, 100, 250))
+    scale = 1 / D ** 0.5
+    got = _port(q, k, v, off, ks, vs)
+    want = np.asarray(jda.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(off),
+        None if ks is None else jnp.asarray(ks), None if vs is None else jnp.asarray(vs),
+        scale=scale, interpret=True))
+    kernel_path = D % 128 == 0 and S == 1
+    tol = INT8_KERNEL_TOL if quant and kernel_path else F32_TOL
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_head_dim_admission_names_queue_2_item_9():
+    """The kernels take head dims 64, 128 and 256; any other raises and
+    names the ROADMAP item that tracks it.  Checked on the shape alone,
+    before any device (the wrappers check the device first)."""
+    for D in tda.KV_HEAD_DIMS:
+        tda._check_head_dim(D)
+    for D in (32, 96):
+        with pytest.raises(ValueError, match="Queue 2, item 9"):
+            tda._check_head_dim(D)
+
+
+@pytest.mark.parametrize("split_keys", [64, 192])
+def test_split_merge_model_matches_reference_kernel(split_keys):
+    """The plain model of the decode regime's split-K merge over the static
+    cache, against the reference's static Pallas kernel in interpret mode:
+    splits of 64 and 192 keys, a slot at length 1 (one key; every later
+    split has no visible key) and one at the cache's end."""
+    q, k, v, off = _mk(offsets=(0, 37, 200, 255), poison=False)
+    t = torch.from_numpy
+    got = tda._split_merge_dense(t(q), t(k), t(v), t(off), None, None, SCALE,
+                                 split_keys).numpy()
+    np.testing.assert_allclose(got, _ref_kernel(q, k, v, off), rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("cap", [128, 1152, 2048, 2000])
+@pytest.mark.parametrize("B,Hkv", [(1, 8), (8, 32), (4, 32), (8, 8)])
+def test_split_plan_covers_capacity_in_whole_tiles(B, Hkv, cap):
+    """The decode regime's split plan depends on the shape and capacity
+    alone (never on lengths): whole 64-key tiles a split, every key of the
+    capacity covered, no split empty of capacity, and the grid about twice
+    the 132 SMs' two resident blocks wherever the capacity allows."""
+    splits, split_keys = tda._split_plan(B, Hkv, cap, 132)
+    assert split_keys % tda.KEY_TILE == 0 and split_keys > 0
+    assert splits * split_keys >= cap > (splits - 1) * split_keys
+    assert splits <= tda.MAX_SPLITS
+    tiles = -(-cap // tda.KEY_TILE)
+    if splits < tiles:  # the grid reached its target before running out of tiles
+        assert B * Hkv * splits >= tda.BLOCKS_PER_SM * 132 * 0.5
