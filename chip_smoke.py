@@ -24,15 +24,19 @@ Phases:
                     bytes and Philox floors; the Philox function gives its
                     known answers on the card.  The fused conv + BN
                     kernels run at ResNet-50's four stage shapes (forward
-                    with the fold, backward with and without it) and give
+                    with the fold, backward with and without it, and at
+                    conv1's 4w -> w shapes, and at small M for 64 -> 192
+                    and 192 -> 64, admitted shapes that take the two
+                    passes), hold their raw per-block partials against
+                    _fwd_partials_dense and _bwd_partials_dense and give
                     the same bits twice, as does every flash forward (D 64,
                     128 and 256), dq and dkv case and every encoder forward
                     (with its lse) and backward case, and every decode
                     and paged case (head dims 64, 128 and 256, page sizes
                     16, 24 and 128, lengths on split and page edges; the
                     kernels and SDPA timed from CUDA-graph replays); one
-                    of those six libraries without HGMMA or UTMALDG fails
-                    the phase, naming it.  The
+                    of the seven wgmma libraries (with fused_conv_bn)
+                    without HGMMA or UTMALDG fails the phase, naming it.  The
                     encoder cases include q, k, v as the three strided
                     slices of one packed [B, S, 3, H, D] tensor, fed to both
                     kernels with no copy, and time the kernels and their
@@ -975,11 +979,19 @@ def bwd_kernel_cases():
 # ResNet-50's bottleneck 1x1 convs at bench.py's batch and resolution (128 x
 # 224^2): per stage, conv3's input [N, H, W', K] with wv valid columns (the
 # W' ladder 56/56, 28/32, 14/16, 7/8) and K -> C; the backward kernel also
-# runs without the fold (conv1) at each of these shapes and at stage 2's
-# first conv1, [128, 56, 56, 256] -> 128, at its block's input resolution.
+# runs without the fold (conv1) at each of these shapes, and at conv1's
+# own shapes 4w -> w (K > C): stage 2's first conv1, [128, 56, 56, 256] ->
+# 128, at its block's input resolution, and the conv1s of stages 1, 3 and 4
+# (stage 1's first block takes the stem's 64 channels).
 CONV_STAGES = [("stage1", 56, 56, 56, 64, 256), ("stage2", 28, 32, 28, 128, 512),
                ("stage3", 14, 16, 14, 256, 1024), ("stage4", 7, 8, 7, 512, 2048)]
 CONV1_SHAPE = ("stage2_conv1", 56, 56, 56, 256, 128)
+CONV1_CASES = [("stage1_conv1", 56, 56, 56, 256, 64), ("stage1_first_conv1", 56, 56, 56, 64, 64),
+               ("stage3_conv1", 14, 16, 14, 1024, 256), ("stage4_conv1", 7, 8, 7, 2048, 512)]
+# Shapes admitted by ``supported`` that have no one-pass backward kernel
+# (K * C <= 16384, not one of its (K, C) pairs): the two passes, at a small
+# M (N 4) whose block ranges end inside W' rows.
+CONV_ODD_CASES = [("small_k64_c192", 4, 24, 20, 64, 192), ("small_k192_c64", 4, 24, 20, 192, 64)]
 RESNET_B = 128
 # Kernel vs plain, relative to max |plain| per output.  y and dx are bf16 on
 # both sides: where the kernel's f32 sum and the plain version's (cuBLAS,
@@ -992,6 +1004,28 @@ RESNET_B = 128
 # sides (measured on an H100: within 2e-6 of max).
 CONV_RTOL = 1e-2
 F32_RTOL = 1e-4
+# The kernels' raw per-block partials (column sums, dW, dscale/doffset)
+# against their plain model (_fwd_partials_dense, _bwd_partials_dense) on
+# the same inputs, relative to max |model| of each: the two differ only in
+# the order of f32 sums within a block, so PARTIALS_RTOL = 1e-5.  The
+# planted fault is the model over ranges that start W' rows later (the
+# inputs rolled by W' rows, which keeps the pad columns where they are).
+PARTIALS_RTOL = 1e-5
+
+
+def partials_check(raw, model, shifted):
+    """(max rel err of the kernel's partials against the model, the same
+    for the shifted-range fault): both relative to max |model|."""
+    def rel(a, w):
+        return (a.float() - w).abs().max().item() / w.abs().max().item()
+
+    return (max(rel(r, m) for r, m in zip(raw, model)),
+            min(rel(f, m) for f, m in zip(shifted, model)))
+
+
+def roll_rows(t, Wp):
+    """t [N, H, W', .] with every flattened row moved W' rows up."""
+    return torch.roll(t.reshape(-1, t.shape[-1]), -Wp, 0).reshape(t.shape)
 
 
 def conv_bn_inputs(H, Wp, wv, K, C, dt, seed, N=RESNET_B, fold=True):
@@ -1013,14 +1047,15 @@ def conv_bn_inputs(H, Wp, wv, K, C, dt, seed, N=RESNET_B, fold=True):
     return x, w2, sc, of, rn(N, H, Wp, C).to(dt), 0.3 * rn(C), 0.3 * rn(C)
 
 
-def conv_bn_fwd_case(name, H, Wp, wv, K, C, dtype, seed):
+def conv_bn_fwd_case(name, H, Wp, wv, K, C, dtype, seed, N=RESNET_B):
     """The forward kernel (with the fold, ReLU) against ``_fwd_fold_dense``;
     planted faults: scale ignored, ReLU dropped and, with pad columns, the
-    pad mask dropped."""
+    pad mask dropped.  Its raw column-sum partials against
+    ``_fwd_partials_dense`` of its own y."""
     from paddle_tpu_torch.ops import fused_conv_bn as fcb
 
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
-    x, w2, sc, of, _, _, _ = conv_bn_inputs(H, Wp, wv, K, C, dt, seed)
+    x, w2, sc, of, _, _, _ = conv_bn_inputs(H, Wp, wv, K, C, dt, seed, N=N)
     M = x.shape[0] * H * Wp
 
     def kernel():
@@ -1037,8 +1072,14 @@ def conv_bn_fwd_case(name, H, Wp, wv, K, C, dtype, seed):
     faults = {"scale_ignored": plain(scc=torch.ones_like(sc)), "relu_dropped": plain(relu=False)}
     if wv < Wp:
         faults["pad_mask_dropped"] = plain(wvv=Wp)
+    yk, part = fcb._fwd_launch(x, w2, sc, of, True, wv)
+    partials_rel, partials_fault_rel = partials_check(
+        [part], [fcb._fwd_partials_dense(yk, K)], [fcb._fwd_partials_dense(roll_rows(yk, Wp), K)])
+    partials_ok = partials_rel <= PARTIALS_RTOL < partials_fault_rel
     res = bwd_gate(name, got, want, faults, CONV_RTOL if dtype == "bf16" else F32_RTOL,
-                   ok=same, same_bits=same, M=M, K=K, C=C, wv=wv, Wp=Wp, dtype=dtype)
+                   ok=same and partials_ok, same_bits=same, partials_rel=partials_rel,
+                   partials_fault_rel=partials_fault_rel, M=M, K=K, C=C, wv=wv, Wp=Wp,
+                   dtype=dtype)
     res["ms"] = cuda_ms(kernel, 10)
     res["plain_ms"] = cuda_ms(plain, 3)
     live = (torch.arange(Wp, device="cuda") < wv).reshape(1, 1, Wp, 1)
@@ -1057,15 +1098,16 @@ def conv_bn_fwd_case(name, H, Wp, wv, K, C, dtype, seed):
     return res
 
 
-def conv_bn_bwd_case(name, H, Wp, wv, K, C, dtype, fold, seed):
+def conv_bn_bwd_case(name, H, Wp, wv, K, C, dtype, fold, seed, N=RESNET_B):
     """The backward kernel against ``_bwd_dense`` on the plain forward's y;
     planted faults: the ds2 term dropped from dy_tot, and with the fold the
     scale ignored and the ReLU mask dropped from the backward (without it,
-    the ds1 term dropped), and with pad columns the pad mask dropped."""
+    the ds1 term dropped), and with pad columns the pad mask dropped.  Its
+    raw dW (and dscale/doffset) partials against ``_bwd_partials_dense``."""
     from paddle_tpu_torch.ops import fused_conv_bn as fcb
 
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
-    x, w2, sc, of, dy, ds1, ds2 = conv_bn_inputs(H, Wp, wv, K, C, dt, seed, fold=fold)
+    x, w2, sc, of, dy, ds1, ds2 = conv_bn_inputs(H, Wp, wv, K, C, dt, seed, N=N, fold=fold)
     sc, of = (sc, of) if fold else (None, None)
     N = x.shape[0]
     M = N * H * Wp
@@ -1100,8 +1142,20 @@ def conv_bn_bwd_case(name, H, Wp, wv, K, C, dtype, fold, seed):
     if wv < Wp:
         faults["pad_mask_dropped"] = plain(wvv=Wp)
     faults = {k: f[:n_out] for k, f in faults.items()}
-    res = bwd_gate(name, got, want, faults, CONV_RTOL if dtype == "bf16" else F32_RTOL,
-                   ok=same, same_bits=same, M=M, K=K, C=C, wv=wv, Wp=Wp, dtype=dtype, fold=fold)
+    tol = CONV_RTOL if dtype == "bf16" else F32_RTOL
+    _, *raw = fcb._bwd_launch(dy, y, x, w2, sc, of, ds1, ds2, True, wv)
+
+    def model(dyy, yy, xx):
+        return [m for m in fcb._bwd_partials_dense(dyy, yy, xx, w2, sc, of, ds1, ds2, True, wv)
+                if m is not None]
+
+    partials_rel, partials_fault_rel = partials_check(
+        [r for r in raw if r is not None], model(dy, y, x),
+        model(*(roll_rows(t, Wp) for t in (dy, y, x))))
+    partials_ok = partials_rel <= PARTIALS_RTOL < partials_fault_rel
+    res = bwd_gate(name, got, want, faults, tol, ok=same and partials_ok, same_bits=same,
+                   partials_rel=partials_rel, partials_fault_rel=partials_fault_rel, M=M, K=K,
+                   C=C, wv=wv, Wp=Wp, dtype=dtype, fold=fold)
     res["ms"] = cuda_ms(kernel, 10)
     res["plain_ms"] = cuda_ms(plain, 3)
     # yardstick: autograd of the same function composed of library calls
@@ -1123,10 +1177,16 @@ def conv_bn_bwd_case(name, H, Wp, wv, K, C, dtype, fold, seed):
     esz = x.element_size()
     aff = 4 * K * 4 if fold else 0  # scale and offset in, dscale and doffset out
     nbytes = (2 * M * C + 2 * M * K + K * C) * esz + K * C * 4 + 2 * C * 4 + aff
-    _, splits, _ = fcb._geometry(M, K, C, dtype == "bf16")
-    # what this design moves beyond the bound: the dW pass reads dy, y and x
-    # again, and its per-split dW partials are written and summed
-    res["design_extra_bytes"] = (2 * M * C + M * K) * esz + 2 * splits * K * C * 4
+    plan = fcb._geometry(M, K, C, dtype == "bf16")
+    # what this design moves beyond the bound, counting a tile that several
+    # blocks read at about the same time (a dX slice's dy and y, a dW tile's
+    # dyt and x) once, as L2 serves the rest: the partials (dW, and with the
+    # fold dscale and doffset) written and summed; in two passes (bf16 where
+    # _geometry plans them, and f32) also dyt written and read again (bf16)
+    # or dy and y read again (f32), and x read again by the dW pass
+    parts = 2 * (fcb._blocks(M, plan.dw_rows) * K * C
+                 + (2 * fcb._blocks(M, plan.bwd_rows) * K if fold else 0)) * 4
+    res["design_extra_bytes"] = parts + (0 if plan.one_pass else (2 * M * C + M * K) * esz)
     flops = 4.0 * M * K * C
     res["bound_ms"], res["bound_by"], res["floors"] = (
         bound3(nbytes, tc_flops=flops) if dtype == "bf16" else bound3(nbytes, f32_flops=flops))
@@ -1145,12 +1205,20 @@ def conv_bn_kernel_cases():
     fwd = conv_bn_fwd_case("stage4_conv3_f32", *CONV_STAGES[3][1:], "f32", 115)
     out["fused_conv_bn"].append(fwd)
     log_case("fused_conv_bn", fwd)
+    for i, (name, *shape) in enumerate(CONV_ODD_CASES):
+        fwd = conv_bn_fwd_case(f"{name}_bf16", *shape, "bf16", 116 + i, N=4)
+        out["fused_conv_bn"].append(fwd)
+        log_case("fused_conv_bn", fwd)
     cases = [(f"{st}_conv3_bf16", shape, "bf16", True) for st, *shape in CONV_STAGES]
     cases += [(f"{st}_nofold_bf16", shape, "bf16", False) for st, *shape in CONV_STAGES]
     cases += [(f"{CONV1_SHAPE[0]}_nofold_bf16", CONV1_SHAPE[1:], "bf16", False),
               ("stage4_conv3_f32", CONV_STAGES[3][1:], "f32", True)]
-    for i, (name, shape, dtype, fold) in enumerate(cases):
-        bwd = conv_bn_bwd_case(name, *shape, dtype, fold, 120 + i)
+    cases += [(f"{st}_bf16", shape, "bf16", False) for st, *shape in CONV1_CASES]
+    cases = [(*c, RESNET_B) for c in cases]
+    cases += [(f"{st}{tag}_bf16", shape, "bf16", fold, 4) for st, *shape in CONV_ODD_CASES
+              for tag, fold in (("", True), ("_nofold", False))]
+    for i, (name, shape, dtype, fold, n) in enumerate(cases):
+        bwd = conv_bn_bwd_case(name, *shape, dtype, fold, 120 + i, N=n)
         out["fused_conv_bn_bwd"].append(bwd)
         log_case("fused_conv_bn_bwd", bwd)
         torch.cuda.empty_cache()
@@ -1279,7 +1347,7 @@ def kernel_phase():
 # The libraries built on wgmma_attention.cuh, whose SASS must hold wgmma
 # (HGMMA) and TMA loads (UTMALDG), and whose ptxas report must show no spill.
 HOPPER_LIBS = ("flash_attention", "flash_attention_bwd", "encoder_attention",
-               "encoder_attention_bwd", "decode_attention", "paged_attention")
+               "encoder_attention_bwd", "decode_attention", "paged_attention", "fused_conv_bn")
 
 
 def sass_counts(lib):
@@ -2337,7 +2405,7 @@ def resnet_kind(name):
     the fused conv + BN kernels, matrix products (fc and conv1's forward),
     BN's and the rest's elementwise and reduction kernels, other."""
     low = name.lower()
-    if any(k in low for k in ("fwd_bf16", "dx_bf16", "dw_bf16", "gemm_f32")):
+    if any(k in low for k in ("fcbn_", "gemm_f32")):
         return "fused_conv_bn"
     if any(k in low for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
         return "conv"

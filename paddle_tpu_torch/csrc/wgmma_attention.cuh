@@ -242,9 +242,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #define WGA_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define WGA_F16(i) WGA_F4(i), WGA_F4(i + 4), WGA_F4(i + 8), WGA_F4(i + 12)
 #define WGA_F32(i) WGA_F16(i), WGA_F16(i + 16)
-#define WGA_R32                                                                   \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "       \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WGA_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define WGA_R32 \
+  WGA_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 #define WGA_R64                                                                   \
   WGA_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
           "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "   \
@@ -256,15 +256,28 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
           "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "   \
           "%122, %123, %124, %125, %126, %127"
 
-// d (m64 x N, f32) = A B (+ d when acc), one k16 step.  ss: A and B from
-// shared memory, both K-major.  rs: A from registers, B MN-major (the
-// transpose bit), always accumulating.  tt: A and B from shared memory,
-// both MN-major (both transpose bits): A is read as the transpose of a
-// tile whose rows run along the reduction, as the encoder backward reads
-// P_d and dS (rows = queries; a warpgroup's 64 keys are one panel) to form
-// P_d^T and dS^T.
+// d (m64 x N, f32) = A B (+ d when acc), one k16 step, N 32 (ss only), 64,
+// 128 or 256.  ss: A and B from shared memory, both K-major.  rs: A from
+// registers, B MN-major (the transpose bit), always accumulating.  tt: A
+// and B from shared memory, both MN-major (both transpose bits): A is read
+// as the transpose of a tile whose rows run along the reduction, as the
+// encoder backward reads P_d and dS (rows = queries; a warpgroup's 64 keys
+// are one panel) to form P_d^T and dS^T, and the conv backward xf and dyt
+// to form xf^T dyt.
 template <int N>
 struct Mma;
+
+template <>
+struct Mma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WGA_R16
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : WGA_F16(0)
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
 
 template <>
 struct Mma<64> {
@@ -324,6 +337,22 @@ struct Mma<128> {
 
 template <>
 struct Mma<256> {
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WGA_R128
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : WGA_F32(0), WGA_F32(32), WGA_F32(64), WGA_F32(96)
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void tt(float (&d)[128], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WGA_R128
+        "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+        : WGA_F32(0), WGA_F32(32), WGA_F32(64), WGA_F32(96)
+        : "l"(a), "l"(b), "r"(acc));
+  }
   static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
@@ -337,6 +366,7 @@ struct Mma<256> {
 #undef WGA_F4
 #undef WGA_F16
 #undef WGA_F32
+#undef WGA_R16
 #undef WGA_R32
 #undef WGA_R64
 #undef WGA_R128

@@ -28,6 +28,7 @@ model's routing before any launch.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -35,7 +36,7 @@ from . import _build
 
 __all__ = ["conv1x1_bn", "supported", "fused_conv_bn_kernel", "fused_conv_bn_bwd_kernel"]
 
-_SMS = 132  # SMs of an H100 SXM: the dW pass aims at four blocks on each
+_SMS = 132  # SMs of an H100 SXM: the bf16 grids aim at one block on each
 
 
 def supported(x_shape, w_shape):
@@ -118,17 +119,107 @@ def _bwd_dense(dy, y, x, w2, scale, offset, ds1, ds2, relu, wv):
     return dx, dw, (g * x2.float()).sum(0)[None], g.sum(0)[None]
 
 
+# (K, C) of the bf16 backward's one-pass kernels, fcbn_bwd1_bf16<K, C> of
+# csrc/fused_conv_bn.cu: each holds its block's f32 dW in registers.  Every
+# other shape takes the two passes.
+_ONE_PASS = ((64, 64), (64, 128), (64, 256), (128, 64), (128, 128), (256, 64))
+
+
+class _Plan(NamedTuple):
+    """The kernels' plan for one shape, which the entries run or refuse:
+    the rows a block owns in the forward, the backward (its dX pass) and
+    the dW splits; the bf16 backward in one pass or two; and the bf16
+    tiles' column width (the forward's and the dW pass's)."""
+    fwd_rows: int
+    bwd_rows: int
+    dw_rows: int
+    one_pass: bool
+    bn: int
+
+
 def _geometry(M, K, C, bf16):
-    """(row tiles, dW splits, rows per split) of csrc/fused_conv_bn.cu:
-    row tiles of 128 (bf16) or 64 (f32) rows; dW tiles of 64 x 128 (bf16)
-    or 64 x 64 (f32), M split so that about four dW blocks land on each SM,
-    in multiples of 32 rows and at least 256."""
-    tiles = -(-M // (128 if bf16 else 64))
-    dw_tiles = (K // 64) * -(-C // (128 if bf16 else 64))
-    want = max(1, -(-4 * _SMS // dw_tiles))
-    per = -(-M // want)
-    rows = max(256, -(-per // 32) * 32)
-    return tiles, -(-M // rows), rows
+    """The ``_Plan`` of csrc/fused_conv_bn.cu for [M, K] -> C: the kernels'
+    blocks each own a contiguous range of that many rows (the last range
+    shorter) and write one partial row over it, which the wrapper sums in
+    block order.
+
+    bf16: the forward's persistent blocks walk tiles of 128 rows, about one
+    block an SM across the C / bn column slices; the backward runs one pass
+    (tiles of 64 rows, one block an SM) for the (K, C) in ``_ONE_PASS``,
+    else a dX pass (tiles of 128 rows, about one block an SM across its
+    slices of at most 256 of K) and a dW pass whose M splits (of 64-row
+    units) fill the SMs with 128 x bn dW tiles.  f32: blocks of one 64-row
+    tile, and dW splits of a multiple of 32 rows (at least 256), about four
+    dW blocks of 64 x 64 an SM."""
+    if not bf16:
+        want = max(1, -(-4 * _SMS // (-(-K // 64) * -(-C // 64))))
+        per = -(-M // want)
+        return _Plan(64, 64, max(256, -(-per // 32) * 32), False, 64)
+
+    def per_block(tile, blocks):
+        tiles = -(-M // tile)
+        return -(-tiles // max(1, blocks)) * tile
+
+    bn = 256 if C >= 256 else 128 if C > 64 else 64
+    fwd_rows = per_block(128, _SMS // -(-C // bn))
+    if (K, C) in _ONE_PASS:
+        rows = per_block(64, _SMS)
+        return _Plan(fwd_rows, rows, rows, True, bn)
+    bwd_rows = per_block(128, _SMS // -(-K // 256))
+    dw_tiles = -(-K // 128) * -(-C // bn)
+    return _Plan(fwd_rows, bwd_rows, per_block(64, _SMS // dw_tiles), False, bn)
+
+
+def _blocks(M, rows):
+    """The partial rows of blocks of ``rows`` rows: ceil(M / rows)."""
+    return -(-M // rows)
+
+
+def _ranges(M, rows):
+    """The row ranges [b, e) of blocks of ``rows`` rows, in block order."""
+    return [(b, min(M, b + rows)) for b in range(0, M, rows)]
+
+
+def _fwd_partials_dense(y, K):
+    """The plain model of the forward kernel's partials: f32 [2, blocks, C],
+    the column sums and sums of squares of y [N, H, W', C] (the kernel's own
+    y) over each forward block's rows (used by the tests and chip_smoke.py
+    only)."""
+    C = y.shape[-1]
+    yf = y.reshape(-1, C).float()
+    rows = _geometry(yf.shape[0], K, C, y.dtype == torch.bfloat16).fwd_rows
+    blocks = [yf[b:e] for b, e in _ranges(yf.shape[0], rows)]
+    return torch.stack([torch.stack([v.sum(0) for v in blocks]),
+                        torch.stack([(v * v).sum(0) for v in blocks])])
+
+
+def _bwd_partials_dense(dy, y, x, w2, scale, offset, ds1, ds2, relu, wv):
+    """The plain model of the backward kernel's partials (used by the tests
+    and chip_smoke.py only): (dw_part f32 [splits, K, C], one dW over each
+    dW split's rows; part f32 [2, blocks, K], dscale and doffset over each
+    dX block's rows, or None without the fold), as ``_geometry`` assigns
+    the rows.  Their sums over the blocks are ``_bwd_dense``'s dw, dscale
+    and doffset."""
+    N, H, Wp, K = x.shape
+    C = w2.shape[1]
+    M = N * H * Wp
+    plan = _geometry(M, K, C, x.dtype == torch.bfloat16)
+    x2 = x.reshape(-1, K)
+    dyt = _dyt(dy.reshape(-1, C), y.reshape(-1, C), ds1.float(), ds2.float(), Wp, wv).float()
+    if scale is not None:
+        a, xf = _fold(x2, scale, offset, relu, Wp, wv)
+    else:
+        xf = x2
+    xf = xf.float()
+    dw = torch.stack([xf[b:e].T @ dyt[b:e] for b, e in _ranges(M, plan.dw_rows)])
+    if scale is None:
+        return dw, None
+    dxf = dyt @ w2.float().T
+    g = torch.where(a > 0.0, dxf, 0.0) if relu else dxf
+    gx = g * x2.float()
+    ranges = _ranges(M, plan.bwd_rows)
+    return dw, torch.stack([torch.stack([gx[b:e].sum(0) for b, e in ranges]),
+                            torch.stack([g[b:e].sum(0) for b, e in ranges])])
 
 
 def _check(cond, msg):
@@ -167,7 +258,25 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def _fwd_launch(x, w2, scale, offset, relu, wv):
+    """One launch of ``fused_conv_bn_fwd``: (y, part f32 [2, blocks, C], the
+    column sums and sums of squares of y over each block's rows)."""
+    _check(scale is not None, "the forward kernel takes the fold (scale and offset)")
+    x, w2, (sc, of), (M, K, C, Wp) = _kernel_inputs(x, w2, scale, offset, wv)
+    bf16 = x.dtype == torch.bfloat16
+    plan = _geometry(M, K, C, bf16)
+    y = torch.empty(*x.shape[:3], C, dtype=x.dtype, device=x.device)
+    part = torch.empty(2, _blocks(M, plan.fwd_rows), C, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _build.launch("fused_conv_bn", _FWD_ARGS, x.data_ptr(), w2.data_ptr(), sc.data_ptr(),
+                      of.data_ptr(), y.data_ptr(), part.data_ptr(), M, K, C, Wp, wv,
+                      int(bool(relu)), int(bf16), plan.fwd_rows, plan.bn, _stream(x.device),
+                      entry="fused_conv_bn_fwd")
+    fused_conv_bn_kernel.launches += 1
+    return y, part
 
 
 def fused_conv_bn_kernel(x, w2, scale, offset, relu=True, wv=None):
@@ -176,26 +285,46 @@ def fused_conv_bn_kernel(x, w2, scale, offset, relu=True, wv=None):
     Returns (y [N, H, W', C] in x's dtype, s1, s2 f32 [C]).  Raises
     ValueError on anything else.  Every launch adds one to
     ``fused_conv_bn_kernel.launches``."""
-    wv = x.shape[2] if wv is None else int(wv)
-    _check(scale is not None, "the forward kernel takes the fold (scale and offset)")
-    x, w2, (sc, of), (M, K, C, Wp) = _kernel_inputs(x, w2, scale, offset, wv)
-    bf16 = x.dtype == torch.bfloat16
-    tiles, _, _ = _geometry(M, K, C, bf16)
-    y = torch.empty(*x.shape[:3], C, dtype=x.dtype, device=x.device)
-    part = torch.empty(2, tiles, C, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.launch("fused_conv_bn", _FWD_ARGS, x.data_ptr(), w2.data_ptr(), sc.data_ptr(),
-                      of.data_ptr(), y.data_ptr(), part.data_ptr(), M, K, C, Wp, wv,
-                      int(bool(relu)), int(bf16), tiles, _stream(x.device),
-                      entry="fused_conv_bn_fwd")
-    fused_conv_bn_kernel.launches += 1
+    y, part = _fwd_launch(x, w2, scale, offset, relu, x.shape[2] if wv is None else int(wv))
     s = part.sum(1)
     return y, s[0], s[1]
 
 
 fused_conv_bn_kernel.launches = 0
 
-_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+
+def _bwd_launch(dy, y, x, w2, scale, offset, ds1, ds2, relu, wv):
+    """One launch of ``fused_conv_bn_bwd``: (dx, dw_part f32 [splits, K, C],
+    part f32 [2, blocks, K] of dscale and doffset or None without the
+    fold), the partials over the row ranges ``_geometry`` assigns."""
+    x, w2, aff, (M, K, C, Wp) = _kernel_inputs(x, w2, scale, offset, wv)
+    dev = x.device
+    for name, t in (("dy", dy), ("y", y)):
+        _check(t.device == dev and t.dtype == x.dtype and tuple(t.shape) == (*x.shape[:3], C),
+               f"{name}: {t.device} {t.dtype} {tuple(t.shape)}, need {dev} {x.dtype} "
+               f"{(*x.shape[:3], C)}")
+    dy, y = dy.contiguous(), y.contiguous()
+    ds = torch.stack([ds1.detach().float().reshape(C), ds2.detach().float().reshape(C)]).to(dev)
+    bf16 = x.dtype == torch.bfloat16
+    plan = _geometry(M, K, C, bf16)
+    dx = torch.empty_like(x)
+    part = torch.empty(2, _blocks(M, plan.bwd_rows), K, dtype=torch.float32, device=dev)
+    dwp = torch.empty(_blocks(M, plan.dw_rows), K, C, dtype=torch.float32, device=dev)
+    # the two-pass bf16 backward hands dyt from its dX pass to its dW pass
+    dyt = (torch.empty(M, C, dtype=x.dtype, device=dev) if bf16 and not plan.one_pass
+           else None)
+    sc, of = aff if aff else (None, None)
+    with torch.cuda.device(dev):
+        _build.launch("fused_conv_bn", _BWD_ARGS, dy.data_ptr(), y.data_ptr(), x.data_ptr(),
+                      w2.data_ptr(), None if sc is None else sc.data_ptr(),
+                      None if of is None else of.data_ptr(), ds.data_ptr(), dx.data_ptr(),
+                      part.data_ptr(), dwp.data_ptr(), None if dyt is None else dyt.data_ptr(),
+                      M, K, C, Wp, wv, int(bool(relu)), int(bf16), plan.bwd_rows, plan.dw_rows,
+                      int(plan.one_pass), plan.bn, _stream(dev), entry="fused_conv_bn_bwd")
+    fused_conv_bn_bwd_kernel.launches += 1
+    return dx, dwp, None if sc is None else part
 
 
 def fused_conv_bn_bwd_kernel(dy, y, x, w2, scale, offset, ds1, ds2, relu=True, wv=None):
@@ -206,32 +335,11 @@ def fused_conv_bn_bwd_kernel(dy, y, x, w2, scale, offset, ds1, ds2, relu=True, w
     or None without the fold).  Every launch adds one to
     ``fused_conv_bn_bwd_kernel.launches``."""
     wv = x.shape[2] if wv is None else int(wv)
-    x, w2, aff, (M, K, C, Wp) = _kernel_inputs(x, w2, scale, offset, wv)
-    dev = x.device
-    for name, t in (("dy", dy), ("y", y)):
-        _check(t.device == dev and t.dtype == x.dtype and tuple(t.shape) == (*x.shape[:3], C),
-               f"{name}: {t.device} {t.dtype} {tuple(t.shape)}, need {dev} {x.dtype} "
-               f"{(*x.shape[:3], C)}")
-    dy, y = dy.contiguous(), y.contiguous()
-    ds = torch.stack([ds1.detach().float().reshape(C), ds2.detach().float().reshape(C)]).to(dev)
-    bf16 = x.dtype == torch.bfloat16
-    tiles, splits, rows = _geometry(M, K, C, bf16)
-    dx = torch.empty_like(x)
-    part = torch.empty(2, tiles, K, dtype=torch.float32, device=dev)
-    dwp = torch.empty(splits, K, C, dtype=torch.float32, device=dev)
-    sc, of = aff if aff else (None, None)
-    with torch.cuda.device(dev):
-        _build.launch("fused_conv_bn", _BWD_ARGS, dy.data_ptr(), y.data_ptr(), x.data_ptr(),
-                      w2.data_ptr(), None if sc is None else sc.data_ptr(),
-                      None if of is None else of.data_ptr(), ds.data_ptr(), dx.data_ptr(),
-                      part.data_ptr(), dwp.data_ptr(), M, K, C, Wp, wv, int(bool(relu)),
-                      int(bf16), tiles, splits, rows, _stream(dev), entry="fused_conv_bn_bwd")
-    fused_conv_bn_bwd_kernel.launches += 1
-    dw = dwp.sum(0)
-    if sc is None:
-        return dx, dw, None, None
+    dx, dwp, part = _bwd_launch(dy, y, x, w2, scale, offset, ds1, ds2, relu, wv)
+    if part is None:
+        return dx, dwp.sum(0), None, None
     s = part.sum(1)
-    return dx, dw, s[0][None], s[1][None]
+    return dx, dwp.sum(0), s[0][None], s[1][None]
 
 
 fused_conv_bn_bwd_kernel.launches = 0

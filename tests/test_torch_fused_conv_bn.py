@@ -18,6 +18,8 @@ Tolerances, of max |reference| per output:
   one bf16 step, at most 2^-7 of it; the sums and dW inherit that
   (measured on the CPU: at most 6.9e-3).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -130,13 +132,144 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     assert port.fused_conv_bn_bwd_kernel.launches == 0
 
 
+MAIN_SHAPES = [(401408, 64, 256), (114688, 128, 512), (28672, 256, 1024), (7168, 512, 2048),
+               (401408, 256, 128), (401408, 256, 64), (401408, 64, 64), (28672, 1024, 256),
+               (7168, 2048, 512)]
+
+
 def test_geometry_covers_every_row():
-    """The partial buffers' shapes: row tiles of 128 (bf16) or 64 (f32)
-    rows, and dW splits of a multiple of 32 rows that cover M exactly
-    once, at the main path's shapes and a small one."""
-    for M, K, C in [(401408, 64, 256), (114688, 128, 512), (28672, 256, 1024),
-                    (7168, 512, 2048), (401408, 256, 64), (64, 128, 64)]:
+    """The partial layout: each kernel's blocks own contiguous ranges of
+    ``rows`` rows that cover M exactly once, in whole tiles (bf16: 128 rows
+    for the forward and the dX pass, 64 for the one-pass backward and the
+    dW splits; f32: one 64-row tile a block, dW splits of a multiple of 32
+    rows, at least 256), and the bf16 grids fill the H100's 132 SMs in one
+    wave at the ResNet step's shapes (conv3's K -> C and conv1's K > C),
+    whose backward runs in one pass exactly where K * C <= 16384."""
+    sms = port._SMS
+    for M, K, C in MAIN_SHAPES + [(64, 128, 64), (384, 256, 128), (384, 128, 64)]:
         for bf16 in (True, False):
-            tiles, splits, rows = port._geometry(M, K, C, bf16)
-            assert tiles == -(-M // (128 if bf16 else 64))
-            assert rows % 32 == 0 and (splits - 1) * rows < M <= splits * rows
+            plan = port._geometry(M, K, C, bf16)
+            fwd, bwd, dw = plan.fwd_rows, plan.bwd_rows, plan.dw_rows
+            for rows in (fwd, bwd, dw):
+                blocks = port._blocks(M, rows)
+                assert (blocks - 1) * rows < M <= blocks * rows
+            if not bf16:
+                assert fwd == bwd == 64 and dw % 32 == 0 and dw >= 256 and not plan.one_pass
+                continue
+            assert fwd % 128 == 0 and dw % 64 == 0
+            assert bwd % (64 if plan.one_pass else 128) == 0 and (not plan.one_pass or dw == bwd)
+            grids = [port._blocks(M, fwd) * -(-C // plan.bn)]
+            if plan.one_pass:
+                grids.append(port._blocks(M, bwd))
+            else:
+                grids.append(port._blocks(M, bwd) * -(-K // 256))
+                grids.append(port._blocks(M, dw) * -(-K // 128) * -(-C // plan.bn))
+            assert all(g <= sms for g in grids), (M, K, C, grids)
+            if (M, K, C) in MAIN_SHAPES:
+                assert all(g >= 0.8 * sms for g in grids), (M, K, C, grids)
+                assert plan.one_pass == (K * C <= 16384), (M, K, C)
+
+
+def _instantiated():
+    """The bf16 kernels csrc/fused_conv_bn.cu instantiates: the (K, C) of
+    its one-pass backward, and the column widths of its forward and of its
+    dW pass."""
+    src = (port._build.CSRC_DIR / "fused_conv_bn.cu").read_text()
+    one = {(int(k), int(c)) for k, c in re.findall(r"\bONE\((\d+), (\d+)\)", src)}
+    fwd = {int(n) for n in re.findall(r"\bFWD\((\d+), ", src)}
+    dw = {int(n) for n in re.findall(r"launch\(fcbn_dw_bf16<(\d+)>", src)}
+    return one, fwd, dw
+
+
+def test_every_admitted_shape_has_a_kernel():
+    """Every (K, C) that ``supported`` admits (multiples of 64, here up to
+    512) gets a plan that the kernel source runs: the one-pass backward
+    only for a (K, C) it instantiates (64 -> 192 and 192 -> 64, admitted
+    but not instantiated, take the two passes), and column widths it
+    instantiates.  Any two-pass shape runs: those kernels take any
+    multiple of 64."""
+    one, fwd, dw = _instantiated()
+    assert one == set(port._ONE_PASS)
+    assert fwd == dw == {64, 128, 256}
+    for K in range(64, 513, 64):
+        for C in range(64, 513, 64):
+            assert port.supported((2, 4, 8, K), (1, 1, K, C))
+            for M in (64, 7168, 401408):
+                plan = port._geometry(M, K, C, True)
+                assert plan.one_pass == ((K, C) in one), (K, C)
+                assert plan.bn in fwd and plan.bn <= max(64, C), (K, C, plan.bn)
+    for K, C in ((64, 192), (192, 64)):
+        assert not port._geometry(401408, K, C, True).one_pass
+
+
+# Shapes of the partial-layout model: W' = 24 does not divide the blocks'
+# 64 or 128 rows, so ranges end inside a W' row; (128, 64) takes the
+# one-pass backward, (256, 128) the two passes.
+PARTIAL_SHAPES = {"one_pass": (2, 8, 24, 128, 64, 20), "two_pass": (2, 8, 24, 256, 128, 20)}
+
+
+def _rel(got, want):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else got
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["no_fold", "fold_relu"])
+@pytest.mark.parametrize("case", list(PARTIAL_SHAPES))
+def test_partials_model_matches_reference(case, mode, dt):
+    """The plain model of the kernels' partials (``_fwd_partials_dense``,
+    ``_bwd_partials_dense``) against the reference's Pallas kernels, with
+    pad rows that hold non-zero x: one partial row for each block of the
+    ranges ``_geometry`` assigns; their sums give s1, s2, dW and, with the
+    fold, dscale and doffset; and the partials of the second block and of
+    the last, whose ranges end inside a W' row, are the reference's on x
+    zeroed outside the block's rows (s1 and s2 of the forward's blocks;
+    without the fold dW of the dW splits; with it dscale of the backward's
+    blocks, to which a zero x adds nothing)."""
+    N, H, Wp, K, C, wv = PARTIAL_SHAPES[case]
+    fold, relu = MODES[mode]
+    x, w, sc, of, dy, ds1, ds2 = _inputs(N, H, Wp, K, C, wv, fold, seed=K + C)
+    x = np.random.RandomState(K).randn(*x.shape).astype(np.float32)  # pad rows non-zero
+    M = N * H * Wp
+    plan = port._geometry(M, K, C, dt == "bf16")
+    assert plan.one_pass == (dt == "bf16" and case == "one_pass")
+    for rows in (plan.fwd_rows, plan.bwd_rows, plan.dw_rows):  # ranges ending inside W' rows
+        assert port._blocks(M, rows) > 1 and rows % Wp
+    args = (w, sc, of, dy, ds1, ds2, relu, wv, dt)
+    want_out, want_grads = _ref(x, *args)
+    tdt = torch.bfloat16 if dt == "bf16" else torch.float32
+    xt, wt, dyt = (torch.from_numpy(a).to(tdt) for a in (x, w.reshape(K, C), dy))
+    st, ot = (None, None) if sc is None else (torch.from_numpy(sc), torch.from_numpy(of))
+    y = (port._fwd_fold_dense(xt, wt, st, ot, relu, wv) if fold else port._fwd_plain(xt, wt))[0]
+    s_part = port._fwd_partials_dense(y, K)
+    dw_part, part = port._bwd_partials_dense(
+        dyt, y, xt, wt, st, ot, torch.from_numpy(ds1), torch.from_numpy(ds2), relu, wv)
+    assert s_part.shape == (2, port._blocks(M, plan.fwd_rows), C)
+    assert dw_part.shape == (port._blocks(M, plan.dw_rows), K, C)
+    assert (part is None) == (not fold)
+    got = {"s1": s_part[0].sum(0), "s2": s_part[1].sum(0), "dw": dw_part.sum(0).reshape(1, 1, K, C)}
+    want = {"s1": want_out[1], "s2": want_out[2], "dw": want_grads[1]}
+    if fold:
+        assert part.shape == (2, port._blocks(M, plan.bwd_rows), K)
+        got.update(dscale=part[0].sum(0)[None], doffset=part[1].sum(0)[None])
+        want.update(dscale=want_grads[2], doffset=want_grads[3])
+    tol = F32_TOL if dt == "f32" else BF16_TOL
+    errs = {name: _rel(g, want[name]) for name, g in got.items()}
+
+    def on_rows(rows, b):  # the reference on x zeroed outside block b's rows
+        lo = (b % port._blocks(M, rows)) * rows
+        hi = min(M, lo + rows)
+        xb = x.reshape(M, K).copy()
+        xb[:lo], xb[hi:] = 0.0, 0.0
+        return _ref(xb.reshape(x.shape), *args)
+
+    for b in (1, -1):
+        if not fold:
+            out, _ = on_rows(plan.fwd_rows, b)
+            errs[f"s1[{b}]"], errs[f"s2[{b}]"] = (_rel(s_part[i][b], out[1 + i]) for i in (0, 1))
+            errs[f"dw[{b}]"] = _rel(dw_part[b].reshape(1, 1, K, C), on_rows(plan.dw_rows, b)[1][1])
+        else:
+            errs[f"dscale[{b}]"] = _rel(part[0][b][None], on_rows(plan.bwd_rows, b)[1][2])
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    assert not bad, f"of max |reference| (tol {tol}): {bad}"
