@@ -755,9 +755,13 @@ def philox_case():
 
 def fused_ln_case(name, n, h, dtype, rate, seed, eps=1e-12):
     """The fused-LN forward and backward kernels vs their plain versions on
-    the card, with the same seed tensor.  Planted faults: gamma ignored and
-    the statistics of the row beside; with dropout, the mask read one
-    column over, the seed words swapped and (backward) no mask."""
+    the card, with the same seed tensor; each gives the same bits twice.
+    Planted faults: gamma ignored and the statistics of the row beside;
+    with dropout, the mask read one column over, the seed words swapped
+    and (backward) no mask.  The backward's raw partial rows are held
+    against the plain model of the kernel's row-to-team assignment
+    (``_team_partials``) at PARTIALS_RTOL, with the rows assigned one team
+    over as the planted fault."""
     from paddle_tpu_torch.ops import fused_ln as fl
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -769,13 +773,17 @@ def fused_ln_case(name, n, h, dtype, rate, seed, eps=1e-12):
     dz = torch.randn(n, h, generator=g, device="cuda").to(dt)
     sd = seed_pair(g)
     keep = fl.dropout_keep(sd, n, h, rate) if rate > 0 else None
-    shape = dict(n=n, h=h, dtype=dtype, rate=rate)
+    plan = fl._plan(h, dt == torch.bfloat16)
+    shape = dict(n=n, h=h, dtype=dtype, rate=rate, plan=plan._asdict())
 
     def plain(k=keep, gm=gamma, xx=x, sdd=sd):
         return fl._fused_ln_dense(xx, y, gm, beta, sdd, rate, eps, True, k)
 
     out, s = fl.fused_ln_kernel(x, y, gamma, beta, sd, rate, eps)
+    again = fl.fused_ln_kernel(x, y, gamma, beta, sd, rate, eps)
     torch.cuda.synchronize()
+    same_fwd = bool(torch.equal(out, again[0]) and torch.equal(s, again[1]))
+    del again
     want, want_s = plain()
     ones = torch.ones_like(gamma)
     faults = {"gamma_ignored": plain(gm=ones)[0]}
@@ -785,48 +793,106 @@ def fused_ln_case(name, n, h, dtype, rate, seed, eps=1e-12):
     else:
         faults["residual_dropped"] = plain(xx=torch.zeros_like(x))[0]
     fwd = gate(name, out.float(), want.float(), {k: f.float() for k, f in faults.items()},
-               KERNEL_RTOL["bf16"], **shape)
+               KERNEL_RTOL["bf16"], same_bits=same_fwd, **shape)
     s_err = (s.float() - want_s.float()).abs().max().item()
-    fwd.update(s_max_abs_err=s_err, ok=fwd["ok"] and s_err <= KERNEL_RTOL["bf16"]
+    fwd.update(s_max_abs_err=s_err, ok=fwd["ok"] and same_fwd and s_err <= KERNEL_RTOL["bf16"]
                * want_s.float().abs().max().item())
-
-    def bwd_plain(k=keep, gm=gamma, ss=want_s, r=rate):
-        dx, dy, dgp, dbp = fl._fused_ln_bwd_dense(ss, gm, dz, sd, r, eps, True, k)
-        return dx.float(), dy.float(), dgp.sum(0), dbp.sum(0)
+    del faults, out, s, want
 
     dx, dy, dgp, dbp = fl.fused_ln_bwd_kernel(want_s, gamma, dz, sd, rate, eps)
+    again = fl.fused_ln_bwd_kernel(want_s, gamma, dz, sd, rate, eps)
     torch.cuda.synchronize()
+    same_bwd = all(torch.equal(a, b) for a, b in zip((dx, dy, dgp, dbp), again))
+    del again
+    teams = dgp.shape[0]
+
+    def bwd_raw(k=keep, gm=gamma, ss=want_s, r=rate):
+        return fl._fused_ln_bwd_dense(ss, gm, dz, sd, r, eps, True, k, teams=teams,
+                                      rows=plan.rows)
+
+    def bwd_plain(**kw):
+        dxx, dyy, dgm, dbm = bwd_raw(**kw)
+        return dxx.float(), dyy.float(), dgm.sum(0), dbm.sum(0)
+
     gots = (dx, dy, dgp.sum(0), dbp.sum(0))
+    model = bwd_raw()
+    partials_rel, partials_fault_rel = partials_check(
+        (dgp, dbp), model[2:], [m.roll(1, 0) for m in model[2:]])
     bfaults = {"gamma_ignored": bwd_plain(gm=ones),
                "stats_of_row_beside": bwd_plain(ss=want_s.roll(1, 0))}
     if rate > 0:
         bfaults.update(mask_shifted=bwd_plain(k=keep.roll(1, -1)),
                        seeds_swapped=bwd_plain(k=fl.dropout_keep(sd.flip(0), n, h, rate)),
                        no_mask=bwd_plain(r=0.0))
-    bwd = bwd_gate(name, gots, bwd_plain(), bfaults, BWD_RTOL, **shape)
+    partials_ok = partials_rel <= PARTIALS_RTOL < partials_fault_rel
+    bwd = bwd_gate(name, gots, bwd_plain(), bfaults, BWD_RTOL, same_bits=same_bwd, teams=teams,
+                   partials_rel=partials_rel, partials_fault_rel=partials_fault_rel,
+                   partials_tol=PARTIALS_RTOL, ok=same_bwd and partials_ok, **shape)
+    del bfaults, model, gots, dx, dy
     if rate > 0:
         add_keep(keep, rate, fwd, bwd)
     esz = x.element_size()
     calls = n * h // 4 if rate > 0 else 0
-    fwd["ms"] = cuda_ms(lambda: fl.fused_ln_kernel(x, y, gamma, beta, sd, rate, eps), 20)
+    # ms and library_ms from CUDA-graph replays (the card's time: at the
+    # small wide cases the wrapper's host cost exceeds the kernel's);
+    # eager_ms from CUDA events around back-to-back calls
+    def fwd_kernel():
+        return fl.fused_ln_kernel(x, y, gamma, beta, sd, rate, eps)
+
+    def bwd_kernel():
+        return fl.fused_ln_bwd_kernel(want_s, gamma, dz, sd, rate, eps)
+
+    fwd["ms"], fwd["eager_ms"] = graph_ms(fwd_kernel), cuda_ms(fwd_kernel, 20)
     fwd["plain_ms"] = cuda_ms(plain, 3)
     tF = torch.nn.functional
-    fwd["library_ms"] = cuda_ms(lambda: tF.layer_norm(x + tF.dropout(y, rate), (h,), gamma,
-                                                      beta, eps), 20)
+    fwd["library_ms"] = graph_ms(lambda: tF.layer_norm(x + tF.dropout(y, rate), (h,), gamma,
+                                                       beta, eps))
     fwd["bound_ms"], fwd["bound_by"], fwd["floors"] = bound3(
         4 * n * h * esz + 2 * h * gamma.element_size(), f32_flops=10.0 * n * h,
         philox_calls=calls)
-    bwd["ms"] = cuda_ms(lambda: fl.fused_ln_bwd_kernel(want_s, gamma, dz, sd, rate, eps), 20)
+    bwd["ms"], bwd["eager_ms"] = graph_ms(bwd_kernel), cuda_ms(bwd_kernel, 20)
     bwd["plain_ms"] = cuda_ms(bwd_plain, 3)
     xr, yr, gr, br = (t.detach().clone().requires_grad_(True) for t in (x, y, gamma, beta))
-    lib_out = tF.layer_norm(xr + tF.dropout(yr, rate), (h,), gr, br, eps)
-    bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, (xr, yr, gr, br), dz,
-                                                            retain_graph=True), 20)
-    nb = -(-n // fl.BWD_ROWS)
+    st = torch.cuda.Stream()  # the forward on the capture stream, so its backward runs there
+    st.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(st):
+        lib_out = tF.layer_norm(xr + tF.dropout(yr, rate), (h,), gr, br, eps)
+    bwd["library_ms"] = graph_ms(lambda: torch.autograd.grad(
+        lib_out, (xr, yr, gr, br), dz, retain_graph=True), stream=st)
+    # the partials this run's grid writes: one f32 row of dgamma and of dbeta a team
     bwd["bound_ms"], bwd["bound_by"], bwd["floors"] = bound3(
-        4 * n * h * esz + h * gamma.element_size() + 2 * nb * h * 4,
+        4 * n * h * esz + h * gamma.element_size() + 2 * teams * h * 4,
         f32_flops=16.0 * n * h, philox_calls=calls)
     return fwd, bwd
+
+
+def fused_ln_routing_case(n=8192, h=4096, rate=DROP_RATE):
+    """``F.fused_dropout_add_layer_norm`` with autograd at a wide h: both
+    fused-LN counters rise by one (the routing reaches the wide kernels),
+    and the result matches the plain versions fed the same mask."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import fused_ln as fl
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x, res, dz = (torch.randn(n, h, generator=g, device="cuda").bfloat16() for _ in range(3))
+    w = torch.ones(h, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    b = torch.zeros(h, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    xr = x.clone().requires_grad_(True)
+    before = (fl.fused_ln_kernel.launches, fl.fused_ln_bwd_kernel.launches)
+    out = F.fused_dropout_add_layer_norm(xr, res, w, b, p=rate, epsilon=1e-5, training=True)
+    out.backward(dz)
+    torch.cuda.synchronize()
+    rose = (fl.fused_ln_kernel.launches - before[0], fl.fused_ln_bwd_kernel.launches - before[1])
+    keep = xr.grad != 0  # a kept element's gradient is nonzero almost surely
+    want, _ = fl._fused_ln_dense(res, x, w, b, None, rate, 1e-5, True, keep)
+    err = (out.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+    res_ = dict(name=f"routing_n{n}_h{h}_bf16_drop", launches_rose=list(rose), rel_err=err,
+                tol=KERNEL_RTOL["bf16"], finite=bool(torch.isfinite(xr.grad).all()),
+                keep_fraction=keep.float().mean().item())
+    res_["ok"] = rose == (1, 1) and err <= KERNEL_RTOL["bf16"] and res_["finite"]
+    log(f"  fused_ln routing at n {n} h {h}: launches rose {rose} (want (1, 1)), out rel err "
+        f"{err:.3e}, keep {res_['keep_fraction']:.4f} {'ok' if res_['ok'] else 'FAIL'}")
+    return res_
 
 
 def encoder_dropout_case(name, B, H, S, D, causal, seed, rate=DROP_RATE, packed=False):
@@ -928,12 +994,20 @@ def dropout_kernel_cases():
             ("ernie_bf16_drop", 65536, 768, "bf16", DROP_RATE),   # the ERNIE step's
             ("ernie_bf16_rate0", 65536, 768, "bf16", 0.0),        # the eval forward's
             ("ernie_f32_drop", 65536, 768, "f32", DROP_RATE),
-            ("h1024_bf16_drop", 16384, 1024, "bf16", DROP_RATE)]):
+            ("h1024_bf16_drop", 16384, 1024, "bf16", DROP_RATE),
+            # the wide kernels (h > 1024): 9 groups of 128 columns, then one
+            # block a row, then a cluster of 8 blocks a row in bf16 and f32
+            ("h1152_bf16_drop", 8192, 1152, "bf16", DROP_RATE),
+            ("h2048_bf16_drop", 32768, 2048, "bf16", DROP_RATE),
+            ("h4096_bf16_drop", 16384, 4096, "bf16", DROP_RATE),
+            ("h32768_bf16_rate0", 2048, 32768, "bf16", 0.0),
+            ("h32768_f32_drop", 1024, 32768, "f32", DROP_RATE)]):
         fwd, bwd = fused_ln_case(name, n, h, dtype, rate, 90 + i)
         out["fused_ln"].append(fwd)
         out["fused_ln_bwd"].append(bwd)
         log_case("fused_ln", fwd)
         log_case("fused_ln_bwd", bwd)
+    out["fused_ln_routing"] = [fused_ln_routing_case()]
     enc = {"encoder_attention": [], "encoder_attention_bwd": []}
     for i, (name, B, H, S, D, causal, packed) in enumerate([
             ("ernie_drop", 512, 12, 128, 64, False, False),       # the ERNIE step's
@@ -1344,20 +1418,24 @@ def kernel_phase():
     return out
 
 
-# The libraries built on wgmma_attention.cuh, whose SASS must hold wgmma
-# (HGMMA) and TMA loads (UTMALDG), and whose ptxas report must show no spill.
-HOPPER_LIBS = ("flash_attention", "flash_attention_bwd", "encoder_attention",
-               "encoder_attention_bwd", "decode_attention", "paged_attention", "fused_conv_bn")
+# The libraries whose SASS must hold the Hopper instructions their design
+# rests on, and whose ptxas report must show no spill: those built on
+# wgmma_attention.cuh need wgmma (HGMMA) and TMA loads (UTMALDG); fused_ln,
+# which has no product, its rows' 1-D bulk copies (UBLKCP).
+HOPPER_LIBS = {**{lib: ("HGMMA", "UTMALDG") for lib in (
+    "flash_attention", "flash_attention_bwd", "encoder_attention", "encoder_attention_bwd",
+    "decode_attention", "paged_attention", "fused_conv_bn")}, "fused_ln": ("UBLKCP",)}
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
 
 
 def sass_counts(lib):
-    """HGMMA and UTMALDG instructions in a library's SASS (cuobjdump)."""
+    """HGMMA, UTMALDG and UBLKCP instructions in a library's SASS (cuobjdump)."""
     from paddle_tpu_torch.ops import _build
 
     cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    return {"HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
+    return {op: sass.count(op) for op in SASS_OPS}
 
 
 def log_case(kern, c):
@@ -1371,6 +1449,8 @@ def log_case(kern, c):
         lse += f" same bits {c['same_bits']}"
     if "input_copies" in c:
         lse += f" input copies {c['input_copies']}"
+    if "partials_rel" in c:
+        lse += f" partials {c['partials_rel']:.2e} (fault {c['partials_fault_rel']:.2e})"
     if "backward_ms" in c:
         lse += f" stats+dq+dkv {c['backward_ms']:.4f} ms"
     if "eager_ms" in c:
@@ -2663,23 +2743,22 @@ def main(argv=None):
         report["sass"] = {name: sass_counts(built[name]["path"]) for name in HOPPER_LIBS}
         for name, n in report["sass"].items():
             log(f"[build]   {name}: SASS {n['HGMMA']} HGMMA (wgmma), {n['UTMALDG']} UTMALDG "
-                "(TMA loads)")
+                f"(TMA loads), {n['UBLKCP']} UBLKCP (bulk copies)")
         spills = [f"{name}: {line}" for name in HOPPER_LIBS
                   for line in report["ptxas"].get(name, [])
                   if "spill" in line and not line.startswith("0 bytes stack frame, 0 bytes spill")]
         report["hopper_spills"] = spills
         if spills:
-            log("[build] FAIL: ptxas spills in a wgmma library: " + "; ".join(spills))
+            log("[build] FAIL: ptxas spills in a Hopper library: " + "; ".join(spills))
             ok = False
     if "kernels" in phases:
         log("[kernels] every kernel vs its plain version")
         report["kernels"] = kernel_phase()
         ok &= all(c["ok"] for cases in report["kernels"].values() for c in cases)
-        missing = [name for name, n in report["sass"].items()
-                   if not (n["HGMMA"] > 0 and n["UTMALDG"] > 0)]
-        for name in missing:
-            log(f"[kernels] FAIL: the {name} library has no HGMMA (wgmma) or no "
-                "UTMALDG (TMA load) instruction")
+        missing = [(name, op) for name, n in report["sass"].items()
+                   for op in HOPPER_LIBS[name] if n[op] == 0]
+        for name, op in missing:
+            log(f"[kernels] FAIL: the {name} library has no {op} instruction")
         ok &= not missing
     serving = [ph for ph in paths if ph not in ("train", "ernie", "resnet")]
     if serving:

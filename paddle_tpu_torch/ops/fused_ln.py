@@ -9,20 +9,32 @@ two-pass f32 statistics on the rounded s; out = (s - mean) rstd gamma +
 beta in f32, rounded.  It is a ``torch.autograd.Function`` that saves only
 s, gamma and the seed pair, as the reference does: the backward recomputes
 the statistics from s and regenerates the mask from the seed, and gives
-dbranch, dresidual and per-block dgamma/dbeta partials summed outside the
+dbranch, dresidual and per-team dgamma/dbeta partials summed outside the
 kernel.  The mask is Philox (``ops/_prng.py``: element (row, col) reads
 counter (col >> 2, row, 0, 0), word col & 3), not the TPU's bits.
 
-``supported(n, h)`` is the reference's admission, which decides the
-routing of ``nn.functional.fused_dropout_add_layer_norm``.  A CPU tensor
-takes the plain versions (``_fused_ln_dense``, ``_fused_ln_bwd_dense``); a
-CUDA tensor launches ``csrc/fused_ln.cu`` (bf16 or f32, h <= 1024) or
-raises.  Not ported yet: h > 1024 on the card (the reference admits h up to
-32768; ROADMAP.md Queue 2 item 6), which raises NotImplementedError.
+``supported(n, h)`` is the reference's admission (h % 128 == 0 up to
+32768), which decides the routing of
+``nn.functional.fused_dropout_add_layer_norm``.  A CPU tensor takes the
+plain versions (``_fused_ln_dense``, ``_fused_ln_bwd_dense``); a CUDA tensor
+launches ``csrc/fused_ln.cu`` (bf16 or f32) at every admitted shape, on the
+plan ``_plan`` gives, or raises ValueError.
+
+The kernels replace the reference's ``_fwd_kernel`` (paddle_tpu/ops/
+fused_ln.py:55) and ``_bwd_kernel`` (:77).  Both are bound by bytes: two
+[n, h] tensors read and two written, 0.120 ms at the ERNIE shape (n 65,536,
+h 768, bf16) and 0.160 ms at h 4096 (n 16,384) or h 32768 (n 2,048) on the
+H100's 3.35 TB/s.  Up to h = 1024 the forward keeps one row in a warp's
+registers; the backward runs persistent blocks whose warps stream rows
+through rings in shared memory fed by bulk copies, so the next rows' bytes
+are in flight while a warp reduces the current one.  Above 1024 a team of
+1 to 8 blocks (a thread block cluster) shares each row, with cross-block
+sums through distributed shared memory (``csrc/fused_ln.cu`` says more).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,8 +44,41 @@ from ._prng import fused_ln_bits, keep_mask, launch_args
 __all__ = ["fused_dropout_add_layer_norm", "fused_ln_kernel", "fused_ln_bwd_kernel",
            "supported"]
 
-KERNEL_MAX_H = 1024  # csrc/fused_ln.cu keeps a row in one warp's registers
-BWD_ROWS = 128       # rows per backward block: one dgamma/dbeta partial row each
+NARROW_MAX_H = 1024  # up to here a row is one warp's (csrc/fused_ln.cu narrow kernels)
+BWD_ROWS = 8         # narrow backward: the rows a team (a block, a row a warp) takes at a time
+BLOCK_THREADS = 256  # threads a block: 8 warps (narrow), at most (wide)
+WIDE_VALUES = 16     # wide kernels: values of a tensor a thread holds
+CLUSTERS = (1, 2, 4, 8)
+
+
+class _Plan(NamedTuple):
+    """What a call runs: ``wide`` or not; ``k`` = h / 128 (narrow) or the
+    16-byte pieces a thread holds (wide); ``cl`` blocks a team (a thread
+    block cluster); ``threads`` a block; ``rows`` a team takes at a time
+    (its rows are those with (row // rows) % teams == team)."""
+    wide: bool
+    k: int
+    cl: int
+    threads: int
+    rows: int
+
+
+def _plan(h, bf16):
+    """The kernels' plan for rows of h (a multiple of 128 up to 32768) in
+    bf16 or f32.  Narrow up to h = 1024.  Wide: 16-byte pieces of V = 8
+    (bf16) or 4 (f32) values, the fewest blocks a team (1, 2, 4, 8) whose
+    slices fit BLOCK_THREADS threads of at most WIDE_VALUES values, then the
+    fewest pieces a thread.  ``csrc/fused_ln.cu`` instantiates exactly these
+    (tests/test_torch_fused_ln.py holds the two lists together)."""
+    if h <= NARROW_MAX_H:
+        return _Plan(False, h // 128, 1, BLOCK_THREADS, BWD_ROWS)
+    v = 8 if bf16 else 4
+    pieces = h // v
+    kmax = WIDE_VALUES // v
+    cl = next(c for c in CLUSTERS if -(-pieces // c) <= BLOCK_THREADS * kmax)
+    per = -(-pieces // cl)
+    k = next(k for k in (1, 2, 4) if -(-per // k) <= BLOCK_THREADS)
+    return _Plan(True, k, cl, 32 * -(-per // (32 * k)), 1)
 
 
 def _pick_bn(n, h):
@@ -83,10 +128,13 @@ def _fused_ln_dense(x, y, gamma, beta, seed, rate, eps, upscale, keep=None):
     return out.to(x.dtype), s
 
 
-def _fused_ln_bwd_dense(s, gamma, dz, seed, rate, eps, upscale, keep=None):
+def _fused_ln_bwd_dense(s, gamma, dz, seed, rate, eps, upscale, keep=None, teams=None,
+                        rows=BWD_ROWS):
     """Plain backward: (dx, dy, dgamma partials, dbeta partials), dx and dy
-    in s's dtype, the partials f32 [ceil(n / 128), h] as the kernel's.
-    ``keep`` overrides the seed's mask."""
+    in s's dtype, the partials f32 [teams, h] as the kernel's: team t sums
+    the rows with (row // rows) % teams == t (``_team_partials``).
+    ``teams`` defaults to one per 128 rows.  ``keep`` overrides the seed's
+    mask."""
     n, h = s.shape
     sf = s.float()
     mean, rstd = _stats(sf, eps)
@@ -100,13 +148,20 @@ def _fused_ln_bwd_dense(s, gamma, dz, seed, rate, eps, upscale, keep=None):
     if rate > 0.0:
         keep = dropout_keep(seed, n, h, rate) if keep is None else keep
         dy = torch.where(keep, ds * _scale(rate, upscale), 0.0)
-    nb = -(-n // BWD_ROWS)
-    pad = nb * BWD_ROWS - n
+    teams = -(-n // 128) if teams is None else teams
+    return (ds.to(s.dtype), dy.to(s.dtype), _team_partials(dzf * xhat, teams, rows),
+            _team_partials(dzf, teams, rows))
 
-    def partials(t):
-        return torch.nn.functional.pad(t, (0, 0, 0, pad)).reshape(nb, BWD_ROWS, h).sum(1)
 
-    return ds.to(s.dtype), dy.to(s.dtype), partials(dzf * xhat), partials(dzf)
+def _team_partials(t, teams, rows):
+    """[teams, h]: team k's row sums the rows r of t with (r // rows) %
+    teams == k, the kernels' assignment (a narrow block's 8 warps take 8
+    rows at a time, a wide team one)."""
+    n, h = t.shape
+    sweep = teams * rows
+    sweeps = -(-n // sweep)
+    t = torch.nn.functional.pad(t, (0, 0, 0, sweeps * sweep - n))
+    return t.reshape(sweeps, teams, rows, h).sum((0, 2))
 
 
 def _check(cond, msg):
@@ -116,8 +171,8 @@ def _check(cond, msg):
 
 def _kernel_inputs(tensors, gamma):
     """The kernels' admission: CUDA, one dtype of bf16/f32 for the [n, h]
-    tensors, h % 128 == 0 and h <= 1024, 16-byte aligned storage.  Returns
-    the tensors made contiguous and gamma (and beta) as f32."""
+    tensors, a shape ``supported`` admits, 16-byte aligned storage.
+    Returns the tensors made contiguous and gamma (and beta) as f32."""
     first = next(iter(tensors.values()))
     n, h = first.shape
     dev = first.device
@@ -128,11 +183,8 @@ def _kernel_inputs(tensors, gamma):
         _check(t.device == dev and t.dtype == first.dtype and tuple(t.shape) == (n, h),
                f"{name}: {t.device} {t.dtype} {tuple(t.shape)}, need {dev} "
                f"{first.dtype} {(n, h)}")
-    _check(h % 128 == 0, f"h={h} is not a multiple of 128")
-    if h > KERNEL_MAX_H:
-        raise NotImplementedError(
-            f"fused_ln kernel: h={h} > {KERNEL_MAX_H} is not ported yet (ROADMAP.md "
-            "Queue 2 item 6)")
+    _check(supported(n, h), f"rows {n} x h {h} outside the reference's admission "
+           "(h % 128 == 0, rows in blocks of 8..512 of at most 256K elements)")
     for name, t in gamma.items():
         _check(t is not None and t.device == dev and tuple(t.shape) == (h,),
                f"{name} must be a [{h}] tensor on {dev}")
@@ -142,8 +194,31 @@ def _kernel_inputs(tensors, gamma):
     return out, aff
 
 
+_TEAMS = {}
+
+
+def _teams(bwd, n, h, bf16, plan, device):
+    """The persistent grid of a launch: the teams that run on the card at
+    once (``fused_ln_teams``, cached per device and plan), at most one per
+    ``plan.rows`` rows; 0 for the narrow forward (a block per 8 rows)."""
+    key = (bwd, h, bf16, device.index)
+    cap = _TEAMS.get(key)
+    if cap is None:
+        lib = _build.load("fused_ln")
+        fn, msg = lib.fused_ln_teams, lib.fused_ln_error_string
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        msg.argtypes, msg.restype = [ctypes.c_int], ctypes.c_char_p
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = fn(int(bwd), h, int(bf16), plan.k, plan.cl, plan.threads, ctypes.byref(out))
+        if err:
+            raise RuntimeError(f"fused_ln_teams failed: {msg(err).decode()}")
+        cap = _TEAMS[key] = out.value
+    return min(cap, -(-n // plan.rows))
+
+
 _FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-    ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_uint32, ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def fused_ln_kernel(x, y, gamma, beta, seed, rate, eps, upscale=True):
@@ -154,12 +229,15 @@ def fused_ln_kernel(x, y, gamma, beta, seed, rate, eps, upscale=True):
     ``fused_ln_kernel.launches``."""
     (x, y), (g, b) = _kernel_inputs({"x": x, "y": y}, {"gamma": gamma, "beta": beta})
     n, h = x.shape
+    bf16 = x.dtype == torch.bfloat16
+    plan = _plan(h, bf16)
+    teams = _teams(False, n, h, bf16, plan, x.device)
     sp, thresh, scale = launch_args(seed, rate, _scale(rate, upscale), x.device)
     out, s = torch.empty_like(x), torch.empty_like(x)
     with torch.cuda.device(x.device):
         _build.launch("fused_ln", _FWD_ARGS, x.data_ptr(), y.data_ptr(), g.data_ptr(),
-                      b.data_ptr(), sp, out.data_ptr(), s.data_ptr(), n, h,
-                      int(x.dtype == torch.bfloat16), thresh, float(scale), float(eps),
+                      b.data_ptr(), sp, out.data_ptr(), s.data_ptr(), n, h, int(bf16), thresh,
+                      float(scale), float(eps), plan.k, plan.cl, plan.threads, teams,
                       torch.cuda.current_stream(x.device).cuda_stream, entry="fused_ln_fwd")
     fused_ln_kernel.launches += 1
     return out, s
@@ -168,27 +246,31 @@ def fused_ln_kernel(x, y, gamma, beta, seed, rate, eps, upscale=True):
 fused_ln_kernel.launches = 0
 
 _BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-    ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_uint32, ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def fused_ln_bwd_kernel(s, gamma, dz, seed, rate, eps, upscale=True):
     """Launch ``fused_ln_bwd`` of ``csrc/fused_ln.cu`` on CUDA tensors: s
     and dz [n, h], gamma [h], seed as the forward's.  Returns (dx, dy,
     dgamma partials, dbeta partials): dx and dy [n, h] in s's dtype, the
-    partials f32 [ceil(n / 128), h].  Every launch adds one to
-    ``fused_ln_bwd_kernel.launches``."""
+    partials f32 [teams, h], team t's row the sum over the rows with (row
+    // _plan(h, ...).rows) % teams == t (``_team_partials``).  Every launch
+    adds one to ``fused_ln_bwd_kernel.launches``."""
     (s, dz), (g,) = _kernel_inputs({"s": s, "dz": dz}, {"gamma": gamma})
     n, h = s.shape
+    bf16 = s.dtype == torch.bfloat16
+    plan = _plan(h, bf16)
+    teams = _teams(True, n, h, bf16, plan, s.device)
     sp, thresh, scale = launch_args(seed, rate, _scale(rate, upscale), s.device)
     dx, dy = torch.empty_like(s), torch.empty_like(s)
-    nb = -(-n // BWD_ROWS)
-    dgp = torch.empty(nb, h, dtype=torch.float32, device=s.device)
+    dgp = torch.empty(teams, h, dtype=torch.float32, device=s.device)
     dbp = torch.empty_like(dgp)
     with torch.cuda.device(s.device):
         _build.launch("fused_ln", _BWD_ARGS, s.data_ptr(), g.data_ptr(), dz.data_ptr(), sp,
                       dx.data_ptr(), dy.data_ptr(), dgp.data_ptr(), dbp.data_ptr(), n, h,
-                      int(s.dtype == torch.bfloat16), thresh, float(scale), float(eps),
-                      torch.cuda.current_stream(s.device).cuda_stream, entry="fused_ln_bwd")
+                      int(bf16), thresh, float(scale), float(eps), plan.k, plan.cl,
+                      plan.threads, teams, torch.cuda.current_stream(s.device).cuda_stream,
+                      entry="fused_ln_bwd")
     fused_ln_bwd_kernel.launches += 1
     return dx, dy, dgp, dbp
 

@@ -22,7 +22,16 @@ bf16 where the port keeps it in f32: s = residual + that then rounds twice
 and may land one unit of s apart, which the normalisation carries into the
 output scaled by rstd * gamma (below 1.5 here), so there the gate is rtol
 2^-6, atol 2e-2.
+
+WIDE_SHAPES run the same tests at h > 1024 (up to the reference's 32768),
+where the card runs the wide kernels; ``_plan`` and the kernel
+instantiations of csrc/fused_ln.cu are held to be one list, and the plain
+partials model (``_team_partials``) to the kernels' row-to-team
+assignment.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax
@@ -41,6 +50,9 @@ RATE = 0.1
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2**-7, atol=1e-2)}
 TOL_FED = {"float32": TOL["float32"], "bfloat16": dict(rtol=2**-6, atol=2e-2)}
 SHAPES = [(128, 256), (24, 384)]
+WIDE_SHAPES = [(16, 1152), (8, 4096), (8, 32768)]
+ALL_SHAPES = SHAPES + WIDE_SHAPES
+CU = Path(tfl.__file__).resolve().parents[1] / "csrc" / "fused_ln.cu"
 
 
 def _inputs(n, h, seed):
@@ -87,7 +99,7 @@ def _port(inp, dtype, rate, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,h", SHAPES, ids=[f"n{n}_h{h}" for n, h in SHAPES])
+@pytest.mark.parametrize("n,h", ALL_SHAPES, ids=[f"n{n}_h{h}" for n, h in ALL_SHAPES])
 def test_plain_matches_reference_kernel_rate0(n, h, dtype):
     inp = _inputs(n, h, n + h)
     want, wgrads = _ref(inp, dtype)
@@ -102,7 +114,7 @@ def test_plain_matches_reference_kernel_rate0(n, h, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,h", SHAPES, ids=[f"n{n}_h{h}" for n, h in SHAPES])
+@pytest.mark.parametrize("n,h", ALL_SHAPES, ids=[f"n{n}_h{h}" for n, h in ALL_SHAPES])
 def test_dropout_matches_reference_fed_the_ports_mask(n, h, dtype):
     inp = _inputs(n, h, 3 * n + h)
     seed = torch.tensor([n, -h], dtype=torch.int32)
@@ -137,6 +149,71 @@ def test_backward_reuses_the_forwards_mask():
                                              EPS, True)
     assert dgp.shape == (1, 128)  # one partial row per 128 rows
     np.testing.assert_allclose(dbp.sum(0).numpy(), inp["dout"].sum(0), rtol=1e-5, atol=1e-5)
+
+
+def _cu_list(macro):
+    """The arguments of each X(...) in csrc/fused_ln.cu's ``#define macro(X)``."""
+    line = re.search(rf"#define {macro}\(X\)(.*)", CU.read_text()).group(1)
+    return [tuple(a.strip() for a in args.split(",")) for args in re.findall(r"X\(([^)]*)\)",
+                                                                             line)]
+
+
+def _cu_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", CU.read_text()).group(1))
+
+
+def test_every_admitted_width_has_a_kernel():
+    """Every h that ``supported`` admits for some n gets a plan whose kernel
+    csrc/fused_ln.cu instantiates and whose blocks cover the row, by the
+    .cu's own admission (``bad_plan``); above 32768 no n is admitted."""
+    narrow = {int(ng) for (ng,) in _cu_list("FUSED_LN_NARROW")}
+    wide = {(t, int(k)) for t, k in _cu_list("FUSED_LN_WIDE")}
+    assert narrow == set(range(1, 9)) and wide
+    assert _cu_const("kNarrowMaxH") == tfl.NARROW_MAX_H
+    assert _cu_const("kMaxH") == 32768 and _cu_const("kWideValues") == tfl.WIDE_VALUES
+    assert tfl.BLOCK_THREADS == 32 * _cu_const("kWarps")
+    assert tfl.BWD_ROWS == _cu_const("kWarps")
+    widths = [h for h in range(128, 32769, 128) if tfl.supported(8, h)]
+    assert widths == list(range(128, 32769, 128))
+    assert not any(tfl.supported(n, 32896) for n in (8, 16, 512, 4096))
+    for h in widths:
+        for bf16, ctype in ((True, "__nv_bfloat16"), (False, "float")):
+            p = tfl._plan(h, bf16)
+            if h <= tfl.NARROW_MAX_H:
+                assert not p.wide and p.k == h // 128 in narrow and p.cl == 1, (h, p)
+                assert p.threads == tfl.BLOCK_THREADS and p.rows == tfl.BWD_ROWS
+                continue
+            v = 8 if bf16 else 4
+            pieces = h // v
+            per = -(-pieces // p.cl)
+            assert p.wide and (ctype, p.k) in wide and p.rows == 1, (h, p)
+            assert p.cl in (1, 2, 4, 8) and p.threads % 32 == 0, (h, p)
+            assert 0 < p.threads <= tfl.BLOCK_THREADS and p.k * v <= tfl.WIDE_VALUES, (h, p)
+            assert p.threads * p.k >= per and pieces - (p.cl - 1) * per > 0, (h, p)
+
+
+@pytest.mark.parametrize("teams,rows", [(5, 8), (7, 1), (1, 8)])
+def test_team_partials_sum_to_full_and_match_old_layout(teams, rows):
+    """The plain partials for a given grid: row r goes to team (r // rows)
+    % teams; they sum to the full dgamma/dbeta, and to what the old layout
+    (one partial row per 128 consecutive rows) summed to."""
+    n, h = 300, 256
+    inp = _inputs(n, h, 17)
+    s, dz = torch.from_numpy(inp["residual"]), torch.from_numpy(inp["dout"])
+    g = torch.from_numpy(inp["gamma"])
+    _, _, dgp, dbp = tfl._fused_ln_bwd_dense(s, g, dz, None, 0.0, EPS, True, teams=teams,
+                                             rows=rows)
+    assert dgp.shape == dbp.shape == (teams, h)
+    mean, rstd = tfl._stats(s, EPS)
+    prod = dz * (s - mean) * rstd
+    for t in range(teams):
+        mine = (torch.arange(n) // rows) % teams == t
+        torch.testing.assert_close(dgp[t], prod[mine].sum(0), rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dbp[t], dz[mine].sum(0), rtol=1e-5, atol=1e-5)
+    old = torch.nn.functional.pad(prod, (0, 0, 0, 84)).reshape(3, 128, h).sum(1)
+    torch.testing.assert_close(dgp.sum(0), old.sum(0), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dgp.sum(0), prod.sum(0), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dbp.sum(0), dz.sum(0), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
