@@ -34,7 +34,10 @@ Phases:
                     (with its lse) and backward case, and every decode
                     and paged case (head dims 64, 128 and 256, page sizes
                     16, 24 and 128, lengths on split and page edges; the
-                    kernels and SDPA timed from CUDA-graph replays); one
+                    speculative verify's S = 5 at 8 ragged offsets and
+                    256-token chunks starting off the page grid, over
+                    stale rows past each length; the kernels and SDPA
+                    timed from CUDA-graph replays); one
                     of the seven wgmma libraries (with fused_conv_bn)
                     without HGMMA or UTMALDG fails the phase, naming it.  The
                     encoder cases include q, k, v as the three strided
@@ -51,7 +54,7 @@ Phases:
                     then 4 on an int8 cache at decode_chunk=4.
   6. paged_engine — the paged LLMEngine on the same model: 12 requests,
                     then 4 on an int8 pool.
-In phases 4-6 and 8-10 the launch counters are zeroed just before each run
+In phases 4-6 and 8-13 the launch counters are zeroed just before each run
 and must match the work the run did.  For the greedy outputs, each path's logits
 (teacher-forced) must stay within LOGIT_TOL (INT8_LOGIT_TOL on an int8
 cache) of the no-cache forward's with dense-math attention, and each token
@@ -60,7 +63,27 @@ a few decode ticks of 8 busy slots under torch.profiler: where a tick's
 time goes.
   7. ticks        — both engines' decode ticks, 8 busy slots, in turns
                     (dense, paged, paged, dense), unprofiled.
-  8. train        — bench.py's training configuration (hidden 2048, 12
+  8. prefix       — the paged engine with its default prefix cache on the
+                    same model: a 1,000-token system prompt, then 16
+                    requests on it (tails of 64-300 tokens) in two waves of
+                    8, each hitting 1,000 tokens off the page grid; the
+                    same traffic with prefix_cache=False; 4 requests on an
+                    int8 pool; a 9-page pool where a prefill takes a cached
+                    page back (steal-back) and an admission evicts.  Page
+                    refcounts must equal their holders after every tick
+                    and the pool drain to the cached pages.
+  9. spec         — spec_k=4 with the n-gram drafter: the paged engine on 8
+                    extractive requests and 4 random ones, each against
+                    spec_k=0 on the same traffic; the dense engine on a
+                    bf16 and an int8 cache; generate(spec_k=4) on ids
+                    [4, 512]; a verify tick and a decode tick of 8 busy
+                    slots under torch.profiler.  Launches equal the
+                    chunks, ticks and verify calls times the layers.
+ 10. gpt          — GPTConfig() (hidden 768, 12 layers of 12 heads of 64,
+                    vocab 50,304, bf16, random weights from seed 0):
+                    generate() on ids [8, 256], the dense engine, and the
+                    paged engine with the prefix cache and spec_k=4.
+ 11. train        — bench.py's training configuration (hidden 2048, 12
                     layers, bf16, random weights and tokens from seed 0)
                     through TrainStep + AdamW(3e-4, weight_decay=0.01):
                     first every parameter's gradient through the kernels
@@ -71,7 +94,7 @@ time goes.
                     profiled; then B 32 x S 512 at accum_steps=2 with
                     ClipGradByGlobalNorm(1.0) (encoder forward and backward
                     24 a step).  Each loss finite, the last below the first.
-  9. ernie        — bench.py's ERNIE-base pretraining (BertConfig.base(),
+ 12. ernie        — bench.py's ERNIE-base pretraining (BertConfig.base(),
                     bf16, B 512 x S 128, 20 masked positions, dropout 0.1,
                     random weights and batch from seed 0): gradient parity
                     of every parameter against the composed/dense paths at
@@ -82,7 +105,7 @@ time goes.
                     LN forward and backward 24 and encoder forward and
                     backward 12 launches a step with no copy of q, k or v,
                     one step profiled.
- 10. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
+ 13. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
                     reaches the fused 1x1-conv + BN kernels: first one
                     bottleneck block at each stage's shape, fused against
                     composed in f32 (output, every gradient, running
@@ -254,10 +277,13 @@ def graph_ms(fn, iters=20, repeats=5, per_graph=10, stream=None):
 
 # ---------------------------------------------------------------- kernels
 
-def paged_case(name, B, S, H, Hkv, offsets, quant, seed, ps=128, D=128, pages=None):
+def paged_case(name, B, S, H, Hkv, offsets, quant, seed, ps=128, D=128, pages=None,
+               stale=False):
     """One kernel-vs-plain case.  ``pages`` narrows the page table below what
     the longest row would need, as when a chunk's padded rows run past a
-    pool of max_seq_len: keys past the table are never visited."""
+    pool of max_seq_len: keys past the table are never visited.  ``stale``
+    poisons (1e4) the rows of each slot's own pages past its length, as a
+    rolled-back verify leaves them: the kernel must mask by length."""
     from paddle_tpu_torch.models.kv_cache import _quantize_kv
     from paddle_tpu_torch.ops import decode_attention as da
 
@@ -275,6 +301,12 @@ def paged_case(name, B, S, H, Hkv, offsets, quant, seed, ps=128, D=128, pages=No
     for b, o in enumerate(offsets):
         for j in range(min(M, -(-(o + S) // ps))):
             tbl[b, j] = next(it)
+    if stale:
+        for b, o in enumerate(offsets):
+            for j in range(min(M, -(-(o + S) // ps))):
+                r0 = max(0, o + S - j * ps)
+                page = int(tbl[b, j])
+                kp[page, :, r0:], vp[page, :, r0:] = 1e4, 1e4
     tbl = tbl.to(dev)
     off = torch.tensor(offsets, dtype=torch.int64, device=dev)
     lengths = (off + S).to(torch.int32)
@@ -378,25 +410,27 @@ def randn(g, shape, std=1.0):
     return (torch.randn(*shape, generator=g, device="cuda") * std).bfloat16()
 
 
-def decode_case(name, B, H, Hkv, offsets, quant, seed, L=2048, D=128):
-    """Static decode kernel vs its plain version: S = 1 against a head-major
-    [B, Hkv, L, D] cache whose rows past each slot's valid length are
-    poisoned (1e4), so a read past the length shows."""
+def decode_case(name, B, H, Hkv, offsets, quant, seed, L=2048, D=128, S=1):
+    """Static decode kernel vs its plain version: S query rows a slot (1 for
+    a decode step, K + 1 for a speculative verify) against a head-major
+    [B, Hkv, L, D] cache whose rows past each slot's valid length
+    (offset + S) are poisoned (1e4), so a read past the length shows: the
+    stale rows a rolled-back verify leaves behind."""
     from paddle_tpu_torch.models.kv_cache import _quantize_kv
     from paddle_tpu_torch.ops import decode_attention as da
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = randn(g, (B, 1, H, D), Q_STD)
+    q = randn(g, (B, S, H, D), Q_STD)
     k, v = randn(g, (B, Hkv, L, D)), randn(g, (B, Hkv, L, D))
     off = torch.tensor(offsets, dtype=torch.int64, device="cuda")
     for b, o in enumerate(offsets):
-        k[b, :, o + 1:], v[b, :, o + 1:] = 1e4, 1e4
+        k[b, :, o + S:], v[b, :, o + S:] = 1e4, 1e4
     if quant:
         (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
         scales = (ks.contiguous(), vs.contiguous())
     else:
         scales = (None, None)
-    lengths = (off + 1).to(torch.int32)
+    lengths = (off + S).to(torch.int32)
     scale = 1.0 / D ** 0.5
 
     def kernel():
@@ -417,8 +451,8 @@ def decode_case(name, B, H, Hkv, offsets, quant, seed, L=2048, D=128):
     want = oracle(q.float(), off)
     res = gate(name, got, want, {"uniform_weights": oracle(torch.zeros_like(q.float()), off),
                                  "causal_end_short": oracle(q.float(), off - 1)},
-               KERNEL_RTOL["int8" if quant else "bf16"], B=B, S=1, H=H, Hkv=Hkv, L=L,
-               D=D, cache="int8" if quant else "bf16", max_len=max(offsets) + 1,
+               KERNEL_RTOL["int8" if quant else "bf16"], B=B, S=S, H=H, Hkv=Hkv, L=L,
+               D=D, cache="int8" if quant else "bf16", max_len=max(offsets) + S,
                same_bits=same_bits, ok=same_bits)
     res["ms"], res["eager_ms"] = graph_ms(kernel), cuda_ms(kernel, 50)  # as paged_case
     res["plain_ms"] = cuda_ms(plain, 10)
@@ -427,15 +461,18 @@ def decode_case(name, B, H, Hkv, offsets, quant, seed, L=2048, D=128):
     kd, vd = (k.bfloat16() * scales[0].bfloat16()[..., None],
               v.bfloat16() * scales[1].bfloat16()[..., None]) if quant else (k, v)
     kd, vd = kd.repeat_interleave(H // Hkv, 1), vd.repeat_interleave(H // Hkv, 1)
-    mask = torch.arange(L, device="cuda")[None, None, None, :] <= off[:, None, None, None]
+    mask = torch.arange(L, device="cuda")[None, None, None, :] <= (
+        off[:, None, None, None] + torch.arange(S, device="cuda")[None, None, :, None])
     qh = q.transpose(1, 2)
     res["library_ms"] = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kd, vd, attn_mask=mask))
-    # least time: q and out once, the valid K/V rows (and scales) once, lengths
-    keys = sum(o + 1 for o in offsets)
+    # least time: q and out once, the valid K/V rows (and scales) once,
+    # lengths; QK and PV over each (query row, visible key) pair
+    keys = sum(o + S for o in offsets)
+    visible = sum(o + s + 1 for o in offsets for s in range(S))
     nbytes = (2 * q.numel() * 2 + keys * Hkv * D * (1 if quant else 2) * 2
               + (keys * Hkv * 4 * 2 if quant else 0) + B * 4)
-    res["bound_ms"], res["bound_by"] = bound(nbytes, 4.0 * D * H * keys)
+    res["bound_ms"], res["bound_by"] = bound(nbytes, 4.0 * D * H * visible)
     return res
 
 
@@ -1300,6 +1337,14 @@ def conv_bn_kernel_cases():
 
 
 RAGGED = [2047, 1500, 1100, 777, 512, 300, 129, 37]  # 8 slots' lengths <= 2048
+# A speculative verify's offsets: K + 1 = 5 query rows a slot at 8 ragged
+# depths, ending on the capacity (2043), crossing the page edges 1024, 768
+# and 128, starting on one (512), and near the start.
+VERIFY = [2043, 1498, 1020, 765, 512, 299, 126, 3]
+VERIFY_S = 5
+# 256-token chunks off the page grid, as a prefix hit that ends inside a page
+# starts them.
+OFFGRID = [1000, 700]
 
 
 def split_edges(B, Hkv, cap=2048):
@@ -1334,6 +1379,15 @@ def decode_kernel_cases():
     cases.append(decode_case("7b_decode_l2000_bf16", 8, 32, 32, [min(o, 1999) for o in RAGGED],
                              False, 16, L=2000))
     log_case("decode_attention", cases[-1])
+    # the dense verify (S = K + 1): 5 rows a kv head split-K at 7B and GPT
+    # widths, 40 on wgmma at 70B GQA
+    for name, H, Hkv, D, quant, seed in (("7b_verify_s5_bf16", 32, 32, 128, False, 17),
+                                         ("7b_verify_s5_int8", 32, 32, 128, True, 18),
+                                         ("70b_gqa_verify_s5_bf16", 64, 8, 128, False, 19),
+                                         ("gpt_d64_verify_s5_bf16", 12, 12, 64, False, 20),
+                                         ("gpt_d64_verify_s5_int8", 12, 12, 64, True, 21)):
+        cases.append(decode_case(name, 8, H, Hkv, VERIFY, quant, seed, D=D, S=VERIFY_S))
+        log_case("decode_attention", cases[-1])
     return cases
 
 
@@ -1366,6 +1420,28 @@ def paged_kernel_cases():
                    pages=16),
         paged_case("7b_decode_ps24_int8", 8, 1, 32, 32, RAGGED, True, 12, ps=24),
         paged_case("7b_chunk256_ps24_bf16", 2, 256, 32, 32, [1280, 384], False, 13, ps=24),
+    ]
+    # the speculative verify (S = K + 1 at ragged offsets, split-K at 7B and
+    # GPT widths, a mostly empty 128-row wgmma tile of 40 rows at 70B GQA)
+    # and prefill chunks that start off the page grid, over pages whose rows
+    # past each length are stale
+    for quant in (False, True):
+        tag = "int8" if quant else "bf16"
+        cases += [
+            paged_case(f"7b_verify_s5_{tag}", 8, VERIFY_S, 32, 32, VERIFY, quant, 14,
+                       stale=True),
+            paged_case(f"70b_gqa_verify_s5_{tag}", 8, VERIFY_S, 64, 8, VERIFY, quant, 15,
+                       stale=True),
+            paged_case(f"7b_chunk256_offgrid_{tag}", 2, 256, 32, 32, OFFGRID, quant, 16,
+                       stale=True),
+        ]
+    cases += [
+        paged_case("gpt_d64_verify_s5_bf16", 8, VERIFY_S, 12, 12, VERIFY, False, 17, D=64,
+                   stale=True),
+        paged_case("70b_gqa_chunk256_offgrid_bf16", 2, 256, 64, 8, OFFGRID, False, 18,
+                   stale=True),
+        paged_case("gpt_d64_chunk256_offgrid_bf16", 2, 256, 12, 12, OFFGRID, False, 19, D=64,
+                   stale=True),
     ]
     for c in cases:
         log_case("paged_attention", c)
@@ -1524,12 +1600,21 @@ def forward_logits(model, prompt, out):
     forward with dense-math attention over prompt + out[:-1], its logits at
     the positions that produced out ([n, V] f32)."""
     cfg = model.config
-    flash, cfg.use_flash_attention = cfg.use_flash_attention, False
+    seq = list(prompt) + list(out[:-1])
+    n = len(seq)
+    if not hasattr(cfg, "use_flash_attention") and n % 128 == 0:
+        # GPT routes by shape alone: one more (causally invisible) token
+        # keeps the length off the encoder and flash kernels' gates
+        seq.append(0)
+    flash = getattr(cfg, "use_flash_attention", None)
+    if flash is not None:
+        cfg.use_flash_attention = False
     try:
-        seq = torch.tensor(list(prompt) + list(out[:-1]), device=model.device)[None]
-        return model(seq)[0, len(prompt) - 1:].float()
+        ids = torch.tensor(seq, device=model.device)[None]
+        return model(ids)[0, len(prompt) - 1:n].float()
     finally:
-        cfg.use_flash_attention = flash
+        if flash is not None:
+            cfg.use_flash_attention = flash
 
 
 def judge(cases, tol):
@@ -1634,6 +1719,128 @@ def generate_phase(model, card):
     return runs
 
 
+# ------------------------------------------------------------ engine runs
+
+def pool_balanced(eng):
+    """Each page's refcount equals its holders: the slot tables that map it
+    plus one if a prefix-cache node holds it; free pages hold 0 and sit in
+    the free list once; the trash page is never held."""
+    holds = {}
+    for pages in eng._slot_pages:
+        for p in pages:
+            holds[p] = holds.get(p, 0) + 1
+    cached = set(eng._prefix.pages()) if eng._prefix is not None else set()
+    free = list(eng._free_pages)
+    ok = len(free) == len(set(free)) and 0 not in free and int(eng._page_ref[0]) == 0
+    ok &= {p for p in range(eng.num_pages) if eng._page_cached[p]} == cached
+    for p in range(1, eng.num_pages):
+        ref = int(eng._page_ref[p])
+        ok &= ref == holds.get(p, 0) + (p in cached) and (p in free) == (ref == 0)
+    return bool(ok)
+
+
+def drive(eng, reqs):
+    """Submit ``reqs`` and tick the engine in this thread until they finish,
+    checking the pool's balance after every tick (paged).  Returns (token
+    lists, whether the pool stayed balanced)."""
+    futs = [eng.submit(r["prompt"], max_new_tokens=r["max_new"], do_sample=r["sampled"],
+                       temperature=0.8, top_p=0.9) for r in reqs]
+    balanced = True
+    while not all(f.done() for f in futs) or eng._prefilling is not None:
+        eng.step()
+        if eng.paged:
+            balanced &= pool_balanced(eng)
+    return [f.result() for f in futs], balanced
+
+
+def paged_engine(model, **kw):
+    from paddle_tpu_torch.inference import LLMEngine
+
+    base = dict(max_batch_slots=8, max_seq_len=2048, kv_layout="paged", page_size=128,
+                prefill_chunk=256, generator=torch.Generator(device=model.device).manual_seed(5))
+    return LLMEngine(model, **{**base, **kw})
+
+
+def engine_run(model, name, eng, waves, check, split=None, verify=0):
+    """One engine run: ``waves`` of requests, each wave driven to the end
+    before the next; launch counts against the work, the teacher-forced
+    logit and argmax gates on the greedy requests marked ``check``."""
+    cfg = model.config
+    warm = eng.warmup()
+    zero_counts()                                        # the run starts here
+    t0 = time.perf_counter()
+    outs, balanced = [], True
+    for wave in waves:
+        o, b = drive(eng, wave)
+        outs += o
+        balanced &= b
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()                             # ... and ends here
+    st = eng.stats()
+    reqs = [r for wave in waves for r in wave]
+    L = cfg.num_hidden_layers
+    verifies = st["spec"]["verify_calls"] if st["spec"] else 0
+    if eng.paged:
+        expected = {"paged_attention": L * (st["prefill_chunks"] + st["decode_ticks"]
+                                            + verifies)}
+    else:
+        expected = {"decode_attention": L * (st["decode_steps"] + verifies)}
+        for Lb, count in st["prefill_buckets"].items():
+            kern = prefill_kernel(cfg, 1, Lb)
+            if kern:
+                expected[kern] = expected.get(kern, 0) + L * count
+    valid = all(len(o) == r["max_new"] and all(0 <= t < cfg.vocab_size for t in o)
+                for o, r in zip(outs, reqs))
+    res = dict(path=name, cache=eng.cache_dtype or "bf16", requests=len(reqs),
+               warmup_s=warm, wall_s=wall, launches=launches, expected_launches=expected,
+               prefill_chunks=st["prefill_chunks"], decode_ticks=st["decode_ticks"],
+               decode_tokens=st["decode_tokens"], prefill_s=st["prefill_seconds"],
+               decode_s=st["decode_seconds"],
+               decode_tok_per_s=st["decode_tokens"] / max(st["decode_seconds"], 1e-9),
+               ttft_s=st["ttft_seconds"], prompt_tokens=sum(len(r["prompt"]) for r in reqs),
+               preemptions=st["preemptions"], prefix_cache=st["prefix_cache"],
+               spec=st["spec"], decode_chunk=eng.decode_chunk,
+               prefill_buckets=st.get("prefill_buckets"), valid_ids=valid, outputs=outs)
+    if eng.paged:
+        res["pool_balanced_every_tick"] = balanced
+        # the pool drains to the pages the prefix cache alone holds
+        cached = st["prefix_cache"]["cached_pages"] if st["prefix_cache"] else 0
+        res["drained_to_cache"] = (st["kv_pages_in_use"] == 0
+                                   and int(eng._page_ref.sum()) == cached)
+    checked = [(r, o) for r, o in zip(reqs, outs) if r.get("check") and not r["sampled"]]
+    if check and checked:
+        res["teacher_forced"] = judge(
+            [(o, forward_logits(model, r["prompt"], o),
+              paged_logits(model, r["prompt"], o, split=split(r) if split else None,
+                           verify=verify) if eng.paged else
+              dense_path_logits(model, eng, r["prompt"], o)) for r, o in checked],
+            INT8_LOGIT_TOL if eng.cache_dtype else LOGIT_TOL)
+    res["ok"] = (valid and launch_check(launches, expected)
+                 and res.get("pool_balanced_every_tick", True)
+                 and res.get("drained_to_cache", True)
+                 and (not check or res.get("teacher_forced", {}).get("ok", False)))
+    return res
+
+
+def log_run(r, card, extra=""):
+    """One line of a run's numbers and verdicts; its token lists are dropped
+    from the report."""
+    r.pop("outputs", None)
+    tf = r.get("teacher_forced")
+    tf = (f"drift max {tf['max_logit_drift']:.4f} (tol {tf['logit_tol']}), {tf['exact']} exact, "
+          f"{tf['near_ties']} near-ties, {tf['failures']} failures" if tf else "not checked")
+    buckets = f" (buckets {r['prefill_buckets']})" if r.get("prefill_buckets") else ""
+    log(f"  {r['path']} {r['cache']} decode_chunk={r.get('decode_chunk', 1)}: "
+        f"{r['requests']} req, {r['prompt_tokens']} prompt tok, {r['prefill_chunks']} prefills{buckets} in "
+        f"{r['prefill_s']:.3f} s, TTFT mean "
+        f"{r['ttft_s']['mean']:.3f} s; {r['decode_tokens']} decode tok at "
+        f"{r['decode_tok_per_s']:.1f} tok/s; wall {r['wall_s']:.1f} s; launches "
+        f"{r['launches']} (expected {r['expected_launches']}); balanced "
+        f"{r.get('pool_balanced_every_tick')}, drained {r.get('drained_to_cache')}; "
+        f"teacher-forced {tf}{extra}; {'ok' if r['ok'] else 'FAIL'} [{card}]")
+
+
 # ------------------------------------------------------------ dense engine
 
 @torch.no_grad()
@@ -1678,7 +1885,7 @@ def dense_requests(rng, vocab, n_req, sampled_every):
     for i in range(n_req):
         lo, hi = spans[i % 4]
         reqs.append(dict(prompt=rng.integers(1, vocab, int(rng.integers(lo, hi + 1))).tolist(),
-                         max_new=int(rng.integers(32, 65)),
+                         max_new=int(rng.integers(32, 65)), check=True,
                          sampled=sampled_every > 0 and i % sampled_every == sampled_every - 1))
     return reqs
 
@@ -1686,46 +1893,11 @@ def dense_requests(rng, vocab, n_req, sampled_every):
 def serve_dense(model, n_req, rng, cache_dtype, decode_chunk, sampled_every, check):
     from paddle_tpu_torch.inference import LLMEngine
 
-    cfg = model.config
     eng = LLMEngine(model, max_batch_slots=8, max_seq_len=2048, cache_dtype=cache_dtype,
                     decode_chunk=decode_chunk,
                     generator=torch.Generator(device=model.device).manual_seed(5))
-    warm = eng.warmup()
-    reqs = dense_requests(rng, cfg.vocab_size, n_req, sampled_every)
-    zero_counts()                                        # the run starts here
-    eng.start()
-    t0 = time.perf_counter()
-    futs = [eng.submit(r["prompt"], max_new_tokens=r["max_new"], do_sample=r["sampled"],
-                       temperature=0.8, top_p=0.9) for r in reqs]
-    outs = [f.result(timeout=900) for f in futs]
-    wall = time.perf_counter() - t0
-    eng.stop()
-    launches = read_counts()                             # ... and ends here
-    st = eng.stats()
-    L = cfg.num_hidden_layers
-    expected = {"decode_attention": L * st["decode_steps"]}
-    for Lb, count in st["prefill_buckets"].items():
-        kern = prefill_kernel(cfg, 1, Lb)
-        if kern:
-            expected[kern] = expected.get(kern, 0) + L * count
-    valid = all(len(o) == r["max_new"] and all(0 <= t < cfg.vocab_size for t in o)
-                for o, r in zip(outs, reqs))
-    res = dict(path="dense_engine", cache=cache_dtype or "bf16", decode_chunk=decode_chunk,
-               requests=n_req, warmup_s=warm, wall_s=wall, launches=launches,
-               expected_launches=expected, prefill_buckets=st["prefill_buckets"],
-               decode_ticks=st["decode_ticks"], decode_steps=st["decode_steps"],
-               decode_tokens=st["decode_tokens"], prefill_s=st["prefill_seconds"],
-               decode_s=st["decode_seconds"],
-               decode_tok_per_s=st["decode_tokens"] / max(st["decode_seconds"], 1e-9),
-               ttft_s=st["ttft_seconds"], prompt_tokens=sum(len(r["prompt"]) for r in reqs),
-               valid_ids=valid)
-    if check:
-        res["teacher_forced"] = judge(
-            [(o, forward_logits(model, r["prompt"], o), dense_path_logits(model, eng, r["prompt"], o))
-             for r, o in zip(reqs, outs) if not r["sampled"]],
-            INT8_LOGIT_TOL if cache_dtype else LOGIT_TOL)
-    res["ok"] = (valid and launch_check(launches, expected)
-                 and (not check or res["teacher_forced"]["ok"]))
+    reqs = dense_requests(rng, model.config.vocab_size, n_req, sampled_every)
+    res = engine_run(model, "dense_engine", eng, [reqs], check)
     del eng
     torch.cuda.empty_cache()
     return res
@@ -1740,30 +1912,27 @@ def dense_engine_phase(model, card):
     tick = decode_breakdown(model, "dense")
     log(f"  dense decode tick, 8 slots at ~1k context: {json.dumps(tick)} [{card}]")
     for r in runs:
-        log(f"  dense {r['cache']} decode_chunk={r['decode_chunk']}: {r['requests']} req, "
-            f"{r['prompt_tokens']} prompt tok, buckets {r['prefill_buckets']}, "
-            f"{r['decode_tokens']} decode tok in {r['decode_ticks']} ticks; launches "
-            f"{r['launches']} (expected {r['expected_launches']}); TTFT mean "
-            f"{r['ttft_s']['mean']:.3f} s p50 {r['ttft_s']['p50']:.3f} s; decode "
-            f"{r['decode_tok_per_s']:.1f} tok/s; wall {r['wall_s']:.1f} s; teacher-forced "
-            f"{r.get('teacher_forced')}; {'ok' if r['ok'] else 'FAIL'} [{card}]")
+        log_run(r, card)
     return runs, tick
 
 
 # ------------------------------------------------------------ paged engine
 
 @torch.no_grad()
-def paged_logits(model, prompt, out, chunk=256, ps=128):
+def paged_logits(model, prompt, out, chunk=256, ps=128, split=None, verify=0):
     """The paged path's logits at each generated position of one request,
-    teacher-forced: the prompt in prefill chunks, then one decode step for
-    each generated token but the last, on a one-slot pool of the model's
-    dtype."""
+    teacher-forced: the prompt in prefill chunks (from 0, or, as a prefix
+    hit of ``split`` tokens runs them, to ``split`` and from there), then one
+    decode step for each generated token but the last, or with ``verify``
+    = K verify steps of K + 1 rows, on a one-slot pool of the model's
+    dtype.  Pad rows of the chunks and the rows a verify writes past the
+    tokens stay in the pool, as the engine leaves them."""
     cfg, dev = model.config, model.device
     D = cfg.hidden_size // cfg.num_attention_heads
-    npg = -(-(len(prompt) + len(out)) // ps)
+    Hkv = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+    npg = -(-(len(prompt) + len(out) + chunk + verify) // ps)
     dt = next(model.parameters()).dtype
-    pools = [tuple(torch.zeros(npg + 1, cfg.num_key_value_heads, ps, D,
-                               dtype=dt, device=dev) for _ in range(2))
+    pools = [tuple(torch.zeros(npg + 1, Hkv, ps, D, dtype=dt, device=dev) for _ in range(2))
              for _ in range(cfg.num_hidden_layers)]
     tbl = torch.arange(1, npg + 1, dtype=torch.int32, device=dev)[None]
 
@@ -1771,84 +1940,63 @@ def paged_logits(model, prompt, out, chunk=256, ps=128):
         p = torch.tensor([pos], dtype=torch.int64, device=dev)
         return [(k, v, p, tbl) for k, v in pools]
 
-    for done in range(0, len(prompt), chunk):
-        m = min(chunk, len(prompt) - done)
+    n = len(prompt)
+    starts = (list(range(0, n, chunk)) if split is None else
+              list(range(0, split, chunk)) + list(range(split, n, chunk)))
+    for done, end in zip(starts, starts[1:] + [n]):
+        m = end - done
         ids = torch.zeros(1, chunk, dtype=torch.int64)  # the engine pads with 0
         ids[0, :m] = torch.tensor(prompt[done:done + m])
         logits, _ = model.prefill_chunk_step(ids.to(dev), caches(done), m - 1)
     rows = [logits[0, 0]]
+    if verify:
+        for i in range(0, len(out) - 1, verify + 1):
+            blk = out[i:i + verify + 1]
+            ids = torch.tensor([blk + [0] * (verify + 1 - len(blk))], device=dev)
+            lg, _ = model.verify_step(ids, caches(n + i))
+            rows += list(lg[0, :len(blk)])
+        return torch.stack(rows[:len(out)]).float()
     for i, tok in enumerate(out[:-1]):
-        logits, _ = model.generate_step(torch.tensor([[tok]], device=dev),
-                                        caches(len(prompt) + i))
+        logits, _ = model.generate_step(torch.tensor([[tok]], device=dev), caches(n + i))
         rows.append(logits[0, 0])
     return torch.stack(rows).float()
 
 
 def serve_paged(model, n_req, rng, cache_dtype, sampled_every, check):
-    from paddle_tpu_torch.inference import LLMEngine
-
-    cfg = model.config
-    eng = LLMEngine(model, max_batch_slots=8, max_seq_len=2048, kv_layout="paged",
-                    page_size=128, prefill_chunk=256, prefix_cache=False,
-                    cache_dtype=cache_dtype,
-                    generator=torch.Generator(device=model.device).manual_seed(5))
-    warm = eng.warmup()
     reqs = []
     for i in range(n_req):
         n = int(rng.integers(64, 1501))
-        reqs.append(dict(prompt=rng.integers(1, cfg.vocab_size, n).tolist(),
-                         max_new=int(rng.integers(32, 65)),
+        reqs.append(dict(prompt=rng.integers(1, model.config.vocab_size, n).tolist(),
+                         max_new=int(rng.integers(32, 65)), check=True,
                          sampled=sampled_every > 0 and i % sampled_every == sampled_every - 1))
-    zero_counts()                                        # the run starts here
-    eng.start()
-    t0 = time.perf_counter()
-    futs = [eng.submit(r["prompt"], max_new_tokens=r["max_new"],
-                       do_sample=r["sampled"], temperature=0.8, top_p=0.9)
-            for r in reqs]
-    outs = [f.result(timeout=900) for f in futs]
-    wall = time.perf_counter() - t0
-    eng.stop()
-    launches = read_counts()                             # ... and ends here
-    st = eng.stats()
-    expected = {"paged_attention": cfg.num_hidden_layers * (st["prefill_chunks"]
-                                                            + st["decode_ticks"])}
-    valid = all(len(o) == r["max_new"] and all(0 <= t < cfg.vocab_size for t in o)
-                for o, r in zip(outs, reqs))
-    res = dict(path="paged_engine", cache=cache_dtype or "bf16", requests=n_req,
-               warmup_s=warm, wall_s=wall, launches=launches, expected_launches=expected,
-               prefill_chunks=st["prefill_chunks"], decode_ticks=st["decode_ticks"],
-               decode_tokens=st["decode_tokens"], prefill_s=st["prefill_seconds"],
-               decode_s=st["decode_seconds"],
-               decode_tok_per_s=st["decode_tokens"] / max(st["decode_seconds"], 1e-9),
-               ttft_s=st["ttft_seconds"], prompt_tokens=sum(len(r["prompt"]) for r in reqs),
-               valid_ids=valid, preemptions=st["preemptions"])
-    if check:
-        res["teacher_forced"] = judge(
-            [(o, forward_logits(model, r["prompt"], o), paged_logits(model, r["prompt"], o))
-             for r, o in zip(reqs, outs) if not r["sampled"]], LOGIT_TOL)
-    res["ok"] = (valid and launch_check(launches, expected)
-                 and (not check or res["teacher_forced"]["ok"]))
+    eng = paged_engine(model, prefix_cache=False, cache_dtype=cache_dtype)
+    res = engine_run(model, "paged_engine", eng, [reqs], check)
     del eng
     torch.cuda.empty_cache()
     return res
 
 
-def busy_engine(model, layout):
+def busy_engine(model, layout, spec_k=0):
     """An engine of either layout with all 8 slots decoding at about 1k
-    tokens of context."""
+    tokens of context (verifying K drafts a tick with ``spec_k``)."""
     import numpy as np
 
     from paddle_tpu_torch.inference import LLMEngine
 
     kw = (dict(kv_layout="paged", page_size=128, prefill_chunk=256, prefix_cache=False)
           if layout == "paged" else {})
-    eng = LLMEngine(model, max_batch_slots=8, max_seq_len=2048, **kw)
+    eng = LLMEngine(model, max_batch_slots=8, max_seq_len=2048, spec_k=spec_k, **kw)
     rng = np.random.default_rng(1)
+    # a verify tick emits up to K + 1 tokens a slot: room for the 32 ticks
+    # of the 8 admissions and the measured ticks, so no slot finishes early
     for _ in range(8):
-        eng.submit(rng.integers(1, model.config.vocab_size, 1000).tolist(), max_new_tokens=96)
-    while eng.stats()["active_slots"] < 8:  # prefill every prompt
+        eng.submit(rng.integers(1, model.config.vocab_size, 1000).tolist(),
+                   max_new_tokens=96 * (spec_k + 1))
+    for _ in range(64):  # prefill every prompt
+        if eng.stats()["active_slots"] == 8:
+            return eng
         eng.step()
-    return eng
+    raise RuntimeError(f"busy_engine: {eng.stats()['active_slots']} of 8 slots active")
 
 
 def tick_ms(eng, ticks):
@@ -1860,13 +2008,15 @@ def tick_ms(eng, ticks):
     return (time.perf_counter() - t0) * 1e3 / ticks
 
 
-def decode_breakdown(model, layout, ticks=8):
-    """Where one decode tick's time goes with all 8 slots busy: host wall
-    per tick (unprofiled, then under torch.profiler) and the device time of
-    the kernels the ticks ran, by kind.  Informational: a profiler that
-    records no device events gives "not measured", not a failure."""
-    eng = busy_engine(model, layout)
-    res = dict(layout=layout, ticks=ticks, slots=8, wall_ms_per_tick=tick_ms(eng, ticks))
+def decode_breakdown(model, layout, ticks=8, spec_k=0):
+    """Where one decode (or, with ``spec_k``, verify) tick's time goes with
+    all 8 slots busy: host wall per tick (unprofiled, then under
+    torch.profiler) and the device time of the kernels the ticks ran, by
+    kind.  Informational: a profiler that records no device events gives
+    "not measured", not a failure."""
+    eng = busy_engine(model, layout, spec_k)
+    res = dict(layout=layout, spec_k=spec_k, ticks=ticks, slots=8,
+               wall_ms_per_tick=tick_ms(eng, ticks))
     try:
         from torch.profiler import ProfilerActivity, profile
 
@@ -1908,12 +2058,7 @@ def paged_engine_phase(model, card):
     tick = decode_breakdown(model, "paged")
     log(f"  paged decode tick, 8 slots at ~1k context: {json.dumps(tick)} [{card}]")
     for r in runs:
-        log(f"  paged {r['cache']}: {r['requests']} req, {r['prompt_tokens']} prompt tok, "
-            f"{r['decode_tokens']} decode tok; launches {r['launches']} "
-            f"(expected {r['expected_launches']}); TTFT mean {r['ttft_s']['mean']:.3f} s "
-            f"p50 {r['ttft_s']['p50']:.3f} s; decode {r['decode_tok_per_s']:.1f} tok/s; "
-            f"wall {r['wall_s']:.1f} s; teacher-forced {r.get('teacher_forced')}; "
-            f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
+        log_run(r, card)
     return runs, tick
 
 
@@ -1931,6 +2076,274 @@ def ticks_phase(model, card):
         log(f"  {layout:5s} decode tick, 8 slots at ~1k context: "
             f"{runs[-1]['wall_ms_per_tick']:.2f} ms [{card}]")
     return [], runs
+
+
+# ------------------------------------------------- prefix cache and spec
+
+SYSTEM_PROMPT = 1000  # shared tokens: 7 full pages of 128 and a 104-token tail
+
+
+def prefix_requests(rng, vocab, n, system, check_every=2, tails=(64, 300), new=(16, 24)):
+    return [dict(prompt=system + rng.integers(1, vocab, int(rng.integers(*tails) + 1)).tolist(),
+                 max_new=int(rng.integers(new[0], new[1] + 1)), sampled=False,
+                 check=i % check_every == 0) for i in range(n)]
+
+
+def prefix_phase(model, card):
+    """The paged engine with its default prefix cache: the 1,000-token
+    system prompt alone (it leaves a 104-token partial tail in the cache),
+    then 16 requests on it in two waves of 8, each hitting 1,000 tokens off
+    the page grid and forking the tail page; the same traffic with the
+    cache off; 4 requests on an int8 pool; and a 9-page pool in which a
+    prefill takes a cached tail back (steal-back) and an admission evicts."""
+    import numpy as np
+
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(20)
+    system = rng.integers(1, vocab, SYSTEM_PROMPT).tolist()
+    reqs = prefix_requests(rng, vocab, 16, system)
+    waves = [[dict(prompt=system, max_new=8, sampled=False, check=True)], reqs[:8], reqs[8:]]
+    split = lambda r: SYSTEM_PROMPT  # noqa: E731 - the hit's chunk grid
+    runs = [engine_run(model, "prefix_on", paged_engine(model), waves, True, split)]
+    st = runs[0]["prefix_cache"]
+    runs[0]["ok"] &= st["hit_tokens"] > 0 and st["cow_copies"] > 0
+    off = engine_run(model, "prefix_off", paged_engine(model, prefix_cache=False),
+                     [[dict(r, check=False) for r in w] for w in waves], False)
+    off["tokens_equal_cache_on"] = sum(a == b for a, b in zip(off["outputs"],
+                                                             runs[0]["outputs"]))
+    runs.append(off)
+    int8 = prefix_requests(rng, vocab, 4, system, check_every=99)
+    runs.append(engine_run(model, "prefix_on", paged_engine(model, cache_dtype="int8"),
+                           [[dict(prompt=system, max_new=8, sampled=False)], int8], False))
+    runs[-1]["ok"] &= runs[-1]["prefix_cache"]["hit_tokens"] > 0
+    runs.append(small_pool_run(model, rng, system))
+    for r in runs:
+        log_run(r, card, f"; prefix {r['prefix_cache']}" if r["prefix_cache"] else
+                f"; {r.get('tokens_equal_cache_on')} of {r['requests']} equal to the cache-on run")
+    return runs, None
+
+
+def small_pool_run(model, rng, system):
+    """9 allocatable pages: A (the 1,000-token system prompt) decodes from a
+    forked copy of its cached tail page, which takes the last free page; B,
+    the same prompt, maps all 8 cached pages, and its prefill must write
+    into the tail page that only it and the cache hold, with no page free
+    and every cached page pinned: it takes the page back from the cache
+    (an eviction; its first decode write does so again, once its insert
+    cached the page anew).  Then C, another 1,000 tokens, evicts A's
+    cached chain."""
+    vocab = model.config.vocab_size
+    eng = paged_engine(model, num_pages=10)
+    warm = eng.warmup()
+    a = dict(prompt=system, max_new=16, sampled=False, check=True)
+    b = dict(prompt=system, max_new=12, sampled=False, check=True)
+    c = dict(prompt=rng.integers(1, vocab, SYSTEM_PROMPT).tolist(), max_new=8, sampled=False,
+             check=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    fa = eng.submit(a["prompt"], max_new_tokens=a["max_new"])
+    balanced = True
+    while eng.stats()["prefix_cache"]["cow_copies"] == 0 and not fa.done():
+        eng.step()  # until A forks its tail page, decoding
+        balanced &= pool_balanced(eng)
+    fb = eng.submit(b["prompt"], max_new_tokens=b["max_new"])
+    while not (fa.done() and fb.done()):
+        eng.step()
+        balanced &= pool_balanced(eng)
+    steal_backs = eng.stats()["prefix_cache"]["evictions"]
+    outs, bal = drive(eng, [c])
+    outs = [fa.result(), fb.result()] + outs
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    st = eng.stats()
+    L = model.config.num_hidden_layers
+    expected = {"paged_attention": L * (st["prefill_chunks"] + st["decode_ticks"])}
+    reqs = [a, b, c]
+    res = dict(path="prefix_small_pool", cache="bf16", requests=3, warmup_s=warm, wall_s=wall,
+               launches=launches, expected_launches=expected,
+               prefill_chunks=st["prefill_chunks"], decode_ticks=st["decode_ticks"],
+               decode_tokens=st["decode_tokens"], prefill_s=st["prefill_seconds"],
+               decode_s=st["decode_seconds"],
+               decode_tok_per_s=st["decode_tokens"] / max(st["decode_seconds"], 1e-9),
+               ttft_s=st["ttft_seconds"], prompt_tokens=3 * SYSTEM_PROMPT,
+               preemptions=st["preemptions"], prefix_cache=st["prefix_cache"], spec=None,
+               steal_backs=steal_backs, pool_balanced_every_tick=balanced and bal,
+               drained_to_cache=(st["kv_pages_in_use"] == 0 and int(eng._page_ref.sum())
+                                 == st["prefix_cache"]["cached_pages"]),
+               outputs=outs)
+    res["teacher_forced"] = judge(
+        [(o, forward_logits(model, r["prompt"], o),
+          paged_logits(model, r["prompt"], o, split=999 if r is b else None))
+         for r, o in zip(reqs, outs)], LOGIT_TOL)
+    res["ok"] = (launch_check(launches, expected) and res["pool_balanced_every_tick"]
+                 and res["drained_to_cache"] and steal_backs >= 1
+                 and st["prefix_cache"]["evictions"] > steal_backs
+                 and res["teacher_forced"]["ok"]
+                 and all(len(o) == r["max_new"] for o, r in zip(outs, reqs)))
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+@torch.no_grad()
+def extractive_requests(model, rng, n, check_every=2):
+    """Prompts that quote text the model goes on to produce: a random 64-token
+    seed, its greedy continuation G (generate, 160 tokens), then the seed
+    again and G's first 16 tokens: the rest of G is what a copy would
+    draft."""
+    vocab = model.config.vocab_size
+    seeds = torch.tensor(rng.integers(1, vocab, (n, 64)), device=model.device)
+    g = model.generate(seeds, max_new_tokens=160).tolist()
+    return [dict(prompt=s + gi + s + gi[:16], max_new=32, sampled=False,
+                 check=i % check_every == 0)
+            for i, (s, gi) in enumerate(zip(seeds.tolist(), g))]
+
+
+def spec_phase(model, card):
+    """Speculative decoding at spec_k=4 with the n-gram drafter: the paged
+    engine on 8 extractive requests and 4 of random tokens, each against
+    the same traffic at spec_k=0; the dense engine on bf16 and int8 caches;
+    generate(spec_k=4) on ids [4, 512]."""
+    import numpy as np
+
+    K = 4
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(30)
+    kinds = {"extractive": extractive_requests(model, rng, 8),
+             "random": [dict(prompt=rng.integers(1, vocab, int(rng.integers(200, 800))).tolist(),
+                             max_new=32, sampled=False, check=i % 2 == 0) for i in range(4)]}
+    runs = []
+    for kind, reqs in kinds.items():
+        pair = []
+        for k in (K, 0):
+            r = engine_run(model, f"spec_paged_{kind}_k{k}", paged_engine(model, spec_k=k),
+                           [reqs], k > 0, verify=k)
+            pair.append(r)
+        spec, plain = pair
+        spec["tokens_equal_spec0"] = sum(a == b for a, b in zip(spec["outputs"],
+                                                                plain["outputs"]))
+        spec["decode_speedup"] = spec["decode_tok_per_s"] / plain["decode_tok_per_s"]
+        if kind == "extractive":
+            spec["ok"] &= spec["spec"]["accepted_tokens"] > 0
+        runs += pair
+    for cache_dtype in (None, "int8"):
+        from paddle_tpu_torch.inference import LLMEngine
+
+        reqs = [dict(prompt=rng.integers(1, vocab, int(rng.integers(100, 1500))).tolist(),
+                     max_new=24, sampled=False, check=i < 2) for i in range(4)]
+        eng = LLMEngine(model, max_batch_slots=8, max_seq_len=2048, cache_dtype=cache_dtype,
+                        spec_k=K, generator=torch.Generator(device=model.device).manual_seed(5))
+        runs.append(engine_run(model, "spec_dense", eng, [reqs], cache_dtype is None))
+    runs.append(spec_generate_run(model, rng, K))
+    # a verify tick against a decode tick, 8 busy slots of random prompts
+    ticks = [decode_breakdown(model, "paged", spec_k=k) for k in (K, 0)]
+    for t in ticks:
+        log(f"  paged {'verify' if t['spec_k'] else 'decode'} tick, 8 slots at ~1k context: "
+            f"{json.dumps(t)} [{card}]")
+    for r in runs:
+        if r["path"] == "spec_generate":
+            continue
+        sp = r["spec"]
+        extra = (f"; spec {sp}, {r.get('tokens_equal_spec0')} of {r['requests']} equal to "
+                 f"spec_k=0, decode speedup {r.get('decode_speedup')}" if sp else "")
+        log_run(r, card, extra)
+    return runs, ticks
+
+
+def spec_generate_run(model, rng, K, B=4, S0=512, n_new=32):
+    """generate(spec_k=K) on ids [B, S0]: every verify through the static
+    decode kernel at S = K + 1, the prefill through the encoder kernel."""
+    cfg = model.config
+    ids = torch.tensor(rng.integers(1, cfg.vocab_size, (B, S0)), device=model.device)
+    calls = [0]
+    verify = model.verify_step
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return verify(*a, **kw)
+
+    model.verify_step = counted
+    try:
+        model.generate(ids[:, :8], max_new_tokens=2, spec_k=K)
+        torch.cuda.synchronize()
+        calls[0] = 0
+        zero_counts()                                    # the run starts here
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=n_new, spec_k=K)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()                         # ... and ends here
+    finally:
+        del model.verify_step
+    L = cfg.num_hidden_layers
+    expected = {"decode_attention": L * calls[0]}
+    kern = prefill_kernel(cfg, B, S0)
+    if kern:
+        expected[kern] = L
+    plain = model.generate(ids, max_new_tokens=n_new)
+    path = static_path_logits(model, ids[:2], out[:2], None)
+    verdict = judge([(out[b].tolist(), forward_logits(model, ids[b].tolist(), out[b].tolist()),
+                      path[b]) for b in range(2)], LOGIT_TOL)
+    res = dict(path="spec_generate", name=f"b{B}_s{S0}_k{K}", B=B, prompt=S0,
+               new_tokens=n_new, cache="bf16", verify_calls=calls[0], wall_s=wall,
+               tok_per_s=B * (n_new - 1) / wall, launches=launches, expected_launches=expected,
+               rows_equal_spec0=int((out == plain).all(1).sum()), teacher_forced=verdict)
+    res["ok"] = (launch_check(launches, expected) and tuple(out.shape) == (B, n_new)
+                 and verdict["ok"])
+    log(f"  spec generate {res['name']}: {calls[0]} verify calls, wall {wall:.3f} s "
+        f"({res['tok_per_s']:.1f} tok/s incl. prefill); launches {launches} (expected "
+        f"{expected}); {res['rows_equal_spec0']} of {B} rows equal to spec_k=0; argmax "
+        f"{verdict['exact']} exact, {verdict['near_ties']} near-ties, {verdict['failures']} "
+        f"failures; {'ok' if res['ok'] else 'FAIL'}")
+    return res
+
+
+# --------------------------------------------------------------------- gpt
+
+def build_gpt():
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig()  # the reference's GPT: hidden 768, 12 x 64 heads, vocab 50,304
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16).eval()
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"  model: GPT {model.num_params / 1e6:.1f} M params, {cfg.num_hidden_layers} layers, "
+        f"{cfg.num_attention_heads} heads of {cfg.hidden_size // cfg.num_attention_heads}, bf16")
+    return model
+
+
+def gpt_phase(card):
+    """GPTConfig() at its full widths: generate() on the static cache, the
+    dense engine, and the paged engine with the prefix cache and spec_k=4."""
+    import numpy as np
+
+    model = build_gpt()
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(40)
+    runs = [generate_run(model, "gpt_b8_s256_bf16", 8, 256, 32, None, 3)]
+    dense = [dict(prompt=rng.integers(1, vocab, int(rng.integers(40, 600))).tolist(),
+                  max_new=32, sampled=False, check=True) for _ in range(8)]
+    from paddle_tpu_torch.inference import LLMEngine
+
+    eng = LLMEngine(model, max_batch_slots=8, max_seq_len=1024,
+                    generator=torch.Generator(device=model.device).manual_seed(5))
+    runs.append(engine_run(model, "gpt_dense", eng, [dense], True))
+    system = rng.integers(1, vocab, 300).tolist()
+    paged = prefix_requests(rng, vocab, 8, system, check_every=2, tails=(20, 200), new=(24, 32))
+    runs.append(engine_run(model, "gpt_paged_prefix_spec",
+                           paged_engine(model, max_seq_len=1024, spec_k=4), [paged[:1], paged[1:]],
+                           True, lambda r: 300, verify=4))
+    runs[-1]["ok"] &= runs[-1]["prefix_cache"]["hit_tokens"] > 0
+    for r in runs[1:]:
+        log_run(r, card, f"; prefix {r['prefix_cache']}; spec {r['spec']}")
+    tf = runs[0]["teacher_forced"]
+    log(f"  gpt generate: launches {runs[0]['launches']} (expected "
+        f"{runs[0]['expected_launches']}); drift max {tf['max_logit_drift']:.4f}, "
+        f"{tf['failures']} failures; {'ok' if runs[0]['ok'] else 'FAIL'} [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    return runs
 
 
 # ------------------------------------------------------------------ train
@@ -2694,13 +3107,15 @@ def build_model():
 # ------------------------------------------------------------------- main
 
 PHASES = ("device", "build", "kernels", "generate", "dense_engine", "paged_engine",
-          "ticks", "train", "ernie", "resnet")
+          "ticks", "prefix", "spec", "gpt", "train", "ernie", "resnet")
 PATH_TITLES = {"generate": "model.generate() on the static cache",
                "dense_engine": "the dense LLMEngine",
                "paged_engine": "the paged LLMEngine",
-               "ticks": "both engines' decode ticks in turns"}
+               "ticks": "both engines' decode ticks in turns",
+               "prefix": "the paged LLMEngine with its prefix cache",
+               "spec": "speculative decoding (spec_k=4)"}
 PATH_PHASES = {"dense_engine": dense_engine_phase, "paged_engine": paged_engine_phase,
-               "ticks": ticks_phase}
+               "ticks": ticks_phase, "prefix": prefix_phase, "spec": spec_phase}
 
 
 def main(argv=None):
@@ -2760,7 +3175,7 @@ def main(argv=None):
         for name, op in missing:
             log(f"[kernels] FAIL: the {name} library has no {op} instruction")
         ok &= not missing
-    serving = [ph for ph in paths if ph not in ("train", "ernie", "resnet")]
+    serving = [ph for ph in paths if ph not in ("gpt", "train", "ernie", "resnet")]
     if serving:
         model = build_model()
         for ph in serving:
@@ -2768,11 +3183,18 @@ def main(argv=None):
             if ph == "generate":
                 runs = generate_phase(model, report["card"])
             else:
-                runs, report[f"{ph}_decode_tick"] = PATH_PHASES[ph](model, report["card"])
+                runs, tick = PATH_PHASES[ph](model, report["card"])
+                if tick is not None:
+                    report[f"{ph}_decode_tick"] = tick
             report["paths"] += runs
             ok &= all(r["ok"] for r in runs)
         del model
         torch.cuda.empty_cache()
+    if "gpt" in paths:
+        log("[gpt] GPTConfig() (hidden 768, 12 layers) through generate() and both engines")
+        runs = gpt_phase(report["card"])
+        report["paths"] += runs
+        ok &= all(r["ok"] for r in runs)
     if "train" in paths:
         log("[train] bench.py's LLaMA training configuration through TrainStep + AdamW")
         report["train_grad_parity"], runs = train_phase(report["card"])

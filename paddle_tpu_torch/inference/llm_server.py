@@ -1,5 +1,6 @@
 """Continuous-batching LLM serving engine (counterpart of the dense and
-paged subsets of paddle_tpu/inference/llm_server.py).
+paged engine of paddle_tpu/inference/llm_server.py, with its prefix cache
+and speculative decoding).
 
 A fixed pool of batch slots; each tick admits work, then decodes
 ``decode_chunk`` tokens for every active slot, each slot at its own
@@ -17,7 +18,23 @@ position.  Two kv layouts:
   ``prefill_chunk``-token chunk per tick interleaved with decode ticks;
   RECOMPUTE PREEMPTION when a slot's next token finds no free page (it is
   requeued with its generated tokens appended to its prompt).  Every
-  attention call is the ragged paged kernel.
+  attention call is the ragged paged kernel.  Pages are REFCOUNTED: with
+  the PREFIX CACHE (on by default, inference/prefix_cache.py) an admission
+  maps the cached pages of its prompt's longest cached prefix into its
+  table and prefills from the first uncached token; a shared page is
+  forked copy-on-write before a slot writes into it, and cached pages no
+  slot holds are evicted least recently used when the pool runs dry.
+  ``cache_aware_admission`` admits, among the first queued requests, the
+  one with the longest cached prefix (aged by ``admission_age_cap``).
+
+SPECULATIVE DECODING (``spec_k`` > 0, either layout): each tick a host
+drafter (``spec_draft``, models/spec_decode.py) proposes K tokens a slot,
+one verify pass scores the K + 1 positions of every slot (the decode or
+paged kernel at S = K + 1), ``ops.sampling.spec_accept`` keeps the longest
+valid prefix plus one correction token, and the slot rolls back to it (the
+paged layout hands back the pages that hold only rejected rows).  Greedy
+tokens equal those of ``spec_k=0``.  With fewer than K rows of headroom a
+tick decodes one token.
 
 Completion by eos / max tokens / capacity frees the slot (and its pages).
 The reference compiles its prefill and decode programs with jax.jit and
@@ -27,9 +44,7 @@ place.  ``step()`` pumps one tick; ``run_until_complete()`` drains;
 engine's on the same weights (tests/test_torch_engine.py).
 
 Not ported yet, and raising NotImplementedError (ROADMAP.md Queue 1 items
-2 and 5): the prefix cache (pass ``prefix_cache=False`` on the paged
-layout), speculative decoding, LoRA adapters, constraints, kv tiers and
-the metrics exporter.
+2 and 5): LoRA adapters, constraints, kv tiers and the metrics exporter.
 """
 from __future__ import annotations
 
@@ -43,8 +58,8 @@ import numpy as np
 import torch
 
 from ..framework.random import get_generator
-from ..models.kv_cache import _quantize_kv, pages_for
-from ..ops.sampling import sample_rows
+from ..models.kv_cache import _quantize_kv, cow_copy_pages, pages_for
+from ..ops.sampling import sample_rows, spec_accept
 
 __all__ = ["LLMEngine", "ServerOverloadedError", "DeadlineExceededError"]
 
@@ -93,6 +108,17 @@ class _Request:
     deadline: float | None = None
     tokens: list = field(default_factory=list)
     submit_ts: float | None = None
+    skip_cache: bool = False  # set on preemption: re-admission goes private,
+                              # so a COW-starved request cannot re-match the
+                              # same contended pages forever
+    match_epoch: int = -1     # memoized prefix match, valid while the
+    match_result: tuple | None = None  # cache's epoch is unchanged
+    hit_tokens: int = 0       # hit credited at first admission (reversed if
+                              # a COW-starved requeue abandons the prefill)
+    admitted: bool = False    # first admission done (counts prompt tokens once)
+    folded: int = 0           # generated tokens already appended to the prompt
+                              # by earlier preemptions
+    adm_skips: int = 0        # times cache-aware admission passed it over
 
 
 class LLMEngine:
@@ -102,16 +128,24 @@ class LLMEngine:
                  decode_chunk=1, max_queue_len=None, clock=None,
                  kv_layout=None, page_size=128, num_pages=None,
                  prefill_chunk=None, prefix_cache=None, metrics_port=None,
-                 spec_k=0, adapters=None, host_cache_pages=0,
+                 spec_k=0, spec_draft=None, cache_aware_admission=False,
+                 admission_age_cap=4, adapters=None, host_cache_pages=0,
                  generator=None):
-        """Arguments as in the reference engine.  The paged layout needs
-        ``prefix_cache=False``; the dense one ignores ``page_size``,
-        ``num_pages`` and ``prefill_chunk``.  ``num_pages`` defaults to full
-        capacity (slots * max_seq_len / page_size + the trash page); size
-        it smaller to oversubscribe (preemption then recomputes).
+        """Arguments as in the reference engine.  The paged layout serves
+        with the prefix cache unless ``prefix_cache=False``; the dense one
+        ignores ``page_size``, ``num_pages`` and ``prefill_chunk``.
+        ``num_pages`` defaults to full capacity (slots * max_seq_len /
+        page_size + the trash page); size it smaller to oversubscribe
+        (eviction of cached prefixes, then preemption, which recomputes).
         ``decode_chunk`` decode steps run per tick (fewer near capacity).
-        ``generator`` is the torch.Generator sampled rows draw from
-        (default: the seeded generator of the model's device)."""
+        ``spec_k`` > 0 verifies K drafts a tick from ``spec_draft`` ("ngram"
+        by default, an object with ``propose``, or a model with
+        ``generate``); it excludes ``decode_chunk`` > 1.
+        ``cache_aware_admission`` (paged with the prefix cache) admits the
+        queued request with the longest cached prefix among the first 8,
+        the queue head after ``admission_age_cap`` bypasses.  ``generator``
+        is the torch.Generator sampled rows draw from (default: the seeded
+        generator of the model's device)."""
         if kv_layout not in (None, "dense", "paged"):
             raise ValueError(
                 f"kv_layout must be None, 'dense' or 'paged', got {kv_layout!r}")
@@ -119,20 +153,12 @@ class LLMEngine:
         if not self.paged and prefix_cache:
             raise ValueError("prefix_cache requires kv_layout='paged' (sharing "
                              "rides on the page tables)")
-        if self.paged and prefix_cache is not False:
-            raise _not_ported("the prefix cache (pass prefix_cache=False)",
-                              "prefix cache, spec decode, LoRA, constraints")
-        if spec_k:
-            raise _not_ported("speculative decoding (spec_k)",
-                              "prefix cache, spec decode, LoRA, constraints")
         if adapters is not None:
-            raise _not_ported("LoRA adapters",
-                              "prefix cache, spec decode, LoRA, constraints")
+            raise _not_ported("LoRA adapters", "item 2, part 4: LoRA, constraints")
         if host_cache_pages:
-            raise _not_ported("the host/disk kv tiers",
-                              "prefix cache, spec decode, LoRA, constraints")
+            raise _not_ported("the host/disk kv tiers", "item 2, part 5: KV tiers")
         if metrics_port is not None:
-            raise _not_ported("the metrics exporter", "serving plane")
+            raise _not_ported("the metrics exporter", "item 5, serving plane")
         if cache_dtype not in (None, "int8"):
             raise ValueError(f"cache_dtype must be None or 'int8', got {cache_dtype!r}")
         if self.paged and not getattr(model, "_supports_paged_cache", False):
@@ -147,6 +173,17 @@ class LLMEngine:
         self.ps = int(page_size)
         self.kv_layout = "paged" if self.paged else "dense"
         self.decode_chunk = max(1, int(decode_chunk))
+        self.spec_k = int(spec_k)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if self.spec_k and self.decode_chunk > 1:
+            raise ValueError("spec_k and decode_chunk > 1 are mutually exclusive: the "
+                             "verify already emits up to K + 1 tokens a call")
+        self._drafter = None
+        if self.spec_k:
+            from ..models.spec_decode import get_drafter
+
+            self._drafter = get_drafter(spec_draft)
         # pad L to the 128-token tile (and, paged, a whole number of pages)
         self.L = ((int(max_seq_len) + 127) // 128) * 128
         if self.paged:
@@ -181,16 +218,36 @@ class LLMEngine:
             self.caches = [tuple(torch.zeros(rows + (D,), dtype=kv_dtype, device=dev)
                                  for _ in range(2))
                            for _ in range(cfg.num_hidden_layers)]
+        self._prefix = None
         if self.paged:
             # host-side allocator: page 0 is the trash page, never handed
             # out; pop() order is deterministic (highest id first), as the
-            # reference
+            # reference.  Pages are refcounted: a page may be held by
+            # several slots (a shared prefix) and by one prefix-cache node,
+            # and returns to the free list when its last holder lets go.
             self._free_pages = list(range(1, P))
             self._page_ref = np.zeros(P, np.int32)
+            self._page_cached = np.zeros(P, bool)  # held by a cache node
             self._slot_pages: list[list[int]] = [[] for _ in range(B)]
             self._pt_host = np.zeros((B, self.M), np.int32)
             self._pt_dev = torch.from_numpy(self._pt_host).to(dev)
             self._pt_dirty = False
+            if prefix_cache is None or prefix_cache:  # the reference's default: on
+                from .prefix_cache import PrefixCache
+
+                self._prefix = PrefixCache(self.ps)
+        # prefix-cache accounting; the epoch is bumped by every insert and
+        # eviction, and invalidates the requests' memoized matches
+        self._prefix_hit_tokens = self._prefix_prompt_tokens = 0
+        self._cow_copies = self._prefix_evictions = self._prefix_epoch = 0
+        self.cache_aware = bool(cache_aware_admission)
+        self.admission_age_cap = max(1, int(admission_age_cap))
+        if self.cache_aware and self._prefix is None:
+            raise ValueError("cache_aware_admission requires kv_layout='paged' with the "
+                             "prefix cache on (its key is the cached-prefix length)")
+        self._adm_reorders = 0
+        self._spec = dict(drafted=0, accepted=0, rolled_back=0, rolled_back_pages=0,
+                          verify_calls=0)
         self._prefilling = None  # paged: (request, slot, prompt tokens consumed)
         self.slot_pos = np.zeros(B, np.int32)
         self.slot_req: list[_Request | None] = [None] * B
@@ -211,10 +268,14 @@ class LLMEngine:
         self._lock = threading.RLock()
         # prefill_chunks counts prefill calls: chunks (paged) or bucketed
         # admissions (dense, also counted per bucket in prefill_buckets)
+        # decode_ticks/decode_steps count one-token decode calls; a
+        # speculative tick counts in spec verify_calls, and its emitted
+        # tokens and seconds in decode_tokens and decode seconds
         self._counts = dict(submitted=0, admitted=0, completed=0, shed=0,
                             expired=0, preemptions=0, prefill_chunks=0,
                             decode_ticks=0, decode_steps=0, decode_tokens=0,
                             recompute_tokens=0)
+        self._recompute_by = dict(page_pool_dry=0, mid_verify=0, prefill_cow=0)
         self._bucket_counts: dict[int, int] = {}
         self._seconds = dict(prefill=0.0, decode=0.0)
         self._ttfts: list[float] = []
@@ -228,9 +289,9 @@ class LLMEngine:
         Sampling knobs are per request.  ``timeout`` (seconds) sets a
         deadline; a full queue raises ServerOverloadedError."""
         if adapter_id is not None:
-            raise _not_ported("adapter_id", "prefix cache, spec decode, LoRA, constraints")
+            raise _not_ported("adapter_id", "item 2, part 4: LoRA, constraints")
         if constraint is not None:
-            raise _not_ported("constraint", "prefix cache, spec decode, LoRA, constraints")
+            raise _not_ported("constraint", "item 2, part 4: LoRA, constraints")
         if self._pump_error is not None:
             raise RuntimeError("LLMEngine pump thread died; restart the engine"
                                ) from self._pump_error
@@ -287,12 +348,37 @@ class LLMEngine:
         """Engine-local counters and timings (host clock around work that
         ends in a device sync)."""
         ttft = np.asarray(self._ttfts, np.float64)
-        layout = ({"kv_pages_in_use": int((self._page_ref > 0).sum()),
+        # "in use" counts pages a SLOT maps; pages only the prefix cache
+        # holds are reclaimable and reported under prefix_cache
+        layout = ({"kv_pages_in_use": self._slot_held_pages(),
                    "kv_pages_total": self.num_pages - 1} if self.paged else
                   {"prefill_buckets": dict(sorted(self._bucket_counts.items()))})
+        prefix = None
+        if self._prefix is not None:
+            n = self._prefix_prompt_tokens
+            prefix = {"hit_ratio": self._prefix_hit_tokens / n if n else 0.0,
+                      "hit_tokens": self._prefix_hit_tokens, "prompt_tokens": n,
+                      "cached_pages": int(self._page_cached.sum()),
+                      "shared_pages": int((self._page_ref > 1).sum()),
+                      "nodes": len(self._prefix), "cow_copies": self._cow_copies,
+                      "evictions": self._prefix_evictions}
+        spec = None
+        if self.spec_k:
+            sp = self._spec
+            spec = {"k": self.spec_k,
+                    "drafter": getattr(self._drafter, "name", type(self._drafter).__name__),
+                    "drafted_tokens": sp["drafted"], "accepted_tokens": sp["accepted"],
+                    "rolled_back_tokens": sp["rolled_back"],
+                    "rolled_back_pages": sp["rolled_back_pages"],
+                    "verify_calls": sp["verify_calls"],
+                    "acceptance_ratio": sp["accepted"] / sp["drafted"] if sp["drafted"] else 0.0}
         return {
             **self._counts,
             **layout,
+            "recompute_tokens_by_reason": dict(self._recompute_by),
+            "prefix_cache": prefix,
+            "spec": spec,
+            "admission_reorders": self._adm_reorders,
             "queue_depth": self._pending.qsize(),
             "active_slots": sum(r is not None for r in self.slot_req),
             "n_slots": self.n_slots,
@@ -335,11 +421,11 @@ class LLMEngine:
 
     def warmup(self):
         """Run every prefill shape once, then one decode call at the
-        configured ``decode_chunk``, against the idle caches, so the first
-        request pays no kernel build or first-launch cost: one prefill
-        chunk (paged; garbage rows land in the trash page), or each prompt
-        bucket's prefill and slot write (dense; admission rewrites the
-        rows).  Returns the wall seconds."""
+        configured ``decode_chunk`` (and one verify with ``spec_k``), against
+        the idle caches, so the first request pays no kernel build or
+        first-launch cost: one prefill chunk (paged; garbage rows land in
+        the trash page), or each prompt bucket's prefill and slot write
+        (dense; admission rewrites the rows).  Returns the wall seconds."""
         t0 = time.perf_counter()
         with self._lock:
             if self._prefilling is not None or any(r is not None for r in self.slot_req):
@@ -359,10 +445,13 @@ class LLMEngine:
                         _, kvs = self.model.prefill_step(ids, Lb - 1)
                         self._write_slot(0, kvs)
                 tok = np.full((B, 1), self.pad, np.int64)
+                pt = (torch.zeros((B, self.M), dtype=torch.int32, device=dev)
+                      if self.paged else None)
                 self._decode(tok, np.zeros(B, np.int64), [None] * B,
-                             max(1, min(self.decode_chunk, self.L - 1)),
-                             torch.zeros((B, self.M), dtype=torch.int32, device=dev)
-                             if self.paged else None)
+                             max(1, min(self.decode_chunk, self.L - 1)), pt)
+                if self.spec_k:
+                    self._verify(np.full(B, self.pad, np.int32), np.zeros(B, np.int32),
+                                 np.zeros((B, self.spec_k), np.int32), [None] * B, pt)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
@@ -425,7 +514,12 @@ class LLMEngine:
         """Per-layer paged tuples (k, v, pos, tbl[, ks, vs]) over the pools."""
         return [(c[0], c[1], pos, page_tbl) + tuple(c[2:]) for c in self.caches]
 
+    def _incref(self, page):
+        self._page_ref[page] += 1
+
     def _decref(self, page):
+        """Drop one hold on a page; the last holder frees it.  A negative
+        count is a double free: fail loudly."""
         r = int(self._page_ref[page]) - 1
         if r < 0:
             raise AssertionError(f"kv page {page} decref below zero")
@@ -436,9 +530,9 @@ class LLMEngine:
     def _release_pages(self, slot):
         """Reset a slot's length, so that while it is idle a decode tick's
         kernel reads one key of it and writes rows 0.. of its own buffer
-        (dense) or of the trash page (paged); free every page it holds and
-        point its table row at the trash page (finish / expiry / preemption
-        / stop)."""
+        (dense) or of the trash page (paged); decref every page it holds
+        (shared ones live on in other slots or the cache) and point its
+        table row at the trash page (finish / expiry / preemption / stop)."""
         self.slot_pos[slot] = 0
         if not self.paged or not self._slot_pages[slot]:
             return
@@ -449,11 +543,12 @@ class LLMEngine:
         self._pt_dirty = True
 
     def _alloc_pages(self, slot, n):
-        """Move n free pages into a slot's table; False (allocating nothing)
-        when the pool cannot cover them."""
+        """Move n free pages into a slot's table (refcount 1); False
+        (allocating nothing) when the pool cannot cover them even after
+        evicting cached prefixes no slot holds."""
         if n <= 0:
             return True
-        if len(self._free_pages) < n:
+        if len(self._free_pages) < n and not self._evict_prefix(n - len(self._free_pages)):
             return False
         for _ in range(n):
             page = self._free_pages.pop()
@@ -463,11 +558,95 @@ class LLMEngine:
         self._pt_dirty = True
         return True
 
-    def _preempt_slot(self, slot):
+    def _evict_prefix(self, need):
+        """Evict least recently used cached prefixes that only the cache
+        holds until ``need`` more pages are free; False, evicting nothing,
+        when eviction could never cover ``need`` (keep the warm entries
+        rather than destroy them for a doomed allocation)."""
+        if self._prefix is None:
+            return False
+        if self._prefix.freeable_count(lambda p: int(self._page_ref[p]) > 1) < need:
+            return False
+        freed = 0
+        while freed < need:
+            evicted = self._prefix.evict_one(
+                lambda p: int(self._page_ref[p]) == 1 and bool(self._page_cached[p]))
+            if evicted is None:
+                return False
+            self._drop_cached(evicted[2])
+            freed += 1
+        return True
+
+    def _drop_cached(self, page):
+        """The cache let go of ``page`` (its node was evicted)."""
+        self._page_cached[page] = False
+        self._decref(page)
+        self._prefix_evictions += 1
+        self._prefix_epoch += 1
+
+    def _cow_page(self, slot, idx):
+        """Copy-on-write guard before a slot WRITES rows of its table entry
+        ``idx``: a page other slots or the cache also hold is forked (rows
+        copied into a fresh page on the device, the slot's entry repointed,
+        the original decref'd), so its readers keep the frozen rows.  When
+        no page can be had and the cache is the only other holder, the
+        slot takes the page back (evicts its cache node) and writes in
+        place.  False only when a needed copy found no page.  A failing
+        copy raises."""
+        pages = self._slot_pages[slot]
+        if idx >= len(pages):
+            return True  # not allocated yet: the grower hands out a fresh page
+        old = pages[idx]
+        if int(self._page_ref[old]) <= 1:
+            return True  # exclusive: write in place
+        if self._free_pages or self._evict_prefix(1):
+            new = self._free_pages.pop()
+            self._page_ref[new] = 1
+            try:
+                cow_copy_pages(self.caches, old, new)
+            except Exception:
+                self._page_ref[new] = 0
+                self._free_pages.append(new)
+                raise
+            pages[idx] = new
+            self._pt_host[slot, idx] = new
+            self._pt_dirty = True
+            self._decref(old)
+            self._cow_copies += 1
+            return True
+        if int(self._page_ref[old]) == 2 and self._page_cached[old] \
+                and self._prefix.evict_page(old) is not None:
+            # steal-back: the diverging tail is the cache's least valuable
+            # entry anyway; reclaim it rather than preempt the slot
+            self._drop_cached(old)
+            return True
+        return False
+
+    def _cache_insert(self, slot, prompt):
+        """Index a freshly prefilled prompt's pages in the prefix cache; the
+        cache's new holds are incref'd so they outlive the slot."""
+        if self._prefix is None:
+            return
+        new_holds = self._prefix.insert(prompt, self._slot_pages[slot])
+        if new_holds:
+            self._prefix_epoch += 1
+        for page in new_holds:
+            self._incref(page)
+            self._page_cached[page] = True
+
+    def _slot_held_pages(self):
+        """Pages mapped by at least one slot (a page only the cache holds is
+        reclaimable, so it does not count as in use)."""
+        return int((self._page_ref > self._page_cached).sum())
+
+    def _preempt_slot(self, slot, origin="decode"):
         """Recompute-style preemption: reclaim the slot's pages and REQUEUE
         its request at the head with the generated tokens appended to the
-        prompt.  A request already holding the whole pool can never fit and
-        fails with ServerOverloadedError."""
+        prompt; its re-admission skips the prefix cache.  Without the cache,
+        a request already holding the whole pool can never fit and fails
+        with ServerOverloadedError (with it, held pages may be shared: the
+        admission's total-need check sheds instead).  ``origin`` is
+        "verify" when the pool ran dry growing a verify's K + 1 rows."""
         req = self.slot_req[slot]
         self.slot_req[slot] = None
         self.last_token[slot] = self.pad
@@ -476,27 +655,60 @@ class LLMEngine:
         self._counts["preemptions"] += 1
         if req is None:
             return
-        if held >= self.num_pages - 1:
+        if held >= self.num_pages - 1 and self._prefix is None:
             _fail_future(req.future, ServerOverloadedError(
                 f"request needs more kv pages than the whole pool "
                 f"({self.num_pages - 1} pages x {self.ps} tokens); rejected"))
             return
-        req.prompt = np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)])
-        self._counts["recompute_tokens"] += int(req.prompt.size)
+        req.skip_cache = True
+        # only the tokens generated since the last preemption: the earlier
+        # ones are in the prompt already (the reference appends them all
+        # again, so a request preempted twice re-prefills a context with
+        # its first tokens doubled; ROADMAP.md Queue 3)
+        req.prompt = np.concatenate([req.prompt, np.asarray(req.tokens[req.folded:], np.int32)])
+        req.folded = len(req.tokens)
+        self._count_recompute("mid_verify" if origin == "verify" else "page_pool_dry",
+                              int(req.prompt.size))
         with self._pending.mutex:
             self._pending.queue.appendleft(req)
 
-    def _ensure_decode_pages(self, active, eff):
-        """Grow each active slot's table to cover this tick's writes;
+    def _count_recompute(self, reason, n):
+        self._counts["recompute_tokens"] += n
+        self._recompute_by[reason] += n
+
+    def _ensure_decode_pages(self, active, eff, origin="decode"):
+        """Grow each active slot's table to cover this tick's writes (pos ..
+        pos + eff - 1), forking the shared pages among them copy-on-write;
         preempt the slots the pool cannot cover.  Returns the survivors."""
         out = []
         for i in active:
+            first = int(self.slot_pos[i]) // self.ps
             last = (int(self.slot_pos[i]) + eff - 1) // self.ps
-            if self._alloc_pages(i, last + 1 - len(self._slot_pages[i])):
+            ok = self._alloc_pages(i, last + 1 - len(self._slot_pages[i]))
+            if ok and self._prefix is not None:
+                ok = all(self._cow_page(i, idx) for idx in range(first, last + 1))
+            if ok:
                 out.append(i)
             else:
-                self._preempt_slot(i)
+                self._preempt_slot(i, origin)
         return out
+
+    def _trim_rollback_pages(self, slot):
+        """After a verify, free the pages that hold only rejected rows: the
+        valid rows are 0 .. slot_pos - 1, so every page past the one holding
+        row slot_pos - 1 was grown for drafts that rolled back (exclusively
+        owned: fresh or forked).  Returns the count."""
+        keep = (int(self.slot_pos[slot]) - 1) // self.ps + 1
+        pages = self._slot_pages[slot]
+        trimmed = 0
+        while len(pages) > keep:
+            page = pages.pop()
+            self._pt_host[slot, len(pages)] = 0
+            self._decref(page)
+            trimmed += 1
+        if trimmed:
+            self._pt_dirty = True
+        return trimmed
 
     # ---------------------------------------------------- dense internals
 
@@ -586,12 +798,53 @@ class LLMEngine:
 
     # ---------------------------------------------------- paged admission
 
+    def _pop_admission_request(self):
+        """The next request to admit: FIFO, or with cache-aware admission
+        the one of the first 8 queued with the longest cached prefix (FIFO
+        on ties; matches memoized per request and prefix epoch).  Each
+        request passed over ages by one; a queue head aged
+        ``admission_age_cap`` admits next whatever its affinity."""
+        if not self.cache_aware:
+            try:
+                return self._pending.get_nowait()
+            except queue.Empty:
+                return None
+        with self._pending.mutex:
+            q = self._pending.queue
+            if not q:
+                return None
+            best, best_hit = 0, -1
+            if q[0].adm_skips < self.admission_age_cap:
+                for idx in range(min(len(q), 8)):
+                    r = q[idx]
+                    hit = 0
+                    if not r.skip_cache:
+                        hit = self._match(r)[0]
+                    if hit > best_hit:
+                        best, best_hit = idx, hit
+            req = q[best]
+            del q[best]
+            if best:
+                for idx in range(best):
+                    q[idx].adm_skips += 1
+                self._adm_reorders += 1
+            self._pending.not_full.notify()
+            return req
+
+    def _match(self, req):
+        """The prefix cache's (matched tokens, pages) for a request's prompt,
+        memoized until the cache's epoch moves (a head-of-line request
+        waiting on a full pool does not rehash its prompt every tick)."""
+        if req.match_epoch != self._prefix_epoch or req.match_result is None:
+            req.match_result = self._prefix.match(req.prompt)
+            req.match_epoch = self._prefix_epoch
+        return req.match_result
+
     def _start_prefill(self):
         free = [i for i, r in enumerate(self.slot_req) if r is None]
         while free and not self._pending.empty():
-            try:
-                req = self._pending.get_nowait()
-            except queue.Empty:
+            req = self._pop_admission_request()
+            if req is None:
                 return
             if req.future.done():
                 continue  # cancelled by the caller
@@ -601,19 +854,40 @@ class LLMEngine:
                     "request deadline expired while queued for admission"))
                 continue
             need = pages_for(req.prompt.size + 1, self.ps)
+            matched, shared = 0, []
+            if self._prefix is not None and not req.skip_cache:
+                matched, shared = self._match(req)
             if need > self.num_pages - 1:
+                # the TOTAL need: cached pages occupy the same pool, so a
+                # table longer than the pool can never complete
                 self._counts["shed"] += 1
                 _fail_future(req.future, ServerOverloadedError(
                     f"prompt needs {need} kv pages but the pool only has "
                     f"{self.num_pages - 1}; rejected"))
                 continue
             slot = free[0]
-            if not self._alloc_pages(slot, need):
-                # admission by free pages: the head waits for reclamation
+            if shared:
+                # map the cached prefix into the slot's table; admission is
+                # charged only for the pages past it
+                for p in shared:
+                    self._incref(p)
+                self._slot_pages[slot] = list(shared)
+                self._pt_host[slot, :len(shared)] = shared
+                self._pt_dirty = True
+            if not self._alloc_pages(slot, need - len(shared)):
+                # admission by free pages: the head waits for reclamation,
+                # its shared holds rolled back so the cache stays evictable
+                self._release_pages(slot)
                 with self._pending.mutex:
                     self._pending.queue.appendleft(req)
                 return
-            self._prefilling = (req, slot, 0)
+            if not req.admitted:
+                req.admitted = True
+                self._prefix_prompt_tokens += int(req.prompt.size)
+                self._prefix_hit_tokens += int(matched)
+                req.hit_tokens = int(matched)
+            # the chunked prefill starts at the first uncached token
+            self._prefilling = (req, slot, matched)
             return
 
     def _prefill_tick(self):
@@ -632,6 +906,19 @@ class LLMEngine:
         n = req.prompt.size
         C = self.prefill_chunk
         m = min(C, n - done)
+        if self._prefix is not None and not self._cow_page(slot, done // self.ps):
+            # the chunk would write into a page others still read and no
+            # page can be had for the fork: requeue, to prefill privately
+            self._release_pages(slot)
+            req.skip_cache = True
+            self._prefix_hit_tokens -= req.hit_tokens  # the hit never happened
+            req.hit_tokens = 0
+            self._counts["preemptions"] += 1
+            self._count_recompute("prefill_cow", int(n))
+            with self._pending.mutex:
+                self._pending.queue.appendleft(req)
+            self._prefilling = None
+            return
         chunk = np.full((1, C), self.pad, np.int64)
         chunk[0, :m] = req.prompt[done:done + m]
         dev = self.device
@@ -657,6 +944,9 @@ class LLMEngine:
         if done < n:
             self._prefilling = (req, slot, done)
             return
+        # the slot's pages hold the whole prompt: index them, before the
+        # first decode write (whose COW check then sees the tail shared)
+        self._cache_insert(slot, req.prompt)
         self._prefilling = None
         self._activate(slot, req, self._host_select(row, req))
 
@@ -693,6 +983,10 @@ class LLMEngine:
         # decode_chunk steps per tick, staying inside the cache: slots AT
         # capacity were finished by the previous tick, so headroom >= 1
         headroom = self.L - 1 - int(self.slot_pos[active].max())
+        if self.spec_k and headroom >= self.spec_k:
+            # a verify writes rows pos .. pos + K; the last strides before
+            # capacity decode one token at a time below
+            return self._spec_tick(active)
         eff = max(1, min(self.decode_chunk, headroom))
         pt = None
         if self.paged:
@@ -701,15 +995,7 @@ class LLMEngine:
             active = self._ensure_decode_pages(active, eff)
             if not active:
                 return 0
-            # decode sees a table with INACTIVE slots masked to the trash
-            # page: a mid-prefill slot already owns real pages, and the
-            # shared step's garbage scatter for it must not clobber its
-            # prompt rows
-            pt = self._pt_host.copy()
-            for i, r in enumerate(self.slot_req):
-                if r is None:
-                    pt[i, :] = 0
-            pt = torch.from_numpy(pt).to(self.device)
+            pt = self._active_table()
         t0 = time.perf_counter()
         nxt = self._decode(self.last_token.astype(np.int64)[:, None],
                            self.slot_pos.astype(np.int64), self.slot_req, eff, pt)
@@ -733,19 +1019,36 @@ class LLMEngine:
         self._counts["decode_tokens"] += emitted
         return emitted
 
+    def _active_table(self):
+        """The page table a decode or verify call sees, on the device, with
+        INACTIVE slots masked to the trash page: a mid-prefill slot already
+        owns real pages, and the call's garbage scatter for it must not
+        clobber its prompt rows."""
+        pt = self._pt_host.copy()
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                pt[i, :] = 0
+        return torch.from_numpy(pt).to(self.device)
+
+    def _knobs(self, reqs):
+        """Per-slot sampling knobs as device tensors (do_sample, temperature,
+        top_k, top_p); idle slots are greedy."""
+        dev = self.device
+        return (torch.tensor([r is not None and r.do_sample for r in reqs], device=dev),
+                torch.tensor([r.temperature if r is not None else 1.0 for r in reqs],
+                             dtype=torch.float32, device=dev),
+                torch.tensor([r.top_k if r is not None else 0 for r in reqs],
+                             dtype=torch.int32, device=dev),
+                torch.tensor([r.top_p if r is not None else 1.0 for r in reqs],
+                             dtype=torch.float32, device=dev))
+
     def _decode(self, tokens, pos, reqs, steps, page_tbl):
         """``steps`` decode steps for every slot (idle ones included, on
         garbage that no live row reads), each step's tokens selected on
         the device per the slot's knobs and fed to the next step.  Returns
         the selected ids [B, steps] on the host: the call's one sync."""
         dev = self.device
-        do_s = torch.tensor([r is not None and r.do_sample for r in reqs], device=dev)
-        temp = torch.tensor([r.temperature if r is not None else 1.0 for r in reqs],
-                            dtype=torch.float32, device=dev)
-        topk = torch.tensor([r.top_k if r is not None else 0 for r in reqs],
-                            dtype=torch.int32, device=dev)
-        topp = torch.tensor([r.top_p if r is not None else 1.0 for r in reqs],
-                            dtype=torch.float32, device=dev)
+        knobs = self._knobs(reqs)
         tok = torch.from_numpy(tokens).to(dev)
         p = torch.from_numpy(pos).to(dev)
         out = []
@@ -754,10 +1057,79 @@ class LLMEngine:
                 caches = (self._paged_caches(p, page_tbl) if self.paged
                           else self._dense_caches(p))
                 logits, _ = self.model.generate_step(tok, caches=caches)
-                nxt = sample_rows(logits[:, -1], self._gen, do_s, temp, topk, topp)
+                nxt = sample_rows(logits[:, -1], self._gen, *knobs)
                 out.append(nxt)
                 tok, p = nxt[:, None].long(), p + 1
         return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+
+    def _verify(self, last, pos, drafts, reqs, page_tbl):
+        """One verify call for the whole pool: every slot scores [last token,
+        K drafts] at rows pos .. pos + K (idle slots on garbage no live row
+        reads) and ``spec_accept`` decides on the device.  Returns (out
+        [B, K+1], n_accept [B]) on the host: the call's one sync."""
+        dev = self.device
+        ids = np.concatenate([last[:, None], drafts], axis=1).astype(np.int64)
+        p = torch.from_numpy(pos.astype(np.int64)).to(dev)
+        with torch.no_grad():
+            caches = (self._paged_caches(p, page_tbl) if self.paged
+                      else self._dense_caches(p))
+            logits, _ = self.model.verify_step(torch.from_numpy(ids).to(dev), caches)
+            out, n_acc = spec_accept(logits, torch.from_numpy(drafts).to(dev), self._gen,
+                                     *self._knobs(reqs))
+            both = torch.cat([out, n_acc[:, None]], dim=1).cpu().numpy().astype(np.int32)
+        return both[:, :-1], both[:, -1]
+
+    def _spec_tick(self, active):
+        """One speculative tick: draft K tokens a slot on the host, one
+        verify call, emit each slot's accepted drafts and its correction
+        token, then roll back: the slot's position stops at the accept
+        point and (paged) the pages holding only rejected rows go back to
+        the pool."""
+        K = self.spec_k
+        pt = None
+        if self.paged:
+            # grow (and fork) the tables for all K + 1 rows; a slot the pool
+            # cannot cover is preempted, as in decode
+            active = self._ensure_decode_pages(active, K + 1, origin="verify")
+            if not active:
+                return 0
+            pt = self._active_table()
+        t0 = time.perf_counter()
+        drafts = np.zeros((self.n_slots, K), np.int32)
+        for i in active:
+            req = self.slot_req[i]
+            drafts[i] = self._drafter.propose(
+                np.concatenate([req.prompt, np.asarray(req.tokens[req.folded:], np.int32)]), K)
+        out, n_acc = self._verify(self.last_token, self.slot_pos, drafts, self.slot_req, pt)
+        self._seconds["decode"] += time.perf_counter() - t0
+        emitted = accepted = rb_pages = 0
+        for i in active:
+            req = self.slot_req[i]
+            if req is None:
+                continue
+            accepted += int(n_acc[i])
+            # the accepted drafts, then the correction or bonus token
+            for j in range(int(n_acc[i]) + 1):
+                tok = int(out[i, j])
+                req.tokens.append(tok)
+                self.last_token[i] = tok
+                self.slot_pos[i] += 1
+                emitted += 1
+                if (tok == self.eos or len(req.tokens) >= req.max_new_tokens
+                        or self.slot_pos[i] >= self.L - 1):
+                    self._finish(i)
+                    break
+            if self.paged and self.slot_req[i] is not None:
+                rb_pages += self._trim_rollback_pages(i)
+        drafted = K * len(active)
+        sp = self._spec
+        sp["drafted"] += drafted
+        sp["accepted"] += accepted
+        sp["rolled_back"] += drafted - accepted
+        sp["rolled_back_pages"] += rb_pages
+        sp["verify_calls"] += 1
+        self._counts["decode_tokens"] += emitted
+        return emitted
 
     def _expire_queued(self):
         """Fail expired (or drop caller-cancelled) requests anywhere in the

@@ -7,3 +7,4 @@ from .bert import (  # noqa: F401
     ErnieModel,
 )
 from .llama import LlamaConfig, LlamaForCausalLM  # noqa: F401
+from .gpt import GPTConfig, GPTForCausalLM, GPTModel  # noqa: F401

@@ -1,5 +1,4 @@
-"""Autoregressive generation (counterpart of paddle_tpu/models/generation.py,
-the non-speculative path).
+"""Autoregressive generation (counterpart of paddle_tpu/models/generation.py).
 
 The reference compiles the prefill and a ``lax.scan`` over the decode steps
 into one program over a STATIC kv cache.  Here the prefill and a Python
@@ -12,18 +11,26 @@ kernel (nn/functional/attention.py), and every decode step runs the static
 decode kernel (or the paged one).  The position of the next write stays on
 the device, so the loop never waits on the host.
 
-Not ported yet, and raising NotImplementedError (ROADMAP.md Queue 1 item 2):
-speculative decoding (``spec_k``), LoRA adapters (``adapter_id`` /
-``adapters``) and constrained decoding (``token_mask_fn``).
+``spec_k`` > 0 decodes speculatively (``_generate_spec``): a host drafter
+proposes K tokens a row, one verify step scores the K + 1 positions through
+the same cache layouts (the decode or paged kernel at S = K + 1), and
+``ops.sampling.spec_accept`` keeps the longest valid prefix plus one
+correction token.  Greedy tokens equal those of ``spec_k=0``; sampled rows
+are drawn by rejection sampling.
+
+Not ported yet, and raising NotImplementedError (ROADMAP.md Queue 1 item 2,
+part 4): LoRA adapters (``adapter_id`` / ``adapters``) and constrained
+decoding (``token_mask_fn``).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..framework.random import get_generator
-from ..ops.sampling import sample_rows
+from ..ops.sampling import sample_rows, spec_accept
 from .kv_cache import _quantize_kv
 
 __all__ = ["generate"]
@@ -32,7 +39,7 @@ __all__ = ["generate"]
 def _not_ported(what):
     return NotImplementedError(
         f"{what} is not ported to paddle_tpu_torch yet (ROADMAP.md Queue 1 "
-        "item 2: prefix cache, spec decode, LoRA, constraints)")
+        "item 2, part 4: LoRA, constraints)")
 
 
 def _select(logits, generator, do_sample, temperature, top_k, top_p):
@@ -129,8 +136,10 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
     kv_layout="paged" decodes through the paged pool (``page_size`` tokens
     per page) behind identity page tables, and share_prefix=True aliases
     the batch's page-aligned common prompt prefix onto row 0's pages.
-    Sampled rows draw from ``generator`` (default: the seeded generator of
-    the model's device)."""
+    ``spec_k`` > 0 decodes speculatively with ``spec_drafter`` ("ngram" by
+    default, an object with ``propose``, or a draft model).  Sampled rows
+    draw from ``generator`` (default: the seeded generator of the model's
+    device)."""
     if cache_dtype not in (None, "int8"):
         raise ValueError(f"cache_dtype must be None or 'int8', got {cache_dtype!r}")
     if cache_dtype == "int8" and not getattr(model, "_supports_quant_cache", False):
@@ -146,8 +155,6 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
                          "rides on the page tables)")
     if int(spec_k) < 0:
         raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-    if spec_k or spec_drafter is not None:
-        raise _not_ported("speculative decoding (spec_k)")
     if adapter_id is not None or adapters is not None:
         raise _not_ported("LoRA adapters (adapter_id / adapters)")
     if token_mask_fn is not None:
@@ -159,6 +166,10 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
     eos = -1 if eos_token_id is None else int(eos_token_id)
     gen = generator if generator is not None else get_generator(dev)
     knobs = (gen, bool(do_sample), temperature, top_k, top_p)
+    if spec_k:
+        return _generate_spec(model, ids, n_new, knobs, eos, int(pad_token_id), cache_dtype,
+                              kv_layout, int(page_size), share_prefix, int(spec_k),
+                              spec_drafter)
 
     logits, caches = model.generate_step(ids)
     caches = _to_static_caches(caches, ids, S0 + n_new, cache_dtype, kv_layout,
@@ -173,3 +184,58 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
         out.append(nxt)
         tok = nxt
     return torch.stack(out, dim=1).to(torch.int32)
+
+
+def _generate_spec(model, ids, n_new, knobs, eos, pad_token_id, cache_dtype, kv_layout,
+                   page_size, share_prefix, K, spec_drafter):
+    """Speculative decoding: a host loop of draft -> one verify step (S =
+    K + 1 through the static or paged cache) -> accept.  Rollback costs
+    nothing: a row's position stops at its accept point, and the rejected
+    rows past it are overwritten by the next verify before any read
+    reaches them (the kernels mask by length).  The cache is K rows longer
+    than plain decoding needs, so a verify near the end stays inside it."""
+    from .spec_decode import get_drafter
+
+    drafter = get_drafter(spec_drafter)
+    gen, do_sample, temperature, top_k, top_p = knobs
+    B, S0 = ids.shape
+    dev = ids.device
+    logits, caches = model.generate_step(ids)
+    caches = _to_static_caches(caches, ids, S0 + n_new + K, cache_dtype, kv_layout,
+                               page_size, share_prefix)
+    row_knobs = (torch.full((B,), bool(do_sample), device=dev),
+                 torch.full((B,), float(temperature), device=dev),
+                 torch.full((B,), int(top_k), dtype=torch.int32, device=dev),
+                 torch.full((B,), float(top_p), device=dev))
+    last = _select(logits[:, -1], *knobs).cpu().numpy().astype(np.int32)
+    out = np.full((B, n_new), pad_token_id, np.int32)
+    out[:, 0] = last
+    counts = np.ones(B, np.int64)
+    done = (last == eos) | (n_new <= 1)
+    # pos[b]: rows already written, S0 + emitted - 1 (the newest token's kv
+    # is written by the verify that consumes it)
+    pos = np.full(B, S0, np.int64)
+    ctx = [ids[b].tolist() + [int(last[b])] for b in range(B)]
+    while not done.all():
+        drafts = np.stack([drafter.propose(np.asarray(ctx[b], np.int32), K)
+                           for b in range(B)]).astype(np.int32)
+        p = torch.from_numpy(pos).to(dev)
+        step = [c[:2] + (p,) + c[3:] for c in caches]
+        inp = torch.from_numpy(np.concatenate([last[:, None], drafts], 1).astype(np.int64))
+        lg, _ = model.verify_step(inp.to(dev), step)
+        o, n = spec_accept(lg, torch.from_numpy(drafts).to(dev), gen, *row_knobs)
+        both = torch.cat([o, n[:, None]], dim=1).cpu().numpy()
+        for b in range(B):
+            if done[b]:
+                continue
+            for j in range(int(both[b, -1]) + 1):
+                tok = int(both[b, j])
+                out[b, counts[b]] = tok
+                counts[b] += 1
+                ctx[b].append(tok)
+                pos[b] += 1
+                last[b] = tok
+                if tok == eos or counts[b] >= n_new:
+                    done[b] = True
+                    break
+    return torch.from_numpy(out).to(dev)

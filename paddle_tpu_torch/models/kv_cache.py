@@ -25,13 +25,19 @@ Paged contract (as in the reference):
   - a token at absolute position t of slot b lives in page
     page_tbl[b, t // page_size] at row t % page_size.
   - capacity follows actual sequence lengths: admission is by free pages.
+  - SHARING (the prefix cache, inference/prefix_cache.py): a page may sit in
+    several slots' tables and in the cache at once; the engine refcounts
+    it.  Shared full pages are only read (writes land past the prompt); a
+    shared partly filled tail page is forked copy-on-write
+    (``cow_copy_pages``) before a slot writes its own rows into it.
 
 One difference: JAX updates the buffers and pools functionally (the
 engine donates them to the compiled step); the port writes IN PLACE (slice
 assignment or ``index_put_``), so the returned buffers are the same tensors
 that came in.  The static scatter needs every written row inside the
-buffer (pos + S <= L); the reference's out-of-bounds drop only serves the
-speculative verify, which is not ported (ROADMAP.md Queue 1 item 2).
+buffer (pos + S <= L), where the reference drops rows past it: its callers
+keep a speculative verify's K + 1 rows inside (generate pads the cache by
+K rows, the dense engine verifies only with K rows of headroom).
 """
 from __future__ import annotations
 
@@ -113,6 +119,19 @@ def static_attention_update(cache, q, k, v, offset):
 def pages_for(n_tokens, page_size):
     """Pages needed to hold n_tokens (host-side allocator arithmetic)."""
     return -(-int(n_tokens) // int(page_size))
+
+
+def cow_copy_pages(caches, src, dst):
+    """Copy page ``src``'s rows into page ``dst`` in every layer's pools, in
+    place: the device side of a copy-on-write fork.  ``caches`` is the
+    engine's per-layer list of pool tuples (k/v pools, plus the scale pools
+    of the int8 layout; every element is page-major [P, ...]).  The caller
+    then points the writing slot's table entry at ``dst``; readers of
+    ``src`` keep the frozen rows."""
+    for c in caches:
+        for x in c:
+            x[dst] = x[src]
+    return caches
 
 
 def _token_pages_rows(pos, page_tbl, S, page_size, max_pages):

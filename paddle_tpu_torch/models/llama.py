@@ -6,7 +6,8 @@ reference's does (nn/functional/attention.py: the encoder or flash kernel on
 CUDA where the reference runs its Pallas kernel, dense math elsewhere);
 the growing (k, v) cache; the STATIC 3/5-tuple caches of generate() and the
 dense engine (the static decode kernel); and the PAGED 4/6-tuple caches of
-the paged engine (the ragged paged kernel); and the training loss
+the paged engine (the ragged paged kernel); the speculative verify
+(``verify_step``, logits at every position); and the training loss
 (``LlamaForCausalLM(ids, labels=)``), differentiable through the same
 routing.  Not ported yet, and raising: tensor and sequence parallelism
 (the distributed slice), and an external attention mask together with a
@@ -281,6 +282,15 @@ class LlamaForCausalLM(nn.Module):
         LAST position [B, 1, V] and the updated caches."""
         hidden, caches = self.llama(input_ids, caches=caches, use_cache=True)
         return self.lm_head(hidden[:, -1:]), caches
+
+    def verify_step(self, input_ids, caches):
+        """Speculative verify: S = K + 1 tokens [last token, K drafts] scored
+        in one pass through the static or paged cache path (the decode or
+        paged kernel on CUDA, each row at its own causal end).  Returns the
+        logits at EVERY position [B, S, V], the ladder ``spec_accept``
+        reads, and the caches."""
+        hidden, caches = self.llama(input_ids, caches=caches, use_cache=True)
+        return self.lm_head(hidden), caches
 
     def prefill_step(self, input_ids, last_index):
         """Bucket-padded prefill (dense-engine admission): the prompt is

@@ -6,14 +6,17 @@ cross to the host.  The masking order is the reference's: token mask ->
 temperature -> top-k (by value, ties kept) -> top-p over the top-k
 survivors.  Greedy rows are a bare argmax (first maximal index, as jnp).
 Sampled rows draw from an explicit ``torch.Generator``; the draws differ
-from JAX's for the same seed.  ``spec_accept`` comes with the speculative
-decoding slice (ROADMAP.md).
+from JAX's for the same seed.  ``spec_accept`` is the speculative verify's
+accept/rollback decision: greedy rows accept the longest draft prefix that
+matches the argmax ladder (so speculative greedy decoding emits exactly the
+tokens of plain greedy decoding), sampled rows run rejection sampling
+against the drafter's one-hot proposal.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["mask_logits", "sample_rows"]
+__all__ = ["mask_logits", "sample_rows", "spec_accept"]
 
 
 def mask_logits(logits, temperature, top_k, top_p, token_mask=None):
@@ -52,3 +55,46 @@ def sample_rows(logits, generator, do_sample, temperature, top_k, top_p):
                         onehot.float())
     sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
     return torch.where(do_sample, sampled.to(torch.int32), greedy)
+
+
+def spec_accept(logits, drafts, generator, do_sample, temperature, top_k, top_p):
+    """Speculative decoding's accept/rollback decision, on the device.
+
+    ``logits`` [B, K+1, V] is the verify pass's ladder: column i is the
+    next-token distribution given the context and the first i drafts (the
+    verify input is [last token, draft_0 .. draft_{K-1}]).  ``drafts``
+    [B, K].  Knobs are per-row tensors as in :func:`sample_rows`; sampled
+    rows draw from ``generator``.
+
+    Returns (out [B, K+1] int32, n_accept [B] int32): row b emits
+    ``out[b, :n_accept[b] + 1]``, the accepted drafts and one correction or
+    bonus token.  Greedy rows accept the longest prefix where the ladder's
+    argmax equals the draft, and emit the ladder itself.  Sampled rows
+    accept draft i with probability p_i(draft_i) under the masked target;
+    the first rejection draws the correction from the target with the
+    rejected token removed (the residual of a one-hot proposal), a full
+    accept draws the bonus from the last column."""
+    B, S, V = logits.shape
+    K = S - 1
+    dev = logits.device
+    ladder = torch.argmax(logits, dim=-1).to(torch.int32)            # [B, K+1]
+    drafts = drafts.to(device=dev, dtype=torch.int32)
+    g_acc = torch.cumprod((ladder[:, :K] == drafts).to(torch.int32), dim=-1).sum(-1)
+    masked = mask_logits(logits.reshape(B * S, V), temperature.repeat_interleave(S),
+                         top_k.repeat_interleave(S), top_p.repeat_interleave(S)
+                         ).reshape(B, S, V)
+    p = torch.softmax(masked, dim=-1)
+    p_draft = torch.gather(p[:, :K], -1, drafts.long()[..., None])[..., 0]  # [B, K]
+    u = torch.rand((B, K), generator=generator, device=dev)
+    s_acc = torch.cumprod((u < p_draft).to(torch.int32), dim=-1).sum(-1)
+    n_acc = torch.where(do_sample, s_acc, g_acc).to(torch.int32)
+    # the correction (after a rejection) or bonus token, at column n_acc
+    col = torch.gather(masked, 1, n_acc.long()[:, None, None].expand(B, 1, V))[:, 0]
+    rej = torch.gather(drafts.long(), 1, torch.clamp(n_acc.long(), 0, K - 1)[:, None])
+    drop = (n_acc < K)[:, None] & (torch.arange(V, device=dev)[None, :] == rej)
+    col = torch.where(drop, torch.tensor(float("-inf"), device=dev), col)
+    corr = torch.multinomial(torch.softmax(col, dim=-1), 1, generator=generator)[:, 0]
+    s_out = torch.cat([drafts, torch.zeros((B, 1), dtype=torch.int32, device=dev)], dim=-1)
+    at = torch.arange(K + 1, device=dev)[None, :] == n_acc[:, None]
+    s_out = torch.where(at, corr.to(torch.int32)[:, None], s_out)
+    return torch.where(do_sample[:, None], s_out, ladder), n_acc

@@ -198,6 +198,12 @@ def test_sampled_requests_finish_with_valid_ids(pair):
     assert all(len(o) == 6 and all(0 <= t < 1024 for t in o) for o in outs)
 
 
+# Options ported since (slice 11: the prefix cache and speculative
+# decoding) keep their cases here and now build, reporting their state;
+# the others still raise, naming their ROADMAP item.
+_PORTED_OPTIONS = ("prefix_cache", "spec_k")
+
+
 @pytest.mark.parametrize("kw", [
     dict(kv_layout=None, spec_k=2), dict(kv_layout="dense", adapters=[]),
     dict(prefix_cache=None), dict(prefix_cache=True), dict(spec_k=2),
@@ -207,7 +213,13 @@ def test_sampled_requests_finish_with_valid_ids(pair):
 def test_unported_engine_options_raise(pair, kw):
     _, tm = pair
     args = {**ENGINE, **kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if any(k in kw for k in _PORTED_OPTIONS):
+        st = LLMEngine(tm, **args).stats()
+        assert (st["prefix_cache"] is not None) == (args["prefix_cache"] is not False
+                                                    and args["kv_layout"] == "paged")
+        assert (st["spec"] or {}).get("k", 0) == args.get("spec_k", 0)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: item"):
         LLMEngine(tm, **args)
 
 

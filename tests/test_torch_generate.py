@@ -104,9 +104,17 @@ def test_sampled_shape_eos_pad_and_seed_determinism(pair):
                                 dict(token_mask_fn=lambda: None)],
                          ids=["spec_k", "adapter_id", "token_mask_fn"])
 def test_unported_options_raise(pair, kw):
+    """LoRA and constraints still raise, naming Queue 1 item 2; spec_k is
+    ported since (slice 11), so its case now holds its greedy tokens equal
+    to spec_k=0's (tests/test_torch_spec_decode.py holds the rest)."""
     _, tm = pair
+    ids = torch.from_numpy(_prompts())
+    if "spec_k" in kw:
+        got = tm.generate(ids, max_new_tokens=2, **kw)
+        assert torch.equal(got, tm.generate(ids, max_new_tokens=2))
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tm.generate(torch.from_numpy(_prompts()), max_new_tokens=2, **kw)
+        tm.generate(ids, max_new_tokens=2, **kw)
 
 
 def test_generate_and_dense_engine_agree(pair):
