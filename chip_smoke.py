@@ -44,6 +44,19 @@ Phases:
                     slices of one packed [B, S, 3, H, D] tensor, fed to both
                     kernels with no copy, and time the kernels and their
                     SDPA yardsticks from CUDA-graph replays (device time).
+                    The four attention forwards at float32 and float16
+                    (the f32 CUDA-core kernels of attention_simt.cuh, the
+                    ``*_simt`` rows): decode and paged at S = 1 and S = 5
+                    over ragged, stale slots, 256-token chunks off the
+                    page grid, pages of 16 and 128, GQA 64/8, head dims
+                    64 and 256, int8 caches under float32 and float16 q,
+                    and float16 q against float32 pools (a float16 model's
+                    engines); flash at [8, 2048, 16, 128] causal and the
+                    main paths' shapes; the encoder at ERNIE's shape at
+                    rate 0 and 0.1 and as packed views.  float32 within
+                    F32_RTOL, float16 within F16_RTOL, int8 within
+                    KERNEL_RTOL["int8"]; planted faults outside; the same
+                    bits twice; SDPA at the same dtype as the yardstick.
   4. generate     — model.generate() at LLaMA-2-7B widths (32 layers, bf16,
                     random weights from a seed): ids [4, 1024] (flash
                     prefill) on a bf16 and an int8 cache, and ids [8, 256]
@@ -54,7 +67,7 @@ Phases:
                     then 4 on an int8 cache at decode_chunk=4.
   6. paged_engine — the paged LLMEngine on the same model: 12 requests,
                     then 4 on an int8 pool.
-In phases 4-6 and 8-13 the launch counters are zeroed just before each run
+In phases 4-6 and 8-14 the launch counters are zeroed just before each run
 and must match the work the run did.  For the greedy outputs, each path's logits
 (teacher-forced) must stay within LOGIT_TOL (INT8_LOGIT_TOL on an int8
 cache) of the no-cache forward's with dense-math attention, and each token
@@ -83,7 +96,20 @@ time goes.
                     vocab 50,304, bf16, random weights from seed 0):
                     generate() on ids [8, 256], the dense engine, and the
                     paged engine with the prefix cache and spec_k=4.
- 11. train        — bench.py's training configuration (hidden 2048, 12
+ 11. dtypes       — LLaMA-2-7B widths (32 layers, random weights) at
+                    float32, the config's default: generate() with ids
+                    [4, 1024] on a float32 and an int8 static cache, the
+                    dense engine's 12 requests, the paged engine's 12 and
+                    then 4 on an int8 pool, the no-cache forward at
+                    [1, 2048] (flash) and [4, 512] (the encoder) against
+                    dense math, a profiled paged decode tick; at float16:
+                    generate() on its float16 cache and the paged engine's
+                    12 requests (float32 pools, as for every model that is
+                    not bf16); BERT-base at float32, eval on [32, 128].
+                    Every attention launch is an f32 CUDA-core kernel's;
+                    logits within F32_LOGIT_TOL (F16_LOGIT_TOL,
+                    INT8_LOGIT_TOL); peak memory per model.
+ 12. train        — bench.py's training configuration (hidden 2048, 12
                     layers, bf16, random weights and tokens from seed 0)
                     through TrainStep + AdamW(3e-4, weight_decay=0.01):
                     first every parameter's gradient through the kernels
@@ -94,7 +120,7 @@ time goes.
                     profiled; then B 32 x S 512 at accum_steps=2 with
                     ClipGradByGlobalNorm(1.0) (encoder forward and backward
                     24 a step).  Each loss finite, the last below the first.
- 12. ernie        — bench.py's ERNIE-base pretraining (BertConfig.base(),
+ 13. ernie        — bench.py's ERNIE-base pretraining (BertConfig.base(),
                     bf16, B 512 x S 128, 20 masked positions, dropout 0.1,
                     random weights and batch from seed 0): gradient parity
                     of every parameter against the composed/dense paths at
@@ -105,7 +131,7 @@ time goes.
                     LN forward and backward 24 and encoder forward and
                     backward 12 launches a step with no copy of q, k or v,
                     one step profiled.
- 13. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
+ 14. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
                     reaches the fused 1x1-conv + BN kernels: first one
                     bottleneck block at each stage's shape, fused against
                     composed in f32 (output, every gradient, running
@@ -175,6 +201,15 @@ KERNELS = {
                       "paddle_tpu/ops/fused_conv_bn.py:66"),
     "fused_conv_bn_bwd": ("paddle_tpu_torch/csrc/fused_conv_bn.cu",
                           "paddle_tpu/ops/fused_conv_bn.py:139"),
+    # the same four TPU kernels at float32 and float16: f32 on the CUDA cores
+    "paged_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_paged.cu",
+                             "paddle_tpu/ops/decode_attention.py:313"),
+    "decode_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_decode.cu",
+                              "paddle_tpu/ops/decode_attention.py:66"),
+    "flash_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_flash.cu",
+                             "paddle_tpu/ops/flash_attention.py:45"),
+    "encoder_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_encoder.cu",
+                               "paddle_tpu/ops/encoder_attention.py:78"),
 }
 # Backward kernels vs their plain versions: max |kernel - plain| over max
 # |plain|, for each of dQ, dK and dV, with dO ~ N(0, 1).  The kernels round
@@ -192,6 +227,11 @@ LOGIT_TOL = 0.1
 # cache rounds every K and V element to its row's absmax / 127, on top of
 # the bf16 differences above.
 INT8_LOGIT_TOL = 0.5
+# The same drift of the dtypes phase's float32 model (both sides f32: the
+# kernels and cuBLAS sum in other orders, nothing rounds to 16 bits) and
+# float16 model (float16 rounds like bf16 with three more mantissa bits).
+F32_LOGIT_TOL = 5e-3
+F16_LOGIT_TOL = 0.05
 
 
 # Dropout: ERNIE's rate on hidden states and attention probabilities.  Each
@@ -1448,6 +1488,304 @@ def paged_kernel_cases():
     return cases
 
 
+# --------------------------------------- f32 and f16 attention (CUDA cores)
+
+# The f32 CUDA-core kernels (csrc/attention_simt.cuh) vs their plain
+# versions in f32 on the same values: max |kernel - plain| over max |plain|.
+# float32 (q, k and v f32) at F32_RTOL: the same f32 products summed in
+# another order.  float16 writes its output in float16 (2^-11 of |out|)
+# and rounds p to float16 before p.v as the reference does: F16_RTOL, under
+# bf16's 5e-3.  int8 caches round p to bf16 whatever q's type, as the bf16
+# kernels do: KERNEL_RTOL["int8"].  A float16 model's engines keep float32
+# pools, so a float16 q against float32 k/v is a case of its own.
+F16_RTOL = 2e-3
+SIMT_KERNELS = ("decode_attention", "paged_attention", "flash_attention", "encoder_attention")
+TAGS = {torch.float32: "f32", torch.float16: "f16", torch.int8: "int8", torch.bfloat16: "bf16"}
+
+
+def simt_tol(q_dtype, kv_dtype):
+    if kv_dtype == torch.int8:
+        return KERNEL_RTOL["int8"]
+    return F32_RTOL if torch.float32 == q_dtype == kv_dtype else F16_RTOL
+
+
+def rate_key(*dtypes):
+    """bound3's keyword for products of these types at their peak: the f32
+    rate where an operand is float32, the 16-bit tensor-core rate otherwise
+    (float16 against float16, or int8 widened to bf16)."""
+    return "f32_flops" if torch.float32 in dtypes else "tc_flops"
+
+
+def simt_kv_case(kind, name, B, S, H, Hkv, offsets, q_dtype, kv_dtype, seed, ps=128, D=128,
+                 L=2048):
+    """The f32 CUDA-core static decode (``kind`` "decode": a head-major
+    [B, Hkv, L, D] cache) or paged kernel (pages of ``ps``) vs its plain
+    version in f32, over stale rows (1e4) past each slot's length and a
+    poisoned trash page; planted faults as the bf16 cases'.  The kernel,
+    its plain version and SDPA at q's dtype (on the dequantized,
+    GQA-expanded cache) are timed."""
+    from paddle_tpu_torch.models.kv_cache import _quantize_kv
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    quant = kv_dtype == torch.int8
+    q = (torch.randn(B, S, H, D, generator=g, device=dev) * Q_STD).to(q_dtype)
+    tbl = None
+    if kind == "decode":
+        k = torch.randn(B, Hkv, L, D, generator=g, device=dev)
+        v = torch.randn(B, Hkv, L, D, generator=g, device=dev)
+        for b, o in enumerate(offsets):
+            k[b, :, o + S:], v[b, :, o + S:] = 1e4, 1e4
+        cap = L
+    else:
+        M = max(-(-(o + S) // ps) for o in offsets)
+        P = 1 + B * M
+        k = torch.randn(P, Hkv, ps, D, generator=g, device=dev)
+        v = torch.randn(P, Hkv, ps, D, generator=g, device=dev)
+        k[0], v[0] = 1e4, 1e4  # the trash page: a read of it shows
+        perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(seed)) + 1
+        tbl = torch.zeros(B, M, dtype=torch.int32)
+        it = iter(perm.tolist())
+        for b, o in enumerate(offsets):
+            for j in range(-(-(o + S) // ps)):
+                page = tbl[b, j] = next(it)
+                r0 = max(0, o + S - j * ps)
+                k[page, :, r0:], v[page, :, r0:] = 1e4, 1e4
+        tbl = tbl.to(dev)
+        cap = M * ps
+    if quant:
+        (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+        k, v, scales = k.contiguous(), v.contiguous(), (ks.contiguous(), vs.contiguous())
+    else:
+        k, v, scales = k.to(kv_dtype), v.to(kv_dtype), (None, None)
+    off = torch.tensor(offsets, dtype=torch.int64, device=dev)
+    lengths = (off + S).to(torch.int32)
+    scale = 1.0 / D ** 0.5
+    f32 = [None if x is None else x.float() for x in scales]
+    k32, v32 = (k, v) if quant else (k.float(), v.float())
+    if kind == "decode":
+        def kernel():
+            return da.decode_attention_simt_kernel(q, k, v, lengths, *scales, scale)
+
+        def plain():
+            return da._decode_dense(q, k, v, off, *scales, scale)
+
+        def oracle(qq, o_):
+            return da._decode_dense(qq, k32, v32, o_, *f32, scale)
+    else:
+        def kernel():
+            return da.paged_attention_simt_kernel(q, k, v, lengths, tbl, *scales, scale)
+
+        def plain():
+            return da._paged_dense(q, k, v, off, tbl, *scales, scale)
+
+        def oracle(qq, o_):
+            return da._paged_dense(qq, k32, v32, o_, tbl, *f32, scale)
+
+    got = kernel()
+    same_bits = bool(torch.equal(got, kernel()))
+    torch.cuda.synchronize()
+    want = oracle(q.float(), off)
+    res = gate(name, got, want, {"uniform_weights": oracle(torch.zeros_like(want), off),
+                                 "causal_end_short": oracle(q.float(), off - 1)},
+               simt_tol(q_dtype, kv_dtype), kind=kind, B=B, S=S, H=H, Hkv=Hkv, D=D,
+               ps=ps if tbl is not None else None, cap=cap, q_dtype=TAGS[q_dtype],
+               kv_dtype=TAGS[kv_dtype], max_len=max(offsets) + S, same_bits=same_bits,
+               out_dtype=TAGS.get(got.dtype), ok=same_bits and got.dtype == q_dtype)
+    res["ms"], res["eager_ms"] = graph_ms(kernel), cuda_ms(kernel, 20)
+    res["plain_ms"] = cuda_ms(plain, 5)
+    # yardstick: SDPA at q's dtype on the dequantized (or cast), GQA-expanded
+    # cache with a per-slot causal mask; timed here, never used by the port
+    if tbl is not None:
+        kd, vd = da.gather_pages(k, tbl), da.gather_pages(v, tbl)
+        sd = [None if x is None else da.gather_pages(x, tbl) for x in scales]
+    else:
+        kd, vd, sd = k, v, scales
+    kd, vd = kd.to(q_dtype), vd.to(q_dtype)
+    if quant:
+        kd, vd = kd * sd[0].to(q_dtype)[..., None], vd * sd[1].to(q_dtype)[..., None]
+    kd, vd = kd.repeat_interleave(H // Hkv, 1), vd.repeat_interleave(H // Hkv, 1)
+    mask = torch.arange(kd.shape[2], device=dev)[None, None, None, :] <= (
+        off[:, None, None, None] + torch.arange(S, device=dev)[None, None, :, None])
+    qh = q.transpose(1, 2)
+    res["library_ms"] = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=mask))
+    # least time: q and out once, the K/V rows each kv head must see (and
+    # scales, table, lengths) once; QK and PV, 4 * D per visible pair
+    keys = sum(min(o + S, cap) for o in offsets)
+    visible = sum(max(0, min(o + s + 1, cap)) for o in offsets for s in range(S))
+    nbytes = (2 * q.numel() * q.element_size() + keys * Hkv * D * k.element_size() * 2
+              + (keys * Hkv * 4 * 2 if quant else 0) + (tbl.numel() * 4 if tbl is not None else 0)
+              + B * 4)
+    res["bound_ms"], res["bound_by"], res["floors"] = bound3(
+        nbytes, **{rate_key(q_dtype, kv_dtype): 4.0 * D * H * visible})
+    return res
+
+
+def simt_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, packed=False):
+    """The f32 CUDA-core flash or encoder forward vs its plain version in
+    f32 on the same values, with its lse; the encoder at ``rate`` > 0 with
+    the bf16 kernel's Philox mask from the same seed tensor (planted faults:
+    the mask read one key over, the seed words swapped), else the planted
+    faults of ``seq_attention_case``.  ``packed``: q, k, v the three strided
+    slices of one [B, S, 3, H, D] tensor (BERT's projection), read in place.
+    The kernel, its plain version and SDPA at the same dtype are timed."""
+    from paddle_tpu_torch.ops import encoder_attention as ea
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if packed:
+        qkv = torch.randn(B, Sq, 3, H, D, generator=g, device="cuda")
+        qkv[:, :, 0] *= Q_STD
+        q, k, v = qkv.to(dtype).unbind(2)
+    else:
+        q = (torch.randn(B, Sq, H, D, generator=g, device="cuda") * Q_STD).to(dtype)
+        k = torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
+    scale = 1.0 / D ** 0.5
+    sd = seed_pair(g) if rate > 0 else None
+    keep = ea.dropout_keep(sd, B, H, Sq, rate) if rate > 0 else None
+    qf, kf, vf = q.float(), k.float(), v.float()
+    copies0 = ea._check_inputs.copies
+    if kind == "flash":
+        def kernel():
+            return fa.flash_attention_simt_kernel(q, k, v, causal, scale)
+
+        def plain():
+            return fa._flash_dense(q, k, v, causal, scale)
+
+        want, want_lse = fa._flash_dense(qf, kf, vf, causal, scale)
+    else:
+        def kernel():
+            return ea.encoder_attention_simt_kernel(q, k, v, scale, causal, sd, rate)
+
+        def plain():
+            return ea._encoder_dense(q, k, v, scale, causal, keep, rate)
+
+        # v in its own dtype, so that the oracle rounds the kept, scaled
+        # probabilities to it as the kernel does (encoder_dropout_case)
+        want = ea._encoder_dense(qf, kf, v if rate > 0 else vf, scale, causal, keep, rate)
+        want_lse = ea._encoder_lse(qf, kf, scale, causal)
+    got, lse = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, again[0]) and torch.equal(lse, again[1]))
+    copies = ea._check_inputs.copies - copies0
+    if rate > 0:
+        swapped = ea.dropout_keep(sd.flip(0), B, H, Sq, rate)
+        faults = {"mask_shifted": ea._encoder_dense(qf, kf, v, scale, causal, keep.roll(1, -1),
+                                                    rate),
+                  "seeds_swapped": ea._encoder_dense(qf, kf, v, scale, causal, swapped, rate)}
+    else:
+        ones = torch.ones(Sq, Sk, dtype=torch.bool, device="cuda")
+        if causal:
+            short = ones.tril(Sk - Sq - 1)
+        else:
+            short = ones.clone()
+            short[:, -1] = False
+        faults = {"uniform_weights": masked_attention(torch.zeros_like(q), k, v, ones, scale),
+                  "causal_end_short": masked_attention(q, k, v, short, scale)}
+    lse_err = (lse.reshape(B, H, Sq) - want_lse.reshape(B, H, Sq)).abs().max().item()
+    res = gate(name, got, want, faults, simt_tol(dtype, dtype), kind=kind, B=B, H=H, Sq=Sq, Sk=Sk,
+               D=D, causal=causal, rate=rate, packed=packed, dtype=TAGS[dtype],
+               lse_max_abs_err=lse_err, lse_tol=LSE_TOL, same_bits=same, input_copies=copies,
+               ok=lse_err <= LSE_TOL and same and got.dtype == dtype and copies == 0)
+    if keep is not None:
+        add_keep(keep, rate, res)
+    # device time from CUDA-graph replays, fewer calls than the bf16 cases':
+    # one call here takes up to a few ms
+    res["ms"] = graph_ms(kernel, iters=4, repeats=3, per_graph=4)
+    res["plain_ms"] = cuda_ms(plain, 3)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    # yardstick: SDPA at the same dtype (top-left causal, so causal only at
+    # Sq == Sk; the encoder's with the same dropout rate, its own mask)
+    res["library_ms"] = None
+    if Sq == Sk or not causal:
+        res["library_ms"] = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, dropout_p=rate, is_causal=causal), iters=4, repeats=3, per_graph=4)
+    # least time: q, k, v read and o, lse written once; 4 * D operations a
+    # visible pair at their type's peak, and a Philox call for four of them
+    pairs = B * H * visible_pairs(Sq, Sk, causal)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + B * H * Sq * 4
+    res["bound_ms"], res["bound_by"], res["floors"] = bound3(
+        nbytes, **{rate_key(dtype): 4.0 * D * pairs}, philox_calls=pairs // 4 if rate > 0 else 0)
+    return res
+
+
+def simt_kernel_cases():
+    """The f32 CUDA-core kernels' cases at float32 and float16, the main
+    paths' shapes, the float32 case each main path runs most first: decode
+    and paged at LLaMA-2-7B widths (S = 1 at 8 ragged slots; the verify's
+    S = 5; 256-token chunks off the page grid; pages of 16 and 128), 70B's
+    GQA 64/8, head dims 64 and 256, int8 caches under float32 and float16
+    q, and the float16 engines' float16 q against float32 pools; flash at
+    [8, 2048, 16, 128] causal, the no-cache forward's [1, 2048, 32, 128] and
+    generate()'s [4, 1024, 32, 128], and head dims 64 and 256; the encoder
+    at ERNIE's [512, 128, 12, 64] at rate 0 and 0.1 (and as BERT's packed
+    q, k, v views) and the LLaMA no-cache forward's [4, 512, 32, 128]
+    causal."""
+    f32, f16, i8 = torch.float32, torch.float16, torch.int8
+    out = {f"{k}_simt": [] for k in SIMT_KERNELS}
+    for kind, key in (("decode", "decode_attention_simt"), ("paged", "paged_attention_simt")):
+        specs = [  # (name, B, S, H, Hkv, offsets, q, kv, extra)
+            ("7b_decode", 8, 1, 32, 32, RAGGED, f32, f32, {}),
+            ("7b_decode", 8, 1, 32, 32, RAGGED, f16, f16, {}),
+            ("7b_decode", 8, 1, 32, 32, RAGGED, f16, f32, {}),   # a float16 model's engines
+            ("7b_verify_s5", 8, VERIFY_S, 32, 32, VERIFY, f32, f32, {}),
+            ("7b_verify_s5", 8, VERIFY_S, 32, 32, VERIFY, f16, f16, {}),
+            ("70b_gqa_decode", 8, 1, 64, 8, RAGGED, f32, f32, {}),
+            ("70b_gqa_decode", 8, 1, 64, 8, RAGGED, f16, f16, {}),
+            ("7b_decode", 8, 1, 32, 32, RAGGED, f32, i8, {}),
+            ("7b_decode", 8, 1, 32, 32, RAGGED, f16, i8, {}),
+            ("gpt_d64_decode", 8, 1, 12, 12, RAGGED, f32, f32, dict(D=64)),
+            ("d256_decode", 8, 1, 16, 16, RAGGED, f16, f16, dict(D=256)),
+        ]
+        if kind == "paged":
+            specs += [
+                ("7b_chunk256_offgrid", 2, 256, 32, 32, OFFGRID, f32, f32, {}),
+                ("7b_chunk256_offgrid", 2, 256, 32, 32, OFFGRID, f16, f32, {}),
+                ("7b_chunk256_offgrid", 2, 256, 32, 32, OFFGRID, f16, f16, {}),
+                ("7b_chunk256_ps16", 2, 256, 32, 32, [1280, 384], f32, f32, dict(ps=16)),
+                ("7b_decode_ps16", 8, 1, 32, 32, RAGGED, f16, f32, dict(ps=16)),
+                ("70b_gqa_chunk256", 2, 256, 64, 8, [1280, 384], f32, f32, {}),
+                ("7b_chunk256", 2, 256, 32, 32, [1280, 384], f32, i8, {}),
+                ("7b_chunk256", 2, 256, 32, 32, [1280, 384], f16, i8, {}),
+            ]
+        else:
+            specs += [("7b_decode_l2000", 8, 1, 32, 32, [min(o, 1999) for o in RAGGED], f32, f32,
+                       dict(L=2000))]
+        for i, (name, B, S, H, Hkv, offs, qt, kvt, extra) in enumerate(specs):
+            tag = TAGS[qt] if qt == kvt else f"{TAGS[qt]}_{TAGS[kvt]}kv"
+            out[key].append(simt_kv_case(kind, f"{name}_{tag}", B, S, H, Hkv, offs, qt, kvt,
+                                         100 + i, **extra))
+            log_case(key, out[key][-1])
+    for i, (name, B, H, S, D, causal) in enumerate([
+            ("7b_forward_s2048", 1, 32, 2048, 128, True),    # the dtypes phase's no-cache forward
+            ("7b_generate_s1024", 4, 32, 1024, 128, True),   # generate(ids[4, 1024])
+            ("train_shape_s2048", 8, 16, 2048, 128, True),
+            ("bh64_s1024_d64", 2, 32, 1024, 64, True),
+            ("d256_s1024_full", 4, 16, 1024, 256, False)]):
+        for dt in (f32, f16):
+            out["flash_attention_simt"].append(simt_seq_case(
+                f"{name}_{TAGS[dt]}", "flash", B, H, S, S, D, causal, dt, 130 + i))
+            log_case("flash_attention_simt", out["flash_attention_simt"][-1])
+    out["flash_attention_simt"].append(simt_seq_case(
+        "sq1024_sk2048_causal_f32", "flash", 1, 32, 1024, 2048, 128, True, f32, 136))
+    log_case("flash_attention_simt", out["flash_attention_simt"][-1])
+    for i, (name, B, H, S, D, causal, rate, packed) in enumerate([
+            ("ernie_rate0", 512, 12, 128, 64, False, 0.0, False),   # the BERT eval forward's
+            ("ernie_drop", 512, 12, 128, 64, False, DROP_RATE, False),
+            ("ernie_packed_qkv_rate0", 512, 12, 128, 64, False, 0.0, True),
+            ("7b_forward_s512_causal", 4, 32, 512, 128, True, 0.0, False)]):
+        for dt in (f32, f16):
+            out["encoder_attention_simt"].append(simt_seq_case(
+                f"{name}_{TAGS[dt]}", "encoder", B, H, S, S, D, causal, dt, 140 + i, rate=rate,
+                packed=packed))
+            log_case("encoder_attention_simt", out["encoder_attention_simt"][-1])
+    return out
+
+
 def kernel_phase():
     """Every kernel against its plain version at the main paths' shapes.
     Returns {kernel name: [case, ...]}; the first case of each is the one
@@ -1490,6 +1828,7 @@ def kernel_phase():
         out[kern] = cases[:1] + out[kern] + cases[1:]
     out["philox"] = [philox_case()]
     out.update(conv_bn_kernel_cases())
+    out.update(simt_kernel_cases())
     zero_counts()  # comparison launches do not count
     return out
 
@@ -1561,7 +1900,11 @@ def counters():
             "fused_ln": fl.fused_ln_kernel,
             "fused_ln_bwd": fl.fused_ln_bwd_kernel,
             "fused_conv_bn": fcb.fused_conv_bn_kernel,
-            "fused_conv_bn_bwd": fcb.fused_conv_bn_bwd_kernel}
+            "fused_conv_bn_bwd": fcb.fused_conv_bn_bwd_kernel,
+            "paged_attention_simt": da.paged_attention_simt_kernel,
+            "decode_attention_simt": da.decode_attention_simt_kernel,
+            "flash_attention_simt": fa.flash_attention_simt_kernel,
+            "encoder_attention_simt": ea.encoder_attention_simt_kernel}
 
 
 def zero_counts():
@@ -1584,14 +1927,33 @@ def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def prefill_kernel(cfg, B, S):
-    """The kernel a no-cache prefill of [B, S] tokens runs per layer: the
-    reference's routing (encoder, flash, or None for dense math)."""
+def kernel_for(name, dtype):
+    """The counter an attention kernel's launch at q's ``dtype`` adds to:
+    the bf16 kernel's, or its f32 CUDA-core counterpart's (``_simt``)."""
+    return name if dtype == torch.bfloat16 else f"{name}_simt"
+
+
+def model_dtype(model):
+    return next(model.parameters()).dtype
+
+
+def prefill_kernel(cfg, B, S, dtype=torch.bfloat16):
+    """The kernel a no-cache prefill of [B, S] tokens at ``dtype`` runs per
+    layer: the reference's routing (encoder, flash, or None for dense
+    math), at the type's kernel (``kernel_for``)."""
     from paddle_tpu_torch.nn.functional.attention import _reference_kernel
 
     H, D = cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads
     q = torch.empty(B, S, H, D, device="meta")
-    return _reference_kernel(q, q, None, True, "auto")
+    kern = _reference_kernel(q, q, None, True, "auto")
+    return kern and kernel_for(kern, dtype)
+
+
+def logit_tol(dtype, cache_dtype=None):
+    """The teacher-forced logit gate of a model at ``dtype``."""
+    if cache_dtype == "int8":
+        return INT8_LOGIT_TOL
+    return {torch.float32: F32_LOGIT_TOL, torch.float16: F16_LOGIT_TOL}.get(dtype, LOGIT_TOL)
 
 
 @torch.no_grad()
@@ -1684,18 +2046,17 @@ def generate_run(model, name, B, S0, n_new, cache_dtype, seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()                             # ... and ends here
-    L = cfg.num_hidden_layers
-    expected = {"decode_attention": L * (n_new - 1)}
-    kern = prefill_kernel(cfg, B, S0)
+    L, dt = cfg.num_hidden_layers, model_dtype(model)
+    expected = {kernel_for("decode_attention", dt): L * (n_new - 1)}
+    kern = prefill_kernel(cfg, B, S0, dt)
     if kern:
         expected[kern] = L
     path = static_path_logits(model, ids, out, cache_dtype)
     verdict = judge([(out[b].tolist(), forward_logits(model, ids[b].tolist(), out[b].tolist()),
-                      path[b]) for b in range(B)],
-                    INT8_LOGIT_TOL if cache_dtype else LOGIT_TOL)
+                      path[b]) for b in range(B)], logit_tol(dt, cache_dtype))
     valid = tuple(out.shape) == (B, n_new) and bool(((out >= 0) & (out < cfg.vocab_size)).all())
     res = dict(path="generate", name=name, B=B, prompt=S0, new_tokens=n_new,
-               cache=cache_dtype or "bf16", prefill_kernel=kern, wall_s=wall,
+               cache=cache_dtype or TAGS[dt], prefill_kernel=kern, wall_s=wall,
                decode_tok_per_s=B * (n_new - 1) / wall, launches=launches,
                expected_launches=expected, replay_equal=bool(
                    (path.argmax(-1) == out.long()).all()),
@@ -1779,20 +2140,21 @@ def engine_run(model, name, eng, waves, check, split=None, verify=0):
     launches = read_counts()                             # ... and ends here
     st = eng.stats()
     reqs = [r for wave in waves for r in wave]
-    L = cfg.num_hidden_layers
+    L, dt = cfg.num_hidden_layers, model_dtype(model)
     verifies = st["spec"]["verify_calls"] if st["spec"] else 0
     if eng.paged:
-        expected = {"paged_attention": L * (st["prefill_chunks"] + st["decode_ticks"]
-                                            + verifies)}
+        expected = {kernel_for("paged_attention", dt): L * (st["prefill_chunks"]
+                                                            + st["decode_ticks"] + verifies)}
     else:
-        expected = {"decode_attention": L * (st["decode_steps"] + verifies)}
+        expected = {kernel_for("decode_attention", dt): L * (st["decode_steps"] + verifies)}
         for Lb, count in st["prefill_buckets"].items():
-            kern = prefill_kernel(cfg, 1, Lb)
+            kern = prefill_kernel(cfg, 1, Lb, dt)
             if kern:
                 expected[kern] = expected.get(kern, 0) + L * count
     valid = all(len(o) == r["max_new"] and all(0 <= t < cfg.vocab_size for t in o)
                 for o, r in zip(outs, reqs))
-    res = dict(path=name, cache=eng.cache_dtype or "bf16", requests=len(reqs),
+    res = dict(path=name, cache=eng.cache_dtype or TAGS[eng.caches[0][0].dtype],
+               requests=len(reqs),
                warmup_s=warm, wall_s=wall, launches=launches, expected_launches=expected,
                prefill_chunks=st["prefill_chunks"], decode_ticks=st["decode_ticks"],
                decode_tokens=st["decode_tokens"], prefill_s=st["prefill_seconds"],
@@ -1815,7 +2177,7 @@ def engine_run(model, name, eng, waves, check, split=None, verify=0):
               paged_logits(model, r["prompt"], o, split=split(r) if split else None,
                            verify=verify) if eng.paged else
               dense_path_logits(model, eng, r["prompt"], o)) for r, o in checked],
-            INT8_LOGIT_TOL if eng.cache_dtype else LOGIT_TOL)
+            logit_tol(dt, eng.cache_dtype))
     res["ok"] = (valid and launch_check(launches, expected)
                  and res.get("pool_balanced_every_tick", True)
                  and res.get("drained_to_cache", True)
@@ -2028,7 +2390,7 @@ def decode_breakdown(model, layout, ticks=8, spec_k=0):
         for e in kern:
             us = e.time_range.elapsed_us()
             low = e.name.lower()
-            kind = ("attention" if "kv_attention" in low else
+            kind = ("attention" if "kv_attention" in low or "simt_attention" in low else
                     "matmul" if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma")) else
                     "other")
             by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / ticks
@@ -2763,10 +3125,11 @@ def ernie_determinism(model, batch):
 
 
 @torch.no_grad()
-def ernie_eval(model, batch):
+def ernie_eval(model, batch, tol=LOGIT_TOL):
     """The eval forward at full depth: MLM logits through the kernels (rate
-    0: the fused-LN forward and encoder forward at rate 0) against the
-    composed/dense forward's."""
+    0: the fused-LN forward and encoder forward at rate 0, the model's
+    type's encoder kernel) against the composed/dense forward's, within
+    ``tol`` logit standard deviations."""
     model.eval()
     ids, seg, pos = batch[:3]
     zero_counts()
@@ -2779,13 +3142,13 @@ def ernie_eval(model, batch):
     L = model.config.num_hidden_layers
     drift = (logits.float() - want.float()).abs().max().item()
     std = want.float().std().item()
-    expected = {"fused_ln": 2 * L, "encoder_attention": L}
+    expected = {"fused_ln": 2 * L, kernel_for("encoder_attention", model_dtype(model)): L}
     return dict(layers=L, logits_shape=list(logits.shape), max_logit_drift=drift,
-                logit_std=std, drift_in_std=drift / std, logit_tol_in_std=LOGIT_TOL,
+                logit_std=std, drift_in_std=drift / std, logit_tol_in_std=tol,
                 nsp_drift=(nsp.float() - want_nsp.float()).abs().max().item(),
                 finite=bool(torch.isfinite(logits).all()), launches=launches,
                 expected_launches=expected,
-                ok=(bool(torch.isfinite(logits).all()) and drift <= LOGIT_TOL * std
+                ok=(bool(torch.isfinite(logits).all()) and drift <= tol * std
                     and launch_check(launches, expected)))
 
 
@@ -3091,23 +3454,134 @@ def resnet_phase(card, device="cuda", B=RESNET_B, S=RESNET_S, steps=RESNET_STEPS
     return dict(block_parity=parity, eval=ev), [run]
 
 
-def build_model():
+def build_model(dtype="bfloat16"):
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    cfg = LlamaConfig.llama2_7b(num_hidden_layers=LAYERS, dtype="bfloat16")
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=LAYERS, dtype=dtype)
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda").eval()
     model.init_weights(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    log(f"  model: {model.num_params / 1e9:.3f} B params, {LAYERS} layers, bf16, "
+    log(f"  model: {model.num_params / 1e9:.3f} B params, {LAYERS} layers, {dtype}, "
         f"init {time.perf_counter() - t0:.1f} s")
     return model
+
+
+# ------------------------------------------------------------------ dtypes
+
+@torch.no_grad()
+def forward_run(model, name, B, S, seed):
+    """The no-cache forward of ids [B, S] through the reference's routing
+    (flash at S >= 1024, the encoder at S <= 512, at the model's type)
+    against the same forward with dense-math attention
+    (use_flash_attention=False): logits within the type's gate, one launch
+    of the routed kernel a layer."""
+    cfg, dt = model.config, model_dtype(model)
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(1, cfg.vocab_size, (B, S), generator=g).to(model.device)
+    zero_counts()                                        # the run starts here
+    t0 = time.perf_counter()
+    got = model(ids).float()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()                             # ... and ends here
+    kern = prefill_kernel(cfg, B, S, dt)
+    expected = {kern: cfg.num_hidden_layers} if kern else {}
+    flash = cfg.use_flash_attention
+    cfg.use_flash_attention = False
+    try:
+        want = model(ids).float()
+    finally:
+        cfg.use_flash_attention = flash
+    drift = (got - want).abs().max().item()
+    finite = bool(torch.isfinite(got).all())
+    tol = logit_tol(dt)
+    return dict(path="forward", name=name, B=B, S=S, dtype=TAGS[dt], kernel=kern, wall_s=wall,
+                launches=launches, expected_launches=expected, max_logit_drift=drift,
+                logit_std=want.std().item(), logit_tol=tol, finite=finite,
+                argmax_equal_share=(got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+                ok=finite and drift <= tol and launch_check(launches, expected))
+
+
+def log_dtype_run(r, card):
+    if r["path"] == "generate":
+        tf = r["teacher_forced"]
+        log(f"  generate {r['name']}: prefill {r['prefill_kernel']}, wall {r['wall_s']:.3f} s "
+            f"({r['decode_tok_per_s']:.1f} tok/s incl. prefill); launches {r['launches']} "
+            f"(expected {r['expected_launches']}); drift max {tf['max_logit_drift']:.2e} "
+            f"(tol {tf['logit_tol']}), {tf['exact']} exact, {tf['near_ties']} near-ties, "
+            f"{tf['failures']} failures; {'ok' if r['ok'] else 'FAIL'} [{card}]")
+    elif r["path"] == "forward":
+        log(f"  forward {r['name']} ({r['dtype']}): {r['kernel']}, wall {r['wall_s']:.3f} s; "
+            f"launches {r['launches']} (expected {r['expected_launches']}); logit drift vs "
+            f"dense math {r['max_logit_drift']:.2e} (tol {r['logit_tol']}, logit std "
+            f"{r['logit_std']:.3f}), argmax equal {r['argmax_equal_share']:.4f}; "
+            f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
+    elif r["path"] == "bert_eval":
+        log(f"  BERT-base eval {r['name']}: MLM logits drift {r['max_logit_drift']:.2e} "
+            f"({r['drift_in_std']:.2e} std; tol {r['logit_tol_in_std']} std); launches "
+            f"{r['launches']} (expected {r['expected_launches']}); "
+            f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
+    else:
+        log_run(r, card)
+
+
+def dtypes_phase(card):
+    """LLaMA-2-7B widths, 32 layers, at float32 (the config's default):
+    generate() on a float32 and an int8 static cache, the dense engine's 12
+    requests, the paged engine's 12 and then 4 on an int8 pool, the
+    no-cache forward at [1, 2048] (flash) and [4, 512] (the encoder), and
+    the paged decode tick under the profiler; then at float16: generate()
+    on its float16 static cache and the paged engine's 12 requests (float32
+    pools, as for every model that is not bf16); then BERT-base at float32
+    (eval, [32, 128]).  Every attention launch is an f32 CUDA-core kernel's."""
+    import numpy as np
+
+    runs, extra = [], {}
+    for dt in ("float32", "float16"):
+        model = build_model(dt)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if dt == "float32":
+            rng = np.random.default_rng(0)
+            part = [generate_run(model, "b4_s1024_f32", 4, 1024, 32, None, 1),
+                    generate_run(model, "b4_s1024_int8", 4, 1024, 32, "int8", 1),
+                    serve_dense(model, REQUESTS, np.random.default_rng(10), None, 1, 4, True),
+                    serve_paged(model, REQUESTS, rng, None, 4, True),
+                    serve_paged(model, INT8_REQUESTS, rng, "int8", 0, False),
+                    forward_run(model, "s2048_flash", 1, 2048, 3),
+                    forward_run(model, "b4_s512_encoder", 4, 512, 4)]
+            extra["f32_paged_decode_tick"] = decode_breakdown(model, "paged")
+            log(f"  float32 paged decode tick, 8 slots at ~1k context: "
+                f"{json.dumps(extra['f32_paged_decode_tick'])} [{card}]")
+        else:
+            part = [generate_run(model, "b4_s1024_f16", 4, 1024, 32, None, 1),
+                    serve_paged(model, REQUESTS, np.random.default_rng(0), None, 4, True)]
+        extra[f"{dt}_wall_s"] = time.perf_counter() - t0
+        extra[f"{dt}_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"  {dt}: {len(part)} runs in {extra[f'{dt}_wall_s']:.1f} s, peak memory "
+            f"{extra[f'{dt}_peak_mem_bytes'] / 2**30:.2f} GiB [{card}]")
+        for r in part:
+            r["model_dtype"] = dt
+            log_dtype_run(r, card)
+        runs += part
+        del model
+        torch.cuda.empty_cache()
+    bert = ernie_model(12, dtype=torch.float32, dropout=False)
+    ev = ernie_eval(bert, ernie_batch(bert.config, 32, 128, ERNIE_P, 0, "cuda"),
+                    tol=F32_LOGIT_TOL)
+    ev.update(path="bert_eval", name="base_b32_s128_f32", model_dtype="float32")
+    log_dtype_run(ev, card)
+    runs.append(ev)
+    del bert
+    torch.cuda.empty_cache()
+    return runs, extra
 
 
 # ------------------------------------------------------------------- main
 
 PHASES = ("device", "build", "kernels", "generate", "dense_engine", "paged_engine",
-          "ticks", "prefix", "spec", "gpt", "train", "ernie", "resnet")
+          "ticks", "prefix", "spec", "gpt", "dtypes", "train", "ernie", "resnet")
 PATH_TITLES = {"generate": "model.generate() on the static cache",
                "dense_engine": "the dense LLMEngine",
                "paged_engine": "the paged LLMEngine",
@@ -3175,7 +3649,7 @@ def main(argv=None):
         for name, op in missing:
             log(f"[kernels] FAIL: the {name} library has no {op} instruction")
         ok &= not missing
-    serving = [ph for ph in paths if ph not in ("gpt", "train", "ernie", "resnet")]
+    serving = [ph for ph in paths if ph not in ("gpt", "dtypes", "train", "ernie", "resnet")]
     if serving:
         model = build_model()
         for ph in serving:
@@ -3193,6 +3667,12 @@ def main(argv=None):
     if "gpt" in paths:
         log("[gpt] GPTConfig() (hidden 768, 12 layers) through generate() and both engines")
         runs = gpt_phase(report["card"])
+        report["paths"] += runs
+        ok &= all(r["ok"] for r in runs)
+    if "dtypes" in paths:
+        log("[dtypes] LLaMA-2-7B widths at float32 and float16, BERT-base at float32, "
+            "through the f32 CUDA-core attention kernels")
+        runs, report["dtypes"] = dtypes_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in runs)
     if "train" in paths:

@@ -1,0 +1,115 @@
+"""Admission of the four attention forward kernels by type: which kernel,
+and which instantiation of it, a call runs.
+
+The reference's attention kernels take any float type and type their
+outputs by q.  On the card, bfloat16 runs the tensor-core kernels
+(``csrc/decode_attention.cu``, ``paged_attention.cu``,
+``flash_attention.cu``, ``encoder_attention.cu``); float32 and float16 run
+the f32 CUDA-core body of ``csrc/attention_simt.cuh`` through its four
+entries (``attention_simt_decode.cu``, ``attention_simt_paged.cu``,
+``attention_simt_flash.cu``, ``attention_simt_encoder.cu``).  Nothing is
+cast to reach a kernel: a call whose types have no kernel raises.
+
+``admit`` is the one place that decides, a pure function of (regime, q
+type, cache type, head dim, query rows a kv head).  Its lists below are
+the ``SIMT_*`` instantiation lists of ``attention_simt.cuh``, which a CPU
+test parses and holds equal to them.  The backward kernels run at bfloat16
+only: float32 and float16 training is ROADMAP Queue 2, item 11.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+F32, F16, BF16, I8 = torch.float32, torch.float16, torch.bfloat16, torch.int8
+
+# The C types of the instantiation lists, and the type codes the entries take.
+C_TYPES = {F32: "float", F16: "__half", I8: "int8_t"}
+TYPE_CODES = {F32: 0, F16: 1, I8: 2}
+
+# attention_simt.cuh SIMT_KV_PAIRS and SIMT_KV_DIMS: (q, kv) types of the
+# decode and paged kernels.  A float16 model's engines keep float32 caches
+# (the reference's choice for every model that is not bfloat16), so a
+# float16 q meets float32 k and v there, and float16 ones in generate().
+KV_PAIRS = ((F32, F32), (F16, F16), (F16, F32), (F32, I8), (F16, I8))
+KV_DIMS = (64, 128, 256)
+# SIMT_SEQ_TYPES, SIMT_FLASH_DIMS, SIMT_ENCODER_DIMS: flash and the encoder
+# take q, k and v of one type.
+SEQ_TYPES = (F32, F16)
+FLASH_DIMS = (64, 128, 256)
+ENCODER_DIMS = (64, 128)
+# The bfloat16 kernels' caches: bfloat16, or int8 with f32 scales.
+BF16_KV = (BF16, I8)
+# Query rows of one kv head up to which the decode regime (split-K, 16-row
+# blocks) runs; more run in 64-row tiles.
+DECODE_ROWS = 16
+CHUNK_ROWS = 64
+
+REGIMES = ("decode", "paged", "flash", "encoder", "flash_bwd", "encoder_bwd")
+_BF16_LIBS = {"decode": "decode_attention", "paged": "paged_attention",
+              "flash": "flash_attention", "encoder": "encoder_attention",
+              "flash_bwd": "flash_attention_bwd", "encoder_bwd": "encoder_attention_bwd"}
+
+
+class Instantiation(NamedTuple):
+    """What a call runs: the kernel library (``csrc/<lib>.cu``), its q and
+    k/v types, the head dim and, for the f32 CUDA-core body, the query rows
+    a block (16: the split-K decode regime; 64)."""
+    lib: str
+    q: torch.dtype
+    kv: torch.dtype
+    D: int
+    rows: int | None = None
+
+    @property
+    def simt(self):
+        return self.lib.startswith("attention_simt")
+
+
+def _names(dtypes):
+    return ", ".join(str(d).replace("torch.", "") for d in dtypes)
+
+
+def admit(regime, q_dtype, kv_dtype=None, D=None, rows=1):
+    """The kernel and instantiation that attention ``regime`` runs for q of
+    ``q_dtype`` against k/v of ``kv_dtype`` (None: q's type) at head dim
+    ``D`` with ``rows`` query rows a kv head (S * H / Hkv; decode and paged
+    only).  Raises ValueError, naming what is admitted, where no kernel is
+    built.  Head dims of the bfloat16 kernels are left to their own checks
+    (decode and paged: ROADMAP Queue 2, item 9; the flash backward at 256:
+    item 8)."""
+    if regime not in REGIMES:
+        raise ValueError(f"attention admission: unknown regime {regime!r}")
+    kv_dtype = q_dtype if kv_dtype is None else kv_dtype
+    if q_dtype == BF16:
+        want = BF16_KV if regime in ("decode", "paged") else (BF16,)
+        if kv_dtype not in want:
+            raise ValueError(f"attention kernel ({regime}): q bfloat16 takes k/v of "
+                             f"{_names(want)}, got {kv_dtype}")
+        return Instantiation(_BF16_LIBS[regime], q_dtype, kv_dtype, D)
+    if q_dtype not in SEQ_TYPES:
+        raise ValueError(f"attention kernel ({regime}): q dtype {q_dtype}; the kernels take "
+                         f"{_names((BF16,) + SEQ_TYPES)}")
+    if regime in ("flash_bwd", "encoder_bwd"):
+        raise ValueError(f"attention kernel ({regime}): the backward kernels run at bfloat16 "
+                         f"only; {q_dtype} training is ROADMAP Queue 2, item 11")
+    if regime in ("decode", "paged"):
+        if (q_dtype, kv_dtype) not in KV_PAIRS:
+            raise ValueError(f"attention kernel ({regime}): q {q_dtype} with k/v {kv_dtype}; "
+                             "the pairs built are " + "; ".join(
+                                 f"q {_names((a,))} k/v {_names((b,))}" for a, b in KV_PAIRS))
+        if D not in KV_DIMS:
+            raise ValueError(f"attention kernel ({regime}): head dim {D}, the kernels are built "
+                             f"for {KV_DIMS} (other head dims: ROADMAP Queue 2, item 9)")
+        return Instantiation(f"attention_simt_{regime}", q_dtype, kv_dtype, D,
+                             DECODE_ROWS if rows <= DECODE_ROWS else CHUNK_ROWS)
+    if kv_dtype != q_dtype:
+        raise ValueError(f"attention kernel ({regime}): q {q_dtype} with k/v {kv_dtype}; "
+                         "q, k and v must share their type")
+    dims = FLASH_DIMS if regime == "flash" else ENCODER_DIMS
+    if D not in dims:
+        raise ValueError(f"attention kernel ({regime}): head dim {D}, the kernel is built for "
+                         f"{dims}")
+    return Instantiation(f"attention_simt_{regime}", q_dtype, kv_dtype, D, CHUNK_ROWS)
+

@@ -11,11 +11,16 @@ or a per-slot [B] vector), and query head h reads kv head h // (H / Hkv).
   ``paged_decode_attention``.  One entry serves every query block the
   paged engine produces, S = 1 decode ticks and S = C prefill chunks.
 
-Both dispatch on the tensor's device and nothing else: a CPU tensor takes
-the plain version (``_decode_dense``; ``_paged_dense`` gathers the pages
-first), a CUDA tensor launches its Hopper kernel (``csrc/decode_attention.cu``,
-``csrc/paged_attention.cu``) or raises on a dtype or shape the kernel does
-not take.  There is no fallback from a kernel to a plain version.  The
+Both dispatch on the tensor's device first: a CPU tensor takes the plain
+version (``_decode_dense``; ``_paged_dense`` gathers the pages first), a
+CUDA tensor launches a Hopper kernel or raises on a dtype or shape no
+kernel takes.  On the card the kernel follows q's type (``_simt.admit``):
+bfloat16 q (bfloat16 or int8 caches) runs ``csrc/decode_attention.cu`` and
+``csrc/paged_attention.cu`` on the tensor cores; float32 and float16 q
+(float32, float16 or int8 caches, as ``_simt.KV_PAIRS`` lists) run the f32
+CUDA-core body, ``csrc/attention_simt_decode.cu`` and
+``csrc/attention_simt_paged.cu``.  Nothing is cast to reach a kernel, and
+there is no fallback from a kernel to a plain version.  The
 reference's gates encode TPU measurements and tiling, so they are not
 copied: its ``B*H <= 192`` static-kernel gate (a v5e timing) and its
 ``off_tile`` / ``query_rows_over_vmem`` paged gates.  Both Hopper kernels
@@ -26,8 +31,9 @@ The kernels run in two regimes on rows = S * (H / Hkv): up to 16 rows
 (decode ticks) split the keys into ``_split_plan``'s splits, fixed by the
 capacity and never by the lengths, and the last split of each (kv head,
 slot) merges the partials in split order within the launch; more rows
-(prefill chunks) run on ``wgmma`` in 128-row tiles.  ``_split_merge_dense``
-is the plain model of that merge, for the tests and chip_smoke.py.
+(prefill chunks) run in 128-row ``wgmma`` tiles (bfloat16) or 64-row tiles
+(the CUDA-core body).  ``_split_merge_dense`` is the plain model of that
+merge and of the kernels' int8 rounding, for the tests and chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, _simt
 
 NEG_INF = -1e30
 # The head dims the kernels are built for, their key tile, and the most
@@ -50,8 +56,9 @@ DECODE_ROWS = 16
 BLOCKS_PER_SM = 4
 MAX_SPLITS = 64
 
-__all__ = ["KV_HEAD_DIMS", "decode_attention", "decode_attention_kernel", "gather_pages",
-           "paged_decode_attention", "paged_attention_kernel"]
+__all__ = ["KV_HEAD_DIMS", "decode_attention", "decode_attention_kernel",
+           "decode_attention_simt_kernel", "gather_pages", "paged_decode_attention",
+           "paged_attention_kernel", "paged_attention_simt_kernel"]
 
 
 def gather_pages(pool, page_tbl):
@@ -75,7 +82,9 @@ def _offsets(offset, B, device):
 def _decode_dense(q, k, v, offset, k_scale, v_scale, scale):
     """Dense attention of q [B, S, H, D] against head-major k/v [B, Hkv, L, D]
     whose first offset + s + 1 rows are visible to query s (the reference's
-    ``_decode_dense``, offset path)."""
+    ``_decode_dense``, offset path).  A float16 q meets float32 caches in
+    the engines of a float16 model: the math runs in the promoted type, p
+    in v's type as the reference kernel rounds it, the output in q's."""
     B, S, H, D = q.shape
     Hkv, L = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -85,13 +94,14 @@ def _decode_dense(q, k, v, offset, k_scale, v_scale, scale):
     if rep > 1:
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
-    s = torch.einsum("bshd,bhld->bhsl", q, k).float() * scale
+    ct = torch.promote_types(q.dtype, k.dtype)
+    s = torch.einsum("bshd,bhld->bhsl", q.to(ct), k.to(ct)).float() * scale
     kpos = torch.arange(L, device=q.device)[None, None, None, :]
     qpos = (_offsets(offset, B, q.device)[:, None, None, None]
             + torch.arange(S, device=q.device)[None, None, :, None])
     s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bhsl,bhld->bshd", p, v)
+    p = torch.softmax(s, dim=-1).to(ct)
+    return torch.einsum("bhsl,bhld->bshd", p, v.to(ct)).to(q.dtype)
 
 
 def _paged_dense(q, k_pages, v_pages, offset, page_tbl, k_scale, v_scale,
@@ -121,20 +131,24 @@ def _split_plan(B, Hkv, cap, sms):
 
 
 def _split_merge_dense(q, k, v, offset, k_scale, v_scale, scale, split_keys):
-    """Plain model of the decode regime's split-K over a head-major cache
-    k/v [B, Hkv, L, D] (a paged cache gathered by ``gather_pages``): each
-    split of ``split_keys`` keys keeps its own (m, l, acc) per query row,
-    with p = 0 where no key of the split is visible (m stays NEG_INF), the
-    int8 k-scales on the scores after the dot and the v-scales on p after l;
-    the partials then merge in split order, and a row that sees no key at
-    all gives zeros.  Returns [B, S, H, D] in q's dtype."""
+    """Plain model of the kernels' arithmetic over a head-major cache
+    k/v [B, Hkv, L, D] (a paged cache gathered by ``gather_pages``): the
+    decode regime's split-K, each split of ``split_keys`` keys keeping its
+    own (m, l, acc) per query row, with p = 0 where no key of the split is
+    visible (m stays NEG_INF), the int8 k-scales on the scores after the dot
+    and the v-scales on p after l; the partials then merge in split order,
+    and a row that sees no key at all gives zeros.  Scores and products run
+    in f32 on the stored values; p is rounded to v's dtype, or to bfloat16
+    for an int8 cache whatever q's dtype (the reference widens int8 to
+    bfloat16).  Returns [B, S, H, D] in q's dtype."""
     B, S, H, D = q.shape
     Hkv, L = k.shape[1], k.shape[2]
     rep = H // Hkv
-    kf, vf = k.to(q.dtype), v.to(q.dtype)
+    p_dtype = torch.bfloat16 if k_scale is not None else v.dtype
+    kf, vf = k.float(), v.float()
     if rep > 1:
         kf, vf = kf.repeat_interleave(rep, dim=1), vf.repeat_interleave(rep, dim=1)
-    s = torch.einsum("bshd,bhld->bhsl", q, kf).float() * scale
+    s = torch.einsum("bshd,bhld->bhsl", q.float(), kf) * scale
     if k_scale is not None:
         s = s * k_scale.float().repeat_interleave(rep, dim=1)[:, :, None, :]
     kpos = torch.arange(L, device=q.device)[None, None, None, :]
@@ -150,7 +164,7 @@ def _split_merge_dense(q, k, v, offset, k_scale, v_scale, scale, split_keys):
         l = p.sum(-1, keepdim=True)
         if v_scale is not None:
             p = p * v_scale.float().repeat_interleave(rep, dim=1)[:, :, None, sl]
-        acc = torch.einsum("bhsl,bhld->bhsd", p.to(q.dtype), vf[:, :, sl]).float()
+        acc = torch.einsum("bhsl,bhld->bhsd", p.to(p_dtype).float(), vf[:, :, sl])
         parts.append((m, l, acc))
     m_all = torch.stack([m for m, _, _ in parts])
     top = m_all.amax(0)
@@ -174,23 +188,29 @@ def _check_head_dim(D):
            f"{KV_HEAD_DIMS} (other head dims: ROADMAP Queue 2, item 9)")
 
 
-def _check_kv(q, k, v, k_scale, v_scale, kv_shape):
-    """Shared checks of the two kv-cache kernels: q [B, S, H, D] bf16 on
-    CUDA with D in KV_HEAD_DIMS; k/v contiguous ``kv_shape`` bf16, or int8
-    with contiguous f32 scales of ``kv_shape[:3]``.  Returns (q contiguous,
-    quant)."""
+def _check_kv(q, k, v, k_scale, v_scale, kv_shape, regime, simt):
+    """Shared checks of the kv-cache kernels: the instantiation
+    ``_simt.admit`` picks for q's and k's dtypes (the CUDA-core body when
+    ``simt``, the bfloat16 kernel otherwise), q [B, S, H, D] on CUDA, k/v
+    contiguous ``kv_shape`` of one dtype, int8 with contiguous f32 scales of
+    ``kv_shape[:3]``.  Returns (q contiguous, quant, instantiation)."""
     B, S, H, D = q.shape
     Hkv = kv_shape[1]
+    _check(Hkv > 0 and H % Hkv == 0, f"H={H} is not a multiple of Hkv={Hkv}")
+    inst = _simt.admit(regime, q.dtype, k.dtype, D, S * (H // Hkv))
+    if not inst.simt:
+        _check_head_dim(D)
+    _check(inst.simt == simt, f"q dtype {q.dtype} runs "
+           f"{'paged' if regime == 'paged' else 'decode'}_attention"
+           f"{'_simt' if inst.simt else ''}_kernel (csrc/{inst.lib}.cu)")
     quant = k_scale is not None
     dev = q.device
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
-    _check(q.dtype == torch.bfloat16, f"q dtype {q.dtype}, need bfloat16")
-    _check_head_dim(D)
-    _check(Hkv > 0 and H % Hkv == 0, f"H={H} is not a multiple of Hkv={Hkv}")
-    want = torch.int8 if quant else torch.bfloat16
+    _check(quant == (k.dtype == torch.int8),
+           "int8 caches take k_scale and v_scale, other caches neither")
     for name, t in (("k", k), ("v", v)):
         _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
-        _check(t.dtype == want, f"{name} dtype {t.dtype}, need {want}")
+        _check(t.dtype == k.dtype, f"{name} dtype {t.dtype}, k is {k.dtype}")
         _check(tuple(t.shape) == tuple(kv_shape),
                f"{name} shape {tuple(t.shape)}, need {tuple(kv_shape)}")
         _check(t.is_contiguous() and t.data_ptr() % 16 == 0,
@@ -201,7 +221,7 @@ def _check_kv(q, k, v, k_scale, v_scale, kv_shape):
             _check(t.device == dev and t.dtype == torch.float32
                    and tuple(t.shape) == tuple(kv_shape[:3]) and t.is_contiguous(),
                    f"{name} must be contiguous float32 {tuple(kv_shape[:3])} on {dev}")
-    return q.contiguous(), quant
+    return q.contiguous(), quant, inst
 
 
 def _stream(dev):
@@ -246,20 +266,20 @@ def _workspace(q, Hkv, cap, stream):
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _PAGED_ARGS = [_PTR] * 10 + [_INT] * 8 + [ctypes.c_float] + [_INT] * 3 + [_PTR]
 _DECODE_ARGS = [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float] + [_INT] * 3 + [_PTR]
+# the CUDA-core entries: the bfloat16 kernels' arguments with (q type, kv
+# type) in place of `quant`
+_PAGED_SIMT_ARGS = [_PTR] * 10 + [_INT] * 8 + [ctypes.c_float] + [_INT] * 4 + [_PTR]
+_DECODE_SIMT_ARGS = [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float] + [_INT] * 4 + [_PTR]
 
 
-def paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl,
-                           k_scale=None, v_scale=None, scale=None):
-    """Launch ``csrc/paged_attention.cu`` on CUDA tensors.
-
-    q [B, S, H, D] bf16; pools [P, Hkv, ps, D] bf16, or int8 with f32 scale
-    pools [P, Hkv, ps]; lengths [B] (= offset + S); page_tbl [B, M];
-    D in KV_HEAD_DIMS.  Returns [B, S, H, D] bf16.  Raises ValueError on
-    anything else.  Every launch adds one to
-    ``paged_attention_kernel.launches``."""
+def _paged(q, k_pages, v_pages, lengths, page_tbl, k_scale, v_scale, scale, simt):
+    """Check and launch a paged kernel: the CUDA-core entry of
+    ``csrc/attention_simt_paged.cu`` when ``simt``, else
+    ``csrc/paged_attention.cu``."""
     B, S, H, D = q.shape
     P, Hkv, ps = k_pages.shape[:3]
-    q, quant = _check_kv(q, k_pages, v_pages, k_scale, v_scale, (P, Hkv, ps, D))
+    q, quant, inst = _check_kv(q, k_pages, v_pages, k_scale, v_scale, (P, Hkv, ps, D), "paged",
+                               simt)
     dev = q.device
     _check(page_tbl.dim() == 2 and page_tbl.shape[0] == B,
            f"page_tbl shape {tuple(page_tbl.shape)}, need ({B}, M)")
@@ -275,14 +295,29 @@ def paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl,
     with torch.cuda.device(dev):
         stream = _stream(dev)
         part, ticket, splits, split_keys = _workspace(q, Hkv, M * ps, stream)
-        _build.launch(
-            "paged_attention", _PAGED_ARGS,
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scale.data_ptr() if quant else None,
-            v_scale.data_ptr() if quant else None,
-            lengths.data_ptr(), page_tbl.data_ptr(), out.data_ptr(), part, ticket,
-            B, S, H, Hkv, D, P, ps, M, float(scale), int(quant), splits, split_keys,
-            stream)
+        head = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+                lengths.data_ptr(), page_tbl.data_ptr(), out.data_ptr(), part, ticket,
+                B, S, H, Hkv, D, P, ps, M, float(scale))
+        if simt:
+            _build.launch(inst.lib, _PAGED_SIMT_ARGS, *head, _simt.TYPE_CODES[q.dtype],
+                          _simt.TYPE_CODES[k_pages.dtype], splits, split_keys, stream,
+                          entry="paged_attention_simt")
+        else:
+            _build.launch(inst.lib, _PAGED_ARGS, *head, int(quant), splits, split_keys, stream)
+    return out
+
+
+def paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl,
+                           k_scale=None, v_scale=None, scale=None):
+    """Launch ``csrc/paged_attention.cu`` on CUDA tensors.
+
+    q [B, S, H, D] bf16; pools [P, Hkv, ps, D] bf16, or int8 with f32 scale
+    pools [P, Hkv, ps]; lengths [B] (= offset + S); page_tbl [B, M];
+    D in KV_HEAD_DIMS.  Returns [B, S, H, D] bf16.  Raises ValueError on
+    anything else (float32 and float16 q: ``paged_attention_simt_kernel``).
+    Every launch adds one to ``paged_attention_kernel.launches``."""
+    out = _paged(q, k_pages, v_pages, lengths, page_tbl, k_scale, v_scale, scale, simt=False)
     paged_attention_kernel.launches += 1
     return out
 
@@ -290,17 +325,29 @@ def paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl,
 paged_attention_kernel.launches = 0
 
 
-def decode_attention_kernel(q, k, v, lengths, k_scale=None, v_scale=None,
-                            scale=None):
-    """Launch ``csrc/decode_attention.cu`` on CUDA tensors.
+def paged_attention_simt_kernel(q, k_pages, v_pages, lengths, page_tbl,
+                                k_scale=None, v_scale=None, scale=None):
+    """Launch ``csrc/attention_simt_paged.cu`` (f32 on the CUDA cores) on
+    CUDA tensors: q [B, S, H, D] float32 or float16 against pools of the
+    types ``_simt.KV_PAIRS`` pairs with it (float32, float16, or int8 with
+    f32 scale pools [P, Hkv, ps]), otherwise as ``paged_attention_kernel``.
+    Returns [B, S, H, D] in q's dtype.  Raises ValueError on anything else.
+    Every launch adds one to ``paged_attention_simt_kernel.launches``."""
+    out = _paged(q, k_pages, v_pages, lengths, page_tbl, k_scale, v_scale, scale, simt=True)
+    paged_attention_simt_kernel.launches += 1
+    return out
 
-    q [B, S, H, D] bf16; head-major caches k/v [B, Hkv, L, D] bf16, or int8
-    with f32 scales [B, Hkv, L]; lengths [B] (= offset + S); D in
-    KV_HEAD_DIMS.  Returns [B, S, H, D] bf16.  Raises ValueError on anything
-    else.  Every launch adds one to ``decode_attention_kernel.launches``."""
+
+paged_attention_simt_kernel.launches = 0
+
+
+def _decode(q, k, v, lengths, k_scale, v_scale, scale, simt):
+    """Check and launch a static decode kernel: the CUDA-core entry of
+    ``csrc/attention_simt_decode.cu`` when ``simt``, else
+    ``csrc/decode_attention.cu``."""
     B, S, H, D = q.shape
     Hkv, L = k.shape[1], k.shape[2]
-    q, quant = _check_kv(q, k, v, k_scale, v_scale, (B, Hkv, L, D))
+    q, quant, inst = _check_kv(q, k, v, k_scale, v_scale, (B, Hkv, L, D), "decode", simt)
     dev = q.device
     _check(lengths.device == dev and lengths.shape == (B,),
            f"lengths must be [{B}] on q's device")
@@ -311,14 +358,29 @@ def decode_attention_kernel(q, k, v, lengths, k_scale=None, v_scale=None,
     with torch.cuda.device(dev):
         stream = _stream(dev)
         part, ticket, splits, split_keys = _workspace(q, Hkv, L, stream)
-        _build.launch(
-            "decode_attention", _DECODE_ARGS,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            k_scale.data_ptr() if quant else None,
-            v_scale.data_ptr() if quant else None,
-            lengths.data_ptr(), out.data_ptr(), part, ticket,
-            B, S, H, Hkv, D, L, float(scale), int(quant), splits, split_keys,
-            stream)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+                lengths.data_ptr(), out.data_ptr(), part, ticket,
+                B, S, H, Hkv, D, L, float(scale))
+        if simt:
+            _build.launch(inst.lib, _DECODE_SIMT_ARGS, *head, _simt.TYPE_CODES[q.dtype],
+                          _simt.TYPE_CODES[k.dtype], splits, split_keys, stream,
+                          entry="decode_attention_simt")
+        else:
+            _build.launch(inst.lib, _DECODE_ARGS, *head, int(quant), splits, split_keys, stream)
+    return out
+
+
+def decode_attention_kernel(q, k, v, lengths, k_scale=None, v_scale=None,
+                            scale=None):
+    """Launch ``csrc/decode_attention.cu`` on CUDA tensors.
+
+    q [B, S, H, D] bf16; head-major caches k/v [B, Hkv, L, D] bf16, or int8
+    with f32 scales [B, Hkv, L]; lengths [B] (= offset + S); D in
+    KV_HEAD_DIMS.  Returns [B, S, H, D] bf16.  Raises ValueError on anything
+    else (float32 and float16 q: ``decode_attention_simt_kernel``).  Every
+    launch adds one to ``decode_attention_kernel.launches``."""
+    out = _decode(q, k, v, lengths, k_scale, v_scale, scale, simt=False)
     decode_attention_kernel.launches += 1
     return out
 
@@ -326,20 +388,38 @@ def decode_attention_kernel(q, k, v, lengths, k_scale=None, v_scale=None,
 decode_attention_kernel.launches = 0
 
 
+def decode_attention_simt_kernel(q, k, v, lengths, k_scale=None, v_scale=None,
+                                 scale=None):
+    """Launch ``csrc/attention_simt_decode.cu`` (f32 on the CUDA cores) on
+    CUDA tensors: q [B, S, H, D] float32 or float16 against head-major
+    caches of the types ``_simt.KV_PAIRS`` pairs with it (float32, float16,
+    or int8 with f32 scales [B, Hkv, L]), otherwise as
+    ``decode_attention_kernel``.  Returns [B, S, H, D] in q's dtype.  Raises
+    ValueError on anything else.  Every launch adds one to
+    ``decode_attention_simt_kernel.launches``."""
+    out = _decode(q, k, v, lengths, k_scale, v_scale, scale, simt=True)
+    decode_attention_simt_kernel.launches += 1
+    return out
+
+
+decode_attention_simt_kernel.launches = 0
+
+
 def decode_attention(q, k, v, offset, k_scale=None, v_scale=None, scale=None):
     """Attention of q [B, S, H, D] against a head-major STATIC cache
     k/v [B, Hkv, L, D] whose first offset + s + 1 positions are visible to
     query position s (offset a scalar or a per-slot [B] vector).  int8
     caches pass per-(head, token) scales [B, Hkv, L].  CPU tensors take the
-    plain version; CUDA tensors the Hopper kernel.  Returns [B, S, H, D] in
-    q's dtype."""
+    plain version; CUDA tensors the Hopper kernel of q's dtype
+    (``_simt.admit``).  Returns [B, S, H, D] in q's dtype."""
     B, S, H, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     if q.device.type == "cpu":
         return _decode_dense(q, k, v, offset, k_scale, v_scale, scale)
     lengths = (_offsets(offset, B, q.device) + S).to(torch.int32)
-    return decode_attention_kernel(q, k, v, lengths, k_scale, v_scale, scale)
+    kernel = decode_attention_kernel if q.dtype == torch.bfloat16 else decode_attention_simt_kernel
+    return kernel(q, k, v, lengths, k_scale, v_scale, scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, offset, page_tbl,
@@ -349,8 +429,8 @@ def paged_decode_attention(q, k_pages, v_pages, offset, page_tbl,
     offset + s + 1 positions of each slot visible to query position s
     (offset a scalar or a per-slot [B] vector).  int8 pools pass
     per-(head, token) scale pools [P, Hkv, page_size].  CPU tensors take the
-    plain version; CUDA tensors the Hopper kernel.  Returns [B, S, H, D] in
-    q's dtype."""
+    plain version; CUDA tensors the Hopper kernel of q's dtype
+    (``_simt.admit``).  Returns [B, S, H, D] in q's dtype."""
     B, S, H, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)
@@ -358,5 +438,5 @@ def paged_decode_attention(q, k_pages, v_pages, offset, page_tbl,
         return _paged_dense(q, k_pages, v_pages, offset, page_tbl, k_scale,
                             v_scale, scale)
     lengths = (_offsets(offset, B, q.device) + S).to(torch.int32)
-    return paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl,
-                                  k_scale, v_scale, scale)
+    kernel = paged_attention_kernel if q.dtype == torch.bfloat16 else paged_attention_simt_kernel
+    return kernel(q, k_pages, v_pages, lengths, page_tbl, k_scale, v_scale, scale)

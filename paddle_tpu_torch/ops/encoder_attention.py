@@ -25,10 +25,14 @@ stored.
 A CPU tensor takes the plain versions, ``_encoder_dense`` forward and
 ``_encoder_bwd_dense`` backward; a CUDA tensor launches
 ``csrc/encoder_attention.cu`` forward and ``csrc/encoder_attention_bwd.cu``
-backward (bf16) or raises.  The kernels read q, k, v and dO through TMA
-with their own strides, so strided views such as the three slices of one
-packed [B, S, 3, H, D] projection launch without copies; only a view TMA
-cannot read (``tma_readable``) is copied, and counted.
+backward (bf16) or raises.  Float32 and float16 take the forward
+``csrc/attention_simt_encoder.cu`` (f32 on the CUDA cores, the same Philox
+mask from the same seed), as ``_simt.admit`` decides; their backward is
+ROADMAP Queue 2, item 11 and raises.  The kernels read q, k, v and dO
+through TMA (bf16) or 16-byte copies (float32, float16) with their own
+strides, so strided views such as the three slices of one packed
+[B, S, 3, H, D] projection launch without copies; only a view they cannot
+read (``tma_readable``) is copied, and counted.
 """
 from __future__ import annotations
 
@@ -36,12 +40,12 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _simt
 from ._prng import encoder_bits, keep_mask, launch_args
 
 NEG_INF = -1e30
 
-__all__ = ["encoder_attention", "encoder_attention_kernel",
+__all__ = ["encoder_attention", "encoder_attention_kernel", "encoder_attention_simt_kernel",
            "encoder_attention_bwd_kernel", "supported", "tma_readable"]
 
 
@@ -136,18 +140,24 @@ def _tma_strides(t):
     return D, ss, t.stride(0) if B > 1 else S * ss
 
 
-def _check_inputs(tensors):
-    """The kernels' admission: CUDA, bf16, one [B, S, H, D] shape that
-    ``supported`` admits.  Returns the tensors as they are where TMA can
-    read them (``tma_readable``), else a contiguous copy; each copy adds one
-    to ``_check_inputs.copies``."""
+def _check_inputs(tensors, regime="encoder", simt=False):
+    """The kernels' admission: the instantiation ``_simt.admit`` picks for
+    q's dtype (the CUDA-core forward when ``simt``, the bfloat16 kernels
+    otherwise; ``regime`` "encoder_bwd" is bfloat16 only), CUDA, one dtype,
+    one [B, S, H, D] shape that ``supported`` admits.  Returns the tensors
+    as they are where the kernels can read them in place
+    (``tma_readable``), else a contiguous copy; each copy adds one to
+    ``_check_inputs.copies``."""
     q = tensors["q"]
     B, S, H, D = q.shape
     dev = q.device
+    inst = _simt.admit(regime, q.dtype, q.dtype, D if simt else None)
+    _check(inst.simt == simt, f"q dtype {q.dtype} runs encoder_attention"
+           f"{'_simt' if inst.simt else ''}_kernel (csrc/{inst.lib}.cu)")
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
     for name, t in tensors.items():
         _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
-        _check(t.dtype == torch.bfloat16, f"{name} dtype {t.dtype}, need bfloat16")
+        _check(t.dtype == q.dtype, f"{name} dtype {t.dtype}, q is {q.dtype}")
         _check(tuple(t.shape) == (B, S, H, D),
                f"{name} shape {tuple(t.shape)}, need {(B, S, H, D)}")
     _check(supported(B * H, S, D), f"S={S} D={D}: need S % 128 == 0, "
@@ -201,6 +211,46 @@ def encoder_attention_kernel(q, k, v, scale=None, causal=False, seed=None, rate=
 
 encoder_attention_kernel.launches = 0
 
+_SIMT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
+              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32,
+                 ctypes.c_float, ctypes.c_void_p])
+
+
+def encoder_attention_simt_kernel(q, k, v, scale=None, causal=False, seed=None, rate=0.0):
+    """Launch ``csrc/attention_simt_encoder.cu`` (f32 on the CUDA cores) on
+    CUDA tensors: q/k/v [B, S, H, D] float32 or float16 views with a
+    ``supported`` shape (strided views that ``tma_readable`` admits are read
+    in place; k and v share their strides or are copied); with ``rate`` > 0,
+    dropout from ``seed`` (int32 [2] on q's device), the bf16 kernel's mask.
+    Returns (O [B, S, H, D] in q's dtype, contiguous, the rows' natural-log
+    logsumexp [B * H, S] f32).  Raises ValueError on anything else.  Every
+    launch adds one to ``encoder_attention_simt_kernel.launches``."""
+    q, k, v = _check_inputs({"q": q, "k": k, "v": v}, simt=True)
+    if _tma_strides(k) != _tma_strides(v):  # one stride pair for both
+        k, v = (t if t.is_contiguous() else t.contiguous() for t in (k, v))
+        _check_inputs.copies += 2
+    B, S, H, D = q.shape
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    dev = q.device
+    o = torch.empty(B, S, H, D, dtype=q.dtype, device=dev)
+    lse = torch.empty(B * H, S, dtype=torch.float32, device=dev)
+    sp, thresh, inv = launch_args(seed, rate, 1.0 / (1.0 - rate), dev)
+    _, q_ss, q_sb = _tma_strides(q)
+    _, kv_ss, kv_sb = _tma_strides(k)
+    with torch.cuda.device(dev):
+        _build.launch("attention_simt_encoder", _SIMT_ARGS, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, S, D, q_sb, q_ss,
+                      kv_sb, kv_ss, float(scale), int(bool(causal)),
+                      _simt.TYPE_CODES[q.dtype], sp, thresh, float(inv),
+                      torch.cuda.current_stream(dev).cuda_stream,
+                      entry="encoder_attention_simt")
+    encoder_attention_simt_kernel.launches += 1
+    return o, lse
+
+
+encoder_attention_simt_kernel.launches = 0
+
 _BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
                 ctypes.c_void_p])
@@ -220,7 +270,7 @@ def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=Non
     Returns (dQ, dK, dV) [B, S, H, D] bf16, contiguous.  Raises ValueError on
     anything else.  Every launch adds one to
     ``encoder_attention_bwd_kernel.launches``."""
-    q, k, v, do = _check_inputs({"q": q, "k": k, "v": v, "do": do})
+    q, k, v, do = _check_inputs({"q": q, "k": k, "v": v, "do": do}, "encoder_bwd")
     B, S, H, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)
@@ -267,7 +317,9 @@ class _EncoderAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             ctx.save_for_backward(q, k, v, seed)
             return _encoder_dense(q, k, v, scale, causal, _plain_keep(q, seed, rate), rate)
-        o, lse = encoder_attention_kernel(q, k, v, scale, causal, seed, rate)
+        kernel = (encoder_attention_kernel if q.dtype == torch.bfloat16
+                  else encoder_attention_simt_kernel)  # the kernel of q's dtype
+        o, lse = kernel(q, k, v, scale, causal, seed, rate)
         ctx.save_for_backward(q, k, v, seed, lse)
         return o
 

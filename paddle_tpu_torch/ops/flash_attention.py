@@ -18,9 +18,11 @@ combine needs it).
 
 A CPU tensor takes the plain versions, ``_flash_dense`` forward and
 ``_flash_bwd_dense`` backward; a CUDA tensor launches
-``csrc/flash_attention.cu`` forward (bf16, D in {64, 128, 256}) and
-``csrc/flash_attention_bwd.cu`` backward (bf16, D in {64, 128}; its dsum
-pass runs once per backward) or raises.  The reference's block-size
+``csrc/flash_attention.cu`` forward (bf16, D in {64, 128, 256}; float32
+and float16 take ``csrc/attention_simt_flash.cu``, f32 on the CUDA cores,
+as ``_simt.admit`` decides) and ``csrc/flash_attention_bwd.cu`` backward
+(bf16 only, D in {64, 128}; its dsum pass runs once per backward; float32
+and float16 training is ROADMAP Queue 2, item 11) or raises.  The reference's block-size
 rules (``_auto_block``, ``block_q``/``block_k``, its autotune hook) describe
 TPU tiling, not the function: the Hopper kernels pick their own tiles and
 mask their ragged edge, so they are not carried over.  ``supports_seq``
@@ -32,11 +34,12 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _simt
 
 NEG_INF = -1e30
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_attention_kernel",
+           "flash_attention_simt_kernel",
            "flash_attention_bwd_stats", "flash_attention_dq_kernel", "flash_attention_dkv_kernel",
            "supports_seq"]
 
@@ -112,16 +115,23 @@ def _check_head_dim(D, backward=False):
     _check(D in dims, f"head dim {D}, the kernel is built for {dims}")
 
 
-def _check_inputs(tensors, B, Sq, Sk, H, D, causal, backward=False):
-    """The kernels' common admission: CUDA, bf16, the head dim (see
-    ``_check_head_dim``), the shapes, 16-byte aligned storage."""
-    dev = tensors["q"].device
+def _check_inputs(tensors, B, Sq, Sk, H, D, causal, backward=False, simt=False):
+    """The kernels' common admission: the instantiation ``_simt.admit``
+    picks for q's dtype (the CUDA-core forward when ``simt``, the bfloat16
+    kernels otherwise; the backward is bfloat16 only), CUDA, the head dim
+    (see ``_check_head_dim``), one dtype, the shapes, 16-byte aligned
+    storage."""
+    q = tensors["q"]
+    dev = q.device
+    inst = _simt.admit("flash_bwd" if backward else "flash", q.dtype, q.dtype, D)
+    _check(inst.simt == simt, f"q dtype {q.dtype} runs flash_attention"
+           f"{'_simt' if inst.simt else ''}_kernel (csrc/{inst.lib}.cu)")
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
     _check_head_dim(D, backward)
     for name, t in tensors.items():
         S = Sk if name in ("k", "v") else Sq
         _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
-        _check(t.dtype == torch.bfloat16, f"{name} dtype {t.dtype}, need bfloat16")
+        _check(t.dtype == q.dtype, f"{name} dtype {t.dtype}, q is {q.dtype}")
         _check(tuple(t.shape) == (B, S, H, D),
                f"{name} shape {tuple(t.shape)}, need {(B, S, H, D)}")
     _check(Sq > 0 and Sk > 0, "empty sequence")
@@ -164,6 +174,35 @@ def flash_attention_kernel(q, k, v, causal=False, scale=None):
 
 
 flash_attention_kernel.launches = 0
+
+_SIMT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def flash_attention_simt_kernel(q, k, v, causal=False, scale=None):
+    """Launch ``csrc/attention_simt_flash.cu`` (f32 on the CUDA cores) on
+    CUDA tensors: q [B, Sq, H, D], k/v [B, Sk, H, D], float32 or float16, D
+    in {64, 128, 256}.  Returns (O [B, Sq, H, D] in q's dtype, LSE
+    [B * H, Sq] f32).  Raises ValueError on anything else.  Every launch
+    adds one to ``flash_attention_simt_kernel.launches``."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    _check_inputs({"q": q, "k": k, "v": v}, B, Sq, Sk, H, D, causal, simt=True)
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    dev = q.device
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    lse = torch.empty(B * H, Sq, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _build.launch("attention_simt_flash", _SIMT_ARGS, *_ptrs(q, k, v, o, lse), B, H, Sq, Sk,
+                      D, float(scale), int(bool(causal)), _simt.TYPE_CODES[q.dtype],
+                      torch.cuda.current_stream(dev).cuda_stream, entry="flash_attention_simt")
+    flash_attention_simt_kernel.launches += 1
+    return o, lse
+
+
+flash_attention_simt_kernel.launches = 0
 
 # q, k, v, o, dO, lse, dlse, stats, then the outputs
 _BWD_HEAD = [ctypes.c_void_p] * 8
@@ -282,8 +321,10 @@ class _FlashAttention(torch.autograd.Function):
         B, Sq, H, _ = q.shape
         if q.device.type == "cpu":
             o, lse = _flash_dense(q, k, v, causal, scale)
-        else:
-            o, lse = flash_attention_kernel(q, k, v, causal, scale)
+        else:  # the kernel of q's dtype
+            kernel = (flash_attention_kernel if q.dtype == torch.bfloat16
+                      else flash_attention_simt_kernel)
+            o, lse = kernel(q, k, v, causal, scale)
             lse = lse.reshape(B, H, Sq)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale

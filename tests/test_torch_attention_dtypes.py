@@ -1,0 +1,328 @@
+"""Port parity at float16 and float32: the four attention forward kernels'
+plain versions and their admission by type.
+
+On the card, float32 and float16 q run the f32 CUDA-core kernels of
+``csrc/attention_simt.cuh`` and bfloat16 the tensor-core ones; which one,
+and which instantiation, is ``ops/_simt.admit``'s decision.  Here, on the
+CPU, the tests hold:
+
+* the plain decode, paged, encoder-forward and flash-forward functions at
+  float16 (what a CPU tensor runs, and the kernels' oracle in
+  chip_smoke.py) against the reference's Pallas kernels in interpret mode
+  at float16.  Tolerance 1e-2 of max |out| (plain paths) and 4e-3 (the
+  split model): both sides round p to float16 (2^-11) and the output to
+  float16, and the plain decode and paged versions score in float16 (their
+  einsum of float16 tensors), which the kernels do not;
+* the plain model of the kernels' int8 arithmetic (``_split_merge_dense``:
+  scores from the int8 cache widened exactly, p rounded to bfloat16 after
+  the v-scale) with float32 and float16 q against the reference's kernels,
+  within the reference's own int8 bound, 3e-4 (tests/test_decode_attention.py);
+* the admission list against the ``SIMT_*`` instantiation lists of the .cuh;
+* float64 q refused, naming the admitted types, and the float32 and float16
+  backward refused, naming ROADMAP Queue 2, item 11;
+* a small LLaMA at float16 (head dim 64) through the paged engine, greedy
+  tokens equal to the reference engine's.
+"""
+import importlib
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.inference import LLMEngine as JEngine
+from paddle_tpu.models import LlamaConfig as JConfig
+from paddle_tpu.models import LlamaForCausalLM as JLlama
+from paddle_tpu.models import kv_cache as jkv
+from paddle_tpu.ops import decode_attention as jda
+from paddle_tpu.ops import encoder_attention as jea
+from paddle_tpu_torch.convert import load_reference_state
+from paddle_tpu_torch.inference import LLMEngine
+from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.ops import _simt
+from paddle_tpu_torch.ops import decode_attention as tda
+from paddle_tpu_torch.ops import encoder_attention as tea
+from paddle_tpu_torch.ops import flash_attention as tfa
+
+jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
+CUH = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc" / "attention_simt.cuh"
+F16_TOL = 1e-2
+F16_MODEL_TOL = 4e-3
+INT8_TOL = 3e-4
+SCALE = 1 / 128 ** 0.5
+
+
+def _rel_close(got, want, tol):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert np.isfinite(got).all()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= tol, f"max |got - want| / max |want| = {err:.2e} > {tol}"
+
+
+def _static(B=3, S=1, H=8, Hkv=4, L=256, offsets=(0, 37, 200), seed=0, dtype=np.float16,
+            std=0.5):
+    rng = np.random.RandomState(seed)
+    q = (rng.randn(B, S, H, 128) * std).astype(dtype)
+    k = (rng.randn(B, Hkv, L, 128) * std).astype(dtype)
+    v = (rng.randn(B, Hkv, L, 128) * std).astype(dtype)
+    return q, k, v, np.asarray(offsets, np.int32)
+
+
+def _paged(B=3, S=1, H=8, Hkv=4, ps=128, M=4, offsets=(37, 300, 410), seed=0,
+           dtype=np.float16, std=0.5):
+    rng = np.random.RandomState(seed)
+    P = 1 + B * M
+    q = (rng.randn(B, S, H, 128) * std).astype(dtype)
+    kp = (rng.randn(P, Hkv, ps, 128) * std).astype(dtype)
+    vp = (rng.randn(P, Hkv, ps, 128) * std).astype(dtype)
+    free = list(range(1, P))
+    rng.shuffle(free)
+    pt = np.zeros((B, M), np.int32)
+    for b in range(B):
+        for j in range(min(M, -(-(int(offsets[b]) + S) // ps))):
+            pt[b, j] = free.pop()
+    return q, kp, vp, pt, np.asarray(offsets, np.int32)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.array(a))
+
+
+# ------------------------------------------------------ plain at float16
+
+@pytest.mark.parametrize("offsets", [(0, 37, 200), (255, 128, 5)], ids=["ragged", "edges"])
+def test_plain_f16_decode_matches_reference_kernel(offsets):
+    """The reference's static kernel takes one query row a slot."""
+    q, k, v, off = _static(offsets=offsets)
+    want = jda._decode_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(off),
+                              None, None, scale=SCALE, bk=128, interpret=True)
+    got = tda.decode_attention(_t(q), _t(k), _t(v), _t(off))
+    assert got.dtype == torch.float16 and np.asarray(want).dtype == np.float16
+    _rel_close(got.numpy(), want, F16_TOL)
+
+
+@pytest.mark.parametrize("S,offsets", [(1, (37, 300, 410)), (16, (10, 200, 300))],
+                         ids=["decode", "chunk_s16"])
+def test_plain_f16_paged_matches_reference_kernel(S, offsets):
+    q, kp, vp, pt, off = _paged(S=S, offsets=offsets)
+    want = jda._paged_pallas(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                             jnp.asarray(off + S), jnp.asarray(pt), None, None, scale=SCALE,
+                             interpret=True)
+    got = tda.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(off), _t(pt))
+    assert got.dtype == torch.float16
+    _rel_close(got.numpy(), want, F16_TOL)
+
+
+def test_split_model_f16_q_f32_pool_matches_reference_kernel():
+    """A float16 model's engines keep float32 pools (the reference's
+    choice): q float16 against k/v float32, p in float32, out float16."""
+    q, kp, vp, pt, off = _paged(S=4, offsets=(37, 300, 410))
+    kp, vp = kp.astype(np.float32), vp.astype(np.float32)
+    want = jda._paged_pallas(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                             jnp.asarray(off + 4), jnp.asarray(pt), None, None, scale=SCALE,
+                             interpret=True)
+    tpt = _t(pt)
+    got = tda._split_merge_dense(_t(q), tda.gather_pages(_t(kp), tpt),
+                                 tda.gather_pages(_t(vp), tpt), _t(off), None, None, SCALE, 128)
+    assert got.dtype == torch.float16
+    _rel_close(got.numpy(), want, F16_MODEL_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_plain_f16_encoder_matches_reference_kernel(D, causal):
+    rng = np.random.RandomState(D)
+    q, k, v = ((rng.randn(1, 128, 2, D) * 0.5).astype(np.float16) for _ in range(3))
+    want = jea.encoder_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    got = tea.encoder_attention(_t(q), _t(k), _t(v), causal=causal)
+    assert got.dtype == torch.float16
+    _rel_close(got.numpy(), want, F16_TOL)
+
+
+@pytest.mark.parametrize("Sq,Sk,D,causal", [(128, 128, 64, True), (128, 256, 128, True),
+                                             (128, 128, 256, False)])
+def test_plain_f16_flash_matches_reference_kernel(Sq, Sk, D, causal):
+    rng = np.random.RandomState(Sq + D)
+    q = rng.randn(1, Sq, 2, D).astype(np.float16)
+    k, v = (rng.randn(1, Sk, 2, D).astype(np.float16) for _ in range(2))
+    want_o, want_lse = jfa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k),
+                                                    jnp.asarray(v), causal=causal,
+                                                    interpret=True)
+    o, lse = tfa.flash_attention_with_lse(_t(q), _t(k), _t(v), causal=causal)
+    assert o.dtype == torch.float16 and lse.dtype == torch.float32
+    _rel_close(o.numpy(), want_o, F16_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------- the int8 model at f32 and f16
+
+@pytest.mark.parametrize("q_dtype", [np.float32, np.float16], ids=["f32", "f16"])
+@pytest.mark.parametrize("layout", ["static", "paged"])
+def test_int8_model_matches_reference_kernel(layout, q_dtype):
+    """The plain model of the kernels' int8 arithmetic against the
+    reference kernel at float32 and float16 q: K and V widened exactly (the
+    reference widens int8 to bfloat16 whatever q's type), the k-scale on the
+    scores, the v-scale on p after l, p rounded to bfloat16.  Inputs ~N(0,
+    0.3^2), as the reference's own int8 test draws them for this bound."""
+    if layout == "static":
+        q, k, v, off = _static(offsets=(0, 37, 255), dtype=np.float32, std=0.3)
+        (kq, ks), (vq, vs) = jkv._quantize_kv(jnp.asarray(k)), jkv._quantize_kv(jnp.asarray(v))
+        q = q.astype(q_dtype)
+        want = jda._decode_pallas(jnp.asarray(q), kq, vq, jnp.asarray(off), ks, vs, scale=SCALE,
+                                  bk=128, interpret=True)
+        got = tda._split_merge_dense(_t(q), _t(kq), _t(vq), _t(off), _t(ks), _t(vs), SCALE, 64)
+    else:
+        q, kp, vp, pt, off = _paged(S=3, offsets=(37, 300, 410), dtype=np.float32, std=0.3)
+        (kq, ks), (vq, vs) = jkv._quantize_kv(jnp.asarray(kp)), jkv._quantize_kv(jnp.asarray(vp))
+        q = q.astype(q_dtype)
+        want = jda._paged_pallas(jnp.asarray(q), kq, vq, jnp.asarray(off + 3), jnp.asarray(pt),
+                                 ks, vs, scale=SCALE, interpret=True)
+        tpt = _t(pt)
+        got = tda._split_merge_dense(
+            _t(q), tda.gather_pages(_t(kq), tpt), tda.gather_pages(_t(vq), tpt), _t(off),
+            tda.gather_pages(_t(ks), tpt), tda.gather_pages(_t(vs), tpt), SCALE, 192)
+    assert got.dtype == torch.from_numpy(q).dtype
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=INT8_TOL, atol=INT8_TOL)
+
+
+# ----------------------------------------------------------- admission
+
+def _cuh_list(name):
+    """The entries of ``#define name(X) X(..) X(..)`` in attention_simt.cuh."""
+    line = re.search(rf"^#define {name}\(X\)(.*)$", CUH.read_text(), re.M).group(1)
+    return [tuple(a.strip() for a in m.split(",")) for m in re.findall(r"X\(([^)]*)\)", line)]
+
+
+def test_admission_list_is_the_cuh_instantiations():
+    """ops/_simt.py's lists are the .cuh's SIMT_* lists, and every
+    instantiation admit() can return is one the .cuh builds: both row
+    tiles of every (q, kv) pair and head dim, and flash and the encoder at
+    every type and head dim."""
+    C = {v: k for k, v in _simt.C_TYPES.items()}
+    assert [(C[a], C[b]) for a, b in _cuh_list("SIMT_KV_PAIRS")] == list(_simt.KV_PAIRS)
+    assert [int(d) for (d,) in _cuh_list("SIMT_KV_DIMS")] == list(_simt.KV_DIMS)
+    assert [C[t] for (t,) in _cuh_list("SIMT_SEQ_TYPES")] == list(_simt.SEQ_TYPES)
+    assert [int(d) for (d,) in _cuh_list("SIMT_FLASH_DIMS")] == list(_simt.FLASH_DIMS)
+    assert [int(d) for (d,) in _cuh_list("SIMT_ENCODER_DIMS")] == list(_simt.ENCODER_DIMS)
+    built = {(f"attention_simt_{r}", q, kv, D, rows)
+             for r in ("decode", "paged") for q, kv in _simt.KV_PAIRS for D in _simt.KV_DIMS
+             for rows in (_simt.DECODE_ROWS, _simt.CHUNK_ROWS)}
+    built |= {("attention_simt_flash", t, t, D, _simt.CHUNK_ROWS)
+              for t in _simt.SEQ_TYPES for D in _simt.FLASH_DIMS}
+    built |= {("attention_simt_encoder", t, t, D, _simt.CHUNK_ROWS)
+              for t in _simt.SEQ_TYPES for D in _simt.ENCODER_DIMS}
+    admitted = {tuple(_simt.admit(r, q, kv, D, rows))
+                for r in ("decode", "paged") for q, kv in _simt.KV_PAIRS for D in _simt.KV_DIMS
+                for rows in (1, _simt.DECODE_ROWS, _simt.DECODE_ROWS + 1)}
+    admitted |= {tuple(_simt.admit(r, t, t, D)) for r, dims in (("flash", _simt.FLASH_DIMS),
+                                                              ("encoder", _simt.ENCODER_DIMS))
+                 for t in _simt.SEQ_TYPES for D in dims}
+    assert admitted == built
+    for lib in {b[0] for b in built}:  # each entry's source exists
+        assert (CUH.parent / f"{lib}.cu").is_file()
+
+
+@pytest.mark.parametrize("regime", ["decode", "paged"])
+def test_admission_picks_kernel_by_q_dtype(regime):
+    bf = _simt.admit(regime, torch.bfloat16, torch.int8, 128, 1)
+    assert not bf.simt and bf.lib == f"{regime}_attention"
+    for q, kv in _simt.KV_PAIRS:
+        got = _simt.admit(regime, q, kv, 128, 16)
+        assert got.simt and got.rows == 16 and (got.q, got.kv) == (q, kv)
+        assert _simt.admit(regime, q, kv, 64, 17).rows == 64
+    with pytest.raises(ValueError, match="pairs built"):  # no cast to reach a kernel
+        _simt.admit(regime, torch.float32, torch.float16, 128)
+    with pytest.raises(ValueError, match="Queue 2, item 9"):
+        _simt.admit(regime, torch.float32, torch.float32, 96)
+
+
+@pytest.mark.parametrize("regime", ["decode", "paged", "flash", "encoder"])
+def test_f64_q_refused_naming_admitted_dtypes(regime):
+    with pytest.raises(ValueError, match="bfloat16, float32, float16"):
+        _simt.admit(regime, torch.float64, torch.float64, 128)
+    q = torch.zeros(1, 128, 2, 64, dtype=torch.float64)
+    kernels = {"decode": lambda: tda.decode_attention_simt_kernel(
+                   q[:, :1], q.reshape(1, 2, 128, 64), q.reshape(1, 2, 128, 64),
+                   torch.ones(1, dtype=torch.int32)),
+               "paged": lambda: tda.paged_attention_simt_kernel(
+                   q[:, :1], q.reshape(1, 2, 128, 64), q.reshape(1, 2, 128, 64),
+                   torch.ones(1, dtype=torch.int32), torch.zeros(1, 1, dtype=torch.int32)),
+               "flash": lambda: tfa.flash_attention_simt_kernel(q, q, q),
+               "encoder": lambda: tea.encoder_attention_simt_kernel(q, q, q)}
+    with pytest.raises(ValueError, match="bfloat16, float32, float16"):
+        kernels[regime]()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
+def test_backward_refused_naming_queue_2_item_11(dtype):
+    """The backward kernels run at bfloat16 only; a float32 or float16
+    gradient raises before any launch, on any device."""
+    q = torch.zeros(1, 128, 2, 64, dtype=dtype)
+    lse = torch.zeros(1, 2, 128)
+    for regime in ("flash_bwd", "encoder_bwd"):
+        with pytest.raises(ValueError, match="Queue 2, item 11"):
+            _simt.admit(regime, dtype, dtype, 64)
+    for fn in (tfa.flash_attention_dq_kernel, tfa.flash_attention_dkv_kernel):
+        before = fn.launches
+        with pytest.raises(ValueError, match="Queue 2, item 11"):
+            fn(q, q, q, q, q, lse, causal=True)
+        assert fn.launches == before
+    with pytest.raises(ValueError, match="Queue 2, item 11"):
+        tfa.flash_attention_bwd_stats(q, q, lse)
+    with pytest.raises(ValueError, match="Queue 2, item 11"):
+        tea.encoder_attention_bwd_kernel(q, q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
+def test_simt_wrappers_reject_cpu_tensors(dtype):
+    """The CUDA-core wrappers launch on CUDA tensors only and never run the
+    plain version; a refused call does not count."""
+    q = torch.zeros(1, 128, 2, 64, dtype=dtype)
+    calls = [(tfa.flash_attention_simt_kernel, (q, q, q)),
+             (tea.encoder_attention_simt_kernel, (q, q, q)),
+             (tda.decode_attention_simt_kernel,
+              (q[:, :1], q.reshape(1, 2, 128, 64), q.reshape(1, 2, 128, 64),
+               torch.ones(1, dtype=torch.int32)))]
+    for fn, args in calls:
+        before = fn.launches
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            fn(*args)
+        assert fn.launches == before
+    with pytest.raises(ValueError, match="runs flash_attention_simt_kernel"):
+        tfa.flash_attention_kernel(q, q, q)  # the bf16 kernel takes no float32/float16
+
+
+# ------------------------------------------------- a float16 LLaMA served
+
+DIMS = dict(num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=512,
+            dtype="float16")
+ENGINE = dict(max_batch_slots=2, max_seq_len=512, kv_layout="paged", page_size=128,
+              prefill_chunk=128, prefix_cache=False)
+
+
+def test_f16_llama_paged_engine_tokens_equal_reference_engine():
+    """LLaMA at float16 (head dim 64) through the paged engine, whose pools
+    are float32 for a model that is not bfloat16 (the reference's rule):
+    float16 q against float32 pages, the pair the engines launch on the
+    card.  Greedy tokens equal the reference engine's, request by request."""
+    paddle.seed(13)
+    jm = JLlama(JConfig.tiny(**DIMS))
+    jm.eval()
+    ref = {k: np.asarray(v._value) for k, v in jm.state_dict().items()}
+    tm = load_reference_state(LlamaForCausalLM(LlamaConfig.tiny(**DIMS), device="cpu"), ref)
+    tm.eval()
+    assert next(tm.parameters()).dtype == torch.float16
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, 1024, n).astype(np.int32) for n in (200, 60, 140)]
+    outs = []
+    for cls, model in ((JEngine, jm), (LLMEngine, tm)):
+        eng = cls(model, **ENGINE)
+        futs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        eng.run_until_complete()
+        outs.append([f.result() for f in futs])
+    assert tm is not None and eng.caches[0][0].dtype == torch.float32
+    assert outs[1] == outs[0]
