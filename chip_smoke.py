@@ -57,7 +57,16 @@ Phases:
                     F32_RTOL, float16 within F16_RTOL, int8 within
                     KERNEL_RTOL["int8"]; planted faults outside; the same
                     bits twice; SDPA at the same dtype as the yardstick.
-  4. generate     — model.generate() at LLaMA-2-7B widths (32 layers, bf16,
+                    The three backward kernels at float32 and float16 (the
+                    f32 CUDA-core kernels of attention_simt_bwd.cuh, the
+                    ``*_simt`` rows, and flash's statistics pass): flash at
+                    [8, 2048, 16, 128] causal, Sq < Sk, the lse cotangent,
+                    head dim 64 and a ragged length; the encoder at ERNIE's
+                    shape with dropout 0.1 (and as packed views), the LLaMA
+                    b32_s512 microbatch, S = 128 causal at head dim 128 and
+                    S = 512 at head dim 64 with dropout; launches counted
+                    around each call; SDPA's backward as the yardstick.
+  4. generate     — model.generate() at LLaMA-2-7B widths (16 layers, bf16,
                     random weights from a seed): ids [4, 1024] (flash
                     prefill) on a bf16 and an int8 cache, and ids [8, 256]
                     (encoder prefill), 32 new tokens each, every decode
@@ -96,7 +105,7 @@ time goes.
                     vocab 50,304, bf16, random weights from seed 0):
                     generate() on ids [8, 256], the dense engine, and the
                     paged engine with the prefix cache and spec_k=4.
- 11. dtypes       — LLaMA-2-7B widths (32 layers, random weights) at
+ 11. dtypes       — LLaMA-2-7B widths (16 layers, random weights) at
                     float32, the config's default: generate() with ids
                     [4, 1024] on a float32 and an int8 static cache, the
                     dense engine's 12 requests, the paged engine's 12 and
@@ -120,6 +129,12 @@ time goes.
                     profiled; then B 32 x S 512 at accum_steps=2 with
                     ClipGradByGlobalNorm(1.0) (encoder forward and backward
                     24 a step).  Each loss finite, the last below the first.
+                    Then the same at float32, the config's default, through
+                    the CUDA-core kernels: parity at 2 layers within
+                    F32_GRAD_RTOL, B 8 x S 2048 and B 32 x S 512 at
+                    F32_TRAIN_STEPS timed steps (the cut: over a second a
+                    step); and the parity at float16 within F16_GRAD_RTOL
+                    (float16 training needs loss scaling, not ported).
  13. ernie        — bench.py's ERNIE-base pretraining (BertConfig.base(),
                     bf16, B 512 x S 128, 20 masked positions, dropout 0.1,
                     random weights and batch from seed 0): gradient parity
@@ -130,7 +145,11 @@ time goes.
                     weight_decay=0.01), 2 warm-up and 8 timed steps, fused
                     LN forward and backward 24 and encoder forward and
                     backward 12 launches a step with no copy of q, k or v,
-                    one step profiled.
+                    one step profiled.  Then all of it at float32 (the
+                    CUDA-core encoder kernels, the fused LN at f32;
+                    ERNIE_F32_STEPS timed steps), and the gradient parity
+                    at float16 with the LN composed on both sides (the
+                    fused-LN kernels take bf16 and f32).
  14. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
                     reaches the fused 1x1-conv + BN kernels: first one
                     bottleneck block at each stage's shape, fused against
@@ -162,9 +181,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak
-# The main paths' model and the engines' traffic: LLaMA-2-7B's depth, 12
+# The main paths' model and the engines' traffic: LLaMA-2-7B's widths at
+# half its depth (16 of 32 layers: the cut that keeps the whole script in
+# half its time limit since the float32 training runs came in), 12
 # requests on a bf16 cache, then 4 on an int8 cache.
-LAYERS, REQUESTS, INT8_REQUESTS = 32, 12, 4
+LAYERS, REQUESTS, INT8_REQUESTS = 16, 12, 4
 # Kernel inputs: q ~ N(0, 2.5^2), k and v ~ N(0, 1).  With the 1/sqrt(D)
 # scale the scores spread by about 2.5, so the softmax is far from uniform
 # and a row's last visible key often carries much of its weight.
@@ -210,6 +231,16 @@ KERNELS = {
                              "paddle_tpu/ops/flash_attention.py:45"),
     "encoder_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_encoder.cu",
                                "paddle_tpu/ops/encoder_attention.py:78"),
+    # the three backward TPU kernels at float32 and float16: f32 on the CUDA
+    # cores; the statistics pass is the dsum each of the flash ones takes first
+    "flash_attention_bwd_stats_simt": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
+                                       "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_dq_simt": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
+                                "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_dkv_simt": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
+                                 "paddle_tpu/ops/flash_attention.py:153"),
+    "encoder_attention_bwd_simt": ("paddle_tpu_torch/csrc/attention_simt_encoder_bwd.cu",
+                                   "paddle_tpu/ops/encoder_attention.py:101"),
 }
 # Backward kernels vs their plain versions: max |kernel - plain| over max
 # |plain|, for each of dQ, dK and dV, with dO ~ N(0, 1).  The kernels round
@@ -219,7 +250,7 @@ KERNELS = {
 # 0.157 or more (dlse ignored is the closest).
 BWD_RTOL = 1e-2
 # Logit drift: max |paged-path logit - no-cache-forward logit| over every
-# generated position of the greedy requests (both bf16 through 32 layers,
+# generated position of the greedy requests (both bf16 through the layers,
 # rounding in different orders).  Logits here are ~N(0, 0.5); sound runs on
 # an H100 drift by at most 0.041.
 LOGIT_TOL = 0.1
@@ -1786,6 +1817,219 @@ def simt_kernel_cases():
     return out
 
 
+# ------------------------------------- f32 and f16 backward (CUDA cores)
+
+# The f32 CUDA-core backward kernels (csrc/attention_simt_bwd.cuh) vs their
+# plain versions on the same values: max |kernel - plain| over max |plain|
+# for each of dQ, dK and dV (and the statistics pass's lse * log2(e) and
+# dsum), float32 within F32_RTOL (f32 sums in another order), float16
+# within F16_RTOL (the plain version rounds dS, and flash's P for dV, to
+# float16 where the kernels do, and both write float16: a rounding boundary
+# crossed in one and not the other moves a gradient by about 2^-11 of one
+# term).  The same bits twice; launches counted around each call.
+
+def counted(fn, counter, n):
+    """fn()'s result, and whether ``counter`` rose by exactly ``n`` in it."""
+    before = counter.launches
+    out = fn()
+    return out, counter.launches - before == n
+
+
+def simt_flash_bwd_case(name, B, H, Sq, Sk, D, causal, dtype, seed, with_dlse=False):
+    """The CUDA-core statistics pass, dq and dkv vs ``_flash_bwd_dense`` on O
+    and lse from the plain forward; planted faults as the bf16 cases' (dsum
+    taken as 0, each row's key range one short, dlse ignored).  Returns
+    {"stats", "dq", "dkv"} cases; SDPA's backward at the same dtype is the
+    yardstick."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = (torch.randn(B, Sq, H, D, generator=g, device="cuda") * Q_STD).to(dtype)
+    k, v = (torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype) for _ in range(2))
+    do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+    scale = 1.0 / D ** 0.5
+    o32, lse = fa._flash_dense(q.float(), k.float(), v.float(), causal, scale)
+    o, lse = o32.to(dtype), lse.contiguous()
+    dlse = torch.randn(B, H, Sq, generator=g, device="cuda") if with_dlse else None
+    args = (q, k, v, o, do, lse, causal, scale, dlse)
+    stats, n_st = counted(lambda: fa.flash_attention_simt_bwd_stats(o, do, lse, dlse),
+                          fa.flash_attention_simt_bwd_stats, 1)
+    dq, n_dq = counted(lambda: fa.flash_attention_simt_dq_kernel(*args, stats=stats),
+                       fa.flash_attention_simt_dq_kernel, 1)
+    (dk, dv), n_dkv = counted(lambda: fa.flash_attention_simt_dkv_kernel(*args, stats=stats),
+                              fa.flash_attention_simt_dkv_kernel, 1)
+    dq2 = fa.flash_attention_simt_dq_kernel(*args, stats=stats)  # the same bits twice
+    dk2, dv2 = fa.flash_attention_simt_dkv_kernel(*args, stats=stats)
+    torch.cuda.synchronize()
+    same = {"dq": bool(torch.equal(dq, dq2)),
+            "dkv": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))}
+    want = fa._flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse)
+    dsum = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())
+    if with_dlse:
+        dsum = dsum - dlse
+    want_stats = (lse.reshape(B * H, Sq) * math.log2(math.e), dsum.reshape(B * H, Sq))
+    ones = torch.ones(Sq, Sk, dtype=torch.bool, device="cuda")
+    vis = ones.tril(Sk - Sq) if causal else ones
+    if causal:
+        short = ones.tril(Sk - Sq - 1)
+    else:
+        short = ones.clone()
+        short[:, -1] = False
+    faults = {"dsum_zero": masked_attention_bwd(q, k, v, do, vis, scale, dlse, dsum_zero=True),
+              "causal_end_short": masked_attention_bwd(q, k, v, do, short, scale, dlse)}
+    if with_dlse:
+        faults["dlse_ignored"] = masked_attention_bwd(q, k, v, do, vis, scale)
+    tol = simt_tol(dtype, dtype)
+    shape = dict(kind="flash", B=B, H=H, Sq=Sq, Sk=Sk, D=D, causal=causal, dlse=with_dlse,
+                 dtype=TAGS[dtype])
+    stat_faults = {"lse_natural_log": (lse.reshape(B * H, Sq), want_stats[1]),
+                   "dsum_zero": (want_stats[0], torch.zeros_like(want_stats[1]))}
+    if with_dlse:
+        stat_faults["dlse_ignored"] = (want_stats[0], want_stats[1] + dlse.reshape(B * H, Sq))
+    res = {"stats": bwd_gate(name, (stats[0], stats[1]), want_stats, stat_faults, F32_RTOL,
+                             launches_counted=n_st, ok=n_st, **shape),
+           "dq": bwd_gate(name, (dq,), want[:1], {f: t[:1] for f, t in faults.items()}, tol,
+                          same_bits=same["dq"], launches_counted=n_dq,
+                          ok=same["dq"] and n_dq and dq.dtype == dtype, **shape),
+           "dkv": bwd_gate(name, (dk, dv), want[1:], {f: t[1:] for f, t in faults.items()},
+                           tol, same_bits=same["dkv"], launches_counted=n_dkv,
+                           ok=same["dkv"] and n_dkv and dk.dtype == dtype, **shape)}
+    plain_ms = cuda_ms(lambda: fa._flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse), 2)
+    library_ms = (None if with_dlse or (causal and Sq != Sk)
+                  else sdpa_bwd_ms(q, k, v, do, causal, 3))
+    pairs = B * H * visible_pairs(Sq, Sk, causal)
+    it = q.element_size()
+    nq, nk = B * Sq * H * D * it, B * Sk * H * D * it   # bytes of one q-side / k-side tensor
+    nstat = B * H * Sq * 4 * (2 if with_dlse else 1)
+    ins = 3 * nq + 2 * nk + nstat                       # q, o, dO, k, v, lse (, dlse)
+    key = rate_key(dtype)
+    for part, fn, nbytes, ops in (
+            ("stats", lambda: fa.flash_attention_simt_bwd_stats(o, do, lse, dlse),
+             2 * nq + nstat + 2 * B * H * Sq * 4, 2.0 * D * B * H * Sq),
+            ("dq", lambda: fa.flash_attention_simt_dq_kernel(*args, stats=stats),
+             ins + nq, 6.0 * D * pairs),
+            ("dkv", lambda: fa.flash_attention_simt_dkv_kernel(*args, stats=stats),
+             ins + 2 * nk, 8.0 * D * pairs)):
+        r = res[part]
+        r["ms"] = graph_ms(fn, iters=4, repeats=3, per_graph=4)
+        # no one PyTorch call computes the statistics pass's pair
+        r["plain_ms"], r["library_ms"] = plain_ms, None if part == "stats" else library_ms
+        r["bound_ms"], r["bound_by"], r["floors"] = bound3(nbytes, **{key: ops})
+    return res
+
+
+def simt_encoder_bwd_case(name, B, H, S, D, causal, dtype, seed, rate=0.0, packed=False):
+    """The CUDA-core encoder backward vs ``_encoder_bwd_dense`` on the same
+    values and mask, at S = 128 (one block a head) or S > 128 (the row and
+    column kernels, from the plain lse); planted faults: at rate 0 dsum taken
+    as 0 and each row's key range one short, with dropout the mask read one
+    key over, the seed words swapped and no mask.  ``packed``: q, k, v the
+    three strided slices of one [B, S, 3, H, D] tensor, read with no copy."""
+    from paddle_tpu_torch.ops import encoder_attention as ea
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if packed:
+        qkv = torch.randn(B, S, 3, H, D, generator=g, device="cuda")
+        qkv[:, :, 0] *= Q_STD
+        q, k, v = qkv.to(dtype).unbind(2)
+    else:
+        q = (torch.randn(B, S, H, D, generator=g, device="cuda") * Q_STD).to(dtype)
+        k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype) for _ in range(2))
+    do = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    scale = 1.0 / D ** 0.5
+    sd = seed_pair(g) if rate > 0 else None
+    keep = ea.dropout_keep(sd, B, H, S, rate) if rate > 0 else None
+    lse = ea._encoder_lse(q.float(), k.float(), scale, causal).contiguous()
+    copies0 = ea._check_inputs.copies
+
+    def kernel():
+        return ea.encoder_attention_simt_bwd_kernel(q, k, v, do, scale, causal, sd, rate, lse)
+
+    def plain(kp=keep, r=rate):
+        return ea._encoder_bwd_dense(q, k, v, do, scale, causal, kp, r)
+
+    got, n_launch = counted(kernel, ea.encoder_attention_simt_bwd_kernel, 1)
+    again = kernel()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    copies = ea._check_inputs.copies - copies0
+    if rate > 0:
+        swapped = ea.dropout_keep(sd.flip(0), B, H, S, rate)
+        faults = {"mask_shifted": plain(keep.roll(1, -1)), "seeds_swapped": plain(swapped),
+                  "no_mask": plain(None, 0.0)}
+    else:
+        ones = torch.ones(S, S, dtype=torch.bool, device="cuda")
+        vis = ones.tril() if causal else ones
+        if causal:
+            short = ones.tril(-1)
+            short[0, 0] = True  # row 0 keeps its one key
+        else:
+            short = ones.clone()
+            short[:, -1] = False
+        faults = {"dsum_zero": masked_attention_bwd(q, k, v, do, vis, scale, dsum_zero=True),
+                  "causal_end_short": masked_attention_bwd(q, k, v, do, short, scale)}
+    res = bwd_gate(name, got, plain(), faults, simt_tol(dtype, dtype), kind="encoder", B=B,
+                   H=H, Sq=S, Sk=S, D=D, causal=causal, rate=rate, packed=packed,
+                   dtype=TAGS[dtype], same_bits=same, input_copies=copies,
+                   launches_counted=n_launch,
+                   ok=same and n_launch and copies == 0 and got[0].dtype == dtype)
+    if keep is not None:
+        add_keep(keep, rate, res)
+    res["ms"] = graph_ms(kernel, iters=4, repeats=3, per_graph=4)
+    res["plain_ms"] = cuda_ms(plain, 2)
+    # SDPA's float32 backward with dropout faults inside a CUDA graph on the
+    # card (an illegal address at replay): timed with events there
+    res["library_ms"] = sdpa_bwd_ms(q, k, v, do, causal, 3, dropout_p=rate, graph=rate == 0)
+    pairs = B * H * visible_pairs(S, S, causal)
+    n = B * S * H * D * q.element_size()
+    res["bound_ms"], res["bound_by"], res["floors"] = bound3(
+        7 * n + (B * H * S * 4 if S > 128 else 0), **{rate_key(dtype): 10.0 * D * pairs},
+        philox_calls=pairs // 4 if rate > 0 else 0)
+    return res
+
+
+SIMT_BWD_KERNELS = ("flash_attention_bwd_stats_simt", "flash_attention_dq_simt",
+                    "flash_attention_dkv_simt", "encoder_attention_bwd_simt")
+
+
+def simt_bwd_kernel_cases():
+    """The CUDA-core backward kernels' cases at float32 and float16, the
+    main paths' shapes, the float32 case each main path runs most first:
+    flash at the LLaMA step's [8, 2048, 16, 128] causal, Sq < Sk, the lse
+    cotangent, head dim 64 and a ragged length; the encoder at ERNIE's
+    [512, 128, 12, 64] with dropout 0.1 (and as BERT's packed views), the
+    LLaMA b32_s512 microbatch [16, 512, 16, 128] causal, S = 128 causal at
+    head dim 128 and S = 512 at head dim 64 with dropout."""
+    f32, f16 = torch.float32, torch.float16
+    out = {k: [] for k in SIMT_BWD_KERNELS}
+    for i, (name, B, H, Sq, Sk, D, causal, dlse, dts) in enumerate([
+            ("train_s2048", 8, 16, 2048, 2048, 128, True, False, (f32, f16)),  # the step's
+            ("sq1024_sk2048_causal", 1, 32, 1024, 2048, 128, True, False, (f32, f16)),
+            ("s2048_dlse", 2, 16, 2048, 2048, 128, True, True, (f32, f16)),
+            ("bh64_s1024_d64", 2, 32, 1024, 1024, 64, True, False, (f32,)),
+            ("sq1024_sk1536_full", 1, 16, 1024, 1536, 128, False, False, (f16,)),
+            ("s264_ragged_causal", 2, 8, 264, 264, 128, True, False, (f32,))]):
+        for dt in dts:
+            r = simt_flash_bwd_case(f"{name}_{TAGS[dt]}", B, H, Sq, Sk, D, causal, dt, 160 + i,
+                                    dlse)
+            for part, kern in (("stats", "flash_attention_bwd_stats_simt"),
+                               ("dq", "flash_attention_dq_simt"),
+                               ("dkv", "flash_attention_dkv_simt")):
+                out[kern].append(r[part])
+                log_case(kern, r[part])
+    for i, (name, B, H, S, D, causal, rate, packed, dts) in enumerate([
+            ("ernie_drop", 512, 12, 128, 64, False, DROP_RATE, False, (f32, f16)),  # ERNIE's
+            ("ernie_packed_qkv_drop", 512, 12, 128, 64, False, DROP_RATE, True, (f32,)),
+            ("train_s512", 16, 16, 512, 128, True, 0.0, False, (f32, f16)),  # LLaMA's b32_s512
+            ("b16_s128_d128_causal", 16, 16, 128, 128, True, 0.0, False, (f32, f16)),
+            ("b8_s512_d64_full_drop", 8, 12, 512, 64, False, DROP_RATE, False, (f32, f16))]):
+        for dt in dts:
+            out["encoder_attention_bwd_simt"].append(simt_encoder_bwd_case(
+                f"{name}_{TAGS[dt]}", B, H, S, D, causal, dt, 180 + i, rate=rate, packed=packed))
+            log_case("encoder_attention_bwd_simt", out["encoder_attention_bwd_simt"][-1])
+    return out
+
+
 def kernel_phase():
     """Every kernel against its plain version at the main paths' shapes.
     Returns {kernel name: [case, ...]}; the first case of each is the one
@@ -1829,6 +2073,7 @@ def kernel_phase():
     out["philox"] = [philox_case()]
     out.update(conv_bn_kernel_cases())
     out.update(simt_kernel_cases())
+    out.update(simt_bwd_kernel_cases())
     zero_counts()  # comparison launches do not count
     return out
 
@@ -1904,7 +2149,11 @@ def counters():
             "paged_attention_simt": da.paged_attention_simt_kernel,
             "decode_attention_simt": da.decode_attention_simt_kernel,
             "flash_attention_simt": fa.flash_attention_simt_kernel,
-            "encoder_attention_simt": ea.encoder_attention_simt_kernel}
+            "encoder_attention_simt": ea.encoder_attention_simt_kernel,
+            "flash_attention_bwd_stats_simt": fa.flash_attention_simt_bwd_stats,
+            "flash_attention_dq_simt": fa.flash_attention_simt_dq_kernel,
+            "flash_attention_dkv_simt": fa.flash_attention_simt_dkv_kernel,
+            "encoder_attention_bwd_simt": ea.encoder_attention_simt_bwd_kernel}
 
 
 def zero_counts():
@@ -2725,6 +2974,25 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # set from the measured spread; a gradient that misses a term (the planted
 # faults of the kernel phase) is off by 0.16 or more.
 GRAD_RTOL = 5e-2
+# The same parity of float32 models (the config's default), through the
+# CUDA-core kernels against dense math in f32: nothing rounds to 16 bits on
+# either side, so only the order of f32 sums differs.  Float16 models round
+# every activation to float16 (three more mantissa bits than bf16), and the
+# dense path takes its scores in float16 where the kernels take them in f32.
+F32_GRAD_RTOL = 1e-3
+F16_GRAD_RTOL = 2e-2
+# Float16 gradients of this loss underflow: dlogits is about 1 / (B S V),
+# 8e-9 at B 2 x S 2048 and vocab 32,000, under float16's smallest
+# subnormal (6e-8), and the weights' gradients (medians 2e-5 to 5e-5 on
+# this model in f32) are subnormal.  So the float16 parity backpropagates
+# from a loss gradient of 2^15 on both sides, a GradScaler's scaling (not
+# ported, ROADMAP Queue 1 item 6) applied by hand; the largest scaled
+# gradient is then about 180, far from float16's 65,504.
+F16_GRAD_SCALE = 2.0 ** 15
+# Float32 training at full width: an f32 step of bench.py's LLaMA does about
+# 73 TFLOP of matmul (6 x 738 M x 16,384 tokens) at the f32 rate without
+# TF32, over a second a step, so the timed steps are cut (not the width).
+F32_TRAIN_WARMUP, F32_TRAIN_STEPS = 1, 3
 
 
 def sync():
@@ -2763,10 +3031,11 @@ def lm_loss(model):
     return loss_fn
 
 
-def grad_parity(model, B, S, seed, expected):
+def grad_parity(model, B, S, seed, expected, tol=GRAD_RTOL, grad_scale=1.0):
     """Every parameter's gradient through the kernels against the same
     model's with dense-math attention (use_flash_attention=False), an
-    oracle that runs none of the kernels under test."""
+    oracle that runs none of the kernels under test, within ``tol``; both
+    backpropagate from a loss gradient of ``grad_scale``."""
     cfg = model.config
     ids, labels = token_batch(cfg, B, S, seed, model.device)
     names, params = zip(*model.named_parameters())
@@ -2777,7 +3046,7 @@ def grad_parity(model, B, S, seed, expected):
             cfg.use_flash_attention = kern
             zero_counts()
             loss = loss_fn(ids, labels)
-            grads[kern] = torch.autograd.grad(loss, params)
+            grads[kern] = torch.autograd.grad(loss, params, torch.full_like(loss, grad_scale))
             sync()
             launches[kern], losses[kern] = read_counts(), float(loss.detach())
     finally:
@@ -2787,12 +3056,13 @@ def grad_parity(model, B, S, seed, expected):
     worst = max(rel, key=rel.get)
     finite = all(bool(torch.isfinite(g).all()) for g in grads[True])
     ordered = sorted(rel.values())
-    return dict(B=B, S=S, layers=cfg.num_hidden_layers, loss_kernels=losses[True],
+    return dict(B=B, S=S, layers=cfg.num_hidden_layers, dtype=TAGS[model_dtype(model)],
+                grad_scale=grad_scale, loss_kernels=losses[True],
                 loss_dense=losses[False], max_rel=rel[worst], worst_param=worst,
-                median_rel=ordered[len(ordered) // 2], tol=GRAD_RTOL, finite=finite,
+                median_rel=ordered[len(ordered) // 2], tol=tol, finite=finite,
                 launches=launches[True], expected_launches=expected,
                 dense_launches=launches[False],
-                ok=(finite and rel[worst] <= GRAD_RTOL and launch_check(launches[True], expected)
+                ok=(finite and rel[worst] <= tol and launch_check(launches[True], expected)
                     and not any(launches[False].values())))
 
 
@@ -2800,14 +3070,16 @@ def train_kind(name):
     low = name.lower()
     if "fused_ln_fwd_kernel" in low or "fused_ln_bwd_kernel" in low:
         return low[low.index("fused_ln_"):][:12]  # fused_ln_fwd / fused_ln_bwd
-    if "flash_fwd_kernel" in low or "encoder_fwd" in low:
-        return "attention_fwd"
     # flash_dq_kernel, flash_dkv_kernel, flash_dsum_kernel (the wgmma
     # backward and its statistics pass); the encoder's encoder_bwd_head
-    # (S = 128), encoder_dq and encoder_dkv (S > 128)
+    # (S = 128), encoder_dq and encoder_dkv (S > 128); the CUDA-core
+    # simt_attention_bwd and simt_flash_stats (float32 and float16)
     if any(w in low for w in ("dq_kernel", "dkv_kernel", "dsum_kernel", "encoder_bwd_head",
-                              "encoder_dq", "encoder_dkv")):
+                              "encoder_dq", "encoder_dkv", "simt_attention_bwd",
+                              "simt_flash_stats")):
         return "attention_bwd"
+    if any(w in low for w in ("flash_fwd_kernel", "encoder_fwd", "simt_attention<")):
+        return "attention_fwd"
     if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")):
         return "matmul"
     return "other"
@@ -2914,6 +3186,8 @@ def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN
                params=model.num_params, warmup=warmup, steps=steps, losses=losses,
                step_ms=step_ms, step_ms_all=ms, tokens_per_s=tokens / step_ms * 1e3,
                flops_per_step=flops, mfu=flops / (step_ms / 1e3) / H100_BF16_FLOPS,
+               f32_peak_share=flops / (step_ms / 1e3) / H100_F32_FLOPS,
+               dtype=TAGS[model_dtype(model)],
                peak_mem_bytes=(torch.cuda.max_memory_allocated()
                                if torch.cuda.is_available() else None),
                launches=launches, expected_launches=expected, encoder_input_copies=copies)
@@ -2924,51 +3198,81 @@ def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN
     return res
 
 
+def flash_launches(n, dtype):
+    """Expected launches of ``n`` flash forwards and backwards at q's dtype:
+    the bf16 kernels, or the CUDA-core ones with their statistics pass."""
+    kerns = ["flash_attention", "flash_attention_dq", "flash_attention_dkv"]
+    if dtype != torch.bfloat16:
+        kerns.append("flash_attention_bwd_stats")
+    return {kernel_for(k, dtype): n for k in kerns}
+
+
+def encoder_launches(n, dtype):
+    return {kernel_for(k, dtype): n for k in ("encoder_attention", "encoder_attention_bwd")}
+
+
+def log_parity(r, card):
+    log(f"  grad parity {r['dtype']} S {r['S']}, {r['layers']} layers, loss gradient "
+        f"{r['grad_scale']:g}: max rel "
+        f"{r['max_rel']:.3e} ({r['worst_param']}), median {r['median_rel']:.3e} (tol "
+        f"{r['tol']}); loss {r['loss_kernels']:.4f} vs dense {r['loss_dense']:.4f}; launches "
+        f"{r['launches']} (expected {r['expected_launches']}); "
+        f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
+
+
+def log_train_run(r, card):
+    log(f"  {r['name']}: step {r['step_ms']:.1f} ms (median of {r['steps']}), "
+        f"{r['tokens_per_s']:.0f} tok/s, MFU {r['mfu']:.4f} (of bf16 peak; "
+        f"{r['f32_peak_share']:.4f} of the f32 peak), peak "
+        f"{(r['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; loss {r['losses'][0]:.4f} -> "
+        f"{r['losses'][-1]:.4f}; launches {r['launches']} (expected "
+        f"{r['expected_launches']}); profile {json.dumps(r.get('profile'))}; "
+        f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
+
+
 def train_phase(card, device="cuda", layers=12, parity_layers=2, **over):
     """Gradient parity at ``parity_layers`` layers (S 2048: flash; S 512:
     encoder), then the training runs at ``layers``: B 8 x S 2048, and B 32 x
     S 512 at accum_steps=2 with ClipGradByGlobalNorm(1.0) (the same 16,384
-    tokens a step)."""
+    tokens a step); first in bf16, then in float32 (the config's default,
+    through the CUDA-core kernels, F32_TRAIN_STEPS timed steps), and the
+    parity once more in float16."""
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 
-    small = train_model(parity_layers, device, **over)
     L = parity_layers
-    parity = [grad_parity(small, 2, 2048, 3, {"flash_attention": L, "flash_attention_dq": L,
-                                              "flash_attention_dkv": L}),
-              grad_parity(small, 2, 512, 4, {"encoder_attention": L,
-                                             "encoder_attention_bwd": L})]
-    del small
-    for r in parity:
-        log(f"  grad parity S {r['S']}, {r['layers']} layers: max rel {r['max_rel']:.3e} "
-            f"({r['worst_param']}), median {r['median_rel']:.3e} (tol {r['tol']}); loss "
-            f"{r['loss_kernels']:.4f} vs dense {r['loss_dense']:.4f}; launches "
-            f"{r['launches']} (expected {r['expected_launches']}); "
-            f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
-    if torch.cuda.is_available():
-        torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    model = train_model(layers, device, **over)
-    sync()
-    log(f"  model: {model.num_params / 1e6:.1f} M params, {layers} layers, "
-        f"{model.config.dtype}, init "
-        f"{time.perf_counter() - t0:.1f} s")
-    runs = [train_run(model, "b8_s2048", 8, 2048, 0, {"flash_attention": layers,
-                                                      "flash_attention_dq": layers,
-                                                      "flash_attention_dkv": layers},
-                      profiled=True),
-            train_run(model, "b32_s512_accum2_clip", 32, 512, 1,
-                      {"encoder_attention": 2 * layers, "encoder_attention_bwd": 2 * layers},
-                      steps=5, accum_steps=2, grad_clip=ClipGradByGlobalNorm(1.0))]
-    del model
-    if torch.cuda.is_available():
-        torch.cuda.empty_cache()
-    for r in runs:
-        log(f"  {r['name']}: step {r['step_ms']:.1f} ms (median of {r['steps']}), "
-            f"{r['tokens_per_s']:.0f} tok/s, MFU {r['mfu']:.4f}, peak "
-            f"{(r['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; loss {r['losses'][0]:.4f} -> "
-            f"{r['losses'][-1]:.4f}; launches {r['launches']} (expected "
-            f"{r['expected_launches']}); profile {json.dumps(r.get('profile'))}; "
-            f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
+    parity, runs = [], []
+    for dt, tol, scale in (("bfloat16", GRAD_RTOL, 1.0), ("float32", F32_GRAD_RTOL, 1.0),
+                           ("float16", F16_GRAD_RTOL, F16_GRAD_SCALE)):
+        small = train_model(parity_layers, device, **{**over, "dtype": dt})
+        tdt = model_dtype(small)
+        parity += [grad_parity(small, 2, 2048, 3, flash_launches(L, tdt), tol, scale),
+                   grad_parity(small, 2, 512, 4, encoder_launches(L, tdt), tol, scale)]
+        del small
+        for r in parity[-2:]:
+            log_parity(r, card)
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        if dt == "float16":
+            break  # float16 training needs loss scaling (ROADMAP Queue 1, item 6)
+        t0 = time.perf_counter()
+        model = train_model(layers, device, **{**over, "dtype": dt})
+        sync()
+        log(f"  model: {model.num_params / 1e6:.1f} M params, {layers} layers, "
+            f"{model.config.dtype}, init {time.perf_counter() - t0:.1f} s")
+        steps, warmup = ((TRAIN_STEPS, TRAIN_WARMUP) if dt == "bfloat16"
+                         else (F32_TRAIN_STEPS, F32_TRAIN_WARMUP))
+        tag = "" if dt == "bfloat16" else f"_{TAGS[tdt]}"
+        part = [train_run(model, f"b8_s2048{tag}", 8, 2048, 0, flash_launches(layers, tdt),
+                          steps=steps, warmup=warmup, profiled=True),
+                train_run(model, f"b32_s512_accum2_clip{tag}", 32, 512, 1,
+                          encoder_launches(2 * layers, tdt), steps=min(steps, 5),
+                          warmup=warmup, accum_steps=2, grad_clip=ClipGradByGlobalNorm(1.0))]
+        del model
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        for r in part:
+            log_train_run(r, card)
+        runs += part
     return parity, runs
 
 
@@ -2981,6 +3285,8 @@ def train_phase(card, device="cuda", layers=12, parity_layers=2, **over):
 # positions a sequence, random weights and batch from seed 0.
 ERNIE_B, ERNIE_S, ERNIE_P = 512, 128, 20
 ERNIE_WARMUP, ERNIE_STEPS = 2, 8
+# At float32 (about a second a step: 35.8 TFLOP at the f32 rate), fewer.
+ERNIE_F32_WARMUP, ERNIE_F32_STEPS = 1, 4
 # The eval forward's MLM logits against the composed/dense forward's.  With
 # the decoder tied to an N(0, 1) embedding the logits spread by about
 # sqrt(768) = 28 (LLaMA's by 0.5), so LOGIT_TOL applies in units of the
@@ -2990,14 +3296,19 @@ ERNIE_WARMUP, ERNIE_STEPS = 2, 8
 class composed_paths:
     """Inside: attention takes the dense math and the dropout + add + LN
     the composed math, on every device, so that a run goes through no
-    kernel under test (the oracle of the ernie phase).  The port has no
-    switch of its own for this, as the reference has none."""
+    kernel under test (the oracle of the ernie phase); with
+    ``attention=False`` only the LN is composed.  The port has no switch of
+    its own for this, as the reference has none."""
+
+    def __init__(self, attention=True):
+        self.attention = attention
 
     def __enter__(self):
         from paddle_tpu_torch.nn.functional import attention, norm
 
         self._saved = (attention._reference_kernel, norm._use_fused_kernel)
-        attention._reference_kernel = lambda *a, **k: None
+        if self.attention:
+            attention._reference_kernel = lambda *a, **k: None
         norm._use_fused_kernel = lambda *a, **k: False
         return self
 
@@ -3057,14 +3368,19 @@ def ernie_flops(cfg, B, S, P):
             + 3 * 4 * B * S * S * h * L)
 
 
-def ernie_per_layer(L):
-    return {"fused_ln": 2 * L, "fused_ln_bwd": 2 * L, "encoder_attention": L,
-            "encoder_attention_bwd": L}
+def ernie_per_layer(L, dtype=torch.bfloat16, fused_ln=True):
+    """Launches of one step of an ``L``-layer ERNIE at ``dtype``: the fused
+    LN kernels (unless composed) and the encoder kernels of that type."""
+    out = {"fused_ln": 2 * L, "fused_ln_bwd": 2 * L} if fused_ln else {}
+    return {**out, **encoder_launches(L, dtype)}
 
 
-def ernie_grad_parity(model, batch):
+def ernie_grad_parity(model, batch, tol=GRAD_RTOL, fused_ln=True):
     """Every parameter's gradient through the kernels against the same
-    model's through the composed/dense paths, at rate 0."""
+    model's through the composed/dense paths, at rate 0, within ``tol``;
+    with ``fused_ln=False`` the LN is composed on both sides (float16, which
+    the fused-LN kernels do not take), so the run holds the attention
+    kernels alone."""
     L = model.config.num_hidden_layers
     names, params = zip(*model.named_parameters())
     loss_fn = ernie_loss(model)
@@ -3075,11 +3391,11 @@ def ernie_grad_parity(model, batch):
 
     for kern in (True, False):
         zero_counts()
-        if kern:
+        if kern and fused_ln:
             loss = loss_fn(*batch)
             grads[kern] = grad(loss)
         else:
-            with composed_paths():
+            with composed_paths(attention=not kern):
                 loss = loss_fn(*batch)
                 grads[kern] = grad(loss)
         sync()
@@ -3089,13 +3405,14 @@ def ernie_grad_parity(model, batch):
     worst = max(rel, key=rel.get)
     finite = all(bool(torch.isfinite(g).all()) for g in grads[True])
     ordered = sorted(rel.values())
-    expected = ernie_per_layer(L)
-    return dict(layers=L, B=batch[0].shape[0], loss_kernels=losses[True],
+    expected = ernie_per_layer(L, model_dtype(model), fused_ln)
+    return dict(layers=L, B=batch[0].shape[0], dtype=TAGS[model_dtype(model)],
+                fused_ln=fused_ln, loss_kernels=losses[True],
                 loss_composed=losses[False], max_rel=rel[worst], worst_param=worst,
-                median_rel=ordered[len(ordered) // 2], tol=GRAD_RTOL, finite=finite,
+                median_rel=ordered[len(ordered) // 2], tol=tol, finite=finite,
                 launches=launches[True], expected_launches=expected,
                 composed_launches=launches[False],
-                ok=(finite and rel[worst] <= GRAD_RTOL and launch_check(launches[True], expected)
+                ok=(finite and rel[worst] <= tol and launch_check(launches[True], expected)
                     and not any(launches[False].values())))
 
 
@@ -3167,12 +3484,15 @@ def ernie_train(model, batch, steps=ERNIE_STEPS, warmup=ERNIE_WARMUP, profiled=T
     P = batch[2].shape[1]
     step_ms = sorted(ms)[len(ms) // 2]
     flops = ernie_flops(cfg, B, S, P)
-    expected = {k: n * steps for k, n in ernie_per_layer(cfg.num_hidden_layers).items()}
-    res = dict(path="ernie", name=f"b{B}_s{S}_p{P}_drop{cfg.hidden_dropout_prob}", B=B, S=S,
+    dt = model_dtype(model)
+    expected = {k: n * steps for k, n in ernie_per_layer(cfg.num_hidden_layers, dt).items()}
+    tag = "" if dt == torch.bfloat16 else f"_{TAGS[dt]}"
+    res = dict(path="ernie", name=f"b{B}_s{S}_p{P}_drop{cfg.hidden_dropout_prob}{tag}", B=B, S=S,
                masked_per_seq=P, layers=cfg.num_hidden_layers, params=model.num_params,
                warmup=warmup, steps=steps, losses=losses, step_ms=step_ms, step_ms_all=ms,
                tokens_per_s=B * S / step_ms * 1e3, flops_per_step=flops,
                mfu=flops / (step_ms / 1e3) / H100_BF16_FLOPS,
+               f32_peak_share=flops / (step_ms / 1e3) / H100_F32_FLOPS, dtype=TAGS[dt],
                peak_mem_bytes=(torch.cuda.max_memory_allocated()
                                if torch.cuda.is_available() else None),
                launches=launches, expected_launches=expected, encoder_input_copies=copies)
@@ -3185,20 +3505,28 @@ def ernie_train(model, batch, steps=ERNIE_STEPS, warmup=ERNIE_WARMUP, profiled=T
     return res
 
 
+def log_ernie_parity(parity, card):
+    log(f"  grad parity {parity['dtype']}, {parity['layers']} layers, rate 0"
+        f"{'' if parity['fused_ln'] else ', LN composed on both sides'}: max rel "
+        f"{parity['max_rel']:.3e} ({parity['worst_param']}), median {parity['median_rel']:.3e} "
+        f"(tol {parity['tol']}); loss {parity['loss_kernels']:.4f} vs composed "
+        f"{parity['loss_composed']:.4f}; launches {parity['launches']} (expected "
+        f"{parity['expected_launches']}); {'ok' if parity['ok'] else 'FAIL'} [{card}]")
+
+
 def ernie_phase(card, device="cuda", layers=12, parity_layers=2, B=ERNIE_B, S=ERNIE_S,
-                P=ERNIE_P, dtype=torch.bfloat16, **over):
-    """bench.py's ERNIE pretraining: gradient parity at ``parity_layers``
+                P=ERNIE_P, dtype=torch.bfloat16, steps=ERNIE_STEPS, warmup=ERNIE_WARMUP,
+                **over):
+    """bench.py's ERNIE pretraining at ``dtype`` (bf16, or float32 through
+    the CUDA-core encoder kernels): gradient parity at ``parity_layers``
     layers and rate 0, determinism at rate 0.1, the eval forward and the
-    training run at ``layers`` layers."""
+    training run at ``layers`` layers, ``steps`` timed steps."""
+    f32 = dtype == torch.float32
     small = ernie_model(parity_layers, device, dtype, dropout=False, **over)
     batch = ernie_batch(small.config, B, S, P, 0, device)
-    parity = ernie_grad_parity(small, batch)
+    parity = ernie_grad_parity(small, batch, F32_GRAD_RTOL if f32 else GRAD_RTOL)
     del small
-    log(f"  grad parity, {parity['layers']} layers, rate 0: max rel {parity['max_rel']:.3e} "
-        f"({parity['worst_param']}), median {parity['median_rel']:.3e} (tol {parity['tol']}); "
-        f"loss {parity['loss_kernels']:.4f} vs composed {parity['loss_composed']:.4f}; "
-        f"launches {parity['launches']} (expected {parity['expected_launches']}); "
-        f"{'ok' if parity['ok'] else 'FAIL'} [{card}]")
+    log_ernie_parity(parity, card)
     small = ernie_model(parity_layers, device, dtype, **over)
     determinism = ernie_determinism(small, batch)
     del small
@@ -3214,23 +3542,40 @@ def ernie_phase(card, device="cuda", layers=12, parity_layers=2, B=ERNIE_B, S=ER
     sync()
     log(f"  model: {model.num_params / 1e6:.1f} M params, {layers} layers, {dtype}, "
         f"init {time.perf_counter() - t0:.1f} s")
-    ev = ernie_eval(model, batch)
+    ev = ernie_eval(model, batch, tol=F32_LOGIT_TOL if f32 else LOGIT_TOL)
     log(f"  eval forward, {ev['layers']} layers: MLM logits {ev['logits_shape']}, drift max "
         f"{ev['max_logit_drift']:.4f} = {ev['drift_in_std']:.4f} std (std "
-        f"{ev['logit_std']:.3f}; tol {LOGIT_TOL} std); launches {ev['launches']} (expected "
-        f"{ev['expected_launches']}); {'ok' if ev['ok'] else 'FAIL'} [{card}]")
-    run = ernie_train(model, batch, profiled=device != "cpu")
+        f"{ev['logit_std']:.3f}; tol {ev['logit_tol_in_std']} std); launches {ev['launches']} "
+        f"(expected {ev['expected_launches']}); {'ok' if ev['ok'] else 'FAIL'} [{card}]")
+    run = ernie_train(model, batch, steps, warmup, profiled=device != "cpu")
     del model
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     log(f"  {run['name']}: step {run['step_ms']:.2f} ms (median of {run['steps']}), "
-        f"{run['tokens_per_s']:.0f} tok/s, MFU {run['mfu']:.4f}, peak "
+        f"{run['tokens_per_s']:.0f} tok/s, MFU {run['mfu']:.4f} ({run['f32_peak_share']:.4f} "
+        f"of the f32 peak), peak "
         f"{(run['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; loss {run['losses'][0]:.4f} -> "
         f"{run['losses'][-1]:.4f}; launches {run['launches']} (expected "
         f"{run['expected_launches']}); encoder input copies {run['encoder_input_copies']} "
         f"(expected 0); profile {json.dumps(run.get('profile'))}; "
         f"{'ok' if run['ok'] else 'FAIL'} [{card}]")
     return dict(grad_parity=parity, determinism=determinism, eval=ev), [run]
+
+
+def ernie_f16_parity(card, device="cuda", parity_layers=2, B=ERNIE_B, S=ERNIE_S, P=ERNIE_P,
+                     **over):
+    """ERNIE at float16, gradient parity only (training at float16 needs
+    loss scaling, ROADMAP Queue 1 item 6): the encoder kernels at float16
+    against the dense math at rate 0, the LN composed on both sides (the
+    fused-LN kernels take bf16 and float32)."""
+    small = ernie_model(parity_layers, device, torch.float16, dropout=False, **over)
+    parity = ernie_grad_parity(small, ernie_batch(small.config, B, S, P, 0, device),
+                               F16_GRAD_RTOL, fused_ln=False)
+    del small
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    log_ernie_parity(parity, card)
+    return parity
 
 
 # ----------------------------------------------------------------- resnet
@@ -3527,7 +3872,7 @@ def log_dtype_run(r, card):
 
 
 def dtypes_phase(card):
-    """LLaMA-2-7B widths, 32 layers, at float32 (the config's default):
+    """LLaMA-2-7B widths, LAYERS layers, at float32 (the config's default):
     generate() on a float32 and an int8 static cache, the dense engine's 12
     requests, the paged engine's 12 and then 4 on an int8 pool, the
     no-cache forward at [1, 2048] (flash) and [4, 512] (the encoder), and
@@ -3592,6 +3937,12 @@ PATH_PHASES = {"dense_engine": dense_engine_phase, "paged_engine": paged_engine_
                "ticks": ticks_phase, "prefix": prefix_phase, "spec": spec_phase}
 
 
+def phase_done(report, name, t0):
+    """Record and log a phase's wall seconds (the command's time budget)."""
+    report.setdefault("phase_s", {})[name] = time.perf_counter() - t0
+    log(f"[{name}] {report['phase_s'][name]:.1f} s")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3641,6 +3992,7 @@ def main(argv=None):
             log("[build] FAIL: ptxas spills in a Hopper library: " + "; ".join(spills))
             ok = False
     if "kernels" in phases:
+        t_ph = time.perf_counter()
         log("[kernels] every kernel vs its plain version")
         report["kernels"] = kernel_phase()
         ok &= all(c["ok"] for cases in report["kernels"].values() for c in cases)
@@ -3649,10 +4001,12 @@ def main(argv=None):
         for name, op in missing:
             log(f"[kernels] FAIL: the {name} library has no {op} instruction")
         ok &= not missing
+        phase_done(report, "kernels", t_ph)
     serving = [ph for ph in paths if ph not in ("gpt", "dtypes", "train", "ernie", "resnet")]
     if serving:
         model = build_model()
         for ph in serving:
+            t_ph = time.perf_counter()
             log(f"[{ph}] LLaMA-2-7B widths through {PATH_TITLES[ph]}")
             if ph == "generate":
                 runs = generate_phase(model, report["card"])
@@ -3662,35 +4016,53 @@ def main(argv=None):
                     report[f"{ph}_decode_tick"] = tick
             report["paths"] += runs
             ok &= all(r["ok"] for r in runs)
+            phase_done(report, ph, t_ph)
         del model
         torch.cuda.empty_cache()
     if "gpt" in paths:
+        t_ph = time.perf_counter()
         log("[gpt] GPTConfig() (hidden 768, 12 layers) through generate() and both engines")
         runs = gpt_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in runs)
+        phase_done(report, "gpt", t_ph)
     if "dtypes" in paths:
+        t_ph = time.perf_counter()
         log("[dtypes] LLaMA-2-7B widths at float32 and float16, BERT-base at float32, "
             "through the f32 CUDA-core attention kernels")
         runs, report["dtypes"] = dtypes_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in runs)
+        phase_done(report, "dtypes", t_ph)
     if "train" in paths:
+        t_ph = time.perf_counter()
         log("[train] bench.py's LLaMA training configuration through TrainStep + AdamW")
         report["train_grad_parity"], runs = train_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in report["train_grad_parity"] + runs)
+        phase_done(report, "train", t_ph)
     if "ernie" in paths:
-        log("[ernie] bench.py's ERNIE-base pretraining through TrainStep + AdamW")
+        t_ph = time.perf_counter()
+        log("[ernie] bench.py's ERNIE-base pretraining through TrainStep + AdamW, bf16 and "
+            "float32; float16 gradient parity")
         report["ernie_checks"], runs = ernie_phase(report["card"])
+        report["ernie_f32_checks"], f32_runs = ernie_phase(
+            report["card"], dtype=torch.float32, steps=ERNIE_F32_STEPS, warmup=ERNIE_F32_WARMUP)
+        report["ernie_f16_parity"] = ernie_f16_parity(report["card"])
+        runs += f32_runs
         report["paths"] += runs
-        ok &= all(r["ok"] for r in list(report["ernie_checks"].values()) + runs)
+        ok &= all(r["ok"] for r in list(report["ernie_checks"].values())
+                  + list(report["ernie_f32_checks"].values())
+                  + [report["ernie_f16_parity"]] + runs)
+        phase_done(report, "ernie", t_ph)
     if "resnet" in paths:
+        t_ph = time.perf_counter()
         log("[resnet] bench.py's ResNet-50 in NHWC through TrainStep + Momentum")
         report["resnet_checks"], runs = resnet_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in report["resnet_checks"]["block_parity"]
                   + [report["resnet_checks"]["eval"]] + runs)
+        phase_done(report, "resnet", t_ph)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -12,9 +12,11 @@ cast to reach a kernel: a call whose types have no kernel raises.
 
 ``admit`` is the one place that decides, a pure function of (regime, q
 type, cache type, head dim, query rows a kv head).  Its lists below are
-the ``SIMT_*`` instantiation lists of ``attention_simt.cuh``, which a CPU
-test parses and holds equal to them.  The backward kernels run at bfloat16
-only: float32 and float16 training is ROADMAP Queue 2, item 11.
+the ``SIMT_*`` instantiation lists of ``attention_simt.cuh`` (the
+forwards) and ``attention_simt_bwd.cuh`` (the backward kernels,
+``attention_simt_flash_bwd.cu`` and ``attention_simt_encoder_bwd.cu``),
+which a CPU test parses and holds equal to them.  The flash backward at
+head dim 256 has no kernel at any type (ROADMAP Queue 2, item 8).
 """
 from __future__ import annotations
 
@@ -39,6 +41,13 @@ KV_DIMS = (64, 128, 256)
 SEQ_TYPES = (F32, F16)
 FLASH_DIMS = (64, 128, 256)
 ENCODER_DIMS = (64, 128)
+# attention_simt_bwd.cuh SIMT_BWD_TYPES, SIMT_BWD_FLASH_DIMS and
+# SIMT_BWD_ENCODER_DIMS: the backward kernels take q, k, v and dO of one
+# type; 32 own rows a block.
+BWD_TYPES = (F32, F16)
+FLASH_BWD_DIMS = (64, 128)
+ENCODER_BWD_DIMS = (64, 128)
+BWD_ROWS = 32
 # The bfloat16 kernels' caches: bfloat16, or int8 with f32 scales.
 BF16_KV = (BF16, I8)
 # Query rows of one kv head up to which the decode regime (split-K, 16-row
@@ -77,11 +86,16 @@ def admit(regime, q_dtype, kv_dtype=None, D=None, rows=1):
     ``D`` with ``rows`` query rows a kv head (S * H / Hkv; decode and paged
     only).  Raises ValueError, naming what is admitted, where no kernel is
     built.  Head dims of the bfloat16 kernels are left to their own checks
-    (decode and paged: ROADMAP Queue 2, item 9; the flash backward at 256:
-    item 8)."""
+    (decode and paged: ROADMAP Queue 2, item 9); the flash backward at 256
+    raises at every type (item 8)."""
     if regime not in REGIMES:
         raise ValueError(f"attention admission: unknown regime {regime!r}")
     kv_dtype = q_dtype if kv_dtype is None else kv_dtype
+    if regime == "flash_bwd" and D == 256:
+        raise ValueError(
+            "attention kernel (flash_bwd): head dim 256 has a forward kernel but no backward "
+            "one at any type yet (ROADMAP Queue 2, item 8): train at head dim 64 or 128, or "
+            "call the D = 256 forward without gradients")
     if q_dtype == BF16:
         want = BF16_KV if regime in ("decode", "paged") else (BF16,)
         if kv_dtype not in want:
@@ -92,8 +106,14 @@ def admit(regime, q_dtype, kv_dtype=None, D=None, rows=1):
         raise ValueError(f"attention kernel ({regime}): q dtype {q_dtype}; the kernels take "
                          f"{_names((BF16,) + SEQ_TYPES)}")
     if regime in ("flash_bwd", "encoder_bwd"):
-        raise ValueError(f"attention kernel ({regime}): the backward kernels run at bfloat16 "
-                         f"only; {q_dtype} training is ROADMAP Queue 2, item 11")
+        if kv_dtype != q_dtype or q_dtype not in BWD_TYPES:
+            raise ValueError(f"attention kernel ({regime}): q {q_dtype} with k/v {kv_dtype}; "
+                             f"the backward kernels take one type of {_names(BWD_TYPES)}")
+        dims = FLASH_BWD_DIMS if regime == "flash_bwd" else ENCODER_BWD_DIMS
+        if D not in dims:
+            raise ValueError(f"attention kernel ({regime}): head dim {D}, the kernel is built "
+                             f"for {dims}")
+        return Instantiation(f"attention_simt_{regime}", q_dtype, kv_dtype, D, BWD_ROWS)
     if regime in ("decode", "paged"):
         if (q_dtype, kv_dtype) not in KV_PAIRS:
             raise ValueError(f"attention kernel ({regime}): q {q_dtype} with k/v {kv_dtype}; "

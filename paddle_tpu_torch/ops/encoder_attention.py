@@ -25,10 +25,11 @@ stored.
 A CPU tensor takes the plain versions, ``_encoder_dense`` forward and
 ``_encoder_bwd_dense`` backward; a CUDA tensor launches
 ``csrc/encoder_attention.cu`` forward and ``csrc/encoder_attention_bwd.cu``
-backward (bf16) or raises.  Float32 and float16 take the forward
-``csrc/attention_simt_encoder.cu`` (f32 on the CUDA cores, the same Philox
-mask from the same seed), as ``_simt.admit`` decides; their backward is
-ROADMAP Queue 2, item 11 and raises.  The kernels read q, k, v and dO
+backward (bf16) or raises.  Float32 and float16 take
+``csrc/attention_simt_encoder.cu`` forward and
+``csrc/attention_simt_encoder_bwd.cu`` backward (f32 on the CUDA cores,
+the same Philox mask from the same seed), as ``_simt.admit`` decides.
+The kernels read q, k, v and dO
 through TMA (bf16) or 16-byte copies (float32, float16) with their own
 strides, so strided views such as the three slices of one packed
 [B, S, 3, H, D] projection launch without copies; only a view they cannot
@@ -46,7 +47,8 @@ from ._prng import encoder_bits, keep_mask, launch_args
 NEG_INF = -1e30
 
 __all__ = ["encoder_attention", "encoder_attention_kernel", "encoder_attention_simt_kernel",
-           "encoder_attention_bwd_kernel", "supported", "tma_readable"]
+           "encoder_attention_bwd_kernel", "encoder_attention_simt_bwd_kernel", "supported",
+           "tma_readable"]
 
 
 def supported(bh, s, d, seq_kv=None):
@@ -142,8 +144,8 @@ def _tma_strides(t):
 
 def _check_inputs(tensors, regime="encoder", simt=False):
     """The kernels' admission: the instantiation ``_simt.admit`` picks for
-    q's dtype (the CUDA-core forward when ``simt``, the bfloat16 kernels
-    otherwise; ``regime`` "encoder_bwd" is bfloat16 only), CUDA, one dtype,
+    q's dtype (the CUDA-core kernels when ``simt``, the bfloat16 kernels
+    otherwise; ``regime`` "encoder" or "encoder_bwd"), CUDA, one dtype,
     one [B, S, H, D] shape that ``supported`` admits.  Returns the tensors
     as they are where the kernels can read them in place
     (``tma_readable``), else a contiguous copy; each copy adds one to
@@ -151,9 +153,10 @@ def _check_inputs(tensors, regime="encoder", simt=False):
     q = tensors["q"]
     B, S, H, D = q.shape
     dev = q.device
-    inst = _simt.admit(regime, q.dtype, q.dtype, D if simt else None)
+    inst = _simt.admit(regime, q.dtype, q.dtype, D)
     _check(inst.simt == simt, f"q dtype {q.dtype} runs encoder_attention"
-           f"{'_simt' if inst.simt else ''}_kernel (csrc/{inst.lib}.cu)")
+           f"{'_simt' if inst.simt else ''}{'_bwd' if regime == 'encoder_bwd' else ''}_kernel "
+           f"(csrc/{inst.lib}.cu)")
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
     for name, t in tensors.items():
         _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
@@ -303,6 +306,60 @@ def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=Non
 encoder_attention_bwd_kernel.launches = 0
 
 
+_SIMT_BWD_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32,
+                     ctypes.c_float, ctypes.c_void_p])
+
+
+def encoder_attention_simt_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=None,
+                                      rate=0.0, lse=None):
+    """Launch ``csrc/attention_simt_encoder_bwd.cu`` (the port of
+    ``_bwd_kernel`` at float32 and float16, f32 on the CUDA cores) on CUDA
+    tensors: q/k/v/do [B, S, H, D] views of one type with a ``supported``
+    shape (strided views that ``tma_readable`` admits are read in place,
+    others copied and counted), the forward's ``seed`` and ``rate`` and, at
+    S > 128, its rows' ``lse`` (the second output of
+    ``encoder_attention_simt_kernel``).  Returns (dQ, dK, dV) [B, S, H, D]
+    in q's dtype, contiguous.  Raises ValueError on anything else.  Every
+    launch adds one to ``encoder_attention_simt_bwd_kernel.launches``."""
+    q, k, v, do = _check_inputs({"q": q, "k": k, "v": v, "do": do}, "encoder_bwd", simt=True)
+    B, S, H, D = q.shape
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    dev = q.device
+    stats = None
+    if S > WHOLE_HEAD_S:
+        _check(lse is not None,
+               f"S={S} needs the forward's lse (encoder_attention_simt_kernel's second output)")
+        _check(tuple(lse.shape) == (B * H, S) and lse.dtype == torch.float32
+               and lse.device == dev, "lse must be [B * H, S] f32 on q's device")
+        lse = lse.contiguous()
+        stats = torch.empty(2, B * H, S, dtype=torch.float32, device=dev)
+    else:
+        lse = None  # the whole-head kernel finds each row's max and sum itself
+    dq, dk, dv = (torch.empty(B, S, H, D, dtype=q.dtype, device=dev) for _ in range(3))
+    sp, thresh, inv = launch_args(seed, rate, 1.0 / (1.0 - rate), dev)
+    strides = []  # (batch, position) of each
+    for t in (q, k, v, do):
+        _, ss, sb = _tma_strides(t)
+        strides += [sb, ss]
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        _build.launch("attention_simt_encoder_bwd", _SIMT_BWD_ARGS,
+                      *(ptr(t) for t in (q, k, v, do, lse, stats, dq, dk, dv)), B, H, S, D,
+                      *strides, float(scale), int(bool(causal)), _simt.TYPE_CODES[q.dtype], sp,
+                      thresh, float(inv), torch.cuda.current_stream(dev).cuda_stream,
+                      entry="encoder_attention_simt_bwd")
+    encoder_attention_simt_bwd_kernel.launches += 1
+    return dq, dk, dv
+
+
+encoder_attention_simt_bwd_kernel.launches = 0
+
+
 def _plain_keep(q, seed, rate):
     B, S, H, _ = q.shape
     return dropout_keep(seed, B, H, S, rate) if rate > 0.0 else None
@@ -329,9 +386,10 @@ class _EncoderAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv = _encoder_bwd_dense(q, k, v, do, ctx.scale, ctx.causal,
                                             _plain_keep(q, seed, ctx.rate), ctx.rate)
-        else:
-            dq, dk, dv = encoder_attention_bwd_kernel(q, k, v, do, ctx.scale, ctx.causal,
-                                                      seed, ctx.rate, *fwd)
+        else:  # the kernel of q's dtype
+            kernel = (encoder_attention_bwd_kernel if q.dtype == torch.bfloat16
+                      else encoder_attention_simt_bwd_kernel)
+            dq, dk, dv = kernel(q, k, v, do, ctx.scale, ctx.causal, seed, ctx.rate, *fwd)
         return dq, dk, dv, None, None, None, None
 
 

@@ -21,8 +21,10 @@ A CPU tensor takes the plain versions, ``_flash_dense`` forward and
 ``csrc/flash_attention.cu`` forward (bf16, D in {64, 128, 256}; float32
 and float16 take ``csrc/attention_simt_flash.cu``, f32 on the CUDA cores,
 as ``_simt.admit`` decides) and ``csrc/flash_attention_bwd.cu`` backward
-(bf16 only, D in {64, 128}; its dsum pass runs once per backward; float32
-and float16 training is ROADMAP Queue 2, item 11) or raises.  The reference's block-size
+(bf16, D in {64, 128}; float32 and float16 take
+``csrc/attention_simt_flash_bwd.cu``, f32 on the CUDA cores; either's
+statistics pass runs once per backward; D = 256 is ROADMAP Queue 2, item
+8) or raises.  The reference's block-size
 rules (``_auto_block``, ``block_q``/``block_k``, its autotune hook) describe
 TPU tiling, not the function: the Hopper kernels pick their own tiles and
 mask their ragged edge, so they are not carried over.  ``supports_seq``
@@ -41,7 +43,8 @@ NEG_INF = -1e30
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_attention_kernel",
            "flash_attention_simt_kernel",
            "flash_attention_bwd_stats", "flash_attention_dq_kernel", "flash_attention_dkv_kernel",
-           "supports_seq"]
+           "flash_attention_simt_bwd_stats", "flash_attention_simt_dq_kernel",
+           "flash_attention_simt_dkv_kernel", "supports_seq"]
 
 
 def supports_seq(seq):
@@ -117,15 +120,15 @@ def _check_head_dim(D, backward=False):
 
 def _check_inputs(tensors, B, Sq, Sk, H, D, causal, backward=False, simt=False):
     """The kernels' common admission: the instantiation ``_simt.admit``
-    picks for q's dtype (the CUDA-core forward when ``simt``, the bfloat16
-    kernels otherwise; the backward is bfloat16 only), CUDA, the head dim
-    (see ``_check_head_dim``), one dtype, the shapes, 16-byte aligned
-    storage."""
+    picks for q's dtype (the CUDA-core kernels when ``simt``, the bfloat16
+    kernels otherwise), CUDA, the head dim (see ``_check_head_dim``), one
+    dtype, the shapes, 16-byte aligned storage."""
     q = tensors["q"]
     dev = q.device
     inst = _simt.admit("flash_bwd" if backward else "flash", q.dtype, q.dtype, D)
-    _check(inst.simt == simt, f"q dtype {q.dtype} runs flash_attention"
-           f"{'_simt' if inst.simt else ''}_kernel (csrc/{inst.lib}.cu)")
+    kernel = (f"the {'CUDA-core' if inst.simt else 'bfloat16'} backward" if backward
+              else f"flash_attention{'_simt' if inst.simt else ''}_kernel")
+    _check(inst.simt == simt, f"q dtype {q.dtype} runs {kernel} (csrc/{inst.lib}.cu)")
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
     _check_head_dim(D, backward)
     for name, t in tensors.items():
@@ -313,6 +316,122 @@ def flash_attention_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dl
 flash_attention_dkv_kernel.launches = 0
 
 
+def _simt_stats_shape(B, H, Sq):
+    """The CUDA-core backward's statistics: [2, B * H, Sq]."""
+    return (2, B * H, Sq)
+
+
+def flash_attention_simt_bwd_stats(o, do, lse, dlse=None):
+    """The CUDA-core backward's per-query statistics, by
+    ``flash_attention_simt_stats`` of ``csrc/attention_simt_flash_bwd.cu``
+    (the dsum that ``_dq_kernel`` and ``_dkv_kernel`` each take first): f32
+    [2, B * H, Sq] holding lse * log2(e) and dsum = rowsum(dO * O) - dlse,
+    summed in f32 from the stored values.  o, do [B, Sq, H, D] float32 or
+    float16 on the card, D in {64, 128}; lse and dlse f32 with B * H * Sq
+    values (dlse may be None).  The autograd backward fills it once and hands
+    it to both kernels below.  Every launch adds one to
+    ``flash_attention_simt_bwd_stats.launches``."""
+    B, Sq, H, D = o.shape
+    _check_inputs({"q": o, "do": do}, B, Sq, Sq, H, D, False, backward=True, simt=True)
+    _check_stats({"lse": lse} if dlse is None else {"lse": lse, "dlse": dlse}, B, H, Sq,
+                 o.device)
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    dlse = None if dlse is None else dlse.contiguous()
+    stats = torch.empty(_simt_stats_shape(B, H, Sq), dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        _build.launch("attention_simt_flash_bwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p], *_ptrs(o, do, lse),
+                      None if dlse is None else dlse.data_ptr(), stats.data_ptr(), B, H, Sq, D,
+                      _simt.TYPE_CODES[o.dtype], torch.cuda.current_stream(o.device).cuda_stream,
+                      entry="flash_attention_simt_stats")
+    flash_attention_simt_bwd_stats.launches += 1
+    return stats
+
+
+flash_attention_simt_bwd_stats.launches = 0
+
+# q, k, v, dO, stats, then the outputs; then the shape, scale, causal, type
+_SIMT_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
+
+
+def _simt_bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats):
+    """Checked, contiguous inputs of the two CUDA-core backward kernels:
+    (q, k, v, dO, stats), the shape and the scale.  Without ``stats`` the
+    statistics pass runs first (and counts its launch)."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    _check_inputs({"q": q, "k": k, "v": v, "o": o, "do": do}, B, Sq, Sk, H, D, causal,
+                  backward=True, simt=True)
+    _check_stats({"lse": lse} if dlse is None else {"lse": lse, "dlse": dlse}, B, H, Sq,
+                 q.device)
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    if stats is None:
+        stats = flash_attention_simt_bwd_stats(o, do, lse, dlse)
+    _check(stats.dtype == torch.float32 and tuple(stats.shape) == _simt_stats_shape(B, H, Sq)
+           and stats.is_contiguous() and stats.device == q.device,
+           f"stats must be contiguous f32 {_simt_stats_shape(B, H, Sq)} on {q.device}")
+    return (q, k, v, do, stats), (B, H, Sq, Sk, D), float(scale)
+
+
+def flash_attention_simt_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None,
+                                   stats=None):
+    """Launch ``flash_attention_simt_dq`` of ``csrc/attention_simt_flash_bwd.cu``
+    (the port of ``_dq_kernel`` at float32 and float16, f32 on the CUDA
+    cores) on CUDA tensors: q, o, do [B, Sq, H, D], k, v [B, Sk, H, D] of
+    one type, float32 or float16, D in {64, 128}, lse (and the optional
+    dlse) f32 with B * H * Sq values; ``stats`` from
+    ``flash_attention_simt_bwd_stats``, or None to compute them first.
+    Returns dQ [B, Sq, H, D] in q's dtype.  Raises ValueError on anything
+    else.  Every launch adds one to ``flash_attention_simt_dq_kernel.launches``."""
+    ins, shape, scale = _simt_bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats)
+    dq = torch.empty_like(ins[0])
+    dev = dq.device
+    with torch.cuda.device(dev):
+        _build.launch("attention_simt_flash_bwd", [ctypes.c_void_p] * 6 + _SIMT_BWD_TAIL,
+                      *_ptrs(*ins, dq), *shape, scale, int(bool(causal)),
+                      _simt.TYPE_CODES[dq.dtype], torch.cuda.current_stream(dev).cuda_stream,
+                      entry="flash_attention_simt_dq")
+    flash_attention_simt_dq_kernel.launches += 1
+    return dq
+
+
+flash_attention_simt_dq_kernel.launches = 0
+
+
+def flash_attention_simt_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None,
+                                    stats=None):
+    """Launch ``flash_attention_simt_dkv`` of ``csrc/attention_simt_flash_bwd.cu``
+    (the port of ``_dkv_kernel`` at float32 and float16), with the inputs of
+    ``flash_attention_simt_dq_kernel``.  Returns (dK, dV) [B, Sk, H, D] in
+    their dtype.  Every launch adds one to
+    ``flash_attention_simt_dkv_kernel.launches``."""
+    ins, shape, scale = _simt_bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats)
+    dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
+    dev = dk.device
+    with torch.cuda.device(dev):
+        _build.launch("attention_simt_flash_bwd", [ctypes.c_void_p] * 7 + _SIMT_BWD_TAIL,
+                      *_ptrs(*ins, dk, dv), *shape, scale, int(bool(causal)),
+                      _simt.TYPE_CODES[dk.dtype], torch.cuda.current_stream(dev).cuda_stream,
+                      entry="flash_attention_simt_dkv")
+    flash_attention_simt_dkv_kernel.launches += 1
+    return dk, dv
+
+
+flash_attention_simt_dkv_kernel.launches = 0
+
+
+def _bwd_kernels(dtype):
+    """(statistics, dq, dkv) wrappers of q's dtype: the bfloat16 kernels or
+    their CUDA-core counterparts."""
+    if dtype == torch.bfloat16:
+        return flash_attention_bwd_stats, flash_attention_dq_kernel, flash_attention_dkv_kernel
+    return (flash_attention_simt_bwd_stats, flash_attention_simt_dq_kernel,
+            flash_attention_simt_dkv_kernel)
+
+
 class _FlashAttention(torch.autograd.Function):
     """O and LSE of flash attention, with the recompute backward."""
 
@@ -340,9 +459,10 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = _flash_bwd_dense(q, k, v, o, lse, do, ctx.causal, ctx.scale, dlse)
         else:
             args = (q, k, v, o, do, lse, ctx.causal, ctx.scale, dlse)
-            stats = flash_attention_bwd_stats(o, do, lse, dlse)  # once for both kernels
-            dq = flash_attention_dq_kernel(*args, stats=stats)
-            dk, dv = flash_attention_dkv_kernel(*args, stats=stats)
+            stats_fn, dq_fn, dkv_fn = _bwd_kernels(q.dtype)  # the kernels of q's dtype
+            stats = stats_fn(o, do, lse, dlse)  # once for both kernels
+            dq = dq_fn(*args, stats=stats)
+            dk, dv = dkv_fn(*args, stats=stats)
         return dq, dk, dv, None, None
 
 

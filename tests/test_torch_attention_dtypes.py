@@ -1,5 +1,5 @@
 """Port parity at float16 and float32: the four attention forward kernels'
-plain versions and their admission by type.
+plain versions and the admission by type of every attention kernel.
 
 On the card, float32 and float16 q run the f32 CUDA-core kernels of
 ``csrc/attention_simt.cuh`` and bfloat16 the tensor-core ones; which one,
@@ -17,9 +17,12 @@ CPU, the tests hold:
   scores from the int8 cache widened exactly, p rounded to bfloat16 after
   the v-scale) with float32 and float16 q against the reference's kernels,
   within the reference's own int8 bound, 3e-4 (tests/test_decode_attention.py);
-* the admission list against the ``SIMT_*`` instantiation lists of the .cuh;
-* float64 q refused, naming the admitted types, and the float32 and float16
-  backward refused, naming ROADMAP Queue 2, item 11;
+* the admission lists against the ``SIMT_*`` instantiation lists of the
+  .cuh files (the forwards' ``attention_simt.cuh``, the backward kernels'
+  ``attention_simt_bwd.cuh``);
+* float64 q refused, naming the admitted types; the float32 and float16
+  backward admitted to the CUDA-core kernels, the flash backward at head
+  dim 256 refused at every type, naming ROADMAP Queue 2, item 8;
 * a small LLaMA at float16 (head dim 64) through the paged engine, greedy
   tokens equal to the reference engine's.
 """
@@ -49,6 +52,7 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
 CUH = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc" / "attention_simt.cuh"
+BWD_CUH = CUH.with_name("attention_simt_bwd.cuh")
 F16_TOL = 1e-2
 F16_MODEL_TOL = 4e-3
 INT8_TOL = 3e-4
@@ -191,9 +195,9 @@ def test_int8_model_matches_reference_kernel(layout, q_dtype):
 
 # ----------------------------------------------------------- admission
 
-def _cuh_list(name):
-    """The entries of ``#define name(X) X(..) X(..)`` in attention_simt.cuh."""
-    line = re.search(rf"^#define {name}\(X\)(.*)$", CUH.read_text(), re.M).group(1)
+def _cuh_list(name, path=CUH):
+    """The entries of ``#define name(X) X(..) X(..)`` in a .cuh file."""
+    line = re.search(rf"^#define {name}\(X\)(.*)$", path.read_text(), re.M).group(1)
     return [tuple(a.strip() for a in m.split(",")) for m in re.findall(r"X\(([^)]*)\)", line)]
 
 
@@ -224,6 +228,29 @@ def test_admission_list_is_the_cuh_instantiations():
     assert admitted == built
     for lib in {b[0] for b in built}:  # each entry's source exists
         assert (CUH.parent / f"{lib}.cu").is_file()
+
+
+def test_backward_admission_list_is_the_cuh_instantiations():
+    """ops/_simt.py's backward lists are attention_simt_bwd.cuh's SIMT_BWD_*
+    lists, and every instantiation admit() returns for "flash_bwd" and
+    "encoder_bwd" at float32 and float16 is one the .cuh builds, in a
+    source that exists."""
+    C = {v: k for k, v in _simt.C_TYPES.items()}
+    assert [C[t] for (t,) in _cuh_list("SIMT_BWD_TYPES", BWD_CUH)] == list(_simt.BWD_TYPES)
+    assert ([int(d) for (d,) in _cuh_list("SIMT_BWD_FLASH_DIMS", BWD_CUH)]
+            == list(_simt.FLASH_BWD_DIMS))
+    assert ([int(d) for (d,) in _cuh_list("SIMT_BWD_ENCODER_DIMS", BWD_CUH)]
+            == list(_simt.ENCODER_BWD_DIMS))
+    built = {(f"attention_simt_{r}", t, t, D, _simt.BWD_ROWS)
+             for r, dims in (("flash_bwd", _simt.FLASH_BWD_DIMS),
+                             ("encoder_bwd", _simt.ENCODER_BWD_DIMS))
+             for t in _simt.BWD_TYPES for D in dims}
+    admitted = {tuple(_simt.admit(r, t, t, D)) for r in ("flash_bwd", "encoder_bwd")
+                for t in _simt.SEQ_TYPES for D in (64, 128)}
+    assert admitted == built
+    for lib in {b[0] for b in built}:
+        assert (CUH.parent / f"{lib}.cu").is_file()
+        assert '#include "attention_simt_bwd.cuh"' in (CUH.parent / f"{lib}.cu").read_text()
 
 
 @pytest.mark.parametrize("regime", ["decode", "paged"])
@@ -259,22 +286,42 @@ def test_f64_q_refused_naming_admitted_dtypes(regime):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
 def test_backward_refused_naming_queue_2_item_11(dtype):
-    """The backward kernels run at bfloat16 only; a float32 or float16
-    gradient raises before any launch, on any device."""
+    """Queue 2 item 11 is closed: a float32 or float16 gradient is admitted
+    to the CUDA-core backward kernels (attention_simt_flash_bwd.cu,
+    attention_simt_encoder_bwd.cu) at head dims 64 and 128, and the bfloat16
+    wrappers refuse it, naming them.  The flash backward at head dim 256 is
+    refused at every type before any launch, naming ROADMAP Queue 2, item 8;
+    so are k/v of another type and other head dims."""
+    for regime, lib in (("flash_bwd", "attention_simt_flash_bwd"),
+                        ("encoder_bwd", "attention_simt_encoder_bwd")):
+        for D in (64, 128):
+            got = _simt.admit(regime, dtype, dtype, D)
+            assert got.simt and got.lib == lib and (got.q, got.kv, got.D) == (dtype, dtype, D)
+        with pytest.raises(ValueError, match="one type of float32, float16"):
+            _simt.admit(regime, dtype, torch.bfloat16, 64)
+        with pytest.raises(ValueError, match="head dim 96"):
+            _simt.admit(regime, dtype, dtype, 96)
+    for t in (dtype, torch.bfloat16):
+        with pytest.raises(ValueError, match="Queue 2, item 8"):
+            _simt.admit("flash_bwd", t, t, 256)
     q = torch.zeros(1, 128, 2, 64, dtype=dtype)
     lse = torch.zeros(1, 2, 128)
-    for regime in ("flash_bwd", "encoder_bwd"):
-        with pytest.raises(ValueError, match="Queue 2, item 11"):
-            _simt.admit(regime, dtype, dtype, 64)
     for fn in (tfa.flash_attention_dq_kernel, tfa.flash_attention_dkv_kernel):
         before = fn.launches
-        with pytest.raises(ValueError, match="Queue 2, item 11"):
+        with pytest.raises(ValueError, match="CUDA-core backward"):
             fn(q, q, q, q, q, lse, causal=True)
         assert fn.launches == before
-    with pytest.raises(ValueError, match="Queue 2, item 11"):
+    with pytest.raises(ValueError, match="CUDA-core backward"):
         tfa.flash_attention_bwd_stats(q, q, lse)
-    with pytest.raises(ValueError, match="Queue 2, item 11"):
+    with pytest.raises(ValueError, match="runs encoder_attention_simt_bwd_kernel"):
         tea.encoder_attention_bwd_kernel(q, q, q, q)
+    q256 = torch.zeros(1, 128, 2, 256, dtype=dtype)
+    lse = torch.zeros(1, 2, 128)
+    for fn in (tfa.flash_attention_simt_dq_kernel, tfa.flash_attention_simt_dkv_kernel):
+        before = fn.launches
+        with pytest.raises(ValueError, match="Queue 2, item 8"):
+            fn(q256, q256, q256, q256, q256, lse, causal=True)
+        assert fn.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
@@ -282,8 +329,13 @@ def test_simt_wrappers_reject_cpu_tensors(dtype):
     """The CUDA-core wrappers launch on CUDA tensors only and never run the
     plain version; a refused call does not count."""
     q = torch.zeros(1, 128, 2, 64, dtype=dtype)
+    lse = torch.zeros(1, 2, 128)
     calls = [(tfa.flash_attention_simt_kernel, (q, q, q)),
              (tea.encoder_attention_simt_kernel, (q, q, q)),
+             (tfa.flash_attention_simt_bwd_stats, (q, q, lse)),
+             (tfa.flash_attention_simt_dq_kernel, (q, q, q, q, q, lse)),
+             (tfa.flash_attention_simt_dkv_kernel, (q, q, q, q, q, lse)),
+             (tea.encoder_attention_simt_bwd_kernel, (q, q, q, q)),
              (tda.decode_attention_simt_kernel,
               (q[:, :1], q.reshape(1, 2, 128, 64), q.reshape(1, 2, 128, 64),
                torch.ones(1, dtype=torch.int32)))]

@@ -189,6 +189,18 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     assert tea.encoder_attention_bwd_kernel.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
+def test_simt_backward_wrapper_rejects_cpu_tensors(dtype):
+    """The CUDA-core backward wrapper launches on CUDA tensors only and never
+    runs the plain version; a refused call does not count."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(256, 64))
+    fn = tea.encoder_attention_simt_bwd_kernel
+    before = fn.launches
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        fn(q, k, v, q, lse=torch.zeros(2, 256))
+    assert fn.launches == before
+
+
 def _packed(S, D, B=1, H=2, seed=0):
     rng = np.random.RandomState(seed)
     return (rng.randn(B, S, 3, H, D) * 0.5).astype(np.float32)

@@ -240,12 +240,20 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     assert tfa.flash_attention_kernel.launches == before
 
 
-@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("which", ["dq", "dkv", "simt_dq", "simt_dkv", "simt_bwd_stats"])
 def test_backward_kernel_wrappers_reject_cpu_tensors(which):
-    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(128, 128, 64))
+    """The backward wrappers, bfloat16 and CUDA-core (float32 here), launch
+    on CUDA tensors only and never run the plain version; a refused call
+    does not count."""
+    dt = torch.float32 if which.startswith("simt") else torch.bfloat16
+    q, k, v = (torch.from_numpy(a).to(dt) for a in _qkv(128, 128, 64))
     lse = torch.zeros(1, 2, 128)
-    fn = getattr(tfa, f"flash_attention_{which}_kernel")
+    if which == "simt_bwd_stats":
+        fn, args = tfa.flash_attention_simt_bwd_stats, (q, q, lse)
+    else:
+        fn = getattr(tfa, f"flash_attention_{which}_kernel")
+        args = (q, k, v, q, q, lse)
     before = fn.launches
     with pytest.raises(ValueError, match="not a CUDA device"):
-        fn(q, k, v, q, q, lse, causal=True)
+        fn(*args)
     assert fn.launches == before
