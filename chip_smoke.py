@@ -66,6 +66,14 @@ Phases:
                     b32_s512 microbatch, S = 128 causal at head dim 128 and
                     S = 512 at head dim 64 with dropout; launches counted
                     around each call; SDPA's backward as the yardstick.
+                    Head dim 256 in the flash backward (the ``_d256``
+                    rows): the bf16 statistics pass, dq and dkv and their
+                    float32 and float16 CUDA-core counterparts at the
+                    D = 256 LLaMA's [8, 2048, 8, 256] causal, a full
+                    Sq < Sk case and a ragged one with the lse cotangent;
+                    the fused LN at float16 (the ``_f16`` rows) at ERNIE's
+                    shape at rate 0 and 0.1 and at h 4096, within
+                    F16_LN_RTOL.
   4. generate     — model.generate() at LLaMA-2-7B widths (16 layers, bf16,
                     random weights from a seed): ids [4, 1024] (flash
                     prefill) on a bf16 and an int8 cache, and ids [8, 256]
@@ -114,7 +122,8 @@ time goes.
                     dense math, a profiled paged decode tick; at float16:
                     generate() on its float16 cache and the paged engine's
                     12 requests (float32 pools, as for every model that is
-                    not bf16); BERT-base at float32, eval on [32, 128].
+                    not bf16); BERT-base eval on [32, 128] at float32 and
+                    at float16 (the fused-LN kernels at float16).
                     Every attention launch is an f32 CUDA-core kernel's;
                     logits within F32_LOGIT_TOL (F16_LOGIT_TOL,
                     INT8_LOGIT_TOL); peak memory per model.
@@ -134,7 +143,16 @@ time goes.
                     F32_GRAD_RTOL, B 8 x S 2048 and B 32 x S 512 at
                     F32_TRAIN_STEPS timed steps (the cut: over a second a
                     step); and the parity at float16 within F16_GRAD_RTOL
-                    (float16 training needs loss scaling, not ported).
+                    (float16 training needs f32 master weights, O1
+                    auto_cast, not ported: a pure float16 AdamW step is
+                    inf once (1 - beta2) g^2 underflows).
+                    Then all of it at 8 heads of 256 (Gemma-2B's attention
+                    layout at the same widths) through the D = 256
+                    backward kernels, but for the S 512 runs (the
+                    reference takes dense math there at D = 256): parity
+                    at S 2048 in bf16, float32 and float16, B 8 x S 2048 in
+                    bf16 and float32, the statistics pass, dq and dkv 12
+                    launches a step each.
  13. ernie        — bench.py's ERNIE-base pretraining (BertConfig.base(),
                     bf16, B 512 x S 128, 20 masked positions, dropout 0.1,
                     random weights and batch from seed 0): gradient parity
@@ -148,8 +166,7 @@ time goes.
                     one step profiled.  Then all of it at float32 (the
                     CUDA-core encoder kernels, the fused LN at f32;
                     ERNIE_F32_STEPS timed steps), and the gradient parity
-                    at float16 with the LN composed on both sides (the
-                    fused-LN kernels take bf16 and f32).
+                    at float16 through the fused-LN kernels at float16.
  14. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
                     reaches the fused 1x1-conv + BN kernels: first one
                     bottleneck block at each stage's shape, fused against
@@ -241,7 +258,34 @@ KERNELS = {
                                  "paddle_tpu/ops/flash_attention.py:153"),
     "encoder_attention_bwd_simt": ("paddle_tpu_torch/csrc/attention_simt_encoder_bwd.cu",
                                    "paddle_tpu/ops/encoder_attention.py:101"),
+    # the bf16 backward's statistics pass, the dsum each flash TPU kernel
+    # takes first
+    "flash_attention_bwd_stats": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                                  "paddle_tpu/ops/flash_attention.py:111"),
+    # the flash backward's head dim 256 instantiations (bf16 on wgmma, f32 and
+    # f16 on the CUDA cores): one counter a wrapper, so their launches are the
+    # wrappers' in the main paths' runs at head dim 256 (INSTANTIATIONS)
+    "flash_attention_bwd_stats_d256": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                                       "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_dq_d256": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_dkv_d256": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                                 "paddle_tpu/ops/flash_attention.py:153"),
+    "flash_attention_bwd_stats_simt_d256": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
+                                            "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_dq_simt_d256": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
+                                     "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_dkv_simt_d256": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
+                                      "paddle_tpu/ops/flash_attention.py:153"),
+    # the fused LN at float16, its launches the wrappers' in the main paths'
+    # float16 runs
+    "fused_ln_f16": ("paddle_tpu_torch/csrc/fused_ln.cu", "paddle_tpu/ops/fused_ln.py:55"),
+    "fused_ln_bwd_f16": ("paddle_tpu_torch/csrc/fused_ln.cu", "paddle_tpu/ops/fused_ln.py:77"),
 }
+# A run's field and value -> the suffix of the KERNELS rows of that
+# instantiation: every launch in a run at head dim 256 (or at float16) is
+# that instantiation's, since a model has one head dim and one dtype.
+INSTANTIATIONS = {("D", 256): "_d256", ("dtype", "f16"): "_f16"}
 # Backward kernels vs their plain versions: max |kernel - plain| over max
 # |plain|, for each of dQ, dK and dV, with dO ~ N(0, 1).  The kernels round
 # dS (and, for flash's dV, P) to bf16 where the reference does and write
@@ -263,6 +307,14 @@ INT8_LOGIT_TOL = 0.5
 # float16 model (float16 rounds like bf16 with three more mantissa bits).
 F32_LOGIT_TOL = 5e-3
 F16_LOGIT_TOL = 0.05
+
+
+# The fused LN at float16 vs its plain version, forward and backward: both
+# compute in f32 from the same float16 values and round each [n, h] output
+# once to float16 (2^-11 of a value); a sum taken in another order can put
+# a value on the other side of a rounding boundary, one unit, at most
+# 2^-10 of max |plain|.  Two units.
+F16_LN_RTOL = 2e-3
 
 
 # Dropout: ERNIE's rate on hidden states and attention probabilities.  Each
@@ -693,9 +745,12 @@ def sdpa_bwd_ms(q, k, v, do, causal, iters, dropout_p=0.0, graph=False):
 
 
 def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
-    """The flash backward kernels (dq, dkv) vs ``_flash_bwd_dense`` on O and
-    LSE from the plain forward; planted faults: dsum taken as 0, each
-    row's key range one short, and (with dlse) dlse ignored."""
+    """The flash backward kernels (the statistics pass, dq, dkv) vs
+    ``_flash_bwd_dense`` on O and LSE from the plain forward; planted
+    faults: dsum taken as 0, each row's key range one short, and (with
+    dlse) dlse ignored; the statistics' own: lse in natural-log units, dsum
+    taken as 0 (and dlse ignored).  Returns {"stats", "dq", "dkv"} cases,
+    each launch counted around its call."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -707,15 +762,33 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
     o = o32.bfloat16()
     dlse = (torch.randn(B, H, Sq, generator=g, device="cuda") if with_dlse else None)
     args = (q, k, v, o, do, lse, causal, scale, dlse)
-    dq = fa.flash_attention_dq_kernel(*args)
-    dk, dv = fa.flash_attention_dkv_kernel(*args)
-    dq2 = fa.flash_attention_dq_kernel(*args)  # the same bits on a second run
+    stats, n_st = counted(lambda: fa.flash_attention_bwd_stats(o, do, lse, dlse),
+                          fa.flash_attention_bwd_stats, 1)
+    dq, n_dq = counted(lambda: fa.flash_attention_dq_kernel(*args, stats=stats),
+                       fa.flash_attention_dq_kernel, 1)
+    (dk, dv), n_dkv = counted(lambda: fa.flash_attention_dkv_kernel(*args, stats=stats),
+                              fa.flash_attention_dkv_kernel, 1)
+    dq2 = fa.flash_attention_dq_kernel(*args)  # the same bits, the entry's own statistics
     dk2, dv2 = fa.flash_attention_dkv_kernel(*args)
+    stats2 = fa.flash_attention_bwd_stats(o, do, lse, dlse)
     torch.cuda.synchronize()
-    same = {"dq": bool(torch.equal(dq, dq2)),
+    same = {"stats": bool(torch.equal(stats, stats2)), "dq": bool(torch.equal(dq, dq2)),
             "dkv": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))}
     want = fa._flash_bwd_dense(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
                                causal, scale, dlse)
+    # the statistics: [2, B * H, Sqp], Sq padded to 64 with zeros
+    dsum = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())
+    if with_dlse:
+        dsum = dsum - dlse
+    want_stats = torch.zeros_like(stats)
+    want_stats[0, :, :Sq] = lse.reshape(B * H, Sq) * math.log2(math.e)
+    want_stats[1, :, :Sq] = dsum.reshape(B * H, Sq)
+    stat_faults = {"lse_natural_log": want_stats.clone(), "dsum_zero": want_stats.clone()}
+    stat_faults["lse_natural_log"][0, :, :Sq] = lse.reshape(B * H, Sq)
+    stat_faults["dsum_zero"][1] = 0.0
+    if with_dlse:
+        stat_faults["dlse_ignored"] = want_stats.clone()
+        stat_faults["dlse_ignored"][1, :, :Sq] += dlse.reshape(B * H, Sq)
     ones = torch.ones(Sq, Sk, dtype=torch.bool, device="cuda")
     vis = ones.tril(Sk - Sq) if causal else ones
     if causal:
@@ -728,10 +801,16 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
     if with_dlse:
         faults["dlse_ignored"] = masked_attention_bwd(q, k, v, do, vis, scale)
     shape = dict(kind="flash", B=B, H=H, Sq=Sq, Sk=Sk, D=D, causal=causal, dlse=with_dlse)
-    res = {"dq": bwd_gate(name, (dq,), want[:1], {f: t[:1] for f, t in faults.items()},
-                          BWD_RTOL, same_bits=same["dq"], ok=same["dq"], **shape),
+    res = {"stats": bwd_gate(name, (stats[0], stats[1]), (want_stats[0], want_stats[1]),
+                             {f: (t[0], t[1]) for f, t in stat_faults.items()}, F32_RTOL,
+                             same_bits=same["stats"], launches_counted=n_st,
+                             ok=same["stats"] and n_st, **shape),
+           "dq": bwd_gate(name, (dq,), want[:1], {f: t[:1] for f, t in faults.items()},
+                          BWD_RTOL, same_bits=same["dq"], launches_counted=n_dq,
+                          ok=same["dq"] and n_dq, **shape),
            "dkv": bwd_gate(name, (dk, dv), want[1:], {f: t[1:] for f, t in faults.items()},
-                           BWD_RTOL, same_bits=same["dkv"], ok=same["dkv"], **shape)}
+                           BWD_RTOL, same_bits=same["dkv"], launches_counted=n_dkv,
+                           ok=same["dkv"] and n_dkv, **shape)}
     iters = 10
     plain_ms = cuda_ms(lambda: fa._flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse), 3)
     library_ms = (None if with_dlse or (causal and Sq != Sk)
@@ -740,13 +819,19 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
     nq, nk = B * Sq * H * D * 2, B * Sk * H * D * 2     # bytes of one q-side / k-side tensor
     nstat = B * H * Sq * 4 * (2 if with_dlse else 1)
     ins = 3 * nq + 2 * nk + nstat                       # q, o, dO, k, v, lse (, dlse)
-    for key, fn, out_bytes, ops in (
-            ("dq", lambda: fa.flash_attention_dq_kernel(*args), nq, 6.0 * D * pairs),
-            ("dkv", lambda: fa.flash_attention_dkv_kernel(*args), 2 * nk, 8.0 * D * pairs)):
+    # dq and dkv read the statistics the autograd backward made once
+    for key, fn, nbytes, ops in (
+            ("stats", lambda: fa.flash_attention_bwd_stats(o, do, lse, dlse),
+             2 * nq + nstat + stats.numel() * 4, 2.0 * D * B * H * Sq),
+            ("dq", lambda: fa.flash_attention_dq_kernel(*args, stats=stats), ins + nq,
+             6.0 * D * pairs),
+            ("dkv", lambda: fa.flash_attention_dkv_kernel(*args, stats=stats), ins + 2 * nk,
+             8.0 * D * pairs)):
         r = res[key]
         r["ms"] = cuda_ms(fn, iters)
-        r["plain_ms"], r["library_ms"] = plain_ms, library_ms
-        r["bound_ms"], r["bound_by"] = bound(ins + out_bytes, ops)
+        # no one PyTorch call computes the statistics pass's pair
+        r["plain_ms"], r["library_ms"] = plain_ms, None if key == "stats" else library_ms
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
     res["function_bound_ms"], res["function_bound_by"] = bound(ins + nq + 2 * nk,
                                                                10.0 * D * pairs)
 
@@ -873,7 +958,9 @@ def fused_ln_case(name, n, h, dtype, rate, seed, eps=1e-12):
     from paddle_tpu_torch.ops import fused_ln as fl
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32, "f16": torch.float16}[dtype]
+    fwd_tol, bwd_tol = ((F16_LN_RTOL, F16_LN_RTOL) if dt == torch.float16
+                        else (KERNEL_RTOL["bf16"], BWD_RTOL))
     x = torch.randn(n, h, generator=g, device="cuda").to(dt)
     y = torch.randn(n, h, generator=g, device="cuda").to(dt)
     gamma = (1.0 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(dt)
@@ -881,7 +968,7 @@ def fused_ln_case(name, n, h, dtype, rate, seed, eps=1e-12):
     dz = torch.randn(n, h, generator=g, device="cuda").to(dt)
     sd = seed_pair(g)
     keep = fl.dropout_keep(sd, n, h, rate) if rate > 0 else None
-    plan = fl._plan(h, dt == torch.bfloat16)
+    plan = fl._plan(h, dt)
     shape = dict(n=n, h=h, dtype=dtype, rate=rate, plan=plan._asdict())
 
     def plain(k=keep, gm=gamma, xx=x, sdd=sd):
@@ -901,9 +988,9 @@ def fused_ln_case(name, n, h, dtype, rate, seed, eps=1e-12):
     else:
         faults["residual_dropped"] = plain(xx=torch.zeros_like(x))[0]
     fwd = gate(name, out.float(), want.float(), {k: f.float() for k, f in faults.items()},
-               KERNEL_RTOL["bf16"], same_bits=same_fwd, **shape)
+               fwd_tol, same_bits=same_fwd, **shape)
     s_err = (s.float() - want_s.float()).abs().max().item()
-    fwd.update(s_max_abs_err=s_err, ok=fwd["ok"] and same_fwd and s_err <= KERNEL_RTOL["bf16"]
+    fwd.update(s_max_abs_err=s_err, ok=fwd["ok"] and same_fwd and s_err <= fwd_tol
                * want_s.float().abs().max().item())
     del faults, out, s, want
 
@@ -933,7 +1020,7 @@ def fused_ln_case(name, n, h, dtype, rate, seed, eps=1e-12):
                        seeds_swapped=bwd_plain(k=fl.dropout_keep(sd.flip(0), n, h, rate)),
                        no_mask=bwd_plain(r=0.0))
     partials_ok = partials_rel <= PARTIALS_RTOL < partials_fault_rel
-    bwd = bwd_gate(name, gots, bwd_plain(), bfaults, BWD_RTOL, same_bits=same_bwd, teams=teams,
+    bwd = bwd_gate(name, gots, bwd_plain(), bfaults, bwd_tol, same_bits=same_bwd, teams=teams,
                    partials_rel=partials_rel, partials_fault_rel=partials_fault_rel,
                    partials_tol=PARTIALS_RTOL, ok=same_bwd and partials_ok, **shape)
     del bfaults, model, gots, dx, dy
@@ -1096,8 +1183,10 @@ def encoder_dropout_case(name, B, H, S, D, causal, seed, rate=DROP_RATE, packed=
 
 def dropout_kernel_cases():
     """The ERNIE path's kernels with dropout: {kernel name: [case, ...]},
-    the ERNIE shape first, and the Philox check."""
-    out = {"fused_ln": [], "fused_ln_bwd": []}
+    the ERNIE shape first, and the Philox check; the fused LN at float16
+    under the ``_f16`` names (rate 0 first: the float16 ERNIE parity and
+    BERT eval run at rate 0)."""
+    out = {"fused_ln": [], "fused_ln_bwd": [], "fused_ln_f16": [], "fused_ln_bwd_f16": []}
     for i, (name, n, h, dtype, rate) in enumerate([
             ("ernie_bf16_drop", 65536, 768, "bf16", DROP_RATE),   # the ERNIE step's
             ("ernie_bf16_rate0", 65536, 768, "bf16", 0.0),        # the eval forward's
@@ -1109,12 +1198,16 @@ def dropout_kernel_cases():
             ("h2048_bf16_drop", 32768, 2048, "bf16", DROP_RATE),
             ("h4096_bf16_drop", 16384, 4096, "bf16", DROP_RATE),
             ("h32768_bf16_rate0", 2048, 32768, "bf16", 0.0),
-            ("h32768_f32_drop", 1024, 32768, "f32", DROP_RATE)]):
+            ("h32768_f32_drop", 1024, 32768, "f32", DROP_RATE),
+            ("ernie_f16_rate0", 65536, 768, "f16", 0.0),
+            ("ernie_f16_drop", 65536, 768, "f16", DROP_RATE),
+            ("h4096_f16_drop", 16384, 4096, "f16", DROP_RATE)]):
         fwd, bwd = fused_ln_case(name, n, h, dtype, rate, 90 + i)
-        out["fused_ln"].append(fwd)
-        out["fused_ln_bwd"].append(bwd)
-        log_case("fused_ln", fwd)
-        log_case("fused_ln_bwd", bwd)
+        tag = "_f16" if dtype == "f16" else ""
+        out["fused_ln" + tag].append(fwd)
+        out["fused_ln_bwd" + tag].append(bwd)
+        log_case("fused_ln" + tag, fwd)
+        log_case("fused_ln_bwd" + tag, bwd)
     out["fused_ln_routing"] = [fused_ln_routing_case()]
     enc = {"encoder_attention": [], "encoder_attention_bwd": []}
     for i, (name, B, H, S, D, causal, packed) in enumerate([
@@ -1131,8 +1224,12 @@ def dropout_kernel_cases():
 
 
 def bwd_kernel_cases():
-    """Backward cases: {kernel name: [case, ...]}, the training shapes first."""
-    out = {"flash_attention_dq": [], "flash_attention_dkv": [], "encoder_attention_bwd": []}
+    """Backward cases: {kernel name: [case, ...]}, the training shapes first;
+    head dim 256 (the D = 256 LLaMA's step [8, 2048, 8, 256], a full Sq < Sk
+    case, a ragged one) under the ``_d256`` names."""
+    out = {f"flash_attention_{k}{d}": [] for k in ("bwd_stats", "dq", "dkv")
+           for d in ("", "_d256")}
+    out["encoder_attention_bwd"] = []
     for i, (name, B, H, Sq, Sk, D, causal, dlse) in enumerate([
             ("train_s2048", 8, 16, 2048, 2048, 128, True, False),   # the bench's step
             ("7b_heads_s2048", 1, 32, 2048, 2048, 128, True, False),
@@ -1140,13 +1237,18 @@ def bwd_kernel_cases():
             ("sq1024_sk2048_causal", 1, 32, 1024, 2048, 128, True, False),
             ("sq1024_sk1536_full", 1, 32, 1024, 1536, 128, False, False),
             ("s2048_dlse", 2, 16, 2048, 2048, 128, True, True),
-            ("s264_ragged_causal", 2, 8, 264, 264, 128, True, False)]):
+            ("s264_ragged_causal", 2, 8, 264, 264, 128, True, False),
+            ("train_d256_s2048", 8, 8, 2048, 2048, 256, True, False),  # the D = 256 step
+            ("d256_sq1024_sk1536_full", 1, 16, 1024, 1536, 256, False, False),
+            ("d256_s264_ragged_causal_dlse", 2, 8, 264, 264, 256, True, True)]):
         r = flash_bwd_case(name, B, H, Sq, Sk, D, causal, 60 + i, dlse)
-        for key in ("dq", "dkv"):
-            r[key]["function_bound_ms"] = r["function_bound_ms"]
-            r[key]["backward_ms"] = r["backward_ms"]
-            out[f"flash_attention_{key}"].append(r[key])
-            log_case(f"flash_attention_{key}", r[key])
+        for key in ("bwd_stats", "dq", "dkv"):
+            c = r["stats" if key == "bwd_stats" else key]
+            c["function_bound_ms"] = r["function_bound_ms"]
+            c["backward_ms"] = r["backward_ms"]
+            kern = f"flash_attention_{key}{'_d256' if D == 256 else ''}"
+            out[kern].append(c)
+            log_case(kern, c)
     for i, (S, D, H, causal) in enumerate([(512, 128, 16, True), (128, 128, 16, True),
                                            (256, 128, 16, True), (512, 64, 32, True),
                                            (512, 128, 16, False)]):
@@ -1860,8 +1962,9 @@ def simt_flash_bwd_case(name, B, H, Sq, Sk, D, causal, dtype, seed, with_dlse=Fa
                               fa.flash_attention_simt_dkv_kernel, 1)
     dq2 = fa.flash_attention_simt_dq_kernel(*args, stats=stats)  # the same bits twice
     dk2, dv2 = fa.flash_attention_simt_dkv_kernel(*args, stats=stats)
+    stats2 = fa.flash_attention_simt_bwd_stats(o, do, lse, dlse)
     torch.cuda.synchronize()
-    same = {"dq": bool(torch.equal(dq, dq2)),
+    same = {"stats": bool(torch.equal(stats, stats2)), "dq": bool(torch.equal(dq, dq2)),
             "dkv": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))}
     want = fa._flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse)
     dsum = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())
@@ -1887,7 +1990,8 @@ def simt_flash_bwd_case(name, B, H, Sq, Sk, D, causal, dtype, seed, with_dlse=Fa
     if with_dlse:
         stat_faults["dlse_ignored"] = (want_stats[0], want_stats[1] + dlse.reshape(B * H, Sq))
     res = {"stats": bwd_gate(name, (stats[0], stats[1]), want_stats, stat_faults, F32_RTOL,
-                             launches_counted=n_st, ok=n_st, **shape),
+                             same_bits=same["stats"], launches_counted=n_st,
+                             ok=same["stats"] and n_st, **shape),
            "dq": bwd_gate(name, (dq,), want[:1], {f: t[:1] for f, t in faults.items()}, tol,
                           same_bits=same["dq"], launches_counted=n_dq,
                           ok=same["dq"] and n_dq and dq.dtype == dtype, **shape),
@@ -2002,19 +2106,26 @@ def simt_bwd_kernel_cases():
     head dim 128 and S = 512 at head dim 64 with dropout."""
     f32, f16 = torch.float32, torch.float16
     out = {k: [] for k in SIMT_BWD_KERNELS}
+    out.update({f"{k}_d256": [] for k in SIMT_BWD_KERNELS[:3]})
     for i, (name, B, H, Sq, Sk, D, causal, dlse, dts) in enumerate([
             ("train_s2048", 8, 16, 2048, 2048, 128, True, False, (f32, f16)),  # the step's
             ("sq1024_sk2048_causal", 1, 32, 1024, 2048, 128, True, False, (f32, f16)),
             ("s2048_dlse", 2, 16, 2048, 2048, 128, True, True, (f32, f16)),
             ("bh64_s1024_d64", 2, 32, 1024, 1024, 64, True, False, (f32,)),
             ("sq1024_sk1536_full", 1, 16, 1024, 1536, 128, False, False, (f16,)),
-            ("s264_ragged_causal", 2, 8, 264, 264, 128, True, False, (f32,))]):
+            ("s264_ragged_causal", 2, 8, 264, 264, 128, True, False, (f32,)),
+            # head dim 256: the D = 256 LLaMA's step, a full Sq < Sk case, a
+            # ragged length with the lse cotangent
+            ("train_d256_s2048", 8, 8, 2048, 2048, 256, True, False, (f32, f16)),
+            ("d256_sq1024_sk1536_full", 1, 16, 1024, 1536, 256, False, False, (f32, f16)),
+            ("d256_s264_ragged_causal_dlse", 2, 8, 264, 264, 256, True, True, (f16,))]):
         for dt in dts:
             r = simt_flash_bwd_case(f"{name}_{TAGS[dt]}", B, H, Sq, Sk, D, causal, dt, 160 + i,
                                     dlse)
             for part, kern in (("stats", "flash_attention_bwd_stats_simt"),
                                ("dq", "flash_attention_dq_simt"),
                                ("dkv", "flash_attention_dkv_simt")):
+                kern += "_d256" if D == 256 else ""
                 out[kern].append(r[part])
                 log_case(kern, r[part])
     for i, (name, B, H, S, D, causal, rate, packed, dts) in enumerate([
@@ -2153,7 +2264,8 @@ def counters():
             "flash_attention_bwd_stats_simt": fa.flash_attention_simt_bwd_stats,
             "flash_attention_dq_simt": fa.flash_attention_simt_dq_kernel,
             "flash_attention_dkv_simt": fa.flash_attention_simt_dkv_kernel,
-            "encoder_attention_bwd_simt": ea.encoder_attention_simt_bwd_kernel}
+            "encoder_attention_bwd_simt": ea.encoder_attention_simt_bwd_kernel,
+            "flash_attention_bwd_stats": fa.flash_attention_bwd_stats}
 
 
 def zero_counts():
@@ -3056,7 +3168,8 @@ def grad_parity(model, B, S, seed, expected, tol=GRAD_RTOL, grad_scale=1.0):
     worst = max(rel, key=rel.get)
     finite = all(bool(torch.isfinite(g).all()) for g in grads[True])
     ordered = sorted(rel.values())
-    return dict(B=B, S=S, layers=cfg.num_hidden_layers, dtype=TAGS[model_dtype(model)],
+    return dict(B=B, S=S, D=cfg.hidden_size // cfg.num_attention_heads,
+                layers=cfg.num_hidden_layers, dtype=TAGS[model_dtype(model)],
                 grad_scale=grad_scale, loss_kernels=losses[True],
                 loss_dense=losses[False], max_rel=rel[worst], worst_param=worst,
                 median_rel=ordered[len(ordered) // 2], tol=tol, finite=finite,
@@ -3181,7 +3294,8 @@ def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN
     flops = (6 * model.num_params * tokens
              + 3 * 2 * B * S * S * cfg.hidden_size * cfg.num_hidden_layers)
     expected = {k: n * steps for k, n in per_step.items()}
-    res = dict(path="train", name=name, B=B, S=S, accum_steps=accum_steps,
+    res = dict(path="train", name=name, B=B, S=S,
+               D=cfg.hidden_size // cfg.num_attention_heads, accum_steps=accum_steps,
                grad_clip=repr(grad_clip), layers=cfg.num_hidden_layers,
                params=model.num_params, warmup=warmup, steps=steps, losses=losses,
                step_ms=step_ms, step_ms_all=ms, tokens_per_s=tokens / step_ms * 1e3,
@@ -3200,11 +3314,10 @@ def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN
 
 def flash_launches(n, dtype):
     """Expected launches of ``n`` flash forwards and backwards at q's dtype:
-    the bf16 kernels, or the CUDA-core ones with their statistics pass."""
-    kerns = ["flash_attention", "flash_attention_dq", "flash_attention_dkv"]
-    if dtype != torch.bfloat16:
-        kerns.append("flash_attention_bwd_stats")
-    return {kernel_for(k, dtype): n for k in kerns}
+    the bf16 kernels, or the CUDA-core ones, each backward with its
+    statistics pass."""
+    bwd = ["flash_attention_bwd_stats", "flash_attention_dq", "flash_attention_dkv"]
+    return {kernel_for(k, dtype): n for k in ["flash_attention"] + bwd}
 
 
 def encoder_launches(n, dtype):
@@ -3212,7 +3325,7 @@ def encoder_launches(n, dtype):
 
 
 def log_parity(r, card):
-    log(f"  grad parity {r['dtype']} S {r['S']}, {r['layers']} layers, loss gradient "
+    log(f"  grad parity {r['dtype']} S {r['S']} D {r['D']}, {r['layers']} layers, loss gradient "
         f"{r['grad_scale']:g}: max rel "
         f"{r['max_rel']:.3e} ({r['worst_param']}), median {r['median_rel']:.3e} (tol "
         f"{r['tol']}); loss {r['loss_kernels']:.4f} vs dense {r['loss_dense']:.4f}; launches "
@@ -3230,49 +3343,61 @@ def log_train_run(r, card):
         f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
 
 
-def train_phase(card, device="cuda", layers=12, parity_layers=2, **over):
-    """Gradient parity at ``parity_layers`` layers (S 2048: flash; S 512:
-    encoder), then the training runs at ``layers``: B 8 x S 2048, and B 32 x
-    S 512 at accum_steps=2 with ClipGradByGlobalNorm(1.0) (the same 16,384
-    tokens a step); first in bf16, then in float32 (the config's default,
-    through the CUDA-core kernels, F32_TRAIN_STEPS timed steps), and the
-    parity once more in float16."""
+def train_phase(card, device="cuda", layers=12, parity_layers=2, heads=(16, 8), **over):
+    """For each head count in ``heads`` (16 heads of 128: bench.py's LLaMA;
+    8 heads of 256 at the same widths, Gemma-2B's attention layout, through
+    the D = 256 backward kernels): gradient parity at ``parity_layers``
+    layers (S 2048: flash; S 512: encoder, at D = 128 only, since the
+    reference sends S = 512 at D = 256 to its dense path), then the training
+    runs at ``layers``: B 8 x S 2048 and, at D = 128, B 32 x S 512 at
+    accum_steps=2 with ClipGradByGlobalNorm(1.0) (the same 16,384 tokens a
+    step); first in bf16, then in float32 (the config's default, through the
+    CUDA-core kernels, F32_TRAIN_STEPS timed steps), and the parity once
+    more in float16."""
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 
     L = parity_layers
     parity, runs = [], []
-    for dt, tol, scale in (("bfloat16", GRAD_RTOL, 1.0), ("float32", F32_GRAD_RTOL, 1.0),
-                           ("float16", F16_GRAD_RTOL, F16_GRAD_SCALE)):
-        small = train_model(parity_layers, device, **{**over, "dtype": dt})
-        tdt = model_dtype(small)
-        parity += [grad_parity(small, 2, 2048, 3, flash_launches(L, tdt), tol, scale),
-                   grad_parity(small, 2, 512, 4, encoder_launches(L, tdt), tol, scale)]
-        del small
-        for r in parity[-2:]:
-            log_parity(r, card)
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
-        if dt == "float16":
-            break  # float16 training needs loss scaling (ROADMAP Queue 1, item 6)
-        t0 = time.perf_counter()
-        model = train_model(layers, device, **{**over, "dtype": dt})
-        sync()
-        log(f"  model: {model.num_params / 1e6:.1f} M params, {layers} layers, "
-            f"{model.config.dtype}, init {time.perf_counter() - t0:.1f} s")
-        steps, warmup = ((TRAIN_STEPS, TRAIN_WARMUP) if dt == "bfloat16"
-                         else (F32_TRAIN_STEPS, F32_TRAIN_WARMUP))
-        tag = "" if dt == "bfloat16" else f"_{TAGS[tdt]}"
-        part = [train_run(model, f"b8_s2048{tag}", 8, 2048, 0, flash_launches(layers, tdt),
-                          steps=steps, warmup=warmup, profiled=True),
-                train_run(model, f"b32_s512_accum2_clip{tag}", 32, 512, 1,
-                          encoder_launches(2 * layers, tdt), steps=min(steps, 5),
-                          warmup=warmup, accum_steps=2, grad_clip=ClipGradByGlobalNorm(1.0))]
-        del model
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
-        for r in part:
-            log_train_run(r, card)
-        runs += part
+    for nh in heads:
+        cfg = {**over, "num_attention_heads": nh, "num_key_value_heads": nh}
+        for dt, tol, scale in (("bfloat16", GRAD_RTOL, 1.0), ("float32", F32_GRAD_RTOL, 1.0),
+                               ("float16", F16_GRAD_RTOL, F16_GRAD_SCALE)):
+            small = train_model(parity_layers, device, **{**cfg, "dtype": dt})
+            tdt = model_dtype(small)
+            D = small.config.hidden_size // small.config.num_attention_heads
+            checks = [grad_parity(small, 2, 2048, 3, flash_launches(L, tdt), tol, scale)]
+            if D != 256:
+                checks.append(grad_parity(small, 2, 512, 4, encoder_launches(L, tdt), tol, scale))
+            del small
+            for r in checks:
+                log_parity(r, card)
+            parity += checks
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            if dt == "float16":
+                break  # float16 training needs f32 master weights (ROADMAP Queue 1, item 6)
+            t0 = time.perf_counter()
+            model = train_model(layers, device, **{**cfg, "dtype": dt})
+            sync()
+            log(f"  model: {model.num_params / 1e6:.1f} M params, {layers} layers, "
+                f"{nh} heads of {D}, {model.config.dtype}, init {time.perf_counter() - t0:.1f} s")
+            steps, warmup = ((TRAIN_STEPS, TRAIN_WARMUP) if dt == "bfloat16"
+                             else (F32_TRAIN_STEPS, F32_TRAIN_WARMUP))
+            tag = ("" if D == 128 else f"_d{D}") + ("" if dt == "bfloat16" else f"_{TAGS[tdt]}")
+            part = [train_run(model, f"b8_s2048{tag}", 8, 2048, 0,
+                              flash_launches(layers, tdt), steps=steps, warmup=warmup,
+                              profiled=True)]
+            if D != 256:
+                part.append(train_run(model, f"b32_s512_accum2_clip{tag}", 32, 512, 1,
+                                      encoder_launches(2 * layers, tdt), steps=min(steps, 5),
+                                      warmup=warmup, accum_steps=2,
+                                      grad_clip=ClipGradByGlobalNorm(1.0)))
+            del model
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            for r in part:
+                log_train_run(r, card)
+            runs += part
     return parity, runs
 
 
@@ -3296,19 +3421,14 @@ ERNIE_F32_WARMUP, ERNIE_F32_STEPS = 1, 4
 class composed_paths:
     """Inside: attention takes the dense math and the dropout + add + LN
     the composed math, on every device, so that a run goes through no
-    kernel under test (the oracle of the ernie phase); with
-    ``attention=False`` only the LN is composed.  The port has no switch of
-    its own for this, as the reference has none."""
-
-    def __init__(self, attention=True):
-        self.attention = attention
+    kernel under test (the oracle of the ernie phase).  The port has no
+    switch of its own for this, as the reference has none."""
 
     def __enter__(self):
         from paddle_tpu_torch.nn.functional import attention, norm
 
         self._saved = (attention._reference_kernel, norm._use_fused_kernel)
-        if self.attention:
-            attention._reference_kernel = lambda *a, **k: None
+        attention._reference_kernel = lambda *a, **k: None
         norm._use_fused_kernel = lambda *a, **k: False
         return self
 
@@ -3368,19 +3488,20 @@ def ernie_flops(cfg, B, S, P):
             + 3 * 4 * B * S * S * h * L)
 
 
-def ernie_per_layer(L, dtype=torch.bfloat16, fused_ln=True):
+def ln_launches(n, bwd=True):
+    """Expected launches of ``n`` fused LN forwards (and backwards)."""
+    return {k: n for k in (["fused_ln", "fused_ln_bwd"] if bwd else ["fused_ln"])}
+
+
+def ernie_per_layer(L, dtype=torch.bfloat16):
     """Launches of one step of an ``L``-layer ERNIE at ``dtype``: the fused
-    LN kernels (unless composed) and the encoder kernels of that type."""
-    out = {"fused_ln": 2 * L, "fused_ln_bwd": 2 * L} if fused_ln else {}
-    return {**out, **encoder_launches(L, dtype)}
+    LN kernels and the encoder kernels of that type."""
+    return {**ln_launches(2 * L), **encoder_launches(L, dtype)}
 
 
-def ernie_grad_parity(model, batch, tol=GRAD_RTOL, fused_ln=True):
+def ernie_grad_parity(model, batch, tol=GRAD_RTOL):
     """Every parameter's gradient through the kernels against the same
-    model's through the composed/dense paths, at rate 0, within ``tol``;
-    with ``fused_ln=False`` the LN is composed on both sides (float16, which
-    the fused-LN kernels do not take), so the run holds the attention
-    kernels alone."""
+    model's through the composed/dense paths, at rate 0, within ``tol``."""
     L = model.config.num_hidden_layers
     names, params = zip(*model.named_parameters())
     loss_fn = ernie_loss(model)
@@ -3391,11 +3512,11 @@ def ernie_grad_parity(model, batch, tol=GRAD_RTOL, fused_ln=True):
 
     for kern in (True, False):
         zero_counts()
-        if kern and fused_ln:
+        if kern:
             loss = loss_fn(*batch)
             grads[kern] = grad(loss)
         else:
-            with composed_paths(attention=not kern):
+            with composed_paths():
                 loss = loss_fn(*batch)
                 grads[kern] = grad(loss)
         sync()
@@ -3405,9 +3526,9 @@ def ernie_grad_parity(model, batch, tol=GRAD_RTOL, fused_ln=True):
     worst = max(rel, key=rel.get)
     finite = all(bool(torch.isfinite(g).all()) for g in grads[True])
     ordered = sorted(rel.values())
-    expected = ernie_per_layer(L, model_dtype(model), fused_ln)
+    expected = ernie_per_layer(L, model_dtype(model))
     return dict(layers=L, B=batch[0].shape[0], dtype=TAGS[model_dtype(model)],
-                fused_ln=fused_ln, loss_kernels=losses[True],
+                loss_kernels=losses[True],
                 loss_composed=losses[False], max_rel=rel[worst], worst_param=worst,
                 median_rel=ordered[len(ordered) // 2], tol=tol, finite=finite,
                 launches=launches[True], expected_launches=expected,
@@ -3446,25 +3567,34 @@ def ernie_eval(model, batch, tol=LOGIT_TOL):
     """The eval forward at full depth: MLM logits through the kernels (rate
     0: the fused-LN forward and encoder forward at rate 0, the model's
     type's encoder kernel) against the composed/dense forward's, within
-    ``tol`` logit standard deviations."""
+    ``tol`` logit standard deviations; the wall time (host clock, the
+    card synced) and peak memory of that forward, after one warm-up."""
     model.eval()
     ids, seg, pos = batch[:3]
+    model(ids, token_type_ids=seg, masked_positions=pos)
+    sync()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    t0 = time.perf_counter()
     logits, nsp = model(ids, token_type_ids=seg, masked_positions=pos)
     sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else None
     with composed_paths():
         want, want_nsp = model(ids, token_type_ids=seg, masked_positions=pos)
     model.train()
     L = model.config.num_hidden_layers
     drift = (logits.float() - want.float()).abs().max().item()
     std = want.float().std().item()
-    expected = {"fused_ln": 2 * L, kernel_for("encoder_attention", model_dtype(model)): L}
+    expected = {**ln_launches(2 * L, bwd=False),
+                kernel_for("encoder_attention", model_dtype(model)): L}
     return dict(layers=L, logits_shape=list(logits.shape), max_logit_drift=drift,
                 logit_std=std, drift_in_std=drift / std, logit_tol_in_std=tol,
                 nsp_drift=(nsp.float() - want_nsp.float()).abs().max().item(),
                 finite=bool(torch.isfinite(logits).all()), launches=launches,
-                expected_launches=expected,
+                expected_launches=expected, wall_ms=wall_ms, peak_mem_bytes=peak,
                 ok=(bool(torch.isfinite(logits).all()) and drift <= tol * std
                     and launch_check(launches, expected)))
 
@@ -3506,8 +3636,7 @@ def ernie_train(model, batch, steps=ERNIE_STEPS, warmup=ERNIE_WARMUP, profiled=T
 
 
 def log_ernie_parity(parity, card):
-    log(f"  grad parity {parity['dtype']}, {parity['layers']} layers, rate 0"
-        f"{'' if parity['fused_ln'] else ', LN composed on both sides'}: max rel "
+    log(f"  grad parity {parity['dtype']}, {parity['layers']} layers, rate 0: max rel "
         f"{parity['max_rel']:.3e} ({parity['worst_param']}), median {parity['median_rel']:.3e} "
         f"(tol {parity['tol']}); loss {parity['loss_kernels']:.4f} vs composed "
         f"{parity['loss_composed']:.4f}; launches {parity['launches']} (expected "
@@ -3564,13 +3693,12 @@ def ernie_phase(card, device="cuda", layers=12, parity_layers=2, B=ERNIE_B, S=ER
 
 def ernie_f16_parity(card, device="cuda", parity_layers=2, B=ERNIE_B, S=ERNIE_S, P=ERNIE_P,
                      **over):
-    """ERNIE at float16, gradient parity only (training at float16 needs
-    loss scaling, ROADMAP Queue 1 item 6): the encoder kernels at float16
-    against the dense math at rate 0, the LN composed on both sides (the
-    fused-LN kernels take bf16 and float32)."""
+    """ERNIE at float16, gradient parity only (training at float16 needs f32
+    master weights, ROADMAP Queue 1 item 6): the encoder kernels and the
+    fused-LN kernels at float16 against the composed/dense paths at rate 0."""
     small = ernie_model(parity_layers, device, torch.float16, dropout=False, **over)
     parity = ernie_grad_parity(small, ernie_batch(small.config, B, S, P, 0, device),
-                               F16_GRAD_RTOL, fused_ln=False)
+                               F16_GRAD_RTOL)
     del small
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
@@ -3864,7 +3992,8 @@ def log_dtype_run(r, card):
             f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
     elif r["path"] == "bert_eval":
         log(f"  BERT-base eval {r['name']}: MLM logits drift {r['max_logit_drift']:.2e} "
-            f"({r['drift_in_std']:.2e} std; tol {r['logit_tol_in_std']} std); launches "
+            f"({r['drift_in_std']:.2e} std; tol {r['logit_tol_in_std']} std); wall "
+            f"{r['wall_ms']:.2f} ms, peak {(r['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; launches "
             f"{r['launches']} (expected {r['expected_launches']}); "
             f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
     else:
@@ -3879,7 +4008,8 @@ def dtypes_phase(card):
     the paged decode tick under the profiler; then at float16: generate()
     on its float16 static cache and the paged engine's 12 requests (float32
     pools, as for every model that is not bf16); then BERT-base at float32
-    (eval, [32, 128]).  Every attention launch is an f32 CUDA-core kernel's."""
+    and at float16 (eval, [32, 128]; float16 through the fused-LN kernels at
+    float16).  Every attention launch is an f32 CUDA-core kernel's."""
     import numpy as np
 
     runs, extra = [], {}
@@ -3912,14 +4042,15 @@ def dtypes_phase(card):
         runs += part
         del model
         torch.cuda.empty_cache()
-    bert = ernie_model(12, dtype=torch.float32, dropout=False)
-    ev = ernie_eval(bert, ernie_batch(bert.config, 32, 128, ERNIE_P, 0, "cuda"),
-                    tol=F32_LOGIT_TOL)
-    ev.update(path="bert_eval", name="base_b32_s128_f32", model_dtype="float32")
-    log_dtype_run(ev, card)
-    runs.append(ev)
-    del bert
-    torch.cuda.empty_cache()
+    for dt, tol in ((torch.float32, F32_LOGIT_TOL), (torch.float16, F16_LOGIT_TOL)):
+        bert = ernie_model(12, dtype=dt, dropout=False)
+        ev = ernie_eval(bert, ernie_batch(bert.config, 32, 128, ERNIE_P, 0, "cuda"), tol=tol)
+        ev.update(path="bert_eval", name=f"base_b32_s128_{TAGS[dt]}", dtype=TAGS[dt],
+                  model_dtype=str(dt).replace("torch.", ""))
+        log_dtype_run(ev, card)
+        runs.append(ev)
+        del bert
+        torch.cuda.empty_cache()
     return runs, extra
 
 
@@ -4028,15 +4159,16 @@ def main(argv=None):
         phase_done(report, "gpt", t_ph)
     if "dtypes" in paths:
         t_ph = time.perf_counter()
-        log("[dtypes] LLaMA-2-7B widths at float32 and float16, BERT-base at float32, "
-            "through the f32 CUDA-core attention kernels")
+        log("[dtypes] LLaMA-2-7B widths at float32 and float16, BERT-base at float32 and "
+            "float16, through the f32 CUDA-core attention kernels")
         runs, report["dtypes"] = dtypes_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in runs)
         phase_done(report, "dtypes", t_ph)
     if "train" in paths:
         t_ph = time.perf_counter()
-        log("[train] bench.py's LLaMA training configuration through TrainStep + AdamW")
+        log("[train] bench.py's LLaMA training configuration through TrainStep + AdamW, at "
+            "16 heads of 128 and 8 heads of 256")
         report["train_grad_parity"], runs = train_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in report["train_grad_parity"] + runs)
@@ -4044,7 +4176,7 @@ def main(argv=None):
     if "ernie" in paths:
         t_ph = time.perf_counter()
         log("[ernie] bench.py's ERNIE-base pretraining through TrainStep + AdamW, bf16 and "
-            "float32; float16 gradient parity")
+            "float32; float16 gradient parity through the fused-LN kernels")
         report["ernie_checks"], runs = ernie_phase(report["card"])
         report["ernie_f32_checks"], f32_runs = ernie_phase(
             report["card"], dtype=torch.float32, steps=ERNIE_F32_STEPS, warmup=ERNIE_F32_WARMUP)
@@ -4070,11 +4202,16 @@ def main(argv=None):
         log("chip_smoke: FAILED (see above)")
         return 1
     if "kernels" in report:
-        # launches: the sum over every path's run (each zeroed just before)
+        # launches: the sum over every path's run (each zeroed just before);
+        # an instantiation's row sums its wrapper over the runs at its head
+        # dim or dtype
         launches = {}
         for run in report["paths"]:
+            tags = [""] + [t for (key, val), t in INSTANTIATIONS.items() if run.get(key) == val]
             for k, n in run["launches"].items():
-                launches[k] = launches.get(k, 0) + n
+                for t in tags:
+                    if k + t in KERNELS:
+                        launches[k + t] = launches.get(k + t, 0) + n
         line = []
         for name, (source, replaces) in KERNELS.items():
             cases = report["kernels"][name]

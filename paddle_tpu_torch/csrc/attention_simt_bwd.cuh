@@ -48,8 +48,19 @@
 // 64 own keys would double that to 128 before the scores, and the 64-row
 // tiles' shared memory (about 190 KB at f32) would leave one block of four
 // warps an SM.  At 32 rows a block takes 109 KB at f32 (D = 128), so two
-// blocks share an SM.  D = 256 (ROADMAP Queue 2, item 8) would need twice
-// the accumulators again and is not built.
+// blocks share an SM.
+//
+// D = 256 (flash only).  The row pass keeps its shape: dQ is 2 rows x D / 8
+// columns, 64 registers, as dK plus dV at D = 128.  The column pass would
+// hold 128 registers of dK and dV before the scores, so it takes the D
+// halves: two blocks a key tile (grid x = key tiles x col_splits(D)), each
+// computing S and dP over the whole D and dK and dV for its 128 columns
+// (the scores twice: 12 D FLOP a pair where D = 128 takes 8 D).  Shared
+// memory doubles with D either way, 205 KB a block at f32 (141 KB at
+// float16), so one block runs an SM.  ptxas -v on the H100 machine's
+// toolkit (sm_90a) at D = 256: the row pass 128 registers (f32) and 162
+// (f16), the column pass 190 and 168, the statistics pass 32 and 30; no
+// spill in any of them.
 //
 // The encoder's regimes: at S = 128 one block holds the whole head (its
 // four row passes, the rows' lse and dsum kept in shared memory, then its
@@ -64,7 +75,7 @@
 // admits for "flash_bwd" and "encoder_bwd" (a CPU test parses these lines
 // against its lists): the storage types (q = k = v = dO) and head dims.
 #define SIMT_BWD_TYPES(X) X(float) X(__half)
-#define SIMT_BWD_FLASH_DIMS(X) X(64) X(128)
+#define SIMT_BWD_FLASH_DIMS(X) X(64) X(128) X(256)
 #define SIMT_BWD_ENCODER_DIMS(X) X(64) X(128)
 
 namespace attention_simt_bwd {
@@ -73,6 +84,11 @@ using namespace attention_simt;
 
 constexpr int kTile = 32;   // own rows a block, and rows a walked tile
 constexpr int kHeadS = 128; // the encoder's whole-head regime
+
+// Blocks that share a column pass's key tile, each owning D / col_splits(D)
+// columns of dK and dV: two at D = 256, so that a thread holds 64 f32
+// registers of them at every D.
+__host__ __device__ constexpr int col_splits(int D) { return D > 128 ? 2 : 1; }
 
 // A [B, S, H, D] view: heads D apart, positions ss and batches sb elements
 // apart.
@@ -394,14 +410,17 @@ __device__ void row_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
 
 // ---------------------------------------------------------- column pass
 
-// dK and dV of key rows [c0, c0 + kTile) of (b, h), walking query tiles
-// from the first that sees them; each query's lse * log2(e) and dsum from
-// st_l / st_d (this head's rows, global or shared).
+// dK and dV of key rows [c0, c0 + kTile) of (b, h), columns [split DC,
+// (split + 1) DC) with DC = D / col_splits(D), walking query tiles from the
+// first that sees them; the scores over the whole D; each query's lse *
+// log2(e) and dsum from st_l / st_d (this head's rows, global or shared).
 template <int D, class T, bool ENC>
 __device__ void col_pass(const BwdParams& p, unsigned char* smem, int b, int h, int c0,
-                         const float* st_l, const float* st_d) {
+                         const float* st_l, const float* st_d, int split = 0) {
   using L = BwdLayout<D, T>;
-  constexpr int OS = L::OS, WS = L::WS, PS = L::PS, NC = D / 32;
+  constexpr int DC = D / col_splits(D);
+  constexpr int OS = L::OS, WS = L::WS, PS = L::PS, NC = DC / 32;
+  const int cb = split * DC;  // the block's first column of dK and dV
   float* ka = reinterpret_cast<float*>(smem);
   float* va = reinterpret_cast<float*>(smem + L::off_b);
   T* ring = reinterpret_cast<T*>(smem + L::off_w);
@@ -526,8 +545,8 @@ __device__ void col_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
       }
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        const float4 gv = ld4(gt + qq * WS + 4 * l8 + 32 * c);
-        const float4 qv = ld4(qt + qq * WS + 4 * l8 + 32 * c);
+        const float4 gv = ld4(gt + qq * WS + cb + 4 * l8 + 32 * c);
+        const float4 qv = ld4(qt + qq * WS + cb + 4 * l8 + 32 * c);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           dv[i][c][0] = fmaf(a[i], gv.x, dv[i][c][0]);
@@ -555,7 +574,7 @@ __device__ void col_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (cc[i] >= livek) continue;
-    const size_t at = ((size_t)(b * p.Sk + c0 + cc[i]) * p.H + h) * D;
+    const size_t at = ((size_t)(b * p.Sk + c0 + cc[i]) * p.H + h) * D + cb;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       st4(dkg + at + 4 * l8 + 32 * c,
@@ -569,8 +588,9 @@ __device__ void col_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
 
 enum class Op { FlashDq, FlashDkv, EncoderDq, EncoderDkv, EncoderHead };
 
-// Grid: (row or key tiles, H, B) for the streamed ops (causal dQ tiles the
-// longest walks first); (H, B) for the whole head.
+// Grid: (row tiles, H, B) or (key tiles x col_splits(D), H, B) for the
+// streamed ops (causal dQ tiles the longest walks first); (H, B) for the
+// whole head.
 template <Op OP, int D, class T>
 __global__ void __launch_bounds__(kThreads) simt_attention_bwd(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -590,7 +610,8 @@ __global__ void __launch_bounds__(kThreads) simt_attention_bwd(const BwdParams p
       const int tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
       row_pass<D, T, ENC>(p, smem, b, h, tile * kTile, sl, sd, ENC ? p.lse : nullptr);
     } else {
-      col_pass<D, T, ENC>(p, smem, b, h, blockIdx.x * kTile, sl, sd);
+      constexpr int ns = col_splits(D);
+      col_pass<D, T, ENC>(p, smem, b, h, blockIdx.x / ns * kTile, sl, sd, blockIdx.x % ns);
     }
   }
 }

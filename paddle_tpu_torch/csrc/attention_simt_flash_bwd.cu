@@ -1,5 +1,5 @@
 // FlashAttention backward at float32 and float16 (q, k, v, O and dO of one
-// type), head dims 64 and 128, on the CUDA cores: three entries, the
+// type), head dims 64, 128 and 256, on the CUDA cores: three entries, the
 // statistics pass and one per TPU kernel.
 //
 // Replaces: paddle_tpu/ops/flash_attention.py `_dq_kernel` (entry
@@ -21,8 +21,9 @@
 // (attention_simt_bwd.cuh): 32-row tiles of own rows in f32 shared memory,
 // register-tiled products (2 own rows x 4 walked rows of the scores, 2 own
 // rows x D / 8 columns of the outputs a thread), the walked tiles streamed
-// through a two-stage cp.async ring, two blocks an SM; each block writes
-// only its own rows, so the bits are the same on every run.
+// through a two-stage cp.async ring, two blocks an SM (one at D = 256,
+// where two blocks share a key tile's dK/dV columns); each block writes
+// only its own rows and columns, so the bits are the same on every run.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (paddle_tpu_torch/ops/_build.py does this).
@@ -95,7 +96,7 @@ extern "C" int flash_attention_simt_dkv_launch(const void* q, const void* k, con
   BwdParams p = flash_params(q, k, v, dO, stats, B, H, Sq, Sk, D, scale, causal);
   p.dk = dk;
   p.dv = dv;
-  const dim3 grid((Sk + kTile - 1) / kTile, H, B);
+  const dim3 grid((Sk + kTile - 1) / kTile * col_splits(D), H, B);
   return (int)run_op<Op::FlashDkv>(p, D, type, grid, static_cast<cudaStream_t>(stream));
 }
 

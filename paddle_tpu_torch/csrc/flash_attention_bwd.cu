@@ -1,5 +1,5 @@
-// FlashAttention backward for Hopper (sm_90a), bf16, head dims 64 and 128:
-// two entry points, one per TPU kernel, and the dsum pass they share.
+// FlashAttention backward for Hopper (sm_90a), bf16, head dims 64, 128 and
+// 256: two entry points, one per TPU kernel, and the dsum pass they share.
 //
 // Replaces: paddle_tpu/ops/flash_attention.py `_dq_kernel` (entry
 // flash_attention_dq) and `_dkv_kernel` (entry flash_attention_dkv), both
@@ -19,30 +19,47 @@
 // dS^T Q: 8 D); the function's least work is 5 products, 10 D.  At the
 // training shape (B 8, H 16, S 2048, D 128, causal) that is 0.35 ms at
 // 989 TFLOP/s against 0.16 ms for its bytes (q, k, v, o, dO, lse in; dq,
-// dk, dv out) at 3.35 TB/s.
+// dk, dv out) at 3.35 TB/s; the D = 256 shape [8, 2048, 8, 256] has the
+// same H D and so the same bounds.
 //
 // What the design does about it: every product runs on `wgmma`
 // (wgmma_attention.cuh), with the forward's block shape: two warpgroups of
 // 64 own rows each; the own side comes once by TMA, and the walked side
 // stays in flight in a TMA ring.  dQ: one block per 128-row query tile
-// walks 128-key tiles of K and V (a two-stage ring) up to its causal end;
-// S = Q K^T and dP = dO V^T from shared memory, then dQ += dS K with dS as
-// the register A operand and K MN-major.  dK/dV: one block per 128-key
-// tile walks 64-query tiles of Q and dO (a three-stage ring; their lse and
-// dsum come by bulk copy beside them) from its causal start; S^T = K Q^T
-// and dP^T = V dO^T from shared memory, then dV += bf16(P)^T dO and dK +=
-// dS^T Q from registers.  The products go in separate commit groups, so P
-// is computed while dP still runs and dS while dV runs, and the dK/dV
-// kernel waits for a tile's dK product only once the next tile's S^T and
-// dP^T are queued behind it.  Each block owns
-// its output rows: no atomics, the same bits on every run -- at the price
-// of computing S and dP in both kernels (14 D against 10 D above).  The
-// per-query statistics are a small kernel of their own (FlashAttention-2's
-// preprocessing step): `stats` [2, B * H, Sqp] holds lse * log2(e) and
-// dsum, zero-padded to Sqp = Sq rounded up to 64 so that a walked tile's
-// 64 values are one aligned bulk copy.  The autograd backward fills it once
-// and passes `stats_ready` to both entries; an entry called alone fills it
-// first.
+// walks key tiles of K and V (128 keys in a two-stage ring at D <= 128;
+// 32 keys in a three-stage ring at D = 256, where the own Q and dO take
+// 128 KB) up to its causal end; S = Q K^T and dP = dO V^T from shared
+// memory, then dQ += dS K with dS as the register A operand and K MN-major
+// (m64nDk16: 128 f32 registers a thread at D = 256).  dK/dV at D <= 128:
+// one block per 128-key tile walks 64-query tiles of Q and dO (a
+// three-stage ring; their lse and dsum come by bulk copy beside them) from
+// its causal start; S^T = K Q^T and dP^T = V dO^T from shared memory, then
+// dV += bf16(P)^T dO and dK += dS^T Q from registers.  The products go in
+// separate commit groups, so P is computed while dP still runs and dS while
+// dV runs, and the dK/dV kernel waits for a tile's dK product only once the
+// next tile's S^T and dP^T are queued behind it.
+//
+// dK/dV at D = 256: wgmma's 64-row minimum makes a warpgroup's dK and dV
+// m64n256 each, 256 f32 registers a thread before anything else, above the
+// 255 a thread can have.  Of the two ways to split them, this kernel takes
+// the D halves (one block's two warpgroups own the same 64 keys, each one
+// 128-column half of dK and of dV: 128 registers), not the exchange of P
+// and dS between a warpgroup that computes S^T and one that computes dP^T:
+// each warpgroup recomputes S^T and dP^T over the whole D (12 D operations
+// a pair against 8 D), but the warpgroups never wait for each other inside
+// a tile, and the walked Q and dO tiles, loaded once a block, feed both
+// halves.  64 own keys at D = 256 take 64 KB and each stage of the 64-query
+// ring another 64 KB: two stages.  ptxas -v (sm_90a) at D = 256: dK/dV 250
+// registers, dQ 197, the statistics pass 27; no spill.
+//
+// Each block owns its output rows (and columns): no atomics, the same bits
+// on every run -- at the price of computing S and dP in both kernels (14 D
+// against 10 D above; 18 D at D = 256).  The per-query statistics are a
+// small kernel of their own (FlashAttention-2's preprocessing step):
+// `stats` [2, B * H, Sqp] holds lse * log2(e) and dsum, zero-padded to Sqp
+// = Sq rounded up to 64 so that a walked tile's 64 values are one aligned
+// bulk copy.  The autograd backward fills it once and passes `stats_ready`
+// to both entries; an entry called alone fills it first.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (paddle_tpu_torch/ops/_build.py does this).
@@ -65,32 +82,39 @@ struct BwdArgs {
   int causal;
 };
 
-constexpr int kOwn = 128;    // own rows per block, 64 per warpgroup
+// The head dims built, one list (paddle_tpu_torch/ops/flash_attention.py
+// BWD_HEAD_DIMS; a CPU test parses this line against it).
+#define FLASH_BWD_DIMS(X) X(64) X(128) X(256)
+
+constexpr int kOwn = 128;    // own query rows per dQ block, 64 per warpgroup
 constexpr int kWalk = 64;    // queries per tile of the dK/dV walk
-constexpr int kStages = 3;   // its ring: 160 KB of shared memory at D = 128
-constexpr int kWalkK = 128;  // keys per tile of the dQ walk (m64n128 products)
-constexpr int kStagesK = 2;  // its ring: 192 KB at D = 128
 
 inline int padded(int Sq) { return (Sq + kWalk - 1) / kWalk * kWalk; }
 
 template <int D>
 struct Dq {
+  static constexpr int BK = D <= 128 ? 128 : 32;     // keys a walked tile (m64nBK products)
+  static constexpr int kStages = D <= 128 ? 2 : 3;  // 192 KB at D = 128, 224 KB at D = 256
   struct Smem {
     bf16 q[kOwn * D];
     bf16 dO[kOwn * D];
-    bf16 k[kStagesK][kWalkK * D];
-    bf16 v[kStagesK][kWalkK * D];
+    bf16 k[kStages][BK * D];
+    bf16 v[kStages][BK * D];
     uint64_t own_full;
-    Ring<kStagesK> ring;
+    Ring<kStages> ring;
   };
   static constexpr size_t kSmem = sizeof(Smem) + 1024;
 };
 
 template <int D>
 struct Dkv {
+  static constexpr bool kSplit = D > 128;           // the warpgroups split D, not the keys
+  static constexpr int OWN = kSplit ? 64 : 128;     // own keys a block
+  static constexpr int CW = kSplit ? D / 2 : D;     // dK/dV columns a warpgroup owns
+  static constexpr int kStages = kSplit ? 2 : 3;    // 160 KB at D = 128, 193 KB at D = 256
   struct Smem {
-    bf16 k[kOwn * D];
-    bf16 v[kOwn * D];
+    bf16 k[OWN * D];
+    bf16 v[OWN * D];
     bf16 q[kStages][kWalk * D];
     bf16 dO[kStages][kWalk * D];
     float lse2[kStages][kWalk];  // the walked queries' statistics
@@ -132,31 +156,32 @@ __global__ void __launch_bounds__(128) flash_dsum_kernel(const bf16* o, const bf
 }
 
 // dQ for one 128-row query tile (grid: query tiles x H x B, the longest
-// causal walks first).  Per 128-key tile up to the causal end: P =
+// causal walks first).  Per BK-key tile up to the causal end: P =
 // exp(scale S - lse), dS = bf16(P (dP - dsum)), dQ += dS K.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                     const BwdArgs p) {
+  constexpr int BK = Dq<D>::BK, NS = Dq<D>::kStages;
   typename Dq<D>::Smem& sm = aligned_smem<typename Dq<D>::Smem>();
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kOwn;
   const int off = p.Sk - p.Sq;
   const int kend = p.causal ? min(p.Sk, min(q0 + kOwn, p.Sq) + off) : p.Sk;
-  const int tiles = (kend + kWalkK - 1) / kWalkK;
+  const int tiles = (kend + BK - 1) / BK;
   const auto load_kv = [&](int j) {
-    uint64_t* full = &sm.ring.full[j % kStagesK];
-    mbar_expect_tx(full, 2 * kWalkK * D * 2);
-    tma_tile<D, kWalkK>(sm.k[j % kStagesK], &tk, full, h, j * kWalkK, b);
-    tma_tile<D, kWalkK>(sm.v[j % kStagesK], &tv, full, h, j * kWalkK, b);
+    uint64_t* full = &sm.ring.full[j % NS];
+    mbar_expect_tx(full, 2 * BK * D * 2);
+    tma_tile<D, BK>(sm.k[j % NS], &tk, full, h, j * BK, b);
+    tma_tile<D, BK>(sm.v[j % NS], &tv, full, h, j * BK, b);
   };
   init_ring(&sm.own_full, sm.ring);
   if (threadIdx.x == 0) {
     mbar_expect_tx(&sm.own_full, 2 * kOwn * D * 2);
     tma_tile<D, kOwn>(sm.q, &tq, &sm.own_full, h, q0, b);
     tma_tile<D, kOwn>(sm.dO, &tdo, &sm.own_full, h, q0, b);
-    for (int j = 0; j < min(tiles, kStagesK); ++j) load_kv(j);
+    for (int j = 0; j < min(tiles, NS); ++j) load_kv(j);
   }
 
   const int wg = warpgroup(), warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
@@ -180,24 +205,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   mbar_wait(&sm.own_full, 0);
   for (int j = 0; j < tiles; ++j) {
-    const int s = j % kStagesK, kb = j * kWalkK;
+    const int s = j % NS, kb = j * BK;
     wait_full(sm.ring, j);
-    float sc[kWalkK / 2], dp[kWalkK / 2];
+    float sc[BK / 2], dp[BK / 2];
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Mma<kWalkK>::ss(sc, desc_k<kOwn>(qw, kk), desc_k<kWalkK>(sm.k[s], kk), kk > 0);
+      Mma<BK>::ss(sc, desc_k<kOwn>(qw, kk), desc_k<BK>(sm.k[s], kk), kk > 0);
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Mma<kWalkK>::ss(dp, desc_k<kOwn>(dow, kk), desc_k<kWalkK>(sm.v[s], kk), kk > 0);
+      Mma<BK>::ss(dp, desc_k<kOwn>(dow, kk), desc_k<BK>(sm.v[s], kk), kk > 0);
     wg_commit();
     refill(sm.ring, j, tiles, load_kv);
     wg_wait<1>();  // S is done: P while dP = dO V^T runs
     fence_regs(sc);
-    const bool edge = kb + kWalkK > p.Sk || (p.causal && kb + kWalkK - 1 > wq0 + off);
+    const bool edge = kb + BK > p.Sk || (p.causal && kb + BK - 1 > wq0 + off);
 #pragma unroll
-    for (int i = 0; i < kWalkK / 2; ++i) {
+    for (int i = 0; i < BK / 2; ++i) {
       const int hr = acc_half(i), key = kb + acc_col(i, t);
       const float pr = exp2f(sc[i] * p.scale_log2 - lse2[hr]);
       sc[i] = edge && (key >= p.Sk || key > last + 8 * hr) ? 0.f : pr;
@@ -205,12 +230,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     wg_wait<0>();
     fence_regs(dp);
 #pragma unroll
-    for (int i = 0; i < kWalkK / 2; ++i) sc[i] *= dp[i] - dsum[acc_half(i)];
-    uint32_t da[kWalkK / 16][4];
-    to_a<kWalkK>(da, sc);
+    for (int i = 0; i < BK / 2; ++i) sc[i] *= dp[i] - dsum[acc_half(i)];
+    uint32_t da[BK / 16][4];
+    to_a<BK>(da, sc);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWalkK / 16; ++kk) Mma<D>::rs(dq, da[kk], desc_mn<kWalkK>(sm.k[s], kk));
+    for (int kk = 0; kk < BK / 16; ++kk) Mma<D>::rs(dq, da[kk], desc_mn<BK>(sm.k[s], kk));
     wg_commit();
     wg_wait();
     fence_regs(dq);
@@ -220,24 +245,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   store_rows<D>(p.dq, dq, mul, b, h, row, p.Sq, p.H, t);
 }
 
-// dK and dV for one 128-key tile (grid: key tiles x H x B), walking the
-// 64-query tiles from the first that sees a key of the tile to Sq.  Per
-// query tile: P^T = exp(scale S^T - lse), dV += bf16(P^T) dO, dS^T =
-// bf16(P^T (dP^T - dsum)), dK += dS^T Q.
+// dK and dV for one key tile (grid: key tiles x H x B): 128 keys, 64 a
+// warpgroup, at D <= 128; 64 keys and one D half of dK and dV a warpgroup
+// at D = 256.  It walks the 64-query tiles from the first that sees a key
+// of the tile to Sq.  Per query tile: P^T = exp(scale S^T - lse), dV +=
+// bf16(P^T) dO, dS^T = bf16(P^T (dP^T - dsum)), dK += dS^T Q.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                      const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                      const BwdArgs p) {
-  typename Dkv<D>::Smem& sm = aligned_smem<typename Dkv<D>::Smem>();
+  using L = Dkv<D>;
+  constexpr int OWN = L::OWN, CW = L::CW, NS = L::kStages;
+  typename L::Smem& sm = aligned_smem<typename L::Smem>();
   const int h = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * kOwn;
+  const int k0 = blockIdx.x * OWN;
   const int off = p.Sk - p.Sq;
   const int qstart = p.causal ? max(0, k0 - off) / kWalk * kWalk : 0;
   const int tiles = (p.Sq - qstart + kWalk - 1) / kWalk;
   const size_t stat0 = (size_t)(b * p.H + h) * p.Sqp;
   const auto load_q = [&](int j) {
-    const int s = j % kStages, qb = qstart + j * kWalk;
+    const int s = j % NS, qb = qstart + j * kWalk;
     uint64_t* full = &sm.ring.full[s];
     mbar_expect_tx(full, 2 * kWalk * D * 2 + 2 * kWalk * 4);
     tma_tile<D, kWalk>(sm.q[s], &tq, full, h, qb, b);
@@ -247,36 +275,37 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   init_ring(&sm.own_full, sm.ring);
   if (threadIdx.x == 0) {
-    mbar_expect_tx(&sm.own_full, 2 * kOwn * D * 2);
-    tma_tile<D, kOwn>(sm.k, &tk, &sm.own_full, h, k0, b);
-    tma_tile<D, kOwn>(sm.v, &tv, &sm.own_full, h, k0, b);
-    for (int j = 0; j < min(tiles, kStages); ++j) load_q(j);
+    mbar_expect_tx(&sm.own_full, 2 * OWN * D * 2);
+    tma_tile<D, OWN>(sm.k, &tk, &sm.own_full, h, k0, b);
+    tma_tile<D, OWN>(sm.v, &tv, &sm.own_full, h, k0, b);
+    for (int j = 0; j < min(tiles, NS); ++j) load_q(j);
   }
 
   const int wg = warpgroup(), warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int t = lane & 3;
-  const int wk0 = k0 + 64 * wg;
-  const int key = wk0 + 16 * warp + (lane >> 2);  // keys key, key + 8
-  const bf16* kw = sm.k + 64 * wg * kPanel;
-  const bf16* vw = sm.v + 64 * wg * kPanel;
-  float dk[D / 2], dv[D / 2];
+  const int wk0 = k0 + (L::kSplit ? 0 : 64 * wg);  // the warpgroup's first key
+  const int key = wk0 + 16 * warp + (lane >> 2);   // keys key, key + 8
+  const int col0 = L::kSplit ? CW * wg : 0;        // its first dK/dV column
+  const bf16* kw = sm.k + (wk0 - k0) * kPanel;
+  const bf16* vw = sm.v + (wk0 - k0) * kPanel;
+  float dk[CW / 2], dv[CW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < CW / 2; ++i) dk[i] = dv[i] = 0.f;
 
   mbar_wait(&sm.own_full, 0);
   uint32_t pa[kWalk / 16][4], da[kWalk / 16][4];
   for (int j = 0; j < tiles; ++j) {
-    const int s = j % kStages, qb = qstart + j * kWalk;
+    const int s = j % NS, qb = qstart + j * kWalk;
     wait_full(sm.ring, j);
     float sc[kWalk / 2], dp[kWalk / 2];
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Mma<kWalk>::ss(sc, desc_k<kOwn>(kw, kk), desc_k<kWalk>(sm.q[s], kk), kk > 0);
+      Mma<kWalk>::ss(sc, desc_k<OWN>(kw, kk), desc_k<kWalk>(sm.q[s], kk), kk > 0);
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Mma<kWalk>::ss(dp, desc_k<kOwn>(vw, kk), desc_k<kWalk>(sm.dO[s], kk), kk > 0);
+      Mma<kWalk>::ss(dp, desc_k<OWN>(vw, kk), desc_k<kWalk>(sm.dO[s], kk), kk > 0);
     wg_commit();
     if (j > 0) {
       wg_wait<2>();  // dK of tile j - 1 is done: its stage is free
@@ -295,9 +324,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       sc[i] = edge && (q >= p.Sq || (p.causal && key + 8 * acc_half(i) > q + off)) ? 0.f : pr;
     }
     to_a<kWalk>(pa, sc);
+    // the warpgroup's columns of dO and Q: panels col0 / 64 on
+    const bf16* dos = sm.dO[s] + (col0 / kPanel) * kWalk * kPanel;
+    const bf16* qs = sm.q[s] + (col0 / kPanel) * kWalk * kPanel;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWalk / 16; ++kk) Mma<D>::rs(dv, pa[kk], desc_mn<kWalk>(sm.dO[s], kk));
+    for (int kk = 0; kk < kWalk / 16; ++kk) Mma<CW>::rs(dv, pa[kk], desc_mn<kWalk>(dos, kk));
     wg_commit();
     wg_wait<1>();  // dP^T is done (dV may still run)
     fence_regs(dp);
@@ -306,15 +338,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     to_a<kWalk>(da, dp);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWalk / 16; ++kk) Mma<D>::rs(dk, da[kk], desc_mn<kWalk>(sm.q[s], kk));
+    for (int kk = 0; kk < kWalk / 16; ++kk) Mma<CW>::rs(dk, da[kk], desc_mn<kWalk>(qs, kk));
     wg_commit();
   }
   wg_wait();
   fence_regs(dv);
   fence_regs(dk);
   const float kmul[2] = {p.scale, p.scale}, one[2] = {1.f, 1.f};
-  store_rows<D>(p.dk, dk, kmul, b, h, key, p.Sk, p.H, t);
-  store_rows<D>(p.dv, dv, one, b, h, key, p.Sk, p.H, t);
+  store_rows<CW, D>(p.dk, dk, kmul, b, h, key, p.Sk, p.H, t, col0);
+  store_rows<CW, D>(p.dv, dv, one, b, h, key, p.Sk, p.H, t, col0);
 }
 
 struct Inputs {
@@ -358,7 +390,7 @@ template <int D>
 cudaError_t run_dq(const Inputs& in, void* dq, int stats_ready, cudaStream_t st) {
   cudaError_t err = stats_ready ? cudaSuccess : run_stats<D>(in, st);
   CUtensorMap m[4];
-  if (err != cudaSuccess || (err = make_maps(m, in, D, kOwn, kWalkK)) != cudaSuccess) return err;
+  if (err != cudaSuccess || (err = make_maps(m, in, D, kOwn, Dq<D>::BK)) != cudaSuccess) return err;
   BwdArgs a = make_args(in);
   a.dq = static_cast<bf16*>(dq);
   return launch(flash_dq_kernel<D>, dim3((in.Sq + kOwn - 1) / kOwn, in.H, in.B), Dq<D>::kSmem, st,
@@ -369,11 +401,13 @@ template <int D>
 cudaError_t run_dkv(const Inputs& in, void* dk, void* dv, int stats_ready, cudaStream_t st) {
   cudaError_t err = stats_ready ? cudaSuccess : run_stats<D>(in, st);
   CUtensorMap m[4];
-  if (err != cudaSuccess || (err = make_maps(m, in, D, kWalk, kOwn)) != cudaSuccess) return err;
+  if (err != cudaSuccess || (err = make_maps(m, in, D, kWalk, Dkv<D>::OWN)) != cudaSuccess)
+    return err;
   BwdArgs a = make_args(in);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
-  return launch(flash_dkv_kernel<D>, dim3((in.Sk + kOwn - 1) / kOwn, in.H, in.B), Dkv<D>::kSmem,
+  constexpr int OWN = Dkv<D>::OWN;
+  return launch(flash_dkv_kernel<D>, dim3((in.Sk + OWN - 1) / OWN, in.H, in.B), Dkv<D>::kSmem,
                 st, m[0], m[1], m[2], m[3], a);
 }
 
@@ -391,8 +425,10 @@ extern "C" int flash_attention_dsum_launch(const void* o, const void* dO, const 
   const Inputs in{nullptr, nullptr, nullptr, o, dO, lse, dlse, static_cast<float*>(stats),
                   B, H, Sq, Sq, 1.f, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)run_stats<64>(in, st);
-  if (D == 128) return (int)run_stats<128>(in, st);
+#define X(DD) \
+  if (D == DD) return (int)run_stats<DD>(in, st);
+  FLASH_BWD_DIMS(X)
+#undef X
   return (int)cudaErrorInvalidValue;
 }
 
@@ -404,8 +440,10 @@ extern "C" int flash_attention_dq_launch(const void* q, const void* k, const voi
   if (bad_shape(B, H, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
   const Inputs in{q, k, v, o, dO, lse, dlse, static_cast<float*>(stats), B, H, Sq, Sk, scale, causal};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)run_dq<64>(in, dq, stats_ready, st);
-  if (D == 128) return (int)run_dq<128>(in, dq, stats_ready, st);
+#define X(DD) \
+  if (D == DD) return (int)run_dq<DD>(in, dq, stats_ready, st);
+  FLASH_BWD_DIMS(X)
+#undef X
   return (int)cudaErrorInvalidValue;
 }
 
@@ -417,8 +455,10 @@ extern "C" int flash_attention_dkv_launch(const void* q, const void* k, const vo
   if (bad_shape(B, H, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
   const Inputs in{q, k, v, o, dO, lse, dlse, static_cast<float*>(stats), B, H, Sq, Sk, scale, causal};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)run_dkv<64>(in, dk, dv, stats_ready, st);
-  if (D == 128) return (int)run_dkv<128>(in, dk, dv, stats_ready, st);
+#define X(DD) \
+  if (D == DD) return (int)run_dkv<DD>(in, dk, dv, stats_ready, st);
+  FLASH_BWD_DIMS(X)
+#undef X
   return (int)cudaErrorInvalidValue;
 }
 

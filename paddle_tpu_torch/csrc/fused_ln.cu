@@ -1,6 +1,7 @@
 // Fused dropout + residual add + LayerNorm for Hopper (sm_90a), forward and
-// backward, bf16 or f32, every hidden size the reference admits: h % 128 ==
-// 0 up to 32768.
+// backward, f32, bf16 or f16 (the reference's kernels type their outputs by
+// their input), every hidden size the reference admits: h % 128 == 0 up to
+// 32768.
 //
 // Replaces: paddle_tpu/ops/fused_ln.py `_fwd_kernel` (launched by
 // `_fused_fwd`) and `_bwd_kernel` (launched by `_fused_bwd`), the glue of
@@ -72,6 +73,7 @@
 //        -Xcompiler -fPIC  (paddle_tpu_torch/ops/_build.py does this).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,9 +83,10 @@
 // The kernels a plan can name (ops/fused_ln.py `_plan` and
 // tests/test_torch_fused_ln.py read these two lists).  Narrow backward: NG =
 // h / 128.  Wide, forward and backward: (element type, 16-byte pieces a
-// thread).
+// thread).  Element types: FUSED_LN_TYPES, with their type codes.
+#define FUSED_LN_TYPES(X) X(float, 0) X(__nv_bfloat16, 1) X(__half, 2)
 #define FUSED_LN_NARROW(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
-#define FUSED_LN_WIDE(X) X(__nv_bfloat16, 1) X(__nv_bfloat16, 2) X(float, 1) X(float, 2) X(float, 4)
+#define FUSED_LN_WIDE(X) X(__nv_bfloat16, 1) X(__nv_bfloat16, 2) X(__half, 1) X(__half, 2) X(float, 1) X(float, 2) X(float, 4)
 
 namespace {
 
@@ -101,12 +104,29 @@ constexpr int kMaxH = 32768;       // the reference's admission: 8 rows of 32768
 constexpr int kWideValues = 16;    // values of a tensor a wide thread holds
 constexpr int kStages = 2;         // rows (narrow) or row slices (wide) in a ring
 
-__device__ __forceinline__ float2 unpack(uint32_t w) {
+template <typename T>
+constexpr int type_code();
+#define X(T, C) \
+  template <>   \
+  constexpr int type_code<T>() { return C; }
+FUSED_LN_TYPES(X)
+#undef X
+
+// A pair of 2-byte values in a 32-bit word, as f32, and back (rounded to
+// nearest even).
+__device__ __forceinline__ float2 unpack(uint32_t w, const __nv_bfloat16*) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
+__device__ __forceinline__ float2 unpack(uint32_t w, const __half*) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&w));
+}
 
-__device__ __forceinline__ uint32_t pack(float a, float b) {
+__device__ __forceinline__ uint32_t pack(float a, float b, const __nv_bfloat16*) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+__device__ __forceinline__ uint32_t pack(float a, float b, const __half*) {
+  const __half2 p = __floats2half2_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
@@ -121,9 +141,9 @@ __device__ __forceinline__ void ldv(const float* p, float (&v)[V]) {
   }
 }
 
-template <int V>
-__device__ __forceinline__ void ldv(const __nv_bfloat16* p, float (&v)[V]) {
-  static_assert(V == 4 || V == 8, "8 or 16 bytes of bf16");
+template <int V, typename T>
+__device__ __forceinline__ void ldv(const T* p, float (&v)[V]) {
+  static_assert(sizeof(T) == 2 && (V == 4 || V == 8), "8 or 16 bytes of bf16 or f16");
   uint32_t w[V / 2];
   if constexpr (V == 8) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -134,7 +154,7 @@ __device__ __forceinline__ void ldv(const __nv_bfloat16* p, float (&v)[V]) {
   }
 #pragma unroll
   for (int i = 0; i < V / 2; ++i) {
-    const float2 f = unpack(w[i]);
+    const float2 f = unpack(w[i], p);
     v[2 * i] = f.x, v[2 * i + 1] = f.y;
   }
 }
@@ -146,12 +166,12 @@ __device__ __forceinline__ void stv(float* p, const float (&v)[V]) {
     *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
 }
 
-template <int V>
-__device__ __forceinline__ void stv(__nv_bfloat16* p, const float (&v)[V]) {
-  static_assert(V == 4 || V == 8, "8 or 16 bytes of bf16");
+template <int V, typename T>
+__device__ __forceinline__ void stv(T* p, const float (&v)[V]) {
+  static_assert(sizeof(T) == 2 && (V == 4 || V == 8), "8 or 16 bytes of bf16 or f16");
   uint32_t w[V / 2];
 #pragma unroll
-  for (int i = 0; i < V / 2; ++i) w[i] = pack(v[2 * i], v[2 * i + 1]);
+  for (int i = 0; i < V / 2; ++i) w[i] = pack(v[2 * i], v[2 * i + 1], p);
   if constexpr (V == 8)
     *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   else
@@ -162,6 +182,9 @@ __device__ __forceinline__ void stv(__nv_bfloat16* p, const float (&v)[V]) {
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
 __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float round_to(float x, const __half*) {
+  return __half2float(__float2half_rn(x));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -643,6 +666,17 @@ __global__ void philox_kernel(const uint32_t* in, uint32_t* out, int n) {
 
 bool bad(int n, int h) { return n <= 0 || h <= 0 || h % 128 != 0 || h > kMaxH; }
 
+// A known type code (FUSED_LN_TYPES) and its element size.
+bool bad_type(int type) {
+#define X(T, C) \
+  if (type == C) return false;
+  FUSED_LN_TYPES(X)
+#undef X
+  return true;
+}
+
+int elem_size(int type) { return type == type_code<float>() ? 4 : 2; }
+
 // A plan (ops/fused_ln.py `_plan`): h <= 1024 runs the narrow kernels, k =
 // h / 128, one block of 8 warps a team; above, the wide kernels, teams of cl
 // blocks of `threads` threads, k pieces a thread.  The kernel it names is
@@ -652,36 +686,64 @@ struct Plan {
   int k, cl, threads;
 };
 
-bool bad_plan(int h, int bf16, const Plan& p) {
+bool bad_plan(int h, int type, const Plan& p) {
+  if (bad_type(type)) return true;
   if (h <= kNarrowMaxH) return p.k != h / 128 || p.cl != 1 || p.threads != kThreads;
-  const int V = bf16 ? 8 : 4, pieces = h / V, per = (pieces + p.cl - 1) / p.cl;
+  const int V = 16 / elem_size(type), pieces = h / V, per = (pieces + p.cl - 1) / p.cl;
   return !(p.cl == 1 || p.cl == 2 || p.cl == 4 || p.cl == 8) || p.threads <= 0 ||
          p.threads % 32 != 0 || p.threads > kThreads || p.k * V > kWideValues ||
          p.threads * p.k < per || pieces - (p.cl - 1) * per <= 0;
 }
 
-// The kernel a plan names, and its dynamic shared memory; null if none.
-const void* plan_kernel(bool bwd, int h, int bf16, const Plan& p, size_t* smem) {
+// The narrow backward of k = h / 128 at element type T; null if none.
+template <typename T>
+const void* narrow_bwd_kernel(int k) {
+#define X(NG) \
+  if (k == NG) return (const void*)fused_ln_bwd_kernel<T, NG>;
+  FUSED_LN_NARROW(X)
+#undef X
+  return nullptr;
+}
+
+// The kernel a plan names for element type `type`, and its dynamic shared
+// memory; null if none.  Selected by the type code, not the element size:
+// bf16 and f16 share a size and nothing else.
+const void* plan_kernel(bool bwd, int h, int type, const Plan& p, size_t* smem) {
   if (h <= kNarrowMaxH) {
     if (!bwd) return nullptr;  // the narrow forward is not persistent
-    *smem = bf16 ? narrow_smem<__nv_bfloat16>(h) : narrow_smem<float>(h);
-#define X(NG)                                                              \
-  if (p.k == NG)                                                           \
-    return bf16 ? (const void*)fused_ln_bwd_kernel<__nv_bfloat16, NG>       \
-                : (const void*)fused_ln_bwd_kernel<float, NG>;
-    FUSED_LN_NARROW(X)
+#define X(T, C)                      \
+  if (type == C) {                   \
+    *smem = narrow_smem<T>(h);       \
+    return narrow_bwd_kernel<T>(p.k); \
+  }
+    FUSED_LN_TYPES(X)
 #undef X
     return nullptr;
   }
-  const int V = bf16 ? 8 : 4;
-  *smem = wide_smem((h / V + p.cl - 1) / p.cl);
+  *smem = wide_smem((h / (16 / elem_size(type)) + p.cl - 1) / p.cl);
 #define X(T, K)                                                                 \
-  if ((sizeof(T) == 2) == (bf16 != 0) && p.k == K)                              \
+  if (type_code<T>() == type && p.k == K)                                       \
     return bwd ? (const void*)fused_ln_bwd_kernel_wide<T, K>                    \
                : (const void*)fused_ln_fwd_kernel_wide<T, K>;
   FUSED_LN_WIDE(X)
 #undef X
   return nullptr;
+}
+
+// The narrow forward at element type `type` (a block per 8 rows).
+cudaError_t narrow_fwd(int type, const void* x, const void* y, void* out, void* s, const Ln& a,
+                       cudaStream_t st) {
+  const dim3 grid((a.n + kWarps - 1) / kWarps);
+#define X(T, C)                                                                              \
+  if (type == C) {                                                                           \
+    fused_ln_fwd_kernel<T><<<grid, kThreads, 0, st>>>(                                       \
+        static_cast<const T*>(x), static_cast<const T*>(y), static_cast<T*>(out),           \
+        static_cast<T*>(s), a);                                                              \
+    return cudaGetLastError();                                                               \
+  }
+  FUSED_LN_TYPES(X)
+#undef X
+  return cudaErrorInvalidValue;
 }
 
 // The launch of `teams` teams of a plan: p.cl blocks (one cluster) a team,
@@ -724,7 +786,8 @@ Ln make_ln(const void* gamma, const void* beta, const void* seed, int n, int h,
 
 // Plain C interface (bound with ctypes).  Each returns a cudaError_t: 0 on
 // a clean launch.  Pointers are device pointers to contiguous tensors;
-// `bf16` selects bf16 (1) or f32 (0) for every [n, h] tensor; gamma and
+// `type` is the type code of every [n, h] tensor (FUSED_LN_TYPES: f32 0,
+// bf16 1, f16 2); gamma and
 // beta are f32 [h]; seed is int32 [2] or null (no dropout); (k, cl,
 // threads) is the plan and `teams` the persistent grid, at most
 // fused_ln_teams' count.
@@ -732,13 +795,13 @@ Ln make_ln(const void* gamma, const void* beta, const void* seed, int n, int h,
 // The most teams of a plan's persistent kernel that run on the card at once
 // (the clusters of p.cl blocks that fit), into *teams; 0 for the narrow
 // forward, which launches a block per 8 rows.
-extern "C" int fused_ln_teams(int bwd, int h, int bf16, int k, int cl, int threads, int* teams) {
+extern "C" int fused_ln_teams(int bwd, int h, int type, int k, int cl, int threads, int* teams) {
   const Plan p{k, cl, threads};
-  if (bad(1, h) || bad_plan(h, bf16, p)) return (int)cudaErrorInvalidValue;
+  if (bad(1, h) || bad_plan(h, type, p)) return (int)cudaErrorInvalidValue;
   *teams = 0;
   if (!bwd && h <= kNarrowMaxH) return 0;
   size_t smem = 0;
-  const void* fn = plan_kernel(bwd != 0, h, bf16, p, &smem);
+  const void* fn = plan_kernel(bwd != 0, h, type, p, &smem);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   TeamLaunch l(fn, 1, p, smem, nullptr);
   if (l.err != cudaSuccess) return (int)l.err;
@@ -749,29 +812,18 @@ extern "C" int fused_ln_teams(int bwd, int h, int bf16, int k, int cl, int threa
 
 extern "C" int fused_ln_fwd_launch(const void* x, const void* y, const void* gamma,
                                    const void* beta, const void* seed, void* out, void* s,
-                                   int n, int h, int bf16, unsigned thresh, float scale,
+                                   int n, int h, int type, unsigned thresh, float scale,
                                    float eps, int k, int cl, int threads, int teams,
                                    void* stream) {
   const Plan p{k, cl, threads};
-  if (bad(n, h) || bad_plan(h, bf16, p)) return (int)cudaErrorInvalidValue;
+  if (bad(n, h) || bad_plan(h, type, p)) return (int)cudaErrorInvalidValue;
   Ln a = make_ln(gamma, beta, seed, n, h, thresh, scale, eps);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (h <= kNarrowMaxH) {
-    const dim3 grid((n + kWarps - 1) / kWarps);
-    if (bf16)
-      fused_ln_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
-          static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(s), a);
-    else
-      fused_ln_fwd_kernel<float><<<grid, kThreads, 0, st>>>(
-          static_cast<const float*>(x), static_cast<const float*>(y), static_cast<float*>(out),
-          static_cast<float*>(s), a);
-    return (int)cudaGetLastError();
-  }
+  if (h <= kNarrowMaxH) return (int)narrow_fwd(type, x, y, out, s, a, st);
   size_t smem = 0;
-  const void* fn = plan_kernel(false, h, bf16, p, &smem);
+  const void* fn = plan_kernel(false, h, type, p, &smem);
   if (fn == nullptr || teams <= 0 || teams > n) return (int)cudaErrorInvalidValue;
-  Wide w{cl, (h / (bf16 ? 8 : 4) + cl - 1) / cl};
+  Wide w{cl, (h / (16 / elem_size(type)) + cl - 1) / cl};
   void* args[] = {&x, &y, &out, &s, &a, &w};
   return (int)launch(fn, teams, p, smem, st, args);
 }
@@ -781,17 +833,17 @@ extern "C" int fused_ln_fwd_launch(const void* x, const void* y, const void* gam
 // the wide one.
 extern "C" int fused_ln_bwd_launch(const void* s, const void* gamma, const void* dz,
                                    const void* seed, void* dx, void* dy, void* dg_part,
-                                   void* db_part, int n, int h, int bf16, unsigned thresh,
+                                   void* db_part, int n, int h, int type, unsigned thresh,
                                    float scale, float eps, int k, int cl, int threads, int teams,
                                    void* stream) {
   const Plan p{k, cl, threads};
-  if (bad(n, h) || bad_plan(h, bf16, p) || teams <= 0) return (int)cudaErrorInvalidValue;
+  if (bad(n, h) || bad_plan(h, type, p) || teams <= 0) return (int)cudaErrorInvalidValue;
   Ln a = make_ln(gamma, nullptr, seed, n, h, thresh, scale, eps);
   size_t smem = 0;
-  const void* fn = plan_kernel(true, h, bf16, p, &smem);
+  const void* fn = plan_kernel(true, h, type, p, &smem);
   const int rows = h <= kNarrowMaxH ? kWarps : 1;  // a team's rows at a time
   if (fn == nullptr || teams > (n + rows - 1) / rows) return (int)cudaErrorInvalidValue;
-  Wide w{cl, (h / (bf16 ? 8 : 4) + cl - 1) / cl};
+  Wide w{cl, (h / (16 / elem_size(type)) + cl - 1) / cl};
   void* narrow_args[] = {&s, &dz, &dx, &dy, &dg_part, &db_part, &a};
   void* wide_args[] = {&s, &dz, &dx, &dy, &dg_part, &db_part, &a, &w};
   return (int)launch(fn, teams, p, smem, static_cast<cudaStream_t>(stream),

@@ -450,19 +450,22 @@ __device__ __forceinline__ void softmax_step(float (&s)[BK / 2], float (&o)[D / 
   }
 }
 
-// The thread's two rows (row, row + 8) of an m64 x D accumulator times
-// `mul[half]` as bf16 into a [B, S, H, D] tensor; rows at or past S are
-// not written.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 2], const float (&mul)[2],
-                                           int b, int h, int row, int S, int H, int t) {
+// The thread's two rows (row, row + 8) of an m64 x N accumulator times
+// `mul[half]` as bf16 into columns [col0, col0 + N) of a [B, S, H, D]
+// tensor (N = D unless a warpgroup owns a column slice); rows at or past S
+// are not written.
+template <int N, int D = N>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[N / 2], const float (&mul)[2],
+                                           int b, int h, int row, int S, int H, int t,
+                                           int col0 = 0) {
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int r = row + 8 * hr;
     if (r >= S) continue;
-    uint32_t* out = reinterpret_cast<uint32_t*>(dst + ((size_t)(b * S + r) * H + h) * D);
+    uint32_t* out =
+        reinterpret_cast<uint32_t*>(dst + ((size_t)(b * S + r) * H + h) * D + col0);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
       out[4 * j + t] = pack_bf16x2(acc[4 * j + 2 * hr] * mul[hr], acc[4 * j + 2 * hr + 1] * mul[hr]);
   }
 }

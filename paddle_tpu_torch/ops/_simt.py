@@ -15,8 +15,8 @@ type, cache type, head dim, query rows a kv head).  Its lists below are
 the ``SIMT_*`` instantiation lists of ``attention_simt.cuh`` (the
 forwards) and ``attention_simt_bwd.cuh`` (the backward kernels,
 ``attention_simt_flash_bwd.cu`` and ``attention_simt_encoder_bwd.cu``),
-which a CPU test parses and holds equal to them.  The flash backward at
-head dim 256 has no kernel at any type (ROADMAP Queue 2, item 8).
+which a CPU test parses and holds equal to them.  The flash backward takes
+head dims 64, 128 and 256 at every type.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ ENCODER_DIMS = (64, 128)
 # SIMT_BWD_ENCODER_DIMS: the backward kernels take q, k, v and dO of one
 # type; 32 own rows a block.
 BWD_TYPES = (F32, F16)
-FLASH_BWD_DIMS = (64, 128)
+FLASH_BWD_DIMS = (64, 128, 256)
 ENCODER_BWD_DIMS = (64, 128)
 BWD_ROWS = 32
 # The bfloat16 kernels' caches: bfloat16, or int8 with f32 scales.
@@ -86,16 +86,10 @@ def admit(regime, q_dtype, kv_dtype=None, D=None, rows=1):
     ``D`` with ``rows`` query rows a kv head (S * H / Hkv; decode and paged
     only).  Raises ValueError, naming what is admitted, where no kernel is
     built.  Head dims of the bfloat16 kernels are left to their own checks
-    (decode and paged: ROADMAP Queue 2, item 9); the flash backward at 256
-    raises at every type (item 8)."""
+    (decode and paged: ROADMAP Queue 2, item 9)."""
     if regime not in REGIMES:
         raise ValueError(f"attention admission: unknown regime {regime!r}")
     kv_dtype = q_dtype if kv_dtype is None else kv_dtype
-    if regime == "flash_bwd" and D == 256:
-        raise ValueError(
-            "attention kernel (flash_bwd): head dim 256 has a forward kernel but no backward "
-            "one at any type yet (ROADMAP Queue 2, item 8): train at head dim 64 or 128, or "
-            "call the D = 256 forward without gradients")
     if q_dtype == BF16:
         want = BF16_KV if regime in ("decode", "paged") else (BF16,)
         if kv_dtype not in want:

@@ -21,10 +21,9 @@ A CPU tensor takes the plain versions, ``_flash_dense`` forward and
 ``csrc/flash_attention.cu`` forward (bf16, D in {64, 128, 256}; float32
 and float16 take ``csrc/attention_simt_flash.cu``, f32 on the CUDA cores,
 as ``_simt.admit`` decides) and ``csrc/flash_attention_bwd.cu`` backward
-(bf16, D in {64, 128}; float32 and float16 take
+(bf16, D in {64, 128, 256}; float32 and float16 take
 ``csrc/attention_simt_flash_bwd.cu``, f32 on the CUDA cores; either's
-statistics pass runs once per backward; D = 256 is ROADMAP Queue 2, item
-8) or raises.  The reference's block-size
+statistics pass runs once per backward) or raises.  The reference's block-size
 rules (``_auto_block``, ``block_q``/``block_k``, its autotune hook) describe
 TPU tiling, not the function: the Hopper kernels pick their own tiles and
 mask their ragged edge, so they are not carried over.  ``supports_seq``
@@ -101,19 +100,12 @@ def _check(cond, msg):
 
 
 FWD_HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256)  # csrc/flash_attention_bwd.cu FLASH_BWD_DIMS
 
 
 def _check_head_dim(D, backward=False):
-    """The head dims the kernels are built for: 64, 128 and 256 forward,
-    64 and 128 backward."""
-    if backward and D == 256:
-        # dK and dV accumulators of 64 key rows x 256 f32 would take 256
-        # registers a thread on their own: the backward needs its own tiling
-        raise ValueError(
-            "flash attention kernel: head dim 256 has a forward kernel but no "
-            "backward one yet (ROADMAP Queue 2, item 8): train at head dim 64 or "
-            "128, or call the D = 256 forward without gradients")
+    """The head dims the kernels are built for: 64, 128 and 256, forward
+    and backward."""
     dims = BWD_HEAD_DIMS if backward else FWD_HEAD_DIMS
     _check(D in dims, f"head dim {D}, the kernel is built for {dims}")
 
@@ -254,9 +246,10 @@ def flash_attention_bwd_stats(o, do, lse, dlse=None):
     """The backward's per-query statistics, by the dsum pass of
     ``csrc/flash_attention_bwd.cu``: f32 [2, B * H, Sqp] (Sqp = Sq rounded
     up to 64) holding lse * log2(e) and dsum = rowsum(dO * O) - dlse, zero
-    past Sq.  o, do [B, Sq, H, D] bf16 on the card; lse and dlse f32 with
-    B * H * Sq values (dlse may be None).  The autograd backward fills it
-    once and hands it to both kernels below."""
+    past Sq.  o, do [B, Sq, H, D] bf16 on the card, D in {64, 128, 256};
+    lse and dlse f32 with B * H * Sq values (dlse may be None).  The
+    autograd backward fills it once and hands it to both kernels below.
+    Every launch adds one to ``flash_attention_bwd_stats.launches``."""
     B, Sq, H, D = o.shape
     _check_inputs({"q": o, "do": do}, B, Sq, Sq, H, D, False, backward=True)
     _check_stats({"lse": lse} if dlse is None else {"lse": lse, "dlse": dlse}, B, H, Sq,
@@ -270,17 +263,21 @@ def flash_attention_bwd_stats(o, do, lse, dlse=None):
                       None if dlse is None else dlse.data_ptr(), stats.data_ptr(), B, H, Sq, D,
                       torch.cuda.current_stream(o.device).cuda_stream,
                       entry="flash_attention_dsum")
+    flash_attention_bwd_stats.launches += 1
     return stats
+
+
+flash_attention_bwd_stats.launches = 0
 
 
 def flash_attention_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None,
                               stats=None):
     """Launch ``flash_attention_dq`` of ``csrc/flash_attention_bwd.cu`` (the
     port of ``_dq_kernel``) on CUDA tensors: q, o, do [B, Sq, H, D], k, v
-    [B, Sk, H, D] bf16, D in {64, 128}, lse (and the optional dlse) f32 with
-    B * H * Sq values; ``stats`` from ``flash_attention_bwd_stats``, or None
-    to have the entry compute them first.  Returns dQ [B, Sq, H, D] bf16.
-    Raises ValueError on anything else.  Every launch adds one to
+    [B, Sk, H, D] bf16, D in {64, 128, 256}, lse (and the optional dlse)
+    f32 with B * H * Sq values; ``stats`` from ``flash_attention_bwd_stats``,
+    or None to have the entry compute them first.  Returns dQ [B, Sq, H, D]
+    bf16.  Raises ValueError on anything else.  Every launch adds one to
     ``flash_attention_dq_kernel.launches``."""
     keep, head, shape, scale, ready = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats)
     dq = torch.empty_like(keep[0])
@@ -327,9 +324,9 @@ def flash_attention_simt_bwd_stats(o, do, lse, dlse=None):
     (the dsum that ``_dq_kernel`` and ``_dkv_kernel`` each take first): f32
     [2, B * H, Sq] holding lse * log2(e) and dsum = rowsum(dO * O) - dlse,
     summed in f32 from the stored values.  o, do [B, Sq, H, D] float32 or
-    float16 on the card, D in {64, 128}; lse and dlse f32 with B * H * Sq
-    values (dlse may be None).  The autograd backward fills it once and hands
-    it to both kernels below.  Every launch adds one to
+    float16 on the card, D in {64, 128, 256}; lse and dlse f32 with B * H *
+    Sq values (dlse may be None).  The autograd backward fills it once and
+    hands it to both kernels below.  Every launch adds one to
     ``flash_attention_simt_bwd_stats.launches``."""
     B, Sq, H, D = o.shape
     _check_inputs({"q": o, "do": do}, B, Sq, Sq, H, D, False, backward=True, simt=True)
@@ -381,8 +378,8 @@ def flash_attention_simt_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None
     """Launch ``flash_attention_simt_dq`` of ``csrc/attention_simt_flash_bwd.cu``
     (the port of ``_dq_kernel`` at float32 and float16, f32 on the CUDA
     cores) on CUDA tensors: q, o, do [B, Sq, H, D], k, v [B, Sk, H, D] of
-    one type, float32 or float16, D in {64, 128}, lse (and the optional
-    dlse) f32 with B * H * Sq values; ``stats`` from
+    one type, float32 or float16, D in {64, 128, 256}, lse (and the
+    optional dlse) f32 with B * H * Sq values; ``stats`` from
     ``flash_attention_simt_bwd_stats``, or None to compute them first.
     Returns dQ [B, Sq, H, D] in q's dtype.  Raises ValueError on anything
     else.  Every launch adds one to ``flash_attention_simt_dq_kernel.launches``."""

@@ -17,8 +17,9 @@ counter (col >> 2, row, 0, 0), word col & 3), not the TPU's bits.
 32768), which decides the routing of
 ``nn.functional.fused_dropout_add_layer_norm``.  A CPU tensor takes the
 plain versions (``_fused_ln_dense``, ``_fused_ln_bwd_dense``); a CUDA tensor
-launches ``csrc/fused_ln.cu`` (bf16 or f32) at every admitted shape, on the
-plan ``_plan`` gives, or raises ValueError.
+launches ``csrc/fused_ln.cu`` (float32, bfloat16 or float16, the
+reference's kernels typing their outputs by their input) at every admitted
+shape, on the plan ``_plan`` gives, or raises ValueError.
 
 The kernels replace the reference's ``_fwd_kernel`` (paddle_tpu/ops/
 fused_ln.py:55) and ``_bwd_kernel`` (:77).  Both are bound by bytes: two
@@ -49,6 +50,8 @@ BWD_ROWS = 8         # narrow backward: the rows a team (a block, a row a warp) 
 BLOCK_THREADS = 256  # threads a block: 8 warps (narrow), at most (wide)
 WIDE_VALUES = 16     # wide kernels: values of a tensor a thread holds
 CLUSTERS = (1, 2, 4, 8)
+# csrc/fused_ln.cu FUSED_LN_TYPES: the element types and their type codes
+TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 class _Plan(NamedTuple):
@@ -63,16 +66,17 @@ class _Plan(NamedTuple):
     rows: int
 
 
-def _plan(h, bf16):
-    """The kernels' plan for rows of h (a multiple of 128 up to 32768) in
-    bf16 or f32.  Narrow up to h = 1024.  Wide: 16-byte pieces of V = 8
-    (bf16) or 4 (f32) values, the fewest blocks a team (1, 2, 4, 8) whose
-    slices fit BLOCK_THREADS threads of at most WIDE_VALUES values, then the
-    fewest pieces a thread.  ``csrc/fused_ln.cu`` instantiates exactly these
+def _plan(h, dtype):
+    """The kernels' plan for rows of h (a multiple of 128 up to 32768) of
+    ``dtype`` (a key of TYPE_CODES).  Narrow up to h = 1024.  Wide: 16-byte
+    pieces of V = 8 (bfloat16, float16: the same plan) or 4 (float32)
+    values, the fewest blocks a team (1, 2, 4, 8) whose slices fit
+    BLOCK_THREADS threads of at most WIDE_VALUES values, then the fewest
+    pieces a thread.  ``csrc/fused_ln.cu`` instantiates exactly these
     (tests/test_torch_fused_ln.py holds the two lists together)."""
     if h <= NARROW_MAX_H:
         return _Plan(False, h // 128, 1, BLOCK_THREADS, BWD_ROWS)
-    v = 8 if bf16 else 4
+    v = 128 // torch.finfo(dtype).bits
     pieces = h // v
     kmax = WIDE_VALUES // v
     cl = next(c for c in CLUSTERS if -(-pieces // c) <= BLOCK_THREADS * kmax)
@@ -170,15 +174,15 @@ def _check(cond, msg):
 
 
 def _kernel_inputs(tensors, gamma):
-    """The kernels' admission: CUDA, one dtype of bf16/f32 for the [n, h]
-    tensors, a shape ``supported`` admits, 16-byte aligned storage.
+    """The kernels' admission: CUDA, one dtype of TYPE_CODES (float32,
+    bfloat16, float16) for the [n, h] tensors, a shape ``supported``
+    admits, 16-byte aligned storage.
     Returns the tensors made contiguous and gamma (and beta) as f32."""
     first = next(iter(tensors.values()))
     n, h = first.shape
     dev = first.device
+    _check(first.dtype in TYPE_CODES, f"dtype {first.dtype}, need float32, bfloat16 or float16")
     _check(dev.type == "cuda", f"input is on {dev}, not a CUDA device")
-    _check(first.dtype in (torch.bfloat16, torch.float32),
-           f"dtype {first.dtype}, need bfloat16 or float32")
     for name, t in tensors.items():
         _check(t.device == dev and t.dtype == first.dtype and tuple(t.shape) == (n, h),
                f"{name}: {t.device} {t.dtype} {tuple(t.shape)}, need {dev} "
@@ -197,11 +201,11 @@ def _kernel_inputs(tensors, gamma):
 _TEAMS = {}
 
 
-def _teams(bwd, n, h, bf16, plan, device):
+def _teams(bwd, n, h, type_code, plan, device):
     """The persistent grid of a launch: the teams that run on the card at
     once (``fused_ln_teams``, cached per device and plan), at most one per
     ``plan.rows`` rows; 0 for the narrow forward (a block per 8 rows)."""
-    key = (bwd, h, bf16, device.index)
+    key = (bwd, h, type_code, device.index)
     cap = _TEAMS.get(key)
     if cap is None:
         lib = _build.load("fused_ln")
@@ -210,7 +214,7 @@ def _teams(bwd, n, h, bf16, plan, device):
         msg.argtypes, msg.restype = [ctypes.c_int], ctypes.c_char_p
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = fn(int(bwd), h, int(bf16), plan.k, plan.cl, plan.threads, ctypes.byref(out))
+            err = fn(int(bwd), h, type_code, plan.k, plan.cl, plan.threads, ctypes.byref(out))
         if err:
             raise RuntimeError(f"fused_ln_teams failed: {msg(err).decode()}")
         cap = _TEAMS[key] = out.value
@@ -229,14 +233,14 @@ def fused_ln_kernel(x, y, gamma, beta, seed, rate, eps, upscale=True):
     ``fused_ln_kernel.launches``."""
     (x, y), (g, b) = _kernel_inputs({"x": x, "y": y}, {"gamma": gamma, "beta": beta})
     n, h = x.shape
-    bf16 = x.dtype == torch.bfloat16
-    plan = _plan(h, bf16)
-    teams = _teams(False, n, h, bf16, plan, x.device)
+    code = TYPE_CODES[x.dtype]
+    plan = _plan(h, x.dtype)
+    teams = _teams(False, n, h, code, plan, x.device)
     sp, thresh, scale = launch_args(seed, rate, _scale(rate, upscale), x.device)
     out, s = torch.empty_like(x), torch.empty_like(x)
     with torch.cuda.device(x.device):
         _build.launch("fused_ln", _FWD_ARGS, x.data_ptr(), y.data_ptr(), g.data_ptr(),
-                      b.data_ptr(), sp, out.data_ptr(), s.data_ptr(), n, h, int(bf16), thresh,
+                      b.data_ptr(), sp, out.data_ptr(), s.data_ptr(), n, h, code, thresh,
                       float(scale), float(eps), plan.k, plan.cl, plan.threads, teams,
                       torch.cuda.current_stream(x.device).cuda_stream, entry="fused_ln_fwd")
     fused_ln_kernel.launches += 1
@@ -258,9 +262,9 @@ def fused_ln_bwd_kernel(s, gamma, dz, seed, rate, eps, upscale=True):
     adds one to ``fused_ln_bwd_kernel.launches``."""
     (s, dz), (g,) = _kernel_inputs({"s": s, "dz": dz}, {"gamma": gamma})
     n, h = s.shape
-    bf16 = s.dtype == torch.bfloat16
-    plan = _plan(h, bf16)
-    teams = _teams(True, n, h, bf16, plan, s.device)
+    code = TYPE_CODES[s.dtype]
+    plan = _plan(h, s.dtype)
+    teams = _teams(True, n, h, code, plan, s.device)
     sp, thresh, scale = launch_args(seed, rate, _scale(rate, upscale), s.device)
     dx, dy = torch.empty_like(s), torch.empty_like(s)
     dgp = torch.empty(teams, h, dtype=torch.float32, device=s.device)
@@ -268,7 +272,7 @@ def fused_ln_bwd_kernel(s, gamma, dz, seed, rate, eps, upscale=True):
     with torch.cuda.device(s.device):
         _build.launch("fused_ln", _BWD_ARGS, s.data_ptr(), g.data_ptr(), dz.data_ptr(), sp,
                       dx.data_ptr(), dy.data_ptr(), dgp.data_ptr(), dbp.data_ptr(), n, h,
-                      int(bf16), thresh, float(scale), float(eps), plan.k, plan.cl,
+                      code, thresh, float(scale), float(eps), plan.k, plan.cl,
                       plan.threads, teams, torch.cuda.current_stream(s.device).cuda_stream,
                       entry="fused_ln_bwd")
     fused_ln_bwd_kernel.launches += 1

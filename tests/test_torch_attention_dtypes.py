@@ -22,7 +22,7 @@ CPU, the tests hold:
   ``attention_simt_bwd.cuh``);
 * float64 q refused, naming the admitted types; the float32 and float16
   backward admitted to the CUDA-core kernels, the flash backward at head
-  dim 256 refused at every type, naming ROADMAP Queue 2, item 8;
+  dims 64, 128 and 256 at every type (the encoder backward at 64 and 128);
 * a small LLaMA at float16 (head dim 64) through the paged engine, greedy
   tokens equal to the reference engine's.
 """
@@ -234,7 +234,7 @@ def test_backward_admission_list_is_the_cuh_instantiations():
     """ops/_simt.py's backward lists are attention_simt_bwd.cuh's SIMT_BWD_*
     lists, and every instantiation admit() returns for "flash_bwd" and
     "encoder_bwd" at float32 and float16 is one the .cuh builds, in a
-    source that exists."""
+    source that exists: head dim 256 for the flash backward alone."""
     C = {v: k for k, v in _simt.C_TYPES.items()}
     assert [C[t] for (t,) in _cuh_list("SIMT_BWD_TYPES", BWD_CUH)] == list(_simt.BWD_TYPES)
     assert ([int(d) for (d,) in _cuh_list("SIMT_BWD_FLASH_DIMS", BWD_CUH)]
@@ -245,9 +245,13 @@ def test_backward_admission_list_is_the_cuh_instantiations():
              for r, dims in (("flash_bwd", _simt.FLASH_BWD_DIMS),
                              ("encoder_bwd", _simt.ENCODER_BWD_DIMS))
              for t in _simt.BWD_TYPES for D in dims}
-    admitted = {tuple(_simt.admit(r, t, t, D)) for r in ("flash_bwd", "encoder_bwd")
-                for t in _simt.SEQ_TYPES for D in (64, 128)}
+    admitted = {tuple(_simt.admit(r, t, t, D)) for r, dims in (("flash_bwd", (64, 128, 256)),
+                                                               ("encoder_bwd", (64, 128)))
+                for t in _simt.SEQ_TYPES for D in dims}
     assert admitted == built
+    for t in _simt.SEQ_TYPES:
+        with pytest.raises(ValueError, match="head dim 256"):
+            _simt.admit("encoder_bwd", t, t, 256)
     for lib in {b[0] for b in built}:
         assert (CUH.parent / f"{lib}.cu").is_file()
         assert '#include "attention_simt_bwd.cuh"' in (CUH.parent / f"{lib}.cu").read_text()
@@ -286,15 +290,16 @@ def test_f64_q_refused_naming_admitted_dtypes(regime):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
 def test_backward_refused_naming_queue_2_item_11(dtype):
-    """Queue 2 item 11 is closed: a float32 or float16 gradient is admitted
-    to the CUDA-core backward kernels (attention_simt_flash_bwd.cu,
-    attention_simt_encoder_bwd.cu) at head dims 64 and 128, and the bfloat16
-    wrappers refuse it, naming them.  The flash backward at head dim 256 is
-    refused at every type before any launch, naming ROADMAP Queue 2, item 8;
-    so are k/v of another type and other head dims."""
+    """Queue 2 items 8 and 11 are closed: a float32 or float16 gradient is
+    admitted to the CUDA-core backward kernels (attention_simt_flash_bwd.cu,
+    attention_simt_encoder_bwd.cu) at head dims 64 and 128, the flash one
+    at 256 too, and the bfloat16 wrappers refuse it, naming them; the flash
+    backward at head dim 256 is admitted at every type (the D = 256
+    wrappers reach their device check), while k/v of another type and other
+    head dims are refused before any launch."""
     for regime, lib in (("flash_bwd", "attention_simt_flash_bwd"),
                         ("encoder_bwd", "attention_simt_encoder_bwd")):
-        for D in (64, 128):
+        for D in (64, 128, 256) if regime == "flash_bwd" else (64, 128):
             got = _simt.admit(regime, dtype, dtype, D)
             assert got.simt and got.lib == lib and (got.q, got.kv, got.D) == (dtype, dtype, D)
         with pytest.raises(ValueError, match="one type of float32, float16"):
@@ -302,8 +307,8 @@ def test_backward_refused_naming_queue_2_item_11(dtype):
         with pytest.raises(ValueError, match="head dim 96"):
             _simt.admit(regime, dtype, dtype, 96)
     for t in (dtype, torch.bfloat16):
-        with pytest.raises(ValueError, match="Queue 2, item 8"):
-            _simt.admit("flash_bwd", t, t, 256)
+        got = _simt.admit("flash_bwd", t, t, 256)
+        assert got.D == 256 and got.simt == (t != torch.bfloat16)
     q = torch.zeros(1, 128, 2, 64, dtype=dtype)
     lse = torch.zeros(1, 2, 128)
     for fn in (tfa.flash_attention_dq_kernel, tfa.flash_attention_dkv_kernel):
@@ -316,12 +321,14 @@ def test_backward_refused_naming_queue_2_item_11(dtype):
     with pytest.raises(ValueError, match="runs encoder_attention_simt_bwd_kernel"):
         tea.encoder_attention_bwd_kernel(q, q, q, q)
     q256 = torch.zeros(1, 128, 2, 256, dtype=dtype)
-    lse = torch.zeros(1, 2, 128)
     for fn in (tfa.flash_attention_simt_dq_kernel, tfa.flash_attention_simt_dkv_kernel):
         before = fn.launches
-        with pytest.raises(ValueError, match="Queue 2, item 8"):
+        with pytest.raises(ValueError, match="not a CUDA device"):
             fn(q256, q256, q256, q256, q256, lse, causal=True)
         assert fn.launches == before
+    b256 = q256.bfloat16()
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tfa.flash_attention_dq_kernel(b256, b256, b256, b256, b256, lse, causal=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])

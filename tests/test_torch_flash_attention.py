@@ -10,8 +10,13 @@ dV, as the reference's own flash tests (tests/test_flash_attention.py):
 both sides compute in f32 and differ in summation order only.  The
 gradients are taken of the reference's non-trivial cotangent, sum(o *
 cos(o)), plus a random weighting of the logsumexp where it is returned.
+The D = 256 backward, which the Hopper kernels now take at every type, is
+held at float32 and bfloat16 too (BF16_GRAD_TOL says why that tolerance;
+float16 is in test_torch_train_dtypes.py).
 """
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,6 +33,7 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
 TOL = 2e-5
 GRAD_TOL = 2e-4
+BWD_CU = Path(tfa.__file__).resolve().parents[1] / "csrc" / "flash_attention_bwd.cu"
 
 
 def _qkv(Sq, Sk, D, B=1, H=2, seed=0):
@@ -70,17 +76,55 @@ def test_plain_matches_reference_kernel_d256(case):
 
 
 def test_backward_admission_rejects_head_dim_256():
-    """The forward kernel takes D = 256, the backward kernels do not yet
-    (their dK and dV accumulators alone would take 256 registers a thread):
-    the admission says so and names the ROADMAP item."""
+    """Head dim 256 is admitted forward and backward (the D = 256 backward
+    kernels split the 256 columns of dK and dV between two warpgroups); the
+    wrapper's list is the .cu's FLASH_BWD_DIMS, the one list its entries
+    dispatch on; other head dims are refused."""
     for D in tfa.FWD_HEAD_DIMS:
         tfa._check_head_dim(D)
     for D in tfa.BWD_HEAD_DIMS:
         tfa._check_head_dim(D, backward=True)
-    with pytest.raises(ValueError, match="Queue 2, item 8"):
-        tfa._check_head_dim(256, backward=True)
+    tfa._check_head_dim(256, backward=True)
+    assert 256 in tfa.BWD_HEAD_DIMS
+    line = re.search(r"#define FLASH_BWD_DIMS\(X\)(.*)", BWD_CU.read_text()).group(1)
+    assert tuple(int(d) for d in re.findall(r"X\((\d+)\)", line)) == tfa.BWD_HEAD_DIMS
+    assert BWD_CU.read_text().count("FLASH_BWD_DIMS(X)") == 4  # the define and three entries
     with pytest.raises(ValueError, match="head dim 96"):
         tfa._check_head_dim(96)
+    with pytest.raises(ValueError, match="head dim 96"):
+        tfa._check_head_dim(96, backward=True)
+
+
+# The D = 256 backward at B 1, H 1 against jax.grad of the reference's
+# kernels in interpret mode, of sum(o * cos o), q ~ N(0, 2^2): float32
+# within GRAD_TOL (f32 on both sides); bfloat16 within BF16_GRAD_TOL of max
+# |want| per gradient: both sides round dS and dV's P to bfloat16 in the
+# same places, but each takes its own forward's O, whose bfloat16 rounding
+# dsum = rowsum(dO * O) carries into every dS (measured at most 9.3e-3,
+# the float16 tolerance of test_torch_train_dtypes.py times the 2^3 that
+# bfloat16's three fewer mantissa bits give).
+BF16_GRAD_TOL = 4e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(D256_CASES))
+def test_plain_backward_d256_matches_reference_kernels(case, dtype):
+    Sq, Sk, D, causal = D256_CASES[case]
+    q, k, v = _qkv(Sq, Sk, D, H=1, seed=Sq + Sk)
+    q = q * 2
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = [np.asarray(g.astype(jnp.float32))
+            for g in _ref_grads(*(a.astype(jdt) for a in map(jnp.asarray, (q, k, v))), causal)]
+    ts = [torch.from_numpy(a).to(tdt).requires_grad_(True) for a in (q, k, v)]
+    o = tfa.flash_attention(*ts, causal=causal)
+    got = torch.autograd.grad((o.float() * o.float().cos()).sum(), ts)
+    for g, w, name in zip(got, want, "qkv"):
+        assert g.dtype == tdt
+        g = g.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=f"d{name}")
+        else:
+            assert np.abs(g - w).max() / np.abs(w).max() <= BF16_GRAD_TOL, f"d{name}"
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -111,10 +155,10 @@ def test_causal_longer_query_raises():
 
 def _ref_grads(q, k, v, causal, w=None):
     """jax.grad of sum(o * cos o) (+ sum(lse * w)) through the reference's
-    Pallas kernels in interpret mode."""
+    Pallas kernels in interpret mode (o taken in f32 for the loss)."""
     def loss(q, k, v):
         if w is None:
-            o = jfa.flash_attention(q, k, v, causal=causal, interpret=True)
+            o = jfa.flash_attention(q, k, v, causal=causal, interpret=True).astype(jnp.float32)
             return jnp.sum(o * jnp.cos(o))
         o, lse = jfa.flash_attention_with_lse(q, k, v, causal=causal, interpret=True)
         return jnp.sum(o * jnp.cos(o)) + jnp.sum(lse * w)

@@ -21,7 +21,10 @@ bf16 the reference's input branch * keep / (1 - rate) is itself rounded to
 bf16 where the port keeps it in f32: s = residual + that then rounds twice
 and may land one unit of s apart, which the normalisation carries into the
 output scaled by rstd * gamma (below 1.5 here), so there the gate is rtol
-2^-6, atol 2e-2.
+2^-6, atol 2e-2.  float16 (the reference's kernels type their outputs by
+their input) has three more mantissa bits than bf16: two units in the last
+place of the value, rtol 2^-10, atol 2e-3, and fed the mask rtol 2^-9,
+atol 4e-3, by the same reasoning.
 
 WIDE_SHAPES run the same tests at h > 1024 (up to the reference's 32768),
 where the card runs the wide kernels; ``_plan`` and the kernel
@@ -47,8 +50,11 @@ from paddle_tpu_torch.ops import fused_ln as tfl
 
 EPS = 1e-12
 RATE = 0.1
-TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2**-7, atol=1e-2)}
-TOL_FED = {"float32": TOL["float32"], "bfloat16": dict(rtol=2**-6, atol=2e-2)}
+TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2**-7, atol=1e-2),
+       "float16": dict(rtol=2**-10, atol=2e-3)}
+TOL_FED = {"float32": TOL["float32"], "bfloat16": dict(rtol=2**-6, atol=2e-2),
+           "float16": dict(rtol=2**-9, atol=4e-3)}
+DTYPES = ["float32", "bfloat16", "float16"]
 SHAPES = [(128, 256), (24, 384)]
 WIDE_SHAPES = [(16, 1152), (8, 4096), (8, 32768)]
 ALL_SHAPES = SHAPES + WIDE_SHAPES
@@ -98,7 +104,7 @@ def _port(inp, dtype, rate, seed):
     return out, [ts[k].grad for k in ("branch", "residual", "gamma", "beta")]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,h", ALL_SHAPES, ids=[f"n{n}_h{h}" for n, h in ALL_SHAPES])
 def test_plain_matches_reference_kernel_rate0(n, h, dtype):
     inp = _inputs(n, h, n + h)
@@ -113,7 +119,7 @@ def test_plain_matches_reference_kernel_rate0(n, h, dtype):
     assert (tfl.fused_ln_kernel.launches, tfl.fused_ln_bwd_kernel.launches) == before
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,h", ALL_SHAPES, ids=[f"n{n}_h{h}" for n, h in ALL_SHAPES])
 def test_dropout_matches_reference_fed_the_ports_mask(n, h, dtype):
     inp = _inputs(n, h, 3 * n + h)
@@ -163,9 +169,11 @@ def _cu_const(name):
 
 
 def test_every_admitted_width_has_a_kernel():
-    """Every h that ``supported`` admits for some n gets a plan whose kernel
-    csrc/fused_ln.cu instantiates and whose blocks cover the row, by the
-    .cu's own admission (``bad_plan``); above 32768 no n is admitted."""
+    """Every h that ``supported`` admits for some n gets, at each of the
+    three types, a plan whose kernel csrc/fused_ln.cu instantiates and whose
+    blocks cover the row, by the .cu's own admission (``bad_plan``); above
+    32768 no n is admitted.  The wrapper's type codes are the .cu's
+    FUSED_LN_TYPES, and float16 plans as bfloat16 does (2-byte rows)."""
     narrow = {int(ng) for (ng,) in _cu_list("FUSED_LN_NARROW")}
     wide = {(t, int(k)) for t, k in _cu_list("FUSED_LN_WIDE")}
     assert narrow == set(range(1, 9)) and wide
@@ -176,14 +184,17 @@ def test_every_admitted_width_has_a_kernel():
     widths = [h for h in range(128, 32769, 128) if tfl.supported(8, h)]
     assert widths == list(range(128, 32769, 128))
     assert not any(tfl.supported(n, 32896) for n in (8, 16, 512, 4096))
+    types = {ctype: int(code) for ctype, code in _cu_list("FUSED_LN_TYPES")}
+    ctypes = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16", torch.float16: "__half"}
+    assert {ctypes[t]: c for t, c in tfl.TYPE_CODES.items()} == types
     for h in widths:
-        for bf16, ctype in ((True, "__nv_bfloat16"), (False, "float")):
-            p = tfl._plan(h, bf16)
+        for dtype, ctype in ctypes.items():
+            p = tfl._plan(h, dtype)
             if h <= tfl.NARROW_MAX_H:
                 assert not p.wide and p.k == h // 128 in narrow and p.cl == 1, (h, p)
                 assert p.threads == tfl.BLOCK_THREADS and p.rows == tfl.BWD_ROWS
                 continue
-            v = 8 if bf16 else 4
+            v = 4 if dtype == torch.float32 else 8
             pieces = h // v
             per = -(-pieces // p.cl)
             assert p.wide and (ctype, p.k) in wide and p.rows == 1, (h, p)
@@ -216,7 +227,7 @@ def test_team_partials_sum_to_full_and_match_old_layout(teams, rows):
     torch.testing.assert_close(dbp.sum(0), dz.sum(0), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("training,p", [(True, 0.0), (False, 0.3)], ids=["p0", "eval"])
 def test_functional_matches_reference_composed(dtype, training, p):
     """F.fused_dropout_add_layer_norm on CPU tensors: the composed math on
@@ -244,7 +255,7 @@ def test_functional_matches_reference_composed(dtype, training, p):
         np.testing.assert_allclose(_np(t.grad) / scale, w / scale, **TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_layer_norm_matches_reference(dtype):
     rng = np.random.RandomState(2)
     x = (rng.randn(4, 6, 192) * 3 + 40).astype(np.float32)  # |mean| >> spread
@@ -288,13 +299,20 @@ def test_errors_match_reference():
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
-    x = torch.zeros(16, 128, dtype=torch.bfloat16)
+    """The kernels take float32, bfloat16 and float16 on a CUDA device:
+    each type is admitted (the refusal names the device), float64 is not,
+    and a refused call does not count."""
     g = torch.ones(128)
     before = (tfl.fused_ln_kernel.launches, tfl.fused_ln_bwd_kernel.launches)
-    with pytest.raises(ValueError, match="not a CUDA device"):
-        tfl.fused_ln_kernel(x, x, g, g, None, 0.0, EPS)
-    with pytest.raises(ValueError, match="not a CUDA device"):
-        tfl.fused_ln_bwd_kernel(x, g, x, None, 0.0, EPS)
+    for dtype in tfl.TYPE_CODES:
+        x = torch.zeros(16, 128, dtype=dtype)
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            tfl.fused_ln_kernel(x, x, g, g, None, 0.0, EPS)
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            tfl.fused_ln_bwd_kernel(x, g, x, None, 0.0, EPS)
+    x64 = torch.zeros(16, 128, dtype=torch.float64)
+    with pytest.raises(ValueError, match="need float32, bfloat16 or float16"):
+        tfl.fused_ln_kernel(x64, x64, g, g, None, 0.0, EPS)
     assert (tfl.fused_ln_kernel.launches, tfl.fused_ln_bwd_kernel.launches) == before
 
 
