@@ -45,8 +45,9 @@ Phases:
                     kernels with no copy, and time the kernels and their
                     SDPA yardsticks from CUDA-graph replays (device time).
                     The four attention forwards at float32 and float16
-                    (the f32 CUDA-core kernels of attention_simt.cuh, the
-                    ``*_simt`` rows): decode and paged at S = 1 and S = 5
+                    (flash at float32 only; the f32 CUDA-core kernels of
+                    attention_simt.cuh, the ``*_simt`` rows): decode and
+                    paged at S = 1 and S = 5
                     over ragged, stale slots, 256-token chunks off the
                     page grid, pages of 16 and 128, GQA 64/8, head dims
                     64 and 256, int8 caches under float32 and float16 q,
@@ -57,9 +58,10 @@ Phases:
                     F32_RTOL, float16 within F16_RTOL, int8 within
                     KERNEL_RTOL["int8"]; planted faults outside; the same
                     bits twice; SDPA at the same dtype as the yardstick.
-                    The three backward kernels at float32 and float16 (the
-                    f32 CUDA-core kernels of attention_simt_bwd.cuh, the
-                    ``*_simt`` rows, and flash's statistics pass): flash at
+                    The three backward kernels at float32 and float16
+                    (flash at float32 only; the f32 CUDA-core kernels of
+                    attention_simt_bwd.cuh, the ``*_simt`` rows, and
+                    flash's statistics pass): flash at
                     [8, 2048, 16, 128] causal, Sq < Sk, the lse cotangent,
                     head dim 64 and a ragged length; the encoder at ERNIE's
                     shape with dropout 0.1 (and as packed views), the LLaMA
@@ -68,12 +70,20 @@ Phases:
                     around each call; SDPA's backward as the yardstick.
                     Head dim 256 in the flash backward (the ``_d256``
                     rows): the bf16 statistics pass, dq and dkv and their
-                    float32 and float16 CUDA-core counterparts at the
+                    float32 CUDA-core counterparts at the
                     D = 256 LLaMA's [8, 2048, 8, 256] causal, a full
                     Sq < Sk case and a ragged one with the lse cotangent;
                     the fused LN at float16 (the ``_f16`` rows) at ERNIE's
                     shape at rate 0 and 0.1 and at h 4096, within
-                    F16_LN_RTOL.
+                    F16_LN_RTOL.  The flash forward, statistics pass, dq
+                    and dkv at float16 (the ``_f16`` rows): the wgmma
+                    kernels' float16 instantiations at head dims 64, 128
+                    and 256, at the shapes and seeds of the CUDA-core
+                    float16 cases they replace, within F16_RTOL, each timed
+                    beside its bf16 twin of the same shape and SDPA at
+                    float16; the build phase logs HGMMA per instantiation
+                    of the flash libraries, and the kernels phase fails
+                    where one has none.
   4. generate     — model.generate() at LLaMA-2-7B widths (16 layers, bf16,
                     random weights from a seed): ids [4, 1024] (flash
                     prefill) on a bf16 and an int8 cache, and ids [8, 256]
@@ -120,13 +130,17 @@ time goes.
                     then 4 on an int8 pool, the no-cache forward at
                     [1, 2048] (flash) and [4, 512] (the encoder) against
                     dense math, a profiled paged decode tick; at float16:
-                    generate() on its float16 cache and the paged engine's
+                    generate() on its float16 cache, the paged engine's
                     12 requests (float32 pools, as for every model that is
-                    not bf16); BERT-base eval on [32, 128] at float32 and
-                    at float16 (the fused-LN kernels at float16).
-                    Every attention launch is an f32 CUDA-core kernel's;
-                    logits within F32_LOGIT_TOL (F16_LOGIT_TOL,
-                    INT8_LOGIT_TOL); peak memory per model.
+                    not bf16) and the no-cache forward at [1, 2048]
+                    (its wall beside the dense-math forward's); BERT-base
+                    eval on [32, 128] at float32 and at float16 (the
+                    fused-LN kernels at float16).  Every attention launch
+                    is an f32 CUDA-core kernel's but float16 flash
+                    (generate()'s prefill, the forward at [1, 2048]),
+                    which runs the tensor-core kernel; logits within
+                    F32_LOGIT_TOL (F16_LOGIT_TOL, INT8_LOGIT_TOL); peak
+                    memory per model.
  12. train        — bench.py's training configuration (hidden 2048, 12
                     layers, bf16, random weights and tokens from seed 0)
                     through TrainStep + AdamW(3e-4, weight_decay=0.01):
@@ -188,6 +202,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -239,7 +254,8 @@ KERNELS = {
                       "paddle_tpu/ops/fused_conv_bn.py:66"),
     "fused_conv_bn_bwd": ("paddle_tpu_torch/csrc/fused_conv_bn.cu",
                           "paddle_tpu/ops/fused_conv_bn.py:139"),
-    # the same four TPU kernels at float32 and float16: f32 on the CUDA cores
+    # the same four TPU kernels at float32 (and at float16 but for flash): f32
+    # on the CUDA cores
     "paged_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_paged.cu",
                              "paddle_tpu/ops/decode_attention.py:313"),
     "decode_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_decode.cu",
@@ -248,8 +264,9 @@ KERNELS = {
                              "paddle_tpu/ops/flash_attention.py:45"),
     "encoder_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_encoder.cu",
                                "paddle_tpu/ops/encoder_attention.py:78"),
-    # the three backward TPU kernels at float32 and float16: f32 on the CUDA
-    # cores; the statistics pass is the dsum each of the flash ones takes first
+    # the three backward TPU kernels at float32 (and the encoder's at
+    # float16): f32 on the CUDA cores; the statistics pass is the dsum each
+    # of the flash ones takes first
     "flash_attention_bwd_stats_simt": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
                                        "paddle_tpu/ops/flash_attention.py:111"),
     "flash_attention_dq_simt": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
@@ -262,8 +279,8 @@ KERNELS = {
     # takes first
     "flash_attention_bwd_stats": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                                   "paddle_tpu/ops/flash_attention.py:111"),
-    # the flash backward's head dim 256 instantiations (bf16 on wgmma, f32 and
-    # f16 on the CUDA cores): one counter a wrapper, so their launches are the
+    # the flash backward's head dim 256 instantiations (bf16 on wgmma, f32 on
+    # the CUDA cores): one counter a wrapper, so their launches are the
     # wrappers' in the main paths' runs at head dim 256 (INSTANTIATIONS)
     "flash_attention_bwd_stats_d256": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                                        "paddle_tpu/ops/flash_attention.py:111"),
@@ -281,6 +298,18 @@ KERNELS = {
     # float16 runs
     "fused_ln_f16": ("paddle_tpu_torch/csrc/fused_ln.cu", "paddle_tpu/ops/fused_ln.py:55"),
     "fused_ln_bwd_f16": ("paddle_tpu_torch/csrc/fused_ln.cu", "paddle_tpu/ops/fused_ln.py:77"),
+    # the flash forward and backward at float16: the bf16 kernels' wgmma
+    # design and wrappers, instantiated at __half; their launches the
+    # wrappers' in the main paths' float16 runs, their cases at D 64, 128
+    # and 256
+    "flash_attention_f16": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                            "paddle_tpu/ops/flash_attention.py:45"),
+    "flash_attention_bwd_stats_f16": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                                      "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_dq_f16": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_dkv_f16": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "paddle_tpu/ops/flash_attention.py:153"),
 }
 # A run's field and value -> the suffix of the KERNELS rows of that
 # instantiation: every launch in a run at head dim 256 (or at float16) is
@@ -529,8 +558,8 @@ def gate(name, got, want, faults, tol, **extra):
                 fault_rel=fault_rel, finite=finite, tol=tol, ok=ok, **extra)
 
 
-def randn(g, shape, std=1.0):
-    return (torch.randn(*shape, generator=g, device="cuda") * std).bfloat16()
+def randn(g, shape, std=1.0, dtype=torch.bfloat16):
+    return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
 
 
 def decode_case(name, B, H, Hkv, offsets, quant, seed, L=2048, D=128, S=1):
@@ -615,16 +644,18 @@ def masked_attention(q, k, v, vis, scale):
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v.float())
 
 
-def seq_attention_case(name, kind, B, H, Sq, Sk, D, causal, seed):
+def seq_attention_case(name, kind, B, H, Sq, Sk, D, causal, seed, dtype=torch.bfloat16):
     """Flash or encoder kernel vs its plain version on q, k, v
-    [B, S, H, D]; planted faults are uniform weights and each row's key
-    range one short (its causal end, or the last key when not causal)."""
+    [B, S, H, D] of ``dtype`` (bf16 within KERNEL_RTOL; flash also at
+    float16, within F16_RTOL); planted faults are uniform weights and each
+    row's key range one short (its causal end, or the last key when not
+    causal)."""
     from paddle_tpu_torch.ops import encoder_attention as ea
     from paddle_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = randn(g, (B, Sq, H, D), Q_STD)
-    k, v = randn(g, (B, Sk, H, D)), randn(g, (B, Sk, H, D))
+    q = randn(g, (B, Sq, H, D), Q_STD, dtype)
+    k, v = randn(g, (B, Sk, H, D), dtype=dtype), randn(g, (B, Sk, H, D), dtype=dtype)
     scale = 1.0 / D ** 0.5
     if kind == "flash":
         def kernel():
@@ -659,9 +690,10 @@ def seq_attention_case(name, kind, B, H, Sq, Sk, D, causal, seed):
         want_lse = ea._encoder_lse(q.float(), k.float(), scale, causal)
     lse_err = (lse.reshape(B, H, Sq) - want_lse.reshape(B, H, Sq)).abs().max().item()
     extra = dict(lse_max_abs_err=lse_err, lse_tol=LSE_TOL, same_bits=same,
-                 ok=lse_err <= LSE_TOL and same)
-    res = gate(name, got, want, faults, KERNEL_RTOL["bf16"], kind=kind, B=B, H=H, Sq=Sq,
-               Sk=Sk, D=D, causal=causal, **extra)
+                 ok=lse_err <= LSE_TOL and same and got.dtype == dtype)
+    tol = KERNEL_RTOL["bf16"] if dtype == torch.bfloat16 else F16_RTOL
+    res = gate(name, got, want, faults, tol, kind=kind, B=B, H=H, Sq=Sq, Sk=Sk, D=D,
+               causal=causal, dtype=TAGS[dtype], **extra)
     iters = 20
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
@@ -744,9 +776,12 @@ def sdpa_bwd_ms(q, k, v, do, causal, iters, dropout_p=0.0, graph=False):
                     stream=s)
 
 
-def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
-    """The flash backward kernels (the statistics pass, dq, dkv) vs
-    ``_flash_bwd_dense`` on O and LSE from the plain forward; planted
+def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False, dtype=torch.bfloat16):
+    """The flash backward kernels (the statistics pass, dq, dkv) at
+    ``dtype`` vs ``_flash_bwd_dense`` on O and LSE from the plain forward:
+    bf16 within BWD_RTOL of the plain version in f32, float16 within
+    F16_RTOL of the plain version at float16 (which rounds dS, and P for
+    dV, where the kernels do; the CUDA-core float16 cases' gate); planted
     faults: dsum taken as 0, each row's key range one short, and (with
     dlse) dlse ignored; the statistics' own: lse in natural-log units, dsum
     taken as 0 (and dlse ignored).  Returns {"stats", "dq", "dkv"} cases,
@@ -754,12 +789,12 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
     from paddle_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = randn(g, (B, Sq, H, D), Q_STD)
-    k, v = randn(g, (B, Sk, H, D)), randn(g, (B, Sk, H, D))
-    do = randn(g, (B, Sq, H, D))
+    q = randn(g, (B, Sq, H, D), Q_STD, dtype)
+    k, v = randn(g, (B, Sk, H, D), dtype=dtype), randn(g, (B, Sk, H, D), dtype=dtype)
+    do = randn(g, (B, Sq, H, D), dtype=dtype)
     scale = 1.0 / D ** 0.5
     o32, lse = fa._flash_dense(q.float(), k.float(), v.float(), causal, scale)
-    o = o32.bfloat16()
+    o = o32.to(dtype)
     dlse = (torch.randn(B, H, Sq, generator=g, device="cuda") if with_dlse else None)
     args = (q, k, v, o, do, lse, causal, scale, dlse)
     stats, n_st = counted(lambda: fa.flash_attention_bwd_stats(o, do, lse, dlse),
@@ -774,8 +809,12 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
     torch.cuda.synchronize()
     same = {"stats": bool(torch.equal(stats, stats2)), "dq": bool(torch.equal(dq, dq2)),
             "dkv": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))}
-    want = fa._flash_bwd_dense(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
-                               causal, scale, dlse)
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        want = fa._flash_bwd_dense(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                                   causal, scale, dlse)
+    else:
+        want = fa._flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse)
     # the statistics: [2, B * H, Sqp], Sq padded to 64 with zeros
     dsum = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())
     if with_dlse:
@@ -800,17 +839,19 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False):
               "causal_end_short": masked_attention_bwd(q, k, v, do, short, scale, dlse)}
     if with_dlse:
         faults["dlse_ignored"] = masked_attention_bwd(q, k, v, do, vis, scale)
-    shape = dict(kind="flash", B=B, H=H, Sq=Sq, Sk=Sk, D=D, causal=causal, dlse=with_dlse)
+    shape = dict(kind="flash", B=B, H=H, Sq=Sq, Sk=Sk, D=D, causal=causal, dlse=with_dlse,
+                 dtype=TAGS[dtype])
+    tol = BWD_RTOL if bf16 else F16_RTOL
     res = {"stats": bwd_gate(name, (stats[0], stats[1]), (want_stats[0], want_stats[1]),
                              {f: (t[0], t[1]) for f, t in stat_faults.items()}, F32_RTOL,
                              same_bits=same["stats"], launches_counted=n_st,
                              ok=same["stats"] and n_st, **shape),
            "dq": bwd_gate(name, (dq,), want[:1], {f: t[:1] for f, t in faults.items()},
-                          BWD_RTOL, same_bits=same["dq"], launches_counted=n_dq,
-                          ok=same["dq"] and n_dq, **shape),
+                          tol, same_bits=same["dq"], launches_counted=n_dq,
+                          ok=same["dq"] and n_dq and dq.dtype == dtype, **shape),
            "dkv": bwd_gate(name, (dk, dv), want[1:], {f: t[1:] for f, t in faults.items()},
-                           BWD_RTOL, same_bits=same["dkv"], launches_counted=n_dkv,
-                           ok=same["dkv"] and n_dkv, **shape)}
+                           tol, same_bits=same["dkv"], launches_counted=n_dkv,
+                           ok=same["dkv"] and n_dkv and dk.dtype == dv.dtype == dtype, **shape)}
     iters = 10
     plain_ms = cuda_ms(lambda: fa._flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse), 3)
     library_ms = (None if with_dlse or (causal and Sq != Sk)
@@ -1226,9 +1267,10 @@ def dropout_kernel_cases():
 def bwd_kernel_cases():
     """Backward cases: {kernel name: [case, ...]}, the training shapes first;
     head dim 256 (the D = 256 LLaMA's step [8, 2048, 8, 256], a full Sq < Sk
-    case, a ragged one) under the ``_d256`` names."""
+    case, a ragged one) under the ``_d256`` names; the flash backward at
+    float16 (D 64, 128 and 256) under the ``_f16`` names."""
     out = {f"flash_attention_{k}{d}": [] for k in ("bwd_stats", "dq", "dkv")
-           for d in ("", "_d256")}
+           for d in ("", "_d256", "_f16")}
     out["encoder_attention_bwd"] = []
     for i, (name, B, H, Sq, Sk, D, causal, dlse) in enumerate([
             ("train_s2048", 8, 16, 2048, 2048, 128, True, False),   # the bench's step
@@ -1249,6 +1291,24 @@ def bwd_kernel_cases():
             kern = f"flash_attention_{key}{'_d256' if D == 256 else ''}"
             out[kern].append(c)
             log_case(kern, c)
+    # float16 on the same kernels, D 64, 128 and 256 (the shapes and seeds
+    # of the CUDA-core float16 cases they replace), the training step first
+    for name, B, H, Sq, Sk, D, causal, dlse, seed in [
+            ("train_s2048_f16", 8, 16, 2048, 2048, 128, True, False, 160),
+            ("sq1024_sk2048_causal_f16", 1, 32, 1024, 2048, 128, True, False, 161),
+            ("s2048_dlse_f16", 2, 16, 2048, 2048, 128, True, True, 162),
+            ("bh64_s1024_d64_f16", 2, 32, 1024, 1024, 64, True, False, 163),
+            ("sq1024_sk1536_full_f16", 1, 16, 1024, 1536, 128, False, False, 164),
+            ("train_d256_s2048_f16", 8, 8, 2048, 2048, 256, True, False, 166),
+            ("d256_sq1024_sk1536_full_f16", 1, 16, 1024, 1536, 256, False, False, 167),
+            ("d256_s264_ragged_causal_dlse_f16", 2, 8, 264, 264, 256, True, True, 168)]:
+        r = flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, dlse, dtype=torch.float16)
+        for key in ("bwd_stats", "dq", "dkv"):
+            c = r["stats" if key == "bwd_stats" else key]
+            c["function_bound_ms"] = r["function_bound_ms"]
+            c["backward_ms"] = r["backward_ms"]
+            out[f"flash_attention_{key}_f16"].append(c)
+            log_case(f"flash_attention_{key}_f16", c)
     for i, (S, D, H, causal) in enumerate([(512, 128, 16, True), (128, 128, 16, True),
                                            (256, 128, 16, True), (512, 64, 32, True),
                                            (512, 128, 16, False)]):
@@ -1847,8 +1907,9 @@ def simt_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, pa
 
 
 def simt_kernel_cases():
-    """The f32 CUDA-core kernels' cases at float32 and float16, the main
-    paths' shapes, the float32 case each main path runs most first: decode
+    """The f32 CUDA-core kernels' cases at float32 and float16 (flash at
+    float32 only), the main paths' shapes, the float32 case each main path
+    runs most first: decode
     and paged at LLaMA-2-7B widths (S = 1 at 8 ragged slots; the verify's
     S = 5; 256-token chunks off the page grid; pages of 16 and 128), 70B's
     GQA 64/8, head dims 64 and 256, int8 caches under float32 and float16
@@ -1899,10 +1960,10 @@ def simt_kernel_cases():
             ("train_shape_s2048", 8, 16, 2048, 128, True),
             ("bh64_s1024_d64", 2, 32, 1024, 64, True),
             ("d256_s1024_full", 4, 16, 1024, 256, False)]):
-        for dt in (f32, f16):
-            out["flash_attention_simt"].append(simt_seq_case(
-                f"{name}_{TAGS[dt]}", "flash", B, H, S, S, D, causal, dt, 130 + i))
-            log_case("flash_attention_simt", out["flash_attention_simt"][-1])
+        # float16 runs the tensor-core kernel (kernel_phase's _f16 cases)
+        out["flash_attention_simt"].append(simt_seq_case(
+            f"{name}_f32", "flash", B, H, S, S, D, causal, f32, 130 + i))
+        log_case("flash_attention_simt", out["flash_attention_simt"][-1])
     out["flash_attention_simt"].append(simt_seq_case(
         "sq1024_sk2048_causal_f32", "flash", 1, 32, 1024, 2048, 128, True, f32, 136))
     log_case("flash_attention_simt", out["flash_attention_simt"][-1])
@@ -2097,37 +2158,34 @@ SIMT_BWD_KERNELS = ("flash_attention_bwd_stats_simt", "flash_attention_dq_simt",
 
 
 def simt_bwd_kernel_cases():
-    """The CUDA-core backward kernels' cases at float32 and float16, the
-    main paths' shapes, the float32 case each main path runs most first:
-    flash at the LLaMA step's [8, 2048, 16, 128] causal, Sq < Sk, the lse
-    cotangent, head dim 64 and a ragged length; the encoder at ERNIE's
+    """The CUDA-core backward kernels' cases, the main paths' shapes, the
+    float32 case each main path runs most first: flash at float32 (float16
+    runs the tensor-core kernels) at the LLaMA step's [8, 2048, 16, 128]
+    causal, Sq < Sk, the lse cotangent, head dim 64 and a ragged length;
+    the encoder at float32 and float16 at ERNIE's
     [512, 128, 12, 64] with dropout 0.1 (and as BERT's packed views), the
     LLaMA b32_s512 microbatch [16, 512, 16, 128] causal, S = 128 causal at
     head dim 128 and S = 512 at head dim 64 with dropout."""
     f32, f16 = torch.float32, torch.float16
     out = {k: [] for k in SIMT_BWD_KERNELS}
     out.update({f"{k}_d256": [] for k in SIMT_BWD_KERNELS[:3]})
-    for i, (name, B, H, Sq, Sk, D, causal, dlse, dts) in enumerate([
-            ("train_s2048", 8, 16, 2048, 2048, 128, True, False, (f32, f16)),  # the step's
-            ("sq1024_sk2048_causal", 1, 32, 1024, 2048, 128, True, False, (f32, f16)),
-            ("s2048_dlse", 2, 16, 2048, 2048, 128, True, True, (f32, f16)),
-            ("bh64_s1024_d64", 2, 32, 1024, 1024, 64, True, False, (f32,)),
-            ("sq1024_sk1536_full", 1, 16, 1024, 1536, 128, False, False, (f16,)),
-            ("s264_ragged_causal", 2, 8, 264, 264, 128, True, False, (f32,)),
-            # head dim 256: the D = 256 LLaMA's step, a full Sq < Sk case, a
-            # ragged length with the lse cotangent
-            ("train_d256_s2048", 8, 8, 2048, 2048, 256, True, False, (f32, f16)),
-            ("d256_sq1024_sk1536_full", 1, 16, 1024, 1536, 256, False, False, (f32, f16)),
-            ("d256_s264_ragged_causal_dlse", 2, 8, 264, 264, 256, True, True, (f16,))]):
-        for dt in dts:
-            r = simt_flash_bwd_case(f"{name}_{TAGS[dt]}", B, H, Sq, Sk, D, causal, dt, 160 + i,
-                                    dlse)
-            for part, kern in (("stats", "flash_attention_bwd_stats_simt"),
-                               ("dq", "flash_attention_dq_simt"),
-                               ("dkv", "flash_attention_dkv_simt")):
-                kern += "_d256" if D == 256 else ""
-                out[kern].append(r[part])
-                log_case(kern, r[part])
+    # float16 flash runs the tensor-core kernels (bwd_kernel_cases' _f16 rows)
+    for name, B, H, Sq, Sk, D, causal, dlse, seed in [
+            ("train_s2048_f32", 8, 16, 2048, 2048, 128, True, False, 160),  # the step's
+            ("sq1024_sk2048_causal_f32", 1, 32, 1024, 2048, 128, True, False, 161),
+            ("s2048_dlse_f32", 2, 16, 2048, 2048, 128, True, True, 162),
+            ("bh64_s1024_d64_f32", 2, 32, 1024, 1024, 64, True, False, 163),
+            ("s264_ragged_causal_f32", 2, 8, 264, 264, 128, True, False, 165),
+            # head dim 256: the D = 256 LLaMA's step and a full Sq < Sk case
+            ("train_d256_s2048_f32", 8, 8, 2048, 2048, 256, True, False, 166),
+            ("d256_sq1024_sk1536_full_f32", 1, 16, 1024, 1536, 256, False, False, 167)]:
+        r = simt_flash_bwd_case(name, B, H, Sq, Sk, D, causal, f32, seed, dlse)
+        for part, kern in (("stats", "flash_attention_bwd_stats_simt"),
+                           ("dq", "flash_attention_dq_simt"),
+                           ("dkv", "flash_attention_dkv_simt")):
+            kern += "_d256" if D == 256 else ""
+            out[kern].append(r[part])
+            log_case(kern, r[part])
     for i, (name, B, H, S, D, causal, rate, packed, dts) in enumerate([
             ("ernie_drop", 512, 12, 128, 64, False, DROP_RATE, False, (f32, f16)),  # ERNIE's
             ("ernie_packed_qkv_drop", 512, 12, 128, 64, False, DROP_RATE, True, (f32,)),
@@ -2163,6 +2221,19 @@ def kernel_phase():
         out["flash_attention"].append(
             seq_attention_case(name, "flash", B, H, Sq, Sk, D, causal, 20 + i))
         log_case("flash_attention", out["flash_attention"][-1])
+    # float16 on the same kernel: generate()'s prefill first (the float16
+    # main path), then the dtypes phase's no-cache forward, the training
+    # shape and head dims 64 and 256
+    out["flash_attention_f16"] = []
+    for name, B, H, S, D, causal, seed in [
+            ("7b_generate_s1024_f16", 4, 32, 1024, 128, True, 131),
+            ("7b_forward_s2048_f16", 1, 32, 2048, 128, True, 130),
+            ("train_shape_s2048_f16", 8, 16, 2048, 128, True, 132),
+            ("bh64_s1024_d64_f16", 2, 32, 1024, 64, True, 133),
+            ("d256_s1024_full_f16", 4, 16, 1024, 256, False, 134)]:
+        out["flash_attention_f16"].append(seq_attention_case(
+            name, "flash", B, H, S, S, D, causal, seed, dtype=torch.float16))
+        log_case("flash_attention_f16", out["flash_attention_f16"][-1])
     encoder_shapes = [(256, 128, True)] + [(S, D, c) for S in (128, 256, 512)
                                            for D in (128, 64) for c in (True, False)
                                            if (S, D, c) != (256, 128, True)]
@@ -2185,8 +2256,27 @@ def kernel_phase():
     out.update(conv_bn_kernel_cases())
     out.update(simt_kernel_cases())
     out.update(simt_bwd_kernel_cases())
+    f16_against_bf16(out)
     zero_counts()  # comparison launches do not count
     return out
+
+
+def f16_against_bf16(out):
+    """Each float16 flash case's time beside the bf16 case of the same
+    shape in this run (``bf16_ms``, ``f16_over_bf16``): the one design at
+    either 2-byte type should run alike."""
+    keys = ("B", "H", "Sq", "Sk", "D", "causal", "dlse")
+    for kern in ("flash_attention", "flash_attention_bwd_stats", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        bf16 = {tuple(c.get(k) for k in keys): c for d in ("", "_d256")
+                for c in out.get(kern + d, [])}
+        for c in out[kern + "_f16"]:
+            twin = bf16.get(tuple(c.get(k) for k in keys))
+            if twin is None:
+                continue
+            c["bf16_ms"], c["f16_over_bf16"] = twin["ms"], c["ms"] / twin["ms"]
+            log(f"  {kern}_f16 {c['name']}: {c['ms']:.4f} ms against bf16 {twin['name']} "
+                f"{twin['ms']:.4f} ms: {c['f16_over_bf16']:.3f}x")
 
 
 # The libraries whose SASS must hold the Hopper instructions their design
@@ -2197,16 +2287,47 @@ HOPPER_LIBS = {**{lib: ("HGMMA", "UTMALDG") for lib in (
     "flash_attention", "flash_attention_bwd", "encoder_attention", "encoder_attention_bwd",
     "decode_attention", "paged_attention", "fused_conv_bn")}, "fused_ln": ("UBLKCP",)}
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
+# The libraries built at more than one element type, with their wgmma
+# kernels, each of whose instantiations (element type x head dim) must hold
+# HGMMA; the element types as the mangled names spell them.
+TYPED_LIBS = {"flash_attention": ("flash_fwd_kernel",),
+              "flash_attention_bwd": ("flash_dq_kernel", "flash_dkv_kernel")}
+TYPED_INSTANCES = [(t, d) for t in ("bf16", "f16") for d in (64, 128, 256)]
+MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+
+
+def sass_text(lib):
+    """A library's SASS (cuobjdump -sass)."""
+    from paddle_tpu_torch.ops import _build
+
+    cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
 
 
 def sass_counts(lib):
     """HGMMA, UTMALDG and UBLKCP instructions in a library's SASS (cuobjdump)."""
-    from paddle_tpu_torch.ops import _build
-
-    cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
-                          timeout=120, check=True).stdout
+    sass = sass_text(lib)
     return {op: sass.count(op) for op in SASS_OPS}
+
+
+def hgmma_by_instance(name, lib):
+    """HGMMA instructions of each instantiation of the wgmma kernels of
+    TYPED_LIBS[name] in its SASS, keyed "kernel<type,D>" (type and head dim
+    read from the mangled function name)."""
+    out, key = {}, None
+    for line in sass_text(lib).splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            kern = next((k for k in TYPED_LIBS[name] if k in fn), None)
+            tag = next((t for m, t in MANGLED_TYPES.items() if m in fn), "?")
+            dim = re.search(r"Li(\d+)E", fn)
+            key = kern and f"{kern}<{tag},{dim.group(1) if dim else '?'}>"
+            if key:
+                out[key] = 0
+        elif key and "HGMMA" in line:
+            out[key] += 1
+    return out
 
 
 def log_case(kern, c):
@@ -2290,8 +2411,13 @@ def read_counts():
 
 def kernel_for(name, dtype):
     """The counter an attention kernel's launch at q's ``dtype`` adds to:
-    the bf16 kernel's, or its f32 CUDA-core counterpart's (``_simt``)."""
-    return name if dtype == torch.bfloat16 else f"{name}_simt"
+    the tensor-core kernel's (bf16, and float16 in flash: the admission's
+    ``_simt.TC_TYPES``), or its f32 CUDA-core counterpart's (``_simt``)."""
+    from paddle_tpu_torch.ops import _simt
+
+    regime = ("flash" if name == "flash_attention" else
+              "flash_bwd" if name.startswith("flash_attention_") else None)
+    return name if dtype in _simt.TC_TYPES.get(regime, (torch.bfloat16,)) else f"{name}_simt"
 
 
 def model_dtype(model):
@@ -2416,7 +2542,7 @@ def generate_run(model, name, B, S0, n_new, cache_dtype, seed):
     verdict = judge([(out[b].tolist(), forward_logits(model, ids[b].tolist(), out[b].tolist()),
                       path[b]) for b in range(B)], logit_tol(dt, cache_dtype))
     valid = tuple(out.shape) == (B, n_new) and bool(((out >= 0) & (out < cfg.vocab_size)).all())
-    res = dict(path="generate", name=name, B=B, prompt=S0, new_tokens=n_new,
+    res = dict(path="generate", name=name, B=B, prompt=S0, new_tokens=n_new, dtype=TAGS[dt],
                cache=cache_dtype or TAGS[dt], prefill_kernel=kern, wall_s=wall,
                decode_tok_per_s=B * (n_new - 1) / wall, launches=launches,
                expected_launches=expected, replay_equal=bool(
@@ -3314,8 +3440,8 @@ def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN
 
 def flash_launches(n, dtype):
     """Expected launches of ``n`` flash forwards and backwards at q's dtype:
-    the bf16 kernels, or the CUDA-core ones, each backward with its
-    statistics pass."""
+    the tensor-core kernels (bf16, float16), or the CUDA-core ones
+    (float32), each backward with its statistics pass."""
     bwd = ["flash_attention_bwd_stats", "flash_attention_dq", "flash_attention_dkv"]
     return {kernel_for(k, dtype): n for k in ["flash_attention"] + bwd}
 
@@ -3963,14 +4089,17 @@ def forward_run(model, name, B, S, seed):
     flash = cfg.use_flash_attention
     cfg.use_flash_attention = False
     try:
+        t0 = time.perf_counter()
         want = model(ids).float()
+        torch.cuda.synchronize()
+        dense_wall = time.perf_counter() - t0
     finally:
         cfg.use_flash_attention = flash
     drift = (got - want).abs().max().item()
     finite = bool(torch.isfinite(got).all())
     tol = logit_tol(dt)
     return dict(path="forward", name=name, B=B, S=S, dtype=TAGS[dt], kernel=kern, wall_s=wall,
-                launches=launches, expected_launches=expected, max_logit_drift=drift,
+                dense_wall_s=dense_wall, launches=launches, expected_launches=expected, max_logit_drift=drift,
                 logit_std=want.std().item(), logit_tol=tol, finite=finite,
                 argmax_equal_share=(got.argmax(-1) == want.argmax(-1)).float().mean().item(),
                 ok=finite and drift <= tol and launch_check(launches, expected))
@@ -3985,7 +4114,8 @@ def log_dtype_run(r, card):
             f"(tol {tf['logit_tol']}), {tf['exact']} exact, {tf['near_ties']} near-ties, "
             f"{tf['failures']} failures; {'ok' if r['ok'] else 'FAIL'} [{card}]")
     elif r["path"] == "forward":
-        log(f"  forward {r['name']} ({r['dtype']}): {r['kernel']}, wall {r['wall_s']:.3f} s; "
+        log(f"  forward {r['name']} ({r['dtype']}): {r['kernel']}, wall {r['wall_s']:.3f} s "
+            f"(dense math {r['dense_wall_s']:.3f} s); "
             f"launches {r['launches']} (expected {r['expected_launches']}); logit drift vs "
             f"dense math {r['max_logit_drift']:.2e} (tol {r['logit_tol']}, logit std "
             f"{r['logit_std']:.3f}), argmax equal {r['argmax_equal_share']:.4f}; "
@@ -4006,10 +4136,13 @@ def dtypes_phase(card):
     requests, the paged engine's 12 and then 4 on an int8 pool, the
     no-cache forward at [1, 2048] (flash) and [4, 512] (the encoder), and
     the paged decode tick under the profiler; then at float16: generate()
-    on its float16 static cache and the paged engine's 12 requests (float32
-    pools, as for every model that is not bf16); then BERT-base at float32
+    on its float16 static cache, the paged engine's 12 requests (float32
+    pools, as for every model that is not bf16) and the no-cache forward at
+    [1, 2048] (flash on the tensor cores); then BERT-base at float32
     and at float16 (eval, [32, 128]; float16 through the fused-LN kernels at
-    float16).  Every attention launch is an f32 CUDA-core kernel's."""
+    float16).  Every attention launch is an f32 CUDA-core kernel's but
+    float16 flash (generate()'s prefill, the forward), the tensor-core
+    kernel's."""
     import numpy as np
 
     runs, extra = [], {}
@@ -4031,7 +4164,8 @@ def dtypes_phase(card):
                 f"{json.dumps(extra['f32_paged_decode_tick'])} [{card}]")
         else:
             part = [generate_run(model, "b4_s1024_f16", 4, 1024, 32, None, 1),
-                    serve_paged(model, REQUESTS, np.random.default_rng(0), None, 4, True)]
+                    serve_paged(model, REQUESTS, np.random.default_rng(0), None, 4, True),
+                    forward_run(model, "s2048_flash", 1, 2048, 3)]
         extra[f"{dt}_wall_s"] = time.perf_counter() - t0
         extra[f"{dt}_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         log(f"  {dt}: {len(part)} runs in {extra[f'{dt}_wall_s']:.1f} s, peak memory "
@@ -4115,6 +4249,11 @@ def main(argv=None):
         for name, n in report["sass"].items():
             log(f"[build]   {name}: SASS {n['HGMMA']} HGMMA (wgmma), {n['UTMALDG']} UTMALDG "
                 f"(TMA loads), {n['UBLKCP']} UBLKCP (bulk copies)")
+        report["hgmma_by_instance"] = {name: hgmma_by_instance(name, built[name]["path"])
+                                       for name in TYPED_LIBS}
+        for name, n in report["hgmma_by_instance"].items():
+            log(f"[build]   {name}: HGMMA by instantiation: "
+                + ", ".join(f"{k} {v}" for k, v in sorted(n.items())))
         spills = [f"{name}: {line}" for name in HOPPER_LIBS
                   for line in report["ptxas"].get(name, [])
                   if "spill" in line and not line.startswith("0 bytes stack frame, 0 bytes spill")]
@@ -4132,6 +4271,12 @@ def main(argv=None):
         for name, op in missing:
             log(f"[kernels] FAIL: the {name} library has no {op} instruction")
         ok &= not missing
+        untyped = [f"{kern}<{t},{d}>" for name, kerns in TYPED_LIBS.items() for kern in kerns
+                   for t, d in TYPED_INSTANCES
+                   if not report["hgmma_by_instance"][name].get(f"{kern}<{t},{d}>")]
+        for inst in untyped:
+            log(f"[kernels] FAIL: no HGMMA in the instantiation {inst}")
+        ok &= not untyped
         phase_done(report, "kernels", t_ph)
     serving = [ph for ph in paths if ph not in ("gpt", "dtypes", "train", "ernie", "resnet")]
     if serving:
@@ -4160,7 +4305,7 @@ def main(argv=None):
     if "dtypes" in paths:
         t_ph = time.perf_counter()
         log("[dtypes] LLaMA-2-7B widths at float32 and float16, BERT-base at float32 and "
-            "float16, through the f32 CUDA-core attention kernels")
+            "float16, through the f32 CUDA-core attention kernels (float16 flash on wgmma)")
         runs, report["dtypes"] = dtypes_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in runs)

@@ -1,9 +1,11 @@
 // The attention backward on the CUDA cores in f32 arithmetic, for float32
-// and float16 storage: the device code of the flash and encoder backward
-// kernels at those types (attention_simt_flash_bwd.cu,
-// attention_simt_encoder_bwd.cu).  The bf16 kernels (flash_attention_bwd.cu,
-// encoder_attention_bwd.cu) run on the tensor cores; this body runs every
-// product as f32 FFMA, as the forward body attention_simt.cuh does.
+// and float16 storage: the device code of the flash backward at float32
+// (attention_simt_flash_bwd.cu) and the encoder backward at float32 and
+// float16 (attention_simt_encoder_bwd.cu).  The bf16 kernels
+// (flash_attention_bwd.cu, encoder_attention_bwd.cu), and the flash
+// backward at float16 (flash_attention_bwd.cu), run on the tensor cores;
+// this body runs every product as f32 FFMA, as the forward body
+// attention_simt.cuh does.
 //
 // Replaces, at float32 and float16: paddle_tpu/ops/flash_attention.py
 // `_dq_kernel` and `_dkv_kernel`, and paddle_tpu/ops/encoder_attention.py
@@ -73,8 +75,10 @@
 
 // The instantiations, one list each, which paddle_tpu_torch/ops/_simt.py
 // admits for "flash_bwd" and "encoder_bwd" (a CPU test parses these lines
-// against its lists): the storage types (q = k = v = dO) and head dims.
-#define SIMT_BWD_TYPES(X) X(float) X(__half)
+// against its lists): the storage types (q = k = v = dO) and head dims
+// (float16 flash runs the tensor-core kernel, flash_attention_bwd.cu).
+#define SIMT_BWD_FLASH_TYPES(X) X(float)
+#define SIMT_BWD_ENCODER_TYPES(X) X(float) X(__half)
 #define SIMT_BWD_FLASH_DIMS(X) X(64) X(128) X(256)
 #define SIMT_BWD_ENCODER_DIMS(X) X(64) X(128)
 
@@ -666,13 +670,18 @@ cudaError_t run_typed(const BwdParams& p, int D, dim3 grid, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
-// Launch op OP on storage type `type` (0 float32, 1 float16) and head dim
-// D, or return cudaErrorInvalidValue where no instantiation is built.
+// Launch op OP on storage type `type` (0 float32, 1 float16: the encoder's
+// ops only) and head dim D, or return cudaErrorInvalidValue where no
+// instantiation is built.
 template <Op OP>
 cudaError_t run_op(const BwdParams& p, int D, int type, dim3 grid, cudaStream_t st) {
 #define SIMT_BWD_TYPE(T) \
   if (type == type_code<T>()) return run_typed<OP, T>(p, D, grid, st);
-  SIMT_BWD_TYPES(SIMT_BWD_TYPE)
+  if constexpr (OP == Op::FlashDq || OP == Op::FlashDkv) {
+    SIMT_BWD_FLASH_TYPES(SIMT_BWD_TYPE)
+  } else {
+    SIMT_BWD_ENCODER_TYPES(SIMT_BWD_TYPE)
+  }
 #undef SIMT_BWD_TYPE
   return cudaErrorInvalidValue;
 }

@@ -1,14 +1,15 @@
-// FlashAttention forward at float32 and float16 (q, k and v of one type),
-// head dims 64, 128 and 256, on the CUDA cores.
+// FlashAttention forward at float32 (q, k and v), head dims 64, 128 and
+// 256, on the CUDA cores.  float16 runs the tensor-core kernel of
+// flash_attention.cu.
 //
 // Replaces: paddle_tpu/ops/flash_attention.py `_fwd_kernel` (launched by
-// `_flash_fwd`) at the types the bf16 kernel (flash_attention.cu) does not
-// take.  For q [B, Sq, H, D] and k, v [B, Sk, H, D] it writes o
+// `_flash_fwd`) at the type the tensor-core kernel (flash_attention.cu)
+// does not take.  For q [B, Sq, H, D] and k, v [B, Sk, H, D] it writes o
 // [B, Sq, H, D] = softmax(scale * q k^T) v in q's type, with p rounded to
 // v's type before p . v, and the rows' natural-log logsumexp lse
 // [B * H, Sq] (f32).  Causal masks are bottom-right aligned: query i sees
-// keys <= i + Sk - Sq (the caller rejects Sq > Sk).  A float32 or float16
-// model's no-cache forward at S >= 1024 routes here.
+// keys <= i + Sk - Sq (the caller rejects Sq > Sk).  A float32 model's
+// no-cache forward at S >= 1024 routes here.
 //
 // What bounds it: operations (4 * D FLOP a visible pair, at the f32 FFMA
 // rate of 67 TFLOP/s).  What the design does about it (attention_simt.cuh):
@@ -24,7 +25,7 @@
 
 // Plain C interface (bound with ctypes).  Returns a cudaError_t: 0 on a
 // clean launch.  q, k, v, o contiguous [B, S, H, D] of `type` (0 float32,
-// 1 float16); lse f32 [B * H, Sq].
+// nothing else is built); lse f32 [B * H, Sq].
 extern "C" int flash_attention_simt_launch(const void* q, const void* k, const void* v, void* o,
                                            void* lse, int B, int H, int Sq, int Sk, int D,
                                            float scale, int causal, int type, void* stream) {

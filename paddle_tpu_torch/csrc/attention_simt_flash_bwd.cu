@@ -1,10 +1,11 @@
-// FlashAttention backward at float32 and float16 (q, k, v, O and dO of one
-// type), head dims 64, 128 and 256, on the CUDA cores: three entries, the
-// statistics pass and one per TPU kernel.
+// FlashAttention backward at float32 (q, k, v, O and dO), head dims 64, 128
+// and 256, on the CUDA cores: three entries, the statistics pass and one
+// per TPU kernel.  float16 runs the tensor-core kernels of
+// flash_attention_bwd.cu.
 //
 // Replaces: paddle_tpu/ops/flash_attention.py `_dq_kernel` (entry
 // flash_attention_simt_dq) and `_dkv_kernel` (entry flash_attention_simt_dkv),
-// launched by `_flash_bwd`, at the types the bf16 kernels
+// launched by `_flash_bwd`, at the type the tensor-core kernels
 // (flash_attention_bwd.cu) do not take.  Both recompute P = exp(scale q k^T
 // - lse) from the forward's natural-log lse; the statistics pass
 // (flash_attention_simt_stats, the dsum each of the reference's kernels
@@ -12,8 +13,8 @@
 // - dlse) once for both.  dQ, dK, dV follow the reference's rounding
 // (attention_simt_bwd.cuh): dS, and for dV P, to the input type.  Causal
 // masks are bottom-right aligned (query i sees keys <= i + Sk - Sq; the
-// caller rejects Sq > Sk).  A float32 or float16 LLaMA's training step at
-// S >= 1024 routes here.
+// caller rejects Sq > Sk).  A float32 LLaMA's training step at S >= 1024
+// routes here.
 //
 // What bounds it: operations.  dQ does 3 products, 6 D FLOP a visible
 // pair, dK/dV 4, 8 D, at the f32 FFMA rate of 67 TFLOP/s; the statistics
@@ -58,8 +59,8 @@ BwdParams flash_params(const void* q, const void* k, const void* v, const void* 
 
 // Plain C interface (bound with ctypes).  Each returns a cudaError_t: 0 on a
 // clean launch.  q, o, dO [B, Sq, H, D] and k, v [B, Sk, H, D] contiguous
-// of `type` (0 float32, 1 float16); lse and dlse (or null) f32 [B * H, Sq];
-// stats f32 [2, B * H, Sq].
+// of `type` (0 float32; nothing else is built); lse and dlse (or null) f32
+// [B * H, Sq]; stats f32 [2, B * H, Sq].
 
 extern "C" int flash_attention_simt_stats_launch(const void* o, const void* dO, const void* lse,
                                                  const void* dlse, void* stats, int B, int H,
@@ -72,7 +73,7 @@ extern "C" int flash_attention_simt_stats_launch(const void* o, const void* dO, 
   float* s = static_cast<float*>(stats);
 #define SIMT_BWD_STATS_TYPE(T) \
   if (type == type_code<T>()) return (int)run_flash_stats_typed<T>(o, dO, l, dl, s, rows, H, Sq, D, st);
-  SIMT_BWD_TYPES(SIMT_BWD_STATS_TYPE)
+  SIMT_BWD_FLASH_TYPES(SIMT_BWD_STATS_TYPE)
 #undef SIMT_BWD_STATS_TYPE
   return (int)cudaErrorInvalidValue;
 }

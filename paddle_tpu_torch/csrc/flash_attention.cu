@@ -1,4 +1,5 @@
-// FlashAttention forward for Hopper (sm_90a), bf16, head dims 64, 128 and 256.
+// FlashAttention forward for Hopper (sm_90a), bf16 and float16, head dims
+// 64, 128 and 256.
 //
 // Replaces: paddle_tpu/ops/flash_attention.py `_fwd_kernel` (launched by
 // `_flash_fwd`).  For q [B, Sq, H, D] and k, v [B, Sk, H, D] it writes
@@ -12,8 +13,8 @@
 // pair and must read q, k, v and write o once: 256 operations per byte at
 // S = 1024 causal, D = 128 (bytes bound, narrowly), 512 at S = 2048
 // (operations bound), so its floor is near both the bytes over 3.35 TB/s
-// and the operations over the 989 TFLOP/s of the bf16 tensor cores, which
-// only `wgmma` reaches.
+// and the operations over the 989 TFLOP/s of the 16-bit tensor cores
+// (bf16 and float16 alike), which only `wgmma` reaches.
 //
 // What the design does about it (wgmma_attention.cuh): one block per
 // (128-row query tile, head, batch), the longest causal walks first.  The
@@ -22,9 +23,12 @@
 // D = 256) guarded by mbarriers.  Each of two warpgroups owns 64 query
 // rows and, per key tile, runs S = Q K^T as `wgmma m64nBKk16` with both operands
 // in shared memory, the online softmax in f32 registers (in base-2 units),
-// and O += P V as `wgmma m64nDk16` with P rounded to bf16 in registers as
-// the A operand (the reference rounds p to v's dtype there too) and V as an
-// MN-major B operand.  Key tiles past a tile's causal end are never loaded;
+// and O += P V as `wgmma m64nDk16` with P rounded to the element type in
+// registers as the A operand (the reference rounds p to v's dtype there
+// too) and V as an MN-major B operand.  bf16 and float16 run this one
+// design, instantiated at the inputs' type T (FLASH_TYPES): the reference
+// computes both the same way, products of T operands with f32 sums, and
+// the tiles, swizzle, descriptors and registers count 2-byte elements.  Key tiles past a tile's causal end are never loaded;
 // only tiles that cross the diagonal or Sk are masked.  Registers: the O
 // accumulator takes D / 2 a thread and the S tile BK / 2, within the 255
 // that 256 threads a block allow.  Not yet: overlap of one tile's softmax
@@ -35,39 +39,46 @@
 
 #include "wgmma_attention.cuh"
 
+// The instantiations, one list each (paddle_tpu_torch/ops/flash_attention.py
+// TYPE_CODES and FWD_HEAD_DIMS; a CPU test parses these lines against
+// them): (element type, its type code), and the head dims.
+#define FLASH_TYPES(X) X(__nv_bfloat16, 1) X(__half, 2)
+#define FLASH_DIMS(X) X(64) X(128) X(256)
+
 namespace {
 
 using namespace wgmma_attention;
 
 struct FwdArgs {
-  bf16* o;           // [B, Sq, H, D]
+  void* o;           // [B, Sq, H, D] of the inputs' type
   float* lse;        // [B * H, Sq]
   int H, Sq, Sk;
   float scale_log2;  // scale * log2(e)
   int causal;
 };
 
-template <int D>
+template <typename T, int D>
 struct Fwd {
   static constexpr int BQ = 128;  // query rows per block, 64 per warpgroup
   static constexpr int BK = D <= 128 ? 128 : 64;
   static constexpr int kStages = D <= 128 ? 3 : 2;  // 225 KB and 192 KB at D = 128, 256
   struct Smem {
-    bf16 q[BQ * D];
-    bf16 k[kStages][BK * D];
-    bf16 v[kStages][BK * D];
+    T q[BQ * D];
+    T k[kStages][BK * D];
+    T v[kStages][BK * D];
     uint64_t q_full;
     Ring<kStages> ring;
   };
   static constexpr size_t kSmem = sizeof(Smem) + 1024;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const FwdArgs p) {
-  constexpr int BQ = Fwd<D>::BQ, BK = Fwd<D>::BK, kStages = Fwd<D>::kStages;
-  typename Fwd<D>::Smem& sm = aligned_smem<typename Fwd<D>::Smem>();
+  using F = Fwd<T, D>;
+  constexpr int BQ = F::BQ, BK = F::BK, kStages = F::kStages;
+  typename F::Smem& sm = aligned_smem<typename F::Smem>();
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int off = p.Sk - p.Sq;
@@ -91,7 +102,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wq0 = q0 + 64 * wg;                   // the warpgroup's first query row
   const int row = wq0 + 16 * warp + (lane >> 2);  // this thread's rows: row, row + 8
   const int last = p.causal ? row + off : kNoLimit;
-  const bf16* qw = sm.q + 64 * wg * kPanel;
+  const T* qw = sm.q + 64 * wg * kPanel;
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -105,7 +116,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Mma<BK>::ss(sc, desc_k<BQ>(qw, kk), desc_k<BK>(sm.k[s], kk), kk > 0);
+      Mma<BK, T>::ss(sc, desc_k<BQ>(qw, kk), desc_k<BK>(sm.k[s], kk), kk > 0);
     wg_commit();
     refill(sm.ring, j, tiles, load_kv);
     wg_wait();
@@ -113,10 +124,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool edge = kb + BK > p.Sk || (p.causal && kb + BK - 1 > wq0 + off);
     softmax_step<BK, D>(sc, o, m, l, p.scale_log2, edge, kb, p.Sk, last, t);
     uint32_t pa[BK / 16][4];
-    to_a<BK>(pa, sc);
+    to_a<BK, T>(pa, sc);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) Mma<D>::rs(o, pa[kk], desc_mn<BK>(sm.v[s], kk));
+    for (int kk = 0; kk < BK / 16; ++kk) Mma<D, T>::rs(o, pa[kk], desc_mn<BK>(sm.v[s], kk));
     wg_commit();
     wg_wait();
     fence_regs(o);
@@ -129,7 +140,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     l[hr] = quad_sum(l[hr]);
     inv[hr] = 1.f / l[hr];
   }
-  store_rows<D>(p.o, o, inv, b, h, row, p.Sq, p.H, t);
+  store_rows<D>(static_cast<T*>(p.o), o, inv, b, h, row, p.Sq, p.H, t);
   if (t == 0) {
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -139,34 +150,47 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t run_fwd(const void* q, const void* k, const void* v, const FwdArgs& a, int B,
                     cudaStream_t st) {
-  using F = Fwd<D>;
+  using F = Fwd<T, D>;
   CUtensorMap tq, tk, tv;
   cudaError_t err;
-  if ((err = make_map(&tq, q, B, a.Sq, a.H, D, F::BQ)) != cudaSuccess) return err;
-  if ((err = make_map(&tk, k, B, a.Sk, a.H, D, F::BK)) != cudaSuccess) return err;
-  if ((err = make_map(&tv, v, B, a.Sk, a.H, D, F::BK)) != cudaSuccess) return err;
+  if ((err = make_map<T>(&tq, q, B, a.Sq, a.H, D, F::BQ)) != cudaSuccess) return err;
+  if ((err = make_map<T>(&tk, k, B, a.Sk, a.H, D, F::BK)) != cudaSuccess) return err;
+  if ((err = make_map<T>(&tv, v, B, a.Sk, a.H, D, F::BK)) != cudaSuccess) return err;
   const dim3 grid((a.Sq + F::BQ - 1) / F::BQ, a.H, B);
-  return launch(flash_fwd_kernel<D>, grid, F::kSmem, st, tq, tk, tv, a);
+  return launch(flash_fwd_kernel<T, D>, grid, F::kSmem, st, tq, tk, tv, a);
+}
+
+// run(T()) for the element type of type code `type` (FLASH_TYPES), or
+// cudaErrorInvalidValue where none is built.
+template <typename Run>
+cudaError_t by_type(int type, Run run) {
+#define X(TT, CODE) \
+  if (type == CODE) return run(TT());
+  FLASH_TYPES(X)
+#undef X
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C interface (bound with ctypes).  Returns a cudaError_t: 0 on a
 // clean launch.  Pointers are device pointers to contiguous tensors, 16-byte
-// aligned (TMA's rule).
+// aligned (TMA's rule); q, k, v and o of the type of code `type`
+// (FLASH_TYPES: 1 bf16, 2 float16), lse f32.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int B, int H, int Sq, int Sk, int D,
-                                      float scale, int causal, void* stream) {
+                                      float scale, int causal, int type, void* stream) {
   if (bad_shape(B, H, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
-  const FwdArgs a{static_cast<bf16*>(o), static_cast<float*>(lse), H, Sq, Sk, scale * kLog2e,
-                  causal};
+  const FwdArgs a{o, static_cast<float*>(lse), H, Sq, Sk, scale * kLog2e, causal};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)run_fwd<64>(q, k, v, a, B, st);
-  if (D == 128) return (int)run_fwd<128>(q, k, v, a, B, st);
-  if (D == 256) return (int)run_fwd<256>(q, k, v, a, B, st);
+#define X(DD)                                                                             \
+  if (D == DD)                                                                            \
+    return (int)by_type(type, [&](auto t) { return run_fwd<decltype(t), DD>(q, k, v, a, B, st); });
+  FLASH_DIMS(X)
+#undef X
   return (int)cudaErrorInvalidValue;
 }
 

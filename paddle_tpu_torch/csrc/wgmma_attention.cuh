@@ -16,11 +16,18 @@
 // dK/dV kernel spilled either way); 256 threads get up to 255, and the
 // dK/dV kernel at D = 128 needs about 250.
 //
-// Tiles in shared memory.  A tensor is [B, S, H, D] bf16, its last
+// Element types.  Every helper below takes the 2-byte storage type T of
+// the operands (bf16 by default; the flash kernels also __half, float16):
+// the products run `wgmma ... .f32.bf16.bf16` or `.f32.f16.f16` with f32
+// sums, and every layout below is the same for both, since it counts 2-byte
+// elements.  Elem<T> holds what differs: the TMA data type and the
+// rounding of f32 pairs.
+//
+// Tiles in shared memory.  A tensor is [B, S, H, D] of T, its last
 // dimension contiguous (the flash kernels take contiguous tensors, the
 // encoder kernels views with any 16-byte-multiple strides).  Its TMA map
 // (make_map) is 4-D over (D, H, S, B) with a box of (64, 1, rows,
-// 1): one box is `rows` rows of 64 bf16, 128 bytes a row, stored with the
+// 1): one box is `rows` rows of 64 elements, 128 bytes a row, stored with the
 // 128-byte swizzle (16-byte chunk c of row r lands at chunk c ^ (r % 8)).
 // A rows x D tile is D / 64 such panels one after another, each 1024-byte
 // aligned.  Rows past S come in as zeros (TMA's out-of-bounds fill), and a
@@ -37,13 +44,14 @@
 //    (the next panel).
 //  * A from registers: the f32 accumulator of m64nNk16 holds, in warp w of
 //    the warpgroup and lane 4 g + t, d[4 j + e] = row 16 w + g + 8 (e >> 1),
-//    column 8 j + 2 t + (e & 1).  Two neighbouring n8 chunks packed to bf16
+//    column 8 j + 2 t + (e & 1).  Two neighbouring n8 chunks packed to T
 //    pairs are exactly the A fragment of an m64k16 step (to_a), so P and dS
 //    never leave registers.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; nothing is linked from libcuda)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,8 +59,34 @@ namespace wgmma_attention {
 
 using bf16 = __nv_bfloat16;
 
+// What the kernels' element type decides: the TMA map's data type, the
+// packed pair of two elements and its conversions from and to f32 (rounded
+// to nearest even).
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  using Pair = __nv_bfloat162;
+  static __device__ __forceinline__ Pair round2(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ float2 widen2(Pair v) { return __bfloat1622float2(v); }
+};
+
+template <>
+struct Elem<__half> {
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  using Pair = __half2;
+  static __device__ __forceinline__ Pair round2(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+  static __device__ __forceinline__ float2 widen2(Pair v) { return __half22float2(v); }
+};
+
 constexpr int kThreads = 256;                    // two warpgroups
-constexpr int kPanel = 64;                       // bf16 in a 128-byte swizzled row
+constexpr int kPanel = 64;                       // 2-byte elements in a 128-byte swizzled row
 constexpr float kNegInf = -1e30f;                // finite, as the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -191,9 +225,10 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 
 // Rows [row0, row0 + ROWS) of head h, batch b, all D columns, as D / 64
 // panels of ROWS x 64 (ROWS * D * 2 bytes of TMA traffic on `bar`).
-template <int D, int ROWS>
-__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar, int h,
+template <int D, int ROWS, typename T>
+__device__ __forceinline__ void tma_tile(T* dst, const CUtensorMap* map, uint64_t* bar, int h,
                                          int row0, int b) {
+  static_assert(sizeof(T) == 2, "the tiles hold 2-byte elements");
 #pragma unroll
   for (int p = 0; p < D / kPanel; ++p)
     tma_load(dst + p * ROWS * kPanel, map, bar, kPanel * p, h, row0, b);
@@ -201,7 +236,7 @@ __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, uint
 
 // ------------------------------------------------------------------ wgmma
 
-__device__ __forceinline__ uint64_t desc(const bf16* smem, uint32_t lbo, uint32_t sbo) {
+__device__ __forceinline__ uint64_t desc(const void* smem, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((smem_u32(smem) & 0x3FFFFu) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32 | 1ull << 62;  // 128B swizzle
@@ -209,14 +244,16 @@ __device__ __forceinline__ uint64_t desc(const bf16* smem, uint32_t lbo, uint32_
 
 // K-major operand, k-step kk: `tile` is row 0 of the operand's rows inside
 // a tile of ROWS-row panels.
-template <int ROWS>
-__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int kk) {
+template <int ROWS, typename T>
+__device__ __forceinline__ uint64_t desc_k(const T* tile, int kk) {
+  static_assert(sizeof(T) == 2, "the tiles hold 2-byte elements");
   return desc(tile + (kk >> 2) * ROWS * kPanel + (kk & 3) * 16, 16, 1024);
 }
 
 // MN-major B operand, k-step kk (rows 16 kk .. 16 kk + 15 of a ROWS-row tile).
-template <int ROWS>
-__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int kk) {
+template <int ROWS, typename T>
+__device__ __forceinline__ uint64_t desc_mn(const T* tile, int kk) {
+  static_assert(sizeof(T) == 2, "the tiles hold 2-byte elements");
   return desc(tile + kk * 16 * kPanel, ROWS * 128, 1024);
 }
 
@@ -257,112 +294,105 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
           "%122, %123, %124, %125, %126, %127"
 
 // d (m64 x N, f32) = A B (+ d when acc), one k16 step, N 32 (ss only), 64,
-// 128 or 256.  ss: A and B from shared memory, both K-major.  rs: A from
-// registers, B MN-major (the transpose bit), always accumulating.  tt: A
-// and B from shared memory, both MN-major (both transpose bits): A is read
-// as the transpose of a tile whose rows run along the reduction, as the
-// encoder backward reads P_d and dS (rows = queries; a warpgroup's 64 keys
-// are one panel) to form P_d^T and dS^T, and the conv backward xf and dyt
-// to form xf^T dyt.
-template <int N>
+// 128 or 256, A and B of element type T.  ss: A and B from shared memory,
+// both K-major.  rs: A from registers, B MN-major (the transpose bit),
+// always accumulating.  tt: A and B from shared memory, both MN-major (both
+// transpose bits): A is read as the transpose of a tile whose rows run
+// along the reduction, as the encoder backward reads P_d and dS (rows =
+// queries; a warpgroup's 64 keys are one panel) to form P_d^T and dS^T, and
+// the conv backward xf and dyt to form xf^T dyt.  WGA_PRODUCTS(T, TY)
+// writes the four widths for T, whose name in the mnemonic is TY.
+template <int N, typename T = bf16>
 struct Mma;
 
-template <>
-struct Mma<32> {
-  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WGA_R16
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : WGA_F16(0)
-        : "l"(a), "l"(b), "r"(acc));
-  }
-};
+#define WGA_OP(N, TY) "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " "
+#define WGA_PRODUCTS(T, TY)                                                                     \
+  template <>                                                                                   \
+  struct Mma<32, T> {                                                                           \
+    static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" WGA_OP(32, TY) WGA_R16          \
+                   "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                           \
+                   : WGA_F16(0)                                                                 \
+                   : "l"(a), "l"(b), "r"(acc));                                                 \
+    }                                                                                           \
+  };                                                                                            \
+                                                                                                \
+  template <>                                                                                   \
+  struct Mma<64, T> {                                                                           \
+    static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" WGA_OP(64, TY) WGA_R32          \
+                   "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                           \
+                   : WGA_F32(0)                                                                 \
+                   : "l"(a), "l"(b), "r"(acc));                                                 \
+    }                                                                                           \
+    static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],           \
+                                              uint64_t b) {                                     \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" WGA_OP(64, TY) WGA_R32          \
+                   "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                             \
+                   : WGA_F32(0)                                                                 \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));               \
+    }                                                                                           \
+    static __device__ __forceinline__ void tt(float (&d)[32], uint64_t a, uint64_t b, int acc) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" WGA_OP(64, TY) WGA_R32          \
+                   "}, %32, %33, p, 1, 1, 1, 1;\n}\n"                                           \
+                   : WGA_F32(0)                                                                 \
+                   : "l"(a), "l"(b), "r"(acc));                                                 \
+    }                                                                                           \
+  };                                                                                            \
+                                                                                                \
+  template <>                                                                                   \
+  struct Mma<128, T> {                                                                          \
+    static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" WGA_OP(128, TY) WGA_R64         \
+                   "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                           \
+                   : WGA_F32(0), WGA_F32(32)                                                    \
+                   : "l"(a), "l"(b), "r"(acc));                                                 \
+    }                                                                                           \
+    static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],           \
+                                              uint64_t b) {                                     \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" WGA_OP(128, TY) WGA_R64         \
+                   "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                             \
+                   : WGA_F32(0), WGA_F32(32)                                                    \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));               \
+    }                                                                                           \
+    static __device__ __forceinline__ void tt(float (&d)[64], uint64_t a, uint64_t b, int acc) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" WGA_OP(128, TY) WGA_R64         \
+                   "}, %64, %65, p, 1, 1, 1, 1;\n}\n"                                           \
+                   : WGA_F32(0), WGA_F32(32)                                                    \
+                   : "l"(a), "l"(b), "r"(acc));                                                 \
+    }                                                                                           \
+  };                                                                                            \
+                                                                                                \
+  template <>                                                                                   \
+  struct Mma<256, T> {                                                                          \
+    static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b,          \
+                                              int acc) {                                        \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" WGA_OP(256, TY) WGA_R128       \
+                   "}, %128, %129, p, 1, 1, 0, 0;\n}\n"                                         \
+                   : WGA_F32(0), WGA_F32(32), WGA_F32(64), WGA_F32(96)                          \
+                   : "l"(a), "l"(b), "r"(acc));                                                 \
+    }                                                                                           \
+    static __device__ __forceinline__ void tt(float (&d)[128], uint64_t a, uint64_t b,          \
+                                              int acc) {                                        \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" WGA_OP(256, TY) WGA_R128       \
+                   "}, %128, %129, p, 1, 1, 1, 1;\n}\n"                                         \
+                   : WGA_F32(0), WGA_F32(32), WGA_F32(64), WGA_F32(96)                          \
+                   : "l"(a), "l"(b), "r"(acc));                                                 \
+    }                                                                                           \
+    static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4],          \
+                                              uint64_t b) {                                     \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" WGA_OP(256, TY) WGA_R128       \
+                   "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                        \
+                   : WGA_F32(0), WGA_F32(32), WGA_F32(64), WGA_F32(96)                          \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));               \
+    }                                                                                           \
+  };
 
-template <>
-struct Mma<64> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGA_R32
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : WGA_F32(0)
-        : "l"(a), "l"(b), "r"(acc));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGA_R32
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : WGA_F32(0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void tt(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGA_R32
-        "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
-        : WGA_F32(0)
-        : "l"(a), "l"(b), "r"(acc));
-  }
-};
+WGA_PRODUCTS(__nv_bfloat16, "bf16")
+WGA_PRODUCTS(__half, "f16")
 
-template <>
-struct Mma<128> {
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGA_R64
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : WGA_F32(0), WGA_F32(32)
-        : "l"(a), "l"(b), "r"(acc));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGA_R64
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : WGA_F32(0), WGA_F32(32)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void tt(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGA_R64
-        "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
-        : WGA_F32(0), WGA_F32(32)
-        : "l"(a), "l"(b), "r"(acc));
-  }
-};
-
-template <>
-struct Mma<256> {
-  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WGA_R128
-        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-        : WGA_F32(0), WGA_F32(32), WGA_F32(64), WGA_F32(96)
-        : "l"(a), "l"(b), "r"(acc));
-  }
-  static __device__ __forceinline__ void tt(float (&d)[128], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WGA_R128
-        "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
-        : WGA_F32(0), WGA_F32(32), WGA_F32(64), WGA_F32(96)
-        : "l"(a), "l"(b), "r"(acc));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WGA_R128
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        : WGA_F32(0), WGA_F32(32), WGA_F32(64), WGA_F32(96)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
+#undef WGA_PRODUCTS
+#undef WGA_OP
 #undef WGA_F4
 #undef WGA_F16
 #undef WGA_F32
@@ -377,20 +407,24 @@ __device__ __forceinline__ int warpgroup() { return __shfl_sync(0xffffffffu, thr
 
 // ------------------------------------------------------- register fragments
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+// Two f32 values rounded to a T pair, as one 32-bit register.
+template <typename T = bf16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  typename Elem<T>::Pair h = Elem<T>::round2(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// The A fragments (m64 x k16 steps) of an m64 x N accumulator, rounded to bf16.
-template <int N>
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) { return pack2<bf16>(lo, hi); }
+
+// The A fragments (m64 x k16 steps) of an m64 x N accumulator, rounded to T.
+template <int N, typename T = bf16>
 __device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = pack_bf16x2(d[8 * kk], d[8 * kk + 1]);
-    a[kk][1] = pack_bf16x2(d[8 * kk + 2], d[8 * kk + 3]);
-    a[kk][2] = pack_bf16x2(d[8 * kk + 4], d[8 * kk + 5]);
-    a[kk][3] = pack_bf16x2(d[8 * kk + 6], d[8 * kk + 7]);
+    a[kk][0] = pack2<T>(d[8 * kk], d[8 * kk + 1]);
+    a[kk][1] = pack2<T>(d[8 * kk + 2], d[8 * kk + 3]);
+    a[kk][2] = pack2<T>(d[8 * kk + 4], d[8 * kk + 5]);
+    a[kk][3] = pack2<T>(d[8 * kk + 6], d[8 * kk + 7]);
   }
 }
 
@@ -451,11 +485,11 @@ __device__ __forceinline__ void softmax_step(float (&s)[BK / 2], float (&o)[D / 
 }
 
 // The thread's two rows (row, row + 8) of an m64 x N accumulator times
-// `mul[half]` as bf16 into columns [col0, col0 + N) of a [B, S, H, D]
-// tensor (N = D unless a warpgroup owns a column slice); rows at or past S
+// `mul[half]` as T into columns [col0, col0 + N) of a [B, S, H, D] tensor
+// of T (N = D unless a warpgroup owns a column slice); rows at or past S
 // are not written.
-template <int N, int D = N>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[N / 2], const float (&mul)[2],
+template <int N, int D = N, typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[N / 2], const float (&mul)[2],
                                            int b, int h, int row, int S, int H, int t,
                                            int col0 = 0) {
 #pragma unroll
@@ -466,7 +500,7 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[N / 2],
         reinterpret_cast<uint32_t*>(dst + ((size_t)(b * S + r) * H + h) * D + col0);
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
-      out[4 * j + t] = pack_bf16x2(acc[4 * j + 2 * hr] * mul[hr], acc[4 * j + 2 * hr + 1] * mul[hr]);
+      out[4 * j + t] = pack2<T>(acc[4 * j + 2 * hr] * mul[hr], acc[4 * j + 2 * hr + 1] * mul[hr]);
   }
 }
 
@@ -504,9 +538,10 @@ inline Strides contiguous_strides(int S, int H, int D) {
   return Strides{(long long)D, (long long)H * D, (long long)S * H * D};
 }
 
-// The TMA map of a [B, S, H, D] bf16 view at `ptr` (16-byte aligned) with
+// The TMA map of a [B, S, H, D] view of T at `ptr` (16-byte aligned) with
 // element strides `st` (each a multiple of 8, 16 bytes: TMA's rule), with
 // boxes of `rows` rows x 64 columns of one head and the 128-byte swizzle.
+template <typename T = bf16>
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows,
                             Strides st) {
   const EncodeTiled encode = encode_tiled();
@@ -515,7 +550,7 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int
   const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2, (cuuint64_t)st.b * 2};
   const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+  const CUresult r = encode(map, Elem<T>::kTma, 4, const_cast<void*>(ptr), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -523,8 +558,9 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int
 }
 
 // The same for a contiguous [B, S, H, D] tensor.
+template <typename T = bf16>
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows) {
-  return make_map(map, ptr, B, S, H, D, rows, contiguous_strides(S, H, D));
+  return make_map<T>(map, ptr, B, S, H, D, rows, contiguous_strides(S, H, D));
 }
 
 // Launch kernel<<<grid, kThreads, smem>>> after raising its dynamic shared

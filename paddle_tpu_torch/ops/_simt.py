@@ -1,22 +1,28 @@
-"""Admission of the four attention forward kernels by type: which kernel,
-and which instantiation of it, a call runs.
+"""Admission of the attention kernels by type: which kernel, and which
+instantiation of it, a call runs.
 
 The reference's attention kernels take any float type and type their
 outputs by q.  On the card, bfloat16 runs the tensor-core kernels
 (``csrc/decode_attention.cu``, ``paged_attention.cu``,
-``flash_attention.cu``, ``encoder_attention.cu``); float32 and float16 run
-the f32 CUDA-core body of ``csrc/attention_simt.cuh`` through its four
+``flash_attention.cu``, ``encoder_attention.cu`` and the backward
+kernels), and so does float16 in flash, forward and backward
+(``flash_attention.cu``, ``flash_attention_bwd.cu``: one ``wgmma`` design
+instantiated at either 2-byte type, ``TC_TYPES``).  The rest of float16,
+and float32 everywhere, run the f32 CUDA-core bodies of
+``csrc/attention_simt.cuh`` and ``attention_simt_bwd.cuh`` through their
 entries (``attention_simt_decode.cu``, ``attention_simt_paged.cu``,
-``attention_simt_flash.cu``, ``attention_simt_encoder.cu``).  Nothing is
-cast to reach a kernel: a call whose types have no kernel raises.
+``attention_simt_flash.cu``, ``attention_simt_encoder.cu``,
+``attention_simt_flash_bwd.cu``, ``attention_simt_encoder_bwd.cu``).
+Nothing is cast to reach a kernel: a call whose types have no kernel
+raises.
 
 ``admit`` is the one place that decides, a pure function of (regime, q
 type, cache type, head dim, query rows a kv head).  Its lists below are
 the ``SIMT_*`` instantiation lists of ``attention_simt.cuh`` (the
-forwards) and ``attention_simt_bwd.cuh`` (the backward kernels,
-``attention_simt_flash_bwd.cu`` and ``attention_simt_encoder_bwd.cu``),
-which a CPU test parses and holds equal to them.  The flash backward takes
-head dims 64, 128 and 256 at every type.
+forwards) and ``attention_simt_bwd.cuh`` (the backward kernels), which a
+CPU test parses and holds equal to them, as it holds ``TC_TYPES["flash"]``
+to the type lists of the tensor-core flash sources.  The flash backward
+takes head dims 64, 128 and 256 at every type.
 """
 from __future__ import annotations
 
@@ -36,18 +42,25 @@ TYPE_CODES = {F32: 0, F16: 1, I8: 2}
 # float16 q meets float32 k and v there, and float16 ones in generate().
 KV_PAIRS = ((F32, F32), (F16, F16), (F16, F32), (F32, I8), (F16, I8))
 KV_DIMS = (64, 128, 256)
-# SIMT_SEQ_TYPES, SIMT_FLASH_DIMS, SIMT_ENCODER_DIMS: flash and the encoder
-# take q, k and v of one type.
-SEQ_TYPES = (F32, F16)
+# SIMT_FLASH_TYPES, SIMT_ENCODER_TYPES, SIMT_FLASH_DIMS, SIMT_ENCODER_DIMS:
+# flash and the encoder take q, k and v of one type (float16 flash runs the
+# tensor-core kernel).
+FLASH_TYPES = (F32,)
+ENCODER_TYPES = (F32, F16)
 FLASH_DIMS = (64, 128, 256)
 ENCODER_DIMS = (64, 128)
-# attention_simt_bwd.cuh SIMT_BWD_TYPES, SIMT_BWD_FLASH_DIMS and
-# SIMT_BWD_ENCODER_DIMS: the backward kernels take q, k, v and dO of one
-# type; 32 own rows a block.
-BWD_TYPES = (F32, F16)
+# attention_simt_bwd.cuh SIMT_BWD_FLASH_TYPES, SIMT_BWD_ENCODER_TYPES,
+# SIMT_BWD_FLASH_DIMS and SIMT_BWD_ENCODER_DIMS: the backward kernels take
+# q, k, v and dO of one type; 32 own rows a block.
+FLASH_BWD_TYPES = (F32,)
+ENCODER_BWD_TYPES = (F32, F16)
 FLASH_BWD_DIMS = (64, 128, 256)
 ENCODER_BWD_DIMS = (64, 128)
 BWD_ROWS = 32
+# The q types of the tensor-core kernels, bfloat16 but for flash, whose
+# forward and backward run float16 too (csrc/flash_attention.cu FLASH_TYPES,
+# csrc/flash_attention_bwd.cu FLASH_BWD_TYPES).
+TC_TYPES = {"flash": (BF16, F16), "flash_bwd": (BF16, F16)}
 # The bfloat16 kernels' caches: bfloat16, or int8 with f32 scales.
 BF16_KV = (BF16, I8)
 # Query rows of one kv head up to which the decode regime (split-K, 16-row
@@ -56,15 +69,15 @@ DECODE_ROWS = 16
 CHUNK_ROWS = 64
 
 REGIMES = ("decode", "paged", "flash", "encoder", "flash_bwd", "encoder_bwd")
-_BF16_LIBS = {"decode": "decode_attention", "paged": "paged_attention",
-              "flash": "flash_attention", "encoder": "encoder_attention",
-              "flash_bwd": "flash_attention_bwd", "encoder_bwd": "encoder_attention_bwd"}
+_TC_LIBS = {"decode": "decode_attention", "paged": "paged_attention",
+            "flash": "flash_attention", "encoder": "encoder_attention",
+            "flash_bwd": "flash_attention_bwd", "encoder_bwd": "encoder_attention_bwd"}
 
 
 class Instantiation(NamedTuple):
     """What a call runs: the kernel library (``csrc/<lib>.cu``), its q and
-    k/v types, the head dim and, for the f32 CUDA-core body, the query rows
-    a block (16: the split-K decode regime; 64)."""
+    k/v types, the head dim and, for the f32 CUDA-core bodies, the query
+    rows a block (16: the split-K decode regime; 64; 32 in the backward)."""
     lib: str
     q: torch.dtype
     kv: torch.dtype
@@ -85,24 +98,25 @@ def admit(regime, q_dtype, kv_dtype=None, D=None, rows=1):
     ``q_dtype`` against k/v of ``kv_dtype`` (None: q's type) at head dim
     ``D`` with ``rows`` query rows a kv head (S * H / Hkv; decode and paged
     only).  Raises ValueError, naming what is admitted, where no kernel is
-    built.  Head dims of the bfloat16 kernels are left to their own checks
-    (decode and paged: ROADMAP Queue 2, item 9)."""
+    built.  Head dims of the tensor-core kernels are left to their own
+    checks (decode and paged: ROADMAP Queue 2, item 9)."""
     if regime not in REGIMES:
         raise ValueError(f"attention admission: unknown regime {regime!r}")
     kv_dtype = q_dtype if kv_dtype is None else kv_dtype
-    if q_dtype == BF16:
-        want = BF16_KV if regime in ("decode", "paged") else (BF16,)
+    if q_dtype in TC_TYPES.get(regime, (BF16,)):
+        want = BF16_KV if regime in ("decode", "paged") else (q_dtype,)
         if kv_dtype not in want:
-            raise ValueError(f"attention kernel ({regime}): q bfloat16 takes k/v of "
-                             f"{_names(want)}, got {kv_dtype}")
-        return Instantiation(_BF16_LIBS[regime], q_dtype, kv_dtype, D)
-    if q_dtype not in SEQ_TYPES:
+            raise ValueError(f"attention kernel ({regime}): q {_names((q_dtype,))} takes k/v "
+                             f"of {_names(want)}, got {kv_dtype}")
+        return Instantiation(_TC_LIBS[regime], q_dtype, kv_dtype, D)
+    if q_dtype not in (F32, F16):
         raise ValueError(f"attention kernel ({regime}): q dtype {q_dtype}; the kernels take "
-                         f"{_names((BF16,) + SEQ_TYPES)}")
+                         f"{_names((BF16, F32, F16))}")
     if regime in ("flash_bwd", "encoder_bwd"):
-        if kv_dtype != q_dtype or q_dtype not in BWD_TYPES:
+        types = FLASH_BWD_TYPES if regime == "flash_bwd" else ENCODER_BWD_TYPES
+        if kv_dtype != q_dtype or q_dtype not in types:
             raise ValueError(f"attention kernel ({regime}): q {q_dtype} with k/v {kv_dtype}; "
-                             f"the backward kernels take one type of {_names(BWD_TYPES)}")
+                             f"the CUDA-core backward kernel takes one type of {_names(types)}")
         dims = FLASH_BWD_DIMS if regime == "flash_bwd" else ENCODER_BWD_DIMS
         if D not in dims:
             raise ValueError(f"attention kernel ({regime}): head dim {D}, the kernel is built "
@@ -118,9 +132,10 @@ def admit(regime, q_dtype, kv_dtype=None, D=None, rows=1):
                              f"for {KV_DIMS} (other head dims: ROADMAP Queue 2, item 9)")
         return Instantiation(f"attention_simt_{regime}", q_dtype, kv_dtype, D,
                              DECODE_ROWS if rows <= DECODE_ROWS else CHUNK_ROWS)
-    if kv_dtype != q_dtype:
+    types = FLASH_TYPES if regime == "flash" else ENCODER_TYPES
+    if kv_dtype != q_dtype or q_dtype not in types:
         raise ValueError(f"attention kernel ({regime}): q {q_dtype} with k/v {kv_dtype}; "
-                         "q, k and v must share their type")
+                         f"the CUDA-core kernel takes q, k and v of one type of {_names(types)}")
     dims = FLASH_DIMS if regime == "flash" else ENCODER_DIMS
     if D not in dims:
         raise ValueError(f"attention kernel ({regime}): head dim {D}, the kernel is built for "

@@ -18,12 +18,13 @@ combine needs it).
 
 A CPU tensor takes the plain versions, ``_flash_dense`` forward and
 ``_flash_bwd_dense`` backward; a CUDA tensor launches
-``csrc/flash_attention.cu`` forward (bf16, D in {64, 128, 256}; float32
-and float16 take ``csrc/attention_simt_flash.cu``, f32 on the CUDA cores,
-as ``_simt.admit`` decides) and ``csrc/flash_attention_bwd.cu`` backward
-(bf16, D in {64, 128, 256}; float32 and float16 take
-``csrc/attention_simt_flash_bwd.cu``, f32 on the CUDA cores; either's
-statistics pass runs once per backward) or raises.  The reference's block-size
+``csrc/flash_attention.cu`` forward and ``csrc/flash_attention_bwd.cu``
+backward (bfloat16 and float16 on the tensor cores, one ``wgmma`` design
+instantiated at the inputs' type, D in {64, 128, 256}; float32 takes
+``csrc/attention_simt_flash.cu`` and ``attention_simt_flash_bwd.cu``, f32
+on the CUDA cores, as ``_simt.admit`` decides; either backward's
+statistics pass runs once per backward) or raises.  Nothing is cast to
+reach a kernel.  The reference's block-size
 rules (``_auto_block``, ``block_q``/``block_k``, its autotune hook) describe
 TPU tiling, not the function: the Hopper kernels pick their own tiles and
 mask their ragged edge, so they are not carried over.  ``supports_seq``
@@ -99,8 +100,12 @@ def _check(cond, msg):
         raise ValueError(f"flash attention kernel: {msg}")
 
 
-FWD_HEAD_DIMS = (64, 128, 256)
+FWD_HEAD_DIMS = (64, 128, 256)  # csrc/flash_attention.cu FLASH_DIMS
 BWD_HEAD_DIMS = (64, 128, 256)  # csrc/flash_attention_bwd.cu FLASH_BWD_DIMS
+# The tensor-core kernels' element types and the type codes their entries
+# take (csrc/flash_attention.cu FLASH_TYPES, flash_attention_bwd.cu
+# FLASH_BWD_TYPES; _simt.TC_TYPES admits them).
+TYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check_head_dim(D, backward=False):
@@ -112,13 +117,13 @@ def _check_head_dim(D, backward=False):
 
 def _check_inputs(tensors, B, Sq, Sk, H, D, causal, backward=False, simt=False):
     """The kernels' common admission: the instantiation ``_simt.admit``
-    picks for q's dtype (the CUDA-core kernels when ``simt``, the bfloat16
-    kernels otherwise), CUDA, the head dim (see ``_check_head_dim``), one
-    dtype, the shapes, 16-byte aligned storage."""
+    picks for q's dtype (the CUDA-core kernels when ``simt``, the
+    tensor-core kernels otherwise), CUDA, the head dim (see
+    ``_check_head_dim``), one dtype, the shapes, 16-byte aligned storage."""
     q = tensors["q"]
     dev = q.device
     inst = _simt.admit("flash_bwd" if backward else "flash", q.dtype, q.dtype, D)
-    kernel = (f"the {'CUDA-core' if inst.simt else 'bfloat16'} backward" if backward
+    kernel = (f"the {'CUDA-core' if inst.simt else 'tensor-core'} backward" if backward
               else f"flash_attention{'_simt' if inst.simt else ''}_kernel")
     _check(inst.simt == simt, f"q dtype {q.dtype} runs {kernel} (csrc/{inst.lib}.cu)")
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
@@ -143,14 +148,15 @@ def _ptrs(*tensors):
 
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def flash_attention_kernel(q, k, v, causal=False, scale=None):
     """Launch ``csrc/flash_attention.cu`` on CUDA tensors: q [B, Sq, H, D],
-    k/v [B, Sk, H, D], bf16, D in {64, 128, 256}.  Returns (O [B, Sq, H, D]
-    bf16, LSE [B * H, Sq] f32).  Raises ValueError on anything else.  Every
-    launch adds one to ``flash_attention_kernel.launches``."""
+    k/v [B, Sk, H, D], bfloat16 or float16 (one type), D in {64, 128, 256}.
+    Returns (O [B, Sq, H, D] in q's dtype, LSE [B * H, Sq] f32).  Raises
+    ValueError on anything else.  Every launch adds one to
+    ``flash_attention_kernel.launches``."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     _check_inputs({"q": q, "k": k, "v": v}, B, Sq, Sk, H, D, causal)
@@ -162,7 +168,7 @@ def flash_attention_kernel(q, k, v, causal=False, scale=None):
     lse = torch.empty(B * H, Sq, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _build.launch("flash_attention", _ARGS, *_ptrs(q, k, v, o, lse), B, H, Sq, Sk,
-                      D, float(scale), int(bool(causal)),
+                      D, float(scale), int(bool(causal)), TYPE_CODES[q.dtype],
                       torch.cuda.current_stream(dev).cuda_stream)
     flash_attention_kernel.launches += 1
     return o, lse
@@ -176,8 +182,8 @@ _SIMT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
 
 def flash_attention_simt_kernel(q, k, v, causal=False, scale=None):
     """Launch ``csrc/attention_simt_flash.cu`` (f32 on the CUDA cores) on
-    CUDA tensors: q [B, Sq, H, D], k/v [B, Sk, H, D], float32 or float16, D
-    in {64, 128, 256}.  Returns (O [B, Sq, H, D] in q's dtype, LSE
+    CUDA tensors: q [B, Sq, H, D], k/v [B, Sk, H, D], float32, D in
+    {64, 128, 256}.  Returns (O [B, Sq, H, D] in q's dtype, LSE
     [B * H, Sq] f32).  Raises ValueError on anything else.  Every launch
     adds one to ``flash_attention_simt_kernel.launches``."""
     B, Sq, H, D = q.shape
@@ -201,7 +207,7 @@ flash_attention_simt_kernel.launches = 0
 
 # q, k, v, o, dO, lse, dlse, stats, then the outputs
 _BWD_HEAD = [ctypes.c_void_p] * 8
-_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _check_stats(stats, B, H, Sq, dev):
@@ -246,7 +252,8 @@ def flash_attention_bwd_stats(o, do, lse, dlse=None):
     """The backward's per-query statistics, by the dsum pass of
     ``csrc/flash_attention_bwd.cu``: f32 [2, B * H, Sqp] (Sqp = Sq rounded
     up to 64) holding lse * log2(e) and dsum = rowsum(dO * O) - dlse, zero
-    past Sq.  o, do [B, Sq, H, D] bf16 on the card, D in {64, 128, 256};
+    past Sq.  o, do [B, Sq, H, D] bfloat16 or float16 on the card, D in
+    {64, 128, 256};
     lse and dlse f32 with B * H * Sq values (dlse may be None).  The
     autograd backward fills it once and hands it to both kernels below.
     Every launch adds one to ``flash_attention_bwd_stats.launches``."""
@@ -258,10 +265,10 @@ def flash_attention_bwd_stats(o, do, lse, dlse=None):
     dlse = None if dlse is None else dlse.contiguous()
     stats = torch.empty(_stats_shape(B, H, Sq), dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
-        _build.launch("flash_attention_bwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        _build.launch("flash_attention_bwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                       + [ctypes.c_void_p], *_ptrs(o, do, lse),
                       None if dlse is None else dlse.data_ptr(), stats.data_ptr(), B, H, Sq, D,
-                      torch.cuda.current_stream(o.device).cuda_stream,
+                      TYPE_CODES[o.dtype], torch.cuda.current_stream(o.device).cuda_stream,
                       entry="flash_attention_dsum")
     flash_attention_bwd_stats.launches += 1
     return stats
@@ -274,10 +281,10 @@ def flash_attention_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None, dls
                               stats=None):
     """Launch ``flash_attention_dq`` of ``csrc/flash_attention_bwd.cu`` (the
     port of ``_dq_kernel``) on CUDA tensors: q, o, do [B, Sq, H, D], k, v
-    [B, Sk, H, D] bf16, D in {64, 128, 256}, lse (and the optional dlse)
-    f32 with B * H * Sq values; ``stats`` from ``flash_attention_bwd_stats``,
-    or None to have the entry compute them first.  Returns dQ [B, Sq, H, D]
-    bf16.  Raises ValueError on anything else.  Every launch adds one to
+    [B, Sk, H, D] of one type, bfloat16 or float16, D in {64, 128, 256},
+    lse (and the optional dlse) f32 with B * H * Sq values; ``stats`` from
+    ``flash_attention_bwd_stats``, or None to have the entry compute them
+    first.  Returns dQ [B, Sq, H, D] in q's dtype.  Raises ValueError on anything else.  Every launch adds one to
     ``flash_attention_dq_kernel.launches``."""
     keep, head, shape, scale, ready = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats)
     dq = torch.empty_like(keep[0])
@@ -285,7 +292,8 @@ def flash_attention_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None, dls
     with torch.cuda.device(dev):
         _build.launch("flash_attention_bwd", _BWD_HEAD + [ctypes.c_void_p] + _BWD_TAIL,
                       *head, *_ptrs(dq), *shape, scale, int(bool(causal)), ready,
-                      torch.cuda.current_stream(dev).cuda_stream, entry="flash_attention_dq")
+                      TYPE_CODES[dq.dtype], torch.cuda.current_stream(dev).cuda_stream,
+                      entry="flash_attention_dq")
     flash_attention_dq_kernel.launches += 1
     return dq
 
@@ -297,7 +305,8 @@ def flash_attention_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dl
                                stats=None):
     """Launch ``flash_attention_dkv`` of ``csrc/flash_attention_bwd.cu`` (the
     port of ``_dkv_kernel``), with the inputs of
-    ``flash_attention_dq_kernel``.  Returns (dK, dV) [B, Sk, H, D] bf16.
+    ``flash_attention_dq_kernel``.  Returns (dK, dV) [B, Sk, H, D] in their
+    dtype.
     Every launch adds one to ``flash_attention_dkv_kernel.launches``."""
     keep, head, shape, scale, ready = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats)
     dk, dv = torch.empty_like(keep[1]), torch.empty_like(keep[2])
@@ -305,7 +314,8 @@ def flash_attention_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dl
     with torch.cuda.device(dev):
         _build.launch("flash_attention_bwd", _BWD_HEAD + [ctypes.c_void_p] * 2 + _BWD_TAIL,
                       *head, *_ptrs(dk, dv), *shape, scale, int(bool(causal)), ready,
-                      torch.cuda.current_stream(dev).cuda_stream, entry="flash_attention_dkv")
+                      TYPE_CODES[dk.dtype], torch.cuda.current_stream(dev).cuda_stream,
+                      entry="flash_attention_dkv")
     flash_attention_dkv_kernel.launches += 1
     return dk, dv
 
@@ -323,8 +333,8 @@ def flash_attention_simt_bwd_stats(o, do, lse, dlse=None):
     ``flash_attention_simt_stats`` of ``csrc/attention_simt_flash_bwd.cu``
     (the dsum that ``_dq_kernel`` and ``_dkv_kernel`` each take first): f32
     [2, B * H, Sq] holding lse * log2(e) and dsum = rowsum(dO * O) - dlse,
-    summed in f32 from the stored values.  o, do [B, Sq, H, D] float32 or
-    float16 on the card, D in {64, 128, 256}; lse and dlse f32 with B * H *
+    summed in f32 from the stored values.  o, do [B, Sq, H, D] float32 on
+    the card, D in {64, 128, 256}; lse and dlse f32 with B * H *
     Sq values (dlse may be None).  The autograd backward fills it once and
     hands it to both kernels below.  Every launch adds one to
     ``flash_attention_simt_bwd_stats.launches``."""
@@ -376,10 +386,10 @@ def _simt_bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats):
 def flash_attention_simt_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None,
                                    stats=None):
     """Launch ``flash_attention_simt_dq`` of ``csrc/attention_simt_flash_bwd.cu``
-    (the port of ``_dq_kernel`` at float32 and float16, f32 on the CUDA
-    cores) on CUDA tensors: q, o, do [B, Sq, H, D], k, v [B, Sk, H, D] of
-    one type, float32 or float16, D in {64, 128, 256}, lse (and the
-    optional dlse) f32 with B * H * Sq values; ``stats`` from
+    (the port of ``_dq_kernel`` at float32, f32 on the CUDA cores) on CUDA
+    tensors: q, o, do [B, Sq, H, D], k, v [B, Sk, H, D] float32, D in
+    {64, 128, 256}, lse (and the optional dlse) f32 with B * H * Sq
+    values; ``stats`` from
     ``flash_attention_simt_bwd_stats``, or None to compute them first.
     Returns dQ [B, Sq, H, D] in q's dtype.  Raises ValueError on anything
     else.  Every launch adds one to ``flash_attention_simt_dq_kernel.launches``."""
@@ -401,7 +411,7 @@ flash_attention_simt_dq_kernel.launches = 0
 def flash_attention_simt_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None,
                                     stats=None):
     """Launch ``flash_attention_simt_dkv`` of ``csrc/attention_simt_flash_bwd.cu``
-    (the port of ``_dkv_kernel`` at float32 and float16), with the inputs of
+    (the port of ``_dkv_kernel`` at float32), with the inputs of
     ``flash_attention_simt_dq_kernel``.  Returns (dK, dV) [B, Sk, H, D] in
     their dtype.  Every launch adds one to
     ``flash_attention_simt_dkv_kernel.launches``."""
@@ -420,10 +430,18 @@ def flash_attention_simt_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=Non
 flash_attention_simt_dkv_kernel.launches = 0
 
 
+def _fwd_kernel(dtype):
+    """The forward wrapper of q's dtype: the tensor-core kernel (bfloat16,
+    float16) or its CUDA-core counterpart (float32)."""
+    if dtype in _simt.TC_TYPES["flash"]:
+        return flash_attention_kernel
+    return flash_attention_simt_kernel
+
+
 def _bwd_kernels(dtype):
-    """(statistics, dq, dkv) wrappers of q's dtype: the bfloat16 kernels or
-    their CUDA-core counterparts."""
-    if dtype == torch.bfloat16:
+    """(statistics, dq, dkv) wrappers of q's dtype: the tensor-core kernels
+    (bfloat16, float16) or their CUDA-core counterparts (float32)."""
+    if dtype in _simt.TC_TYPES["flash_bwd"]:
         return flash_attention_bwd_stats, flash_attention_dq_kernel, flash_attention_dkv_kernel
     return (flash_attention_simt_bwd_stats, flash_attention_simt_dq_kernel,
             flash_attention_simt_dkv_kernel)
@@ -437,10 +455,8 @@ class _FlashAttention(torch.autograd.Function):
         B, Sq, H, _ = q.shape
         if q.device.type == "cpu":
             o, lse = _flash_dense(q, k, v, causal, scale)
-        else:  # the kernel of q's dtype
-            kernel = (flash_attention_kernel if q.dtype == torch.bfloat16
-                      else flash_attention_simt_kernel)
-            o, lse = kernel(q, k, v, causal, scale)
+        else:
+            o, lse = _fwd_kernel(q.dtype)(q, k, v, causal, scale)
             lse = lse.reshape(B, H, Sq)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale

@@ -1,10 +1,12 @@
 """Port parity at float16 and float32: the four attention forward kernels'
 plain versions and the admission by type of every attention kernel.
 
-On the card, float32 and float16 q run the f32 CUDA-core kernels of
-``csrc/attention_simt.cuh`` and bfloat16 the tensor-core ones; which one,
-and which instantiation, is ``ops/_simt.admit``'s decision.  Here, on the
-CPU, the tests hold:
+On the card, bfloat16 q runs the tensor-core kernels, and so does float16
+q in flash, forward and backward (``csrc/flash_attention.cu``,
+``flash_attention_bwd.cu``); float32 q, and float16 q in decode, paged and
+the encoder, run the f32 CUDA-core kernels of ``csrc/attention_simt.cuh``
+and ``attention_simt_bwd.cuh``.  Which one, and which instantiation, is
+``ops/_simt.admit``'s decision.  Here, on the CPU, the tests hold:
 
 * the plain decode, paged, encoder-forward and flash-forward functions at
   float16 (what a CPU tensor runs, and the kernels' oracle in
@@ -19,10 +21,14 @@ CPU, the tests hold:
   within the reference's own int8 bound, 3e-4 (tests/test_decode_attention.py);
 * the admission lists against the ``SIMT_*`` instantiation lists of the
   .cuh files (the forwards' ``attention_simt.cuh``, the backward kernels'
-  ``attention_simt_bwd.cuh``);
-* float64 q refused, naming the admitted types; the float32 and float16
-  backward admitted to the CUDA-core kernels, the flash backward at head
+  ``attention_simt_bwd.cuh``) and the ``FLASH_*`` lists of the tensor-core
+  flash sources;
+* float64 q refused, naming the admitted types; the float32 backward
+  admitted to the CUDA-core kernels, float16 to the tensor-core flash
+  backward and the CUDA-core encoder backward, the flash backward at head
   dims 64, 128 and 256 at every type (the encoder backward at 64 and 128);
+  float16 flash never reaches a CUDA-core flash wrapper, nor a bfloat16
+  cast;
 * a small LLaMA at float16 (head dim 64) through the paged engine, greedy
   tokens equal to the reference engine's.
 """
@@ -53,6 +59,9 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
 CUH = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc" / "attention_simt.cuh"
 BWD_CUH = CUH.with_name("attention_simt_bwd.cuh")
+FLASH_CU = CUH.with_name("flash_attention.cu")
+FLASH_BWD_CU = CUH.with_name("flash_attention_bwd.cu")
+TORCH_OF_C = {"__nv_bfloat16": torch.bfloat16, "__half": torch.float16}
 F16_TOL = 1e-2
 F16_MODEL_TOL = 4e-3
 INT8_TOL = 3e-4
@@ -201,30 +210,45 @@ def _cuh_list(name, path=CUH):
     return [tuple(a.strip() for a in m.split(",")) for m in re.findall(r"X\(([^)]*)\)", line)]
 
 
+def _tc_flash_built(cu, types, dims):
+    """The tensor-core flash instantiations a source builds: its (element
+    type, type code) list against the wrapper's TYPE_CODES and _simt's
+    TC_TYPES, times its head dims."""
+    codes = {TORCH_OF_C[c]: int(code) for c, code in _cuh_list(types, cu)}
+    assert codes == tfa.TYPE_CODES
+    return {(cu.stem, t, t, int(d), None) for t in codes for (d,) in _cuh_list(dims, cu)}
+
+
 def test_admission_list_is_the_cuh_instantiations():
     """ops/_simt.py's lists are the .cuh's SIMT_* lists, and every
-    instantiation admit() can return is one the .cuh builds: both row
-    tiles of every (q, kv) pair and head dim, and flash and the encoder at
-    every type and head dim."""
+    instantiation admit() can return is one a source builds: both row tiles
+    of every (q, kv) pair and head dim, flash at float32 and the encoder at
+    float32 and float16 on the CUDA cores, and flash at bfloat16 and
+    float16 on the tensor cores (flash_attention.cu's FLASH_TYPES and
+    FLASH_DIMS)."""
     C = {v: k for k, v in _simt.C_TYPES.items()}
     assert [(C[a], C[b]) for a, b in _cuh_list("SIMT_KV_PAIRS")] == list(_simt.KV_PAIRS)
     assert [int(d) for (d,) in _cuh_list("SIMT_KV_DIMS")] == list(_simt.KV_DIMS)
-    assert [C[t] for (t,) in _cuh_list("SIMT_SEQ_TYPES")] == list(_simt.SEQ_TYPES)
+    assert [C[t] for (t,) in _cuh_list("SIMT_FLASH_TYPES")] == list(_simt.FLASH_TYPES)
+    assert [C[t] for (t,) in _cuh_list("SIMT_ENCODER_TYPES")] == list(_simt.ENCODER_TYPES)
     assert [int(d) for (d,) in _cuh_list("SIMT_FLASH_DIMS")] == list(_simt.FLASH_DIMS)
     assert [int(d) for (d,) in _cuh_list("SIMT_ENCODER_DIMS")] == list(_simt.ENCODER_DIMS)
     built = {(f"attention_simt_{r}", q, kv, D, rows)
              for r in ("decode", "paged") for q, kv in _simt.KV_PAIRS for D in _simt.KV_DIMS
              for rows in (_simt.DECODE_ROWS, _simt.CHUNK_ROWS)}
     built |= {("attention_simt_flash", t, t, D, _simt.CHUNK_ROWS)
-              for t in _simt.SEQ_TYPES for D in _simt.FLASH_DIMS}
+              for t in _simt.FLASH_TYPES for D in _simt.FLASH_DIMS}
     built |= {("attention_simt_encoder", t, t, D, _simt.CHUNK_ROWS)
-              for t in _simt.SEQ_TYPES for D in _simt.ENCODER_DIMS}
+              for t in _simt.ENCODER_TYPES for D in _simt.ENCODER_DIMS}
+    built |= _tc_flash_built(FLASH_CU, "FLASH_TYPES", "FLASH_DIMS")
+    assert set(_simt.TC_TYPES["flash"]) == set(tfa.TYPE_CODES)
     admitted = {tuple(_simt.admit(r, q, kv, D, rows))
                 for r in ("decode", "paged") for q, kv in _simt.KV_PAIRS for D in _simt.KV_DIMS
                 for rows in (1, _simt.DECODE_ROWS, _simt.DECODE_ROWS + 1)}
-    admitted |= {tuple(_simt.admit(r, t, t, D)) for r, dims in (("flash", _simt.FLASH_DIMS),
+    admitted |= {tuple(_simt.admit(r, t, t, D)) for r, dims in (("flash", tfa.FWD_HEAD_DIMS),
                                                               ("encoder", _simt.ENCODER_DIMS))
-                 for t in _simt.SEQ_TYPES for D in dims}
+                 for t in (torch.float32, torch.float16, torch.bfloat16) for D in dims
+                 if (r, t) != ("encoder", torch.bfloat16)}
     assert admitted == built
     for lib in {b[0] for b in built}:  # each entry's source exists
         assert (CUH.parent / f"{lib}.cu").is_file()
@@ -233,23 +257,34 @@ def test_admission_list_is_the_cuh_instantiations():
 def test_backward_admission_list_is_the_cuh_instantiations():
     """ops/_simt.py's backward lists are attention_simt_bwd.cuh's SIMT_BWD_*
     lists, and every instantiation admit() returns for "flash_bwd" and
-    "encoder_bwd" at float32 and float16 is one the .cuh builds, in a
-    source that exists: head dim 256 for the flash backward alone."""
+    "encoder_bwd" at float32 and float16 is one a source builds, in a
+    source that exists: the CUDA-core flash backward at float32, the
+    CUDA-core encoder backward at float32 and float16 (head dim 256 for the
+    flash backward alone), and the tensor-core flash backward at bfloat16
+    and float16 (flash_attention_bwd.cu's FLASH_BWD_TYPES and
+    FLASH_BWD_DIMS)."""
     C = {v: k for k, v in _simt.C_TYPES.items()}
-    assert [C[t] for (t,) in _cuh_list("SIMT_BWD_TYPES", BWD_CUH)] == list(_simt.BWD_TYPES)
+    assert ([C[t] for (t,) in _cuh_list("SIMT_BWD_FLASH_TYPES", BWD_CUH)]
+            == list(_simt.FLASH_BWD_TYPES))
+    assert ([C[t] for (t,) in _cuh_list("SIMT_BWD_ENCODER_TYPES", BWD_CUH)]
+            == list(_simt.ENCODER_BWD_TYPES))
     assert ([int(d) for (d,) in _cuh_list("SIMT_BWD_FLASH_DIMS", BWD_CUH)]
             == list(_simt.FLASH_BWD_DIMS))
     assert ([int(d) for (d,) in _cuh_list("SIMT_BWD_ENCODER_DIMS", BWD_CUH)]
             == list(_simt.ENCODER_BWD_DIMS))
-    built = {(f"attention_simt_{r}", t, t, D, _simt.BWD_ROWS)
-             for r, dims in (("flash_bwd", _simt.FLASH_BWD_DIMS),
-                             ("encoder_bwd", _simt.ENCODER_BWD_DIMS))
-             for t in _simt.BWD_TYPES for D in dims}
+    built = {("attention_simt_flash_bwd", t, t, D, _simt.BWD_ROWS)
+             for t in _simt.FLASH_BWD_TYPES for D in _simt.FLASH_BWD_DIMS}
+    built |= {("attention_simt_encoder_bwd", t, t, D, _simt.BWD_ROWS)
+              for t in _simt.ENCODER_BWD_TYPES for D in _simt.ENCODER_BWD_DIMS}
+    tc = _tc_flash_built(FLASH_BWD_CU, "FLASH_BWD_TYPES", "FLASH_BWD_DIMS")
+    assert set(_simt.TC_TYPES["flash_bwd"]) == set(tfa.TYPE_CODES)
     admitted = {tuple(_simt.admit(r, t, t, D)) for r, dims in (("flash_bwd", (64, 128, 256)),
                                                                ("encoder_bwd", (64, 128)))
-                for t in _simt.SEQ_TYPES for D in dims}
-    assert admitted == built
-    for t in _simt.SEQ_TYPES:
+                for t in (torch.float32, torch.float16) for D in dims}
+    assert admitted == built | {b for b in tc if b[1] == torch.float16}
+    assert {tuple(_simt.admit("flash_bwd", t, t, D)) for t in tfa.TYPE_CODES
+            for D in tfa.BWD_HEAD_DIMS} == tc
+    for t in (torch.float32, torch.float16):
         with pytest.raises(ValueError, match="head dim 256"):
             _simt.admit("encoder_bwd", t, t, 256)
     for lib in {b[0] for b in built}:
@@ -257,8 +292,44 @@ def test_backward_admission_list_is_the_cuh_instantiations():
         assert '#include "attention_simt_bwd.cuh"' in (CUH.parent / f"{lib}.cu").read_text()
 
 
-@pytest.mark.parametrize("regime", ["decode", "paged"])
+@pytest.mark.parametrize("regime", ["decode", "paged", "flash", "flash_bwd"])
 def test_admission_picks_kernel_by_q_dtype(regime):
+    """decode and paged: bfloat16 q on the tensor-core kernels, every
+    (q, kv) pair of float32 and float16 on the CUDA-core ones, by rows.
+    flash, forward and backward: bfloat16 and float16 on the tensor-core
+    kernel, float32 on the CUDA-core one; float16 against bfloat16 k/v is
+    refused (no cast reaches a kernel), and each wrapper refuses the type
+    of the other, naming the kernel it runs."""
+    if regime.startswith("flash"):
+        tc_lib = "flash_attention" + ("_bwd" if regime == "flash_bwd" else "")
+        for t in (torch.bfloat16, torch.float16):
+            for D in (64, 128, 256):
+                got = _simt.admit(regime, t, t, D)
+                assert not got.simt and got.lib == tc_lib and (got.q, got.kv, got.D) == (t, t, D)
+        got = _simt.admit(regime, torch.float32, torch.float32, 128)
+        assert got.simt and got.lib == f"attention_simt_{regime}"
+        with pytest.raises(ValueError, match="q float16 takes k/v of float16"):
+            _simt.admit(regime, torch.float16, torch.bfloat16, 128)
+        q16, q32 = (torch.zeros(1, 128, 2, 64, dtype=t) for t in (torch.float16, torch.float32))
+        lse = torch.zeros(1, 2, 128)
+        if regime == "flash":
+            refusals = [(tfa.flash_attention_simt_kernel, (q16, q16, q16),
+                         "runs flash_attention_kernel"),
+                        (tfa.flash_attention_kernel, (q32, q32, q32),
+                         "runs flash_attention_simt_kernel")]
+        else:
+            refusals = [(fn, args, "runs the tensor-core backward") for fn, args in (
+                (tfa.flash_attention_simt_bwd_stats, (q16, q16, lse)),
+                (tfa.flash_attention_simt_dq_kernel, (q16,) * 5 + (lse,)),
+                (tfa.flash_attention_simt_dkv_kernel, (q16,) * 5 + (lse,)))]
+            refusals += [(fn, (q32,) * 5 + (lse,), "runs the CUDA-core backward")
+                         for fn in (tfa.flash_attention_dq_kernel, tfa.flash_attention_dkv_kernel)]
+        for fn, args, msg in refusals:
+            before = fn.launches
+            with pytest.raises(ValueError, match=msg):
+                fn(*args)
+            assert fn.launches == before
+        return
     bf = _simt.admit(regime, torch.bfloat16, torch.int8, 128, 1)
     assert not bf.simt and bf.lib == f"{regime}_attention"
     for q, kv in _simt.KV_PAIRS:
@@ -291,37 +362,51 @@ def test_f64_q_refused_naming_admitted_dtypes(regime):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
 def test_backward_refused_naming_queue_2_item_11(dtype):
     """Queue 2 items 8 and 11 are closed: a float32 or float16 gradient is
-    admitted to the CUDA-core backward kernels (attention_simt_flash_bwd.cu,
-    attention_simt_encoder_bwd.cu) at head dims 64 and 128, the flash one
-    at 256 too, and the bfloat16 wrappers refuse it, naming them; the flash
-    backward at head dim 256 is admitted at every type (the D = 256
-    wrappers reach their device check), while k/v of another type and other
-    head dims are refused before any launch."""
-    for regime, lib in (("flash_bwd", "attention_simt_flash_bwd"),
-                        ("encoder_bwd", "attention_simt_encoder_bwd")):
+    admitted to a backward kernel at head dims 64 and 128, the flash one at
+    256 too: the encoder's at the CUDA-core kernel
+    (attention_simt_encoder_bwd.cu), flash's at the CUDA-core kernel at
+    float32 (attention_simt_flash_bwd.cu) and the tensor-core one at float16
+    (flash_attention_bwd.cu), and the wrappers of the other kernel refuse
+    it, naming the one it runs; the flash backward at head dim 256 is
+    admitted at every type (the D = 256 wrappers reach their device check),
+    while k/v of another type and other head dims are refused before any
+    launch."""
+    f16 = dtype == torch.float16
+    flash_lib = "flash_attention_bwd" if f16 else "attention_simt_flash_bwd"
+    for regime, lib in (("flash_bwd", flash_lib), ("encoder_bwd", "attention_simt_encoder_bwd")):
         for D in (64, 128, 256) if regime == "flash_bwd" else (64, 128):
             got = _simt.admit(regime, dtype, dtype, D)
-            assert got.simt and got.lib == lib and (got.q, got.kv, got.D) == (dtype, dtype, D)
-        with pytest.raises(ValueError, match="one type of float32, float16"):
+            assert got.simt == lib.startswith("attention_simt")
+            assert got.lib == lib and (got.q, got.kv, got.D) == (dtype, dtype, D)
+        want = ("q float16 takes k/v of float16" if regime == "flash_bwd" and f16 else
+                "one type of float32" + (", float16" if regime == "encoder_bwd" else ""))
+        with pytest.raises(ValueError, match=want):
             _simt.admit(regime, dtype, torch.bfloat16, 64)
-        with pytest.raises(ValueError, match="head dim 96"):
-            _simt.admit(regime, dtype, dtype, 96)
+        if lib.startswith("attention_simt"):  # the tensor-core head dims: _check_head_dim
+            with pytest.raises(ValueError, match="head dim 96"):
+                _simt.admit(regime, dtype, dtype, 96)
+    with pytest.raises(ValueError, match="head dim 96"):
+        tfa._check_head_dim(96, backward=True)
     for t in (dtype, torch.bfloat16):
         got = _simt.admit("flash_bwd", t, t, 256)
-        assert got.D == 256 and got.simt == (t != torch.bfloat16)
+        assert got.D == 256 and got.simt == (t == torch.float32)
     q = torch.zeros(1, 128, 2, 64, dtype=dtype)
     lse = torch.zeros(1, 2, 128)
-    for fn in (tfa.flash_attention_dq_kernel, tfa.flash_attention_dkv_kernel):
+    other, msg = ((tfa.flash_attention_simt_bwd_stats, tfa.flash_attention_simt_dq_kernel,
+                   tfa.flash_attention_simt_dkv_kernel), "tensor-core backward") if f16 else (
+        (tfa.flash_attention_bwd_stats, tfa.flash_attention_dq_kernel,
+         tfa.flash_attention_dkv_kernel), "CUDA-core backward")
+    for fn in other[1:]:
         before = fn.launches
-        with pytest.raises(ValueError, match="CUDA-core backward"):
+        with pytest.raises(ValueError, match=msg):
             fn(q, q, q, q, q, lse, causal=True)
         assert fn.launches == before
-    with pytest.raises(ValueError, match="CUDA-core backward"):
-        tfa.flash_attention_bwd_stats(q, q, lse)
+    with pytest.raises(ValueError, match=msg):
+        other[0](q, q, lse)
     with pytest.raises(ValueError, match="runs encoder_attention_simt_bwd_kernel"):
         tea.encoder_attention_bwd_kernel(q, q, q, q)
     q256 = torch.zeros(1, 128, 2, 256, dtype=dtype)
-    for fn in (tfa.flash_attention_simt_dq_kernel, tfa.flash_attention_simt_dkv_kernel):
+    for fn in tfa._bwd_kernels(dtype)[1:]:
         before = fn.launches
         with pytest.raises(ValueError, match="not a CUDA device"):
             fn(q256, q256, q256, q256, q256, lse, causal=True)
@@ -333,15 +418,17 @@ def test_backward_refused_naming_queue_2_item_11(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
 def test_simt_wrappers_reject_cpu_tensors(dtype):
-    """The CUDA-core wrappers launch on CUDA tensors only and never run the
-    plain version; a refused call does not count."""
+    """The wrappers of dtype's kernels (the CUDA-core ones, but flash at
+    float16, which runs the tensor-core ones) launch on CUDA tensors only
+    and never run the plain version; a refused call does not count."""
     q = torch.zeros(1, 128, 2, 64, dtype=dtype)
     lse = torch.zeros(1, 2, 128)
-    calls = [(tfa.flash_attention_simt_kernel, (q, q, q)),
+    stats, dq, dkv = tfa._bwd_kernels(dtype)
+    calls = [(tfa._fwd_kernel(dtype), (q, q, q)),
              (tea.encoder_attention_simt_kernel, (q, q, q)),
-             (tfa.flash_attention_simt_bwd_stats, (q, q, lse)),
-             (tfa.flash_attention_simt_dq_kernel, (q, q, q, q, q, lse)),
-             (tfa.flash_attention_simt_dkv_kernel, (q, q, q, q, q, lse)),
+             (stats, (q, q, lse)),
+             (dq, (q, q, q, q, q, lse)),
+             (dkv, (q, q, q, q, q, lse)),
              (tea.encoder_attention_simt_bwd_kernel, (q, q, q, q)),
              (tda.decode_attention_simt_kernel,
               (q[:, :1], q.reshape(1, 2, 128, 64), q.reshape(1, 2, 128, 64),
@@ -351,8 +438,12 @@ def test_simt_wrappers_reject_cpu_tensors(dtype):
         with pytest.raises(ValueError, match="not a CUDA device"):
             fn(*args)
         assert fn.launches == before
-    with pytest.raises(ValueError, match="runs flash_attention_simt_kernel"):
-        tfa.flash_attention_kernel(q, q, q)  # the bf16 kernel takes no float32/float16
+    assert (tfa._fwd_kernel(dtype) is tfa.flash_attention_kernel) == (dtype == torch.float16)
+    other, kernel = ((tfa.flash_attention_simt_kernel, "flash_attention_kernel")
+                     if dtype == torch.float16 else
+                     (tfa.flash_attention_kernel, "flash_attention_simt_kernel"))
+    with pytest.raises(ValueError, match=f"runs {kernel}"):
+        other(q, q, q)  # each flash kernel takes its own types only
 
 
 # ------------------------------------------------- a float16 LLaMA served
