@@ -45,9 +45,9 @@ Phases:
                     kernels with no copy, and time the kernels and their
                     SDPA yardsticks from CUDA-graph replays (device time).
                     The four attention forwards at float32 and float16
-                    (flash at float32 only; the f32 CUDA-core kernels of
-                    attention_simt.cuh, the ``*_simt`` rows): decode and
-                    paged at S = 1 and S = 5
+                    (flash and the encoder at float32 only; the f32
+                    CUDA-core kernels of attention_simt.cuh, the ``*_simt``
+                    rows): decode and paged at S = 1 and S = 5
                     over ragged, stale slots, 256-token chunks off the
                     page grid, pages of 16 and 128, GQA 64/8, head dims
                     64 and 256, int8 caches under float32 and float16 q,
@@ -58,10 +58,9 @@ Phases:
                     F32_RTOL, float16 within F16_RTOL, int8 within
                     KERNEL_RTOL["int8"]; planted faults outside; the same
                     bits twice; SDPA at the same dtype as the yardstick.
-                    The three backward kernels at float32 and float16
-                    (flash at float32 only; the f32 CUDA-core kernels of
-                    attention_simt_bwd.cuh, the ``*_simt`` rows, and
-                    flash's statistics pass): flash at
+                    The three backward kernels at float32 (the f32
+                    CUDA-core kernels of attention_simt_bwd.cuh, the
+                    ``*_simt`` rows, and flash's statistics pass): flash at
                     [8, 2048, 16, 128] causal, Sq < Sk, the lse cotangent,
                     head dim 64 and a ragged length; the encoder at ERNIE's
                     shape with dropout 0.1 (and as packed views), the LLaMA
@@ -81,9 +80,19 @@ Phases:
                     and 256, at the shapes and seeds of the CUDA-core
                     float16 cases they replace, within F16_RTOL, each timed
                     beside its bf16 twin of the same shape and SDPA at
-                    float16; the build phase logs HGMMA per instantiation
-                    of the flash libraries, and the kernels phase fails
-                    where one has none.
+                    float16.  The encoder forward and backward at float16
+                    (the ``_f16`` rows): the wgmma kernels' float16
+                    instantiations at ERNIE's shape at rate 0 and 0.1 and
+                    as BERT's packed views, the LLaMA no-cache forward's
+                    [4, 512, 32, 128] causal, the b32_s512 microbatch,
+                    S = 128 causal at head dim 128 and [8, 512, 12, 64]
+                    with dropout, within F16_RTOL with their planted
+                    faults, each beside its bf16 twin (run here where the
+                    bf16 rows lack the shape) and SDPA at float16.  The
+                    build phase logs HGMMA per instantiation of the flash
+                    and encoder libraries, and the kernels phase fails
+                    where one has none or float16 has another count than
+                    bf16.
   4. generate     — model.generate() at LLaMA-2-7B widths (16 layers, bf16,
                     random weights from a seed): ids [4, 1024] (flash
                     prefill) on a bf16 and an int8 cache, and ids [8, 256]
@@ -132,13 +141,14 @@ time goes.
                     dense math, a profiled paged decode tick; at float16:
                     generate() on its float16 cache, the paged engine's
                     12 requests (float32 pools, as for every model that is
-                    not bf16) and the no-cache forward at [1, 2048]
-                    (its wall beside the dense-math forward's); BERT-base
-                    eval on [32, 128] at float32 and at float16 (the
-                    fused-LN kernels at float16).  Every attention launch
-                    is an f32 CUDA-core kernel's but float16 flash
-                    (generate()'s prefill, the forward at [1, 2048]),
-                    which runs the tensor-core kernel; logits within
+                    not bf16) and the no-cache forwards at [1, 2048] and
+                    [4, 512] (their walls beside the dense-math forward's);
+                    BERT-base eval on [32, 128] at float32 and at float16
+                    (the fused-LN kernels at float16).  Every attention
+                    launch is an f32 CUDA-core kernel's but float16 flash
+                    and encoder (generate()'s prefill, the forwards,
+                    BERT's float16 eval), which run the tensor-core
+                    kernels; logits within
                     F32_LOGIT_TOL (F16_LOGIT_TOL, INT8_LOGIT_TOL); peak
                     memory per model.
  12. train        — bench.py's training configuration (hidden 2048, 12
@@ -180,7 +190,9 @@ time goes.
                     one step profiled.  Then all of it at float32 (the
                     CUDA-core encoder kernels, the fused LN at f32;
                     ERNIE_F32_STEPS timed steps), and the gradient parity
-                    at float16 through the fused-LN kernels at float16.
+                    at float16 through the fused-LN and tensor-core
+                    encoder kernels at float16 (its launches count in the
+                    kernels line: float16 training is no path yet).
  14. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
                     reaches the fused 1x1-conv + BN kernels: first one
                     bottleneck block at each stage's shape, fused against
@@ -254,8 +266,8 @@ KERNELS = {
                       "paddle_tpu/ops/fused_conv_bn.py:66"),
     "fused_conv_bn_bwd": ("paddle_tpu_torch/csrc/fused_conv_bn.cu",
                           "paddle_tpu/ops/fused_conv_bn.py:139"),
-    # the same four TPU kernels at float32 (and at float16 but for flash): f32
-    # on the CUDA cores
+    # the same four TPU kernels at float32 (decode and paged also at float16):
+    # f32 on the CUDA cores
     "paged_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_paged.cu",
                              "paddle_tpu/ops/decode_attention.py:313"),
     "decode_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_decode.cu",
@@ -264,9 +276,8 @@ KERNELS = {
                              "paddle_tpu/ops/flash_attention.py:45"),
     "encoder_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_encoder.cu",
                                "paddle_tpu/ops/encoder_attention.py:78"),
-    # the three backward TPU kernels at float32 (and the encoder's at
-    # float16): f32 on the CUDA cores; the statistics pass is the dsum each
-    # of the flash ones takes first
+    # the three backward TPU kernels at float32: f32 on the CUDA cores; the
+    # statistics pass is the dsum each of the flash ones takes first
     "flash_attention_bwd_stats_simt": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
                                        "paddle_tpu/ops/flash_attention.py:111"),
     "flash_attention_dq_simt": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
@@ -310,6 +321,15 @@ KERNELS = {
                                "paddle_tpu/ops/flash_attention.py:111"),
     "flash_attention_dkv_f16": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                                 "paddle_tpu/ops/flash_attention.py:153"),
+    # the encoder forward and backward at float16: the bf16 kernels' wgmma
+    # design and wrappers, instantiated at __half; their launches the
+    # wrappers' in the main paths' float16 runs (BERT's float16 eval, the
+    # float16 no-cache forward at [4, 512]; the backward in ERNIE's float16
+    # gradient parity)
+    "encoder_attention_f16": ("paddle_tpu_torch/csrc/encoder_attention.cu",
+                              "paddle_tpu/ops/encoder_attention.py:78"),
+    "encoder_attention_bwd_f16": ("paddle_tpu_torch/csrc/encoder_attention_bwd.cu",
+                                  "paddle_tpu/ops/encoder_attention.py:101"),
 }
 # A run's field and value -> the suffix of the KERNELS rows of that
 # instantiation: every launch in a run at head dim 256 (or at float16) is
@@ -1120,8 +1140,16 @@ def fused_ln_routing_case(n=8192, h=4096, rate=DROP_RATE):
     torch.cuda.synchronize()
     rose = (fl.fused_ln_kernel.launches - before[0], fl.fused_ln_bwd_kernel.launches - before[1])
     keep = xr.grad != 0  # a kept element's gradient is nonzero almost surely
-    want, _ = fl._fused_ln_dense(res, x, w, b, None, rate, 1e-5, True, keep)
-    err = (out.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+    # the plain version's s (rounded to bf16, as the kernel's), then its
+    # output left in f32, the oracle KERNEL_RTOL is stated against: the
+    # output rounded to bf16 as well could sit one bf16 unit (up to 2^-7 of
+    # a value) from the kernel's where the two f32 results straddle a
+    # rounding boundary, more than the gate, and the mask of this call is
+    # the framework generator's, new in every run
+    _, s = fl._fused_ln_dense(res, x, w, b, None, rate, 1e-5, True, keep)
+    mean, rstd = fl._stats(s.float(), 1e-5)
+    want = (s.float() - mean) * rstd * w.float() + b.float()
+    err = (out.float() - want).abs().max().item() / want.abs().max().item()
     res_ = dict(name=f"routing_n{n}_h{h}_bf16_drop", launches_rose=list(rose), rel_err=err,
                 tol=KERNEL_RTOL["bf16"], finite=bool(torch.isfinite(xr.grad).all()),
                 keep_fraction=keep.float().mean().item())
@@ -1702,6 +1730,14 @@ def simt_tol(q_dtype, kv_dtype):
     return F32_RTOL if torch.float32 == q_dtype == kv_dtype else F16_RTOL
 
 
+def typed_tol(dtype, backward=False):
+    """The gate of a flash or encoder case at q, k, v of ``dtype`` against
+    its plain version: F32_RTOL, F16_RTOL, or the bf16 kernels' gates."""
+    if dtype == torch.bfloat16:
+        return BWD_RTOL if backward else KERNEL_RTOL["bf16"]
+    return simt_tol(dtype, dtype)
+
+
 def rate_key(*dtypes):
     """bound3's keyword for products of these types at their peak: the f32
     rate where an operand is float32, the 16-bit tensor-core rate otherwise
@@ -1816,14 +1852,16 @@ def simt_kv_case(kind, name, B, S, H, Hkv, offsets, q_dtype, kv_dtype, seed, ps=
     return res
 
 
-def simt_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, packed=False):
-    """The f32 CUDA-core flash or encoder forward vs its plain version in
-    f32 on the same values, with its lse; the encoder at ``rate`` > 0 with
-    the bf16 kernel's Philox mask from the same seed tensor (planted faults:
-    the mask read one key over, the seed words swapped), else the planted
-    faults of ``seq_attention_case``.  ``packed``: q, k, v the three strided
-    slices of one [B, S, 3, H, D] tensor (BERT's projection), read in place.
-    The kernel, its plain version and SDPA at the same dtype are timed."""
+def typed_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, packed=False):
+    """The flash or encoder forward of ``dtype``'s kernel (``_fwd_kernel``:
+    the f32 CUDA-core kernel at float32, the tensor-core one at bfloat16 and
+    float16; flash at float32 only here) vs its plain version in f32 on the
+    same values, with its lse; the encoder at ``rate`` > 0 with the Philox
+    mask from the same seed tensor (planted faults: the mask read one key
+    over, the seed words swapped), else the planted faults of
+    ``seq_attention_case``.  ``packed``: q, k, v the three strided slices
+    of one [B, S, 3, H, D] tensor (BERT's projection), read in place.  The
+    kernel, its plain version and SDPA at the same dtype are timed."""
     from paddle_tpu_torch.ops import encoder_attention as ea
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -1841,9 +1879,10 @@ def simt_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, pa
     keep = ea.dropout_keep(sd, B, H, Sq, rate) if rate > 0 else None
     qf, kf, vf = q.float(), k.float(), v.float()
     copies0 = ea._check_inputs.copies
+    wrapper = (fa if kind == "flash" else ea)._fwd_kernel(dtype)
     if kind == "flash":
         def kernel():
-            return fa.flash_attention_simt_kernel(q, k, v, causal, scale)
+            return wrapper(q, k, v, causal, scale)
 
         def plain():
             return fa._flash_dense(q, k, v, causal, scale)
@@ -1851,7 +1890,7 @@ def simt_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, pa
         want, want_lse = fa._flash_dense(qf, kf, vf, causal, scale)
     else:
         def kernel():
-            return ea.encoder_attention_simt_kernel(q, k, v, scale, causal, sd, rate)
+            return wrapper(q, k, v, scale, causal, sd, rate)
 
         def plain():
             return ea._encoder_dense(q, k, v, scale, causal, keep, rate)
@@ -1860,7 +1899,7 @@ def simt_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, pa
         # probabilities to it as the kernel does (encoder_dropout_case)
         want = ea._encoder_dense(qf, kf, v if rate > 0 else vf, scale, causal, keep, rate)
         want_lse = ea._encoder_lse(qf, kf, scale, causal)
-    got, lse = kernel()
+    (got, lse), n_launch = counted(kernel, wrapper, 1)
     again = kernel()
     torch.cuda.synchronize()
     same = bool(torch.equal(got, again[0]) and torch.equal(lse, again[1]))
@@ -1880,15 +1919,19 @@ def simt_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, pa
         faults = {"uniform_weights": masked_attention(torch.zeros_like(q), k, v, ones, scale),
                   "causal_end_short": masked_attention(q, k, v, short, scale)}
     lse_err = (lse.reshape(B, H, Sq) - want_lse.reshape(B, H, Sq)).abs().max().item()
-    res = gate(name, got, want, faults, simt_tol(dtype, dtype), kind=kind, B=B, H=H, Sq=Sq, Sk=Sk,
+    simt = wrapper in (fa.flash_attention_simt_kernel, ea.encoder_attention_simt_kernel)
+    res = gate(name, got, want, faults, typed_tol(dtype), kind=kind, B=B, H=H, Sq=Sq, Sk=Sk,
                D=D, causal=causal, rate=rate, packed=packed, dtype=TAGS[dtype],
-               lse_max_abs_err=lse_err, lse_tol=LSE_TOL, same_bits=same, input_copies=copies,
-               ok=lse_err <= LSE_TOL and same and got.dtype == dtype and copies == 0)
+               kernel=wrapper.__name__, lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
+               same_bits=same, input_copies=copies, launches_counted=n_launch,
+               ok=(lse_err <= LSE_TOL and same and got.dtype == dtype and copies == 0
+                   and n_launch))
     if keep is not None:
         add_keep(keep, rate, res)
-    # device time from CUDA-graph replays, fewer calls than the bf16 cases':
-    # one call here takes up to a few ms
-    res["ms"] = graph_ms(kernel, iters=4, repeats=3, per_graph=4)
+    # device time from CUDA-graph replays; fewer calls on the CUDA cores,
+    # where one call takes up to a few ms
+    graph_args = dict(iters=4, repeats=3, per_graph=4) if simt else {}
+    res["ms"] = graph_ms(kernel, **graph_args)
     res["plain_ms"] = cuda_ms(plain, 3)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     # yardstick: SDPA at the same dtype (top-left causal, so causal only at
@@ -1896,7 +1939,7 @@ def simt_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, pa
     res["library_ms"] = None
     if Sq == Sk or not causal:
         res["library_ms"] = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, dropout_p=rate, is_causal=causal), iters=4, repeats=3, per_graph=4)
+            qh, kh, vh, dropout_p=rate, is_causal=causal), **graph_args)
     # least time: q, k, v read and o, lse written once; 4 * D operations a
     # visible pair at their type's peak, and a Philox call for four of them
     pairs = B * H * visible_pairs(Sq, Sk, causal)
@@ -1907,9 +1950,9 @@ def simt_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, pa
 
 
 def simt_kernel_cases():
-    """The f32 CUDA-core kernels' cases at float32 and float16 (flash at
-    float32 only), the main paths' shapes, the float32 case each main path
-    runs most first: decode
+    """The f32 CUDA-core kernels' cases at float32 and float16 (flash and
+    the encoder at float32 only), the main paths' shapes, the float32 case
+    each main path runs most first: decode
     and paged at LLaMA-2-7B widths (S = 1 at 8 ragged slots; the verify's
     S = 5; 256-token chunks off the page grid; pages of 16 and 128), 70B's
     GQA 64/8, head dims 64 and 256, int8 caches under float32 and float16
@@ -1918,7 +1961,8 @@ def simt_kernel_cases():
     generate()'s [4, 1024, 32, 128], and head dims 64 and 256; the encoder
     at ERNIE's [512, 128, 12, 64] at rate 0 and 0.1 (and as BERT's packed
     q, k, v views) and the LLaMA no-cache forward's [4, 512, 32, 128]
-    causal."""
+    causal (float16 flash and encoder: the tensor-core kernels' _f16
+    rows)."""
     f32, f16, i8 = torch.float32, torch.float16, torch.int8
     out = {f"{k}_simt": [] for k in SIMT_KERNELS}
     for kind, key in (("decode", "decode_attention_simt"), ("paged", "paged_attention_simt")):
@@ -1961,22 +2005,22 @@ def simt_kernel_cases():
             ("bh64_s1024_d64", 2, 32, 1024, 64, True),
             ("d256_s1024_full", 4, 16, 1024, 256, False)]):
         # float16 runs the tensor-core kernel (kernel_phase's _f16 cases)
-        out["flash_attention_simt"].append(simt_seq_case(
+        out["flash_attention_simt"].append(typed_seq_case(
             f"{name}_f32", "flash", B, H, S, S, D, causal, f32, 130 + i))
         log_case("flash_attention_simt", out["flash_attention_simt"][-1])
-    out["flash_attention_simt"].append(simt_seq_case(
+    out["flash_attention_simt"].append(typed_seq_case(
         "sq1024_sk2048_causal_f32", "flash", 1, 32, 1024, 2048, 128, True, f32, 136))
     log_case("flash_attention_simt", out["flash_attention_simt"][-1])
+    # float16 runs the tensor-core kernel (encoder_f16_cases)
     for i, (name, B, H, S, D, causal, rate, packed) in enumerate([
             ("ernie_rate0", 512, 12, 128, 64, False, 0.0, False),   # the BERT eval forward's
             ("ernie_drop", 512, 12, 128, 64, False, DROP_RATE, False),
             ("ernie_packed_qkv_rate0", 512, 12, 128, 64, False, 0.0, True),
             ("7b_forward_s512_causal", 4, 32, 512, 128, True, 0.0, False)]):
-        for dt in (f32, f16):
-            out["encoder_attention_simt"].append(simt_seq_case(
-                f"{name}_{TAGS[dt]}", "encoder", B, H, S, S, D, causal, dt, 140 + i, rate=rate,
-                packed=packed))
-            log_case("encoder_attention_simt", out["encoder_attention_simt"][-1])
+        out["encoder_attention_simt"].append(typed_seq_case(
+            f"{name}_f32", "encoder", B, H, S, S, D, causal, f32, 140 + i, rate=rate,
+            packed=packed))
+        log_case("encoder_attention_simt", out["encoder_attention_simt"][-1])
     return out
 
 
@@ -2083,10 +2127,13 @@ def simt_flash_bwd_case(name, B, H, Sq, Sk, D, causal, dtype, seed, with_dlse=Fa
     return res
 
 
-def simt_encoder_bwd_case(name, B, H, S, D, causal, dtype, seed, rate=0.0, packed=False):
-    """The CUDA-core encoder backward vs ``_encoder_bwd_dense`` on the same
-    values and mask, at S = 128 (one block a head) or S > 128 (the row and
-    column kernels, from the plain lse); planted faults: at rate 0 dsum taken
+def typed_encoder_bwd_case(name, B, H, S, D, causal, dtype, seed, rate=0.0, packed=False):
+    """The encoder backward of ``dtype``'s kernel (``_bwd_kernel``: the
+    CUDA-core kernel at float32, the tensor-core one at bfloat16 and
+    float16) vs ``_encoder_bwd_dense`` on the same values and mask (which
+    rounds dS to the inputs' type where the kernels do), at S = 128 (one
+    block a head) or S > 128 (the streamed kernels, from the plain lse);
+    planted faults: at rate 0 dsum taken
     as 0 and each row's key range one short, with dropout the mask read one
     key over, the seed words swapped and no mask.  ``packed``: q, k, v the
     three strided slices of one [B, S, 3, H, D] tensor, read with no copy."""
@@ -2107,13 +2154,15 @@ def simt_encoder_bwd_case(name, B, H, S, D, causal, dtype, seed, rate=0.0, packe
     lse = ea._encoder_lse(q.float(), k.float(), scale, causal).contiguous()
     copies0 = ea._check_inputs.copies
 
+    wrapper = ea._bwd_kernel(dtype)
+
     def kernel():
-        return ea.encoder_attention_simt_bwd_kernel(q, k, v, do, scale, causal, sd, rate, lse)
+        return wrapper(q, k, v, do, scale, causal, sd, rate, lse)
 
     def plain(kp=keep, r=rate):
         return ea._encoder_bwd_dense(q, k, v, do, scale, causal, kp, r)
 
-    got, n_launch = counted(kernel, ea.encoder_attention_simt_bwd_kernel, 1)
+    got, n_launch = counted(kernel, wrapper, 1)
     again = kernel()
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -2133,18 +2182,21 @@ def simt_encoder_bwd_case(name, B, H, S, D, causal, dtype, seed, rate=0.0, packe
             short[:, -1] = False
         faults = {"dsum_zero": masked_attention_bwd(q, k, v, do, vis, scale, dsum_zero=True),
                   "causal_end_short": masked_attention_bwd(q, k, v, do, short, scale)}
-    res = bwd_gate(name, got, plain(), faults, simt_tol(dtype, dtype), kind="encoder", B=B,
-                   H=H, Sq=S, Sk=S, D=D, causal=causal, rate=rate, packed=packed,
-                   dtype=TAGS[dtype], same_bits=same, input_copies=copies,
-                   launches_counted=n_launch,
+    simt = wrapper is ea.encoder_attention_simt_bwd_kernel
+    res = bwd_gate(name, got, plain(), faults, typed_tol(dtype, backward=True), kind="encoder",
+                   B=B, H=H, Sq=S, Sk=S, D=D, causal=causal, rate=rate, packed=packed,
+                   dtype=TAGS[dtype], kernel=wrapper.__name__, same_bits=same,
+                   input_copies=copies, launches_counted=n_launch,
                    ok=same and n_launch and copies == 0 and got[0].dtype == dtype)
     if keep is not None:
         add_keep(keep, rate, res)
-    res["ms"] = graph_ms(kernel, iters=4, repeats=3, per_graph=4)
+    # fewer graph calls on the CUDA cores, where one call takes a few ms
+    res["ms"] = graph_ms(kernel, **(dict(iters=4, repeats=3, per_graph=4) if simt else {}))
     res["plain_ms"] = cuda_ms(plain, 2)
     # SDPA's float32 backward with dropout faults inside a CUDA graph on the
     # card (an illegal address at replay): timed with events there
-    res["library_ms"] = sdpa_bwd_ms(q, k, v, do, causal, 3, dropout_p=rate, graph=rate == 0)
+    res["library_ms"] = sdpa_bwd_ms(q, k, v, do, causal, 3 if simt else 10, dropout_p=rate,
+                                    graph=rate == 0 or dtype != torch.float32)
     pairs = B * H * visible_pairs(S, S, causal)
     n = B * S * H * D * q.element_size()
     res["bound_ms"], res["bound_by"], res["floors"] = bound3(
@@ -2158,15 +2210,15 @@ SIMT_BWD_KERNELS = ("flash_attention_bwd_stats_simt", "flash_attention_dq_simt",
 
 
 def simt_bwd_kernel_cases():
-    """The CUDA-core backward kernels' cases, the main paths' shapes, the
-    float32 case each main path runs most first: flash at float32 (float16
-    runs the tensor-core kernels) at the LLaMA step's [8, 2048, 16, 128]
-    causal, Sq < Sk, the lse cotangent, head dim 64 and a ragged length;
-    the encoder at float32 and float16 at ERNIE's
-    [512, 128, 12, 64] with dropout 0.1 (and as BERT's packed views), the
-    LLaMA b32_s512 microbatch [16, 512, 16, 128] causal, S = 128 causal at
-    head dim 128 and S = 512 at head dim 64 with dropout."""
-    f32, f16 = torch.float32, torch.float16
+    """The CUDA-core backward kernels' cases at float32 (float16 runs the
+    tensor-core kernels), the main paths' shapes, the case each main path
+    runs most first: flash at the LLaMA step's [8, 2048, 16, 128] causal,
+    Sq < Sk, the lse cotangent, head dim 64 and a ragged length; the
+    encoder at ERNIE's [512, 128, 12, 64] with dropout 0.1 (and as BERT's
+    packed views), the LLaMA b32_s512 microbatch [16, 512, 16, 128] causal,
+    S = 128 causal at head dim 128 and S = 512 at head dim 64 with
+    dropout."""
+    f32 = torch.float32
     out = {k: [] for k in SIMT_BWD_KERNELS}
     out.update({f"{k}_d256": [] for k in SIMT_BWD_KERNELS[:3]})
     # float16 flash runs the tensor-core kernels (bwd_kernel_cases' _f16 rows)
@@ -2186,17 +2238,63 @@ def simt_bwd_kernel_cases():
             kern += "_d256" if D == 256 else ""
             out[kern].append(r[part])
             log_case(kern, r[part])
-    for i, (name, B, H, S, D, causal, rate, packed, dts) in enumerate([
-            ("ernie_drop", 512, 12, 128, 64, False, DROP_RATE, False, (f32, f16)),  # ERNIE's
-            ("ernie_packed_qkv_drop", 512, 12, 128, 64, False, DROP_RATE, True, (f32,)),
-            ("train_s512", 16, 16, 512, 128, True, 0.0, False, (f32, f16)),  # LLaMA's b32_s512
-            ("b16_s128_d128_causal", 16, 16, 128, 128, True, 0.0, False, (f32, f16)),
-            ("b8_s512_d64_full_drop", 8, 12, 512, 64, False, DROP_RATE, False, (f32, f16))]):
-        for dt in dts:
-            out["encoder_attention_bwd_simt"].append(simt_encoder_bwd_case(
-                f"{name}_{TAGS[dt]}", B, H, S, D, causal, dt, 180 + i, rate=rate, packed=packed))
-            log_case("encoder_attention_bwd_simt", out["encoder_attention_bwd_simt"][-1])
+    # float16 runs the tensor-core kernel (encoder_f16_cases)
+    for i, (name, B, H, S, D, causal, rate, packed) in enumerate([
+            ("ernie_drop", 512, 12, 128, 64, False, DROP_RATE, False),  # ERNIE's
+            ("ernie_packed_qkv_drop", 512, 12, 128, 64, False, DROP_RATE, True),
+            ("train_s512", 16, 16, 512, 128, True, 0.0, False),  # LLaMA's b32_s512
+            ("b16_s128_d128_causal", 16, 16, 128, 128, True, 0.0, False),
+            ("b8_s512_d64_full_drop", 8, 12, 512, 64, False, DROP_RATE, False)]):
+        out["encoder_attention_bwd_simt"].append(typed_encoder_bwd_case(
+            f"{name}_f32", B, H, S, D, causal, f32, 180 + i, rate=rate, packed=packed))
+        log_case("encoder_attention_bwd_simt", out["encoder_attention_bwd_simt"][-1])
     return out
+
+
+def encoder_f16_cases():
+    """The encoder forward and backward at float16 on the tensor-core
+    kernels (the ``_f16`` rows), at the shapes and seeds of the CUDA-core
+    float16 cases they replace, the main path's case first: ERNIE's
+    [512, 128, 12, 64] at rate 0 (BERT's float16 eval; the backward's
+    first row with dropout 0.1, ERNIE's step) and 0.1, and as BERT's
+    packed q, k, v views; the LLaMA no-cache forward's [4, 512, 32, 128]
+    causal (the streamed forward); the b32_s512 microbatch
+    [16, 512, 16, 128] causal (the streamed backward); S = 128 causal at
+    D = 128; [8, 512, 12, 64] full with dropout (resident D 64 at S 512).
+    Each within F16_RTOL, with its planted faults, the same bits twice, the
+    lse gate and no copy of the packed views.  Returns ({row: [case, ...]},
+    {row: [case, ...]}): the float16 rows, and the bf16 twins of those of
+    their shapes that the bf16 rows lack, for ``f16_against_bf16``."""
+    f16, bf16 = torch.float16, torch.bfloat16
+    out = {"encoder_attention_f16": [], "encoder_attention_bwd_f16": []}
+    twins = {"encoder_attention": [], "encoder_attention_bwd": []}
+    for i, (name, B, H, S, D, causal, rate, packed, twin) in enumerate([
+            ("ernie_rate0", 512, 12, 128, 64, False, 0.0, False, True),  # BERT's float16 eval
+            ("ernie_drop", 512, 12, 128, 64, False, DROP_RATE, False, False),
+            ("ernie_packed_qkv_rate0", 512, 12, 128, 64, False, 0.0, True, True),
+            ("ernie_packed_qkv_drop", 512, 12, 128, 64, False, DROP_RATE, True, False),
+            ("7b_forward_s512_causal", 4, 32, 512, 128, True, 0.0, False, True),
+            ("b16_s128_d128_causal", 16, 16, 128, 128, True, 0.0, False, True),
+            ("b8_s512_d64_full_drop", 8, 12, 512, 64, False, DROP_RATE, False, True)]):
+        for dt, rows in ((f16, out), (bf16, twins)) if twin else ((f16, out),):
+            c = typed_seq_case(f"{name}_{TAGS[dt]}", "encoder", B, H, S, S, D, causal, dt,
+                               140 + i, rate=rate, packed=packed)
+            key = "encoder_attention" + ("_f16" if dt == f16 else "")
+            rows[key].append(c)
+            log_case(key, c)
+    for i, (name, B, H, S, D, causal, rate, packed, twin) in enumerate([
+            ("ernie_drop", 512, 12, 128, 64, False, DROP_RATE, False, False),  # ERNIE's step
+            ("ernie_packed_qkv_drop", 512, 12, 128, 64, False, DROP_RATE, True, False),
+            ("train_s512", 16, 16, 512, 128, True, 0.0, False, False),  # LLaMA's b32_s512
+            ("b16_s128_d128_causal", 16, 16, 128, 128, True, 0.0, False, False),
+            ("b8_s512_d64_full_drop", 8, 12, 512, 64, False, DROP_RATE, False, True)]):
+        for dt, rows in ((f16, out), (bf16, twins)) if twin else ((f16, out),):
+            c = typed_encoder_bwd_case(f"{name}_{TAGS[dt]}", B, H, S, D, causal, dt, 180 + i,
+                                       rate=rate, packed=packed)
+            key = "encoder_attention_bwd" + ("_f16" if dt == f16 else "")
+            rows[key].append(c)
+            log_case(key, c)
+    return out, twins
 
 
 def kernel_phase():
@@ -2252,6 +2350,10 @@ def kernel_phase():
     out.update(fused)
     for kern, cases in enc.items():  # the ERNIE step's shape first
         out[kern] = cases[:1] + out[kern] + cases[1:]
+    f16_rows, twins = encoder_f16_cases()
+    out.update(f16_rows)
+    for kern, cases in twins.items():
+        out[kern] += cases
     out["philox"] = [philox_case()]
     out.update(conv_bn_kernel_cases())
     out.update(simt_kernel_cases())
@@ -2262,16 +2364,19 @@ def kernel_phase():
 
 
 def f16_against_bf16(out):
-    """Each float16 flash case's time beside the bf16 case of the same
-    shape in this run (``bf16_ms``, ``f16_over_bf16``): the one design at
-    either 2-byte type should run alike."""
-    keys = ("B", "H", "Sq", "Sk", "D", "causal", "dlse")
+    """Each float16 flash and encoder case's time beside the bf16 case of
+    the same shape, rate and layout in this run (``bf16_ms``,
+    ``f16_over_bf16``): the one design at either 2-byte type should run
+    alike."""
+    def key(c):
+        return (c["B"], c["H"], c["Sq"], c["Sk"], c["D"], c["causal"], bool(c.get("dlse")),
+                c.get("rate") or 0.0, bool(c.get("packed")))
+
     for kern in ("flash_attention", "flash_attention_bwd_stats", "flash_attention_dq",
-                 "flash_attention_dkv"):
-        bf16 = {tuple(c.get(k) for k in keys): c for d in ("", "_d256")
-                for c in out.get(kern + d, [])}
+                 "flash_attention_dkv", "encoder_attention", "encoder_attention_bwd"):
+        bf16 = {key(c): c for d in ("", "_d256") for c in out.get(kern + d, [])}
         for c in out[kern + "_f16"]:
-            twin = bf16.get(tuple(c.get(k) for k in keys))
+            twin = bf16.get(key(c))
             if twin is None:
                 continue
             c["bf16_ms"], c["f16_over_bf16"] = twin["ms"], c["ms"] / twin["ms"]
@@ -2288,11 +2393,21 @@ HOPPER_LIBS = {**{lib: ("HGMMA", "UTMALDG") for lib in (
     "decode_attention", "paged_attention", "fused_conv_bn")}, "fused_ln": ("UBLKCP",)}
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
 # The libraries built at more than one element type, with their wgmma
-# kernels, each of whose instantiations (element type x head dim) must hold
-# HGMMA; the element types as the mangled names spell them.
-TYPED_LIBS = {"flash_attention": ("flash_fwd_kernel",),
-              "flash_attention_bwd": ("flash_dq_kernel", "flash_dkv_kernel")}
-TYPED_INSTANCES = [(t, d) for t in ("bf16", "f16") for d in (64, 128, 256)]
+# kernels and the head dims each is built at: every instantiation (element
+# type x head dim) must hold HGMMA, as many at float16 as at bf16 (one
+# design at either type); the element types as the mangled names spell
+# them.  The encoder's streamed forward runs D = 128 alone (S <= 512 keeps
+# D = 64 resident).
+FLASH_DIMS, ENCODER_DIMS = (64, 128, 256), (64, 128)
+TYPED_LIBS = {"flash_attention": {"flash_fwd_kernel": FLASH_DIMS},
+              "flash_attention_bwd": {"flash_dq_kernel": FLASH_DIMS,
+                                      "flash_dkv_kernel": FLASH_DIMS},
+              "encoder_attention": {"encoder_fwd_resident": ENCODER_DIMS,
+                                    "encoder_fwd_streamed": (128,)},
+              "encoder_attention_bwd": {"encoder_bwd_head": ENCODER_DIMS,
+                                        "encoder_dq": ENCODER_DIMS,
+                                        "encoder_dkv": ENCODER_DIMS}}
+TYPED_TAGS = ("bf16", "f16")
 MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
@@ -2313,8 +2428,10 @@ def sass_counts(lib):
 
 def hgmma_by_instance(name, lib):
     """HGMMA instructions of each instantiation of the wgmma kernels of
-    TYPED_LIBS[name] in its SASS, keyed "kernel<type,D>" (type and head dim
-    read from the mangled function name)."""
+    TYPED_LIBS[name] in its SASS, keyed "kernel<type,D>" (type and head dim,
+    the first integer argument, read from the mangled function name; the
+    instantiations of one key that differ only in a later argument, as the
+    resident encoder forward's head buffers, are summed)."""
     out, key = {}, None
     for line in sass_text(lib).splitlines():
         if "Function :" in line:
@@ -2324,10 +2441,26 @@ def hgmma_by_instance(name, lib):
             dim = re.search(r"Li(\d+)E", fn)
             key = kern and f"{kern}<{tag},{dim.group(1) if dim else '?'}>"
             if key:
-                out[key] = 0
+                out.setdefault(key, 0)
         elif key and "HGMMA" in line:
             out[key] += 1
     return out
+
+
+def typed_faults(by_instance):
+    """The instantiations of TYPED_LIBS without HGMMA, and the (kernel,
+    head dim) pairs whose float16 instantiation holds another number of
+    HGMMA than its bf16 twin."""
+    missing, unequal = [], []
+    for name, kerns in TYPED_LIBS.items():
+        got = by_instance[name]
+        for kern, dims in kerns.items():
+            for d in dims:
+                n = {t: got.get(f"{kern}<{t},{d}>", 0) for t in TYPED_TAGS}
+                missing += [f"{kern}<{t},{d}>" for t in TYPED_TAGS if not n[t]]
+                if len(set(n.values())) > 1:
+                    unequal.append(f"{kern}<{d}>: " + ", ".join(f"{t} {v}" for t, v in n.items()))
+    return missing, unequal
 
 
 def log_case(kern, c):
@@ -2411,12 +2544,14 @@ def read_counts():
 
 def kernel_for(name, dtype):
     """The counter an attention kernel's launch at q's ``dtype`` adds to:
-    the tensor-core kernel's (bf16, and float16 in flash: the admission's
-    ``_simt.TC_TYPES``), or its f32 CUDA-core counterpart's (``_simt``)."""
+    the tensor-core kernel's (bf16, and float16 in flash and the encoder:
+    the admission's ``_simt.TC_TYPES``), or its f32 CUDA-core counterpart's
+    (``_simt``)."""
     from paddle_tpu_torch.ops import _simt
 
-    regime = ("flash" if name == "flash_attention" else
-              "flash_bwd" if name.startswith("flash_attention_") else None)
+    regime = {"flash_attention": "flash", "encoder_attention": "encoder",
+              "encoder_attention_bwd": "encoder_bwd"}.get(
+                  name, "flash_bwd" if name.startswith("flash_attention_") else None)
     return name if dtype in _simt.TC_TYPES.get(regime, (torch.bfloat16,)) else f"{name}_simt"
 
 
@@ -3820,8 +3955,9 @@ def ernie_phase(card, device="cuda", layers=12, parity_layers=2, B=ERNIE_B, S=ER
 def ernie_f16_parity(card, device="cuda", parity_layers=2, B=ERNIE_B, S=ERNIE_S, P=ERNIE_P,
                      **over):
     """ERNIE at float16, gradient parity only (training at float16 needs f32
-    master weights, ROADMAP Queue 1 item 6): the encoder kernels and the
-    fused-LN kernels at float16 against the composed/dense paths at rate 0."""
+    master weights, ROADMAP Queue 1 item 6): the tensor-core encoder kernels
+    and the fused-LN kernels at float16 against the composed/dense paths at
+    rate 0."""
     small = ernie_model(parity_layers, device, torch.float16, dropout=False, **over)
     parity = ernie_grad_parity(small, ernie_batch(small.config, B, S, P, 0, device),
                                F16_GRAD_RTOL)
@@ -4137,12 +4273,13 @@ def dtypes_phase(card):
     no-cache forward at [1, 2048] (flash) and [4, 512] (the encoder), and
     the paged decode tick under the profiler; then at float16: generate()
     on its float16 static cache, the paged engine's 12 requests (float32
-    pools, as for every model that is not bf16) and the no-cache forward at
-    [1, 2048] (flash on the tensor cores); then BERT-base at float32
-    and at float16 (eval, [32, 128]; float16 through the fused-LN kernels at
+    pools, as for every model that is not bf16) and the no-cache forwards at
+    [1, 2048] (flash) and [4, 512] (the encoder), both on the tensor cores;
+    then BERT-base at float32 and at float16 (eval, [32, 128]; float16
+    through the fused-LN kernels and the tensor-core encoder kernel at
     float16).  Every attention launch is an f32 CUDA-core kernel's but
-    float16 flash (generate()'s prefill, the forward), the tensor-core
-    kernel's."""
+    float16 flash and encoder (generate()'s prefill, the forwards, BERT's
+    eval), the tensor-core kernels'."""
     import numpy as np
 
     runs, extra = [], {}
@@ -4165,7 +4302,8 @@ def dtypes_phase(card):
         else:
             part = [generate_run(model, "b4_s1024_f16", 4, 1024, 32, None, 1),
                     serve_paged(model, REQUESTS, np.random.default_rng(0), None, 4, True),
-                    forward_run(model, "s2048_flash", 1, 2048, 3)]
+                    forward_run(model, "s2048_flash", 1, 2048, 3),
+                    forward_run(model, "b4_s512_encoder", 4, 512, 4)]
         extra[f"{dt}_wall_s"] = time.perf_counter() - t0
         extra[f"{dt}_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         log(f"  {dt}: {len(part)} runs in {extra[f'{dt}_wall_s']:.1f} s, peak memory "
@@ -4271,12 +4409,12 @@ def main(argv=None):
         for name, op in missing:
             log(f"[kernels] FAIL: the {name} library has no {op} instruction")
         ok &= not missing
-        untyped = [f"{kern}<{t},{d}>" for name, kerns in TYPED_LIBS.items() for kern in kerns
-                   for t, d in TYPED_INSTANCES
-                   if not report["hgmma_by_instance"][name].get(f"{kern}<{t},{d}>")]
+        untyped, unequal = typed_faults(report["hgmma_by_instance"])
         for inst in untyped:
             log(f"[kernels] FAIL: no HGMMA in the instantiation {inst}")
-        ok &= not untyped
+        for pair in unequal:
+            log(f"[kernels] FAIL: HGMMA differs between bf16 and float16 in {pair}")
+        ok &= not untyped and not unequal
         phase_done(report, "kernels", t_ph)
     serving = [ph for ph in paths if ph not in ("gpt", "dtypes", "train", "ernie", "resnet")]
     if serving:
@@ -4305,7 +4443,8 @@ def main(argv=None):
     if "dtypes" in paths:
         t_ph = time.perf_counter()
         log("[dtypes] LLaMA-2-7B widths at float32 and float16, BERT-base at float32 and "
-            "float16, through the f32 CUDA-core attention kernels (float16 flash on wgmma)")
+            "float16, through the f32 CUDA-core attention kernels (float16 flash and encoder "
+            "on wgmma)")
         runs, report["dtypes"] = dtypes_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in runs)
@@ -4321,7 +4460,8 @@ def main(argv=None):
     if "ernie" in paths:
         t_ph = time.perf_counter()
         log("[ernie] bench.py's ERNIE-base pretraining through TrainStep + AdamW, bf16 and "
-            "float32; float16 gradient parity through the fused-LN kernels")
+            "float32; float16 gradient parity through the fused-LN and tensor-core encoder "
+            "kernels")
         report["ernie_checks"], runs = ernie_phase(report["card"])
         report["ernie_f32_checks"], f32_runs = ernie_phase(
             report["card"], dtype=torch.float32, steps=ERNIE_F32_STEPS, warmup=ERNIE_F32_WARMUP)
@@ -4351,7 +4491,11 @@ def main(argv=None):
         # an instantiation's row sums its wrapper over the runs at its head
         # dim or dtype
         launches = {}
-        for run in report["paths"]:
+        # float16 training is no path yet: ERNIE's float16 gradient parity is
+        # the one run of the float16 backward kernels, so it counts too
+        counted_runs = report["paths"] + ([report["ernie_f16_parity"]]
+                                          if "ernie_f16_parity" in report else [])
+        for run in counted_runs:
             tags = [""] + [t for (key, val), t in INSTANTIATIONS.items() if run.get(key) == val]
             for k, n in run["launches"].items():
                 for t in tags:

@@ -1,14 +1,16 @@
 // Attention on the CUDA cores in f32 arithmetic, for float32 and float16
 // storage: the device code of the four attention forward kernels at those
 // types (attention_simt_decode.cu, attention_simt_paged.cu,
-// attention_simt_flash.cu at float32 only, attention_simt_encoder.cu).  The
-// bf16 kernels (kv_attention.cuh, wgmma_attention.cuh, encoder_wgmma.cuh),
-// and the flash forward at float16 (flash_attention.cu), run on the tensor
-// cores; this body runs every product as f32 FFMA.
+// attention_simt_flash.cu and attention_simt_encoder.cu at float32 only).
+// The bf16 kernels (kv_attention.cuh, wgmma_attention.cuh,
+// encoder_wgmma.cuh), and the flash and encoder forwards at float16
+// (flash_attention.cu, encoder_attention.cu), run on the tensor cores; this
+// body runs every product as f32 FFMA.
 //
-// Replaces, at float32 and float16: paddle_tpu/ops/decode_attention.py
-// `_decode_kernel` and `_paged_kernel`, paddle_tpu/ops/flash_attention.py
-// `_fwd_kernel` and paddle_tpu/ops/encoder_attention.py `_fwd_kernel`.  The
+// Replaces, at float32 (and decode and paged at float16):
+// paddle_tpu/ops/decode_attention.py `_decode_kernel` and `_paged_kernel`,
+// paddle_tpu/ops/flash_attention.py `_fwd_kernel` and
+// paddle_tpu/ops/encoder_attention.py `_fwd_kernel`.  The
 // reference's kernels take any float type and type their outputs by q.
 //
 // What they compute, per type (the reference kernels' rounding):
@@ -28,9 +30,10 @@
 // Why CUDA cores and not the tensor cores: the reference holds its f32
 // kernels within 2e-5 of dense math, which single-pass TF32 (about three
 // decimal digits) cannot meet; the wgmma bodies need K-major tf32 operands
-// and twice the shared memory.  3xTF32 on wgmma, and float16 decode, paged
-// and encoder on the 16-bit bodies, are the redesign that comes next
-// (ROADMAP; float16 flash moved to flash_attention.cu).
+// and twice the shared memory.  3xTF32 on wgmma, and float16 decode and
+// paged on the 16-bit bodies, are the redesign that comes next (ROADMAP;
+// float16 flash moved to flash_attention.cu, the float16 encoder to
+// encoder_attention.cu).
 //
 // What bounds them on the H100: decode ticks read every valid K/V row once
 // at a few FLOP a byte (bytes); prefill chunks, flash and the encoder do
@@ -71,11 +74,12 @@
 // admits (a CPU test parses these lines against its admission list):
 // (q type, kv type) of the decode and paged kernels, and their head dims;
 // the types (q = k = v) and head dims of flash and of the encoder (float16
-// flash runs the tensor-core kernel, flash_attention.cu).
+// flash and encoder run the tensor-core kernels, flash_attention.cu and
+// encoder_attention.cu).
 #define SIMT_KV_PAIRS(X) X(float, float) X(__half, __half) X(__half, float) X(float, int8_t) X(__half, int8_t)
 #define SIMT_KV_DIMS(X) X(64) X(128) X(256)
 #define SIMT_FLASH_TYPES(X) X(float)
-#define SIMT_ENCODER_TYPES(X) X(float) X(__half)
+#define SIMT_ENCODER_TYPES(X) X(float)
 #define SIMT_FLASH_DIMS(X) X(64) X(128) X(256)
 #define SIMT_ENCODER_DIMS(X) X(64) X(128)
 

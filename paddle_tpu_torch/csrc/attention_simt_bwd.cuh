@@ -1,13 +1,13 @@
 // The attention backward on the CUDA cores in f32 arithmetic, for float32
-// and float16 storage: the device code of the flash backward at float32
-// (attention_simt_flash_bwd.cu) and the encoder backward at float32 and
-// float16 (attention_simt_encoder_bwd.cu).  The bf16 kernels
-// (flash_attention_bwd.cu, encoder_attention_bwd.cu), and the flash
-// backward at float16 (flash_attention_bwd.cu), run on the tensor cores;
+// and float16 storage: the device code of the flash backward
+// (attention_simt_flash_bwd.cu) and the encoder backward
+// (attention_simt_encoder_bwd.cu) at float32.  The bf16 kernels
+// (flash_attention_bwd.cu, encoder_attention_bwd.cu), and both backwards
+// at float16 (the same sources), run on the tensor cores;
 // this body runs every product as f32 FFMA, as the forward body
 // attention_simt.cuh does.
 //
-// Replaces, at float32 and float16: paddle_tpu/ops/flash_attention.py
+// Replaces, at float32: paddle_tpu/ops/flash_attention.py
 // `_dq_kernel` and `_dkv_kernel`, and paddle_tpu/ops/encoder_attention.py
 // `_bwd_kernel`.  It computes what they compute, with their rounding (a
 // no-op at float32):
@@ -76,9 +76,10 @@
 // The instantiations, one list each, which paddle_tpu_torch/ops/_simt.py
 // admits for "flash_bwd" and "encoder_bwd" (a CPU test parses these lines
 // against its lists): the storage types (q = k = v = dO) and head dims
-// (float16 flash runs the tensor-core kernel, flash_attention_bwd.cu).
+// (float16 flash and encoder run the tensor-core kernels,
+// flash_attention_bwd.cu and encoder_attention_bwd.cu).
 #define SIMT_BWD_FLASH_TYPES(X) X(float)
-#define SIMT_BWD_ENCODER_TYPES(X) X(float) X(__half)
+#define SIMT_BWD_ENCODER_TYPES(X) X(float)
 #define SIMT_BWD_FLASH_DIMS(X) X(64) X(128) X(256)
 #define SIMT_BWD_ENCODER_DIMS(X) X(64) X(128)
 

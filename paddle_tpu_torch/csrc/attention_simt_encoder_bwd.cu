@@ -1,10 +1,11 @@
 // Encoder self-attention backward with dropout of the probabilities, at
-// float32 and float16 (q, k, v and dO of one type), S % 128 == 0 up to 512,
-// head dims 64 and 128, on the CUDA cores.
+// float32 (q, k, v and dO), S % 128 == 0 up to 512, head dims 64 and 128,
+// on the CUDA cores.  float16 runs the tensor-core kernel of
+// encoder_attention_bwd.cu.
 //
 // Replaces: paddle_tpu/ops/encoder_attention.py `_bwd_kernel` (launched by
-// `_attn_bwd`) at the types the bf16 kernel (encoder_attention_bwd.cu) does
-// not take.  From q, k, v and dO [B, S, H, D] views it writes dq, dk, dv
+// `_attn_bwd`) at the type the tensor-core kernel (encoder_attention_bwd.cu)
+// does not take.  From q, k, v and dO [B, S, H, D] views it writes dq, dk, dv
 // [B, S, H, D] (contiguous, q's type) as the reference does: P the
 // whole-row softmax of scale q k^T (optionally causal), the mask
 // regenerated from the forward's seed pair (philox.cuh: the forward's map,
@@ -12,7 +13,7 @@
 // rate), 0) in f32 and not rounded for dV = P_d^T dO, dP = where(keep,
 // dO v^T / (1 - rate), 0), dS = P (dP - rowsum(dP * P)) * scale rounded to
 // the input type for dQ = dS k and dK = dS^T q.  A float32 BERT / ERNIE's
-// training step, and a float32 or float16 LLaMA's at S <= 512, route here.
+// training step, and a float32 LLaMA's at S <= 512, route here.
 //
 // What bounds it: operations (10 D FLOP a visible pair at least, and a
 // Philox call for four pairs, on the CUDA cores).  What the design does
@@ -34,7 +35,7 @@
 // Plain C interface (bound with ctypes).  Returns a cudaError_t: 0 on a
 // clean launch.  Each of q, k, v, dO has its own (batch, position) strides
 // in elements, heads D apart; dq, dk, dv [B, S, H, D] contiguous; `type` 0
-// float32, 1 float16.  At S > 128, lse (f32 [B * H, S], the forward's) and
+// float32 (nothing else is built).  At S > 128, lse (f32 [B * H, S], the forward's) and
 // stats (f32 [2, B * H, S] scratch) are required; at S = 128 both may be
 // null.  seed is the int32 [2] seed pair, or null for no dropout; thresh
 // and inv_keep the rate's keep threshold and 1 / (1 - rate).

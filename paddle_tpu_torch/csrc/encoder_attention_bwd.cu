@@ -1,5 +1,5 @@
-// Short-sequence self-attention backward for Hopper (sm_90a), bf16, head
-// dims 64 and 128, with dropout of the probabilities.
+// Short-sequence self-attention backward for Hopper (sm_90a), bf16 and
+// float16, head dims 64 and 128, with dropout of the probabilities.
 //
 // Replaces: paddle_tpu/ops/encoder_attention.py `_bwd_kernel` (launched by
 // `_attn_bwd`).  From q, k, v [B, S, H, D] (S % 128 == 0, S <= 512,
@@ -8,7 +8,7 @@
 // and, with dropout, keep the forward's mask and r the rate:
 //   dV = P_d^T dO,        P_d = where(keep, P / (1 - r), 0) in f32,
 //   dP = where(keep, dO v^T / (1 - r), 0),
-//   dS = P (dP - rowsum(dP * P)) * scale, rounded to bf16,
+//   dS = P (dP - rowsum(dP * P)) * scale, rounded to q's type,
 //   dQ = dS k,            dK = dS^T q.
 // The mask is regenerated from the forward's seed pair (philox.cuh) and
 // drawn once per element per call.  Nothing of size [B * H, S, S] is
@@ -21,20 +21,28 @@
 // dropout 0.1) 705 MB, 0.210 ms at 3.35 TB/s, against 0.033 ms of
 // tensor-core work and 0.060 ms for one Philox draw per element; at the
 // LLaMA train_s512 microbatch (B 16, H 16, S 512, D 128, causal) 235 MB,
-// 0.070 ms, against 0.044 ms of tensor-core work.
+// 0.070 ms, against 0.044 ms of tensor-core work.  float16 moves the same
+// bytes on the same 16-bit tensor cores: its bound at the ERNIE shape is
+// the bf16 one, 0.2103 ms.
 //
 // What the design does about it: products on `wgmma`, loads by TMA
 // (wgmma_attention.cuh, encoder_wgmma.cuh), blocks of two warpgroups.  The
-// reference's dV takes P_d in f32; the tensor cores take bf16, so P_d is
-// split in two bf16 parts (hi + lo, about 16 bits of mantissa) and the dV
-// product runs twice.  Two regimes:
+// reference's dV takes P_d in f32; the tensor cores take 16-bit operands,
+// so P_d is split in two parts of the inputs' type T (hi + lo, rounded to
+// nearest, split2) and the dV product runs twice: about 16 bits of
+// mantissa at bf16, about 22 at float16, where a P_d under 2^-14 has a
+// subnormal hi and keeps an absolute error of at most 2^-25 (3e-8): the
+// conversions keep float16 subnormals (cvt.rn, no flush to zero), as the
+// reference's float16 dS does.  bf16 and float16 run this one design,
+// instantiated at T (ENCODER_BWD_TYPES); scores, dP and every accumulator
+// stay f32 at both.  Two regimes:
 //  * whole head, S = 128 (ERNIE): one block holds a head's Q, K, V and dO
 //    (64 KB at D 64) and its whole [128, 128] score block, so nothing is
 //    recomputed and nothing leaves the chip but the gradients.  Each
 //    warpgroup takes 64 query rows: S = Q K^T and dP = dO V^T into
 //    registers, the exact row max and sum, P, the mask (one draw), dsum =
 //    rowsum(dP * P) and dS in registers, dQ = dS K from registers; P_d
-//    (hi, lo) and dS go to shared memory in bf16.  Then each warpgroup takes
+//    (hi, lo) and dS go to shared memory in T.  Then each warpgroup takes
 //    64 keys: dV = P_d^T dO and dK = dS^T Q with A read transposed from
 //    shared memory.  A persistent grid walks the heads and, at D 64, loads
 //    the next head while it computes this one.  12 D operations a pair (the
@@ -59,16 +67,25 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (paddle_tpu_torch/ops/_build.py does this).
 
+#include <type_traits>
+
 #include "encoder_wgmma.cuh"
+
+// The instantiations, one list each (paddle_tpu_torch/ops/_simt.py
+// TC_TYPE_CODES and ENCODER_BWD_DIMS; a CPU test parses these lines against
+// them): (element type, its type code), and the head dims.
+#define ENCODER_BWD_TYPES(X) X(__nv_bfloat16, 1) X(__half, 2)
+#define ENCODER_BWD_DIMS(X) X(64) X(128)
 
 namespace {
 
 using namespace encoder_wgmma;
 
+template <typename T>
 struct BwdArgs {
-  bf16* dq;            // [B, S, H, D], contiguous
-  bf16* dk;
-  bf16* dv;
+  T* dq;               // [B, S, H, D], contiguous
+  T* dk;
+  T* dv;
   const float* lse;    // streamed: the forward's natural-log lse [B * H, S]
   float* stats;        // streamed: [2, B * H, S]: lse * log2(e), dsum
   uint8_t* bits;       // streamed with dropout: the mask's bits
@@ -79,9 +96,14 @@ struct BwdArgs {
   Drop drop;
 };
 
-__device__ __forceinline__ uint32_t split_bf16x2(float x0, float x1, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+// (x0, x1) as a pair of T rounded to nearest (returned) and the pair of
+// what that rounding left out, rounded again (lo): hi + lo carries about
+// twice T's mantissa.
+template <typename T>
+__device__ __forceinline__ uint32_t split2(float x0, float x1, uint32_t& lo) {
+  const typename Elem<T>::Pair h = Elem<T>::round2(x0, x1);
+  const float2 hf = Elem<T>::widen2(h);
+  const typename Elem<T>::Pair l = Elem<T>::round2(x0 - hf.x, x1 - hf.y);
   lo = *reinterpret_cast<const uint32_t*>(&l);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
@@ -90,19 +112,19 @@ __device__ __forceinline__ uint32_t split_bf16x2(float x0, float x1, uint32_t& l
 
 // Persistent: block x takes heads x, x + gridDim.x, ...; NB buffers of a
 // head's Q, K, V, dO (128 x D each) in a ring, then the staging tiles of
-// P_d hi, P_d lo and dS ([128 queries, 128 keys] bf16 each, two swizzled
+// P_d hi, P_d lo and dS ([128 queries, 128 keys] of T each, two swizzled
 // 64-key panels).
-template <int D, int NB>
+template <typename T, int D, int NB>
 __global__ void __launch_bounds__(kThreads, 1)
     encoder_bwd_head(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-                     const BwdArgs p) {
+                     const BwdArgs<T> p) {
   constexpr int kElems = kT * D;  // one tensor's tile
   unsigned char* base = &aligned_smem<unsigned char>();
-  bf16* buf = reinterpret_cast<bf16*>(base);
-  bf16* hi = buf + NB * 4 * kElems;
-  bf16* lo = hi + kT * kT;
-  bf16* dsb = lo + kT * kT;
+  T* buf = reinterpret_cast<T*>(base);
+  T* hi = buf + NB * 4 * kElems;
+  T* lo = hi + kT * kT;
+  T* dsb = lo + kT * kT;
   struct Bars {
     uint64_t unused;
     Ring<NB> ring;
@@ -113,8 +135,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const auto load = [&](int n) {
     const int bh = blockIdx.x + n * gridDim.x, b = bh / p.H, h = bh % p.H;
     uint64_t* full = &bars.ring.full[n % NB];
-    bf16* x = buf + (n % NB) * 4 * kElems;
-    mbar_expect_tx(full, 4 * kElems * 2);
+    T* x = buf + (n % NB) * 4 * kElems;
+    mbar_expect_tx(full, 4 * kElems * sizeof(T));
     tma_tile<D, kT>(x, &tq, full, h, 0, b);
     tma_tile<D, kT>(x + kElems, &tk, full, h, 0, b);
     tma_tile<D, kT>(x + 2 * kElems, &tv, full, h, 0, b);
@@ -137,10 +159,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     wait_full(bars.ring, n);
     const int bh = blockIdx.x + n * gridDim.x, b = bh / p.H, h = bh % p.H;
-    const bf16* q = buf + (n % NB) * 4 * kElems;
-    const bf16* k = q + kElems;
-    const bf16* v = q + 2 * kElems;
-    const bf16* dO = q + 3 * kElems;
+    const T* q = buf + (n % NB) * 4 * kElems;
+    const T* k = q + kElems;
+    const T* v = q + 2 * kElems;
+    const T* dO = q + 3 * kElems;
 
     // ---- phase A: the warpgroup's 64 query rows against all 128 keys
     {
@@ -148,11 +170,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        Mma<kT>::ss(sc, desc_k<kT>(q + 64 * wg * kPanel, kk), desc_k<kT>(k, kk), kk > 0);
+        Mma<kT, T>::ss(sc, desc_k<kT>(q + 64 * wg * kPanel, kk), desc_k<kT>(k, kk), kk > 0);
       wg_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        Mma<kT>::ss(dp, desc_k<kT>(dO + 64 * wg * kPanel, kk), desc_k<kT>(v, kk), kk > 0);
+        Mma<kT, T>::ss(dp, desc_k<kT>(dO + 64 * wg * kPanel, kk), desc_k<kT>(v, kk), kk > 0);
       wg_commit();
       wg_wait<1>();  // S is done: P while dP runs
       fence_regs(sc);
@@ -180,7 +202,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             dsum[acc_half(i)] += dp[i + c] * sc[i + c];
           }
           uint32_t plo;
-          const uint32_t phi = split_bf16x2(pd[0], pd[1], plo);
+          const uint32_t phi = split2<T>(pd[0], pd[1], plo);
           const int r = row + 8 * acc_half(i), col = acc_col(i, t);
           st_pair<kT>(hi, r, col, phi);
           st_pair<kT>(lo, r, col, plo);
@@ -191,11 +213,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < kT / 2; ++i) dp[i] = (sc[i] * (dp[i] - dsum[acc_half(i)])) * p.scale;
       uint32_t da[kT / 16][4];
-      to_a<kT>(da, dp);
+      to_a<kT, T>(da, dp);
 #pragma unroll
       for (int kk = 0; kk < kT / 16; ++kk) {
         // da[kk] = {(row, c), (row + 8, c), (row, c + 8), (row + 8, c + 8)},
-        // c = 16 kk + 2 t: the bf16 pairs of dS as the A operand holds them
+        // c = 16 kk + 2 t: the T pairs of dS as the A operand holds them
         st_pair<kT>(dsb, row, 16 * kk + 2 * t, da[kk][0]);
         st_pair<kT>(dsb, row + 8, 16 * kk + 2 * t, da[kk][1]);
         st_pair<kT>(dsb, row, 16 * kk + 8 + 2 * t, da[kk][2]);
@@ -206,7 +228,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < kT / 16; ++kk) Mma<D>::rs(dq, da[kk], desc_mn<kT>(k, kk));
+      for (int kk = 0; kk < kT / 16; ++kk) Mma<D, T>::rs(dq, da[kk], desc_mn<kT>(k, kk));
       wg_commit();
       wg_wait();
       fence_regs(dq);
@@ -221,14 +243,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kT / 16; ++kk)
-        Mma<D>::tt(dv, desc_mn<kT>(hi + wg * kT * kPanel, kk), desc_mn<kT>(dO, kk), kk > 0);
+        Mma<D, T>::tt(dv, desc_mn<kT>(hi + wg * kT * kPanel, kk), desc_mn<kT>(dO, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < kT / 16; ++kk)
-        Mma<D>::tt(dv, desc_mn<kT>(lo + wg * kT * kPanel, kk), desc_mn<kT>(dO, kk), 1);
+        Mma<D, T>::tt(dv, desc_mn<kT>(lo + wg * kT * kPanel, kk), desc_mn<kT>(dO, kk), 1);
       wg_commit();
 #pragma unroll
       for (int kk = 0; kk < kT / 16; ++kk)
-        Mma<D>::tt(dk, desc_mn<kT>(dsb + wg * kT * kPanel, kk), desc_mn<kT>(q, kk), kk > 0);
+        Mma<D, T>::tt(dk, desc_mn<kT>(dsb + wg * kT * kPanel, kk), desc_mn<kT>(q, kk), kk > 0);
       wg_commit();
       wg_wait<1>();
       fence_regs(dv);
@@ -248,22 +270,22 @@ constexpr int kWalk = 64;     // queries per tile of the dK/dV walk
 constexpr int kStagesQ = 3;   // its ring: 160 KB of shared memory at D = 128
 constexpr int kStagesK = 2;   // the dQ walk's ring of 128-key tiles: 192 KB at D = 128
 
-template <int D>
+template <typename T, int D>
 struct DqSmem {
-  bf16 q[kT * D];
-  bf16 dO[kT * D];
-  bf16 k[kStagesK][kT * D];
-  bf16 v[kStagesK][kT * D];
+  T q[kT * D];
+  T dO[kT * D];
+  T k[kStagesK][kT * D];
+  T v[kStagesK][kT * D];
   uint64_t own_full;
   Ring<kStagesK> ring;
 };
 
-template <int D>
+template <typename T, int D>
 struct DkvSmem {
-  bf16 k[kT * D];
-  bf16 v[kT * D];
-  bf16 q[kStagesQ][kWalk * D];
-  bf16 dO[kStagesQ][kWalk * D];
+  T k[kT * D];
+  T v[kT * D];
+  T q[kStagesQ][kWalk * D];
+  T dO[kStagesQ][kWalk * D];
   float lse2[kStagesQ][kWalk];  // the walked queries' statistics
   float dsum[kStagesQ][kWalk];
   uint64_t own_full;
@@ -276,26 +298,26 @@ struct DkvSmem {
 // tiles).  Walk 1, the statistics: S and dP, P = exp(scale S - lse) with
 // the forward's lse, the mask drawn once (and written as bits), dsum =
 // rowsum(dP * P); lse and dsum go to `stats` for the dK/dV kernel.  Walk 2:
-// S and dP again, the mask from the bits, dS = bf16(P (dP - dsum) scale),
+// S and dP again, the mask from the bits, dS = T(P (dP - dsum) scale),
 // dQ += dS K.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     encoder_dq(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-               const BwdArgs p) {
-  DqSmem<D>& sm = aligned_smem<DqSmem<D>>();
+               const BwdArgs<T> p) {
+  DqSmem<T, D>& sm = aligned_smem<DqSmem<T, D>>();
   const int h = blockIdx.y, b = blockIdx.z, bh = b * p.H + h;
   const int qt = gridDim.x - 1 - blockIdx.x, q0 = qt * kT;
   const int tiles = p.causal ? qt + 1 : p.S / kT, uses = 2 * tiles;
   const auto load_kv = [&](int u) {
     uint64_t* full = &sm.ring.full[u % kStagesK];
-    mbar_expect_tx(full, 2 * kT * D * 2);
+    mbar_expect_tx(full, 2 * kT * D * sizeof(T));
     tma_tile<D, kT>(sm.k[u % kStagesK], &tk, full, h, (u % tiles) * kT, b);
     tma_tile<D, kT>(sm.v[u % kStagesK], &tv, full, h, (u % tiles) * kT, b);
   };
   init_ring(&sm.own_full, sm.ring);
   if (threadIdx.x == 0) {
-    mbar_expect_tx(&sm.own_full, 2 * kT * D * 2);
+    mbar_expect_tx(&sm.own_full, 2 * kT * D * sizeof(T));
     tma_tile<D, kT>(sm.q, &tq, &sm.own_full, h, q0, b);
     tma_tile<D, kT>(sm.dO, &tdo, &sm.own_full, h, q0, b);
     for (int u = 0; u < min(uses, kStagesK); ++u) load_kv(u);
@@ -309,8 +331,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint2 key = philox_key(p.drop);
   const float lse2[2] = {p.lse[(size_t)bh * p.S + row] * kLog2e,
                          p.lse[(size_t)bh * p.S + row + 8] * kLog2e};
-  const bf16* qw = sm.q + 64 * wg * kPanel;
-  const bf16* dow = sm.dO + 64 * wg * kPanel;
+  const T* qw = sm.q + 64 * wg * kPanel;
+  const T* dow = sm.dO + 64 * wg * kPanel;
   float sc[kT / 2], dp[kT / 2];
   uint32_t keep[kT / 64];  // the tile's 8 mask bytes, byte kk in keep[kk / 4]
 
@@ -322,11 +344,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Mma<kT>::ss(sc, desc_k<kT>(qw, kk), desc_k<kT>(sm.k[s], kk), kk > 0);
+      Mma<kT, T>::ss(sc, desc_k<kT>(qw, kk), desc_k<kT>(sm.k[s], kk), kk > 0);
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Mma<kT>::ss(dp, desc_k<kT>(dow, kk), desc_k<kT>(sm.v[s], kk), kk > 0);
+      Mma<kT, T>::ss(dp, desc_k<kT>(dow, kk), desc_k<kT>(sm.v[s], kk), kk > 0);
     wg_commit();
     refill(sm.ring, u, uses, load_kv);
     wg_wait<1>();  // S is done: P while dP = dO V^T runs
@@ -397,11 +419,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < kT / 2; ++i) sc[i] = (sc[i] * (dp[i] - dsum[acc_half(i)])) * p.scale;
     uint32_t da[kT / 16][4];
-    to_a<kT>(da, sc);
+    to_a<kT, T>(da, sc);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kT / 16; ++kk)
-      Mma<D>::rs(dq, da[kk], desc_mn<kT>(sm.k[u % kStagesK], kk));
+      Mma<D, T>::rs(dq, da[kk], desc_mn<kT>(sm.k[u % kStagesK], kk));
     wg_commit();
     wg_wait();
     fence_regs(dq);
@@ -414,13 +436,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 // dK and dV for one 128-key tile (grid: key tiles x H x B), walking the
 // 64-query tiles from the first that sees a key of the tile.  Per query
 // tile: P^T = exp(scale S^T - lse), the mask from the bits, dV += P_d^T dO
-// (hi and lo), dS^T = bf16(P^T (dP^T - dsum) scale), dK += dS^T Q.
-template <int D>
+// (hi and lo), dS^T = T(P^T (dP^T - dsum) scale), dK += dS^T Q.
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     encoder_dkv(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                const BwdArgs p) {
-  DkvSmem<D>& sm = aligned_smem<DkvSmem<D>>();
+                const BwdArgs<T> p) {
+  DkvSmem<T, D>& sm = aligned_smem<DkvSmem<T, D>>();
   const int h = blockIdx.y, b = blockIdx.z, bh = b * p.H + h;
   const int k0 = blockIdx.x * kT;
   const int qstart = p.causal ? k0 : 0;
@@ -431,7 +453,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const auto load_q = [&](int j) {
     const int s = j % kStagesQ, qb = qstart + j * kWalk;
     uint64_t* full = &sm.ring.full[s];
-    mbar_expect_tx(full, 2 * kWalk * D * 2 + 2 * kWalk * 4);
+    mbar_expect_tx(full, 2 * kWalk * D * sizeof(T) + 2 * kWalk * 4);
     tma_tile<D, kWalk>(sm.q[s], &tq, full, h, qb, b);
     tma_tile<D, kWalk>(sm.dO[s], &tdo, full, h, qb, b);
     bulk_load(sm.lse2[s], lse2g + stat0 + qb, kWalk * 4, full);
@@ -439,7 +461,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   init_ring(&sm.own_full, sm.ring);
   if (threadIdx.x == 0) {
-    mbar_expect_tx(&sm.own_full, 2 * kT * D * 2);
+    mbar_expect_tx(&sm.own_full, 2 * kT * D * sizeof(T));
     tma_tile<D, kT>(sm.k, &tk, &sm.own_full, h, k0, b);
     tma_tile<D, kT>(sm.v, &tv, &sm.own_full, h, k0, b);
     for (int j = 0; j < min(tiles, kStagesQ); ++j) load_q(j);
@@ -450,8 +472,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wk0 = k0 + 64 * wg;
   const int key = wk0 + 16 * warp + g;  // keys key, key + 8
   const bool drop = p.drop.seed != nullptr;
-  const bf16* kw = sm.k + 64 * wg * kPanel;
-  const bf16* vw = sm.v + 64 * wg * kPanel;
+  const T* kw = sm.k + 64 * wg * kPanel;
+  const T* vw = sm.v + 64 * wg * kPanel;
   float dk[D / 2], dv[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
@@ -465,11 +487,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Mma<kWalk>::ss(sc, desc_k<kT>(kw, kk), desc_k<kWalk>(sm.q[s], kk), kk > 0);
+      Mma<kWalk, T>::ss(sc, desc_k<kT>(kw, kk), desc_k<kWalk>(sm.q[s], kk), kk > 0);
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Mma<kWalk>::ss(dp, desc_k<kT>(vw, kk), desc_k<kWalk>(sm.dO[s], kk), kk > 0);
+      Mma<kWalk, T>::ss(dp, desc_k<kT>(vw, kk), desc_k<kWalk>(sm.dO[s], kk), kk > 0);
     wg_commit();
     if (j > 0) {
       wg_wait<2>();  // dV and dK of tile j - 1 are done: its stage is free
@@ -497,19 +519,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       dp[i] = (pr * (dpd - sm.dsum[s][c])) * p.scale;
       sc[i] = drop ? (kp ? pr * p.drop.inv_keep : 0.f) : pr;
     }
-    to_a<kWalk>(da, dp);
+    to_a<kWalk, T>(da, dp);
 #pragma unroll
     for (int kk = 0; kk < kWalk / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        pa[kk][r] = split_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], pl[kk][r]);
+        pa[kk][r] = split2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], pl[kk][r]);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWalk / 16; ++kk) Mma<D>::rs(dv, pa[kk], desc_mn<kWalk>(sm.dO[s], kk));
+    for (int kk = 0; kk < kWalk / 16; ++kk) Mma<D, T>::rs(dv, pa[kk], desc_mn<kWalk>(sm.dO[s], kk));
 #pragma unroll
-    for (int kk = 0; kk < kWalk / 16; ++kk) Mma<D>::rs(dv, pl[kk], desc_mn<kWalk>(sm.dO[s], kk));
+    for (int kk = 0; kk < kWalk / 16; ++kk) Mma<D, T>::rs(dv, pl[kk], desc_mn<kWalk>(sm.dO[s], kk));
 #pragma unroll
-    for (int kk = 0; kk < kWalk / 16; ++kk) Mma<D>::rs(dk, da[kk], desc_mn<kWalk>(sm.q[s], kk));
+    for (int kk = 0; kk < kWalk / 16; ++kk) Mma<D, T>::rs(dk, da[kk], desc_mn<kWalk>(sm.q[s], kk));
     wg_commit();
   }
   wg_wait();
@@ -528,22 +550,23 @@ struct Inputs {
 };
 
 // The four TMA maps: q and dO with boxes of q_rows rows, k and v of k_rows.
-cudaError_t make_maps(CUtensorMap (&m)[4], const Inputs& in, const BwdArgs& a, int D, int q_rows,
+template <typename T>
+cudaError_t make_maps(CUtensorMap (&m)[4], const Inputs& in, const BwdArgs<T>& a, int D, int q_rows,
                       int k_rows) {
   cudaError_t err;
-  if ((err = make_map(&m[0], in.q, a.B, a.S, a.H, D, q_rows, in.st[0])) != cudaSuccess) return err;
-  if ((err = make_map(&m[1], in.dO, a.B, a.S, a.H, D, q_rows, in.st[3])) != cudaSuccess) return err;
-  if ((err = make_map(&m[2], in.k, a.B, a.S, a.H, D, k_rows, in.st[1])) != cudaSuccess) return err;
-  return make_map(&m[3], in.v, a.B, a.S, a.H, D, k_rows, in.st[2]);
+  if ((err = make_map<T>(&m[0], in.q, a.B, a.S, a.H, D, q_rows, in.st[0])) != cudaSuccess) return err;
+  if ((err = make_map<T>(&m[1], in.dO, a.B, a.S, a.H, D, q_rows, in.st[3])) != cudaSuccess) return err;
+  if ((err = make_map<T>(&m[2], in.k, a.B, a.S, a.H, D, k_rows, in.st[1])) != cudaSuccess) return err;
+  return make_map<T>(&m[3], in.v, a.B, a.S, a.H, D, k_rows, in.st[2]);
 }
 
-template <int D, int NB>
-cudaError_t run_head(const Inputs& in, const BwdArgs& a, cudaStream_t st) {
+template <typename T, int D, int NB>
+cudaError_t run_head(const Inputs& in, const BwdArgs<T>& a, cudaStream_t st) {
   CUtensorMap m[4];  // q, dO, k, v
   cudaError_t err = make_maps(m, in, a, D, kT, kT);
   if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)(NB * 4 * kT * D + 3 * kT * kT) * sizeof(bf16) + 64 + 1024;
-  const auto kernel = encoder_bwd_head<D, NB>;
+  const size_t smem = (size_t)(NB * 4 * kT * D + 3 * kT * kT) * sizeof(T) + 64 + 1024;
+  const auto kernel = encoder_bwd_head<T, D, NB>;
   if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
       cudaSuccess)
     return err;
@@ -557,24 +580,36 @@ cudaError_t run_head(const Inputs& in, const BwdArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t run_streamed(const Inputs& in, const BwdArgs& a, cudaStream_t st) {
+template <typename T, int D>
+cudaError_t run_streamed(const Inputs& in, const BwdArgs<T>& a, cudaStream_t st) {
   CUtensorMap m[4];
   cudaError_t err = make_maps(m, in, a, D, kT, kT);
   if (err != cudaSuccess) return err;
-  err = launch(encoder_dq<D>, dim3(a.S / kT, a.H, a.B), sizeof(DqSmem<D>) + 1024, st, m[0], m[1], m[2],
-               m[3], a);
+  err = launch(encoder_dq<T, D>, dim3(a.S / kT, a.H, a.B), sizeof(DqSmem<T, D>) + 1024, st, m[0],
+               m[1], m[2], m[3], a);
   if (err != cudaSuccess || (err = make_maps(m, in, a, D, kWalk, kT)) != cudaSuccess) return err;
-  return launch(encoder_dkv<D>, dim3(a.S / kT, a.H, a.B), sizeof(DkvSmem<D>) + 1024, st, m[0], m[1],
-                m[2], m[3], a);
+  return launch(encoder_dkv<T, D>, dim3(a.S / kT, a.H, a.B), sizeof(DkvSmem<T, D>) + 1024, st, m[0],
+                m[1], m[2], m[3], a);
+}
+
+// run(T()) for the element type of type code `type` (ENCODER_BWD_TYPES),
+// or cudaErrorInvalidValue where none is built.
+template <typename Run>
+cudaError_t by_type(int type, Run run) {
+#define X(TT, CODE) \
+  if (type == CODE) return run(TT());
+  ENCODER_BWD_TYPES(X)
+#undef X
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C interface (bound with ctypes).  Returns a cudaError_t: 0 on a
-// clean launch.  q, k, v, dO: device pointers of [B, S, H, D] bf16 views,
-// 16-byte aligned, with element strides (head, row, batch), each a multiple
-// of 8; dq, dk, dv [B, S, H, D] bf16 contiguous.  At S = 128 nothing else
+// clean launch.  q, k, v, dO: device pointers of [B, S, H, D] views of the
+// type of code `type` (ENCODER_BWD_TYPES: 1 bf16, 2 float16), 16-byte
+// aligned, with element strides (head, row, batch), each a multiple of 8;
+// dq, dk, dv [B, S, H, D] of that type, contiguous.  At S = 128 nothing else
 // is read.  At S > 128: lse [B * H, S] f32, the forward's; stats f32
 // [2, B * H, S] scratch; bits, with dropout, uint8 [B * H * S * S / 8]
 // scratch.  seed, thresh and inv_keep are the
@@ -583,24 +618,32 @@ extern "C" int encoder_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* dO, const void* lse,
     void* stats, void* bits, void* dq, void* dk, void* dv, int B, int H, int S, int D, long long qh,
     long long qs, long long qb, long long kh, long long ks, long long kb, long long vh, long long vs,
-    long long vb, long long dh, long long ds, long long db, float scale, int causal,
+    long long vb, long long dh, long long ds, long long db, float scale, int causal, int type,
     const void* seed, unsigned thresh, float inv_keep, void* stream) {
   if (bad_shape(B, H, S, S, causal) || S % kT != 0 || S > 512) return (int)cudaErrorInvalidValue;
+  if (S > kT && (!lse || !stats || (seed && !bits))) return (int)cudaErrorInvalidValue;
   const Inputs in{q, k, v, dO, {{qh, qs, qb}, {kh, ks, kb}, {vh, vs, vb}, {dh, ds, db}}};
-  BwdArgs a{};
-  a.dq = static_cast<bf16*>(dq);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  a.lse = static_cast<const float*>(lse);
-  a.stats = static_cast<float*>(stats);
-  a.bits = static_cast<uint8_t*>(bits);
-  a.B = B, a.H = H, a.S = S, a.scale = scale, a.scale_log2 = scale * kLog2e, a.causal = causal;
-  a.drop = Drop{static_cast<const int*>(seed), thresh, inv_keep};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
-  if (S == kT) return (int)(D == 64 ? run_head<64, 2>(in, a, st) : run_head<128, 1>(in, a, st));
-  if (!lse || !stats || (seed && !bits)) return (int)cudaErrorInvalidValue;
-  return (int)(D == 64 ? run_streamed<64>(in, a, st) : run_streamed<128>(in, a, st));
+  const auto run = [&](auto t, auto dim) {
+    using T = decltype(t);
+    constexpr int DD = decltype(dim)::value;
+    BwdArgs<T> a{};
+    a.dq = static_cast<T*>(dq);
+    a.dk = static_cast<T*>(dk);
+    a.dv = static_cast<T*>(dv);
+    a.lse = static_cast<const float*>(lse);
+    a.stats = static_cast<float*>(stats);
+    a.bits = static_cast<uint8_t*>(bits);
+    a.B = B, a.H = H, a.S = S, a.scale = scale, a.scale_log2 = scale * kLog2e, a.causal = causal;
+    a.drop = Drop{static_cast<const int*>(seed), thresh, inv_keep};
+    // the whole head at S = 128: two heads in flight at D 64, one at D 128
+    return S == kT ? run_head<T, DD, DD == 64 ? 2 : 1>(in, a, st) : run_streamed<T, DD>(in, a, st);
+  };
+#define X(DD) \
+  if (D == DD) return (int)by_type(type, [&](auto t) { return run(t, std::integral_constant<int, DD>()); });
+  ENCODER_BWD_DIMS(X)
+#undef X
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* encoder_attention_bwd_error_string(int err) {

@@ -1,9 +1,9 @@
 // Device code the encoder-attention kernels share (encoder_attention.cu,
 // encoder_attention_bwd.cu), on the Hopper building blocks of
 // wgmma_attention.cuh: the dropout mask in the `wgmma` accumulator layout,
-// the mask's bit buffer, bf16 stores of an accumulator into a 128-byte
-// swizzled shared tile, and the row statistics of a whole row held in one
-// 128-key tile.
+// the mask's bit buffer, stores of 2-byte pairs (bf16 or float16) into a
+// 128-byte swizzled shared tile, and the row statistics of a whole row held
+// in one 128-key tile.
 //
 // The accumulator of m64nNk16 holds, in warp w of the warpgroup and lane
 // 4 g + t, d[4 j + e] = row 16 w + g + 8 (e >> 1), column 8 j + 2 t + (e & 1).
@@ -88,10 +88,10 @@ __device__ __forceinline__ bool kept_t(uint32_t byte, int e) {
 }
 
 // Element (row, col) of a tile of ROWS rows stored as 64-column panels of
-// ROWS x 64 bf16 with the 128-byte swizzle (as TMA writes them): a pair of
-// bf16 at an even column, one 32-bit store.
-template <int ROWS>
-__device__ __forceinline__ void st_pair(bf16* tile, int row, int col, uint32_t v) {
+// ROWS x 64 elements of T (2 bytes) with the 128-byte swizzle (as TMA
+// writes them): a pair of T at an even column, one 32-bit store.
+template <int ROWS, typename T>
+__device__ __forceinline__ void st_pair(T* tile, int row, int col, uint32_t v) {
   const int c = col & 63, ch = (c >> 3) ^ (row & 7);
   *reinterpret_cast<uint32_t*>(tile + (col >> 6) * ROWS * kPanel + row * kPanel + ch * 8 + (c & 7)) = v;
 }

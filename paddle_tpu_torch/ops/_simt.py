@@ -5,9 +5,11 @@ The reference's attention kernels take any float type and type their
 outputs by q.  On the card, bfloat16 runs the tensor-core kernels
 (``csrc/decode_attention.cu``, ``paged_attention.cu``,
 ``flash_attention.cu``, ``encoder_attention.cu`` and the backward
-kernels), and so does float16 in flash, forward and backward
-(``flash_attention.cu``, ``flash_attention_bwd.cu``: one ``wgmma`` design
-instantiated at either 2-byte type, ``TC_TYPES``).  The rest of float16,
+kernels), and so does float16 in flash and the encoder, forward and
+backward (``flash_attention.cu``, ``flash_attention_bwd.cu``,
+``encoder_attention.cu``, ``encoder_attention_bwd.cu``: one ``wgmma``
+design each, instantiated at either 2-byte type, ``TC_TYPES``, whose
+entries take the type codes ``TC_TYPE_CODES``).  float16 decode and paged,
 and float32 everywhere, run the f32 CUDA-core bodies of
 ``csrc/attention_simt.cuh`` and ``attention_simt_bwd.cuh`` through their
 entries (``attention_simt_decode.cu``, ``attention_simt_paged.cu``,
@@ -20,9 +22,10 @@ raises.
 type, cache type, head dim, query rows a kv head).  Its lists below are
 the ``SIMT_*`` instantiation lists of ``attention_simt.cuh`` (the
 forwards) and ``attention_simt_bwd.cuh`` (the backward kernels), which a
-CPU test parses and holds equal to them, as it holds ``TC_TYPES["flash"]``
-to the type lists of the tensor-core flash sources.  The flash backward
-takes head dims 64, 128 and 256 at every type.
+CPU test parses and holds equal to them, as it holds ``TC_TYPES`` and
+``TC_TYPE_CODES`` to the type lists of the tensor-core flash and encoder
+sources.  The flash backward takes head dims 64, 128 and 256 at every
+type.
 """
 from __future__ import annotations
 
@@ -43,24 +46,28 @@ TYPE_CODES = {F32: 0, F16: 1, I8: 2}
 KV_PAIRS = ((F32, F32), (F16, F16), (F16, F32), (F32, I8), (F16, I8))
 KV_DIMS = (64, 128, 256)
 # SIMT_FLASH_TYPES, SIMT_ENCODER_TYPES, SIMT_FLASH_DIMS, SIMT_ENCODER_DIMS:
-# flash and the encoder take q, k and v of one type (float16 flash runs the
-# tensor-core kernel).
+# flash and the encoder take q, k and v of one type (float16 flash and
+# encoder run the tensor-core kernels).
 FLASH_TYPES = (F32,)
-ENCODER_TYPES = (F32, F16)
+ENCODER_TYPES = (F32,)
 FLASH_DIMS = (64, 128, 256)
 ENCODER_DIMS = (64, 128)
 # attention_simt_bwd.cuh SIMT_BWD_FLASH_TYPES, SIMT_BWD_ENCODER_TYPES,
 # SIMT_BWD_FLASH_DIMS and SIMT_BWD_ENCODER_DIMS: the backward kernels take
 # q, k, v and dO of one type; 32 own rows a block.
 FLASH_BWD_TYPES = (F32,)
-ENCODER_BWD_TYPES = (F32, F16)
+ENCODER_BWD_TYPES = (F32,)
 FLASH_BWD_DIMS = (64, 128, 256)
 ENCODER_BWD_DIMS = (64, 128)
 BWD_ROWS = 32
-# The q types of the tensor-core kernels, bfloat16 but for flash, whose
-# forward and backward run float16 too (csrc/flash_attention.cu FLASH_TYPES,
-# csrc/flash_attention_bwd.cu FLASH_BWD_TYPES).
-TC_TYPES = {"flash": (BF16, F16), "flash_bwd": (BF16, F16)}
+# The q types of the tensor-core kernels, bfloat16 but for flash and the
+# encoder, whose forward and backward run float16 too (csrc/flash_attention.cu
+# FLASH_TYPES, flash_attention_bwd.cu FLASH_BWD_TYPES, encoder_attention.cu
+# ENCODER_TYPES, encoder_attention_bwd.cu ENCODER_BWD_TYPES), and the type
+# codes those four entries take, one table for their wrappers.
+TC_TYPES = {"flash": (BF16, F16), "flash_bwd": (BF16, F16),
+            "encoder": (BF16, F16), "encoder_bwd": (BF16, F16)}
+TC_TYPE_CODES = {BF16: 1, F16: 2}
 # The bfloat16 kernels' caches: bfloat16, or int8 with f32 scales.
 BF16_KV = (BF16, I8)
 # Query rows of one kv head up to which the decode regime (split-K, 16-row

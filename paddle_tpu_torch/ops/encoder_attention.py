@@ -25,15 +25,17 @@ stored.
 A CPU tensor takes the plain versions, ``_encoder_dense`` forward and
 ``_encoder_bwd_dense`` backward; a CUDA tensor launches
 ``csrc/encoder_attention.cu`` forward and ``csrc/encoder_attention_bwd.cu``
-backward (bf16) or raises.  Float32 and float16 take
+backward (bfloat16 and float16 on the tensor cores, one ``wgmma`` design
+instantiated at the inputs' type) or raises.  Float32 takes
 ``csrc/attention_simt_encoder.cu`` forward and
 ``csrc/attention_simt_encoder_bwd.cu`` backward (f32 on the CUDA cores,
-the same Philox mask from the same seed), as ``_simt.admit`` decides.
-The kernels read q, k, v and dO
-through TMA (bf16) or 16-byte copies (float32, float16) with their own
-strides, so strided views such as the three slices of one packed
-[B, S, 3, H, D] projection launch without copies; only a view they cannot
-read (``tma_readable``) is copied, and counted.
+the same Philox mask from the same seed), as ``_simt.admit`` decides
+(``_fwd_kernel``, ``_bwd_kernel``).  Nothing is cast to reach a kernel.
+The kernels read q, k, v and dO through TMA (bfloat16, float16) or
+16-byte copies (float32) with their own strides, so strided views such as
+the three slices of one packed [B, S, 3, H, D] projection launch without
+copies; only a view they cannot read (``tma_readable``) is copied, and
+counted.
 """
 from __future__ import annotations
 
@@ -144,8 +146,9 @@ def _tma_strides(t):
 
 def _check_inputs(tensors, regime="encoder", simt=False):
     """The kernels' admission: the instantiation ``_simt.admit`` picks for
-    q's dtype (the CUDA-core kernels when ``simt``, the bfloat16 kernels
-    otherwise; ``regime`` "encoder" or "encoder_bwd"), CUDA, one dtype,
+    q's dtype (the CUDA-core kernels when ``simt``, the tensor-core kernels,
+    bfloat16 and float16, otherwise; ``regime`` "encoder" or
+    "encoder_bwd"), CUDA, one dtype,
     one [B, S, H, D] shape that ``supported`` admits.  Returns the tensors
     as they are where the kernels can read them in place
     (``tma_readable``), else a contiguous copy; each copy adds one to
@@ -183,16 +186,17 @@ def _strides(*ts):
 
 
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
-         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
-            ctypes.c_void_p])
+         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32,
+            ctypes.c_float, ctypes.c_void_p])
 
 
 def encoder_attention_kernel(q, k, v, scale=None, causal=False, seed=None, rate=0.0):
     """Launch ``csrc/encoder_attention.cu`` on CUDA tensors: q/k/v
-    [B, S, H, D] bf16 views with a ``supported`` shape (strided views that
-    ``tma_readable`` admits are read in place); with ``rate`` > 0, dropout
-    from ``seed`` (int32 [2] on q's device).  Returns (O [B, S, H, D] bf16,
-    contiguous, the rows' natural-log logsumexp [B * H, S] f32).  Raises
+    [B, S, H, D] views of one type, bfloat16 or float16, with a
+    ``supported`` shape (strided views that ``tma_readable`` admits are
+    read in place); with ``rate`` > 0, dropout from ``seed`` (int32 [2] on
+    q's device).  Returns (O [B, S, H, D] in q's dtype, contiguous, the
+    rows' natural-log logsumexp [B * H, S] f32).  Raises
     ValueError on anything else.  Every launch adds one to
     ``encoder_attention_kernel.launches``."""
     q, k, v = _check_inputs({"q": q, "k": k, "v": v})
@@ -206,8 +210,9 @@ def encoder_attention_kernel(q, k, v, scale=None, causal=False, seed=None, rate=
     with torch.cuda.device(dev):
         _build.launch("encoder_attention", _ARGS, q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, S, D,
-                      *_strides(q, k, v), float(scale), int(bool(causal)), sp, thresh,
-                      float(inv), torch.cuda.current_stream(dev).cuda_stream)
+                      *_strides(q, k, v), float(scale), int(bool(causal)),
+                      _simt.TC_TYPE_CODES[q.dtype], sp, thresh, float(inv),
+                      torch.cuda.current_stream(dev).cuda_stream)
     encoder_attention_kernel.launches += 1
     return o, lse
 
@@ -221,10 +226,10 @@ _SIMT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] *
 
 def encoder_attention_simt_kernel(q, k, v, scale=None, causal=False, seed=None, rate=0.0):
     """Launch ``csrc/attention_simt_encoder.cu`` (f32 on the CUDA cores) on
-    CUDA tensors: q/k/v [B, S, H, D] float32 or float16 views with a
-    ``supported`` shape (strided views that ``tma_readable`` admits are read
-    in place; k and v share their strides or are copied); with ``rate`` > 0,
-    dropout from ``seed`` (int32 [2] on q's device), the bf16 kernel's mask.
+    CUDA tensors: q/k/v [B, S, H, D] float32 views with a ``supported``
+    shape (strided views that ``tma_readable`` admits are read in place; k
+    and v share their strides or are copied); with ``rate`` > 0, dropout
+    from ``seed`` (int32 [2] on q's device), the tensor-core kernel's mask.
     Returns (O [B, S, H, D] in q's dtype, contiguous, the rows' natural-log
     logsumexp [B * H, S] f32).  Raises ValueError on anything else.  Every
     launch adds one to ``encoder_attention_simt_kernel.launches``."""
@@ -255,8 +260,8 @@ def encoder_attention_simt_kernel(q, k, v, scale=None, causal=False, seed=None, 
 encoder_attention_simt_kernel.launches = 0
 
 _BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
-                ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32,
+                ctypes.c_float, ctypes.c_void_p])
 
 # At S = 128 one block of the backward holds a whole head and needs nothing
 # from the forward; longer rows take the streamed kernels, which read the
@@ -267,10 +272,11 @@ WHOLE_HEAD_S = 128
 def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=None,
                                  rate=0.0, lse=None):
     """Launch ``csrc/encoder_attention_bwd.cu`` (the port of ``_bwd_kernel``)
-    on CUDA tensors: q/k/v/do [B, S, H, D] bf16 views with a ``supported``
-    shape, the forward's ``seed`` and ``rate`` and, at S > 128, its rows'
-    ``lse`` (the second output of ``encoder_attention_kernel``).
-    Returns (dQ, dK, dV) [B, S, H, D] bf16, contiguous.  Raises ValueError on
+    on CUDA tensors: q/k/v/do [B, S, H, D] views of one type, bfloat16 or
+    float16, with a ``supported`` shape, the forward's ``seed`` and
+    ``rate`` and, at S > 128, its rows' ``lse`` (the second output of
+    ``encoder_attention_kernel``).  Returns (dQ, dK, dV) [B, S, H, D] in
+    q's dtype, contiguous.  Raises ValueError on
     anything else.  Every launch adds one to
     ``encoder_attention_bwd_kernel.launches``."""
     q, k, v, do = _check_inputs({"q": q, "k": k, "v": v, "do": do}, "encoder_bwd")
@@ -298,7 +304,8 @@ def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=Non
         _build.launch("encoder_attention_bwd", _BWD_ARGS,
                       *(ptr(t) for t in (q, k, v, do, lse, stats, bits, dq, dk, dv)),
                       B, H, S, D, *_strides(q, k, v, do), float(scale), int(bool(causal)),
-                      sp, thresh, float(inv), torch.cuda.current_stream(dev).cuda_stream)
+                      _simt.TC_TYPE_CODES[q.dtype], sp, thresh, float(inv),
+                      torch.cuda.current_stream(dev).cuda_stream)
     encoder_attention_bwd_kernel.launches += 1
     return dq, dk, dv
 
@@ -314,8 +321,8 @@ _SIMT_BWD_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_longlon
 def encoder_attention_simt_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=None,
                                       rate=0.0, lse=None):
     """Launch ``csrc/attention_simt_encoder_bwd.cu`` (the port of
-    ``_bwd_kernel`` at float32 and float16, f32 on the CUDA cores) on CUDA
-    tensors: q/k/v/do [B, S, H, D] views of one type with a ``supported``
+    ``_bwd_kernel`` at float32, f32 on the CUDA cores) on CUDA tensors:
+    q/k/v/do [B, S, H, D] float32 views with a ``supported``
     shape (strided views that ``tma_readable`` admits are read in place,
     others copied and counted), the forward's ``seed`` and ``rate`` and, at
     S > 128, its rows' ``lse`` (the second output of
@@ -360,6 +367,22 @@ def encoder_attention_simt_bwd_kernel(q, k, v, do, scale=None, causal=False, see
 encoder_attention_simt_bwd_kernel.launches = 0
 
 
+def _fwd_kernel(dtype):
+    """The forward wrapper of q's dtype: the tensor-core kernel (bfloat16,
+    float16) or its CUDA-core counterpart (float32)."""
+    if dtype in _simt.TC_TYPES["encoder"]:
+        return encoder_attention_kernel
+    return encoder_attention_simt_kernel
+
+
+def _bwd_kernel(dtype):
+    """The backward wrapper of q's dtype: the tensor-core kernel
+    (bfloat16, float16) or its CUDA-core counterpart (float32)."""
+    if dtype in _simt.TC_TYPES["encoder_bwd"]:
+        return encoder_attention_bwd_kernel
+    return encoder_attention_simt_bwd_kernel
+
+
 def _plain_keep(q, seed, rate):
     B, S, H, _ = q.shape
     return dropout_keep(seed, B, H, S, rate) if rate > 0.0 else None
@@ -374,9 +397,7 @@ class _EncoderAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             ctx.save_for_backward(q, k, v, seed)
             return _encoder_dense(q, k, v, scale, causal, _plain_keep(q, seed, rate), rate)
-        kernel = (encoder_attention_kernel if q.dtype == torch.bfloat16
-                  else encoder_attention_simt_kernel)  # the kernel of q's dtype
-        o, lse = kernel(q, k, v, scale, causal, seed, rate)
+        o, lse = _fwd_kernel(q.dtype)(q, k, v, scale, causal, seed, rate)
         ctx.save_for_backward(q, k, v, seed, lse)
         return o
 
@@ -386,10 +407,9 @@ class _EncoderAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv = _encoder_bwd_dense(q, k, v, do, ctx.scale, ctx.causal,
                                             _plain_keep(q, seed, ctx.rate), ctx.rate)
-        else:  # the kernel of q's dtype
-            kernel = (encoder_attention_bwd_kernel if q.dtype == torch.bfloat16
-                      else encoder_attention_simt_bwd_kernel)
-            dq, dk, dv = kernel(q, k, v, do, ctx.scale, ctx.causal, seed, ctx.rate, *fwd)
+        else:
+            dq, dk, dv = _bwd_kernel(q.dtype)(q, k, v, do, ctx.scale, ctx.causal, seed,
+                                              ctx.rate, *fwd)
         return dq, dk, dv, None, None, None, None
 
 

@@ -104,8 +104,8 @@ FWD_HEAD_DIMS = (64, 128, 256)  # csrc/flash_attention.cu FLASH_DIMS
 BWD_HEAD_DIMS = (64, 128, 256)  # csrc/flash_attention_bwd.cu FLASH_BWD_DIMS
 # The tensor-core kernels' element types and the type codes their entries
 # take (csrc/flash_attention.cu FLASH_TYPES, flash_attention_bwd.cu
-# FLASH_BWD_TYPES; _simt.TC_TYPES admits them).
-TYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
+# FLASH_BWD_TYPES; _simt.TC_TYPES admits them): the encoder's table too.
+TYPE_CODES = _simt.TC_TYPE_CODES
 
 
 def _check_head_dim(D, backward=False):

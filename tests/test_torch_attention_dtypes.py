@@ -2,10 +2,11 @@
 plain versions and the admission by type of every attention kernel.
 
 On the card, bfloat16 q runs the tensor-core kernels, and so does float16
-q in flash, forward and backward (``csrc/flash_attention.cu``,
-``flash_attention_bwd.cu``); float32 q, and float16 q in decode, paged and
-the encoder, run the f32 CUDA-core kernels of ``csrc/attention_simt.cuh``
-and ``attention_simt_bwd.cuh``.  Which one, and which instantiation, is
+q in flash and the encoder, forward and backward (``csrc/flash_attention.cu``,
+``flash_attention_bwd.cu``, ``encoder_attention.cu``,
+``encoder_attention_bwd.cu``); float32 q, and float16 q in decode and
+paged, run the f32 CUDA-core kernels of ``csrc/attention_simt.cuh`` and
+``attention_simt_bwd.cuh``.  Which one, and which instantiation, is
 ``ops/_simt.admit``'s decision.  Here, on the CPU, the tests hold:
 
 * the plain decode, paged, encoder-forward and flash-forward functions at
@@ -21,14 +22,15 @@ and ``attention_simt_bwd.cuh``.  Which one, and which instantiation, is
   within the reference's own int8 bound, 3e-4 (tests/test_decode_attention.py);
 * the admission lists against the ``SIMT_*`` instantiation lists of the
   .cuh files (the forwards' ``attention_simt.cuh``, the backward kernels'
-  ``attention_simt_bwd.cuh``) and the ``FLASH_*`` lists of the tensor-core
-  flash sources;
+  ``attention_simt_bwd.cuh``) and the ``FLASH_*`` and ``ENCODER_*`` lists
+  of the tensor-core flash and encoder sources, their type codes one table
+  (``_simt.TC_TYPE_CODES``);
 * float64 q refused, naming the admitted types; the float32 backward
-  admitted to the CUDA-core kernels, float16 to the tensor-core flash
-  backward and the CUDA-core encoder backward, the flash backward at head
-  dims 64, 128 and 256 at every type (the encoder backward at 64 and 128);
-  float16 flash never reaches a CUDA-core flash wrapper, nor a bfloat16
-  cast;
+  admitted to the CUDA-core kernels, float16 to the tensor-core flash and
+  encoder backward, the flash backward at head dims 64, 128 and 256 at
+  every type (the encoder backward at 64 and 128); float16 flash and
+  encoder never reach a CUDA-core wrapper, nor a bfloat16 cast, and their
+  wrappers refuse CPU tensors;
 * a small LLaMA at float16 (head dim 64) through the paged engine, greedy
   tokens equal to the reference engine's.
 """
@@ -61,6 +63,8 @@ CUH = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc" / "atten
 BWD_CUH = CUH.with_name("attention_simt_bwd.cuh")
 FLASH_CU = CUH.with_name("flash_attention.cu")
 FLASH_BWD_CU = CUH.with_name("flash_attention_bwd.cu")
+ENCODER_CU = CUH.with_name("encoder_attention.cu")
+ENCODER_BWD_CU = CUH.with_name("encoder_attention_bwd.cu")
 TORCH_OF_C = {"__nv_bfloat16": torch.bfloat16, "__half": torch.float16}
 F16_TOL = 1e-2
 F16_MODEL_TOL = 4e-3
@@ -210,22 +214,24 @@ def _cuh_list(name, path=CUH):
     return [tuple(a.strip() for a in m.split(",")) for m in re.findall(r"X\(([^)]*)\)", line)]
 
 
-def _tc_flash_built(cu, types, dims):
-    """The tensor-core flash instantiations a source builds: its (element
-    type, type code) list against the wrapper's TYPE_CODES and _simt's
-    TC_TYPES, times its head dims."""
+def _tc_built(cu, types, dims):
+    """The tensor-core flash or encoder instantiations a source builds: its
+    (element type, type code) list against the type codes the wrappers pass
+    (_simt.TC_TYPE_CODES, which flash's TYPE_CODES is), times its head
+    dims."""
     codes = {TORCH_OF_C[c]: int(code) for c, code in _cuh_list(types, cu)}
-    assert codes == tfa.TYPE_CODES
+    assert codes == _simt.TC_TYPE_CODES and tfa.TYPE_CODES is _simt.TC_TYPE_CODES
     return {(cu.stem, t, t, int(d), None) for t in codes for (d,) in _cuh_list(dims, cu)}
 
 
 def test_admission_list_is_the_cuh_instantiations():
     """ops/_simt.py's lists are the .cuh's SIMT_* lists, and every
     instantiation admit() can return is one a source builds: both row tiles
-    of every (q, kv) pair and head dim, flash at float32 and the encoder at
-    float32 and float16 on the CUDA cores, and flash at bfloat16 and
-    float16 on the tensor cores (flash_attention.cu's FLASH_TYPES and
-    FLASH_DIMS)."""
+    of every (q, kv) pair and head dim, flash and the encoder at float32 on
+    the CUDA cores (no float16 encoder is built there), and flash and the
+    encoder at bfloat16 and float16 on the tensor cores (flash_attention.cu's
+    FLASH_TYPES and FLASH_DIMS, encoder_attention.cu's ENCODER_TYPES and
+    ENCODER_DIMS, the head dims ``supported`` admits)."""
     C = {v: k for k, v in _simt.C_TYPES.items()}
     assert [(C[a], C[b]) for a, b in _cuh_list("SIMT_KV_PAIRS")] == list(_simt.KV_PAIRS)
     assert [int(d) for (d,) in _cuh_list("SIMT_KV_DIMS")] == list(_simt.KV_DIMS)
@@ -240,15 +246,20 @@ def test_admission_list_is_the_cuh_instantiations():
               for t in _simt.FLASH_TYPES for D in _simt.FLASH_DIMS}
     built |= {("attention_simt_encoder", t, t, D, _simt.CHUNK_ROWS)
               for t in _simt.ENCODER_TYPES for D in _simt.ENCODER_DIMS}
-    built |= _tc_flash_built(FLASH_CU, "FLASH_TYPES", "FLASH_DIMS")
-    assert set(_simt.TC_TYPES["flash"]) == set(tfa.TYPE_CODES)
+    assert _simt.ENCODER_TYPES == (torch.float32,)
+    built |= _tc_built(FLASH_CU, "FLASH_TYPES", "FLASH_DIMS")
+    enc = _tc_built(ENCODER_CU, "ENCODER_TYPES", "ENCODER_DIMS")
+    built |= enc
+    for regime in ("flash", "encoder"):
+        assert set(_simt.TC_TYPES[regime]) == set(_simt.TC_TYPE_CODES)
+    assert ({d for *_, d, _ in enc}
+            == {d for d in range(8, 513, 8) if tea.supported(1, 128, d)})
     admitted = {tuple(_simt.admit(r, q, kv, D, rows))
                 for r in ("decode", "paged") for q, kv in _simt.KV_PAIRS for D in _simt.KV_DIMS
                 for rows in (1, _simt.DECODE_ROWS, _simt.DECODE_ROWS + 1)}
     admitted |= {tuple(_simt.admit(r, t, t, D)) for r, dims in (("flash", tfa.FWD_HEAD_DIMS),
                                                               ("encoder", _simt.ENCODER_DIMS))
-                 for t in (torch.float32, torch.float16, torch.bfloat16) for D in dims
-                 if (r, t) != ("encoder", torch.bfloat16)}
+                 for t in (torch.float32, torch.float16, torch.bfloat16) for D in dims}
     assert admitted == built
     for lib in {b[0] for b in built}:  # each entry's source exists
         assert (CUH.parent / f"{lib}.cu").is_file()
@@ -258,11 +269,11 @@ def test_backward_admission_list_is_the_cuh_instantiations():
     """ops/_simt.py's backward lists are attention_simt_bwd.cuh's SIMT_BWD_*
     lists, and every instantiation admit() returns for "flash_bwd" and
     "encoder_bwd" at float32 and float16 is one a source builds, in a
-    source that exists: the CUDA-core flash backward at float32, the
-    CUDA-core encoder backward at float32 and float16 (head dim 256 for the
-    flash backward alone), and the tensor-core flash backward at bfloat16
-    and float16 (flash_attention_bwd.cu's FLASH_BWD_TYPES and
-    FLASH_BWD_DIMS)."""
+    source that exists: the CUDA-core flash and encoder backward at float32
+    (head dim 256 for the flash backward alone), and the tensor-core flash
+    and encoder backward at bfloat16 and float16 (flash_attention_bwd.cu's
+    FLASH_BWD_TYPES and FLASH_BWD_DIMS, encoder_attention_bwd.cu's
+    ENCODER_BWD_TYPES and ENCODER_BWD_DIMS)."""
     C = {v: k for k, v in _simt.C_TYPES.items()}
     assert ([C[t] for (t,) in _cuh_list("SIMT_BWD_FLASH_TYPES", BWD_CUH)]
             == list(_simt.FLASH_BWD_TYPES))
@@ -276,30 +287,67 @@ def test_backward_admission_list_is_the_cuh_instantiations():
              for t in _simt.FLASH_BWD_TYPES for D in _simt.FLASH_BWD_DIMS}
     built |= {("attention_simt_encoder_bwd", t, t, D, _simt.BWD_ROWS)
               for t in _simt.ENCODER_BWD_TYPES for D in _simt.ENCODER_BWD_DIMS}
-    tc = _tc_flash_built(FLASH_BWD_CU, "FLASH_BWD_TYPES", "FLASH_BWD_DIMS")
-    assert set(_simt.TC_TYPES["flash_bwd"]) == set(tfa.TYPE_CODES)
+    assert _simt.ENCODER_BWD_TYPES == (torch.float32,)
+    tc = _tc_built(FLASH_BWD_CU, "FLASH_BWD_TYPES", "FLASH_BWD_DIMS")
+    tc_enc = _tc_built(ENCODER_BWD_CU, "ENCODER_BWD_TYPES", "ENCODER_BWD_DIMS")
+    for regime in ("flash_bwd", "encoder_bwd"):
+        assert set(_simt.TC_TYPES[regime]) == set(_simt.TC_TYPE_CODES)
     admitted = {tuple(_simt.admit(r, t, t, D)) for r, dims in (("flash_bwd", (64, 128, 256)),
                                                                ("encoder_bwd", (64, 128)))
                 for t in (torch.float32, torch.float16) for D in dims}
-    assert admitted == built | {b for b in tc if b[1] == torch.float16}
+    assert admitted == built | {b for b in tc | tc_enc if b[1] == torch.float16}
     assert {tuple(_simt.admit("flash_bwd", t, t, D)) for t in tfa.TYPE_CODES
             for D in tfa.BWD_HEAD_DIMS} == tc
-    for t in (torch.float32, torch.float16):
-        with pytest.raises(ValueError, match="head dim 256"):
-            _simt.admit("encoder_bwd", t, t, 256)
+    assert {tuple(_simt.admit("encoder_bwd", t, t, D)) for t in _simt.TC_TYPE_CODES
+            for D in _simt.ENCODER_BWD_DIMS} == tc_enc
+    with pytest.raises(ValueError, match="head dim 256"):
+        _simt.admit("encoder_bwd", torch.float32, torch.float32, 256)
+    assert not tea.supported(1, 128, 256)  # the tensor-core kernels' head dims
     for lib in {b[0] for b in built}:
         assert (CUH.parent / f"{lib}.cu").is_file()
         assert '#include "attention_simt_bwd.cuh"' in (CUH.parent / f"{lib}.cu").read_text()
 
 
-@pytest.mark.parametrize("regime", ["decode", "paged", "flash", "flash_bwd"])
+def _encoder_refusals(regime, q16, q32):
+    """(wrapper, args, message): each encoder wrapper called with the
+    type of the other kernel, and the kernel its refusal names."""
+    if regime == "encoder":
+        return [(tea.encoder_attention_simt_kernel, (q16,) * 3, "runs encoder_attention_kernel "),
+                (tea.encoder_attention_kernel, (q32,) * 3, "runs encoder_attention_simt_kernel ")]
+    return [(tea.encoder_attention_simt_bwd_kernel, (q16,) * 4,
+             "runs encoder_attention_bwd_kernel "),
+            (tea.encoder_attention_bwd_kernel, (q32,) * 4,
+             "runs encoder_attention_simt_bwd_kernel ")]
+
+
+@pytest.mark.parametrize("regime", ["decode", "paged", "flash", "flash_bwd", "encoder",
+                                    "encoder_bwd"])
 def test_admission_picks_kernel_by_q_dtype(regime):
     """decode and paged: bfloat16 q on the tensor-core kernels, every
     (q, kv) pair of float32 and float16 on the CUDA-core ones, by rows.
-    flash, forward and backward: bfloat16 and float16 on the tensor-core
-    kernel, float32 on the CUDA-core one; float16 against bfloat16 k/v is
-    refused (no cast reaches a kernel), and each wrapper refuses the type
-    of the other, naming the kernel it runs."""
+    flash and the encoder, forward and backward: bfloat16 and float16 on
+    the tensor-core kernel, float32 on the CUDA-core one; float16 against
+    bfloat16 k/v is refused (no cast reaches a kernel), and each wrapper
+    refuses the type of the other, naming the kernel it runs."""
+    if regime.startswith("encoder"):
+        tc_lib = "encoder_attention" + ("_bwd" if regime == "encoder_bwd" else "")
+        for t in (torch.bfloat16, torch.float16):
+            for D in (64, 128):
+                got = _simt.admit(regime, t, t, D)
+                assert not got.simt and got.lib == tc_lib and (got.q, got.kv, got.D) == (t, t, D)
+        got = _simt.admit(regime, torch.float32, torch.float32, 128)
+        assert got.simt and got.lib == f"attention_simt_{regime}"
+        with pytest.raises(ValueError, match="q float16 takes k/v of float16"):
+            _simt.admit(regime, torch.float16, torch.bfloat16, 128)
+        with pytest.raises(ValueError, match="one type of float32$"):
+            _simt.admit(regime, torch.float32, torch.float16, 128)
+        q16, q32 = (torch.zeros(1, 128, 2, 64, dtype=t) for t in (torch.float16, torch.float32))
+        for fn, args, msg in _encoder_refusals(regime, q16, q32):
+            before = fn.launches
+            with pytest.raises(ValueError, match=msg):
+                fn(*args)
+            assert fn.launches == before
+        return
     if regime.startswith("flash"):
         tc_lib = "flash_attention" + ("_bwd" if regime == "flash_bwd" else "")
         for t in (torch.bfloat16, torch.float16):
@@ -363,23 +411,22 @@ def test_f64_q_refused_naming_admitted_dtypes(regime):
 def test_backward_refused_naming_queue_2_item_11(dtype):
     """Queue 2 items 8 and 11 are closed: a float32 or float16 gradient is
     admitted to a backward kernel at head dims 64 and 128, the flash one at
-    256 too: the encoder's at the CUDA-core kernel
-    (attention_simt_encoder_bwd.cu), flash's at the CUDA-core kernel at
-    float32 (attention_simt_flash_bwd.cu) and the tensor-core one at float16
-    (flash_attention_bwd.cu), and the wrappers of the other kernel refuse
+    256 too: at the CUDA-core kernels at float32
+    (attention_simt_flash_bwd.cu, attention_simt_encoder_bwd.cu) and the
+    tensor-core ones at float16 (flash_attention_bwd.cu,
+    encoder_attention_bwd.cu), and the wrappers of the other kernel refuse
     it, naming the one it runs; the flash backward at head dim 256 is
     admitted at every type (the D = 256 wrappers reach their device check),
     while k/v of another type and other head dims are refused before any
     launch."""
     f16 = dtype == torch.float16
-    flash_lib = "flash_attention_bwd" if f16 else "attention_simt_flash_bwd"
-    for regime, lib in (("flash_bwd", flash_lib), ("encoder_bwd", "attention_simt_encoder_bwd")):
+    for regime in ("flash_bwd", "encoder_bwd"):
+        lib = (f"{regime[:-4]}_attention_bwd" if f16 else f"attention_simt_{regime}")
         for D in (64, 128, 256) if regime == "flash_bwd" else (64, 128):
             got = _simt.admit(regime, dtype, dtype, D)
             assert got.simt == lib.startswith("attention_simt")
             assert got.lib == lib and (got.q, got.kv, got.D) == (dtype, dtype, D)
-        want = ("q float16 takes k/v of float16" if regime == "flash_bwd" and f16 else
-                "one type of float32" + (", float16" if regime == "encoder_bwd" else ""))
+        want = "q float16 takes k/v of float16" if f16 else "one type of float32$"
         with pytest.raises(ValueError, match=want):
             _simt.admit(regime, dtype, torch.bfloat16, 64)
         if lib.startswith("attention_simt"):  # the tensor-core head dims: _check_head_dim
@@ -403,8 +450,13 @@ def test_backward_refused_naming_queue_2_item_11(dtype):
         assert fn.launches == before
     with pytest.raises(ValueError, match=msg):
         other[0](q, q, lse)
-    with pytest.raises(ValueError, match="runs encoder_attention_simt_bwd_kernel"):
-        tea.encoder_attention_bwd_kernel(q, q, q, q)
+    other_enc, kernel = ((tea.encoder_attention_simt_bwd_kernel, "encoder_attention_bwd_kernel")
+                         if f16 else
+                         (tea.encoder_attention_bwd_kernel, "encoder_attention_simt_bwd_kernel"))
+    before = other_enc.launches
+    with pytest.raises(ValueError, match=f"runs {kernel} "):
+        other_enc(q, q, q, q)
+    assert other_enc.launches == before
     q256 = torch.zeros(1, 128, 2, 256, dtype=dtype)
     for fn in tfa._bwd_kernels(dtype)[1:]:
         before = fn.launches
@@ -418,18 +470,19 @@ def test_backward_refused_naming_queue_2_item_11(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
 def test_simt_wrappers_reject_cpu_tensors(dtype):
-    """The wrappers of dtype's kernels (the CUDA-core ones, but flash at
-    float16, which runs the tensor-core ones) launch on CUDA tensors only
-    and never run the plain version; a refused call does not count."""
+    """The wrappers of dtype's kernels (the CUDA-core ones, but flash and
+    the encoder at float16, which run the tensor-core ones) launch on CUDA
+    tensors only and never run the plain version; a refused call does not
+    count."""
     q = torch.zeros(1, 128, 2, 64, dtype=dtype)
     lse = torch.zeros(1, 2, 128)
     stats, dq, dkv = tfa._bwd_kernels(dtype)
     calls = [(tfa._fwd_kernel(dtype), (q, q, q)),
-             (tea.encoder_attention_simt_kernel, (q, q, q)),
+             (tea._fwd_kernel(dtype), (q, q, q)),
              (stats, (q, q, lse)),
              (dq, (q, q, q, q, q, lse)),
              (dkv, (q, q, q, q, q, lse)),
-             (tea.encoder_attention_simt_bwd_kernel, (q, q, q, q)),
+             (tea._bwd_kernel(dtype), (q, q, q, q)),
              (tda.decode_attention_simt_kernel,
               (q[:, :1], q.reshape(1, 2, 128, 64), q.reshape(1, 2, 128, 64),
                torch.ones(1, dtype=torch.int32)))]
@@ -444,6 +497,57 @@ def test_simt_wrappers_reject_cpu_tensors(dtype):
                      (tfa.flash_attention_kernel, "flash_attention_simt_kernel"))
     with pytest.raises(ValueError, match=f"runs {kernel}"):
         other(q, q, q)  # each flash kernel takes its own types only
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16],
+                         ids=["f32", "f16", "bf16"])
+def test_encoder_kernel_helpers_pick_by_q_dtype(dtype):
+    """``_fwd_kernel`` and ``_bwd_kernel`` of the encoder hand q's dtype to
+    the wrapper of the kernel ``_simt.admit`` picks for it: bfloat16 and
+    float16 to the tensor-core kernels, float32 to the CUDA-core ones; the
+    flash helpers agree."""
+    tc = dtype != torch.float32
+    assert tc == (dtype in _simt.TC_TYPES["encoder"]) == (dtype in _simt.TC_TYPES["encoder_bwd"])
+    assert tea._fwd_kernel(dtype) is (tea.encoder_attention_kernel if tc
+                                      else tea.encoder_attention_simt_kernel)
+    assert tea._bwd_kernel(dtype) is (tea.encoder_attention_bwd_kernel if tc
+                                      else tea.encoder_attention_simt_bwd_kernel)
+    for regime in ("encoder", "encoder_bwd"):
+        inst = _simt.admit(regime, dtype, dtype, 64)
+        assert inst.simt != tc
+        assert inst.lib == (f"{regime[:7]}_attention{regime[7:]}" if tc
+                            else f"attention_simt_{regime}")
+    assert (tfa._fwd_kernel(dtype) is tfa.flash_attention_kernel) == tc
+    assert (tfa._bwd_kernels(dtype)[1] is tfa.flash_attention_dq_kernel) == tc
+
+
+def test_f16_encoder_wrappers_refuse_cpu_and_cuda_core_wrappers_refuse_f16():
+    """float16 runs the tensor-core encoder wrappers, which launch on CUDA
+    tensors only (on the CPU the plain versions run through the autograd
+    Function, never through a wrapper); the CUDA-core wrappers refuse
+    float16, naming the tensor-core kernel, and cast nothing; a refused
+    call counts no launch and no copy."""
+    q = torch.zeros(1, 256, 2, 64, dtype=torch.float16)
+    lse = torch.zeros(2, 256)
+    copies = tea._check_inputs.copies
+    for fn, args, msg in [
+            (tea.encoder_attention_kernel, (q, q, q), "not a CUDA device"),
+            (tea.encoder_attention_bwd_kernel, (q, q, q, q), "not a CUDA device"),
+            (tea.encoder_attention_simt_kernel, (q, q, q),
+             r"float16 runs encoder_attention_kernel \(csrc/encoder_attention.cu\)"),
+            (tea.encoder_attention_simt_bwd_kernel, (q, q, q, q),
+             r"float16 runs encoder_attention_bwd_kernel \(csrc/encoder_attention_bwd.cu\)")]:
+        before = fn.launches
+        with pytest.raises(ValueError, match=msg):
+            fn(*args, lse=lse) if fn in (tea.encoder_attention_bwd_kernel,
+                                         tea.encoder_attention_simt_bwd_kernel) else fn(*args)
+        assert fn.launches == before
+    assert tea._check_inputs.copies == copies
+    # the float16 forward and backward on CPU tensors: the plain versions, in float16
+    qr = q.clone().requires_grad_(True)
+    o = tea.encoder_attention(qr, q, q, causal=True)
+    o.sum().backward()
+    assert o.dtype == qr.grad.dtype == torch.float16
 
 
 # ------------------------------------------------- a float16 LLaMA served

@@ -191,14 +191,23 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
 def test_simt_backward_wrapper_rejects_cpu_tensors(dtype):
-    """The CUDA-core backward wrapper launches on CUDA tensors only and never
-    runs the plain version; a refused call does not count."""
+    """The backward wrapper of the dtype (the CUDA-core one at float32, the
+    tensor-core one at float16) launches on CUDA tensors only and never
+    runs the plain version; the CUDA-core wrapper refuses float16, naming
+    the tensor-core kernel.  A refused call does not count."""
     q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(256, 64))
-    fn = tea.encoder_attention_simt_bwd_kernel
+    fn = tea._bwd_kernel(dtype)
+    assert (fn is tea.encoder_attention_simt_bwd_kernel) == (dtype == torch.float32)
     before = fn.launches
     with pytest.raises(ValueError, match="not a CUDA device"):
         fn(q, k, v, q, lse=torch.zeros(2, 256))
     assert fn.launches == before
+    if dtype == torch.float16:
+        simt = tea.encoder_attention_simt_bwd_kernel
+        before = simt.launches
+        with pytest.raises(ValueError, match="runs encoder_attention_bwd_kernel "):
+            simt(q, k, v, q, lse=torch.zeros(2, 256))
+        assert simt.launches == before
 
 
 def _packed(S, D, B=1, H=2, seed=0):
@@ -239,21 +248,22 @@ def test_packed_qkv_views_match_copies_and_reference(S, D, causal):
                                    atol=GRAD_TOL, err_msg=f"d{name}")
 
 
-def _view(kind):
-    """A [2, 128, 4, 64] bf16 view of each kind the kernels' admission sorts."""
+def _view(kind, dtype=torch.bfloat16):
+    """A [2, 128, 4, 64] view of ``dtype`` (bf16 or float16: the tensor-core
+    kernels' types) of each kind the kernels' admission sorts."""
     B, S, H, D = 2, 128, 4, 64
     if kind == "contiguous":
-        return torch.empty(B, S, H, D, dtype=torch.bfloat16)
+        return torch.empty(B, S, H, D, dtype=dtype)
     if kind == "packed_slice":
-        return torch.empty(B, S, 3, H, D, dtype=torch.bfloat16).unbind(2)[1]
+        return torch.empty(B, S, 3, H, D, dtype=dtype).unbind(2)[1]
     if kind == "one_batch_packed":
-        return torch.empty(1, S, 3, H, D, dtype=torch.bfloat16).unbind(2)[2]
+        return torch.empty(1, S, 3, H, D, dtype=dtype).unbind(2)[2]
     if kind == "head_major_transposed":
-        return torch.empty(B, H, S, D, dtype=torch.bfloat16).transpose(1, 2)
+        return torch.empty(B, H, S, D, dtype=dtype).transpose(1, 2)
     if kind == "strided_last_dim":
-        return torch.empty(B, S, H, 2 * D, dtype=torch.bfloat16)[..., ::2]
+        return torch.empty(B, S, H, 2 * D, dtype=dtype)[..., ::2]
     if kind == "row_stride_not_16_bytes":
-        return torch.empty(B * S * (H * D + 4), dtype=torch.bfloat16).as_strided(
+        return torch.empty(B * S * (H * D + 4), dtype=dtype).as_strided(
             (B, S, H, D), (S * (H * D + 4), H * D + 4, D, 1))
     raise AssertionError(kind)
 
@@ -265,15 +275,19 @@ def _view(kind):
 def test_tma_admission_of_views(kind, launches_as_is):
     """Which views the kernels read in place (TMA: last dimension
     contiguous, heads D apart, 16-byte row and batch strides) and which the
-    wrapper copies first; a pure function of shape, strides and address."""
-    t = _view(kind)
-    assert tea.tma_readable(tuple(t.shape), t.stride(), 0, t.element_size()) is launches_as_is
-    assert not tea.tma_readable(tuple(t.shape), t.stride(), 8, t.element_size())  # misaligned
-    if launches_as_is:
-        h, s, b = tea._tma_strides(t)
-        assert h == 64 and s % 8 == 0 and b % 8 == 0 and s > 0 and b > 0
-        if kind == "packed_slice":
-            assert (h, s, b) == (64, 3 * 4 * 64, 128 * 3 * 4 * 64)
+    wrapper copies first; a pure function of shape, strides and address,
+    the same at bf16 and float16 (both tensor-core kernels' types, 2-byte
+    elements)."""
+    for dtype in (torch.bfloat16, torch.float16):
+        t = _view(kind, dtype)
+        assert t.dtype == dtype and t.element_size() == 2
+        assert tea.tma_readable(tuple(t.shape), t.stride(), 0, t.element_size()) is launches_as_is
+        assert not tea.tma_readable(tuple(t.shape), t.stride(), 8, t.element_size())  # misaligned
+        if launches_as_is:
+            h, s, b = tea._tma_strides(t)
+            assert h == 64 and s % 8 == 0 and b % 8 == 0 and s > 0 and b > 0
+            if kind == "packed_slice":
+                assert (h, s, b) == (64, 3 * 4 * 64, 128 * 3 * 4 * 64)
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])

@@ -7,7 +7,8 @@ mode, with the same float16 inputs and cotangents from numpy.
   ``_dkv_kernel``): causal at Sq = Sk, causal at Sq < Sk (bottom-right
   aligned), and the lse cotangent of ``flash_attention_with_lse``;
 * the encoder (``_encoder_bwd_dense`` against jax.vjp through
-  ``_bwd_kernel``) at rate 0, full and causal;
+  ``_bwd_kernel``) at rate 0, full and causal, at S = 128 and, with the
+  forward, at S = 256, D = 128 (the streamed kernels' regime);
 * flash at head dim 256 too, the range the D = 256 backward kernels take;
 * the two paths the D = 256 and float16 kernels serve, at a tiny size: a
   LLaMA with one head of 256 through TrainStep against the reference's
@@ -144,6 +145,41 @@ def test_plain_f16_encoder_backward_matches_reference_kernel(causal):
         assert _rel(g.numpy(), w) <= ENCODER_GRAD_TOL, f"d{name}"
 
     p = tea._probs(tq.detach(), tk.detach(), 1.0 / 64 ** 0.5, causal)
+    dv_f16_p = torch.einsum("bhqk,bqhd->bkhd", p.half().float(), _t(do).float()).half()
+    assert _exact_share(got[2].numpy(), want[2]) >= EXACT_SHARE
+    assert _exact_share(dv_f16_p.numpy(), want[2]) <= OTHER_SHARE
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_plain_f16_encoder_streamed_regime_matches_reference_kernel(causal):
+    """The plain float16 encoder forward and backward at S = 256, D = 128
+    (the shapes the card's streamed kernels take: the two-pass forward and
+    the row and column backward from the forward's lse), rate 0, against
+    the reference's ``encoder_attention`` at float16 and jax.vjp of it
+    (Pallas in interpret mode): the output and dQ, dK and dV within
+    ENCODER_GRAD_TOL of max (both sides round P and dS to float16 in the
+    same places and write float16: one unit is 2^-11 of a value), and the
+    output and dV equal bit for bit in at least EXACT_SHARE of their
+    elements, while a dV from P rounded to float16 matches in at most
+    OTHER_SHARE."""
+    q, k, v, do = _inputs(1, 256, 256, 2, 128, seed=31 + causal, q_std=2.0)
+
+    def ref(q, k, v):
+        return jea.encoder_attention(q, k, v, causal=causal)
+
+    want_o, vjp = jax.vjp(ref, *(jnp.asarray(a) for a in (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    assert np.asarray(want_o).dtype == np.float16 and all(w.dtype == np.float16 for w in want)
+    tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+    o = tea.encoder_attention(tq, tk, tv, causal=causal)
+    assert o.dtype == torch.float16
+    assert _rel(o.detach().numpy(), want_o) <= ENCODER_GRAD_TOL
+    assert _exact_share(o.detach().numpy(), want_o) >= EXACT_SHARE
+    got = torch.autograd.grad(o, (tq, tk, tv), _t(do))
+    for g, w, name in zip(got, want, "qkv"):
+        assert g.dtype == torch.float16
+        assert _rel(g.numpy(), w) <= ENCODER_GRAD_TOL, f"d{name}"
+    p = tea._probs(tq.detach(), tk.detach(), 1.0 / 128 ** 0.5, causal)
     dv_f16_p = torch.einsum("bhqk,bqhd->bkhd", p.half().float(), _t(do).float()).half()
     assert _exact_share(got[2].numpy(), want[2]) >= EXACT_SHARE
     assert _exact_share(dv_f16_p.numpy(), want[2]) <= OTHER_SHARE
