@@ -58,18 +58,24 @@ Phases:
                     F32_RTOL, float16 within F16_RTOL, int8 within
                     KERNEL_RTOL["int8"]; planted faults outside; the same
                     bits twice; SDPA at the same dtype as the yardstick.
-                    The three backward kernels at float32 (the f32
-                    CUDA-core kernels of attention_simt_bwd.cuh, the
-                    ``*_simt`` rows, and flash's statistics pass): flash at
-                    [8, 2048, 16, 128] causal, Sq < Sk, the lse cotangent,
-                    head dim 64 and a ragged length; the encoder at ERNIE's
-                    shape with dropout 0.1 (and as packed views), the LLaMA
-                    b32_s512 microbatch, S = 128 causal at head dim 128 and
-                    S = 512 at head dim 64 with dropout; launches counted
-                    around each call; SDPA's backward as the yardstick.
+                    The encoder backward at float32 (the f32 CUDA-core
+                    kernel of attention_simt_bwd.cuh, the ``_simt`` row):
+                    ERNIE's shape with dropout 0.1 (and as packed views),
+                    the LLaMA b32_s512 microbatch, S = 128 causal at head
+                    dim 128 and S = 512 at head dim 64 with dropout;
+                    launches counted around each call; SDPA's backward as
+                    the yardstick.  The flash backward at float32 (the
+                    ``_f32`` rows): the wgmma kernels' float32
+                    instantiations, split-bf16 products, and their split
+                    pass (``flash_attention_bwd_split``, held bit-equal to
+                    _split_planes_dense) at [8, 2048, 16, 128] causal,
+                    Sq < Sk, the lse cotangent, head dim 64, a ragged
+                    length, and (``_d256_f32``) [8, 2048, 8, 256] causal and
+                    a full Sq < Sk case, within F32_RTOL, a "lo plane
+                    dropped" fault among the planted ones, each timed
+                    beside its bf16 twin and SDPA's backward at float32.
                     Head dim 256 in the flash backward (the ``_d256``
-                    rows): the bf16 statistics pass, dq and dkv and their
-                    float32 CUDA-core counterparts at the
+                    rows): the bf16 statistics pass, dq and dkv at the
                     D = 256 LLaMA's [8, 2048, 8, 256] causal, a full
                     Sq < Sk case and a ragged one with the lse cotangent;
                     the fused LN at float16 (the ``_f16`` rows) at ERNIE's
@@ -91,8 +97,8 @@ Phases:
                     bf16 rows lack the shape) and SDPA at float16.  The
                     build phase logs HGMMA per instantiation of the flash
                     and encoder libraries, and the kernels phase fails
-                    where one has none or float16 has another count than
-                    bf16.
+                    where one (float32 flash backward included) has none or
+                    float16 has another count than bf16.
   4. generate     — model.generate() at LLaMA-2-7B widths (16 layers, bf16,
                     random weights from a seed): ids [4, 1024] (flash
                     prefill) on a bf16 and an int8 cache, and ids [8, 256]
@@ -162,8 +168,10 @@ time goes.
                     profiled; then B 32 x S 512 at accum_steps=2 with
                     ClipGradByGlobalNorm(1.0) (encoder forward and backward
                     24 a step).  Each loss finite, the last below the first.
-                    Then the same at float32, the config's default, through
-                    the CUDA-core kernels: parity at 2 layers within
+                    Then the same at float32, the config's default (the
+                    attention forwards on the CUDA-core kernels, the flash
+                    backward on the tensor cores as split-bf16 products,
+                    its split pass 12 launches a step): parity at 2 layers within
                     F32_GRAD_RTOL, B 8 x S 2048 and B 32 x S 512 at
                     F32_TRAIN_STEPS timed steps (the cut: over a second a
                     step); and the parity at float16 within F16_GRAD_RTOL
@@ -244,7 +252,7 @@ KERNEL_RTOL = {"bf16": 5e-3, "int8": 1e-2}
 # Flash's logsumexp output, absolute (values ~10 here): f32 sums of the
 # same bf16 products in another order differ by about 1e-5.
 LSE_TOL = 1e-3
-# kernel -> (its source, the TPU kernel it replaces)
+# kernel -> (its source, the TPU kernel it replaces, None for a helper)
 KERNELS = {
     "paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
                         "paddle_tpu/ops/decode_attention.py:313"),
@@ -276,35 +284,43 @@ KERNELS = {
                              "paddle_tpu/ops/flash_attention.py:45"),
     "encoder_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_encoder.cu",
                                "paddle_tpu/ops/encoder_attention.py:78"),
-    # the three backward TPU kernels at float32: f32 on the CUDA cores; the
-    # statistics pass is the dsum each of the flash ones takes first
-    "flash_attention_bwd_stats_simt": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
-                                       "paddle_tpu/ops/flash_attention.py:111"),
-    "flash_attention_dq_simt": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
-                                "paddle_tpu/ops/flash_attention.py:111"),
-    "flash_attention_dkv_simt": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
-                                 "paddle_tpu/ops/flash_attention.py:153"),
+    # the encoder backward TPU kernel at float32: f32 on the CUDA cores
     "encoder_attention_bwd_simt": ("paddle_tpu_torch/csrc/attention_simt_encoder_bwd.cu",
                                    "paddle_tpu/ops/encoder_attention.py:101"),
+    # the flash backward at float32: the wgmma kernels' float32
+    # instantiations, split-bf16 products; their launches the wrappers' in
+    # the main paths' float32 runs (INSTANTIATIONS), at every head dim, and
+    # at head dim 256 in the _d256_f32 rows.  The split pass makes both
+    # kernels' operand planes (float32 only): a helper of :111 and :153
+    # that ports no TPU kernel, since only the tensor cores need 16-bit
+    # operands, so it replaces none (null in the kernels line)
+    "flash_attention_bwd_stats_f32": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                                      "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_bwd_split": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu", None),
+    "flash_attention_dq_f32": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_dkv_f32": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "paddle_tpu/ops/flash_attention.py:153"),
     # the bf16 backward's statistics pass, the dsum each flash TPU kernel
     # takes first
     "flash_attention_bwd_stats": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                                   "paddle_tpu/ops/flash_attention.py:111"),
-    # the flash backward's head dim 256 instantiations (bf16 on wgmma, f32 on
-    # the CUDA cores): one counter a wrapper, so their launches are the
-    # wrappers' in the main paths' runs at head dim 256 (INSTANTIATIONS)
+    # the flash backward's head dim 256 instantiations (every type on
+    # wgmma): one counter a wrapper, so their launches are the wrappers' in
+    # the main paths' runs at head dim 256 (INSTANTIATIONS), every type in
+    # the _d256 rows, float32 alone in the _d256_f32 ones
     "flash_attention_bwd_stats_d256": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                                        "paddle_tpu/ops/flash_attention.py:111"),
     "flash_attention_dq_d256": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                                 "paddle_tpu/ops/flash_attention.py:111"),
     "flash_attention_dkv_d256": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                                  "paddle_tpu/ops/flash_attention.py:153"),
-    "flash_attention_bwd_stats_simt_d256": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
-                                            "paddle_tpu/ops/flash_attention.py:111"),
-    "flash_attention_dq_simt_d256": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
-                                     "paddle_tpu/ops/flash_attention.py:111"),
-    "flash_attention_dkv_simt_d256": ("paddle_tpu_torch/csrc/attention_simt_flash_bwd.cu",
-                                      "paddle_tpu/ops/flash_attention.py:153"),
+    "flash_attention_bwd_stats_d256_f32": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                                           "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_dq_d256_f32": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                                    "paddle_tpu/ops/flash_attention.py:111"),
+    "flash_attention_dkv_d256_f32": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                                     "paddle_tpu/ops/flash_attention.py:153"),
     # the fused LN at float16, its launches the wrappers' in the main paths'
     # float16 runs
     "fused_ln_f16": ("paddle_tpu_torch/csrc/fused_ln.cu", "paddle_tpu/ops/fused_ln.py:55"),
@@ -332,9 +348,11 @@ KERNELS = {
                                   "paddle_tpu/ops/encoder_attention.py:101"),
 }
 # A run's field and value -> the suffix of the KERNELS rows of that
-# instantiation: every launch in a run at head dim 256 (or at float16) is
-# that instantiation's, since a model has one head dim and one dtype.
-INSTANTIATIONS = {("D", 256): "_d256", ("dtype", "f16"): "_f16"}
+# instantiation: every launch in a run at head dim 256 (or at float16, or
+# float32) is that instantiation's, since a model has one head dim and one
+# dtype; a run that matches two counts in their joined suffix too
+# ("_d256_f32").
+INSTANTIATIONS = {("D", 256): "_d256", ("dtype", "f16"): "_f16", ("dtype", "f32"): "_f32"}
 # Backward kernels vs their plain versions: max |kernel - plain| over max
 # |plain|, for each of dQ, dK and dV, with dO ~ N(0, 1).  The kernels round
 # dS (and, for flash's dV, P) to bf16 where the reference does and write
@@ -796,16 +814,55 @@ def sdpa_bwd_ms(q, k, v, do, causal, iters, dropout_p=0.0, graph=False):
                     stream=s)
 
 
+def split_case(name, q, k, v, do):
+    """The float32 backward's split pass (``flash_attention_bwd_split``)
+    against ``_split_planes_dense`` of q, k, v and dO: bit-equal (gate 0),
+    the same bits twice, one launch counted; planted faults: the lo planes
+    dropped and hi truncated (not rounded)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    got, n_split = counted(lambda: fa.flash_attention_bwd_split(q, k, v, do),
+                           fa.flash_attention_bwd_split, 1)
+    again = fa.flash_attention_bwd_split(q, k, v, do)
+    torch.cuda.synchronize()
+
+    def plain():
+        return torch.cat([fa._split_planes_dense(t).flatten() for t in (q, k, v, do)])
+
+    want = plain()
+    bits = bool(torch.equal(got.view(torch.int16), want.view(torch.int16)))
+    same = bool(torch.equal(got.view(torch.int16), again.view(torch.int16)))
+    dropped, truncated = [], []
+    for t in (q, k, v, do):
+        pl = fa._split_planes_dense(t)
+        dropped.append(torch.stack((pl[..., 0, :], torch.zeros_like(pl[..., 1, :])), -2).flatten())
+        hi = (t.contiguous().view(torch.int32) & -65536).view(torch.float32)  # truncated, not RN
+        truncated.append(torch.stack((hi.bfloat16(), (t - hi).bfloat16()), -2).flatten())
+    faults = {"lo_plane_dropped": torch.cat(dropped).float(),
+              "hi_truncated": torch.cat(truncated).float()}
+    res = gate(name, got.float(), want.float(), faults, 0.0, kind="split", bit_equal=bits,
+               same_bits=same, launches_counted=n_split, ok=bits and same and n_split)
+    res["ms"] = cuda_ms(lambda: fa.flash_attention_bwd_split(q, k, v, do), 10)
+    res["plain_ms"] = cuda_ms(plain, 3)
+    res["library_ms"] = None  # no one PyTorch call makes both planes
+    n = sum(t.numel() for t in (q, k, v, do))
+    res["bound_ms"], res["bound_by"], res["floors"] = bound3(8 * n)  # 4 B in, 2 x 2 B out
+    return res
+
+
 def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False, dtype=torch.bfloat16):
-    """The flash backward kernels (the statistics pass, dq, dkv) at
-    ``dtype`` vs ``_flash_bwd_dense`` on O and LSE from the plain forward:
-    bf16 within BWD_RTOL of the plain version in f32, float16 within
-    F16_RTOL of the plain version at float16 (which rounds dS, and P for
-    dV, where the kernels do; the CUDA-core float16 cases' gate); planted
-    faults: dsum taken as 0, each row's key range one short, and (with
-    dlse) dlse ignored; the statistics' own: lse in natural-log units, dsum
-    taken as 0 (and dlse ignored).  Returns {"stats", "dq", "dkv"} cases,
-    each launch counted around its call."""
+    """The flash backward kernels (the statistics pass, dq, dkv; at float32
+    also the split pass) at ``dtype`` vs ``_flash_bwd_dense`` on O and LSE
+    from the plain forward: bf16 within BWD_RTOL of the plain version in
+    f32, float16 within F16_RTOL of the plain version at float16 (which
+    rounds dS, and P for dV, where the kernels do; the CUDA-core float16
+    cases' gate), float32 within F32_RTOL of the plain version in f32;
+    planted faults: dsum taken as 0, each row's key range one short, (with
+    dlse) dlse ignored and (float32) the lo planes dropped, the plain
+    backward on q, k, v and dO rounded to bf16; the statistics' own: lse in
+    natural-log units, dsum taken as 0 (and dlse ignored).  Returns
+    {"stats", "dq", "dkv"} cases (and "split" at float32), each launch
+    counted around its call."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -815,14 +872,18 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False, dtype=t
     scale = 1.0 / D ** 0.5
     o32, lse = fa._flash_dense(q.float(), k.float(), v.float(), causal, scale)
     o = o32.to(dtype)
+    lse = lse.contiguous()
     dlse = (torch.randn(B, H, Sq, generator=g, device="cuda") if with_dlse else None)
+    f32 = dtype == torch.float32
     args = (q, k, v, o, do, lse, causal, scale, dlse)
     stats, n_st = counted(lambda: fa.flash_attention_bwd_stats(o, do, lse, dlse),
                           fa.flash_attention_bwd_stats, 1)
-    dq, n_dq = counted(lambda: fa.flash_attention_dq_kernel(*args, stats=stats),
+    planes = fa.flash_attention_bwd_split(q, k, v, do) if f32 else None
+    dq, n_dq = counted(lambda: fa.flash_attention_dq_kernel(*args, stats=stats, planes=planes),
                        fa.flash_attention_dq_kernel, 1)
-    (dk, dv), n_dkv = counted(lambda: fa.flash_attention_dkv_kernel(*args, stats=stats),
-                              fa.flash_attention_dkv_kernel, 1)
+    (dk, dv), n_dkv = counted(
+        lambda: fa.flash_attention_dkv_kernel(*args, stats=stats, planes=planes),
+        fa.flash_attention_dkv_kernel, 1)
     dq2 = fa.flash_attention_dq_kernel(*args)  # the same bits, the entry's own statistics
     dk2, dv2 = fa.flash_attention_dkv_kernel(*args)
     stats2 = fa.flash_attention_bwd_stats(o, do, lse, dlse)
@@ -859,9 +920,13 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False, dtype=t
               "causal_end_short": masked_attention_bwd(q, k, v, do, short, scale, dlse)}
     if with_dlse:
         faults["dlse_ignored"] = masked_attention_bwd(q, k, v, do, vis, scale)
+    if f32:  # what the kernels would give with the hi planes alone
+        r = [t.bfloat16().float() for t in (q, k, v, do)]
+        faults["lo_plane_dropped"] = fa._flash_bwd_dense(r[0], r[1], r[2], o, lse, r[3], causal,
+                                                         scale, dlse)
     shape = dict(kind="flash", B=B, H=H, Sq=Sq, Sk=Sk, D=D, causal=causal, dlse=with_dlse,
                  dtype=TAGS[dtype])
-    tol = BWD_RTOL if bf16 else F16_RTOL
+    tol = BWD_RTOL if bf16 else (F32_RTOL if f32 else F16_RTOL)
     res = {"stats": bwd_gate(name, (stats[0], stats[1]), (want_stats[0], want_stats[1]),
                              {f: (t[0], t[1]) for f, t in stat_faults.items()}, F32_RTOL,
                              same_bits=same["stats"], launches_counted=n_st,
@@ -877,29 +942,43 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False, dtype=t
     library_ms = (None if with_dlse or (causal and Sq != Sk)
                   else sdpa_bwd_ms(q, k, v, do, causal, iters))
     pairs = B * H * visible_pairs(Sq, Sk, causal)
-    nq, nk = B * Sq * H * D * 2, B * Sk * H * D * 2     # bytes of one q-side / k-side tensor
+    it = q.element_size()
+    nq, nk = B * Sq * H * D * it, B * Sk * H * D * it   # bytes of one q-side / k-side tensor
     nstat = B * H * Sq * 4 * (2 if with_dlse else 1)
     ins = 3 * nq + 2 * nk + nstat                       # q, o, dO, k, v, lse (, dlse)
-    # dq and dkv read the statistics the autograd backward made once
+    # float32: three bf16 products for each product at the tensor-core rate
+    # (the f32 FFMA floor kept beside it)
+    terms = 3 if f32 else 1
+    # dq and dkv read the statistics (and planes) the autograd backward made once
     for key, fn, nbytes, ops in (
             ("stats", lambda: fa.flash_attention_bwd_stats(o, do, lse, dlse),
              2 * nq + nstat + stats.numel() * 4, 2.0 * D * B * H * Sq),
-            ("dq", lambda: fa.flash_attention_dq_kernel(*args, stats=stats), ins + nq,
-             6.0 * D * pairs),
-            ("dkv", lambda: fa.flash_attention_dkv_kernel(*args, stats=stats), ins + 2 * nk,
-             8.0 * D * pairs)):
+            ("dq", lambda: fa.flash_attention_dq_kernel(*args, stats=stats, planes=planes),
+             ins + nq, 6.0 * D * pairs),
+            ("dkv", lambda: fa.flash_attention_dkv_kernel(*args, stats=stats, planes=planes),
+             ins + 2 * nk, 8.0 * D * pairs)):
         r = res[key]
         r["ms"] = cuda_ms(fn, iters)
         # no one PyTorch call computes the statistics pass's pair
         r["plain_ms"], r["library_ms"] = plain_ms, None if key == "stats" else library_ms
-        r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+        if key == "stats":
+            r["bound_ms"], r["bound_by"], r["floors"] = bound3(nbytes, **{rate_key(dtype): ops})
+        else:
+            r["bound_ms"], r["bound_by"], r["floors"] = bound3(nbytes, tc_flops=terms * ops)
+            if f32:
+                r["floors"]["f32_ffma_ms"] = ops / H100_F32_FLOPS * 1e3
+                r["bound_note"] = "ops, 3 bf16 products"
     res["function_bound_ms"], res["function_bound_by"] = bound(ins + nq + 2 * nk,
-                                                               10.0 * D * pairs)
+                                                               terms * 10.0 * D * pairs)
+    if f32:
+        res["split"] = split_case(name, q, k, v, do)
+        res["split"].update(shape)
 
     def autograd_bwd():  # the backward as _FlashAttention runs it: stats once, dq, dkv
         stats = fa.flash_attention_bwd_stats(o, do, lse, dlse)
-        fa.flash_attention_dq_kernel(*args, stats=stats)
-        fa.flash_attention_dkv_kernel(*args, stats=stats)
+        planes = fa.flash_attention_bwd_split(q, k, v, do) if f32 else None
+        fa.flash_attention_dq_kernel(*args, stats=stats, planes=planes)
+        fa.flash_attention_dkv_kernel(*args, stats=stats, planes=planes)
 
     res["backward_ms"] = cuda_ms(autograd_bwd, iters)
     return res
@@ -1296,9 +1375,12 @@ def bwd_kernel_cases():
     """Backward cases: {kernel name: [case, ...]}, the training shapes first;
     head dim 256 (the D = 256 LLaMA's step [8, 2048, 8, 256], a full Sq < Sk
     case, a ragged one) under the ``_d256`` names; the flash backward at
-    float16 (D 64, 128 and 256) under the ``_f16`` names."""
+    float16 (D 64, 128 and 256) under the ``_f16`` names and at float32
+    (its split pass under ``flash_attention_bwd_split``) under the ``_f32``
+    and ``_d256_f32`` names."""
     out = {f"flash_attention_{k}{d}": [] for k in ("bwd_stats", "dq", "dkv")
-           for d in ("", "_d256", "_f16")}
+           for d in ("", "_d256", "_f16", "_f32", "_d256_f32")}
+    out["flash_attention_bwd_split"] = []
     out["encoder_attention_bwd"] = []
     for i, (name, B, H, Sq, Sk, D, causal, dlse) in enumerate([
             ("train_s2048", 8, 16, 2048, 2048, 128, True, False),   # the bench's step
@@ -1337,6 +1419,26 @@ def bwd_kernel_cases():
             c["backward_ms"] = r["backward_ms"]
             out[f"flash_attention_{key}_f16"].append(c)
             log_case(f"flash_attention_{key}_f16", c)
+    # float32 on the same kernels, split-bf16 products: the shapes and seeds
+    # of the CUDA-core float32 cases they replace, the LLaMA step first
+    for name, B, H, Sq, Sk, D, causal, dlse, seed in [
+            ("train_s2048_f32", 8, 16, 2048, 2048, 128, True, False, 160),
+            ("sq1024_sk2048_causal_f32", 1, 32, 1024, 2048, 128, True, False, 161),
+            ("s2048_dlse_f32", 2, 16, 2048, 2048, 128, True, True, 162),
+            ("bh64_s1024_d64_f32", 2, 32, 1024, 1024, 64, True, False, 163),
+            ("s264_ragged_causal_f32", 2, 8, 264, 264, 128, True, False, 165),
+            ("train_d256_s2048_f32", 8, 8, 2048, 2048, 256, True, False, 166),
+            ("d256_sq1024_sk1536_full_f32", 1, 16, 1024, 1536, 256, False, False, 167)]:
+        r = flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, dlse, dtype=torch.float32)
+        for key in ("bwd_stats", "dq", "dkv"):
+            c = r["stats" if key == "bwd_stats" else key]
+            c["function_bound_ms"] = r["function_bound_ms"]
+            c["backward_ms"] = r["backward_ms"]
+            kern = f"flash_attention_{key}{'_d256' if D == 256 else ''}_f32"
+            out[kern].append(c)
+            log_case(kern, c)
+        out["flash_attention_bwd_split"].append(r["split"])
+        log_case("flash_attention_bwd_split", r["split"])
     for i, (S, D, H, causal) in enumerate([(512, 128, 16, True), (128, 128, 16, True),
                                            (256, 128, 16, True), (512, 64, 32, True),
                                            (512, 128, 16, False)]):
@@ -1373,7 +1475,12 @@ RESNET_B = 128
 # dW, dscale, doffset) differ by f32 summation order only.  The planted
 # faults come out at 0.10 or more (the ds1 term of a backward without the
 # fold dropped is the closest).  The f32 case: every output is f32 on both
-# sides (measured on an H100: within 2e-6 of max).
+# sides (measured on an H100: within 2e-6 of max).  F32_RTOL is every
+# float32 kernel case's gate; the float32 flash backward's products are
+# split-bf16 (three bf16 products of hi and lo planes, lo x lo left out,
+# each operand carried to about 16 of its 24 bits): a CPU emulation of its
+# term list gave 1.0-1.4e-5 of max on dQ, dK and dV, and 3-9e-3 with the
+# lo planes dropped (the planted "lo plane dropped" fault).
 CONV_RTOL = 1e-2
 F32_RTOL = 1e-4
 # The kernels' raw per-block partials (column sums, dW, dscale/doffset)
@@ -2026,105 +2133,20 @@ def simt_kernel_cases():
 
 # ------------------------------------- f32 and f16 backward (CUDA cores)
 
-# The f32 CUDA-core backward kernels (csrc/attention_simt_bwd.cuh) vs their
-# plain versions on the same values: max |kernel - plain| over max |plain|
-# for each of dQ, dK and dV (and the statistics pass's lse * log2(e) and
-# dsum), float32 within F32_RTOL (f32 sums in another order), float16
-# within F16_RTOL (the plain version rounds dS, and flash's P for dV, to
-# float16 where the kernels do, and both write float16: a rounding boundary
-# crossed in one and not the other moves a gradient by about 2^-11 of one
-# term).  The same bits twice; launches counted around each call.
+# The f32 CUDA-core encoder backward (csrc/attention_simt_bwd.cuh) and the
+# float16 tensor-core backward vs their plain versions on the same values:
+# max |kernel - plain| over max |plain| for each of dQ, dK and dV, float32
+# within F32_RTOL (f32 sums in another order), float16 within F16_RTOL (the
+# plain version rounds dS to float16 where the kernels do, and both write
+# float16: a rounding boundary crossed in one and not the other moves a
+# gradient by about 2^-11 of one term).  The same bits twice; launches
+# counted around each call.
 
 def counted(fn, counter, n):
     """fn()'s result, and whether ``counter`` rose by exactly ``n`` in it."""
     before = counter.launches
     out = fn()
     return out, counter.launches - before == n
-
-
-def simt_flash_bwd_case(name, B, H, Sq, Sk, D, causal, dtype, seed, with_dlse=False):
-    """The CUDA-core statistics pass, dq and dkv vs ``_flash_bwd_dense`` on O
-    and lse from the plain forward; planted faults as the bf16 cases' (dsum
-    taken as 0, each row's key range one short, dlse ignored).  Returns
-    {"stats", "dq", "dkv"} cases; SDPA's backward at the same dtype is the
-    yardstick."""
-    from paddle_tpu_torch.ops import flash_attention as fa
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q = (torch.randn(B, Sq, H, D, generator=g, device="cuda") * Q_STD).to(dtype)
-    k, v = (torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype) for _ in range(2))
-    do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
-    scale = 1.0 / D ** 0.5
-    o32, lse = fa._flash_dense(q.float(), k.float(), v.float(), causal, scale)
-    o, lse = o32.to(dtype), lse.contiguous()
-    dlse = torch.randn(B, H, Sq, generator=g, device="cuda") if with_dlse else None
-    args = (q, k, v, o, do, lse, causal, scale, dlse)
-    stats, n_st = counted(lambda: fa.flash_attention_simt_bwd_stats(o, do, lse, dlse),
-                          fa.flash_attention_simt_bwd_stats, 1)
-    dq, n_dq = counted(lambda: fa.flash_attention_simt_dq_kernel(*args, stats=stats),
-                       fa.flash_attention_simt_dq_kernel, 1)
-    (dk, dv), n_dkv = counted(lambda: fa.flash_attention_simt_dkv_kernel(*args, stats=stats),
-                              fa.flash_attention_simt_dkv_kernel, 1)
-    dq2 = fa.flash_attention_simt_dq_kernel(*args, stats=stats)  # the same bits twice
-    dk2, dv2 = fa.flash_attention_simt_dkv_kernel(*args, stats=stats)
-    stats2 = fa.flash_attention_simt_bwd_stats(o, do, lse, dlse)
-    torch.cuda.synchronize()
-    same = {"stats": bool(torch.equal(stats, stats2)), "dq": bool(torch.equal(dq, dq2)),
-            "dkv": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))}
-    want = fa._flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse)
-    dsum = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())
-    if with_dlse:
-        dsum = dsum - dlse
-    want_stats = (lse.reshape(B * H, Sq) * math.log2(math.e), dsum.reshape(B * H, Sq))
-    ones = torch.ones(Sq, Sk, dtype=torch.bool, device="cuda")
-    vis = ones.tril(Sk - Sq) if causal else ones
-    if causal:
-        short = ones.tril(Sk - Sq - 1)
-    else:
-        short = ones.clone()
-        short[:, -1] = False
-    faults = {"dsum_zero": masked_attention_bwd(q, k, v, do, vis, scale, dlse, dsum_zero=True),
-              "causal_end_short": masked_attention_bwd(q, k, v, do, short, scale, dlse)}
-    if with_dlse:
-        faults["dlse_ignored"] = masked_attention_bwd(q, k, v, do, vis, scale)
-    tol = simt_tol(dtype, dtype)
-    shape = dict(kind="flash", B=B, H=H, Sq=Sq, Sk=Sk, D=D, causal=causal, dlse=with_dlse,
-                 dtype=TAGS[dtype])
-    stat_faults = {"lse_natural_log": (lse.reshape(B * H, Sq), want_stats[1]),
-                   "dsum_zero": (want_stats[0], torch.zeros_like(want_stats[1]))}
-    if with_dlse:
-        stat_faults["dlse_ignored"] = (want_stats[0], want_stats[1] + dlse.reshape(B * H, Sq))
-    res = {"stats": bwd_gate(name, (stats[0], stats[1]), want_stats, stat_faults, F32_RTOL,
-                             same_bits=same["stats"], launches_counted=n_st,
-                             ok=same["stats"] and n_st, **shape),
-           "dq": bwd_gate(name, (dq,), want[:1], {f: t[:1] for f, t in faults.items()}, tol,
-                          same_bits=same["dq"], launches_counted=n_dq,
-                          ok=same["dq"] and n_dq and dq.dtype == dtype, **shape),
-           "dkv": bwd_gate(name, (dk, dv), want[1:], {f: t[1:] for f, t in faults.items()},
-                           tol, same_bits=same["dkv"], launches_counted=n_dkv,
-                           ok=same["dkv"] and n_dkv and dk.dtype == dtype, **shape)}
-    plain_ms = cuda_ms(lambda: fa._flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse), 2)
-    library_ms = (None if with_dlse or (causal and Sq != Sk)
-                  else sdpa_bwd_ms(q, k, v, do, causal, 3))
-    pairs = B * H * visible_pairs(Sq, Sk, causal)
-    it = q.element_size()
-    nq, nk = B * Sq * H * D * it, B * Sk * H * D * it   # bytes of one q-side / k-side tensor
-    nstat = B * H * Sq * 4 * (2 if with_dlse else 1)
-    ins = 3 * nq + 2 * nk + nstat                       # q, o, dO, k, v, lse (, dlse)
-    key = rate_key(dtype)
-    for part, fn, nbytes, ops in (
-            ("stats", lambda: fa.flash_attention_simt_bwd_stats(o, do, lse, dlse),
-             2 * nq + nstat + 2 * B * H * Sq * 4, 2.0 * D * B * H * Sq),
-            ("dq", lambda: fa.flash_attention_simt_dq_kernel(*args, stats=stats),
-             ins + nq, 6.0 * D * pairs),
-            ("dkv", lambda: fa.flash_attention_simt_dkv_kernel(*args, stats=stats),
-             ins + 2 * nk, 8.0 * D * pairs)):
-        r = res[part]
-        r["ms"] = graph_ms(fn, iters=4, repeats=3, per_graph=4)
-        # no one PyTorch call computes the statistics pass's pair
-        r["plain_ms"], r["library_ms"] = plain_ms, None if part == "stats" else library_ms
-        r["bound_ms"], r["bound_by"], r["floors"] = bound3(nbytes, **{key: ops})
-    return res
 
 
 def typed_encoder_bwd_case(name, B, H, S, D, causal, dtype, seed, rate=0.0, packed=False):
@@ -2205,39 +2227,16 @@ def typed_encoder_bwd_case(name, B, H, S, D, causal, dtype, seed, rate=0.0, pack
     return res
 
 
-SIMT_BWD_KERNELS = ("flash_attention_bwd_stats_simt", "flash_attention_dq_simt",
-                    "flash_attention_dkv_simt", "encoder_attention_bwd_simt")
-
-
 def simt_bwd_kernel_cases():
-    """The CUDA-core backward kernels' cases at float32 (float16 runs the
-    tensor-core kernels), the main paths' shapes, the case each main path
-    runs most first: flash at the LLaMA step's [8, 2048, 16, 128] causal,
-    Sq < Sk, the lse cotangent, head dim 64 and a ragged length; the
-    encoder at ERNIE's [512, 128, 12, 64] with dropout 0.1 (and as BERT's
-    packed views), the LLaMA b32_s512 microbatch [16, 512, 16, 128] causal,
-    S = 128 causal at head dim 128 and S = 512 at head dim 64 with
-    dropout."""
+    """The CUDA-core encoder backward's cases at float32 (float16 runs the
+    tensor-core kernel; the flash backward runs the tensor-core kernels at
+    every type, bwd_kernel_cases), the main paths' shapes, the case each
+    main path runs most first: ERNIE's [512, 128, 12, 64] with dropout 0.1
+    (and as BERT's packed views), the LLaMA b32_s512 microbatch
+    [16, 512, 16, 128] causal, S = 128 causal at head dim 128 and S = 512
+    at head dim 64 with dropout."""
     f32 = torch.float32
-    out = {k: [] for k in SIMT_BWD_KERNELS}
-    out.update({f"{k}_d256": [] for k in SIMT_BWD_KERNELS[:3]})
-    # float16 flash runs the tensor-core kernels (bwd_kernel_cases' _f16 rows)
-    for name, B, H, Sq, Sk, D, causal, dlse, seed in [
-            ("train_s2048_f32", 8, 16, 2048, 2048, 128, True, False, 160),  # the step's
-            ("sq1024_sk2048_causal_f32", 1, 32, 1024, 2048, 128, True, False, 161),
-            ("s2048_dlse_f32", 2, 16, 2048, 2048, 128, True, True, 162),
-            ("bh64_s1024_d64_f32", 2, 32, 1024, 1024, 64, True, False, 163),
-            ("s264_ragged_causal_f32", 2, 8, 264, 264, 128, True, False, 165),
-            # head dim 256: the D = 256 LLaMA's step and a full Sq < Sk case
-            ("train_d256_s2048_f32", 8, 8, 2048, 2048, 256, True, False, 166),
-            ("d256_sq1024_sk1536_full_f32", 1, 16, 1024, 1536, 256, False, False, 167)]:
-        r = simt_flash_bwd_case(name, B, H, Sq, Sk, D, causal, f32, seed, dlse)
-        for part, kern in (("stats", "flash_attention_bwd_stats_simt"),
-                           ("dq", "flash_attention_dq_simt"),
-                           ("dkv", "flash_attention_dkv_simt")):
-            kern += "_d256" if D == 256 else ""
-            out[kern].append(r[part])
-            log_case(kern, r[part])
+    out = {"encoder_attention_bwd_simt": []}
     # float16 runs the tensor-core kernel (encoder_f16_cases)
     for i, (name, B, H, S, D, causal, rate, packed) in enumerate([
             ("ernie_drop", 512, 12, 128, 64, False, DROP_RATE, False),  # ERNIE's
@@ -2367,7 +2366,8 @@ def f16_against_bf16(out):
     """Each float16 flash and encoder case's time beside the bf16 case of
     the same shape, rate and layout in this run (``bf16_ms``,
     ``f16_over_bf16``): the one design at either 2-byte type should run
-    alike."""
+    alike; each float32 flash backward case's too (``f32_over_bf16``: three
+    bf16 products a product, on float32's own tiles)."""
     def key(c):
         return (c["B"], c["H"], c["Sq"], c["Sk"], c["D"], c["causal"], bool(c.get("dlse")),
                 c.get("rate") or 0.0, bool(c.get("packed")))
@@ -2375,13 +2375,16 @@ def f16_against_bf16(out):
     for kern in ("flash_attention", "flash_attention_bwd_stats", "flash_attention_dq",
                  "flash_attention_dkv", "encoder_attention", "encoder_attention_bwd"):
         bf16 = {key(c): c for d in ("", "_d256") for c in out.get(kern + d, [])}
-        for c in out[kern + "_f16"]:
-            twin = bf16.get(key(c))
-            if twin is None:
-                continue
-            c["bf16_ms"], c["f16_over_bf16"] = twin["ms"], c["ms"] / twin["ms"]
-            log(f"  {kern}_f16 {c['name']}: {c['ms']:.4f} ms against bf16 {twin['name']} "
-                f"{twin['ms']:.4f} ms: {c['f16_over_bf16']:.3f}x")
+        rows = [(kern + "_f16", "f16")] + [(kern + d + "_f32", "f32") for d in ("", "_d256")
+                                           if kern + d + "_f32" in out]
+        for row, tag in rows:
+            for c in out[row]:
+                twin = bf16.get(key(c))
+                if twin is None:
+                    continue
+                c["bf16_ms"], c[f"{tag}_over_bf16"] = twin["ms"], c["ms"] / twin["ms"]
+                log(f"  {row} {c['name']}: {c['ms']:.4f} ms against bf16 {twin['name']} "
+                    f"{twin['ms']:.4f} ms: {c[tag + '_over_bf16']:.3f}x")
 
 
 # The libraries whose SASS must hold the Hopper instructions their design
@@ -2395,9 +2398,10 @@ SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
 # The libraries built at more than one element type, with their wgmma
 # kernels and the head dims each is built at: every instantiation (element
 # type x head dim) must hold HGMMA, as many at float16 as at bf16 (one
-# design at either type); the element types as the mangled names spell
-# them.  The encoder's streamed forward runs D = 128 alone (S <= 512 keeps
-# D = 64 resident).
+# design at either type); the flash backward is built at float32 too (its
+# split-bf16 products: three HGMMA a bf16 product's one, on tiles of its
+# own); the element types as the mangled names spell them.  The encoder's
+# streamed forward runs D = 128 alone (S <= 512 keeps D = 64 resident).
 FLASH_DIMS, ENCODER_DIMS = (64, 128, 256), (64, 128)
 TYPED_LIBS = {"flash_attention": {"flash_fwd_kernel": FLASH_DIMS},
               "flash_attention_bwd": {"flash_dq_kernel": FLASH_DIMS,
@@ -2408,7 +2412,8 @@ TYPED_LIBS = {"flash_attention": {"flash_fwd_kernel": FLASH_DIMS},
                                         "encoder_dq": ENCODER_DIMS,
                                         "encoder_dkv": ENCODER_DIMS}}
 TYPED_TAGS = ("bf16", "f16")
-MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+LIB_TAGS = {"flash_attention_bwd": TYPED_TAGS + ("f32",)}  # the others: TYPED_TAGS
+MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "IfLi": "f32"}
 
 
 def sass_text(lib):
@@ -2448,16 +2453,17 @@ def hgmma_by_instance(name, lib):
 
 
 def typed_faults(by_instance):
-    """The instantiations of TYPED_LIBS without HGMMA, and the (kernel,
-    head dim) pairs whose float16 instantiation holds another number of
-    HGMMA than its bf16 twin."""
+    """The instantiations of TYPED_LIBS (at LIB_TAGS' types) without HGMMA,
+    and the (kernel, head dim) pairs whose float16 instantiation holds
+    another number of HGMMA than its bf16 twin."""
     missing, unequal = [], []
     for name, kerns in TYPED_LIBS.items():
         got = by_instance[name]
         for kern, dims in kerns.items():
             for d in dims:
                 n = {t: got.get(f"{kern}<{t},{d}>", 0) for t in TYPED_TAGS}
-                missing += [f"{kern}<{t},{d}>" for t in TYPED_TAGS if not n[t]]
+                missing += [f"{kern}<{t},{d}>" for t in LIB_TAGS.get(name, TYPED_TAGS)
+                            if not got.get(f"{kern}<{t},{d}>", 0)]
                 if len(set(n.values())) > 1:
                     unequal.append(f"{kern}<{d}>: " + ", ".join(f"{t} {v}" for t, v in n.items()))
     return missing, unequal
@@ -2515,11 +2521,9 @@ def counters():
             "decode_attention_simt": da.decode_attention_simt_kernel,
             "flash_attention_simt": fa.flash_attention_simt_kernel,
             "encoder_attention_simt": ea.encoder_attention_simt_kernel,
-            "flash_attention_bwd_stats_simt": fa.flash_attention_simt_bwd_stats,
-            "flash_attention_dq_simt": fa.flash_attention_simt_dq_kernel,
-            "flash_attention_dkv_simt": fa.flash_attention_simt_dkv_kernel,
             "encoder_attention_bwd_simt": ea.encoder_attention_simt_bwd_kernel,
-            "flash_attention_bwd_stats": fa.flash_attention_bwd_stats}
+            "flash_attention_bwd_stats": fa.flash_attention_bwd_stats,
+            "flash_attention_bwd_split": fa.flash_attention_bwd_split}
 
 
 def zero_counts():
@@ -3444,13 +3448,13 @@ def train_kind(name):
     low = name.lower()
     if "fused_ln_fwd_kernel" in low or "fused_ln_bwd_kernel" in low:
         return low[low.index("fused_ln_"):][:12]  # fused_ln_fwd / fused_ln_bwd
-    # flash_dq_kernel, flash_dkv_kernel, flash_dsum_kernel (the wgmma
-    # backward and its statistics pass); the encoder's encoder_bwd_head
-    # (S = 128), encoder_dq and encoder_dkv (S > 128); the CUDA-core
-    # simt_attention_bwd and simt_flash_stats (float32 and float16)
-    if any(w in low for w in ("dq_kernel", "dkv_kernel", "dsum_kernel", "encoder_bwd_head",
-                              "encoder_dq", "encoder_dkv", "simt_attention_bwd",
-                              "simt_flash_stats")):
+    # flash_dq_kernel, flash_dkv_kernel, flash_dsum_kernel, flash_split_kernel
+    # (the wgmma backward, its statistics pass and its float32 split pass);
+    # the encoder's encoder_bwd_head (S = 128), encoder_dq and encoder_dkv
+    # (S > 128); the CUDA-core simt_attention_bwd (the float32 encoder)
+    if any(w in low for w in ("dq_kernel", "dkv_kernel", "dsum_kernel", "split_kernel",
+                              "encoder_bwd_head", "encoder_dq", "encoder_dkv",
+                              "simt_attention_bwd")):
         return "attention_bwd"
     if any(w in low for w in ("flash_fwd_kernel", "encoder_fwd", "simt_attention<")):
         return "attention_fwd"
@@ -3575,9 +3579,11 @@ def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN
 
 def flash_launches(n, dtype):
     """Expected launches of ``n`` flash forwards and backwards at q's dtype:
-    the tensor-core kernels (bf16, float16), or the CUDA-core ones
-    (float32), each backward with its statistics pass."""
+    the forward on the tensor-core kernel (bf16, float16) or the CUDA-core
+    one (float32), the backward on the tensor-core kernels at every type,
+    each with its statistics pass and, at float32, its split pass."""
     bwd = ["flash_attention_bwd_stats", "flash_attention_dq", "flash_attention_dkv"]
+    bwd += ["flash_attention_bwd_split"] if dtype == torch.float32 else []
     return {kernel_for(k, dtype): n for k in ["flash_attention"] + bwd}
 
 
@@ -4496,7 +4502,8 @@ def main(argv=None):
         counted_runs = report["paths"] + ([report["ernie_f16_parity"]]
                                           if "ernie_f16_parity" in report else [])
         for run in counted_runs:
-            tags = [""] + [t for (key, val), t in INSTANTIATIONS.items() if run.get(key) == val]
+            tags = [t for (key, val), t in INSTANTIATIONS.items() if run.get(key) == val]
+            tags = [""] + tags + (["".join(tags)] if len(tags) > 1 else [])
             for k, n in run["launches"].items():
                 for t in tags:
                     if k + t in KERNELS:

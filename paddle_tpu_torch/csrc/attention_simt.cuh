@@ -28,10 +28,13 @@
 // Scores run in base-2 units (scale * log2(e)), as the bf16 kernels' do.
 //
 // Why CUDA cores and not the tensor cores: the reference holds its f32
-// kernels within 2e-5 of dense math, which single-pass TF32 (about three
-// decimal digits) cannot meet; the wgmma bodies need K-major tf32 operands
-// and twice the shared memory.  3xTF32 on wgmma, and float16 decode and
-// paged on the 16-bit bodies, are the redesign that comes next (ROADMAP;
+// kernels within 2e-5 of dense math, which single-pass TF32 or bf16 (about
+// three decimal digits) cannot meet.  The flash backward at float32 has
+// since moved to the tensor cores as split-bf16 products
+// (flash_attention_bwd.cu: each f32 operand two bf16 planes, hi and lo,
+// three bf16 products a product, about 16 bits of each operand, within
+// 3.2e-5 of max against an f32 plain backward); these forwards can take
+// the same split, and float16 decode and paged the 16-bit bodies (ROADMAP;
 // float16 flash moved to flash_attention.cu, the float16 encoder to
 // encoder_attention.cu).
 //

@@ -1,49 +1,39 @@
-// The attention backward on the CUDA cores in f32 arithmetic, for float32
-// and float16 storage: the device code of the flash backward
-// (attention_simt_flash_bwd.cu) and the encoder backward
-// (attention_simt_encoder_bwd.cu) at float32.  The bf16 kernels
-// (flash_attention_bwd.cu, encoder_attention_bwd.cu), and both backwards
-// at float16 (the same sources), run on the tensor cores;
-// this body runs every product as f32 FFMA, as the forward body
-// attention_simt.cuh does.
+// The encoder attention backward on the CUDA cores in f32 arithmetic, for
+// float32 storage: the device code of attention_simt_encoder_bwd.cu.  The
+// bf16 kernels (flash_attention_bwd.cu, encoder_attention_bwd.cu), both
+// backwards at float16 (the same sources) and the flash backward at
+// float32 (flash_attention_bwd.cu, as split-bf16 products) run on the
+// tensor cores; this body runs every product as f32 FFMA, as the forward
+// body attention_simt.cuh does.
 //
-// Replaces, at float32: paddle_tpu/ops/flash_attention.py
-// `_dq_kernel` and `_dkv_kernel`, and paddle_tpu/ops/encoder_attention.py
-// `_bwd_kernel`.  It computes what they compute, with their rounding (a
-// no-op at float32):
-//  * flash: P = exp(S - lse) recomputed, dsum = rowsum(dO * O) - dlse (a
-//    pass of its own, from the stored values), dV = round(P)^T dO with P
-//    rounded to dO's type, dP = dO V^T, dS = round(P (dP - dsum)),
-//    dQ = dS K * scale, dK = dS^T Q * scale; causal masks bottom-right
-//    aligned (query i sees keys <= i + Sk - Sq);
-//  * encoder: P the whole-row softmax (from the forward's lse at S > 128,
-//    found in the block at S = 128), the mask regenerated from the seed
-//    pair (philox.cuh, the forward's map), P_d = where(keep, P / (1 - r),
-//    0) NOT rounded for dV = P_d^T dO (the reference widens dO to f32),
-//    dP = where(keep, dO V^T / (1 - r), 0), dsum = rowsum(dP * P),
-//    dS = round(P (dP - dsum) * scale), dQ = dS K, dK = dS^T Q;
-//  * every sum in f32, the outputs in q's type.
+// Replaces, at float32: paddle_tpu/ops/encoder_attention.py `_bwd_kernel`.
+// It computes what that computes, with its rounding (a no-op at float32):
+// P the whole-row softmax (from the forward's lse at S > 128, found in the
+// block at S = 128), the mask regenerated from the seed pair (philox.cuh,
+// the forward's map), P_d = where(keep, P / (1 - r), 0) NOT rounded for
+// dV = P_d^T dO (the reference widens dO to f32), dP = where(keep, dO V^T
+// / (1 - r), 0), dsum = rowsum(dP * P), dS = round(P (dP - dsum) * scale),
+// dQ = dS K, dK = dS^T Q; every sum in f32, the outputs in q's type.
 // Scores run in base-2 units (scale * log2(e)) against lse * log2(e).
 //
 // What bounds it on the H100: operations.  The least work is 5 products,
 // 10 D FLOP a visible (query, key) pair, far past the 67 TFLOP/s f32 FFMA
-// ridge; the reads (q, k, v, dO, O, lse) and writes (dq, dk, dv) are a few
+// ridge; the reads (q, k, v, dO, lse) and writes (dq, dk, dv) are a few
 // hundred MB at the training shapes.
 //
 // The design: a "row pass" owns 32 query rows and walks key tiles (dQ), a
 // "column pass" owns 32 key rows and walks query tiles (dK and dV), each
 // its own block, each writing only its own rows: no atomics, so the bits
 // do not depend on block order.  The price is S and dP computed in both
-// passes: 14 D FLOP a pair for flash, 18 D for the encoder, whose row pass
-// walks twice (dsum first, in the reference's order, then dQ).  128
-// threads a block; thread t owns own rows (t / 8) % 8 + 16 (t / 64) + {0, 8}
-// and, of each walked tile, rows t % 8 + 8n (n < 4): the 8 threads of a
-// row group reduce a row with 3 shuffles, and an own pair {x, x + 8} with a
-// walked pair {c, c + 8} is one Philox call of the encoder's mask.  The
-// own rows sit in shared memory in f32, the walked tiles stream through a
-// two-stage cp.async ring in the storage type, and dS (and, in the column
-// pass, the P that dV takes) goes through shared memory, transposed, to the
-// output products.
+// passes, and the row pass walks twice (dsum first, in the reference's
+// order, then dQ): 18 D FLOP a pair.  128 threads a block; thread t owns
+// own rows (t / 8) % 8 + 16 (t / 64) + {0, 8} and, of each walked tile,
+// rows t % 8 + 8n (n < 4): the 8 threads of a row group reduce a row with
+// 3 shuffles, and an own pair {x, x + 8} with a walked pair {c, c + 8} is
+// one Philox call of the mask.  The own rows sit in shared memory in f32,
+// the walked tiles stream through a two-stage cp.async ring in the storage
+// type, and dS (and, in the column pass, the P_d that dV takes) goes
+// through shared memory, transposed, to the output products.
 //
 // Why 32-row tiles (and not the forward's 64): the column pass holds dK and
 // dV, 2 rows x D / 8 columns each a thread, 64 f32 registers at D = 128;
@@ -52,21 +42,9 @@
 // warps an SM.  At 32 rows a block takes 109 KB at f32 (D = 128), so two
 // blocks share an SM.
 //
-// D = 256 (flash only).  The row pass keeps its shape: dQ is 2 rows x D / 8
-// columns, 64 registers, as dK plus dV at D = 128.  The column pass would
-// hold 128 registers of dK and dV before the scores, so it takes the D
-// halves: two blocks a key tile (grid x = key tiles x col_splits(D)), each
-// computing S and dP over the whole D and dK and dV for its 128 columns
-// (the scores twice: 12 D FLOP a pair where D = 128 takes 8 D).  Shared
-// memory doubles with D either way, 205 KB a block at f32 (141 KB at
-// float16), so one block runs an SM.  ptxas -v on the H100 machine's
-// toolkit (sm_90a) at D = 256: the row pass 128 registers (f32) and 162
-// (f16), the column pass 190 and 168, the statistics pass 32 and 30; no
-// spill in any of them.
-//
-// The encoder's regimes: at S = 128 one block holds the whole head (its
-// four row passes, the rows' lse and dsum kept in shared memory, then its
-// four column passes), needing nothing from the forward; at S > 128 a row
+// The regimes: at S = 128 one block holds the whole head (its four row
+// passes, the rows' lse and dsum kept in shared memory, then its four
+// column passes), needing nothing from the forward; at S > 128 a row
 // kernel reads the forward's lse, writes each row's (lse * log2(e), dsum)
 // to `stats`, and a column kernel reads them.
 #pragma once
@@ -74,13 +52,10 @@
 #include "attention_simt.cuh"
 
 // The instantiations, one list each, which paddle_tpu_torch/ops/_simt.py
-// admits for "flash_bwd" and "encoder_bwd" (a CPU test parses these lines
-// against its lists): the storage types (q = k = v = dO) and head dims
-// (float16 flash and encoder run the tensor-core kernels,
-// flash_attention_bwd.cu and encoder_attention_bwd.cu).
-#define SIMT_BWD_FLASH_TYPES(X) X(float)
+// admits for "encoder_bwd" (a CPU test parses these lines against its
+// lists): the storage types (q = k = v = dO) and head dims (float16 runs
+// the tensor-core kernel, encoder_attention_bwd.cu).
 #define SIMT_BWD_ENCODER_TYPES(X) X(float)
-#define SIMT_BWD_FLASH_DIMS(X) X(64) X(128) X(256)
 #define SIMT_BWD_ENCODER_DIMS(X) X(64) X(128)
 
 namespace attention_simt_bwd {
@@ -88,12 +63,7 @@ namespace attention_simt_bwd {
 using namespace attention_simt;
 
 constexpr int kTile = 32;   // own rows a block, and rows a walked tile
-constexpr int kHeadS = 128; // the encoder's whole-head regime
-
-// Blocks that share a column pass's key tile, each owning D / col_splits(D)
-// columns of dK and dV: two at D = 256, so that a thread holds 64 f32
-// registers of them at every D.
-__host__ __device__ constexpr int col_splits(int D) { return D > 128 ? 2 : 1; }
+constexpr int kHeadS = 128; // the whole-head regime
 
 // A [B, S, H, D] view: heads D apart, positions ss and batches sb elements
 // apart.
@@ -104,7 +74,7 @@ struct View {
 
 struct BwdParams {
   View q, k, v, dO;
-  const float* lse;  // encoder, S > kHeadS: the forward's [B * H, S] natural-log lse
+  const float* lse;  // S > kHeadS: the forward's [B * H, S] natural-log lse
   float* stats;      // [2, B * H, Sq]: each row's lse * log2(e), then its dsum
   void* dq;          // [B, Sq, H, D] contiguous, q's type
   void* dk;          // [B, Sk, H, D] contiguous
@@ -113,7 +83,7 @@ struct BwdParams {
   int causal;
   float scale;
   float scale_log2;  // scale * log2(e)
-  const int* seed;   // encoder dropout: the int32 [2] seed pair, or null
+  const int* seed;   // dropout: the int32 [2] seed pair, or null
   uint32_t thresh;   // keep iff the element's Philox word < thresh
   float inv_keep;    // 1 / (1 - rate)
 };
@@ -197,12 +167,11 @@ __device__ __forceinline__ void keep_bits(bool (&keep)[2][4], const BwdParams& p
 
 // ------------------------------------------------------------- row pass
 
-// dQ of query rows [r0, r0 + kTile) of (b, h), walking key tiles.  Flash
-// reads each row's lse * log2(e) and dsum from st_l / st_d.  The encoder
-// walks twice: first for dsum = rowsum(dP * P) (and, when `lse` is null,
-// the row's max and sum, online), which it writes to st_l / st_d; then for
-// dS and dQ.  st_l and st_d are this head's rows (global or shared).
-template <int D, class T, bool ENC>
+// dQ of query rows [r0, r0 + kTile) of (b, h), walking key tiles twice:
+// first for dsum = rowsum(dP * P) (and, when `lse` is null, the row's max
+// and sum, online), which it writes to st_l / st_d; then for dS and dQ.
+// st_l and st_d are this head's rows (global or shared).
+template <int D, class T>
 __device__ void row_pass(const BwdParams& p, unsigned char* smem, int b, int h, int r0,
                          float* st_l, float* st_d, const float* lse) {
   using L = BwdLayout<D, T>;
@@ -234,15 +203,9 @@ __device__ void row_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
   float lr[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f};  // the rows' lse * log2(e), dsum
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (rr[i] >= live) continue;
-    if constexpr (!ENC) {
-      lr[i] = st_l[r0 + rr[i]];
-      dr[i] = st_d[r0 + rr[i]];
-    } else if (lse) {
-      lr[i] = lse[(size_t)bh * p.Sq + r0 + rr[i]] * kLog2e;
-    }
+    if (rr[i] < live && lse) lr[i] = lse[(size_t)bh * p.Sq + r0 + rr[i]] * kLog2e;
   }
-  const uint2 key = (ENC && p.seed) ? philox::key(p.seed) : make_uint2(0u, 0u);
+  const uint2 key = p.seed ? philox::key(p.seed) : make_uint2(0u, 0u);
   const auto load = [&](int j) {
     T* kd = ring + (size_t)(2 * (j & 1)) * kTile * WS;
     load_walk<D, T>(kd, p.k, b, h, j * kTile, kend);
@@ -259,7 +222,7 @@ __device__ void row_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
       for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, lp[2] = {0.f, 0.f}, part[2] = {0.f, 0.f};
 
-  for (int pass = ENC ? 0 : 1; pass < 2; ++pass) {
+  for (int pass = 0; pass < 2; ++pass) {
     if (ntiles > 0) load(0);
     for (int j = 0; j < ntiles; ++j) {
       if (j + 1 < ntiles) {
@@ -302,9 +265,9 @@ __device__ void row_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int n = 0; n < 4; ++n) keep[i][n] = true;
-      if (ENC && p.seed) keep_bits(keep, p, key, bh, r0 + rr[0], kb + l8, true);
+      if (p.seed) keep_bits(keep, p, key, bh, r0 + rr[0], kb + l8, true);
 
-      if (pass == 0) {  // the encoder's statistics
+      if (pass == 0) {  // the statistics
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           float x[4], dpd[4];
@@ -347,14 +310,8 @@ __device__ void row_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
         for (int n = 0; n < 4; ++n) {
           const bool vis = kb + l8 + 8 * n < rend[i];
           const float pr = vis ? exp2f(s[i][n] * p.scale_log2 - lr[i]) : 0.f;
-          float ds;
-          if constexpr (ENC) {
-            const float dpd = keep[i][n] ? dp[i][n] * p.inv_keep : 0.f;
-            ds = pr * (dpd - dr[i]) * p.scale;
-          } else {
-            ds = pr * (dp[i][n] - dr[i]);
-          }
-          pb[(l8 + 8 * n) * PS + rr[i]] = Round<T>::f(ds);
+          const float dpd = keep[i][n] ? dp[i][n] * p.inv_keep : 0.f;
+          pb[(l8 + 8 * n) * PS + rr[i]] = Round<T>::f(pr * (dpd - dr[i]) * p.scale);
         }
       __syncthreads();
       const int nk = min(kTile, kend - kb);
@@ -376,7 +333,7 @@ __device__ void row_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
       }
       __syncthreads();  // dS and the stage are rewritten next
     }
-    if (ENC && pass == 0) {
+    if (pass == 0) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float sum_de = sum8(part[i]);
@@ -401,35 +358,30 @@ __device__ void row_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
   }
 
   T* dq = static_cast<T*>(p.dq);
-  const float f = ENC ? 1.f : p.scale;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (rr[i] >= live) continue;
     T* dst = dq + ((size_t)(b * p.Sq + r0 + rr[i]) * p.H + h) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      st4(dst + 4 * l8 + 32 * c,
-          make_float4(acc[i][c][0] * f, acc[i][c][1] * f, acc[i][c][2] * f, acc[i][c][3] * f));
+      st4(dst + 4 * l8 + 32 * c, make_float4(acc[i][c][0], acc[i][c][1], acc[i][c][2], acc[i][c][3]));
   }
 }
 
 // ---------------------------------------------------------- column pass
 
-// dK and dV of key rows [c0, c0 + kTile) of (b, h), columns [split DC,
-// (split + 1) DC) with DC = D / col_splits(D), walking query tiles from the
-// first that sees them; the scores over the whole D; each query's lse *
-// log2(e) and dsum from st_l / st_d (this head's rows, global or shared).
-template <int D, class T, bool ENC>
+// dK and dV of key rows [c0, c0 + kTile) of (b, h), walking query tiles
+// from the first that sees them; each query's lse * log2(e) and dsum from
+// st_l / st_d (this head's rows, global or shared).
+template <int D, class T>
 __device__ void col_pass(const BwdParams& p, unsigned char* smem, int b, int h, int c0,
-                         const float* st_l, const float* st_d, int split = 0) {
+                         const float* st_l, const float* st_d) {
   using L = BwdLayout<D, T>;
-  constexpr int DC = D / col_splits(D);
-  constexpr int OS = L::OS, WS = L::WS, PS = L::PS, NC = DC / 32;
-  const int cb = split * DC;  // the block's first column of dK and dV
+  constexpr int OS = L::OS, WS = L::WS, PS = L::PS, NC = D / 32;
   float* ka = reinterpret_cast<float*>(smem);
   float* va = reinterpret_cast<float*>(smem + L::off_b);
   T* ring = reinterpret_cast<T*>(smem + L::off_w);
-  float* pvb = reinterpret_cast<float*>(smem + L::off_p);  // P (flash: rounded) or P_d, for dV
+  float* pvb = reinterpret_cast<float*>(smem + L::off_p);  // P_d, for dV
   float* dsb = pvb + kTile * PS;                           // dS, for dK
 
   const int t = threadIdx.x, g = t >> 3, l8 = t & 7;
@@ -448,7 +400,7 @@ __device__ void col_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
   __syncthreads();  // the previous pass of this block is done with shared memory
   load_own<D, T>(ka, p.k, b, h, c0, livek);
   load_own<D, T>(va, p.v, b, h, c0, livek);
-  const uint2 key = (ENC && p.seed) ? philox::key(p.seed) : make_uint2(0u, 0u);
+  const uint2 key = p.seed ? philox::key(p.seed) : make_uint2(0u, 0u);
   const auto load = [&](int j) {
     T* qd = ring + (size_t)(2 * (j & 1)) * kTile * WS;
     load_walk<D, T>(qd, p.q, b, h, qbeg + j * kTile, p.Sq);
@@ -518,7 +470,7 @@ __device__ void col_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int n = 0; n < 4; ++n) keep[i][n] = true;
-    if (ENC && p.seed) keep_bits(keep, p, key, bh, c0 + cc[0], qb + l8, false);
+    if (p.seed) keep_bits(keep, p, key, bh, c0 + cc[0], qb + l8, false);
 
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -527,17 +479,9 @@ __device__ void col_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
         const int x = qb + l8 + 8 * n, kpos = c0 + cc[i];
         const bool vis = x < p.Sq && kpos < p.Sk && (!p.causal || kpos <= x + off);
         const float pr = vis ? exp2f(s[i][n] * p.scale_log2 - sl[n]) : 0.f;
-        float pv, ds;
-        if constexpr (ENC) {
-          pv = keep[i][n] ? pr * p.inv_keep : 0.f;  // not rounded: the reference's f32 dV
-          const float dpd = keep[i][n] ? dp[i][n] * p.inv_keep : 0.f;
-          ds = Round<T>::f(pr * (dpd - sd[n]) * p.scale);
-        } else {
-          pv = Round<T>::f(pr);
-          ds = Round<T>::f(pr * (dp[i][n] - sd[n]));
-        }
-        pvb[(l8 + 8 * n) * PS + cc[i]] = pv;
-        dsb[(l8 + 8 * n) * PS + cc[i]] = ds;
+        const float dpd = keep[i][n] ? dp[i][n] * p.inv_keep : 0.f;
+        pvb[(l8 + 8 * n) * PS + cc[i]] = keep[i][n] ? pr * p.inv_keep : 0.f;  // not rounded: f32 dV
+        dsb[(l8 + 8 * n) * PS + cc[i]] = Round<T>::f(pr * (dpd - sd[n]) * p.scale);
       }
     __syncthreads();
     const int nq = min(kTile, p.Sq - qb);
@@ -550,8 +494,8 @@ __device__ void col_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
       }
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        const float4 gv = ld4(gt + qq * WS + cb + 4 * l8 + 32 * c);
-        const float4 qv = ld4(qt + qq * WS + cb + 4 * l8 + 32 * c);
+        const float4 gv = ld4(gt + qq * WS + 4 * l8 + 32 * c);
+        const float4 qv = ld4(qt + qq * WS + 4 * l8 + 32 * c);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           dv[i][c][0] = fmaf(a[i], gv.x, dv[i][c][0]);
@@ -575,15 +519,13 @@ __device__ void col_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
 
   T* dkg = static_cast<T*>(p.dk);
   T* dvg = static_cast<T*>(p.dv);
-  const float f = ENC ? 1.f : p.scale;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (cc[i] >= livek) continue;
-    const size_t at = ((size_t)(b * p.Sk + c0 + cc[i]) * p.H + h) * D + cb;
+    const size_t at = ((size_t)(b * p.Sk + c0 + cc[i]) * p.H + h) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      st4(dkg + at + 4 * l8 + 32 * c,
-          make_float4(dk[i][c][0] * f, dk[i][c][1] * f, dk[i][c][2] * f, dk[i][c][3] * f));
+      st4(dkg + at + 4 * l8 + 32 * c, make_float4(dk[i][c][0], dk[i][c][1], dk[i][c][2], dk[i][c][3]));
       st4(dvg + at + 4 * l8 + 32 * c, make_float4(dv[i][c][0], dv[i][c][1], dv[i][c][2], dv[i][c][3]));
     }
   }
@@ -591,11 +533,10 @@ __device__ void col_pass(const BwdParams& p, unsigned char* smem, int b, int h, 
 
 // -------------------------------------------------------------- kernels
 
-enum class Op { FlashDq, FlashDkv, EncoderDq, EncoderDkv, EncoderHead };
+enum class Op { EncoderDq, EncoderDkv, EncoderHead };
 
-// Grid: (row tiles, H, B) or (key tiles x col_splits(D), H, B) for the
-// streamed ops (causal dQ tiles the longest walks first); (H, B) for the
-// whole head.
+// Grid: (row tiles, H, B) or (key tiles, H, B) for the streamed ops (causal
+// dQ tiles the longest walks first); (H, B) for the whole head.
 template <Op OP, int D, class T>
 __global__ void __launch_bounds__(kThreads) simt_attention_bwd(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -604,47 +545,18 @@ __global__ void __launch_bounds__(kThreads) simt_attention_bwd(const BwdParams p
     using L = BwdLayout<D, T>;
     float* sl = reinterpret_cast<float*>(smem + L::off_st);
     float* sd = sl + kHeadS;
-    for (int r0 = 0; r0 < kHeadS; r0 += kTile) row_pass<D, T, true>(p, smem, b, h, r0, sl, sd, nullptr);
-    for (int c0 = 0; c0 < kHeadS; c0 += kTile) col_pass<D, T, true>(p, smem, b, h, c0, sl, sd);
+    for (int r0 = 0; r0 < kHeadS; r0 += kTile) row_pass<D, T>(p, smem, b, h, r0, sl, sd, nullptr);
+    for (int c0 = 0; c0 < kHeadS; c0 += kTile) col_pass<D, T>(p, smem, b, h, c0, sl, sd);
   } else {
     const int h = blockIdx.y, b = blockIdx.z, bh = b * p.H + h;
     float* sl = p.stats + (size_t)bh * p.Sq;
     float* sd = p.stats + ((size_t)p.B * p.H + bh) * p.Sq;
-    constexpr bool ENC = OP == Op::EncoderDq || OP == Op::EncoderDkv;
-    if constexpr (OP == Op::FlashDq || OP == Op::EncoderDq) {
+    if constexpr (OP == Op::EncoderDq) {
       const int tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-      row_pass<D, T, ENC>(p, smem, b, h, tile * kTile, sl, sd, ENC ? p.lse : nullptr);
+      row_pass<D, T>(p, smem, b, h, tile * kTile, sl, sd, p.lse);
     } else {
-      constexpr int ns = col_splits(D);
-      col_pass<D, T, ENC>(p, smem, b, h, blockIdx.x / ns * kTile, sl, sd, blockIdx.x % ns);
+      col_pass<D, T>(p, smem, b, h, blockIdx.x * kTile, sl, sd);
     }
-  }
-}
-
-// Flash's statistics pass: stats[0][bh][i] = lse[bh][i] * log2(e) and
-// stats[1][bh][i] = sum_d dO[b, i, h, d] O[b, i, h, d] - dlse[bh][i] (dlse
-// may be null), in f32 from the stored values.  One warp a row; o and dO
-// contiguous [B, Sq, H, D].
-template <int D, class T>
-__global__ void __launch_bounds__(kThreads) simt_flash_stats(const T* o, const T* dO,
-                                                             const float* lse, const float* dlse,
-                                                             float* stats, int rows, int H, int Sq) {
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  const bool ok = row < rows;
-  float acc = 0.f;
-  if (ok) {
-    const int i = row % Sq, bh = row / Sq;
-    const size_t base = ((size_t)((bh / H) * Sq + i) * H + bh % H) * D;
-    for (int c = 4 * lane; c < D; c += 128) {
-      const float4 a = ld4(dO + base + c), y = ld4(o + base + c);
-      acc = dot4(a, y, acc);
-    }
-  }
-#pragma unroll
-  for (int mk = 16; mk; mk >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, mk);
-  if (ok && lane == 0) {
-    stats[row] = lse[row] * kLog2e;
-    stats[(size_t)rows + row] = acc - (dlse ? dlse[row] : 0.f);
   }
 }
 
@@ -662,44 +574,19 @@ template <Op OP, class T>
 cudaError_t run_typed(const BwdParams& p, int D, dim3 grid, cudaStream_t st) {
 #define SIMT_BWD_RUN(DD) \
   if (D == DD) return run(simt_attention_bwd<OP, DD, T>, grid, BwdLayout<DD, T>::bytes, st, p);
-  if constexpr (OP == Op::FlashDq || OP == Op::FlashDkv) {
-    SIMT_BWD_FLASH_DIMS(SIMT_BWD_RUN)
-  } else {
-    SIMT_BWD_ENCODER_DIMS(SIMT_BWD_RUN)
-  }
+  SIMT_BWD_ENCODER_DIMS(SIMT_BWD_RUN)
 #undef SIMT_BWD_RUN
   return cudaErrorInvalidValue;
 }
 
-// Launch op OP on storage type `type` (0 float32, 1 float16: the encoder's
-// ops only) and head dim D, or return cudaErrorInvalidValue where no
-// instantiation is built.
+// Launch op OP on storage type `type` (0 float32) and head dim D, or
+// return cudaErrorInvalidValue where no instantiation is built.
 template <Op OP>
 cudaError_t run_op(const BwdParams& p, int D, int type, dim3 grid, cudaStream_t st) {
 #define SIMT_BWD_TYPE(T) \
   if (type == type_code<T>()) return run_typed<OP, T>(p, D, grid, st);
-  if constexpr (OP == Op::FlashDq || OP == Op::FlashDkv) {
-    SIMT_BWD_FLASH_TYPES(SIMT_BWD_TYPE)
-  } else {
-    SIMT_BWD_ENCODER_TYPES(SIMT_BWD_TYPE)
-  }
+  SIMT_BWD_ENCODER_TYPES(SIMT_BWD_TYPE)
 #undef SIMT_BWD_TYPE
-  return cudaErrorInvalidValue;
-}
-
-template <class T>
-cudaError_t run_flash_stats_typed(const void* o, const void* dO, const float* lse, const float* dlse,
-                                  float* stats, int rows, int H, int Sq, int D, cudaStream_t st) {
-  const dim3 grid((rows + kThreads / 32 - 1) / (kThreads / 32));
-#define SIMT_BWD_STATS(DD)                                                                    \
-  if (D == DD) {                                                                              \
-    simt_flash_stats<DD, T><<<grid, kThreads, 0, st>>>(static_cast<const T*>(o),              \
-                                                       static_cast<const T*>(dO), lse, dlse, \
-                                                       stats, rows, H, Sq);                   \
-    return cudaGetLastError();                                                                \
-  }
-  SIMT_BWD_FLASH_DIMS(SIMT_BWD_STATS)
-#undef SIMT_BWD_STATS
   return cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,6 @@
-// FlashAttention backward for Hopper (sm_90a), bf16 and float16, head dims
-// 64, 128 and 256: two entry points, one per TPU kernel, and the dsum pass
-// they share.
+// FlashAttention backward for Hopper (sm_90a), bf16, float16 and float32,
+// head dims 64, 128 and 256: two entry points, one per TPU kernel, the
+// dsum pass they share and, at float32, the split pass.
 //
 // Replaces: paddle_tpu/ops/flash_attention.py `_dq_kernel` (entry
 // flash_attention_dq) and `_dkv_kernel` (entry flash_attention_dkv), both
@@ -11,12 +11,25 @@
 //   dQ = scale * T(P (dP - dsum)) k,        dP = dO v^T,
 //   dK = scale * T(P (dP - dsum))^T q,      dsum = rowsum(dO * O) - dlse,
 //   dV = T(P)^T dO,
-// with the reference's roundings (dS and, for dV, P to the inputs' type T;
-// the scale after the product) and f32 sums.  bf16 and float16 run one
-// design, instantiated at T (FLASH_BWD_TYPES): the reference computes both
-// the same way, and every tile, descriptor and register count below is in
-// 2-byte elements.  Causal masks are bottom-right aligned (query
-// i sees keys <= i + Sk - Sq).
+// with the reference's roundings (dS and, for dV, P to the inputs' type T,
+// a no-op at float32; the scale after the product) and f32 sums.  bf16 and
+// float16 run one design, instantiated at T (FLASH_BWD_TYPES): the
+// reference computes both the same way, and every tile, descriptor and
+// register count below is in 2-byte elements.  Causal masks are
+// bottom-right aligned (query i sees keys <= i + Sk - Sq).
+//
+// Float32 runs the same kernels on the tensor cores as split-bf16
+// products.  Each f32 operand x is two bf16 planes, hi = RN(x) and lo =
+// RN(x - hi) (about 16 of f32's 24 bits), and each product A B is the sum
+// of the terms of FLASH_BWD_F32_TERMS, A_lo B_hi + A_hi B_lo + A_hi B_hi,
+// three bf16 products exact in f32 and summed in f32 (the small terms
+// first; A_lo B_lo, under 2^-16 of the rest, is left out).  The planes of
+// q, k, v and dO come from a split pass of their own
+// (flash_attention_split: [B, S, H, 2, D] bf16 each, hi then lo along a
+// row, so a tile's two planes are neighbouring 64-column panels of one TMA
+// map over 2 D columns); the register A operands P and dS are split where
+// they are made (to_planes).  dQ, dK and dV are written in f32 from the
+// accumulators.
 //
 // What bounds it on this card: operations.  Per visible query-key pair dQ
 // does 3 products (S, dP, dS K: 6 D operations) and dK/dV 4 (S, dP, P^T dO,
@@ -24,7 +37,9 @@
 // training shape (B 8, H 16, S 2048, D 128, causal) that is 0.35 ms at
 // 989 TFLOP/s (bf16 and float16 alike) against 0.16 ms for its bytes (q,
 // k, v, o, dO, lse in; dq, dk, dv out) at 3.35 TB/s; the D = 256 shape
-// [8, 2048, 8, 256] has the same H D and so the same bounds.
+// [8, 2048, 8, 256] has the same H D and so the same bounds.  Float32 does
+// three bf16 products for each: dq 0.626 ms and dkv 0.834 ms at both
+// shapes (the f32 FFMA floor they replace: 3.08 and 4.10 ms).
 //
 // What the design does about it: every product runs on `wgmma`
 // (wgmma_attention.cuh), with the forward's block shape: two warpgroups of
@@ -56,17 +71,36 @@
 // ring another 64 KB: two stages.  ptxas -v (sm_90a) at D = 256: dK/dV 250
 // registers, dQ 197, the statistics pass 27; no spill.
 //
+// Float32 tiles.  Two planes double shared memory against bf16 (4 bytes
+// an element), so a float32 tile is a bf16 tile of width W = 2 D, and the
+// layouts (Dq, Dkv) are picked by W: at D = 64 the bf16 D = 128 shapes; at
+// D = 128 dQ takes the bf16 D = 256 shape (128 own queries, 32-key tiles,
+// three stages: 224 KB) and dK/dV 128 own keys walking 32-query tiles
+// (m64n32 scores, so that dK and dV's 128 registers, two planes of P^T and
+// dS^T and the scores fit in 255; three stages, 224 KB); at D = 256 64 own
+// rows of two tensors in two planes already take 128 KB, so both kernels
+// put their two warpgroups on the same 64 own rows, each owning one
+// 128-column half of the output (dQ as dK/dV above), and walk 32-row tiles
+// through one stage (64 KB): a tile's loads wait for the last tile's
+// products.  The products read both planes from shared memory, three
+// times the bf16 kernel's wgmma a tile (HGMMA by instantiation: the build
+// log).
+//
 // Each block owns its output rows (and columns): no atomics, the same bits
 // on every run -- at the price of computing S and dP in both kernels (14 D
 // against 10 D above; 18 D at D = 256).  The per-query statistics are a
 // small kernel of their own (FlashAttention-2's preprocessing step):
 // `stats` [2, B * H, Sqp] holds lse * log2(e) and dsum, zero-padded to Sqp
-// = Sq rounded up to 64 so that a walked tile's 64 values are one aligned
+// = Sq rounded up to 64 so that a walked tile's values are one aligned
 // bulk copy.  The autograd backward fills it once and passes `stats_ready`
-// to both entries; an entry called alone fills it first.
+// to both entries; an entry called alone fills it first.  At float32 the
+// split pass reads 4 bytes and writes 4 an element (bytes-bound: about
+// 0.32 ms at the training shape), once for both entries.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (paddle_tpu_torch/ops/_build.py does this).
+
+#include <algorithm>
 
 #include "wgmma_attention.cuh"
 
@@ -90,46 +124,134 @@ struct BwdArgs {
 // (paddle_tpu_torch/ops/flash_attention.py BWD_HEAD_DIMS and TYPE_CODES; a
 // CPU test parses these lines against them).
 #define FLASH_BWD_DIMS(X) X(64) X(128) X(256)
-#define FLASH_BWD_TYPES(X) X(__nv_bfloat16, 1) X(__half, 2)
+#define FLASH_BWD_TYPES(X) X(__nv_bfloat16, 1) X(__half, 2) X(float, 0)
+// The float32 products' terms, (A plane, B plane) with 0 = hi and 1 = lo,
+// in the order they are summed (a CPU test emulates this list).
+#define FLASH_BWD_F32_TERMS(X) X(1, 0) X(0, 1) X(0, 0)
 
 constexpr int kOwn = 128;    // own query rows per dQ block, 64 per warpgroup
-constexpr int kWalk = 64;    // queries per tile of the dK/dV walk
+constexpr int kWalk = 64;    // the statistics' padding: queries per tile of the bf16 dK/dV walk
 
 inline int padded(int Sq) { return (Sq + kWalk - 1) / kWalk * kWalk; }
 
+// How the products read an input type T: a 2-byte T as itself, one plane;
+// float as P = 2 bf16 planes (hi, lo) side by side along a row.
+template <typename T>
+struct Planes {
+  using E = T;
+  static constexpr int P = 1;
+};
+
+template <>
+struct Planes<float> {
+  using E = bf16;
+  static constexpr int P = 2;
+};
+
+// A plane index known at compile time.
+template <int V>
+struct Plane {
+  __host__ __device__ constexpr operator int() const { return V; }
+};
+
+// f(a, b, first) for each term of a product over P planes: (0, 0) alone at
+// P = 1, FLASH_BWD_F32_TERMS at P = 2; a and b are compile-time plane
+// indices, `first` marks the term that starts the accumulator.
+template <int P, typename F>
+__device__ __forceinline__ void for_terms(F&& f) {
+  if constexpr (P == 1) {
+    f(Plane<0>(), Plane<0>(), true);
+  } else {
+    bool first = true;
+#define X(A, B)                     \
+  f(Plane<A>(), Plane<B>(), first); \
+  first = false;
+    FLASH_BWD_F32_TERMS(X)
+#undef X
+  }
+}
+
+// The A fragments of an m64 x N accumulator for the products: rounded to T,
+// or at float32 split into hi = RN(x) and lo = RN(x - hi) bf16 planes.
+template <int N, typename T>
+__device__ __forceinline__ void to_planes(uint32_t (&a)[Planes<T>::P][N / 16][4],
+                                          const float (&d)[N / 2]) {
+  if constexpr (Planes<T>::P == 1) {
+    to_a<N, T>(a[0], d);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x0 = d[8 * kk + 2 * r], x1 = d[8 * kk + 2 * r + 1];
+        __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        const float2 h = __bfloat1622float2(hi);
+        __nv_bfloat162 lo = __floats2bfloat162_rn(x0 - h.x, x1 - h.y);
+        a[0][kk][r] = *reinterpret_cast<uint32_t*>(&hi);
+        a[1][kk][r] = *reinterpret_cast<uint32_t*>(&lo);
+      }
+  }
+}
+
+// dQ's layout at T and D (W = P D elements of a row's planes): 128 own
+// queries, 64 a warpgroup, walking BK-key tiles through kStages stages; at
+// W > 256 (float32 at D = 256) 64 own queries that both warpgroups share,
+// each owning CW = D / 2 columns of dQ, through one stage.
 template <typename T, int D>
 struct Dq {
-  static constexpr int BK = D <= 128 ? 128 : 32;     // keys a walked tile (m64nBK products)
-  static constexpr int kStages = D <= 128 ? 2 : 3;  // 192 KB at D = 128, 224 KB at D = 256
+  using E = typename Planes<T>::E;
+  static constexpr int P = Planes<T>::P;
+  static constexpr int W = P * D;
+  static constexpr bool kSplit = W > 256;            // the warpgroups split D, not the rows
+  static constexpr int OWN = kSplit ? 64 : kOwn;
+  static constexpr int CW = kSplit ? D / 2 : D;      // dQ columns a warpgroup owns
+  static constexpr int BK = W <= 128 ? 128 : 32;     // keys a walked tile (m64nBK products)
+  // 192 KB at W = 128, 224 KB at W = 256, 192 KB at W = 512
+  static constexpr int kStages = W <= 128 ? 2 : (kSplit ? 1 : 3);
   struct Smem {
-    T q[kOwn * D];
-    T dO[kOwn * D];
-    T k[kStages][BK * D];
-    T v[kStages][BK * D];
+    E q[OWN * W];
+    E dO[OWN * W];
+    E k[kStages][BK * W];
+    E v[kStages][BK * W];
     uint64_t own_full;
     Ring<kStages> ring;
   };
   static constexpr size_t kSmem = sizeof(Smem) + 1024;
 };
 
+// dK/dV's layout: OWN own keys walking WALK-query tiles.
 template <typename T, int D>
 struct Dkv {
+  using E = typename Planes<T>::E;
+  static constexpr int P = Planes<T>::P;
+  static constexpr int W = P * D;
   static constexpr bool kSplit = D > 128;           // the warpgroups split D, not the keys
   static constexpr int OWN = kSplit ? 64 : 128;     // own keys a block
   static constexpr int CW = kSplit ? D / 2 : D;     // dK/dV columns a warpgroup owns
-  static constexpr int kStages = kSplit ? 2 : 3;    // 160 KB at D = 128, 193 KB at D = 256
+  static constexpr int WALK = P == 1 || W <= 128 ? kWalk : 32;  // queries a walked tile
+  // bf16: 160 KB at D = 128, 193 KB at D = 256; float32: 160, 224, 192 KB
+  static constexpr int kStages = kSplit ? 3 - P : 3;
   struct Smem {
-    T k[OWN * D];
-    T v[OWN * D];
-    T q[kStages][kWalk * D];
-    T dO[kStages][kWalk * D];
-    float lse2[kStages][kWalk];  // the walked queries' statistics
-    float dsum[kStages][kWalk];
+    E k[OWN * W];
+    E v[OWN * W];
+    E q[kStages][WALK * W];
+    E dO[kStages][WALK * W];
+    float lse2[kStages][WALK];  // the walked queries' statistics
+    float dsum[kStages][WALK];
     uint64_t own_full;
     Ring<kStages> ring;
   };
   static constexpr size_t kSmem = sizeof(Smem) + 1024;
 };
+
+// Two neighbouring values of a row as f32.
+template <typename T>
+__device__ __forceinline__ float2 load_pair(const T* x, int j) {
+  if constexpr (sizeof(T) == 4)
+    return reinterpret_cast<const float2*>(x)[j];
+  else
+    return Elem<T>::widen2(reinterpret_cast<const typename Elem<T>::Pair*>(x)[j]);
+}
 
 // stats[0][bh][i] = lse[bh][i] * log2(e) and stats[1][bh][i] = sum_d
 // dO[b, i, h, d] O[b, i, h, d] in f32 minus dlse[bh][i] when given, for i <
@@ -139,17 +261,14 @@ __global__ void __launch_bounds__(128) flash_dsum_kernel(const T* o, const T* dO
                                                          const float* lse, const float* dlse,
                                                          float* stats, int rows, int H, int Sq,
                                                          int Sqp) {
-  using Pair = typename Elem<T>::Pair;
   const int row = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= rows) return;  // whole warps leave together
   const int i = row % Sqp, bh = row / Sqp;
   float acc = 0.f;
   if (i < Sq) {
     const size_t base = ((size_t)((bh / H) * Sq + i) * H + bh % H) * D;
-    const Pair* x = reinterpret_cast<const Pair*>(dO + base);
-    const Pair* y = reinterpret_cast<const Pair*>(o + base);
     for (int j = lane; j < D / 2; j += 32) {
-      const float2 a = Elem<T>::widen2(x[j]), c = Elem<T>::widen2(y[j]);
+      const float2 a = load_pair(dO + base, j), c = load_pair(o + base, j);
       acc += a.x * c.x + a.y * c.y;
     }
   }
@@ -162,40 +281,90 @@ __global__ void __launch_bounds__(128) flash_dsum_kernel(const T* o, const T* dO
   }
 }
 
-// dQ for one 128-row query tile (grid: query tiles x H x B, the longest
+// The split pass: q, k, v and dO (f32 [B, S, H, D], contiguous; nq values
+// each of q and dO, nk of k and v) into their bf16 planes, one after
+// another in `planes` (q, k, v, dO, each [B, S, H, 2, D]: a row's D hi
+// values, then its D lo values), hi = RN(x), lo = RN(x - hi) (exact
+// before the rounding), lo = 0 where hi is not finite.  Each thread takes
+// 8 values of one row: two 16-byte loads and a 16-byte store a plane.
+// Bytes-bound: 4 bytes read and 4 written an element.
+__device__ __forceinline__ uint32_t split_pair(float x0, float x1, uint32_t& lo) {
+  __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+  const float2 h = __bfloat1622float2(hi);
+  __nv_bfloat162 l = __floats2bfloat162_rn(isfinite(h.x) ? x0 - h.x : 0.f,
+                                           isfinite(h.y) ? x1 - h.y : 0.f);
+  lo = *reinterpret_cast<uint32_t*>(&l);
+  return *reinterpret_cast<uint32_t*>(&hi);
+}
+
+__global__ void __launch_bounds__(256) flash_split_kernel(const float* q, const float* k,
+                                                          const float* v, const float* dO,
+                                                          bf16* planes, long long nq,
+                                                          long long nk, int D) {
+  const long long n8 = (2 * nq + 2 * nk) / 8;
+  for (long long c = blockIdx.x * 256ll + threadIdx.x; c < n8; c += (long long)gridDim.x * 256) {
+    const long long i = 8 * c;  // the value's index over the four tensors
+    const float* src = dO;
+    long long base = nq + 2 * nk;  // the tensor's first index
+    if (i < nq) {
+      src = q, base = 0;
+    } else if (i < nq + nk) {
+      src = k, base = nq;
+    } else if (i < nq + 2 * nk) {
+      src = v, base = nq + nk;
+    }
+    const long long e = i - base, row = e / D, col = e % D;
+    const float4 x0 = __ldg(reinterpret_cast<const float4*>(src + e));
+    const float4 x1 = __ldg(reinterpret_cast<const float4*>(src + e) + 1);
+    uint4 hi, lo;
+    hi.x = split_pair(x0.x, x0.y, lo.x);
+    hi.y = split_pair(x0.z, x0.w, lo.y);
+    hi.z = split_pair(x1.x, x1.y, lo.z);
+    hi.w = split_pair(x1.z, x1.w, lo.w);
+    bf16* dst = planes + 2 * base + row * 2 * D + col;
+    *reinterpret_cast<uint4*>(dst) = hi;
+    *reinterpret_cast<uint4*>(dst + D) = lo;
+  }
+}
+
+// dQ for one query tile of OWN rows (grid: query tiles x H x B, the longest
 // causal walks first).  Per BK-key tile up to the causal end: P =
-// exp(scale S - lse), dS = T(P (dP - dsum)), dQ += dS K.
+// exp(scale S - lse), dS = T(P (dP - dsum)), dQ += dS K; every product
+// over the planes' terms (for_terms).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                     const BwdArgs p) {
   using L = Dq<T, D>;
-  constexpr int BK = L::BK, NS = L::kStages;
+  using E = typename L::E;
+  constexpr int BK = L::BK, NS = L::kStages, OWN = L::OWN, W = L::W, CW = L::CW, P = L::P;
+  constexpr int KD = D / 16;  // k-steps of a plane
   typename L::Smem& sm = aligned_smem<typename L::Smem>();
   const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kOwn;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * OWN;
   const int off = p.Sk - p.Sq;
-  const int kend = p.causal ? min(p.Sk, min(q0 + kOwn, p.Sq) + off) : p.Sk;
+  const int kend = p.causal ? min(p.Sk, min(q0 + OWN, p.Sq) + off) : p.Sk;
   const int tiles = (kend + BK - 1) / BK;
   const auto load_kv = [&](int j) {
     uint64_t* full = &sm.ring.full[j % NS];
-    mbar_expect_tx(full, 2 * BK * D * 2);
-    tma_tile<D, BK>(sm.k[j % NS], &tk, full, h, j * BK, b);
-    tma_tile<D, BK>(sm.v[j % NS], &tv, full, h, j * BK, b);
+    mbar_expect_tx(full, 2 * BK * W * 2);
+    tma_tile<W, BK>(sm.k[j % NS], &tk, full, h, j * BK, b);
+    tma_tile<W, BK>(sm.v[j % NS], &tv, full, h, j * BK, b);
   };
   init_ring(&sm.own_full, sm.ring);
   if (threadIdx.x == 0) {
-    mbar_expect_tx(&sm.own_full, 2 * kOwn * D * 2);
-    tma_tile<D, kOwn>(sm.q, &tq, &sm.own_full, h, q0, b);
-    tma_tile<D, kOwn>(sm.dO, &tdo, &sm.own_full, h, q0, b);
+    mbar_expect_tx(&sm.own_full, 2 * OWN * W * 2);
+    tma_tile<W, OWN>(sm.q, &tq, &sm.own_full, h, q0, b);
+    tma_tile<W, OWN>(sm.dO, &tdo, &sm.own_full, h, q0, b);
     for (int j = 0; j < min(tiles, NS); ++j) load_kv(j);
   }
 
   const int wg = warpgroup(), warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int t = lane & 3;
-  const int wq0 = q0 + 64 * wg;
-  const int row = wq0 + 16 * warp + (lane >> 2);  // rows row, row + 8
+  const int wq0 = q0 + (L::kSplit ? 0 : 64 * wg);  // the warpgroup's first row
+  const int row = wq0 + 16 * warp + (lane >> 2);   // rows row, row + 8
+  const int col0 = L::kSplit ? CW * wg : 0;        // its first dQ column
   const int last = p.causal ? row + off : kNoLimit;
   const size_t stat0 = (size_t)(b * p.H + h) * p.Sqp;
   float lse2[2], dsum[2];
@@ -205,27 +374,34 @@ __global__ void __launch_bounds__(kThreads, 1)
     lse2[hr] = r < p.Sq ? p.lse2[stat0 + r] : 0.f;
     dsum[hr] = r < p.Sq ? p.dsum[stat0 + r] : 0.f;
   }
-  const T* qw = sm.q + 64 * wg * kPanel;
-  const T* dow = sm.dO + 64 * wg * kPanel;
-  float dq[D / 2];
+  const E* qw = sm.q + (wq0 - q0) * kPanel;
+  const E* dow = sm.dO + (wq0 - q0) * kPanel;
+  float dq[CW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < CW / 2; ++i) dq[i] = 0.f;
 
   mbar_wait(&sm.own_full, 0);
   for (int j = 0; j < tiles; ++j) {
     const int s = j % NS, kb = j * BK;
+    if constexpr (NS == 1) refill(sm.ring, j, tiles, load_kv);  // the one stage: tile j now
     wait_full(sm.ring, j);
     float sc[BK / 2], dp[BK / 2];
     wg_fence();
+    for_terms<P>([&](auto a, auto c, bool first) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Mma<BK, T>::ss(sc, desc_k<kOwn>(qw, kk), desc_k<BK>(sm.k[s], kk), kk > 0);
+      for (int kk = 0; kk < KD; ++kk)
+        Mma<BK, E>::ss(sc, desc_k<OWN>(qw, kk + a * KD), desc_k<BK>(sm.k[s], kk + c * KD),
+                       !first || kk > 0);
+    });
     wg_commit();
+    for_terms<P>([&](auto a, auto c, bool first) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Mma<BK, T>::ss(dp, desc_k<kOwn>(dow, kk), desc_k<BK>(sm.v[s], kk), kk > 0);
+      for (int kk = 0; kk < KD; ++kk)
+        Mma<BK, E>::ss(dp, desc_k<OWN>(dow, kk + a * KD), desc_k<BK>(sm.v[s], kk + c * KD),
+                       !first || kk > 0);
+    });
     wg_commit();
-    refill(sm.ring, j, tiles, load_kv);
+    if constexpr (NS > 1) refill(sm.ring, j, tiles, load_kv);
     wg_wait<1>();  // S is done: P while dP = dO V^T runs
     fence_regs(sc);
     const bool edge = kb + BK > p.Sk || (p.causal && kb + BK - 1 > wq0 + off);
@@ -239,53 +415,60 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(dp);
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) sc[i] *= dp[i] - dsum[acc_half(i)];
-    uint32_t da[BK / 16][4];
-    to_a<BK, T>(da, sc);
+    uint32_t da[P][BK / 16][4];
+    to_planes<BK, T>(da, sc);
     wg_fence();
+    for_terms<P>([&](auto a, auto c, bool) {
+      // plane c of K, the warpgroup's columns: panels (c D + col0) / 64 on
+      const E* kc = sm.k[s] + ((c * D + col0) / kPanel) * BK * kPanel;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) Mma<D, T>::rs(dq, da[kk], desc_mn<BK>(sm.k[s], kk));
+      for (int kk = 0; kk < BK / 16; ++kk) Mma<CW, E>::rs(dq, da[a][kk], desc_mn<BK>(kc, kk));
+    });
     wg_commit();
     wg_wait();
     fence_regs(dq);
     release(sm.ring, j);
   }
   const float mul[2] = {p.scale, p.scale};
-  store_rows<D>(static_cast<T*>(p.dq), dq, mul, b, h, row, p.Sq, p.H, t);
+  store_rows<CW, D>(static_cast<T*>(p.dq), dq, mul, b, h, row, p.Sq, p.H, t, col0);
 }
 
 // dK and dV for one key tile (grid: key tiles x H x B): 128 keys, 64 a
 // warpgroup, at D <= 128; 64 keys and one D half of dK and dV a warpgroup
-// at D = 256.  It walks the 64-query tiles from the first that sees a key
+// at D = 256.  It walks the WALK-query tiles from the first that sees a key
 // of the tile to Sq.  Per query tile: P^T = exp(scale S^T - lse), dV +=
-// T(P^T) dO, dS^T = T(P^T (dP^T - dsum)), dK += dS^T Q.
+// T(P^T) dO, dS^T = T(P^T (dP^T - dsum)), dK += dS^T Q; every product over
+// the planes' terms.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                      const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                      const BwdArgs p) {
   using L = Dkv<T, D>;
-  constexpr int OWN = L::OWN, CW = L::CW, NS = L::kStages;
+  using E = typename L::E;
+  constexpr int OWN = L::OWN, CW = L::CW, NS = L::kStages, WALK = L::WALK, W = L::W, P = L::P;
+  constexpr int KD = D / 16;
   typename L::Smem& sm = aligned_smem<typename L::Smem>();
   const int h = blockIdx.y, b = blockIdx.z;
   const int k0 = blockIdx.x * OWN;
   const int off = p.Sk - p.Sq;
-  const int qstart = p.causal ? max(0, k0 - off) / kWalk * kWalk : 0;
-  const int tiles = (p.Sq - qstart + kWalk - 1) / kWalk;
+  const int qstart = p.causal ? max(0, k0 - off) / WALK * WALK : 0;
+  const int tiles = (p.Sq - qstart + WALK - 1) / WALK;
   const size_t stat0 = (size_t)(b * p.H + h) * p.Sqp;
   const auto load_q = [&](int j) {
-    const int s = j % NS, qb = qstart + j * kWalk;
+    const int s = j % NS, qb = qstart + j * WALK;
     uint64_t* full = &sm.ring.full[s];
-    mbar_expect_tx(full, 2 * kWalk * D * 2 + 2 * kWalk * 4);
-    tma_tile<D, kWalk>(sm.q[s], &tq, full, h, qb, b);
-    tma_tile<D, kWalk>(sm.dO[s], &tdo, full, h, qb, b);
-    bulk_load(sm.lse2[s], p.lse2 + stat0 + qb, kWalk * 4, full);
-    bulk_load(sm.dsum[s], p.dsum + stat0 + qb, kWalk * 4, full);
+    mbar_expect_tx(full, 2 * WALK * W * 2 + 2 * WALK * 4);
+    tma_tile<W, WALK>(sm.q[s], &tq, full, h, qb, b);
+    tma_tile<W, WALK>(sm.dO[s], &tdo, full, h, qb, b);
+    bulk_load(sm.lse2[s], p.lse2 + stat0 + qb, WALK * 4, full);
+    bulk_load(sm.dsum[s], p.dsum + stat0 + qb, WALK * 4, full);
   };
   init_ring(&sm.own_full, sm.ring);
   if (threadIdx.x == 0) {
-    mbar_expect_tx(&sm.own_full, 2 * OWN * D * 2);
-    tma_tile<D, OWN>(sm.k, &tk, &sm.own_full, h, k0, b);
-    tma_tile<D, OWN>(sm.v, &tv, &sm.own_full, h, k0, b);
+    mbar_expect_tx(&sm.own_full, 2 * OWN * W * 2);
+    tma_tile<W, OWN>(sm.k, &tk, &sm.own_full, h, k0, b);
+    tma_tile<W, OWN>(sm.v, &tv, &sm.own_full, h, k0, b);
     for (int j = 0; j < min(tiles, NS); ++j) load_q(j);
   }
 
@@ -294,59 +477,78 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wk0 = k0 + (L::kSplit ? 0 : 64 * wg);  // the warpgroup's first key
   const int key = wk0 + 16 * warp + (lane >> 2);   // keys key, key + 8
   const int col0 = L::kSplit ? CW * wg : 0;        // its first dK/dV column
-  const T* kw = sm.k + (wk0 - k0) * kPanel;
-  const T* vw = sm.v + (wk0 - k0) * kPanel;
+  const E* kw = sm.k + (wk0 - k0) * kPanel;
+  const E* vw = sm.v + (wk0 - k0) * kPanel;
   float dk[CW / 2], dv[CW / 2];
 #pragma unroll
   for (int i = 0; i < CW / 2; ++i) dk[i] = dv[i] = 0.f;
 
   mbar_wait(&sm.own_full, 0);
-  uint32_t pa[kWalk / 16][4], da[kWalk / 16][4];
+  uint32_t pa[P][WALK / 16][4], da[P][WALK / 16][4];
   for (int j = 0; j < tiles; ++j) {
-    const int s = j % NS, qb = qstart + j * kWalk;
+    const int s = j % NS, qb = qstart + j * WALK;
+    if constexpr (NS == 1) {  // the one stage: tile j - 1's products end before tile j loads
+      if (j > 0) {
+        wg_wait();
+        release(sm.ring, j - 1);
+        refill(sm.ring, j, tiles, load_q);
+      }
+    }
     wait_full(sm.ring, j);
-    float sc[kWalk / 2], dp[kWalk / 2];
+    float sc[WALK / 2], dp[WALK / 2];
     wg_fence();
+    for_terms<P>([&](auto a, auto c, bool first) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Mma<kWalk, T>::ss(sc, desc_k<OWN>(kw, kk), desc_k<kWalk>(sm.q[s], kk), kk > 0);
+      for (int kk = 0; kk < KD; ++kk)
+        Mma<WALK, E>::ss(sc, desc_k<OWN>(kw, kk + a * KD), desc_k<WALK>(sm.q[s], kk + c * KD),
+                         !first || kk > 0);
+    });
     wg_commit();
+    for_terms<P>([&](auto a, auto c, bool first) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Mma<kWalk, T>::ss(dp, desc_k<OWN>(vw, kk), desc_k<kWalk>(sm.dO[s], kk), kk > 0);
+      for (int kk = 0; kk < KD; ++kk)
+        Mma<WALK, E>::ss(dp, desc_k<OWN>(vw, kk + a * KD), desc_k<WALK>(sm.dO[s], kk + c * KD),
+                         !first || kk > 0);
+    });
     wg_commit();
-    if (j > 0) {
-      wg_wait<2>();  // dK of tile j - 1 is done: its stage is free
-      release(sm.ring, j - 1);
-      refill(sm.ring, j, tiles, load_q);
+    if constexpr (NS > 1) {
+      if (j > 0) {
+        wg_wait<2>();  // dK of tile j - 1 is done: its stage is free
+        release(sm.ring, j - 1);
+        refill(sm.ring, j, tiles, load_q);
+      }
     }
     wg_wait<1>();  // S^T is done: P^T and dV while dP^T = V dO^T runs
     fence_regs(sc);
     fence_regs(dv);
     fence_regs(dk);
-    const bool edge = qb + kWalk > p.Sq || (p.causal && wk0 + 63 > qb + off);
+    const bool edge = qb + WALK > p.Sq || (p.causal && wk0 + 63 > qb + off);
 #pragma unroll
-    for (int i = 0; i < kWalk / 2; ++i) {
+    for (int i = 0; i < WALK / 2; ++i) {
       const int c = acc_col(i, t), q = qb + c;
       const float pr = exp2f(sc[i] * p.scale_log2 - sm.lse2[s][c]);
       sc[i] = edge && (q >= p.Sq || (p.causal && key + 8 * acc_half(i) > q + off)) ? 0.f : pr;
     }
-    to_a<kWalk, T>(pa, sc);
-    // the warpgroup's columns of dO and Q: panels col0 / 64 on
-    const T* dos = sm.dO[s] + (col0 / kPanel) * kWalk * kPanel;
-    const T* qs = sm.q[s] + (col0 / kPanel) * kWalk * kPanel;
+    to_planes<WALK, T>(pa, sc);
     wg_fence();
+    for_terms<P>([&](auto a, auto c, bool) {
+      // plane c of dO, the warpgroup's columns: panels (c D + col0) / 64 on
+      const E* dos = sm.dO[s] + ((c * D + col0) / kPanel) * WALK * kPanel;
 #pragma unroll
-    for (int kk = 0; kk < kWalk / 16; ++kk) Mma<CW, T>::rs(dv, pa[kk], desc_mn<kWalk>(dos, kk));
+      for (int kk = 0; kk < WALK / 16; ++kk) Mma<CW, E>::rs(dv, pa[a][kk], desc_mn<WALK>(dos, kk));
+    });
     wg_commit();
     wg_wait<1>();  // dP^T is done (dV may still run)
     fence_regs(dp);
 #pragma unroll
-    for (int i = 0; i < kWalk / 2; ++i) dp[i] = sc[i] * (dp[i] - sm.dsum[s][acc_col(i, t)]);
-    to_a<kWalk, T>(da, dp);
+    for (int i = 0; i < WALK / 2; ++i) dp[i] = sc[i] * (dp[i] - sm.dsum[s][acc_col(i, t)]);
+    to_planes<WALK, T>(da, dp);
     wg_fence();
+    for_terms<P>([&](auto a, auto c, bool) {
+      const E* qs = sm.q[s] + ((c * D + col0) / kPanel) * WALK * kPanel;
 #pragma unroll
-    for (int kk = 0; kk < kWalk / 16; ++kk) Mma<CW, T>::rs(dk, da[kk], desc_mn<kWalk>(qs, kk));
+      for (int kk = 0; kk < WALK / 16; ++kk) Mma<CW, E>::rs(dk, da[a][kk], desc_mn<WALK>(qs, kk));
+    });
     wg_commit();
   }
   wg_wait();
@@ -359,7 +561,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 struct Inputs {
   const void *q, *k, *v, *o, *dO, *lse, *dlse;
-  float* stats;  // [2, B * H, Sqp]
+  float* stats;        // [2, B * H, Sqp]
+  const void* planes;  // float32: the split pass's planes of q, k, v, dO; else null
   int B, H, Sq, Sk;
   float scale;
   int causal;
@@ -385,14 +588,26 @@ cudaError_t run_stats(const Inputs& in, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// The four TMA maps: q and dO with boxes of q_rows rows, k and v of k_rows.
-template <typename T>
-cudaError_t make_maps(CUtensorMap (&m)[4], const Inputs& in, int D, int q_rows, int k_rows) {
+// The four TMA maps of what the products read, q and dO with boxes of
+// q_rows rows, k and v of k_rows: the inputs themselves, or at float32
+// their planes (a [B, S, H, 2 D] bf16 tensor each, in the split pass's
+// order).
+template <typename T, int D>
+cudaError_t make_maps(CUtensorMap (&m)[4], const Inputs& in, int q_rows, int k_rows) {
+  using E = typename Planes<T>::E;
+  constexpr int W = Planes<T>::P * D;
+  const void *q = in.q, *k = in.k, *v = in.v, *dO = in.dO;
+  if constexpr (Planes<T>::P > 1) {
+    if (!in.planes) return cudaErrorInvalidValue;
+    const size_t nq = (size_t)in.B * in.Sq * in.H * W, nk = (size_t)in.B * in.Sk * in.H * W;
+    const E* base = static_cast<const E*>(in.planes);
+    q = base, k = base + nq, v = base + nq + nk, dO = base + nq + 2 * nk;
+  }
   cudaError_t err;
-  if ((err = make_map<T>(&m[0], in.q, in.B, in.Sq, in.H, D, q_rows)) != cudaSuccess) return err;
-  if ((err = make_map<T>(&m[1], in.dO, in.B, in.Sq, in.H, D, q_rows)) != cudaSuccess) return err;
-  if ((err = make_map<T>(&m[2], in.k, in.B, in.Sk, in.H, D, k_rows)) != cudaSuccess) return err;
-  return make_map<T>(&m[3], in.v, in.B, in.Sk, in.H, D, k_rows);
+  if ((err = make_map<E>(&m[0], q, in.B, in.Sq, in.H, W, q_rows)) != cudaSuccess) return err;
+  if ((err = make_map<E>(&m[1], dO, in.B, in.Sq, in.H, W, q_rows)) != cudaSuccess) return err;
+  if ((err = make_map<E>(&m[2], k, in.B, in.Sk, in.H, W, k_rows)) != cudaSuccess) return err;
+  return make_map<E>(&m[3], v, in.B, in.Sk, in.H, W, k_rows);
 }
 
 template <typename T, int D>
@@ -400,11 +615,12 @@ cudaError_t run_dq(const Inputs& in, void* dq, int stats_ready, cudaStream_t st)
   using L = Dq<T, D>;
   cudaError_t err = stats_ready ? cudaSuccess : run_stats<T, D>(in, st);
   CUtensorMap m[4];
-  if (err != cudaSuccess || (err = make_maps<T>(m, in, D, kOwn, L::BK)) != cudaSuccess) return err;
+  if (err != cudaSuccess || (err = make_maps<T, D>(m, in, L::OWN, L::BK)) != cudaSuccess)
+    return err;
   BwdArgs a = make_args(in);
   a.dq = dq;
-  return launch(flash_dq_kernel<T, D>, dim3((in.Sq + kOwn - 1) / kOwn, in.H, in.B), L::kSmem, st,
-                m[0], m[1], m[2], m[3], a);
+  return launch(flash_dq_kernel<T, D>, dim3((in.Sq + L::OWN - 1) / L::OWN, in.H, in.B), L::kSmem,
+                st, m[0], m[1], m[2], m[3], a);
 }
 
 template <typename T, int D>
@@ -412,7 +628,7 @@ cudaError_t run_dkv(const Inputs& in, void* dk, void* dv, int stats_ready, cudaS
   using L = Dkv<T, D>;
   cudaError_t err = stats_ready ? cudaSuccess : run_stats<T, D>(in, st);
   CUtensorMap m[4];
-  if (err != cudaSuccess || (err = make_maps<T>(m, in, D, kWalk, L::OWN)) != cudaSuccess)
+  if (err != cudaSuccess || (err = make_maps<T, D>(m, in, L::WALK, L::OWN)) != cudaSuccess)
     return err;
   BwdArgs a = make_args(in);
   a.dk = dk;
@@ -437,16 +653,18 @@ cudaError_t by_type(int type, Run run) {
 // Plain C interface (bound with ctypes).  Each returns a cudaError_t: 0 on a
 // clean launch.  Pointers are device pointers to contiguous tensors, 16-byte
 // aligned: q, k, v, o, dO and the gradients of the type of code `type`
-// (FLASH_BWD_TYPES: 1 bf16, 2 float16), lse, dlse and stats f32; dlse may
-// be null; stats is f32 [2, B * H, Sqp] with Sqp = Sq
-// rounded up to 64: flash_attention_dsum fills it, and the dq and dkv
-// entries read it as it is when stats_ready is non-zero, else fill it first.
+// (FLASH_BWD_TYPES: 1 bf16, 2 float16, 0 float32), lse, dlse and stats f32;
+// dlse may be null; stats is f32 [2, B * H, Sqp] with Sqp = Sq rounded up
+// to 64: flash_attention_dsum fills it, and the dq and dkv entries read it
+// as it is when stats_ready is non-zero, else fill it first.  At float32
+// the dq and dkv entries read their products' operands from `planes`, which
+// flash_attention_split fills (null at the other types).
 extern "C" int flash_attention_dsum_launch(const void* o, const void* dO, const void* lse,
                                            const void* dlse, void* stats, int B, int H, int Sq,
                                            int D, int type, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return (int)cudaErrorInvalidValue;
   const Inputs in{nullptr, nullptr, nullptr, o, dO, lse, dlse, static_cast<float*>(stats),
-                  B, H, Sq, Sq, 1.f, 0};
+                  nullptr, B, H, Sq, Sq, 1.f, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define X(DD) \
   if (D == DD) return (int)by_type(type, [&](auto t) { return run_stats<decltype(t), DD>(in, st); });
@@ -455,13 +673,29 @@ extern "C" int flash_attention_dsum_launch(const void* o, const void* dO, const 
   return (int)cudaErrorInvalidValue;
 }
 
+// planes: bf16, 2 (2 B Sq H D + 2 B Sk H D) values: the [B, S, H, 2, D]
+// planes of q, k, v and dO, one after another.
+extern "C" int flash_attention_split_launch(const void* q, const void* k, const void* v,
+                                            const void* dO, void* planes, int B, int H, int Sq,
+                                            int Sk, int D, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 || D % 8) return (int)cudaErrorInvalidValue;
+  const long long nq = (long long)B * Sq * H * D, nk = (long long)B * Sk * H * D;
+  const long long blocks = std::min((2 * nq + 2 * nk) / 8 / 256 + 1, 1ll << 20);
+  flash_split_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dO), static_cast<bf16*>(planes), nq, nk, D);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int flash_attention_dq_launch(const void* q, const void* k, const void* v,
                                          const void* o, const void* dO, const void* lse,
-                                         const void* dlse, void* stats, void* dq, int B, int H,
-                                         int Sq, int Sk, int D, float scale, int causal,
-                                         int stats_ready, int type, void* stream) {
+                                         const void* dlse, void* stats, const void* planes,
+                                         void* dq, int B, int H, int Sq, int Sk, int D,
+                                         float scale, int causal, int stats_ready, int type,
+                                         void* stream) {
   if (bad_shape(B, H, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
-  const Inputs in{q, k, v, o, dO, lse, dlse, static_cast<float*>(stats), B, H, Sq, Sk, scale, causal};
+  const Inputs in{q, k, v, o, dO, lse, dlse, static_cast<float*>(stats), planes,
+                  B, H, Sq, Sk, scale, causal};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define X(DD)                                                                          \
   if (D == DD)                                                                         \
@@ -474,11 +708,13 @@ extern "C" int flash_attention_dq_launch(const void* q, const void* k, const voi
 
 extern "C" int flash_attention_dkv_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dO, const void* lse,
-                                          const void* dlse, void* stats, void* dk, void* dv,
-                                          int B, int H, int Sq, int Sk, int D, float scale,
-                                          int causal, int stats_ready, int type, void* stream) {
+                                          const void* dlse, void* stats, const void* planes,
+                                          void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
+                                          float scale, int causal, int stats_ready, int type,
+                                          void* stream) {
   if (bad_shape(B, H, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
-  const Inputs in{q, k, v, o, dO, lse, dlse, static_cast<float*>(stats), B, H, Sq, Sk, scale, causal};
+  const Inputs in{q, k, v, o, dO, lse, dlse, static_cast<float*>(stats), planes,
+                  B, H, Sq, Sk, scale, causal};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define X(DD)                                                                           \
   if (D == DD)                                                                          \

@@ -21,7 +21,9 @@
 // the products run `wgmma ... .f32.bf16.bf16` or `.f32.f16.f16` with f32
 // sums, and every layout below is the same for both, since it counts 2-byte
 // elements.  Elem<T> holds what differs: the TMA data type and the
-// rounding of f32 pairs.
+// rounding of f32 pairs.  (The flash backward at float32 reads each f32
+// operand as two bf16 planes, hi and lo, through these same bf16 helpers;
+// only store_rows writes f32.)
 //
 // Tiles in shared memory.  A tensor is [B, S, H, D] of T, its last
 // dimension contiguous (the flash kernels take contiguous tensors, the
@@ -487,7 +489,8 @@ __device__ __forceinline__ void softmax_step(float (&s)[BK / 2], float (&o)[D / 
 // The thread's two rows (row, row + 8) of an m64 x N accumulator times
 // `mul[half]` as T into columns [col0, col0 + N) of a [B, S, H, D] tensor
 // of T (N = D unless a warpgroup owns a column slice); rows at or past S
-// are not written.
+// are not written.  T may also be float (the flash backward's float32
+// outputs): the pair then goes out as a float2, unrounded.
 template <int N, int D = N, typename T>
 __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[N / 2], const float (&mul)[2],
                                            int b, int h, int row, int S, int H, int t,
@@ -496,11 +499,15 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[N / 2], co
   for (int hr = 0; hr < 2; ++hr) {
     const int r = row + 8 * hr;
     if (r >= S) continue;
-    uint32_t* out =
-        reinterpret_cast<uint32_t*>(dst + ((size_t)(b * S + r) * H + h) * D + col0);
+    T* at = dst + ((size_t)(b * S + r) * H + h) * D + col0;
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j)
-      out[4 * j + t] = pack2<T>(acc[4 * j + 2 * hr] * mul[hr], acc[4 * j + 2 * hr + 1] * mul[hr]);
+    for (int j = 0; j < N / 8; ++j) {
+      const float lo = acc[4 * j + 2 * hr] * mul[hr], hi = acc[4 * j + 2 * hr + 1] * mul[hr];
+      if constexpr (sizeof(T) == 4)
+        reinterpret_cast<float2*>(at)[4 * j + t] = make_float2(lo, hi);
+      else
+        reinterpret_cast<uint32_t*>(at)[4 * j + t] = pack2<T>(lo, hi);
+    }
   }
 }
 

@@ -9,14 +9,15 @@ kernels), and so does float16 in flash and the encoder, forward and
 backward (``flash_attention.cu``, ``flash_attention_bwd.cu``,
 ``encoder_attention.cu``, ``encoder_attention_bwd.cu``: one ``wgmma``
 design each, instantiated at either 2-byte type, ``TC_TYPES``, whose
-entries take the type codes ``TC_TYPE_CODES``).  float16 decode and paged,
-and float32 everywhere, run the f32 CUDA-core bodies of
-``csrc/attention_simt.cuh`` and ``attention_simt_bwd.cuh`` through their
-entries (``attention_simt_decode.cu``, ``attention_simt_paged.cu``,
+entries take the type codes ``TC_TYPE_CODES``), and so does float32 in the
+flash backward (``flash_attention_bwd.cu`` at float, its products
+split-bf16).  float16 decode and paged, and float32 elsewhere, run the f32
+CUDA-core bodies of ``csrc/attention_simt.cuh`` and
+``attention_simt_bwd.cuh`` through their entries
+(``attention_simt_decode.cu``, ``attention_simt_paged.cu``,
 ``attention_simt_flash.cu``, ``attention_simt_encoder.cu``,
-``attention_simt_flash_bwd.cu``, ``attention_simt_encoder_bwd.cu``).
-Nothing is cast to reach a kernel: a call whose types have no kernel
-raises.
+``attention_simt_encoder_bwd.cu``).  Nothing is cast to reach a kernel: a
+call whose types have no kernel raises.
 
 ``admit`` is the one place that decides, a pure function of (regime, q
 type, cache type, head dim, query rows a kv head).  Its lists below are
@@ -52,22 +53,21 @@ FLASH_TYPES = (F32,)
 ENCODER_TYPES = (F32,)
 FLASH_DIMS = (64, 128, 256)
 ENCODER_DIMS = (64, 128)
-# attention_simt_bwd.cuh SIMT_BWD_FLASH_TYPES, SIMT_BWD_ENCODER_TYPES,
-# SIMT_BWD_FLASH_DIMS and SIMT_BWD_ENCODER_DIMS: the backward kernels take
-# q, k, v and dO of one type; 32 own rows a block.
-FLASH_BWD_TYPES = (F32,)
+# attention_simt_bwd.cuh SIMT_BWD_ENCODER_TYPES and SIMT_BWD_ENCODER_DIMS:
+# the encoder backward takes q, k, v and dO of one type; 32 own rows a
+# block (the flash backward runs the tensor-core kernels at every type).
 ENCODER_BWD_TYPES = (F32,)
-FLASH_BWD_DIMS = (64, 128, 256)
 ENCODER_BWD_DIMS = (64, 128)
 BWD_ROWS = 32
 # The q types of the tensor-core kernels, bfloat16 but for flash and the
-# encoder, whose forward and backward run float16 too (csrc/flash_attention.cu
-# FLASH_TYPES, flash_attention_bwd.cu FLASH_BWD_TYPES, encoder_attention.cu
+# encoder, whose forward and backward run float16 too, and the flash
+# backward, which runs float32 as well (csrc/flash_attention.cu FLASH_TYPES,
+# flash_attention_bwd.cu FLASH_BWD_TYPES, encoder_attention.cu
 # ENCODER_TYPES, encoder_attention_bwd.cu ENCODER_BWD_TYPES), and the type
 # codes those four entries take, one table for their wrappers.
-TC_TYPES = {"flash": (BF16, F16), "flash_bwd": (BF16, F16),
+TC_TYPES = {"flash": (BF16, F16), "flash_bwd": (BF16, F16, F32),
             "encoder": (BF16, F16), "encoder_bwd": (BF16, F16)}
-TC_TYPE_CODES = {BF16: 1, F16: 2}
+TC_TYPE_CODES = {BF16: 1, F16: 2, F32: 0}
 # The bfloat16 kernels' caches: bfloat16, or int8 with f32 scales.
 BF16_KV = (BF16, I8)
 # Query rows of one kv head up to which the decode regime (split-K, 16-row
@@ -119,15 +119,14 @@ def admit(regime, q_dtype, kv_dtype=None, D=None, rows=1):
     if q_dtype not in (F32, F16):
         raise ValueError(f"attention kernel ({regime}): q dtype {q_dtype}; the kernels take "
                          f"{_names((BF16, F32, F16))}")
-    if regime in ("flash_bwd", "encoder_bwd"):
-        types = FLASH_BWD_TYPES if regime == "flash_bwd" else ENCODER_BWD_TYPES
-        if kv_dtype != q_dtype or q_dtype not in types:
+    if regime == "encoder_bwd":
+        if kv_dtype != q_dtype or q_dtype not in ENCODER_BWD_TYPES:
             raise ValueError(f"attention kernel ({regime}): q {q_dtype} with k/v {kv_dtype}; "
-                             f"the CUDA-core backward kernel takes one type of {_names(types)}")
-        dims = FLASH_BWD_DIMS if regime == "flash_bwd" else ENCODER_BWD_DIMS
-        if D not in dims:
+                             "the CUDA-core backward kernel takes one type of "
+                             f"{_names(ENCODER_BWD_TYPES)}")
+        if D not in ENCODER_BWD_DIMS:
             raise ValueError(f"attention kernel ({regime}): head dim {D}, the kernel is built "
-                             f"for {dims}")
+                             f"for {ENCODER_BWD_DIMS}")
         return Instantiation(f"attention_simt_{regime}", q_dtype, kv_dtype, D, BWD_ROWS)
     if regime in ("decode", "paged"):
         if (q_dtype, kv_dtype) not in KV_PAIRS:

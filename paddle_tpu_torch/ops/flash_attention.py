@@ -19,12 +19,15 @@ combine needs it).
 A CPU tensor takes the plain versions, ``_flash_dense`` forward and
 ``_flash_bwd_dense`` backward; a CUDA tensor launches
 ``csrc/flash_attention.cu`` forward and ``csrc/flash_attention_bwd.cu``
-backward (bfloat16 and float16 on the tensor cores, one ``wgmma`` design
-instantiated at the inputs' type, D in {64, 128, 256}; float32 takes
-``csrc/attention_simt_flash.cu`` and ``attention_simt_flash_bwd.cu``, f32
-on the CUDA cores, as ``_simt.admit`` decides; either backward's
-statistics pass runs once per backward) or raises.  Nothing is cast to
-reach a kernel.  The reference's block-size
+backward or raises.  The backward runs on the tensor cores at every type
+(one ``wgmma`` design instantiated at the inputs' type, D in {64, 128,
+256}; at float32 each f32 operand is read as two bf16 planes, hi and lo,
+and each product as three bf16 products: the split pass
+``flash_attention_bwd_split``, modelled by ``_split_planes_dense``); the
+float32 forward takes ``csrc/attention_simt_flash.cu``, f32 on the CUDA
+cores, as ``_simt.admit`` decides.  The backward's statistics pass (and at
+float32 its split pass) runs once per backward.  Nothing is cast to reach
+a kernel.  The reference's block-size
 rules (``_auto_block``, ``block_q``/``block_k``, its autotune hook) describe
 TPU tiling, not the function: the Hopper kernels pick their own tiles and
 mask their ragged edge, so they are not carried over.  ``supports_seq``
@@ -41,10 +44,8 @@ from . import _build, _simt
 NEG_INF = -1e30
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_attention_kernel",
-           "flash_attention_simt_kernel",
-           "flash_attention_bwd_stats", "flash_attention_dq_kernel", "flash_attention_dkv_kernel",
-           "flash_attention_simt_bwd_stats", "flash_attention_simt_dq_kernel",
-           "flash_attention_simt_dkv_kernel", "supports_seq"]
+           "flash_attention_simt_kernel", "flash_attention_bwd_stats", "flash_attention_bwd_split",
+           "flash_attention_dq_kernel", "flash_attention_dkv_kernel", "supports_seq"]
 
 
 def supports_seq(seq):
@@ -95,6 +96,17 @@ def _flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _split_planes_dense(x):
+    """Plain version of the float32 backward's split pass: f32 x [B, S, H,
+    D] -> bf16 [B, S, H, 2, D], hi = x rounded to nearest bf16 and lo = (x -
+    hi) rounded to nearest (x - hi is exact in f32), lo = 0 where hi is not
+    finite; hi + lo carries about 16 of x's 24 bits."""
+    hi = x.float().to(torch.bfloat16)
+    h = hi.float()
+    lo = torch.where(torch.isfinite(h), x.float() - h, torch.zeros_like(h)).to(torch.bfloat16)
+    return torch.stack((hi, lo), dim=-2)
+
+
 def _check(cond, msg):
     if not cond:
         raise ValueError(f"flash attention kernel: {msg}")
@@ -117,15 +129,15 @@ def _check_head_dim(D, backward=False):
 
 def _check_inputs(tensors, B, Sq, Sk, H, D, causal, backward=False, simt=False):
     """The kernels' common admission: the instantiation ``_simt.admit``
-    picks for q's dtype (the CUDA-core kernels when ``simt``, the
-    tensor-core kernels otherwise), CUDA, the head dim (see
-    ``_check_head_dim``), one dtype, the shapes, 16-byte aligned storage."""
+    picks for q's dtype (the CUDA-core forward when ``simt``, the
+    tensor-core kernels otherwise; the backward is on the tensor cores at
+    every type), CUDA, the head dim (see ``_check_head_dim``), one dtype,
+    the shapes, 16-byte aligned storage."""
     q = tensors["q"]
     dev = q.device
     inst = _simt.admit("flash_bwd" if backward else "flash", q.dtype, q.dtype, D)
-    kernel = (f"the {'CUDA-core' if inst.simt else 'tensor-core'} backward" if backward
-              else f"flash_attention{'_simt' if inst.simt else ''}_kernel")
-    _check(inst.simt == simt, f"q dtype {q.dtype} runs {kernel} (csrc/{inst.lib}.cu)")
+    _check(inst.simt == simt, f"q dtype {q.dtype} runs flash_attention"
+           f"{'_simt' if inst.simt else ''}_kernel (csrc/{inst.lib}.cu)")
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
     _check_head_dim(D, backward)
     for name, t in tensors.items():
@@ -205,8 +217,8 @@ def flash_attention_simt_kernel(q, k, v, causal=False, scale=None):
 
 flash_attention_simt_kernel.launches = 0
 
-# q, k, v, o, dO, lse, dlse, stats, then the outputs
-_BWD_HEAD = [ctypes.c_void_p] * 8
+# q, k, v, o, dO, lse, dlse, stats, planes, then the outputs
+_BWD_HEAD = [ctypes.c_void_p] * 9
 _BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
@@ -221,10 +233,17 @@ def _stats_shape(B, H, Sq):
     return (2, B * H, -(-Sq // 64) * 64)
 
 
-def _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats):
+def _planes_numel(B, H, Sq, Sk, D):
+    """bf16 values of the float32 backward's planes: two of each of q and
+    dO [B, Sq, H, D] and of k and v [B, Sk, H, D]."""
+    return 4 * B * H * D * (Sq + Sk)
+
+
+def _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats, planes):
     """Checked, contiguous inputs of the two backward kernels and the
     pointers they share: (tensors, head pointers, shape, scale, stats_ready).
-    Without ``stats`` the entry fills fresh scratch itself."""
+    Without ``stats`` the entry fills fresh scratch itself; at float32
+    without ``planes`` the split pass runs first (and counts its launch)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     _check_inputs({"q": q, "k": k, "v": v, "o": o, "do": do}, B, Sq, Sk, H, D, causal,
@@ -242,9 +261,19 @@ def _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats):
     _check(stats.dtype == torch.float32 and tuple(stats.shape) == _stats_shape(B, H, Sq)
            and stats.is_contiguous() and stats.device == q.device,
            f"stats must be contiguous f32 {_stats_shape(B, H, Sq)} on {q.device}")
+    if q.dtype == torch.float32:
+        if planes is None:
+            planes = flash_attention_bwd_split(q, k, v, do)
+        n = _planes_numel(B, H, Sq, Sk, D)
+        _check(planes.dtype == torch.bfloat16 and planes.numel() == n and planes.is_contiguous()
+               and planes.device == q.device,
+               f"planes must be {n} contiguous bf16 values on {q.device}")
+    else:
+        _check(planes is None, f"planes are the float32 backward's; q is {q.dtype}")
     head = _ptrs(q, k, v, o, do, lse) + [None if dlse is None else dlse.data_ptr(),
-                                         stats.data_ptr()]
-    keep = (q, k, v, o, do, lse, dlse, stats)  # alive until the launch is queued
+                                         stats.data_ptr(),
+                                         None if planes is None else _ptrs(planes)[0]]
+    keep = (q, k, v, o, do, lse, dlse, stats, planes)  # alive until the launch is queued
     return keep, head, (B, H, Sq, Sk, D), float(scale), int(ready)
 
 
@@ -252,11 +281,11 @@ def flash_attention_bwd_stats(o, do, lse, dlse=None):
     """The backward's per-query statistics, by the dsum pass of
     ``csrc/flash_attention_bwd.cu``: f32 [2, B * H, Sqp] (Sqp = Sq rounded
     up to 64) holding lse * log2(e) and dsum = rowsum(dO * O) - dlse, zero
-    past Sq.  o, do [B, Sq, H, D] bfloat16 or float16 on the card, D in
-    {64, 128, 256};
-    lse and dlse f32 with B * H * Sq values (dlse may be None).  The
-    autograd backward fills it once and hands it to both kernels below.
-    Every launch adds one to ``flash_attention_bwd_stats.launches``."""
+    past Sq.  o, do [B, Sq, H, D] bfloat16, float16 or float32 on the card,
+    D in {64, 128, 256}; lse and dlse f32 with B * H * Sq values (dlse may
+    be None).  The autograd backward fills it once and hands it to both
+    kernels below.  Every launch adds one to
+    ``flash_attention_bwd_stats.launches``."""
     B, Sq, H, D = o.shape
     _check_inputs({"q": o, "do": do}, B, Sq, Sq, H, D, False, backward=True)
     _check_stats({"lse": lse} if dlse is None else {"lse": lse, "dlse": dlse}, B, H, Sq,
@@ -277,16 +306,46 @@ def flash_attention_bwd_stats(o, do, lse, dlse=None):
 flash_attention_bwd_stats.launches = 0
 
 
+def flash_attention_bwd_split(q, k, v, do):
+    """The float32 backward's operand planes, by the split pass of
+    ``csrc/flash_attention_bwd.cu`` (``flash_attention_split``; one launch
+    for the four tensors): q, do [B, Sq, H, D] and k, v [B, Sk, H, D]
+    float32 on the card, D in {64, 128, 256}, into one contiguous bf16
+    tensor holding ``_split_planes_dense`` of q, k, v and do, flattened, in
+    that order.  The autograd backward makes it once and hands it to the dq
+    and dkv kernels.  Every launch adds one to
+    ``flash_attention_bwd_split.launches``."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    _check(q.dtype == torch.float32, f"the split pass takes float32, got {q.dtype}")
+    _check_inputs({"q": q, "k": k, "v": v, "do": do}, B, Sq, Sk, H, D, False, backward=True)
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    planes = torch.empty(_planes_numel(B, H, Sq, Sk, D), dtype=torch.bfloat16, device=q.device)
+    with torch.cuda.device(q.device):
+        _build.launch("flash_attention_bwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p], *_ptrs(q, k, v, do, planes), B, H, Sq, Sk, D,
+                      torch.cuda.current_stream(q.device).cuda_stream,
+                      entry="flash_attention_split")
+    flash_attention_bwd_split.launches += 1
+    return planes
+
+
+flash_attention_bwd_split.launches = 0
+
+
 def flash_attention_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None,
-                              stats=None):
+                              stats=None, planes=None):
     """Launch ``flash_attention_dq`` of ``csrc/flash_attention_bwd.cu`` (the
     port of ``_dq_kernel``) on CUDA tensors: q, o, do [B, Sq, H, D], k, v
-    [B, Sk, H, D] of one type, bfloat16 or float16, D in {64, 128, 256},
-    lse (and the optional dlse) f32 with B * H * Sq values; ``stats`` from
-    ``flash_attention_bwd_stats``, or None to have the entry compute them
-    first.  Returns dQ [B, Sq, H, D] in q's dtype.  Raises ValueError on anything else.  Every launch adds one to
+    [B, Sk, H, D] of one type, bfloat16, float16 or float32, D in {64, 128,
+    256}, lse (and the optional dlse) f32 with B * H * Sq values; ``stats``
+    from ``flash_attention_bwd_stats``, or None to have the entry compute
+    them first; at float32 ``planes`` from ``flash_attention_bwd_split``, or
+    None to run the split pass first.  Returns dQ [B, Sq, H, D] in q's
+    dtype.  Raises ValueError on anything else.  Every launch adds one to
     ``flash_attention_dq_kernel.launches``."""
-    keep, head, shape, scale, ready = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats)
+    keep, head, shape, scale, ready = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats,
+                                                planes)
     dq = torch.empty_like(keep[0])
     dev = dq.device
     with torch.cuda.device(dev):
@@ -302,13 +361,14 @@ flash_attention_dq_kernel.launches = 0
 
 
 def flash_attention_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None,
-                               stats=None):
+                               stats=None, planes=None):
     """Launch ``flash_attention_dkv`` of ``csrc/flash_attention_bwd.cu`` (the
     port of ``_dkv_kernel``), with the inputs of
     ``flash_attention_dq_kernel``.  Returns (dK, dV) [B, Sk, H, D] in their
     dtype.
     Every launch adds one to ``flash_attention_dkv_kernel.launches``."""
-    keep, head, shape, scale, ready = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats)
+    keep, head, shape, scale, ready = _bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats,
+                                                planes)
     dk, dv = torch.empty_like(keep[1]), torch.empty_like(keep[2])
     dev = dk.device
     with torch.cuda.device(dev):
@@ -323,128 +383,12 @@ def flash_attention_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dl
 flash_attention_dkv_kernel.launches = 0
 
 
-def _simt_stats_shape(B, H, Sq):
-    """The CUDA-core backward's statistics: [2, B * H, Sq]."""
-    return (2, B * H, Sq)
-
-
-def flash_attention_simt_bwd_stats(o, do, lse, dlse=None):
-    """The CUDA-core backward's per-query statistics, by
-    ``flash_attention_simt_stats`` of ``csrc/attention_simt_flash_bwd.cu``
-    (the dsum that ``_dq_kernel`` and ``_dkv_kernel`` each take first): f32
-    [2, B * H, Sq] holding lse * log2(e) and dsum = rowsum(dO * O) - dlse,
-    summed in f32 from the stored values.  o, do [B, Sq, H, D] float32 on
-    the card, D in {64, 128, 256}; lse and dlse f32 with B * H *
-    Sq values (dlse may be None).  The autograd backward fills it once and
-    hands it to both kernels below.  Every launch adds one to
-    ``flash_attention_simt_bwd_stats.launches``."""
-    B, Sq, H, D = o.shape
-    _check_inputs({"q": o, "do": do}, B, Sq, Sq, H, D, False, backward=True, simt=True)
-    _check_stats({"lse": lse} if dlse is None else {"lse": lse, "dlse": dlse}, B, H, Sq,
-                 o.device)
-    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
-    dlse = None if dlse is None else dlse.contiguous()
-    stats = torch.empty(_simt_stats_shape(B, H, Sq), dtype=torch.float32, device=o.device)
-    with torch.cuda.device(o.device):
-        _build.launch("attention_simt_flash_bwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                      + [ctypes.c_void_p], *_ptrs(o, do, lse),
-                      None if dlse is None else dlse.data_ptr(), stats.data_ptr(), B, H, Sq, D,
-                      _simt.TYPE_CODES[o.dtype], torch.cuda.current_stream(o.device).cuda_stream,
-                      entry="flash_attention_simt_stats")
-    flash_attention_simt_bwd_stats.launches += 1
-    return stats
-
-
-flash_attention_simt_bwd_stats.launches = 0
-
-# q, k, v, dO, stats, then the outputs; then the shape, scale, causal, type
-_SIMT_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_void_p]
-
-
-def _simt_bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats):
-    """Checked, contiguous inputs of the two CUDA-core backward kernels:
-    (q, k, v, dO, stats), the shape and the scale.  Without ``stats`` the
-    statistics pass runs first (and counts its launch)."""
-    B, Sq, H, D = q.shape
-    Sk = k.shape[1]
-    _check_inputs({"q": q, "k": k, "v": v, "o": o, "do": do}, B, Sq, Sk, H, D, causal,
-                  backward=True, simt=True)
-    _check_stats({"lse": lse} if dlse is None else {"lse": lse, "dlse": dlse}, B, H, Sq,
-                 q.device)
-    if scale is None:
-        scale = 1.0 / (D ** 0.5)
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
-    if stats is None:
-        stats = flash_attention_simt_bwd_stats(o, do, lse, dlse)
-    _check(stats.dtype == torch.float32 and tuple(stats.shape) == _simt_stats_shape(B, H, Sq)
-           and stats.is_contiguous() and stats.device == q.device,
-           f"stats must be contiguous f32 {_simt_stats_shape(B, H, Sq)} on {q.device}")
-    return (q, k, v, do, stats), (B, H, Sq, Sk, D), float(scale)
-
-
-def flash_attention_simt_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None,
-                                   stats=None):
-    """Launch ``flash_attention_simt_dq`` of ``csrc/attention_simt_flash_bwd.cu``
-    (the port of ``_dq_kernel`` at float32, f32 on the CUDA cores) on CUDA
-    tensors: q, o, do [B, Sq, H, D], k, v [B, Sk, H, D] float32, D in
-    {64, 128, 256}, lse (and the optional dlse) f32 with B * H * Sq
-    values; ``stats`` from
-    ``flash_attention_simt_bwd_stats``, or None to compute them first.
-    Returns dQ [B, Sq, H, D] in q's dtype.  Raises ValueError on anything
-    else.  Every launch adds one to ``flash_attention_simt_dq_kernel.launches``."""
-    ins, shape, scale = _simt_bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats)
-    dq = torch.empty_like(ins[0])
-    dev = dq.device
-    with torch.cuda.device(dev):
-        _build.launch("attention_simt_flash_bwd", [ctypes.c_void_p] * 6 + _SIMT_BWD_TAIL,
-                      *_ptrs(*ins, dq), *shape, scale, int(bool(causal)),
-                      _simt.TYPE_CODES[dq.dtype], torch.cuda.current_stream(dev).cuda_stream,
-                      entry="flash_attention_simt_dq")
-    flash_attention_simt_dq_kernel.launches += 1
-    return dq
-
-
-flash_attention_simt_dq_kernel.launches = 0
-
-
-def flash_attention_simt_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dlse=None,
-                                    stats=None):
-    """Launch ``flash_attention_simt_dkv`` of ``csrc/attention_simt_flash_bwd.cu``
-    (the port of ``_dkv_kernel`` at float32), with the inputs of
-    ``flash_attention_simt_dq_kernel``.  Returns (dK, dV) [B, Sk, H, D] in
-    their dtype.  Every launch adds one to
-    ``flash_attention_simt_dkv_kernel.launches``."""
-    ins, shape, scale = _simt_bwd_args(q, k, v, o, do, lse, dlse, causal, scale, stats)
-    dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
-    dev = dk.device
-    with torch.cuda.device(dev):
-        _build.launch("attention_simt_flash_bwd", [ctypes.c_void_p] * 7 + _SIMT_BWD_TAIL,
-                      *_ptrs(*ins, dk, dv), *shape, scale, int(bool(causal)),
-                      _simt.TYPE_CODES[dk.dtype], torch.cuda.current_stream(dev).cuda_stream,
-                      entry="flash_attention_simt_dkv")
-    flash_attention_simt_dkv_kernel.launches += 1
-    return dk, dv
-
-
-flash_attention_simt_dkv_kernel.launches = 0
-
-
 def _fwd_kernel(dtype):
     """The forward wrapper of q's dtype: the tensor-core kernel (bfloat16,
     float16) or its CUDA-core counterpart (float32)."""
     if dtype in _simt.TC_TYPES["flash"]:
         return flash_attention_kernel
     return flash_attention_simt_kernel
-
-
-def _bwd_kernels(dtype):
-    """(statistics, dq, dkv) wrappers of q's dtype: the tensor-core kernels
-    (bfloat16, float16) or their CUDA-core counterparts (float32)."""
-    if dtype in _simt.TC_TYPES["flash_bwd"]:
-        return flash_attention_bwd_stats, flash_attention_dq_kernel, flash_attention_dkv_kernel
-    return (flash_attention_simt_bwd_stats, flash_attention_simt_dq_kernel,
-            flash_attention_simt_dkv_kernel)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -472,10 +416,11 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = _flash_bwd_dense(q, k, v, o, lse, do, ctx.causal, ctx.scale, dlse)
         else:
             args = (q, k, v, o, do, lse, ctx.causal, ctx.scale, dlse)
-            stats_fn, dq_fn, dkv_fn = _bwd_kernels(q.dtype)  # the kernels of q's dtype
-            stats = stats_fn(o, do, lse, dlse)  # once for both kernels
-            dq = dq_fn(*args, stats=stats)
-            dk, dv = dkv_fn(*args, stats=stats)
+            # the statistics and the float32 planes, once for both kernels
+            stats = flash_attention_bwd_stats(o, do, lse, dlse)
+            planes = flash_attention_bwd_split(q, k, v, do) if q.dtype == torch.float32 else None
+            dq = flash_attention_dq_kernel(*args, stats=stats, planes=planes)
+            dk, dv = flash_attention_dkv_kernel(*args, stats=stats, planes=planes)
         return dq, dk, dv, None, None
 
 

@@ -4,9 +4,10 @@ plain versions and the admission by type of every attention kernel.
 On the card, bfloat16 q runs the tensor-core kernels, and so does float16
 q in flash and the encoder, forward and backward (``csrc/flash_attention.cu``,
 ``flash_attention_bwd.cu``, ``encoder_attention.cu``,
-``encoder_attention_bwd.cu``); float32 q, and float16 q in decode and
-paged, run the f32 CUDA-core kernels of ``csrc/attention_simt.cuh`` and
-``attention_simt_bwd.cuh``.  Which one, and which instantiation, is
+``encoder_attention_bwd.cu``), and float32 q in the flash backward
+(``flash_attention_bwd.cu``, split-bf16 products); float32 q elsewhere, and
+float16 q in decode and paged, run the f32 CUDA-core kernels of
+``csrc/attention_simt.cuh`` and ``attention_simt_bwd.cuh``.  Which one, and which instantiation, is
 ``ops/_simt.admit``'s decision.  Here, on the CPU, the tests hold:
 
 * the plain decode, paged, encoder-forward and flash-forward functions at
@@ -25,12 +26,12 @@ paged, run the f32 CUDA-core kernels of ``csrc/attention_simt.cuh`` and
   ``attention_simt_bwd.cuh``) and the ``FLASH_*`` and ``ENCODER_*`` lists
   of the tensor-core flash and encoder sources, their type codes one table
   (``_simt.TC_TYPE_CODES``);
-* float64 q refused, naming the admitted types; the float32 backward
-  admitted to the CUDA-core kernels, float16 to the tensor-core flash and
-  encoder backward, the flash backward at head dims 64, 128 and 256 at
-  every type (the encoder backward at 64 and 128); float16 flash and
-  encoder never reach a CUDA-core wrapper, nor a bfloat16 cast, and their
-  wrappers refuse CPU tensors;
+* float64 q refused, naming the admitted types; the float32 encoder
+  backward admitted to the CUDA-core kernel, the float32 flash backward and
+  every float16 backward to the tensor-core kernels, the flash backward at
+  head dims 64, 128 and 256 at every type (the encoder backward at 64 and
+  128); float16 flash and encoder never reach a CUDA-core wrapper, nor a
+  bfloat16 cast, and their wrappers refuse CPU tensors;
 * a small LLaMA at float16 (head dim 64) through the paged engine, greedy
   tokens equal to the reference engine's.
 """
@@ -65,7 +66,7 @@ FLASH_CU = CUH.with_name("flash_attention.cu")
 FLASH_BWD_CU = CUH.with_name("flash_attention_bwd.cu")
 ENCODER_CU = CUH.with_name("encoder_attention.cu")
 ENCODER_BWD_CU = CUH.with_name("encoder_attention_bwd.cu")
-TORCH_OF_C = {"__nv_bfloat16": torch.bfloat16, "__half": torch.float16}
+TORCH_OF_C = {"__nv_bfloat16": torch.bfloat16, "__half": torch.float16, "float": torch.float32}
 F16_TOL = 1e-2
 F16_MODEL_TOL = 4e-3
 INT8_TOL = 3e-4
@@ -217,10 +218,11 @@ def _cuh_list(name, path=CUH):
 def _tc_built(cu, types, dims):
     """The tensor-core flash or encoder instantiations a source builds: its
     (element type, type code) list against the type codes the wrappers pass
-    (_simt.TC_TYPE_CODES, which flash's TYPE_CODES is), times its head
-    dims."""
+    (_simt.TC_TYPE_CODES, which flash's TYPE_CODES is: one table, each
+    source building a part of it), times its head dims."""
     codes = {TORCH_OF_C[c]: int(code) for c, code in _cuh_list(types, cu)}
-    assert codes == _simt.TC_TYPE_CODES and tfa.TYPE_CODES is _simt.TC_TYPE_CODES
+    assert all(_simt.TC_TYPE_CODES[t] == c for t, c in codes.items())
+    assert tfa.TYPE_CODES is _simt.TC_TYPE_CODES
     return {(cu.stem, t, t, int(d), None) for t in codes for (d,) in _cuh_list(dims, cu)}
 
 
@@ -247,11 +249,11 @@ def test_admission_list_is_the_cuh_instantiations():
     built |= {("attention_simt_encoder", t, t, D, _simt.CHUNK_ROWS)
               for t in _simt.ENCODER_TYPES for D in _simt.ENCODER_DIMS}
     assert _simt.ENCODER_TYPES == (torch.float32,)
-    built |= _tc_built(FLASH_CU, "FLASH_TYPES", "FLASH_DIMS")
+    flash = _tc_built(FLASH_CU, "FLASH_TYPES", "FLASH_DIMS")
     enc = _tc_built(ENCODER_CU, "ENCODER_TYPES", "ENCODER_DIMS")
-    built |= enc
-    for regime in ("flash", "encoder"):
-        assert set(_simt.TC_TYPES[regime]) == set(_simt.TC_TYPE_CODES)
+    built |= flash | enc
+    for regime, tc in (("flash", flash), ("encoder", enc)):
+        assert set(_simt.TC_TYPES[regime]) == {b[1] for b in tc} == {torch.bfloat16, torch.float16}
     assert ({d for *_, d, _ in enc}
             == {d for d in range(8, 513, 8) if tea.supported(1, 128, d)})
     admitted = {tuple(_simt.admit(r, q, kv, D, rows))
@@ -267,38 +269,38 @@ def test_admission_list_is_the_cuh_instantiations():
 
 def test_backward_admission_list_is_the_cuh_instantiations():
     """ops/_simt.py's backward lists are attention_simt_bwd.cuh's SIMT_BWD_*
-    lists, and every instantiation admit() returns for "flash_bwd" and
+    lists (the encoder's alone: no flash backward is built on the CUDA
+    cores), and every instantiation admit() returns for "flash_bwd" and
     "encoder_bwd" at float32 and float16 is one a source builds, in a
-    source that exists: the CUDA-core flash and encoder backward at float32
-    (head dim 256 for the flash backward alone), and the tensor-core flash
-    and encoder backward at bfloat16 and float16 (flash_attention_bwd.cu's
-    FLASH_BWD_TYPES and FLASH_BWD_DIMS, encoder_attention_bwd.cu's
-    ENCODER_BWD_TYPES and ENCODER_BWD_DIMS)."""
+    source that exists: the CUDA-core encoder backward at float32, the
+    tensor-core flash backward at bfloat16, float16 and float32
+    (flash_attention_bwd.cu's FLASH_BWD_TYPES and FLASH_BWD_DIMS, head dim
+    256 at every type) and the tensor-core encoder backward at bfloat16 and
+    float16 (encoder_attention_bwd.cu's ENCODER_BWD_TYPES and
+    ENCODER_BWD_DIMS)."""
     C = {v: k for k, v in _simt.C_TYPES.items()}
-    assert ([C[t] for (t,) in _cuh_list("SIMT_BWD_FLASH_TYPES", BWD_CUH)]
-            == list(_simt.FLASH_BWD_TYPES))
     assert ([C[t] for (t,) in _cuh_list("SIMT_BWD_ENCODER_TYPES", BWD_CUH)]
             == list(_simt.ENCODER_BWD_TYPES))
-    assert ([int(d) for (d,) in _cuh_list("SIMT_BWD_FLASH_DIMS", BWD_CUH)]
-            == list(_simt.FLASH_BWD_DIMS))
     assert ([int(d) for (d,) in _cuh_list("SIMT_BWD_ENCODER_DIMS", BWD_CUH)]
             == list(_simt.ENCODER_BWD_DIMS))
-    built = {("attention_simt_flash_bwd", t, t, D, _simt.BWD_ROWS)
-             for t in _simt.FLASH_BWD_TYPES for D in _simt.FLASH_BWD_DIMS}
-    built |= {("attention_simt_encoder_bwd", t, t, D, _simt.BWD_ROWS)
-              for t in _simt.ENCODER_BWD_TYPES for D in _simt.ENCODER_BWD_DIMS}
+    assert "SIMT_BWD_FLASH" not in BWD_CUH.read_text()
+    assert not (CUH.parent / "attention_simt_flash_bwd.cu").exists()
+    built = {("attention_simt_encoder_bwd", t, t, D, _simt.BWD_ROWS)
+             for t in _simt.ENCODER_BWD_TYPES for D in _simt.ENCODER_BWD_DIMS}
     assert _simt.ENCODER_BWD_TYPES == (torch.float32,)
     tc = _tc_built(FLASH_BWD_CU, "FLASH_BWD_TYPES", "FLASH_BWD_DIMS")
     tc_enc = _tc_built(ENCODER_BWD_CU, "ENCODER_BWD_TYPES", "ENCODER_BWD_DIMS")
-    for regime in ("flash_bwd", "encoder_bwd"):
-        assert set(_simt.TC_TYPES[regime]) == set(_simt.TC_TYPE_CODES)
+    for regime, lib in (("flash_bwd", tc), ("encoder_bwd", tc_enc)):
+        assert set(_simt.TC_TYPES[regime]) == {b[1] for b in lib}
+    assert set(_simt.TC_TYPES["flash_bwd"]) == set(_simt.TC_TYPE_CODES)
     admitted = {tuple(_simt.admit(r, t, t, D)) for r, dims in (("flash_bwd", (64, 128, 256)),
                                                                ("encoder_bwd", (64, 128)))
                 for t in (torch.float32, torch.float16) for D in dims}
-    assert admitted == built | {b for b in tc | tc_enc if b[1] == torch.float16}
+    assert admitted == built | {b for b in tc if b[1] != torch.bfloat16} | {
+        b for b in tc_enc if b[1] == torch.float16}
     assert {tuple(_simt.admit("flash_bwd", t, t, D)) for t in tfa.TYPE_CODES
             for D in tfa.BWD_HEAD_DIMS} == tc
-    assert {tuple(_simt.admit("encoder_bwd", t, t, D)) for t in _simt.TC_TYPE_CODES
+    assert {tuple(_simt.admit("encoder_bwd", t, t, D)) for t in _simt.TC_TYPES["encoder_bwd"]
             for D in _simt.ENCODER_BWD_DIMS} == tc_enc
     with pytest.raises(ValueError, match="head dim 256"):
         _simt.admit("encoder_bwd", torch.float32, torch.float32, 256)
@@ -350,27 +352,29 @@ def test_admission_picks_kernel_by_q_dtype(regime):
         return
     if regime.startswith("flash"):
         tc_lib = "flash_attention" + ("_bwd" if regime == "flash_bwd" else "")
-        for t in (torch.bfloat16, torch.float16):
+        tc_types = (torch.bfloat16, torch.float16) + (
+            (torch.float32,) if regime == "flash_bwd" else ())
+        for t in tc_types:
             for D in (64, 128, 256):
                 got = _simt.admit(regime, t, t, D)
                 assert not got.simt and got.lib == tc_lib and (got.q, got.kv, got.D) == (t, t, D)
-        got = _simt.admit(regime, torch.float32, torch.float32, 128)
-        assert got.simt and got.lib == f"attention_simt_{regime}"
+        if regime == "flash":
+            got = _simt.admit(regime, torch.float32, torch.float32, 128)
+            assert got.simt and got.lib == f"attention_simt_{regime}"
         with pytest.raises(ValueError, match="q float16 takes k/v of float16"):
             _simt.admit(regime, torch.float16, torch.bfloat16, 128)
-        q16, q32 = (torch.zeros(1, 128, 2, 64, dtype=t) for t in (torch.float16, torch.float32))
+        q16, q32, q64 = (torch.zeros(1, 128, 2, 64, dtype=t)
+                         for t in (torch.float16, torch.float32, torch.float64))
         lse = torch.zeros(1, 2, 128)
         if regime == "flash":
             refusals = [(tfa.flash_attention_simt_kernel, (q16, q16, q16),
                          "runs flash_attention_kernel"),
                         (tfa.flash_attention_kernel, (q32, q32, q32),
                          "runs flash_attention_simt_kernel")]
-        else:
-            refusals = [(fn, args, "runs the tensor-core backward") for fn, args in (
-                (tfa.flash_attention_simt_bwd_stats, (q16, q16, lse)),
-                (tfa.flash_attention_simt_dq_kernel, (q16,) * 5 + (lse,)),
-                (tfa.flash_attention_simt_dkv_kernel, (q16,) * 5 + (lse,)))]
-            refusals += [(fn, (q32,) * 5 + (lse,), "runs the CUDA-core backward")
+        else:  # one backward at every type: the split pass is float32's alone
+            refusals = [(tfa.flash_attention_bwd_split, (q16,) * 4,
+                         "the split pass takes float32")]
+            refusals += [(fn, (q64,) * 5 + (lse,), "bfloat16, float32, float16")
                          for fn in (tfa.flash_attention_dq_kernel, tfa.flash_attention_dkv_kernel)]
         for fn, args, msg in refusals:
             before = fn.launches
@@ -411,22 +415,26 @@ def test_f64_q_refused_naming_admitted_dtypes(regime):
 def test_backward_refused_naming_queue_2_item_11(dtype):
     """Queue 2 items 8 and 11 are closed: a float32 or float16 gradient is
     admitted to a backward kernel at head dims 64 and 128, the flash one at
-    256 too: at the CUDA-core kernels at float32
-    (attention_simt_flash_bwd.cu, attention_simt_encoder_bwd.cu) and the
-    tensor-core ones at float16 (flash_attention_bwd.cu,
-    encoder_attention_bwd.cu), and the wrappers of the other kernel refuse
-    it, naming the one it runs; the flash backward at head dim 256 is
-    admitted at every type (the D = 256 wrappers reach their device check),
-    while k/v of another type and other head dims are refused before any
-    launch."""
+    256 too: the flash backward at the tensor-core kernels at every type
+    (flash_attention_bwd.cu; float32 as split-bf16 products), the encoder
+    backward at the CUDA-core kernel at float32
+    (attention_simt_encoder_bwd.cu) and the tensor-core one at float16
+    (encoder_attention_bwd.cu), and the wrappers of the other encoder kernel
+    refuse it, naming the one it runs; the flash wrappers refuse CPU
+    tensors, and the split pass every type but float32; the flash backward
+    at head dim 256 is admitted at every type (the D = 256 wrappers reach
+    their device check), while k/v of another type and other head dims are
+    refused before any launch."""
     f16 = dtype == torch.float16
     for regime in ("flash_bwd", "encoder_bwd"):
-        lib = (f"{regime[:-4]}_attention_bwd" if f16 else f"attention_simt_{regime}")
+        tc = f16 or regime == "flash_bwd"
+        lib = (f"{regime[:-4]}_attention_bwd" if tc else f"attention_simt_{regime}")
         for D in (64, 128, 256) if regime == "flash_bwd" else (64, 128):
             got = _simt.admit(regime, dtype, dtype, D)
             assert got.simt == lib.startswith("attention_simt")
             assert got.lib == lib and (got.q, got.kv, got.D) == (dtype, dtype, D)
-        want = "q float16 takes k/v of float16" if f16 else "one type of float32$"
+        want = (f"q {str(dtype)[6:]} takes k/v of {str(dtype)[6:]}" if tc
+                else "one type of float32$")
         with pytest.raises(ValueError, match=want):
             _simt.admit(regime, dtype, torch.bfloat16, 64)
         if lib.startswith("attention_simt"):  # the tensor-core head dims: _check_head_dim
@@ -436,20 +444,21 @@ def test_backward_refused_naming_queue_2_item_11(dtype):
         tfa._check_head_dim(96, backward=True)
     for t in (dtype, torch.bfloat16):
         got = _simt.admit("flash_bwd", t, t, 256)
-        assert got.D == 256 and got.simt == (t == torch.float32)
+        assert got.D == 256 and not got.simt
     q = torch.zeros(1, 128, 2, 64, dtype=dtype)
     lse = torch.zeros(1, 2, 128)
-    other, msg = ((tfa.flash_attention_simt_bwd_stats, tfa.flash_attention_simt_dq_kernel,
-                   tfa.flash_attention_simt_dkv_kernel), "tensor-core backward") if f16 else (
-        (tfa.flash_attention_bwd_stats, tfa.flash_attention_dq_kernel,
-         tfa.flash_attention_dkv_kernel), "CUDA-core backward")
-    for fn in other[1:]:
+    for fn in (tfa.flash_attention_dq_kernel, tfa.flash_attention_dkv_kernel):
         before = fn.launches
-        with pytest.raises(ValueError, match=msg):
+        with pytest.raises(ValueError, match="not a CUDA device"):
             fn(q, q, q, q, q, lse, causal=True)
         assert fn.launches == before
-    with pytest.raises(ValueError, match=msg):
-        other[0](q, q, lse)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tfa.flash_attention_bwd_stats(q, q, lse)
+    before = tfa.flash_attention_bwd_split.launches
+    with pytest.raises(ValueError, match="the split pass takes float32" if f16
+                       else "not a CUDA device"):
+        tfa.flash_attention_bwd_split(q, q, q, q)
+    assert tfa.flash_attention_bwd_split.launches == before
     other_enc, kernel = ((tea.encoder_attention_simt_bwd_kernel, "encoder_attention_bwd_kernel")
                          if f16 else
                          (tea.encoder_attention_bwd_kernel, "encoder_attention_simt_bwd_kernel"))
@@ -458,7 +467,7 @@ def test_backward_refused_naming_queue_2_item_11(dtype):
         other_enc(q, q, q, q)
     assert other_enc.launches == before
     q256 = torch.zeros(1, 128, 2, 256, dtype=dtype)
-    for fn in tfa._bwd_kernels(dtype)[1:]:
+    for fn in (tfa.flash_attention_dq_kernel, tfa.flash_attention_dkv_kernel):
         before = fn.launches
         with pytest.raises(ValueError, match="not a CUDA device"):
             fn(q256, q256, q256, q256, q256, lse, causal=True)
@@ -476,7 +485,8 @@ def test_simt_wrappers_reject_cpu_tensors(dtype):
     count."""
     q = torch.zeros(1, 128, 2, 64, dtype=dtype)
     lse = torch.zeros(1, 2, 128)
-    stats, dq, dkv = tfa._bwd_kernels(dtype)
+    stats, dq, dkv = (tfa.flash_attention_bwd_stats, tfa.flash_attention_dq_kernel,
+                      tfa.flash_attention_dkv_kernel)
     calls = [(tfa._fwd_kernel(dtype), (q, q, q)),
              (tea._fwd_kernel(dtype), (q, q, q)),
              (stats, (q, q, lse)),
@@ -505,7 +515,8 @@ def test_encoder_kernel_helpers_pick_by_q_dtype(dtype):
     """``_fwd_kernel`` and ``_bwd_kernel`` of the encoder hand q's dtype to
     the wrapper of the kernel ``_simt.admit`` picks for it: bfloat16 and
     float16 to the tensor-core kernels, float32 to the CUDA-core ones; the
-    flash helpers agree."""
+    flash forward's helper agrees, and the flash backward admits every
+    type to the tensor-core kernels."""
     tc = dtype != torch.float32
     assert tc == (dtype in _simt.TC_TYPES["encoder"]) == (dtype in _simt.TC_TYPES["encoder_bwd"])
     assert tea._fwd_kernel(dtype) is (tea.encoder_attention_kernel if tc
@@ -518,7 +529,7 @@ def test_encoder_kernel_helpers_pick_by_q_dtype(dtype):
         assert inst.lib == (f"{regime[:7]}_attention{regime[7:]}" if tc
                             else f"attention_simt_{regime}")
     assert (tfa._fwd_kernel(dtype) is tfa.flash_attention_kernel) == tc
-    assert (tfa._bwd_kernels(dtype)[1] is tfa.flash_attention_dq_kernel) == tc
+    assert dtype in _simt.TC_TYPES["flash_bwd"]
 
 
 def test_f16_encoder_wrappers_refuse_cpu_and_cuda_core_wrappers_refuse_f16():

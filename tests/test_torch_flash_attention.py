@@ -284,18 +284,21 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     assert tfa.flash_attention_kernel.launches == before
 
 
-@pytest.mark.parametrize("which", ["dq", "dkv", "simt_dq", "simt_dkv", "simt_bwd_stats"])
+@pytest.mark.parametrize("which", ["dq", "dkv", "f32_dq", "f32_dkv", "f32_bwd_stats",
+                                   "f32_bwd_split"])
 def test_backward_kernel_wrappers_reject_cpu_tensors(which):
-    """The backward wrappers, bfloat16 and CUDA-core (float32 here), launch
-    on CUDA tensors only and never run the plain version; a refused call
-    does not count."""
-    dt = torch.float32 if which.startswith("simt") else torch.bfloat16
+    """The backward wrappers, at bfloat16 and at float32 (the same
+    tensor-core wrappers, and float32's split pass), launch on CUDA tensors
+    only and never run the plain version; a refused call does not count."""
+    dt = torch.float32 if which.startswith("f32") else torch.bfloat16
     q, k, v = (torch.from_numpy(a).to(dt) for a in _qkv(128, 128, 64))
     lse = torch.zeros(1, 2, 128)
-    if which == "simt_bwd_stats":
-        fn, args = tfa.flash_attention_simt_bwd_stats, (q, q, lse)
+    if which == "f32_bwd_stats":
+        fn, args = tfa.flash_attention_bwd_stats, (q, q, lse)
+    elif which == "f32_bwd_split":
+        fn, args = tfa.flash_attention_bwd_split, (q, k, v, q)
     else:
-        fn = getattr(tfa, f"flash_attention_{which}_kernel")
+        fn = getattr(tfa, f"flash_attention_{which.removeprefix('f32_')}_kernel")
         args = (q, k, v, q, q, lse)
     before = fn.launches
     with pytest.raises(ValueError, match="not a CUDA device"):

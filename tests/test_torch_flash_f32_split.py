@@ -1,0 +1,154 @@
+"""The float32 flash backward's split-bf16 arithmetic, on the CPU.
+
+On the card the float32 backward runs the bf16 tensor-core kernels of
+``csrc/flash_attention_bwd.cu``: each f32 operand is two bf16 planes, hi =
+RN(x) and lo = RN(x - hi) (``_split_planes_dense``, the split pass's plain
+version), and each product the sum of the terms that the source lists in
+``FLASH_BWD_F32_TERMS``, bf16 products exact in f32 and summed in f32.
+Here that arithmetic is emulated in f32 from the term list parsed out of
+the source, and held:
+
+* within EMU_TOL = 5e-5 of max |plain| (half of chip_smoke.py's F32_RTOL,
+  the card's gate) of ``_flash_bwd_dense`` on the same values, and within
+  the flash tests' GRAD_TOL = 2e-4 of jax.grad through the reference's
+  Pallas kernels in interpret mode, at [1, 128, 2, 64] and [1, 96, 1, 256]
+  causal (q ~ N(0, 2.5^2), as chip_smoke.py's Q_STD); a one-term control
+  (hi x hi alone, plain bf16) misses F32_RTOL there, so a lost plane shows;
+* ``_split_planes_dense``: hi is bf16 round-to-nearest, hi + lo is x
+  within 2^-16 |x|, a non-finite hi gives lo = 0, subnormals are kept;
+* the admission: float32 is in ``_simt.TC_TYPES["flash_bwd"]``, which is
+  the source's type list, and routes to ``flash_attention_bwd`` at head
+  dims 64, 128 and 256.
+"""
+import importlib
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import _simt
+from paddle_tpu_torch.ops import flash_attention as tfa
+
+jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
+BWD_CU = Path(tfa.__file__).resolve().parents[1] / "csrc" / "flash_attention_bwd.cu"
+EMU_TOL = 5e-5
+GRAD_TOL = 2e-4
+F32_RTOL = 1e-4
+Q_STD = 2.5
+SHAPES = {"s128_h2_d64": (128, 2, 64), "s96_h1_d256": (96, 1, 256)}
+
+
+def _terms():
+    """FLASH_BWD_F32_TERMS of the source: [(A plane, B plane), ...]."""
+    line = re.search(r"^#define FLASH_BWD_F32_TERMS\(X\)(.*)$", BWD_CU.read_text(), re.M).group(1)
+    return [tuple(int(a) for a in m.split(",")) for m in re.findall(r"X\(([^)]*)\)", line)]
+
+
+def _planes(x):
+    """The (hi, lo) planes of an f32 tensor along its last dim, as f32."""
+    p = tfa._split_planes_dense(x)
+    return p[..., 0, :].float(), p[..., 1, :].float()
+
+
+def _product(eq, a, b, terms):
+    """sum over the terms of einsum(eq, plane of a, plane of b), in f32, in
+    the list's order."""
+    pa, pb = _planes(a), _planes(b)
+    out = None
+    for i, j in terms:
+        t = torch.einsum(eq, pa[i], pb[j])
+        out = t if out is None else out + t
+    return out
+
+
+def _emulated_bwd(q, k, v, o, lse, do, causal, scale, terms):
+    """The kernels' float32 arithmetic: every product over the planes'
+    terms, P and dS split where the kernels split them."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    s = _product("bqhd,bkhd->bhqk", q, k, terms) * scale
+    if causal:
+        vis = torch.ones(Sq, Sk, dtype=torch.bool).tril(Sk - Sq)
+        s = torch.where(vis, s, torch.full_like(s, tfa.NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    dsum = torch.einsum("bqhd,bqhd->bhq", do, o)
+    dp = _product("bqhd,bkhd->bhqk", do, v, terms)
+    dv = _product("bhkq,bqhd->bkhd", p.transpose(-1, -2), do, terms)
+    ds = p * (dp - dsum[..., None])
+    dq = _product("bhqk,bkhd->bqhd", ds, k, terms) * scale
+    dk = _product("bhkq,bqhd->bkhd", ds.transpose(-1, -2), q, terms) * scale
+    return dq, dk, dv
+
+
+def _case(shape):
+    S, H, D = SHAPES[shape]
+    rng = np.random.RandomState(S + D)
+    q = (rng.randn(1, S, H, D) * Q_STD).astype(np.float32)
+    k, v = (rng.randn(1, S, H, D).astype(np.float32) for _ in range(2))
+    return q, k, v
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def test_term_list_is_three_products_small_terms_first():
+    assert _terms() == [(1, 0), (0, 1), (0, 0)]
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_emulated_split_backward_matches_plain_and_reference(shape):
+    q, k, v = _case(shape)
+    D = q.shape[-1]
+    scale = 1.0 / D ** 0.5
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = tfa._flash_dense(tq, tk, tv, True, scale)
+    do = o.cos() - o * o.sin()  # the cotangent of sum(o * cos o)
+    plain = tfa._flash_bwd_dense(tq, tk, tv, o, lse, do, True, scale)
+    emu = _emulated_bwd(tq, tk, tv, o, lse, do, True, scale, _terms())
+    one = _emulated_bwd(tq, tk, tv, o, lse, do, True, scale, [(0, 0)])
+    ref = [torch.from_numpy(np.array(g)) for g in jax.grad(
+        lambda a, b, c: jnp.sum((lambda x: x * jnp.cos(x))(
+            jfa.flash_attention(a, b, c, causal=True, interpret=True))),
+        argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+    for name, e, p, r, c in zip("qkv", emu, plain, ref, one):
+        assert _rel(e, p) <= EMU_TOL, f"d{name}: {_rel(e, p):.2e}"
+        np.testing.assert_allclose(e.numpy(), r.numpy(), rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+    assert max(_rel(c, p) for c, p in zip(one, plain)) > F32_RTOL  # a lost plane shows
+
+
+def test_split_planes_round_and_reproduce():
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy((rng.randn(2, 16, 2, 64) * np.exp(rng.randn(2, 16, 2, 64) * 8))
+                         .astype(np.float32))
+    p = tfa._split_planes_dense(x)
+    assert p.dtype == torch.bfloat16 and p.shape == (2, 16, 2, 2, 64)
+    hi, lo = p[..., 0, :], p[..., 1, :]
+    assert torch.equal(hi, x.to(torch.bfloat16))  # round to nearest even
+    err = (hi.float() + lo.float() - x).abs()
+    assert bool((err <= x.abs() * 2.0 ** -16).all())
+    bad = torch.tensor([float("inf"), float("-inf"), float("nan"), 3.4e38, 1e-40, 2.0 ** -130,
+                        -(2.0 ** -132)]).reshape(1, 1, 1, 7)
+    pb = tfa._split_planes_dense(bad)
+    hb, lb = pb[..., 0, :].float().flatten(), pb[..., 1, :].float().flatten()
+    assert torch.equal(lb[:4], torch.zeros(4))  # 3.4e38 rounds to inf in bf16: lo = 0
+    assert torch.isinf(hb[:2]).all() and torch.isnan(hb[2]) and torch.isinf(hb[3])
+    assert bool((hb[4:] != 0).all())  # subnormal, not flushed
+    assert hb[5] == 2.0 ** -130 and hb[6] == -(2.0 ** -132)
+
+
+def test_float32_backward_admitted_to_the_tensor_cores():
+    line = re.search(r"^#define FLASH_BWD_TYPES\(X\)(.*)$", BWD_CU.read_text(), re.M).group(1)
+    c_types = {"__nv_bfloat16": torch.bfloat16, "__half": torch.float16, "float": torch.float32}
+    built = {c_types[t.strip()]: int(c) for t, c in
+             (m.split(",") for m in re.findall(r"X\(([^)]*)\)", line))}
+    assert built == {t: _simt.TC_TYPE_CODES[t] for t in _simt.TC_TYPES["flash_bwd"]}
+    assert torch.float32 in built
+    for D in (64, 128, 256):
+        inst = _simt.admit("flash_bwd", torch.float32, torch.float32, D)
+        assert not inst.simt and inst.lib == "flash_attention_bwd" and inst.D == D
+    assert tfa._planes_numel(2, 3, 5, 7, 64) == 4 * 2 * 3 * 64 * (5 + 7)
