@@ -21,9 +21,10 @@
 // Float32 runs the same kernels on the tensor cores as split-bf16
 // products.  Each f32 operand x is two bf16 planes, hi = RN(x) and lo =
 // RN(x - hi) (about 16 of f32's 24 bits), and each product A B is the sum
-// of the terms of FLASH_BWD_F32_TERMS, A_lo B_hi + A_hi B_lo + A_hi B_hi,
+// of the terms of SPLIT_BF16_TERMS, A_lo B_hi + A_hi B_lo + A_hi B_hi,
 // three bf16 products exact in f32 and summed in f32 (the small terms
-// first; A_lo B_lo, under 2^-16 of the rest, is left out).  The planes of
+// first; A_lo B_lo, under 2^-16 of the rest, is left out): split_bf16.cuh,
+// which the encoder backward shares.  The planes of
 // q, k, v and dO come from a split pass of their own
 // (flash_attention_split: [B, S, H, 2, D] bf16 each, hi then lo along a
 // row, so a tile's two planes are neighbouring 64-column panels of one TMA
@@ -102,11 +103,11 @@
 
 #include <algorithm>
 
-#include "wgmma_attention.cuh"
+#include "split_bf16.cuh"
 
 namespace {
 
-using namespace wgmma_attention;
+using namespace split_bf16;
 
 struct BwdArgs {
   const float* lse2;  // [B * H, Sqp]: lse * log2(e), 0 past Sq
@@ -125,73 +126,10 @@ struct BwdArgs {
 // CPU test parses these lines against them).
 #define FLASH_BWD_DIMS(X) X(64) X(128) X(256)
 #define FLASH_BWD_TYPES(X) X(__nv_bfloat16, 1) X(__half, 2) X(float, 0)
-// The float32 products' terms, (A plane, B plane) with 0 = hi and 1 = lo,
-// in the order they are summed (a CPU test emulates this list).
-#define FLASH_BWD_F32_TERMS(X) X(1, 0) X(0, 1) X(0, 0)
-
 constexpr int kOwn = 128;    // own query rows per dQ block, 64 per warpgroup
 constexpr int kWalk = 64;    // the statistics' padding: queries per tile of the bf16 dK/dV walk
 
 inline int padded(int Sq) { return (Sq + kWalk - 1) / kWalk * kWalk; }
-
-// How the products read an input type T: a 2-byte T as itself, one plane;
-// float as P = 2 bf16 planes (hi, lo) side by side along a row.
-template <typename T>
-struct Planes {
-  using E = T;
-  static constexpr int P = 1;
-};
-
-template <>
-struct Planes<float> {
-  using E = bf16;
-  static constexpr int P = 2;
-};
-
-// A plane index known at compile time.
-template <int V>
-struct Plane {
-  __host__ __device__ constexpr operator int() const { return V; }
-};
-
-// f(a, b, first) for each term of a product over P planes: (0, 0) alone at
-// P = 1, FLASH_BWD_F32_TERMS at P = 2; a and b are compile-time plane
-// indices, `first` marks the term that starts the accumulator.
-template <int P, typename F>
-__device__ __forceinline__ void for_terms(F&& f) {
-  if constexpr (P == 1) {
-    f(Plane<0>(), Plane<0>(), true);
-  } else {
-    bool first = true;
-#define X(A, B)                     \
-  f(Plane<A>(), Plane<B>(), first); \
-  first = false;
-    FLASH_BWD_F32_TERMS(X)
-#undef X
-  }
-}
-
-// The A fragments of an m64 x N accumulator for the products: rounded to T,
-// or at float32 split into hi = RN(x) and lo = RN(x - hi) bf16 planes.
-template <int N, typename T>
-__device__ __forceinline__ void to_planes(uint32_t (&a)[Planes<T>::P][N / 16][4],
-                                          const float (&d)[N / 2]) {
-  if constexpr (Planes<T>::P == 1) {
-    to_a<N, T>(a[0], d);
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float x0 = d[8 * kk + 2 * r], x1 = d[8 * kk + 2 * r + 1];
-        __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-        const float2 h = __bfloat1622float2(hi);
-        __nv_bfloat162 lo = __floats2bfloat162_rn(x0 - h.x, x1 - h.y);
-        a[0][kk][r] = *reinterpret_cast<uint32_t*>(&hi);
-        a[1][kk][r] = *reinterpret_cast<uint32_t*>(&lo);
-      }
-  }
-}
 
 // dQ's layout at T and D (W = P D elements of a row's planes): 128 own
 // queries, 64 a warpgroup, walking BK-key tiles through kStages stages; at
@@ -288,15 +226,6 @@ __global__ void __launch_bounds__(128) flash_dsum_kernel(const T* o, const T* dO
 // before the rounding), lo = 0 where hi is not finite.  Each thread takes
 // 8 values of one row: two 16-byte loads and a 16-byte store a plane.
 // Bytes-bound: 4 bytes read and 4 written an element.
-__device__ __forceinline__ uint32_t split_pair(float x0, float x1, uint32_t& lo) {
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-  const float2 h = __bfloat1622float2(hi);
-  __nv_bfloat162 l = __floats2bfloat162_rn(isfinite(h.x) ? x0 - h.x : 0.f,
-                                           isfinite(h.y) ? x1 - h.y : 0.f);
-  lo = *reinterpret_cast<uint32_t*>(&l);
-  return *reinterpret_cast<uint32_t*>(&hi);
-}
-
 __global__ void __launch_bounds__(256) flash_split_kernel(const float* q, const float* k,
                                                           const float* v, const float* dO,
                                                           bf16* planes, long long nq,

@@ -21,9 +21,10 @@
 // the products run `wgmma ... .f32.bf16.bf16` or `.f32.f16.f16` with f32
 // sums, and every layout below is the same for both, since it counts 2-byte
 // elements.  Elem<T> holds what differs: the TMA data type and the
-// rounding of f32 pairs.  (The flash backward at float32 reads each f32
-// operand as two bf16 planes, hi and lo, through these same bf16 helpers;
-// only store_rows writes f32.)
+// rounding of f32 pairs.  (The flash and encoder backward at float32 read
+// each f32 operand as two bf16 planes, hi and lo, through these same bf16
+// helpers (split_bf16.cuh); only make_map and tma_tile, which also load f32
+// tiles, and store_rows, which writes f32, take float.)
 //
 // Tiles in shared memory.  A tensor is [B, S, H, D] of T, its last
 // dimension contiguous (the flash kernels take contiguous tensors, the
@@ -85,6 +86,13 @@ struct Elem<__half> {
     return __floats2half2_rn(lo, hi);
   }
   static __device__ __forceinline__ float2 widen2(Pair v) { return __half22float2(v); }
+};
+
+// float: the TMA data type of the f32 tiles that the float32 backward
+// kernels load and split into bf16 planes in shared memory (split_bf16.cuh).
+template <>
+struct Elem<float> {
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
 
 constexpr int kThreads = 256;                    // two warpgroups
@@ -225,15 +233,16 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// Rows [row0, row0 + ROWS) of head h, batch b, all D columns, as D / 64
-// panels of ROWS x 64 (ROWS * D * 2 bytes of TMA traffic on `bar`).
+// Rows [row0, row0 + ROWS) of head h, batch b, all D columns, as panels of
+// ROWS rows x 128 bytes: D / 64 panels of 64 2-byte elements, or of float
+// D / 32 panels of 32 (ROWS * D * sizeof(T) bytes of TMA traffic on `bar`).
 template <int D, int ROWS, typename T>
 __device__ __forceinline__ void tma_tile(T* dst, const CUtensorMap* map, uint64_t* bar, int h,
                                          int row0, int b) {
-  static_assert(sizeof(T) == 2, "the tiles hold 2-byte elements");
+  constexpr int kCols = 128 / sizeof(T);
 #pragma unroll
-  for (int p = 0; p < D / kPanel; ++p)
-    tma_load(dst + p * ROWS * kPanel, map, bar, kPanel * p, h, row0, b);
+  for (int p = 0; p < D / kCols; ++p)
+    tma_load(dst + p * ROWS * kCols, map, bar, kCols * p, h, row0, b);
 }
 
 // ------------------------------------------------------------------ wgmma
@@ -546,16 +555,19 @@ inline Strides contiguous_strides(int S, int H, int D) {
 }
 
 // The TMA map of a [B, S, H, D] view of T at `ptr` (16-byte aligned) with
-// element strides `st` (each a multiple of 8, 16 bytes: TMA's rule), with
-// boxes of `rows` rows x 64 columns of one head and the 128-byte swizzle.
+// element strides `st` (each 16 bytes' multiple: TMA's rule), with boxes of
+// `rows` rows x 128 bytes of one head (64 columns of a 2-byte T, 32 of
+// float) and the 128-byte swizzle.
 template <typename T = bf16>
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows,
                             Strides st) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2, (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)rows, 1};
+  constexpr cuuint64_t kBytes = sizeof(T);
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * kBytes, (cuuint64_t)st.s * kBytes,
+                                 (cuuint64_t)st.b * kBytes};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / kBytes), 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, Elem<T>::kTma, 4, const_cast<void*>(ptr), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,

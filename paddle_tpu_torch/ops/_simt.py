@@ -9,24 +9,22 @@ kernels), and so does float16 in flash and the encoder, forward and
 backward (``flash_attention.cu``, ``flash_attention_bwd.cu``,
 ``encoder_attention.cu``, ``encoder_attention_bwd.cu``: one ``wgmma``
 design each, instantiated at either 2-byte type, ``TC_TYPES``, whose
-entries take the type codes ``TC_TYPE_CODES``), and so does float32 in the
-flash backward (``flash_attention_bwd.cu`` at float, its products
-split-bf16).  float16 decode and paged, and float32 elsewhere, run the f32
-CUDA-core bodies of ``csrc/attention_simt.cuh`` and
-``attention_simt_bwd.cuh`` through their entries
-(``attention_simt_decode.cu``, ``attention_simt_paged.cu``,
-``attention_simt_flash.cu``, ``attention_simt_encoder.cu``,
-``attention_simt_encoder_bwd.cu``).  Nothing is cast to reach a kernel: a
-call whose types have no kernel raises.
+entries take the type codes ``TC_TYPE_CODES``), and so does float32 in
+both backward kernels (``flash_attention_bwd.cu`` and
+``encoder_attention_bwd.cu`` at float, their products split-bf16,
+``split_bf16.cuh``).  float16 decode and paged, and the float32 forwards,
+run the f32 CUDA-core body of ``csrc/attention_simt.cuh`` through its
+entries (``attention_simt_decode.cu``, ``attention_simt_paged.cu``,
+``attention_simt_flash.cu``, ``attention_simt_encoder.cu``).  Nothing is
+cast to reach a kernel: a call whose types have no kernel raises.
 
 ``admit`` is the one place that decides, a pure function of (regime, q
 type, cache type, head dim, query rows a kv head).  Its lists below are
-the ``SIMT_*`` instantiation lists of ``attention_simt.cuh`` (the
-forwards) and ``attention_simt_bwd.cuh`` (the backward kernels), which a
-CPU test parses and holds equal to them, as it holds ``TC_TYPES`` and
+the ``SIMT_*`` instantiation lists of ``attention_simt.cuh``, which a CPU
+test parses and holds equal to them, as it holds ``TC_TYPES`` and
 ``TC_TYPE_CODES`` to the type lists of the tensor-core flash and encoder
 sources.  The flash backward takes head dims 64, 128 and 256 at every
-type.
+type, the encoder backward 64 and 128.
 """
 from __future__ import annotations
 
@@ -53,20 +51,14 @@ FLASH_TYPES = (F32,)
 ENCODER_TYPES = (F32,)
 FLASH_DIMS = (64, 128, 256)
 ENCODER_DIMS = (64, 128)
-# attention_simt_bwd.cuh SIMT_BWD_ENCODER_TYPES and SIMT_BWD_ENCODER_DIMS:
-# the encoder backward takes q, k, v and dO of one type; 32 own rows a
-# block (the flash backward runs the tensor-core kernels at every type).
-ENCODER_BWD_TYPES = (F32,)
-ENCODER_BWD_DIMS = (64, 128)
-BWD_ROWS = 32
 # The q types of the tensor-core kernels, bfloat16 but for flash and the
-# encoder, whose forward and backward run float16 too, and the flash
-# backward, which runs float32 as well (csrc/flash_attention.cu FLASH_TYPES,
+# encoder, whose forward and backward run float16 too, and the two backward
+# kernels, which run float32 as well (csrc/flash_attention.cu FLASH_TYPES,
 # flash_attention_bwd.cu FLASH_BWD_TYPES, encoder_attention.cu
 # ENCODER_TYPES, encoder_attention_bwd.cu ENCODER_BWD_TYPES), and the type
 # codes those four entries take, one table for their wrappers.
 TC_TYPES = {"flash": (BF16, F16), "flash_bwd": (BF16, F16, F32),
-            "encoder": (BF16, F16), "encoder_bwd": (BF16, F16)}
+            "encoder": (BF16, F16), "encoder_bwd": (BF16, F16, F32)}
 TC_TYPE_CODES = {BF16: 1, F16: 2, F32: 0}
 # The bfloat16 kernels' caches: bfloat16, or int8 with f32 scales.
 BF16_KV = (BF16, I8)
@@ -84,7 +76,7 @@ _TC_LIBS = {"decode": "decode_attention", "paged": "paged_attention",
 class Instantiation(NamedTuple):
     """What a call runs: the kernel library (``csrc/<lib>.cu``), its q and
     k/v types, the head dim and, for the f32 CUDA-core bodies, the query
-    rows a block (16: the split-K decode regime; 64; 32 in the backward)."""
+    rows a block (16: the split-K decode regime; 64)."""
     lib: str
     q: torch.dtype
     kv: torch.dtype
@@ -119,15 +111,6 @@ def admit(regime, q_dtype, kv_dtype=None, D=None, rows=1):
     if q_dtype not in (F32, F16):
         raise ValueError(f"attention kernel ({regime}): q dtype {q_dtype}; the kernels take "
                          f"{_names((BF16, F32, F16))}")
-    if regime == "encoder_bwd":
-        if kv_dtype != q_dtype or q_dtype not in ENCODER_BWD_TYPES:
-            raise ValueError(f"attention kernel ({regime}): q {q_dtype} with k/v {kv_dtype}; "
-                             "the CUDA-core backward kernel takes one type of "
-                             f"{_names(ENCODER_BWD_TYPES)}")
-        if D not in ENCODER_BWD_DIMS:
-            raise ValueError(f"attention kernel ({regime}): head dim {D}, the kernel is built "
-                             f"for {ENCODER_BWD_DIMS}")
-        return Instantiation(f"attention_simt_{regime}", q_dtype, kv_dtype, D, BWD_ROWS)
     if regime in ("decode", "paged"):
         if (q_dtype, kv_dtype) not in KV_PAIRS:
             raise ValueError(f"attention kernel ({regime}): q {q_dtype} with k/v {kv_dtype}; "

@@ -15,8 +15,9 @@ admitted shape ever failed it.
 
 It is a ``torch.autograd.Function`` that saves q, k, v and the seed, as
 the reference does, and on the card also the rows' logsumexp [B * H, S]
-f32 (which the backward kernels at S > 128 read).  The backward
-(``_bwd_kernel``) recomputes P and regenerates the mask, then dV = P_d^T dO
+f32 (which the streamed backward kernels read: ``_whole_head``).  The
+backward (the reference's ``_bwd_kernel``) recomputes P and regenerates
+the mask, then dV = P_d^T dO
 with P_d = where(keep, P / (1 - rate), 0) and dP = where(keep, dO V^T /
 (1 - rate), 0) in f32, dS = P (dP - rowsum(dP * P)) * scale rounded to the
 input dtype, dQ = dS K and dK = dS^T Q.  Nothing of size [B * H, S, S] is
@@ -24,18 +25,18 @@ stored.
 
 A CPU tensor takes the plain versions, ``_encoder_dense`` forward and
 ``_encoder_bwd_dense`` backward; a CUDA tensor launches
-``csrc/encoder_attention.cu`` forward and ``csrc/encoder_attention_bwd.cu``
-backward (bfloat16 and float16 on the tensor cores, one ``wgmma`` design
-instantiated at the inputs' type) or raises.  Float32 takes
-``csrc/attention_simt_encoder.cu`` forward and
-``csrc/attention_simt_encoder_bwd.cu`` backward (f32 on the CUDA cores,
-the same Philox mask from the same seed), as ``_simt.admit`` decides
-(``_fwd_kernel``, ``_bwd_kernel``).  Nothing is cast to reach a kernel.
-The kernels read q, k, v and dO through TMA (bfloat16, float16) or
-16-byte copies (float32) with their own strides, so strided views such as
-the three slices of one packed [B, S, 3, H, D] projection launch without
-copies; only a view they cannot read (``tma_readable``) is copied, and
-counted.
+``csrc/encoder_attention.cu`` forward (bfloat16 and float16 on the tensor
+cores, one ``wgmma`` design instantiated at the inputs' type) and
+``csrc/encoder_attention_bwd.cu`` backward (the same at bfloat16, float16
+and float32, whose products run as split-bf16 products) or raises.  The
+float32 forward takes ``csrc/attention_simt_encoder.cu`` (f32 on the CUDA
+cores, the same Philox mask from the same seed), as ``_simt.admit``
+decides (``_fwd_kernel``).  Nothing is cast to reach a kernel.  The
+kernels read q, k, v and dO through TMA (the backward and the 16-bit
+forward) or 16-byte copies (the float32 forward) with their own strides,
+so strided views such as the three slices of one packed [B, S, 3, H, D]
+projection launch without copies; only a view they cannot read
+(``tma_readable``) is copied, and counted.
 """
 from __future__ import annotations
 
@@ -49,8 +50,7 @@ from ._prng import encoder_bits, keep_mask, launch_args
 NEG_INF = -1e30
 
 __all__ = ["encoder_attention", "encoder_attention_kernel", "encoder_attention_simt_kernel",
-           "encoder_attention_bwd_kernel", "encoder_attention_simt_bwd_kernel", "supported",
-           "tma_readable"]
+           "encoder_attention_bwd_kernel", "supported", "tma_readable"]
 
 
 def supported(bh, s, d, seq_kv=None):
@@ -146,9 +146,8 @@ def _tma_strides(t):
 
 def _check_inputs(tensors, regime="encoder", simt=False):
     """The kernels' admission: the instantiation ``_simt.admit`` picks for
-    q's dtype (the CUDA-core kernels when ``simt``, the tensor-core kernels,
-    bfloat16 and float16, otherwise; ``regime`` "encoder" or
-    "encoder_bwd"), CUDA, one dtype,
+    q's dtype (the CUDA-core forward when ``simt``, the tensor-core kernels
+    otherwise; ``regime`` "encoder" or "encoder_bwd"), CUDA, one dtype,
     one [B, S, H, D] shape that ``supported`` admits.  Returns the tensors
     as they are where the kernels can read them in place
     (``tma_readable``), else a contiguous copy; each copy adds one to
@@ -263,31 +262,34 @@ _BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_longlong] *
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32,
                 ctypes.c_float, ctypes.c_void_p])
 
-# At S = 128 one block of the backward holds a whole head and needs nothing
-# from the forward; longer rows take the streamed kernels, which read the
-# forward's lse.
-WHOLE_HEAD_S = 128
+
+def _whole_head(S, D, itemsize):
+    """Whether the backward runs the whole-head kernel, which needs nothing
+    from the forward: S = 128 and a row of q at most 256 bytes (bfloat16
+    and float16 at head dims 64 and 128, float32 at 64), the rule of
+    ``csrc/encoder_attention_bwd.cu`` (``kHeadFits``).  Every other shape
+    runs the streamed kernels, which read the forward's lse."""
+    return S == 128 and D * itemsize <= 256
 
 
 def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=None,
                                  rate=0.0, lse=None):
     """Launch ``csrc/encoder_attention_bwd.cu`` (the port of ``_bwd_kernel``)
-    on CUDA tensors: q/k/v/do [B, S, H, D] views of one type, bfloat16 or
-    float16, with a ``supported`` shape, the forward's ``seed`` and
-    ``rate`` and, at S > 128, its rows' ``lse`` (the second output of
-    ``encoder_attention_kernel``).  Returns (dQ, dK, dV) [B, S, H, D] in
-    q's dtype, contiguous.  Raises ValueError on
-    anything else.  Every launch adds one to
-    ``encoder_attention_bwd_kernel.launches``."""
+    on CUDA tensors: q/k/v/do [B, S, H, D] views of one type, bfloat16,
+    float16 or float32, with a ``supported`` shape, the forward's ``seed``
+    and ``rate`` and, where ``_whole_head`` is false, its rows' ``lse`` (the
+    forward kernel's second output).  Returns (dQ, dK, dV) [B, S, H, D] in
+    q's dtype, contiguous.  Raises ValueError on anything else.  Every
+    launch adds one to ``encoder_attention_bwd_kernel.launches``."""
     q, k, v, do = _check_inputs({"q": q, "k": k, "v": v, "do": do}, "encoder_bwd")
     B, S, H, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     dev = q.device
     stats = bits = None
-    if S > WHOLE_HEAD_S:
+    if not _whole_head(S, D, q.element_size()):
         _check(lse is not None,
-               f"S={S} needs the forward's lse (encoder_attention_kernel's second output)")
+               f"S={S} D={D} at {q.dtype} needs the forward's lse (its kernel's second output)")
         _check(tuple(lse.shape) == (B * H, S) and lse.dtype == torch.float32
                and lse.device == dev, "lse must be [B * H, S] f32 on q's device")
         lse = lse.contiguous()
@@ -313,74 +315,12 @@ def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=Non
 encoder_attention_bwd_kernel.launches = 0
 
 
-_SIMT_BWD_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8
-                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32,
-                     ctypes.c_float, ctypes.c_void_p])
-
-
-def encoder_attention_simt_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=None,
-                                      rate=0.0, lse=None):
-    """Launch ``csrc/attention_simt_encoder_bwd.cu`` (the port of
-    ``_bwd_kernel`` at float32, f32 on the CUDA cores) on CUDA tensors:
-    q/k/v/do [B, S, H, D] float32 views with a ``supported``
-    shape (strided views that ``tma_readable`` admits are read in place,
-    others copied and counted), the forward's ``seed`` and ``rate`` and, at
-    S > 128, its rows' ``lse`` (the second output of
-    ``encoder_attention_simt_kernel``).  Returns (dQ, dK, dV) [B, S, H, D]
-    in q's dtype, contiguous.  Raises ValueError on anything else.  Every
-    launch adds one to ``encoder_attention_simt_bwd_kernel.launches``."""
-    q, k, v, do = _check_inputs({"q": q, "k": k, "v": v, "do": do}, "encoder_bwd", simt=True)
-    B, S, H, D = q.shape
-    if scale is None:
-        scale = 1.0 / (D ** 0.5)
-    dev = q.device
-    stats = None
-    if S > WHOLE_HEAD_S:
-        _check(lse is not None,
-               f"S={S} needs the forward's lse (encoder_attention_simt_kernel's second output)")
-        _check(tuple(lse.shape) == (B * H, S) and lse.dtype == torch.float32
-               and lse.device == dev, "lse must be [B * H, S] f32 on q's device")
-        lse = lse.contiguous()
-        stats = torch.empty(2, B * H, S, dtype=torch.float32, device=dev)
-    else:
-        lse = None  # the whole-head kernel finds each row's max and sum itself
-    dq, dk, dv = (torch.empty(B, S, H, D, dtype=q.dtype, device=dev) for _ in range(3))
-    sp, thresh, inv = launch_args(seed, rate, 1.0 / (1.0 - rate), dev)
-    strides = []  # (batch, position) of each
-    for t in (q, k, v, do):
-        _, ss, sb = _tma_strides(t)
-        strides += [sb, ss]
-
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        _build.launch("attention_simt_encoder_bwd", _SIMT_BWD_ARGS,
-                      *(ptr(t) for t in (q, k, v, do, lse, stats, dq, dk, dv)), B, H, S, D,
-                      *strides, float(scale), int(bool(causal)), _simt.TYPE_CODES[q.dtype], sp,
-                      thresh, float(inv), torch.cuda.current_stream(dev).cuda_stream,
-                      entry="encoder_attention_simt_bwd")
-    encoder_attention_simt_bwd_kernel.launches += 1
-    return dq, dk, dv
-
-
-encoder_attention_simt_bwd_kernel.launches = 0
-
-
 def _fwd_kernel(dtype):
     """The forward wrapper of q's dtype: the tensor-core kernel (bfloat16,
     float16) or its CUDA-core counterpart (float32)."""
     if dtype in _simt.TC_TYPES["encoder"]:
         return encoder_attention_kernel
     return encoder_attention_simt_kernel
-
-
-def _bwd_kernel(dtype):
-    """The backward wrapper of q's dtype: the tensor-core kernel
-    (bfloat16, float16) or its CUDA-core counterpart (float32)."""
-    if dtype in _simt.TC_TYPES["encoder_bwd"]:
-        return encoder_attention_bwd_kernel
-    return encoder_attention_simt_bwd_kernel
 
 
 def _plain_keep(q, seed, rate):
@@ -408,8 +348,8 @@ class _EncoderAttention(torch.autograd.Function):
             dq, dk, dv = _encoder_bwd_dense(q, k, v, do, ctx.scale, ctx.causal,
                                             _plain_keep(q, seed, ctx.rate), ctx.rate)
         else:
-            dq, dk, dv = _bwd_kernel(q.dtype)(q, k, v, do, ctx.scale, ctx.causal, seed,
-                                              ctx.rate, *fwd)
+            dq, dk, dv = encoder_attention_bwd_kernel(q, k, v, do, ctx.scale, ctx.causal, seed,
+                                                      ctx.rate, *fwd)
         return dq, dk, dv, None, None, None, None
 
 

@@ -4,11 +4,11 @@ plain versions and the admission by type of every attention kernel.
 On the card, bfloat16 q runs the tensor-core kernels, and so does float16
 q in flash and the encoder, forward and backward (``csrc/flash_attention.cu``,
 ``flash_attention_bwd.cu``, ``encoder_attention.cu``,
-``encoder_attention_bwd.cu``), and float32 q in the flash backward
-(``flash_attention_bwd.cu``, split-bf16 products); float32 q elsewhere, and
-float16 q in decode and paged, run the f32 CUDA-core kernels of
-``csrc/attention_simt.cuh`` and ``attention_simt_bwd.cuh``.  Which one, and which instantiation, is
-``ops/_simt.admit``'s decision.  Here, on the CPU, the tests hold:
+``encoder_attention_bwd.cu``), and float32 q in both backward kernels
+(``flash_attention_bwd.cu``, ``encoder_attention_bwd.cu``, split-bf16
+products); float32 q in the forwards, and float16 q in decode and paged,
+run the f32 CUDA-core kernels of ``csrc/attention_simt.cuh``.  Which one,
+and which instantiation, is ``ops/_simt.admit``'s decision.  Here, on the CPU, the tests hold:
 
 * the plain decode, paged, encoder-forward and flash-forward functions at
   float16 (what a CPU tensor runs, and the kernels' oracle in
@@ -22,15 +22,13 @@ float16 q in decode and paged, run the f32 CUDA-core kernels of
   the v-scale) with float32 and float16 q against the reference's kernels,
   within the reference's own int8 bound, 3e-4 (tests/test_decode_attention.py);
 * the admission lists against the ``SIMT_*`` instantiation lists of the
-  .cuh files (the forwards' ``attention_simt.cuh``, the backward kernels'
-  ``attention_simt_bwd.cuh``) and the ``FLASH_*`` and ``ENCODER_*`` lists
-  of the tensor-core flash and encoder sources, their type codes one table
-  (``_simt.TC_TYPE_CODES``);
-* float64 q refused, naming the admitted types; the float32 encoder
-  backward admitted to the CUDA-core kernel, the float32 flash backward and
-  every float16 backward to the tensor-core kernels, the flash backward at
-  head dims 64, 128 and 256 at every type (the encoder backward at 64 and
-  128); float16 flash and encoder never reach a CUDA-core wrapper, nor a
+  forwards' ``attention_simt.cuh`` and the ``FLASH_*`` and ``ENCODER_*``
+  lists of the tensor-core flash and encoder sources, their type codes one
+  table (``_simt.TC_TYPE_CODES``);
+* float64 q refused, naming the admitted types; every float32 and float16
+  backward admitted to the tensor-core kernels, the flash backward at head
+  dims 64, 128 and 256 at every type (the encoder backward at 64 and 128);
+  float16 flash and encoder never reach a CUDA-core wrapper, nor a
   bfloat16 cast, and their wrappers refuse CPU tensors;
 * a small LLaMA at float16 (head dim 64) through the paged engine, greedy
   tokens equal to the reference engine's.
@@ -61,7 +59,6 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
 CUH = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc" / "attention_simt.cuh"
-BWD_CUH = CUH.with_name("attention_simt_bwd.cuh")
 FLASH_CU = CUH.with_name("flash_attention.cu")
 FLASH_BWD_CU = CUH.with_name("flash_attention_bwd.cu")
 ENCODER_CU = CUH.with_name("encoder_attention.cu")
@@ -268,58 +265,45 @@ def test_admission_list_is_the_cuh_instantiations():
 
 
 def test_backward_admission_list_is_the_cuh_instantiations():
-    """ops/_simt.py's backward lists are attention_simt_bwd.cuh's SIMT_BWD_*
-    lists (the encoder's alone: no flash backward is built on the CUDA
-    cores), and every instantiation admit() returns for "flash_bwd" and
-    "encoder_bwd" at float32 and float16 is one a source builds, in a
-    source that exists: the CUDA-core encoder backward at float32, the
-    tensor-core flash backward at bfloat16, float16 and float32
-    (flash_attention_bwd.cu's FLASH_BWD_TYPES and FLASH_BWD_DIMS, head dim
-    256 at every type) and the tensor-core encoder backward at bfloat16 and
-    float16 (encoder_attention_bwd.cu's ENCODER_BWD_TYPES and
-    ENCODER_BWD_DIMS)."""
-    C = {v: k for k, v in _simt.C_TYPES.items()}
-    assert ([C[t] for (t,) in _cuh_list("SIMT_BWD_ENCODER_TYPES", BWD_CUH)]
-            == list(_simt.ENCODER_BWD_TYPES))
-    assert ([int(d) for (d,) in _cuh_list("SIMT_BWD_ENCODER_DIMS", BWD_CUH)]
-            == list(_simt.ENCODER_BWD_DIMS))
-    assert "SIMT_BWD_FLASH" not in BWD_CUH.read_text()
-    assert not (CUH.parent / "attention_simt_flash_bwd.cu").exists()
-    built = {("attention_simt_encoder_bwd", t, t, D, _simt.BWD_ROWS)
-             for t in _simt.ENCODER_BWD_TYPES for D in _simt.ENCODER_BWD_DIMS}
-    assert _simt.ENCODER_BWD_TYPES == (torch.float32,)
+    """No backward is built on the CUDA cores (attention_simt_bwd.cuh and
+    its entries are gone, and _simt keeps no list of them), and every
+    instantiation admit() returns for "flash_bwd" and "encoder_bwd" at
+    float32, float16 and bfloat16 is one a tensor-core source builds: the
+    flash backward (flash_attention_bwd.cu's FLASH_BWD_TYPES and
+    FLASH_BWD_DIMS, head dim 256 at every type) and the encoder backward
+    (encoder_attention_bwd.cu's ENCODER_BWD_TYPES and ENCODER_BWD_DIMS,
+    float32 as split-bf16 products, the head dims ``supported`` admits)."""
+    for gone in ("attention_simt_bwd.cuh", "attention_simt_flash_bwd.cu",
+                 "attention_simt_encoder_bwd.cu"):
+        assert not (CUH.parent / gone).exists()
+    assert not any(hasattr(_simt, n) for n in ("ENCODER_BWD_TYPES", "ENCODER_BWD_DIMS",
+                                                "BWD_ROWS"))
     tc = _tc_built(FLASH_BWD_CU, "FLASH_BWD_TYPES", "FLASH_BWD_DIMS")
     tc_enc = _tc_built(ENCODER_BWD_CU, "ENCODER_BWD_TYPES", "ENCODER_BWD_DIMS")
     for regime, lib in (("flash_bwd", tc), ("encoder_bwd", tc_enc)):
-        assert set(_simt.TC_TYPES[regime]) == {b[1] for b in lib}
-    assert set(_simt.TC_TYPES["flash_bwd"]) == set(_simt.TC_TYPE_CODES)
+        assert set(_simt.TC_TYPES[regime]) == {b[1] for b in lib} == set(_simt.TC_TYPE_CODES)
     admitted = {tuple(_simt.admit(r, t, t, D)) for r, dims in (("flash_bwd", (64, 128, 256)),
                                                                ("encoder_bwd", (64, 128)))
-                for t in (torch.float32, torch.float16) for D in dims}
-    assert admitted == built | {b for b in tc if b[1] != torch.bfloat16} | {
-        b for b in tc_enc if b[1] == torch.float16}
+                for t in (torch.float32, torch.float16, torch.bfloat16) for D in dims}
+    assert admitted == tc | tc_enc
     assert {tuple(_simt.admit("flash_bwd", t, t, D)) for t in tfa.TYPE_CODES
             for D in tfa.BWD_HEAD_DIMS} == tc
-    assert {tuple(_simt.admit("encoder_bwd", t, t, D)) for t in _simt.TC_TYPES["encoder_bwd"]
-            for D in _simt.ENCODER_BWD_DIMS} == tc_enc
-    with pytest.raises(ValueError, match="head dim 256"):
-        _simt.admit("encoder_bwd", torch.float32, torch.float32, 256)
-    assert not tea.supported(1, 128, 256)  # the tensor-core kernels' head dims
-    for lib in {b[0] for b in built}:
+    assert ({d for *_, d, _ in tc_enc}
+            == {d for d in range(8, 513, 8) if tea.supported(1, 128, d)})
+    assert not tea.supported(1, 128, 256)  # the encoder kernels' head dims
+    for lib in {b[0] for b in admitted}:
         assert (CUH.parent / f"{lib}.cu").is_file()
-        assert '#include "attention_simt_bwd.cuh"' in (CUH.parent / f"{lib}.cu").read_text()
+        assert "attention_simt" not in (CUH.parent / f"{lib}.cu").read_text()
 
 
 def _encoder_refusals(regime, q16, q32):
-    """(wrapper, args, message): each encoder wrapper called with the
-    type of the other kernel, and the kernel its refusal names."""
+    """(wrapper, args, message): each encoder forward wrapper called with
+    the type of the other kernel, and the kernel its refusal names; the one
+    backward wrapper, which takes every type, called with float64."""
     if regime == "encoder":
         return [(tea.encoder_attention_simt_kernel, (q16,) * 3, "runs encoder_attention_kernel "),
                 (tea.encoder_attention_kernel, (q32,) * 3, "runs encoder_attention_simt_kernel ")]
-    return [(tea.encoder_attention_simt_bwd_kernel, (q16,) * 4,
-             "runs encoder_attention_bwd_kernel "),
-            (tea.encoder_attention_bwd_kernel, (q32,) * 4,
-             "runs encoder_attention_simt_bwd_kernel ")]
+    return [(tea.encoder_attention_bwd_kernel, (q32.double(),) * 4, "bfloat16, float32, float16")]
 
 
 @pytest.mark.parametrize("regime", ["decode", "paged", "flash", "flash_bwd", "encoder",
@@ -327,22 +311,29 @@ def _encoder_refusals(regime, q16, q32):
 def test_admission_picks_kernel_by_q_dtype(regime):
     """decode and paged: bfloat16 q on the tensor-core kernels, every
     (q, kv) pair of float32 and float16 on the CUDA-core ones, by rows.
-    flash and the encoder, forward and backward: bfloat16 and float16 on
-    the tensor-core kernel, float32 on the CUDA-core one; float16 against
-    bfloat16 k/v is refused (no cast reaches a kernel), and each wrapper
-    refuses the type of the other, naming the kernel it runs."""
+    flash and the encoder forward: bfloat16 and float16 on the tensor-core
+    kernel, float32 on the CUDA-core one; both backward kernels: every type
+    on the tensor cores (float32 as split-bf16 products); float16 against
+    bfloat16 k/v is refused (no cast reaches a kernel), and each forward
+    wrapper refuses the type of the other, naming the kernel it runs."""
     if regime.startswith("encoder"):
         tc_lib = "encoder_attention" + ("_bwd" if regime == "encoder_bwd" else "")
-        for t in (torch.bfloat16, torch.float16):
+        tc_types = (torch.bfloat16, torch.float16) + (
+            (torch.float32,) if regime == "encoder_bwd" else ())
+        for t in tc_types:
             for D in (64, 128):
                 got = _simt.admit(regime, t, t, D)
                 assert not got.simt and got.lib == tc_lib and (got.q, got.kv, got.D) == (t, t, D)
-        got = _simt.admit(regime, torch.float32, torch.float32, 128)
-        assert got.simt and got.lib == f"attention_simt_{regime}"
         with pytest.raises(ValueError, match="q float16 takes k/v of float16"):
             _simt.admit(regime, torch.float16, torch.bfloat16, 128)
-        with pytest.raises(ValueError, match="one type of float32$"):
-            _simt.admit(regime, torch.float32, torch.float16, 128)
+        if regime == "encoder":
+            got = _simt.admit(regime, torch.float32, torch.float32, 128)
+            assert got.simt and got.lib == f"attention_simt_{regime}"
+            with pytest.raises(ValueError, match="one type of float32$"):
+                _simt.admit(regime, torch.float32, torch.float16, 128)
+        else:
+            with pytest.raises(ValueError, match="q float32 takes k/v of float32"):
+                _simt.admit(regime, torch.float32, torch.float16, 128)
         q16, q32 = (torch.zeros(1, 128, 2, 64, dtype=t) for t in (torch.float16, torch.float32))
         for fn, args, msg in _encoder_refusals(regime, q16, q32):
             before = fn.launches
@@ -415,31 +406,22 @@ def test_f64_q_refused_naming_admitted_dtypes(regime):
 def test_backward_refused_naming_queue_2_item_11(dtype):
     """Queue 2 items 8 and 11 are closed: a float32 or float16 gradient is
     admitted to a backward kernel at head dims 64 and 128, the flash one at
-    256 too: the flash backward at the tensor-core kernels at every type
-    (flash_attention_bwd.cu; float32 as split-bf16 products), the encoder
-    backward at the CUDA-core kernel at float32
-    (attention_simt_encoder_bwd.cu) and the tensor-core one at float16
-    (encoder_attention_bwd.cu), and the wrappers of the other encoder kernel
-    refuse it, naming the one it runs; the flash wrappers refuse CPU
-    tensors, and the split pass every type but float32; the flash backward
-    at head dim 256 is admitted at every type (the D = 256 wrappers reach
-    their device check), while k/v of another type and other head dims are
-    refused before any launch."""
+    256 too: the flash and encoder backward at the tensor-core kernels at
+    every type (flash_attention_bwd.cu, encoder_attention_bwd.cu; float32
+    as split-bf16 products); the backward wrappers refuse CPU tensors, and
+    the split pass every type but float32; the flash backward at head dim
+    256 is admitted at every type (the D = 256 wrappers reach their device
+    check), while k/v of another type and other head dims are refused
+    before any launch."""
     f16 = dtype == torch.float16
     for regime in ("flash_bwd", "encoder_bwd"):
-        tc = f16 or regime == "flash_bwd"
-        lib = (f"{regime[:-4]}_attention_bwd" if tc else f"attention_simt_{regime}")
+        lib = f"{regime[:-4]}_attention_bwd"
         for D in (64, 128, 256) if regime == "flash_bwd" else (64, 128):
             got = _simt.admit(regime, dtype, dtype, D)
-            assert got.simt == lib.startswith("attention_simt")
+            assert not got.simt
             assert got.lib == lib and (got.q, got.kv, got.D) == (dtype, dtype, D)
-        want = (f"q {str(dtype)[6:]} takes k/v of {str(dtype)[6:]}" if tc
-                else "one type of float32$")
-        with pytest.raises(ValueError, match=want):
+        with pytest.raises(ValueError, match=f"q {str(dtype)[6:]} takes k/v of {str(dtype)[6:]}"):
             _simt.admit(regime, dtype, torch.bfloat16, 64)
-        if lib.startswith("attention_simt"):  # the tensor-core head dims: _check_head_dim
-            with pytest.raises(ValueError, match="head dim 96"):
-                _simt.admit(regime, dtype, dtype, 96)
     with pytest.raises(ValueError, match="head dim 96"):
         tfa._check_head_dim(96, backward=True)
     for t in (dtype, torch.bfloat16):
@@ -459,13 +441,10 @@ def test_backward_refused_naming_queue_2_item_11(dtype):
                        else "not a CUDA device"):
         tfa.flash_attention_bwd_split(q, q, q, q)
     assert tfa.flash_attention_bwd_split.launches == before
-    other_enc, kernel = ((tea.encoder_attention_simt_bwd_kernel, "encoder_attention_bwd_kernel")
-                         if f16 else
-                         (tea.encoder_attention_bwd_kernel, "encoder_attention_simt_bwd_kernel"))
-    before = other_enc.launches
-    with pytest.raises(ValueError, match=f"runs {kernel} "):
-        other_enc(q, q, q, q)
-    assert other_enc.launches == before
+    before = tea.encoder_attention_bwd_kernel.launches
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tea.encoder_attention_bwd_kernel(q, q, q, q)
+    assert tea.encoder_attention_bwd_kernel.launches == before
     q256 = torch.zeros(1, 128, 2, 256, dtype=dtype)
     for fn in (tfa.flash_attention_dq_kernel, tfa.flash_attention_dkv_kernel):
         before = fn.launches
@@ -492,7 +471,7 @@ def test_simt_wrappers_reject_cpu_tensors(dtype):
              (stats, (q, q, lse)),
              (dq, (q, q, q, q, q, lse)),
              (dkv, (q, q, q, q, q, lse)),
-             (tea._bwd_kernel(dtype), (q, q, q, q)),
+             (tea.encoder_attention_bwd_kernel, (q, q, q, q)),
              (tda.decode_attention_simt_kernel,
               (q[:, :1], q.reshape(1, 2, 128, 64), q.reshape(1, 2, 128, 64),
                torch.ones(1, dtype=torch.int32)))]
@@ -512,32 +491,33 @@ def test_simt_wrappers_reject_cpu_tensors(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16],
                          ids=["f32", "f16", "bf16"])
 def test_encoder_kernel_helpers_pick_by_q_dtype(dtype):
-    """``_fwd_kernel`` and ``_bwd_kernel`` of the encoder hand q's dtype to
-    the wrapper of the kernel ``_simt.admit`` picks for it: bfloat16 and
-    float16 to the tensor-core kernels, float32 to the CUDA-core ones; the
-    flash forward's helper agrees, and the flash backward admits every
-    type to the tensor-core kernels."""
+    """``_fwd_kernel`` of the encoder hands q's dtype to the wrapper of the
+    kernel ``_simt.admit`` picks for it: bfloat16 and float16 to the
+    tensor-core kernel, float32 to the CUDA-core one; the flash forward's
+    helper agrees.  Both backward kernels admit every type to the tensor
+    cores, so the encoder's backward has one wrapper,
+    ``encoder_attention_bwd_kernel``, and no helper picks."""
     tc = dtype != torch.float32
-    assert tc == (dtype in _simt.TC_TYPES["encoder"]) == (dtype in _simt.TC_TYPES["encoder_bwd"])
+    assert tc == (dtype in _simt.TC_TYPES["encoder"])
     assert tea._fwd_kernel(dtype) is (tea.encoder_attention_kernel if tc
                                       else tea.encoder_attention_simt_kernel)
-    assert tea._bwd_kernel(dtype) is (tea.encoder_attention_bwd_kernel if tc
-                                      else tea.encoder_attention_simt_bwd_kernel)
-    for regime in ("encoder", "encoder_bwd"):
-        inst = _simt.admit(regime, dtype, dtype, 64)
-        assert inst.simt != tc
-        assert inst.lib == (f"{regime[:7]}_attention{regime[7:]}" if tc
-                            else f"attention_simt_{regime}")
+    assert not hasattr(tea, "_bwd_kernel")
+    assert not hasattr(tea, "encoder_attention_simt_bwd_kernel")
+    inst = _simt.admit("encoder", dtype, dtype, 64)
+    assert inst.simt != tc
+    assert inst.lib == ("encoder_attention" if tc else "attention_simt_encoder")
+    inst = _simt.admit("encoder_bwd", dtype, dtype, 64)
+    assert not inst.simt and inst.lib == "encoder_attention_bwd"
     assert (tfa._fwd_kernel(dtype) is tfa.flash_attention_kernel) == tc
-    assert dtype in _simt.TC_TYPES["flash_bwd"]
+    assert dtype in _simt.TC_TYPES["flash_bwd"] and dtype in _simt.TC_TYPES["encoder_bwd"]
 
 
 def test_f16_encoder_wrappers_refuse_cpu_and_cuda_core_wrappers_refuse_f16():
     """float16 runs the tensor-core encoder wrappers, which launch on CUDA
     tensors only (on the CPU the plain versions run through the autograd
-    Function, never through a wrapper); the CUDA-core wrappers refuse
-    float16, naming the tensor-core kernel, and cast nothing; a refused
-    call counts no launch and no copy."""
+    Function, never through a wrapper); the CUDA-core forward wrapper
+    refuses float16, naming the tensor-core kernel, and casts nothing; a
+    refused call counts no launch and no copy."""
     q = torch.zeros(1, 256, 2, 64, dtype=torch.float16)
     lse = torch.zeros(2, 256)
     copies = tea._check_inputs.copies
@@ -545,13 +525,10 @@ def test_f16_encoder_wrappers_refuse_cpu_and_cuda_core_wrappers_refuse_f16():
             (tea.encoder_attention_kernel, (q, q, q), "not a CUDA device"),
             (tea.encoder_attention_bwd_kernel, (q, q, q, q), "not a CUDA device"),
             (tea.encoder_attention_simt_kernel, (q, q, q),
-             r"float16 runs encoder_attention_kernel \(csrc/encoder_attention.cu\)"),
-            (tea.encoder_attention_simt_bwd_kernel, (q, q, q, q),
-             r"float16 runs encoder_attention_bwd_kernel \(csrc/encoder_attention_bwd.cu\)")]:
+             r"float16 runs encoder_attention_kernel \(csrc/encoder_attention.cu\)")]:
         before = fn.launches
         with pytest.raises(ValueError, match=msg):
-            fn(*args, lse=lse) if fn in (tea.encoder_attention_bwd_kernel,
-                                         tea.encoder_attention_simt_bwd_kernel) else fn(*args)
+            fn(*args, lse=lse) if fn is tea.encoder_attention_bwd_kernel else fn(*args)
         assert fn.launches == before
     assert tea._check_inputs.copies == copies
     # the float16 forward and backward on CPU tensors: the plain versions, in float16

@@ -191,23 +191,22 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
 def test_simt_backward_wrapper_rejects_cpu_tensors(dtype):
-    """The backward wrapper of the dtype (the CUDA-core one at float32, the
-    tensor-core one at float16) launches on CUDA tensors only and never
-    runs the plain version; the CUDA-core wrapper refuses float16, naming
-    the tensor-core kernel.  A refused call does not count."""
+    """The one backward wrapper (the tensor-core kernel at every type,
+    float32 as split-bf16 products) launches on CUDA tensors only and never
+    runs the plain version; a refused call does not count.  Which of its
+    kernels runs is ``_whole_head``: the whole head at S = 128 where a row
+    of q is at most 256 bytes, the streamed pair from the forward's lse
+    elsewhere (float32 at head dim 128 at S = 128 too)."""
     q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(256, 64))
-    fn = tea._bwd_kernel(dtype)
-    assert (fn is tea.encoder_attention_simt_bwd_kernel) == (dtype == torch.float32)
+    fn = tea.encoder_attention_bwd_kernel
     before = fn.launches
     with pytest.raises(ValueError, match="not a CUDA device"):
         fn(q, k, v, q, lse=torch.zeros(2, 256))
     assert fn.launches == before
-    if dtype == torch.float16:
-        simt = tea.encoder_attention_simt_bwd_kernel
-        before = simt.launches
-        with pytest.raises(ValueError, match="runs encoder_attention_bwd_kernel "):
-            simt(q, k, v, q, lse=torch.zeros(2, 256))
-        assert simt.launches == before
+    size = torch.empty(0, dtype=dtype).element_size()
+    assert tea._whole_head(128, 64, size) and not tea._whole_head(256, 64, size)
+    assert tea._whole_head(128, 128, size) == (dtype == torch.float16)
+    assert not tea._whole_head(512, 128, size)
 
 
 def _packed(S, D, B=1, H=2, seed=0):

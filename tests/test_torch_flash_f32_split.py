@@ -3,10 +3,11 @@
 On the card the float32 backward runs the bf16 tensor-core kernels of
 ``csrc/flash_attention_bwd.cu``: each f32 operand is two bf16 planes, hi =
 RN(x) and lo = RN(x - hi) (``_split_planes_dense``, the split pass's plain
-version), and each product the sum of the terms that the source lists in
-``FLASH_BWD_F32_TERMS``, bf16 products exact in f32 and summed in f32.
-Here that arithmetic is emulated in f32 from the term list parsed out of
-the source, and held:
+version), and each product the sum of the terms that the shared header
+``csrc/split_bf16.cuh`` lists in ``SPLIT_BF16_TERMS``, bf16 products exact
+in f32 and summed in f32.  Here that arithmetic is emulated in f32 from
+the term list parsed out of the header, which the source includes, and
+held:
 
 * within EMU_TOL = 5e-5 of max |plain| (half of chip_smoke.py's F32_RTOL,
   the card's gate) of ``_flash_bwd_dense`` on the same values, and within
@@ -35,6 +36,7 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
 BWD_CU = Path(tfa.__file__).resolve().parents[1] / "csrc" / "flash_attention_bwd.cu"
+SPLIT_CUH = BWD_CU.with_name("split_bf16.cuh")
 EMU_TOL = 5e-5
 GRAD_TOL = 2e-4
 F32_RTOL = 1e-4
@@ -43,8 +45,9 @@ SHAPES = {"s128_h2_d64": (128, 2, 64), "s96_h1_d256": (96, 1, 256)}
 
 
 def _terms():
-    """FLASH_BWD_F32_TERMS of the source: [(A plane, B plane), ...]."""
-    line = re.search(r"^#define FLASH_BWD_F32_TERMS\(X\)(.*)$", BWD_CU.read_text(), re.M).group(1)
+    """SPLIT_BF16_TERMS of the shared header: [(A plane, B plane), ...]."""
+    line = re.search(r"^#define SPLIT_BF16_TERMS\(X\)(.*)$", SPLIT_CUH.read_text(),
+                     re.M).group(1)
     return [tuple(int(a) for a in m.split(",")) for m in re.findall(r"X\(([^)]*)\)", line)]
 
 
@@ -97,6 +100,8 @@ def _rel(got, want):
 
 def test_term_list_is_three_products_small_terms_first():
     assert _terms() == [(1, 0), (0, 1), (0, 0)]
+    assert '#include "split_bf16.cuh"' in BWD_CU.read_text()
+    assert "_TERMS(X)" not in BWD_CU.read_text()  # one term list, the header's
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
