@@ -44,22 +44,35 @@ Phases:
                     slices of one packed [B, S, 3, H, D] tensor, fed to both
                     kernels with no copy, and time the kernels and their
                     SDPA yardsticks from CUDA-graph replays (device time).
-                    The four attention forwards at float32 and float16
-                    (flash and the encoder at float32 only; the f32
+                    Decode and paged at float32 and float16 (the f32
                     CUDA-core kernels of attention_simt.cuh, the ``*_simt``
-                    rows): decode and paged at S = 1 and S = 5
-                    over ragged, stale slots, 256-token chunks off the
-                    page grid, pages of 16 and 128, GQA 64/8, head dims
-                    64 and 256, int8 caches under float32 and float16 q,
-                    and float16 q against float32 pools (a float16 model's
-                    engines); flash at [8, 2048, 16, 128] causal and the
-                    main paths' shapes (and the D = 256 LLaMA's
-                    [8, 2048, 8, 256] causal, at bf16 too); the encoder at
-                    ERNIE's shape at rate 0 and 0.1, as packed views and
-                    at the b32_s512 microbatch.  float32 within
-                    F32_RTOL, float16 within F16_RTOL, int8 within
-                    KERNEL_RTOL["int8"]; planted faults outside; the same
-                    bits twice; SDPA at the same dtype as the yardstick.
+                    rows): S = 1 and S = 5 over ragged, stale slots,
+                    256-token chunks off the page grid, pages of 16 and
+                    128, GQA 64/8, head dims 64 and 256, int8 caches under
+                    float32 and float16 q, and float16 q against float32
+                    pools (a float16 model's engines).  The flash and
+                    encoder forwards at float32 (the ``_f32`` and
+                    ``_d256_f32`` rows: the wgmma kernels' float32
+                    instantiations, split-bf16 products, the planes made
+                    in shared memory): flash at generate()'s
+                    [4, 1024, 32, 128], the no-cache forward's
+                    [1, 2048, 32, 128] and the training shape
+                    [8, 2048, 16, 128] causal, head dim 64, Sq < Sk and a
+                    ragged length, and the D = 256 LLaMA's
+                    [8, 2048, 8, 256] causal and a full D = 256 case; the
+                    encoder at ERNIE's shape at rate 0 and 0.1, as packed
+                    views, the no-cache forward's [4, 512, 32, 128] and
+                    the b32_s512 microbatch causal, and each other float32
+                    regime (one head resident at S = 128, D 128 and at
+                    S = 256, D 64 with dropout; streamed at S = 512, D 64
+                    with dropout and at S = 256, D 128 with dropout as
+                    packed views), with a "lo plane dropped" fault among
+                    the planted ones and launches counted around each
+                    call.  float32 within F32_RTOL, float16 within
+                    F16_RTOL, int8 within KERNEL_RTOL["int8"]; planted
+                    faults outside; the same bits twice; SDPA as the
+                    yardstick at the same dtype (at float32 with q upcast
+                    where a cache is float32).
                     The encoder backward at float32 (the ``_f32`` row: the
                     wgmma kernels' float32 instantiations, split-bf16
                     products, the planes made in shared memory): ERNIE's
@@ -155,11 +168,11 @@ time goes.
                     not bf16) and the no-cache forwards at [1, 2048] and
                     [4, 512] (their walls beside the dense-math forward's);
                     BERT-base eval on [32, 128] at float32 and at float16
-                    (the fused-LN kernels at float16).  Every attention
-                    launch is an f32 CUDA-core kernel's but float16 flash
-                    and encoder (generate()'s prefill, the forwards,
-                    BERT's float16 eval), which run the tensor-core
-                    kernels; logits within
+                    (the fused-LN kernels at float16).  Decode and paged
+                    launches are the f32 CUDA-core kernels'; flash and the
+                    encoder (generate()'s prefill, the forwards, BERT's
+                    eval) run the tensor-core kernels, float32 as
+                    split-bf16 products; logits within
                     F32_LOGIT_TOL (F16_LOGIT_TOL, INT8_LOGIT_TOL); peak
                     memory per model.
  12. train        — bench.py's training configuration (hidden 2048, 12
@@ -174,9 +187,9 @@ time goes.
                     ClipGradByGlobalNorm(1.0) (encoder forward and backward
                     24 a step).  Each loss finite, the last below the first.
                     Then the same at float32, the config's default (the
-                    attention forwards on the CUDA-core kernels, the flash
-                    and encoder backward on the tensor cores as split-bf16
-                    products, the flash split pass 12 launches a step):
+                    flash and encoder kernels, forward and backward, on
+                    the tensor cores as split-bf16 products, the flash
+                    split pass 12 launches a step):
                     parity at 2 layers within F32_GRAD_RTOL, B 8 x S 2048
                     and B 32 x S 512 at F32_TRAIN_STEPS timed steps (the
                     cut: over a second a step), each with one step
@@ -202,8 +215,8 @@ time goes.
                     LN forward and backward 24 and encoder forward and
                     backward 12 launches a step with no copy of q, k or v,
                     one step profiled.  Then all of it at float32 (the
-                    CUDA-core encoder forward, its backward on the tensor
-                    cores as split-bf16 products, the fused LN at f32;
+                    encoder forward and backward on the tensor cores as
+                    split-bf16 products, the fused LN at f32;
                     ERNIE_F32_STEPS timed steps), and the gradient parity
                     at float16 through the fused-LN and tensor-core
                     encoder kernels at float16 (its launches count in the
@@ -281,16 +294,21 @@ KERNELS = {
                       "paddle_tpu/ops/fused_conv_bn.py:66"),
     "fused_conv_bn_bwd": ("paddle_tpu_torch/csrc/fused_conv_bn.cu",
                           "paddle_tpu/ops/fused_conv_bn.py:139"),
-    # the same four TPU kernels at float32 (decode and paged also at float16):
-    # f32 on the CUDA cores
+    # decode and paged at float32 and float16: f32 on the CUDA cores
     "paged_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_paged.cu",
                              "paddle_tpu/ops/decode_attention.py:313"),
     "decode_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_decode.cu",
                               "paddle_tpu/ops/decode_attention.py:66"),
-    "flash_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_flash.cu",
-                             "paddle_tpu/ops/flash_attention.py:45"),
-    "encoder_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_encoder.cu",
-                               "paddle_tpu/ops/encoder_attention.py:78"),
+    # the flash and encoder forwards at float32: the wgmma kernels' float32
+    # instantiations, split-bf16 products, the planes made in shared memory;
+    # their launches the wrappers' in the main paths' float32 runs
+    # (INSTANTIATIONS), flash at head dim 256 in the _d256_f32 row
+    "flash_attention_f32": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                            "paddle_tpu/ops/flash_attention.py:45"),
+    "flash_attention_d256_f32": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                                 "paddle_tpu/ops/flash_attention.py:45"),
+    "encoder_attention_f32": ("paddle_tpu_torch/csrc/encoder_attention.cu",
+                              "paddle_tpu/ops/encoder_attention.py:78"),
     # the encoder backward at float32: the wgmma kernels' float32
     # instantiations, split-bf16 products, the planes made in shared memory;
     # its launches the wrapper's in the main paths' float32 runs
@@ -1827,16 +1845,19 @@ def paged_kernel_cases():
 
 # --------------------------------------- f32 and f16 attention (CUDA cores)
 
-# The f32 CUDA-core kernels (csrc/attention_simt.cuh) vs their plain
-# versions in f32 on the same values: max |kernel - plain| over max |plain|.
-# float32 (q, k and v f32) at F32_RTOL: the same f32 products summed in
-# another order.  float16 writes its output in float16 (2^-11 of |out|)
+# The f32 CUDA-core decode and paged kernels (csrc/attention_simt.cuh), and
+# the flash and encoder forwards at float16 and float32 (the tensor-core
+# kernels), vs their plain versions in f32 on the same values: max |kernel
+# - plain| over max |plain|.  float32 (q, k and v f32) at F32_RTOL: on the
+# CUDA cores the same f32 products summed in another order; on the tensor
+# cores three bf16 products a product (lo x lo, under 2^-16 of the rest,
+# left out).  float16 writes its output in float16 (2^-11 of |out|)
 # and rounds p to float16 before p.v as the reference does: F16_RTOL, under
 # bf16's 5e-3.  int8 caches round p to bf16 whatever q's type, as the bf16
 # kernels do: KERNEL_RTOL["int8"].  A float16 model's engines keep float32
 # pools, so a float16 q against float32 k/v is a case of its own.
 F16_RTOL = 2e-3
-SIMT_KERNELS = ("decode_attention", "paged_attention", "flash_attention", "encoder_attention")
+SIMT_KERNELS = ("decode_attention", "paged_attention")
 TAGS = {torch.float32: "f32", torch.float16: "f16", torch.int8: "int8", torch.bfloat16: "bf16"}
 
 
@@ -1867,8 +1888,8 @@ def simt_kv_case(kind, name, B, S, H, Hkv, offsets, q_dtype, kv_dtype, seed, ps=
     [B, Hkv, L, D] cache) or paged kernel (pages of ``ps``) vs its plain
     version in f32, over stale rows (1e4) past each slot's length and a
     poisoned trash page; planted faults as the bf16 cases'.  The kernel,
-    its plain version and SDPA at q's dtype (on the dequantized,
-    GQA-expanded cache) are timed."""
+    its plain version and SDPA (on the dequantized, GQA-expanded cache; at
+    float32 where the cache is float32, else at q's dtype) are timed."""
     from paddle_tpu_torch.models.kv_cache import _quantize_kv
     from paddle_tpu_torch.ops import decode_attention as da
 
@@ -1940,20 +1961,23 @@ def simt_kv_case(kind, name, B, S, H, Hkv, offsets, q_dtype, kv_dtype, seed, ps=
                out_dtype=TAGS.get(got.dtype), ok=same_bits and got.dtype == q_dtype)
     res["ms"], res["eager_ms"] = graph_ms(kernel), cuda_ms(kernel, 20)
     res["plain_ms"] = cuda_ms(plain, 5)
-    # yardstick: SDPA at q's dtype on the dequantized (or cast), GQA-expanded
-    # cache with a per-slot causal mask; timed here, never used by the port
+    # yardstick: SDPA on the dequantized, GQA-expanded cache with a per-slot
+    # causal mask, at float32 with q upcast where the cache is float32 (the
+    # function the kernel computes reads f32 k and v), else at q's dtype;
+    # timed here, never used by the port
+    ydt = torch.float32 if kv_dtype == torch.float32 else q_dtype
     if tbl is not None:
         kd, vd = da.gather_pages(k, tbl), da.gather_pages(v, tbl)
         sd = [None if x is None else da.gather_pages(x, tbl) for x in scales]
     else:
         kd, vd, sd = k, v, scales
-    kd, vd = kd.to(q_dtype), vd.to(q_dtype)
+    kd, vd = kd.to(ydt), vd.to(ydt)
     if quant:
-        kd, vd = kd * sd[0].to(q_dtype)[..., None], vd * sd[1].to(q_dtype)[..., None]
+        kd, vd = kd * sd[0].to(ydt)[..., None], vd * sd[1].to(ydt)[..., None]
     kd, vd = kd.repeat_interleave(H // Hkv, 1), vd.repeat_interleave(H // Hkv, 1)
     mask = torch.arange(kd.shape[2], device=dev)[None, None, None, :] <= (
         off[:, None, None, None] + torch.arange(S, device=dev)[None, None, :, None])
-    qh = q.transpose(1, 2)
+    qh = q.transpose(1, 2).to(ydt)
     res["library_ms"] = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kd, vd, attn_mask=mask))
     # least time: q and out once, the K/V rows each kv head must see (and
@@ -1969,15 +1993,17 @@ def simt_kv_case(kind, name, B, S, H, Hkv, offsets, q_dtype, kv_dtype, seed, ps=
 
 
 def typed_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, packed=False):
-    """The flash or encoder forward of ``dtype``'s kernel (``_fwd_kernel``:
-    the f32 CUDA-core kernel at float32, the tensor-core one at bfloat16 and
-    float16; flash at float32 only here) vs its plain version in f32 on the
-    same values, with its lse; the encoder at ``rate`` > 0 with the Philox
-    mask from the same seed tensor (planted faults: the mask read one key
-    over, the seed words swapped), else the planted faults of
-    ``seq_attention_case``.  ``packed``: q, k, v the three strided slices
-    of one [B, S, 3, H, D] tensor (BERT's projection), read in place.  The
-    kernel, its plain version and SDPA at the same dtype are timed."""
+    """The flash or encoder forward kernel (``flash_attention_kernel``,
+    ``encoder_attention_kernel``) at ``dtype`` (bfloat16, float16, or
+    float32 as split-bf16 products) vs its plain version in f32 on the same
+    values, with its lse; the encoder at ``rate`` > 0 with the Philox mask
+    from the same seed tensor (planted faults: the mask read one key over,
+    the seed words swapped), else the planted faults of
+    ``seq_attention_case``; at float32 also the lo planes dropped (the
+    plain version on q, k and v rounded to bf16).  ``packed``: q, k, v the
+    three strided slices of one [B, S, 3, H, D] tensor (BERT's projection),
+    read in place.  The kernel, its plain version and SDPA at the same
+    dtype are timed."""
     from paddle_tpu_torch.ops import encoder_attention as ea
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -1995,21 +2021,31 @@ def typed_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, p
     keep = ea.dropout_keep(sd, B, H, Sq, rate) if rate > 0 else None
     qf, kf, vf = q.float(), k.float(), v.float()
     copies0 = ea._check_inputs.copies
-    wrapper = (fa if kind == "flash" else ea)._fwd_kernel(dtype)
+    f32 = dtype == torch.float32
     if kind == "flash":
+        wrapper = fa.flash_attention_kernel
+
         def kernel():
             return wrapper(q, k, v, causal, scale)
 
         def plain():
             return fa._flash_dense(q, k, v, causal, scale)
 
+        def oracle(a, b, c):
+            return fa._flash_dense(a, b, c, causal, scale)[0]
+
         want, want_lse = fa._flash_dense(qf, kf, vf, causal, scale)
     else:
+        wrapper = ea.encoder_attention_kernel
+
         def kernel():
             return wrapper(q, k, v, scale, causal, sd, rate)
 
         def plain():
             return ea._encoder_dense(q, k, v, scale, causal, keep, rate)
+
+        def oracle(a, b, c):
+            return ea._encoder_dense(a, b, c, scale, causal, keep, rate)
 
         # v in its own dtype, so that the oracle rounds the kept, scaled
         # probabilities to it as the kernel does (encoder_dropout_case)
@@ -2034,8 +2070,9 @@ def typed_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, p
             short[:, -1] = False
         faults = {"uniform_weights": masked_attention(torch.zeros_like(q), k, v, ones, scale),
                   "causal_end_short": masked_attention(q, k, v, short, scale)}
+    if f32:  # what the kernel would give with the hi planes alone
+        faults["lo_plane_dropped"] = oracle(*(t.bfloat16().float() for t in (q, k, v)))
     lse_err = (lse.reshape(B, H, Sq) - want_lse.reshape(B, H, Sq)).abs().max().item()
-    simt = wrapper in (fa.flash_attention_simt_kernel, ea.encoder_attention_simt_kernel)
     res = gate(name, got, want, faults, typed_tol(dtype), kind=kind, B=B, H=H, Sq=Sq, Sk=Sk,
                D=D, causal=causal, rate=rate, packed=packed, dtype=TAGS[dtype],
                kernel=wrapper.__name__, lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
@@ -2044,10 +2081,7 @@ def typed_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, p
                    and n_launch))
     if keep is not None:
         add_keep(keep, rate, res)
-    # device time from CUDA-graph replays; fewer calls on the CUDA cores,
-    # where one call takes up to a few ms
-    graph_args = dict(iters=4, repeats=3, per_graph=4) if simt else {}
-    res["ms"] = graph_ms(kernel, **graph_args)
+    res["ms"] = graph_ms(kernel)  # device time from CUDA-graph replays
     res["plain_ms"] = cuda_ms(plain, 3)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     # yardstick: SDPA at the same dtype (top-left causal, so causal only at
@@ -2055,30 +2089,31 @@ def typed_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, p
     res["library_ms"] = None
     if Sq == Sk or not causal:
         res["library_ms"] = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, dropout_p=rate, is_causal=causal), **graph_args)
+            qh, kh, vh, dropout_p=rate, is_causal=causal))
     # least time: q, k, v read and o, lse written once; 4 * D operations a
-    # visible pair at their type's peak, and a Philox call for four of them
+    # visible pair at the tensor-core rate (float32: three bf16 products for
+    # each, the f32 FFMA floor of the CUDA-core kernel it replaced kept
+    # beside it), and a Philox call for four of them
     pairs = B * H * visible_pairs(Sq, Sk, causal)
+    ops = 4.0 * D * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + B * H * Sq * 4
     res["bound_ms"], res["bound_by"], res["floors"] = bound3(
-        nbytes, **{rate_key(dtype): 4.0 * D * pairs}, philox_calls=pairs // 4 if rate > 0 else 0)
+        nbytes, tc_flops=(3 if f32 else 1) * ops, philox_calls=pairs // 4 if rate > 0 else 0)
+    if f32:
+        res["floors"]["f32_ffma_ms"] = ops / H100_F32_FLOPS * 1e3
+        res["bound_note"] = "3 bf16 products a product"
     return res
 
 
 def simt_kernel_cases():
-    """The f32 CUDA-core kernels' cases at float32 and float16 (flash and
-    the encoder at float32 only), the main paths' shapes, the float32 case
-    each main path runs most first: decode
-    and paged at LLaMA-2-7B widths (S = 1 at 8 ragged slots; the verify's
+    """The f32 CUDA-core decode and paged kernels' cases at float32 and
+    float16, the main paths' shapes, the float32 case each main path runs
+    most first: LLaMA-2-7B widths (S = 1 at 8 ragged slots; the verify's
     S = 5; 256-token chunks off the page grid; pages of 16 and 128), 70B's
     GQA 64/8, head dims 64 and 256, int8 caches under float32 and float16
-    q, and the float16 engines' float16 q against float32 pools; flash at
-    [8, 2048, 16, 128] causal, the no-cache forward's [1, 2048, 32, 128] and
-    generate()'s [4, 1024, 32, 128], and head dims 64 and 256; the encoder
-    at ERNIE's [512, 128, 12, 64] at rate 0 and 0.1 (and as BERT's packed
-    q, k, v views) and the LLaMA no-cache forward's [4, 512, 32, 128]
-    causal (float16 flash and encoder: the tensor-core kernels' _f16
-    rows)."""
+    q, and the float16 engines' float16 q against float32 pools (flash and
+    the encoder at float16 and float32: the tensor-core kernels' _f16 and
+    _f32 rows)."""
     f32, f16, i8 = torch.float32, torch.float16, torch.int8
     out = {f"{k}_simt": [] for k in SIMT_KERNELS}
     for kind, key in (("decode", "decode_attention_simt"), ("paged", "paged_attention_simt")):
@@ -2114,33 +2149,57 @@ def simt_kernel_cases():
             out[key].append(simt_kv_case(kind, f"{name}_{tag}", B, S, H, Hkv, offs, qt, kvt,
                                          100 + i, **extra))
             log_case(key, out[key][-1])
-    for i, (name, B, H, S, D, causal) in enumerate([
-            ("7b_forward_s2048", 1, 32, 2048, 128, True),    # the dtypes phase's no-cache forward
-            ("7b_generate_s1024", 4, 32, 1024, 128, True),   # generate(ids[4, 1024])
-            ("train_shape_s2048", 8, 16, 2048, 128, True),
-            ("bh64_s1024_d64", 2, 32, 1024, 64, True),
-            ("d256_s1024_full", 4, 16, 1024, 256, False)]):
-        # float16 runs the tensor-core kernel (kernel_phase's _f16 cases)
-        out["flash_attention_simt"].append(typed_seq_case(
-            f"{name}_f32", "flash", B, H, S, S, D, causal, f32, 130 + i))
-        log_case("flash_attention_simt", out["flash_attention_simt"][-1])
-    for name, B, H, Sq, Sk, D, seed in [
-            ("sq1024_sk2048_causal_f32", 1, 32, 1024, 2048, 128, 136),
-            ("d256_train_s2048_f32", 8, 8, 2048, 2048, 256, 137)]:  # the D = 256 LLaMA's step
-        out["flash_attention_simt"].append(typed_seq_case(
-            name, "flash", B, H, Sq, Sk, D, True, f32, seed))
-        log_case("flash_attention_simt", out["flash_attention_simt"][-1])
-    # float16 runs the tensor-core kernel (encoder_f16_cases)
+    return out
+
+
+def f32_forward_cases():
+    """The flash and encoder forwards at float32 (the ``_f32`` rows: the
+    wgmma kernels' float32 instantiations, split-bf16 products, the planes
+    made in shared memory), at the shapes of the CUDA-core cases they
+    replace, the case each main path runs most first: flash at generate()'s
+    [4, 1024, 32, 128] causal, the no-cache forward's [1, 2048, 32, 128],
+    the training shape [8, 2048, 16, 128], head dim 64, Sq < Sk causal and
+    a ragged length (rows past S, masked keys); head dim 256 (the
+    ``_d256_f32`` row: 64 query rows shared by both warpgroups) at the
+    D = 256 LLaMA's [8, 2048, 8, 256] causal and [4, 1024, 16, 256] full;
+    the encoder at ERNIE's [512, 128, 12, 64] at rate 0 (BERT's eval) and
+    0.1 and as BERT's packed views, the LLaMA no-cache forward's
+    [4, 512, 32, 128] causal and the b32_s512 microbatch [16, 512, 16, 128]
+    causal (the streamed kernel, 64-key tiles), and one case of each other
+    float32 regime: S = 128 at head dim 128 (one head resident), S = 256 at
+    head dim 64 with dropout (one head resident), S = 512 at head dim 64
+    with dropout (streamed, 128-key tiles) and S = 256 at head dim 128,
+    causal, with dropout, as packed views."""
+    f32 = torch.float32
+    out = {"flash_attention_f32": [], "flash_attention_d256_f32": [],
+           "encoder_attention_f32": []}
+    for i, (row, name, B, H, Sq, Sk, D, causal) in enumerate([
+            ("", "7b_generate_s1024", 4, 32, 1024, 1024, 128, True),   # generate(ids[4, 1024])
+            ("", "7b_forward_s2048", 1, 32, 2048, 2048, 128, True),    # the no-cache forward
+            ("", "train_shape_s2048", 8, 16, 2048, 2048, 128, True),   # the LLaMA step's
+            ("", "bh64_s1024_d64", 2, 32, 1024, 1024, 64, True),
+            ("", "sq1024_sk2048_causal", 1, 32, 1024, 2048, 128, True),
+            ("", "s264_ragged_causal", 2, 8, 264, 264, 128, True),
+            ("_d256", "d256_train_s2048", 8, 8, 2048, 2048, 256, True),  # the D = 256 step's
+            ("_d256", "d256_s1024_full", 4, 16, 1024, 1024, 256, False)]):
+        key = f"flash_attention{row}_f32"
+        out[key].append(typed_seq_case(f"{name}_f32", "flash", B, H, Sq, Sk, D, causal, f32,
+                                       130 + i))
+        log_case(key, out[key][-1])
     for i, (name, B, H, S, D, causal, rate, packed) in enumerate([
             ("ernie_rate0", 512, 12, 128, 64, False, 0.0, False),   # the BERT eval forward's
             ("ernie_drop", 512, 12, 128, 64, False, DROP_RATE, False),
             ("ernie_packed_qkv_rate0", 512, 12, 128, 64, False, 0.0, True),
             ("7b_forward_s512_causal", 4, 32, 512, 128, True, 0.0, False),
-            ("train_s512", 16, 16, 512, 128, True, 0.0, False)]):  # LLaMA's b32_s512 step
-        out["encoder_attention_simt"].append(typed_seq_case(
+            ("train_s512", 16, 16, 512, 128, True, 0.0, False),  # LLaMA's b32_s512 step
+            ("b16_s128_d128_causal", 16, 16, 128, 128, True, 0.0, False),
+            ("b8_s256_d64_causal_drop", 8, 12, 256, 64, True, DROP_RATE, False),
+            ("b8_s512_d64_full_drop", 8, 12, 512, 64, False, DROP_RATE, False),
+            ("b4_s256_d128_causal_drop_packed", 4, 8, 256, 128, True, DROP_RATE, True)]):
+        out["encoder_attention_f32"].append(typed_seq_case(
             f"{name}_f32", "encoder", B, H, S, S, D, causal, f32, 140 + i, rate=rate,
             packed=packed))
-        log_case("encoder_attention_simt", out["encoder_attention_simt"][-1])
+        log_case("encoder_attention_f32", out["encoder_attention_f32"][-1])
     return out
 
 
@@ -2382,6 +2441,7 @@ def kernel_phase():
     out["philox"] = [philox_case()]
     out.update(conv_bn_kernel_cases())
     out.update(simt_kernel_cases())
+    out.update(f32_forward_cases())
     out.update(f32_encoder_bwd_cases())
     f16_against_bf16(out)
     zero_counts()  # comparison launches do not count
@@ -2424,25 +2484,26 @@ SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
 # The libraries built at more than one element type, with their wgmma
 # kernels and the head dims each is built at: every instantiation (element
 # type x head dim) must hold HGMMA, as many at float16 as at bf16 (one
-# design at either type); the flash backward is built at float32 too (its
-# split-bf16 products: three HGMMA a bf16 product's one, on tiles of its
-# own), and so is the encoder backward (but its whole-head kernel at D = 128,
-# whose float32 tiles do not fit: that shape runs the streamed pair); the
-# element types as the mangled names spell them.  The encoder's streamed
-# forward runs D = 128 alone (S <= 512 keeps D = 64 resident).
+# design at either type); each is built at float32 too (its split-bf16
+# products: three HGMMA a bf16 product's one, on tiles of its own), but
+# the UNBUILT ones: the encoder backward's whole-head kernel at D = 128,
+# whose float32 tiles do not fit (that shape runs the streamed pair), and
+# the encoder's streamed forward at D = 64 at the 2-byte types (S <= 512
+# keeps their D = 64 resident); the element types as the mangled names
+# spell them.
 FLASH_DIMS, ENCODER_DIMS = (64, 128, 256), (64, 128)
 TYPED_LIBS = {"flash_attention": {"flash_fwd_kernel": FLASH_DIMS},
               "flash_attention_bwd": {"flash_dq_kernel": FLASH_DIMS,
                                       "flash_dkv_kernel": FLASH_DIMS},
               "encoder_attention": {"encoder_fwd_resident": ENCODER_DIMS,
-                                    "encoder_fwd_streamed": (128,)},
+                                    "encoder_fwd_streamed": ENCODER_DIMS},
               "encoder_attention_bwd": {"encoder_bwd_head": ENCODER_DIMS,
                                         "encoder_dq": ENCODER_DIMS,
                                         "encoder_dkv": ENCODER_DIMS}}
 TYPED_TAGS = ("bf16", "f16")
-LIB_TAGS = {"flash_attention_bwd": TYPED_TAGS + ("f32",),  # the others: TYPED_TAGS
-            "encoder_attention_bwd": TYPED_TAGS + ("f32",)}
-UNBUILT = {"encoder_bwd_head<f32,128>"}
+BUILT_TAGS = TYPED_TAGS + ("f32",)
+UNBUILT = {"encoder_bwd_head<f32,128>", "encoder_fwd_streamed<bf16,64>",
+           "encoder_fwd_streamed<f16,64>"}
 MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "IfLi": "f32"}
 
 
@@ -2483,7 +2544,7 @@ def hgmma_by_instance(name, lib):
 
 
 def typed_faults(by_instance):
-    """The instantiations of TYPED_LIBS (at LIB_TAGS' types, but UNBUILT)
+    """The instantiations of TYPED_LIBS (at BUILT_TAGS' types, but UNBUILT)
     without HGMMA, and the (kernel, head dim) pairs whose float16 instantiation holds
     another number of HGMMA than its bf16 twin."""
     missing, unequal = [], []
@@ -2492,7 +2553,7 @@ def typed_faults(by_instance):
         for kern, dims in kerns.items():
             for d in dims:
                 n = {t: got.get(f"{kern}<{t},{d}>", 0) for t in TYPED_TAGS}
-                missing += [f"{kern}<{t},{d}>" for t in LIB_TAGS.get(name, TYPED_TAGS)
+                missing += [f"{kern}<{t},{d}>" for t in BUILT_TAGS
                             if not got.get(f"{kern}<{t},{d}>", 0)
                             and f"{kern}<{t},{d}>" not in UNBUILT]
                 if len(set(n.values())) > 1:
@@ -2550,8 +2611,6 @@ def counters():
             "fused_conv_bn_bwd": fcb.fused_conv_bn_bwd_kernel,
             "paged_attention_simt": da.paged_attention_simt_kernel,
             "decode_attention_simt": da.decode_attention_simt_kernel,
-            "flash_attention_simt": fa.flash_attention_simt_kernel,
-            "encoder_attention_simt": ea.encoder_attention_simt_kernel,
             "flash_attention_bwd_stats": fa.flash_attention_bwd_stats,
             "flash_attention_bwd_split": fa.flash_attention_bwd_split}
 
@@ -2578,9 +2637,9 @@ def read_counts():
 
 def kernel_for(name, dtype):
     """The counter an attention kernel's launch at q's ``dtype`` adds to:
-    the tensor-core kernel's (bf16, and float16 in flash and the encoder:
-    the admission's ``_simt.TC_TYPES``), or its f32 CUDA-core counterpart's
-    (``_simt``)."""
+    the tensor-core kernel's (bf16, and every type in flash and the
+    encoder: the admission's ``_simt.TC_TYPES``), or its f32 CUDA-core
+    counterpart's (``_simt``: decode and paged at float32 and float16)."""
     from paddle_tpu_torch.ops import _simt
 
     regime = {"flash_attention": "flash", "encoder_attention": "encoder",
@@ -3382,8 +3441,9 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # faults of the kernel phase) is off by 0.16 or more.
 GRAD_RTOL = 5e-2
 # The same parity of float32 models (the config's default), through the
-# CUDA-core kernels against dense math in f32: nothing rounds to 16 bits on
-# either side, so only the order of f32 sums differs.  Float16 models round
+# split-bf16 kernels against dense math in f32: nothing rounds to 16 bits on
+# either side (three bf16 products keep about 16 bits of each operand), so
+# the order of f32 sums and the 2^-16 left out differ.  Float16 models round
 # every activation to float16 (three more mantissa bits than bf16), and the
 # dense path takes its scores in float16 where the kernels take them in f32.
 F32_GRAD_RTOL = 1e-3
@@ -3485,7 +3545,7 @@ def train_kind(name):
     if any(w in low for w in ("dq_kernel", "dkv_kernel", "dsum_kernel", "split_kernel",
                               "encoder_bwd_head", "encoder_dq", "encoder_dkv")):
         return "attention_bwd"
-    if any(w in low for w in ("flash_fwd_kernel", "encoder_fwd", "simt_attention<")):
+    if any(w in low for w in ("flash_fwd_kernel", "encoder_fwd")):
         return "attention_fwd"
     if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")):
         return "matmul"
@@ -3607,10 +3667,9 @@ def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN
 
 
 def flash_launches(n, dtype):
-    """Expected launches of ``n`` flash forwards and backwards at q's dtype:
-    the forward on the tensor-core kernel (bf16, float16) or the CUDA-core
-    one (float32), the backward on the tensor-core kernels at every type,
-    each with its statistics pass and, at float32, its split pass."""
+    """Expected launches of ``n`` flash forwards and backwards at q's dtype,
+    on the tensor-core kernels at every type, each backward with its
+    statistics pass and, at float32, its split pass."""
     bwd = ["flash_attention_bwd_stats", "flash_attention_dq", "flash_attention_dkv"]
     bwd += ["flash_attention_bwd_split"] if dtype == torch.float32 else []
     return {kernel_for(k, dtype): n for k in ["flash_attention"] + bwd}
@@ -3648,8 +3707,8 @@ def train_phase(card, device="cuda", layers=12, parity_layers=2, heads=(16, 8), 
     runs at ``layers``: B 8 x S 2048 and, at D = 128, B 32 x S 512 at
     accum_steps=2 with ClipGradByGlobalNorm(1.0) (the same 16,384 tokens a
     step); first in bf16, then in float32 (the config's default: the
-    attention forwards on the CUDA-core kernels, the backward kernels on
-    the tensor cores as split-bf16 products; F32_TRAIN_STEPS timed steps,
+    attention kernels on the tensor cores as split-bf16 products;
+    F32_TRAIN_STEPS timed steps,
     the S 512 step profiled too), and the parity once more in float16."""
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 
@@ -3945,8 +4004,8 @@ def ernie_phase(card, device="cuda", layers=12, parity_layers=2, B=ERNIE_B, S=ER
                 P=ERNIE_P, dtype=torch.bfloat16, steps=ERNIE_STEPS, warmup=ERNIE_WARMUP,
                 **over):
     """bench.py's ERNIE pretraining at ``dtype`` (bf16, or float32: the
-    encoder forward on the CUDA-core kernel, its backward on the tensor
-    cores as split-bf16 products): gradient parity at ``parity_layers``
+    encoder forward and backward on the tensor cores as split-bf16
+    products): gradient parity at ``parity_layers``
     layers and rate 0, determinism at rate 0.1, the eval forward and the
     training run at ``layers`` layers, ``steps`` timed steps."""
     f32 = dtype == torch.float32
@@ -4315,9 +4374,9 @@ def dtypes_phase(card):
     [1, 2048] (flash) and [4, 512] (the encoder), both on the tensor cores;
     then BERT-base at float32 and at float16 (eval, [32, 128]; float16
     through the fused-LN kernels and the tensor-core encoder kernel at
-    float16).  Every attention launch is an f32 CUDA-core kernel's but
-    float16 flash and encoder (generate()'s prefill, the forwards, BERT's
-    eval), the tensor-core kernels'."""
+    float16).  Decode and paged launches are the f32 CUDA-core kernels';
+    flash and the encoder (generate()'s prefill, the forwards, BERT's eval)
+    run the tensor-core kernels, float32 as split-bf16 products."""
     import numpy as np
 
     runs, extra = [], {}
@@ -4481,8 +4540,8 @@ def main(argv=None):
     if "dtypes" in paths:
         t_ph = time.perf_counter()
         log("[dtypes] LLaMA-2-7B widths at float32 and float16, BERT-base at float32 and "
-            "float16, through the f32 CUDA-core attention kernels (float16 flash and encoder "
-            "on wgmma)")
+            "float16: decode and paged on the f32 CUDA-core kernels, flash and the encoder on "
+            "wgmma (float32 as split-bf16 products)")
         runs, report["dtypes"] = dtypes_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in runs)

@@ -1,7 +1,7 @@
 // Hopper building blocks of the fused 1x1-conv + BatchNorm kernels
 // (fused_conv_bn.cu) beyond those of wgmma_attention.cuh (TMA loads, the
-// mbarrier ring, descriptors, the products Mma<N>) and encoder_wgmma.cuh
-// (st_pair, fence_async_shared): the offset of an element in a swizzled
+// mbarrier ring, descriptors, the products Mma<N>, fence_async_shared) and
+// encoder_wgmma.cuh (st_pair): the offset of an element in a swizzled
 // tile, TMA stores with their bulk groups, and named barriers of one
 // warpgroup.
 //
@@ -15,7 +15,6 @@
 namespace conv_wgmma {
 
 using namespace wgmma_attention;
-using encoder_wgmma::fence_async_shared;
 using encoder_wgmma::st_pair;
 
 constexpr int kTile = 64 * kPanel;  // bf16 of a 64-row panel (8 KB)

@@ -393,19 +393,6 @@ struct Streamed {
   };
 };
 
-// At float32 the f32 tiles a and b of ROWS rows, as TMA wrote them, become
-// their bf16 planes where they landed (split_tile); then the block syncs,
-// so that both warpgroups read them.  Nothing at the 2-byte types.
-template <typename T, int D, int ROWS, typename E>
-__device__ __forceinline__ void make_planes(E* a, E* b) {
-  if constexpr (Planes<T>::P > 1) {
-    split_tile<D, ROWS>(a);
-    split_tile<D, ROWS>(b);
-    fence_async_shared();
-    __syncthreads();
-  }
-}
-
 // dQ for one 128-row query tile (grid: query tiles x H x B, the longest
 // causal walks first), in two walks over the BK-key tiles up to the causal
 // end, K and V streaming through the ring for both (ring use u: tile u %

@@ -96,19 +96,15 @@ __device__ __forceinline__ void st_pair(T* tile, int row, int col, uint32_t v) {
   *reinterpret_cast<uint32_t*>(tile + (col >> 6) * ROWS * kPanel + row * kPanel + ch * 8 + (c & 7)) = v;
 }
 
-// Shared-memory writes of the threads made visible to the async proxy
-// (wgmma operands, TMA), before the barrier that publishes them.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Scores of a warpgroup's 64 rows against one 128-key tile, in place: s *
+// Scores of a warpgroup's 64 rows against one key tile (128 keys, or the
+// float32 forward's 64: R = keys / 2 values a thread), in place: s *
 // scale * log2(e), and kNegInf past each row's last visible key when
 // causal (`row`: the thread's first row; the second is row + 8).
-__device__ __forceinline__ void scale_mask(float (&s)[kT / 2], float scale_log2, bool edge, int kb,
+template <int R>
+__device__ __forceinline__ void scale_mask(float (&s)[R], float scale_log2, bool edge, int kb,
                                            int row, int t) {
 #pragma unroll
-  for (int i = 0; i < kT / 2; ++i) {
+  for (int i = 0; i < R; ++i) {
     s[i] *= scale_log2;
     if (edge && kb + acc_col(i, t) > row + 8 * acc_half(i)) s[i] = kNegInf;
   }
@@ -117,17 +113,18 @@ __device__ __forceinline__ void scale_mask(float (&s)[kT / 2], float scale_log2,
 // Whole-row statistics of a tile that holds the entire row: m the row's
 // max, and s becomes exp2(s - m); returns through l the row's sum (all four
 // lanes of the row agree).
-__device__ __forceinline__ void row_softmax(float (&s)[kT / 2], float (&m)[2], float (&l)[2]) {
+template <int R>
+__device__ __forceinline__ void row_softmax(float (&s)[R], float (&m)[2], float (&l)[2]) {
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float mx = kNegInf;
 #pragma unroll
-    for (int i = 0; i < kT / 2; ++i)
+    for (int i = 0; i < R; ++i)
       if (acc_half(i) == hr) mx = fmaxf(mx, s[i]);
     m[hr] = quad_max(mx);
     float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < kT / 2; ++i)
+    for (int i = 0; i < R; ++i)
       if (acc_half(i) == hr) {
         s[i] = exp2f(s[i] - m[hr]);
         sum += s[i];
@@ -136,12 +133,14 @@ __device__ __forceinline__ void row_softmax(float (&s)[kT / 2], float (&m)[2], f
   }
 }
 
-// x = where(keep, x * inv_keep, 0) over the thread's elements of a 128-key
-// tile of query rows (row, row + 8) from key kb, drawing each call once.
-__device__ __forceinline__ void drop_tile(float (&x)[kT / 2], const Drop& dr, uint2 key, int bh,
+// x = where(keep, x * inv_keep, 0) over the thread's elements of a key
+// tile (R = keys / 2 values a thread) of query rows (row, row + 8) from key
+// kb, drawing each call once.
+template <int R>
+__device__ __forceinline__ void drop_tile(float (&x)[R], const Drop& dr, uint2 key, int bh,
                                           int row, int kb, int t) {
 #pragma unroll
-  for (int kk = 0; kk < kT / 16; ++kk) {
+  for (int kk = 0; kk < R / 8; ++kk) {
     const uint32_t byte = keep_byte(key, bh, row, kb + 16 * kk, t, dr.thresh);
 #pragma unroll
     for (int e = 0; e < 8; ++e) x[8 * kk + e] = kept(byte, e) ? x[8 * kk + e] * dr.inv_keep : 0.f;

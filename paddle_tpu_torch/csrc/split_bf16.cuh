@@ -1,6 +1,7 @@
 // Float32 products on the bf16 tensor cores, as split-bf16 products: the
 // device code that the float32 instantiations of the flash and encoder
-// backward kernels (flash_attention_bwd.cu, encoder_attention_bwd.cu) share.
+// kernels, forward and backward (flash_attention.cu, flash_attention_bwd.cu,
+// encoder_attention.cu, encoder_attention_bwd.cu), share.
 //
 // Each f32 operand x is two bf16 planes, hi = RN(x) and lo = RN(x - hi)
 // (about 16 of f32's 24 bits), and each product A B is the sum of the terms
@@ -133,6 +134,18 @@ __device__ __forceinline__ void split_tile(bf16* tile) {
         *reinterpret_cast<uint32_t*>(at) = split_pair(x[i][j].x, x[i][j].y, lo);
         *reinterpret_cast<uint32_t*>(at + kLo) = lo;
       }
+  }
+}
+
+// At float32 the f32 tiles of ROWS rows, as TMA wrote them, become their
+// bf16 planes where they landed (split_tile); then the block syncs, so that
+// both warpgroups read them.  Nothing at the 2-byte types.
+template <typename T, int D, int ROWS, typename... E>
+__device__ __forceinline__ void make_planes(E*... tiles) {
+  if constexpr (Planes<T>::P > 1) {
+    (split_tile<D, ROWS>(tiles), ...);
+    fence_async_shared();
+    __syncthreads();
   }
 }
 

@@ -17,14 +17,15 @@
 // dK/dV kernel at D = 128 needs about 250.
 //
 // Element types.  Every helper below takes the 2-byte storage type T of
-// the operands (bf16 by default; the flash kernels also __half, float16):
-// the products run `wgmma ... .f32.bf16.bf16` or `.f32.f16.f16` with f32
-// sums, and every layout below is the same for both, since it counts 2-byte
-// elements.  Elem<T> holds what differs: the TMA data type and the
-// rounding of f32 pairs.  (The flash and encoder backward at float32 read
-// each f32 operand as two bf16 planes, hi and lo, through these same bf16
-// helpers (split_bf16.cuh); only make_map and tma_tile, which also load f32
-// tiles, and store_rows, which writes f32, take float.)
+// the operands (bf16 by default; the flash and encoder kernels also
+// __half, float16): the products run `wgmma ... .f32.bf16.bf16` or
+// `.f32.f16.f16` with f32 sums, and every layout below is the same for
+// both, since it counts 2-byte elements.  Elem<T> holds what differs: the
+// TMA data type and the rounding of f32 pairs.  (The flash and encoder
+// kernels at float32, forward and backward, read each f32 operand as two
+// bf16 planes, hi and lo, through these same bf16 helpers (split_bf16.cuh);
+// only make_map and tma_tile, which also load f32 tiles, and store_rows,
+// which writes f32, take float.)
 //
 // Tiles in shared memory.  A tensor is [B, S, H, D] of T, its last
 // dimension contiguous (the flash kernels take contiguous tensors, the
@@ -88,8 +89,8 @@ struct Elem<__half> {
   static __device__ __forceinline__ float2 widen2(Pair v) { return __half22float2(v); }
 };
 
-// float: the TMA data type of the f32 tiles that the float32 backward
-// kernels load and split into bf16 planes in shared memory (split_bf16.cuh).
+// float: the TMA data type of the f32 tiles that the float32 kernels load
+// and split into bf16 planes in shared memory (split_bf16.cuh).
 template <>
 struct Elem<float> {
   static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
@@ -115,6 +116,12 @@ __device__ __forceinline__ T& aligned_smem() {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t a = smem_u32(smem_raw);
   return *reinterpret_cast<T*>(smem_raw + (((a + 1023u) & ~1023u) - a));
+}
+
+// Shared-memory writes of the threads made visible to the async proxy
+// (wgmma operands, TMA), before the barrier that publishes them.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {

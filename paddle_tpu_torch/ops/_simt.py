@@ -2,29 +2,26 @@
 instantiation of it, a call runs.
 
 The reference's attention kernels take any float type and type their
-outputs by q.  On the card, bfloat16 runs the tensor-core kernels
-(``csrc/decode_attention.cu``, ``paged_attention.cu``,
-``flash_attention.cu``, ``encoder_attention.cu`` and the backward
-kernels), and so does float16 in flash and the encoder, forward and
-backward (``flash_attention.cu``, ``flash_attention_bwd.cu``,
-``encoder_attention.cu``, ``encoder_attention_bwd.cu``: one ``wgmma``
-design each, instantiated at either 2-byte type, ``TC_TYPES``, whose
-entries take the type codes ``TC_TYPE_CODES``), and so does float32 in
-both backward kernels (``flash_attention_bwd.cu`` and
-``encoder_attention_bwd.cu`` at float, their products split-bf16,
-``split_bf16.cuh``).  float16 decode and paged, and the float32 forwards,
-run the f32 CUDA-core body of ``csrc/attention_simt.cuh`` through its
-entries (``attention_simt_decode.cu``, ``attention_simt_paged.cu``,
-``attention_simt_flash.cu``, ``attention_simt_encoder.cu``).  Nothing is
+outputs by q.  On the card, the flash and encoder kernels, forward and
+backward (``csrc/flash_attention.cu``, ``flash_attention_bwd.cu``,
+``encoder_attention.cu``, ``encoder_attention_bwd.cu``), run on the tensor
+cores at bfloat16, float16 and float32: one ``wgmma`` design each,
+instantiated at either 2-byte type and at float32, whose products are
+split-bf16 (``split_bf16.cuh``: two bf16 planes an operand, three bf16
+products a product); ``TC_TYPES`` lists the types, whose entries take the
+type codes ``TC_TYPE_CODES``.  Decode and paged run the tensor-core kernels
+(``decode_attention.cu``, ``paged_attention.cu``) at bfloat16, and the f32
+CUDA-core body of ``csrc/attention_simt.cuh`` at float32 and float16
+(``attention_simt_decode.cu``, ``attention_simt_paged.cu``).  Nothing is
 cast to reach a kernel: a call whose types have no kernel raises.
 
 ``admit`` is the one place that decides, a pure function of (regime, q
-type, cache type, head dim, query rows a kv head).  Its lists below are
-the ``SIMT_*`` instantiation lists of ``attention_simt.cuh``, which a CPU
-test parses and holds equal to them, as it holds ``TC_TYPES`` and
-``TC_TYPE_CODES`` to the type lists of the tensor-core flash and encoder
-sources.  The flash backward takes head dims 64, 128 and 256 at every
-type, the encoder backward 64 and 128.
+type, cache type, head dim, query rows a kv head).  Its decode and paged
+lists below are the ``SIMT_*`` instantiation lists of
+``attention_simt.cuh``, which a CPU test parses and holds equal to them, as
+it holds ``TC_TYPES`` and ``TC_TYPE_CODES`` to the type lists of the
+tensor-core flash and encoder sources.  The flash kernels take head dims
+64, 128 and 256 at every type, the encoder kernels 64 and 128.
 """
 from __future__ import annotations
 
@@ -44,21 +41,14 @@ TYPE_CODES = {F32: 0, F16: 1, I8: 2}
 # float16 q meets float32 k and v there, and float16 ones in generate().
 KV_PAIRS = ((F32, F32), (F16, F16), (F16, F32), (F32, I8), (F16, I8))
 KV_DIMS = (64, 128, 256)
-# SIMT_FLASH_TYPES, SIMT_ENCODER_TYPES, SIMT_FLASH_DIMS, SIMT_ENCODER_DIMS:
-# flash and the encoder take q, k and v of one type (float16 flash and
-# encoder run the tensor-core kernels).
-FLASH_TYPES = (F32,)
-ENCODER_TYPES = (F32,)
-FLASH_DIMS = (64, 128, 256)
-ENCODER_DIMS = (64, 128)
-# The q types of the tensor-core kernels, bfloat16 but for flash and the
-# encoder, whose forward and backward run float16 too, and the two backward
-# kernels, which run float32 as well (csrc/flash_attention.cu FLASH_TYPES,
-# flash_attention_bwd.cu FLASH_BWD_TYPES, encoder_attention.cu
-# ENCODER_TYPES, encoder_attention_bwd.cu ENCODER_BWD_TYPES), and the type
-# codes those four entries take, one table for their wrappers.
-TC_TYPES = {"flash": (BF16, F16), "flash_bwd": (BF16, F16, F32),
-            "encoder": (BF16, F16), "encoder_bwd": (BF16, F16, F32)}
+# The q types of the tensor-core kernels: bfloat16 but for flash and the
+# encoder, forward and backward, which run float16 and float32 too
+# (csrc/flash_attention.cu FLASH_TYPES, flash_attention_bwd.cu
+# FLASH_BWD_TYPES, encoder_attention.cu ENCODER_TYPES,
+# encoder_attention_bwd.cu ENCODER_BWD_TYPES), and the type codes those
+# four entries take, one table for their wrappers.
+TC_TYPES = {"flash": (BF16, F16, F32), "flash_bwd": (BF16, F16, F32),
+            "encoder": (BF16, F16, F32), "encoder_bwd": (BF16, F16, F32)}
 TC_TYPE_CODES = {BF16: 1, F16: 2, F32: 0}
 # The bfloat16 kernels' caches: bfloat16, or int8 with f32 scales.
 BF16_KV = (BF16, I8)
@@ -75,8 +65,8 @@ _TC_LIBS = {"decode": "decode_attention", "paged": "paged_attention",
 
 class Instantiation(NamedTuple):
     """What a call runs: the kernel library (``csrc/<lib>.cu``), its q and
-    k/v types, the head dim and, for the f32 CUDA-core bodies, the query
-    rows a block (16: the split-K decode regime; 64)."""
+    k/v types, the head dim and, for the f32 CUDA-core decode and paged
+    bodies, the query rows a block (16: the split-K decode regime; 64)."""
     lib: str
     q: torch.dtype
     kv: torch.dtype
@@ -111,23 +101,13 @@ def admit(regime, q_dtype, kv_dtype=None, D=None, rows=1):
     if q_dtype not in (F32, F16):
         raise ValueError(f"attention kernel ({regime}): q dtype {q_dtype}; the kernels take "
                          f"{_names((BF16, F32, F16))}")
-    if regime in ("decode", "paged"):
-        if (q_dtype, kv_dtype) not in KV_PAIRS:
-            raise ValueError(f"attention kernel ({regime}): q {q_dtype} with k/v {kv_dtype}; "
-                             "the pairs built are " + "; ".join(
-                                 f"q {_names((a,))} k/v {_names((b,))}" for a, b in KV_PAIRS))
-        if D not in KV_DIMS:
-            raise ValueError(f"attention kernel ({regime}): head dim {D}, the kernels are built "
-                             f"for {KV_DIMS} (other head dims: ROADMAP Queue 2, item 9)")
-        return Instantiation(f"attention_simt_{regime}", q_dtype, kv_dtype, D,
-                             DECODE_ROWS if rows <= DECODE_ROWS else CHUNK_ROWS)
-    types = FLASH_TYPES if regime == "flash" else ENCODER_TYPES
-    if kv_dtype != q_dtype or q_dtype not in types:
+    # q of no tensor-core type: decode and paged at float32 and float16
+    if (q_dtype, kv_dtype) not in KV_PAIRS:
         raise ValueError(f"attention kernel ({regime}): q {q_dtype} with k/v {kv_dtype}; "
-                         f"the CUDA-core kernel takes q, k and v of one type of {_names(types)}")
-    dims = FLASH_DIMS if regime == "flash" else ENCODER_DIMS
-    if D not in dims:
-        raise ValueError(f"attention kernel ({regime}): head dim {D}, the kernel is built for "
-                         f"{dims}")
-    return Instantiation(f"attention_simt_{regime}", q_dtype, kv_dtype, D, CHUNK_ROWS)
-
+                         "the pairs built are " + "; ".join(
+                             f"q {_names((a,))} k/v {_names((b,))}" for a, b in KV_PAIRS))
+    if D not in KV_DIMS:
+        raise ValueError(f"attention kernel ({regime}): head dim {D}, the kernels are built "
+                         f"for {KV_DIMS} (other head dims: ROADMAP Queue 2, item 9)")
+    return Instantiation(f"attention_simt_{regime}", q_dtype, kv_dtype, D,
+                         DECODE_ROWS if rows <= DECODE_ROWS else CHUNK_ROWS)

@@ -25,18 +25,16 @@ stored.
 
 A CPU tensor takes the plain versions, ``_encoder_dense`` forward and
 ``_encoder_bwd_dense`` backward; a CUDA tensor launches
-``csrc/encoder_attention.cu`` forward (bfloat16 and float16 on the tensor
-cores, one ``wgmma`` design instantiated at the inputs' type) and
-``csrc/encoder_attention_bwd.cu`` backward (the same at bfloat16, float16
-and float32, whose products run as split-bf16 products) or raises.  The
-float32 forward takes ``csrc/attention_simt_encoder.cu`` (f32 on the CUDA
-cores, the same Philox mask from the same seed), as ``_simt.admit``
-decides (``_fwd_kernel``).  Nothing is cast to reach a kernel.  The
-kernels read q, k, v and dO through TMA (the backward and the 16-bit
-forward) or 16-byte copies (the float32 forward) with their own strides,
-so strided views such as the three slices of one packed [B, S, 3, H, D]
-projection launch without copies; only a view they cannot read
-(``tma_readable``) is copied, and counted.
+``csrc/encoder_attention.cu`` forward and ``csrc/encoder_attention_bwd.cu``
+backward or raises.  Both run on the tensor cores at bfloat16, float16 and
+float32 (one ``wgmma`` design each, instantiated at the inputs' type; at
+float32 each f32 tile is split into two bf16 planes in shared memory and
+each product runs as three bf16 products, the same Philox mask from the
+same seed), as ``_simt.admit`` decides.  Nothing is cast to reach a
+kernel.  The kernels read q, k, v and dO through TMA with their own
+strides, so strided views such as the three slices of one packed
+[B, S, 3, H, D] projection launch without copies; only a view they cannot
+read (``tma_readable``) is copied, and counted.
 """
 from __future__ import annotations
 
@@ -49,8 +47,8 @@ from ._prng import encoder_bits, keep_mask, launch_args
 
 NEG_INF = -1e30
 
-__all__ = ["encoder_attention", "encoder_attention_kernel", "encoder_attention_simt_kernel",
-           "encoder_attention_bwd_kernel", "supported", "tma_readable"]
+__all__ = ["encoder_attention", "encoder_attention_kernel", "encoder_attention_bwd_kernel",
+           "supported", "tma_readable"]
 
 
 def supported(bh, s, d, seq_kv=None):
@@ -144,21 +142,17 @@ def _tma_strides(t):
     return D, ss, t.stride(0) if B > 1 else S * ss
 
 
-def _check_inputs(tensors, regime="encoder", simt=False):
-    """The kernels' admission: the instantiation ``_simt.admit`` picks for
-    q's dtype (the CUDA-core forward when ``simt``, the tensor-core kernels
-    otherwise; ``regime`` "encoder" or "encoder_bwd"), CUDA, one dtype,
-    one [B, S, H, D] shape that ``supported`` admits.  Returns the tensors
-    as they are where the kernels can read them in place
-    (``tma_readable``), else a contiguous copy; each copy adds one to
-    ``_check_inputs.copies``."""
+def _check_inputs(tensors, regime="encoder"):
+    """The kernels' admission: a type ``_simt.admit`` admits to the
+    tensor-core kernels (bfloat16, float16 or float32; ``regime``
+    "encoder" or "encoder_bwd"), CUDA, one dtype, one [B, S, H, D] shape
+    that ``supported`` admits.  Returns the tensors as they are where the
+    kernels can read them in place (``tma_readable``), else a contiguous
+    copy; each copy adds one to ``_check_inputs.copies``."""
     q = tensors["q"]
     B, S, H, D = q.shape
     dev = q.device
-    inst = _simt.admit(regime, q.dtype, q.dtype, D)
-    _check(inst.simt == simt, f"q dtype {q.dtype} runs encoder_attention"
-           f"{'_simt' if inst.simt else ''}{'_bwd' if regime == 'encoder_bwd' else ''}_kernel "
-           f"(csrc/{inst.lib}.cu)")
+    _simt.admit(regime, q.dtype, q.dtype, D)
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
     for name, t in tensors.items():
         _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
@@ -191,7 +185,8 @@ _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
 
 def encoder_attention_kernel(q, k, v, scale=None, causal=False, seed=None, rate=0.0):
     """Launch ``csrc/encoder_attention.cu`` on CUDA tensors: q/k/v
-    [B, S, H, D] views of one type, bfloat16 or float16, with a
+    [B, S, H, D] views of one type, bfloat16, float16 or float32 (as
+    split-bf16 products), with a
     ``supported`` shape (strided views that ``tma_readable`` admits are
     read in place); with ``rate`` > 0, dropout from ``seed`` (int32 [2] on
     q's device).  Returns (O [B, S, H, D] in q's dtype, contiguous, the
@@ -217,46 +212,6 @@ def encoder_attention_kernel(q, k, v, scale=None, causal=False, seed=None, rate=
 
 
 encoder_attention_kernel.launches = 0
-
-_SIMT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
-              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32,
-                 ctypes.c_float, ctypes.c_void_p])
-
-
-def encoder_attention_simt_kernel(q, k, v, scale=None, causal=False, seed=None, rate=0.0):
-    """Launch ``csrc/attention_simt_encoder.cu`` (f32 on the CUDA cores) on
-    CUDA tensors: q/k/v [B, S, H, D] float32 views with a ``supported``
-    shape (strided views that ``tma_readable`` admits are read in place; k
-    and v share their strides or are copied); with ``rate`` > 0, dropout
-    from ``seed`` (int32 [2] on q's device), the tensor-core kernel's mask.
-    Returns (O [B, S, H, D] in q's dtype, contiguous, the rows' natural-log
-    logsumexp [B * H, S] f32).  Raises ValueError on anything else.  Every
-    launch adds one to ``encoder_attention_simt_kernel.launches``."""
-    q, k, v = _check_inputs({"q": q, "k": k, "v": v}, simt=True)
-    if _tma_strides(k) != _tma_strides(v):  # one stride pair for both
-        k, v = (t if t.is_contiguous() else t.contiguous() for t in (k, v))
-        _check_inputs.copies += 2
-    B, S, H, D = q.shape
-    if scale is None:
-        scale = 1.0 / (D ** 0.5)
-    dev = q.device
-    o = torch.empty(B, S, H, D, dtype=q.dtype, device=dev)
-    lse = torch.empty(B * H, S, dtype=torch.float32, device=dev)
-    sp, thresh, inv = launch_args(seed, rate, 1.0 / (1.0 - rate), dev)
-    _, q_ss, q_sb = _tma_strides(q)
-    _, kv_ss, kv_sb = _tma_strides(k)
-    with torch.cuda.device(dev):
-        _build.launch("attention_simt_encoder", _SIMT_ARGS, q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, S, D, q_sb, q_ss,
-                      kv_sb, kv_ss, float(scale), int(bool(causal)),
-                      _simt.TYPE_CODES[q.dtype], sp, thresh, float(inv),
-                      torch.cuda.current_stream(dev).cuda_stream,
-                      entry="encoder_attention_simt")
-    encoder_attention_simt_kernel.launches += 1
-    return o, lse
-
-
-encoder_attention_simt_kernel.launches = 0
 
 _BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32,
@@ -315,14 +270,6 @@ def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=Non
 encoder_attention_bwd_kernel.launches = 0
 
 
-def _fwd_kernel(dtype):
-    """The forward wrapper of q's dtype: the tensor-core kernel (bfloat16,
-    float16) or its CUDA-core counterpart (float32)."""
-    if dtype in _simt.TC_TYPES["encoder"]:
-        return encoder_attention_kernel
-    return encoder_attention_simt_kernel
-
-
 def _plain_keep(q, seed, rate):
     B, S, H, _ = q.shape
     return dropout_keep(seed, B, H, S, rate) if rate > 0.0 else None
@@ -337,7 +284,7 @@ class _EncoderAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             ctx.save_for_backward(q, k, v, seed)
             return _encoder_dense(q, k, v, scale, causal, _plain_keep(q, seed, rate), rate)
-        o, lse = _fwd_kernel(q.dtype)(q, k, v, scale, causal, seed, rate)
+        o, lse = encoder_attention_kernel(q, k, v, scale, causal, seed, rate)
         ctx.save_for_backward(q, k, v, seed, lse)
         return o
 

@@ -19,15 +19,15 @@ combine needs it).
 A CPU tensor takes the plain versions, ``_flash_dense`` forward and
 ``_flash_bwd_dense`` backward; a CUDA tensor launches
 ``csrc/flash_attention.cu`` forward and ``csrc/flash_attention_bwd.cu``
-backward or raises.  The backward runs on the tensor cores at every type
-(one ``wgmma`` design instantiated at the inputs' type, D in {64, 128,
+backward or raises.  Both run on the tensor cores at every type (one
+``wgmma`` design each, instantiated at the inputs' type, D in {64, 128,
 256}; at float32 each f32 operand is read as two bf16 planes, hi and lo,
-and each product as three bf16 products: the split pass
-``flash_attention_bwd_split``, modelled by ``_split_planes_dense``); the
-float32 forward takes ``csrc/attention_simt_flash.cu``, f32 on the CUDA
-cores, as ``_simt.admit`` decides.  The backward's statistics pass (and at
-float32 its split pass) runs once per backward.  Nothing is cast to reach
-a kernel.  The reference's block-size
+modelled by ``_split_planes_dense``, and each product as three bf16
+products: the forward splits its f32 tiles in shared memory, the backward
+takes the planes from its split pass ``flash_attention_bwd_split``), as
+``_simt.admit`` decides.  The backward's statistics pass (and at float32
+its split pass) runs once per backward.  Nothing is cast to reach a
+kernel.  The reference's block-size
 rules (``_auto_block``, ``block_q``/``block_k``, its autotune hook) describe
 TPU tiling, not the function: the Hopper kernels pick their own tiles and
 mask their ragged edge, so they are not carried over.  ``supports_seq``
@@ -44,8 +44,8 @@ from . import _build, _simt
 NEG_INF = -1e30
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_attention_kernel",
-           "flash_attention_simt_kernel", "flash_attention_bwd_stats", "flash_attention_bwd_split",
-           "flash_attention_dq_kernel", "flash_attention_dkv_kernel", "supports_seq"]
+           "flash_attention_bwd_stats", "flash_attention_bwd_split", "flash_attention_dq_kernel",
+           "flash_attention_dkv_kernel", "supports_seq"]
 
 
 def supports_seq(seq):
@@ -97,10 +97,11 @@ def _flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse=None):
 
 
 def _split_planes_dense(x):
-    """Plain version of the float32 backward's split pass: f32 x [B, S, H,
-    D] -> bf16 [B, S, H, 2, D], hi = x rounded to nearest bf16 and lo = (x -
-    hi) rounded to nearest (x - hi is exact in f32), lo = 0 where hi is not
-    finite; hi + lo carries about 16 of x's 24 bits."""
+    """Plain version of the float32 kernels' split of an operand (the
+    backward's split pass, the forward's split of its tiles in shared
+    memory): f32 x [..., D] -> bf16 [..., 2, D], hi = x rounded to nearest
+    bf16 and lo = (x - hi) rounded to nearest (x - hi is exact in f32), lo
+    = 0 where hi is not finite; hi + lo carries about 16 of x's 24 bits."""
     hi = x.float().to(torch.bfloat16)
     h = hi.float()
     lo = torch.where(torch.isfinite(h), x.float() - h, torch.zeros_like(h)).to(torch.bfloat16)
@@ -127,17 +128,14 @@ def _check_head_dim(D, backward=False):
     _check(D in dims, f"head dim {D}, the kernel is built for {dims}")
 
 
-def _check_inputs(tensors, B, Sq, Sk, H, D, causal, backward=False, simt=False):
-    """The kernels' common admission: the instantiation ``_simt.admit``
-    picks for q's dtype (the CUDA-core forward when ``simt``, the
-    tensor-core kernels otherwise; the backward is on the tensor cores at
-    every type), CUDA, the head dim (see ``_check_head_dim``), one dtype,
-    the shapes, 16-byte aligned storage."""
+def _check_inputs(tensors, B, Sq, Sk, H, D, causal, backward=False):
+    """The kernels' common admission: a type ``_simt.admit`` admits to the
+    tensor-core kernels (bfloat16, float16 or float32, forward and
+    backward), CUDA, the head dim (see ``_check_head_dim``), one dtype, the
+    shapes, 16-byte aligned storage."""
     q = tensors["q"]
     dev = q.device
-    inst = _simt.admit("flash_bwd" if backward else "flash", q.dtype, q.dtype, D)
-    _check(inst.simt == simt, f"q dtype {q.dtype} runs flash_attention"
-           f"{'_simt' if inst.simt else ''}_kernel (csrc/{inst.lib}.cu)")
+    _simt.admit("flash_bwd" if backward else "flash", q.dtype, q.dtype, D)
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
     _check_head_dim(D, backward)
     for name, t in tensors.items():
@@ -165,7 +163,8 @@ _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
 
 def flash_attention_kernel(q, k, v, causal=False, scale=None):
     """Launch ``csrc/flash_attention.cu`` on CUDA tensors: q [B, Sq, H, D],
-    k/v [B, Sk, H, D], bfloat16 or float16 (one type), D in {64, 128, 256}.
+    k/v [B, Sk, H, D], bfloat16, float16 or float32 (one type; float32 as
+    split-bf16 products), D in {64, 128, 256}.
     Returns (O [B, Sq, H, D] in q's dtype, LSE [B * H, Sq] f32).  Raises
     ValueError on anything else.  Every launch adds one to
     ``flash_attention_kernel.launches``."""
@@ -187,35 +186,6 @@ def flash_attention_kernel(q, k, v, causal=False, scale=None):
 
 
 flash_attention_kernel.launches = 0
-
-_SIMT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-
-
-def flash_attention_simt_kernel(q, k, v, causal=False, scale=None):
-    """Launch ``csrc/attention_simt_flash.cu`` (f32 on the CUDA cores) on
-    CUDA tensors: q [B, Sq, H, D], k/v [B, Sk, H, D], float32, D in
-    {64, 128, 256}.  Returns (O [B, Sq, H, D] in q's dtype, LSE
-    [B * H, Sq] f32).  Raises ValueError on anything else.  Every launch
-    adds one to ``flash_attention_simt_kernel.launches``."""
-    B, Sq, H, D = q.shape
-    Sk = k.shape[1]
-    _check_inputs({"q": q, "k": k, "v": v}, B, Sq, Sk, H, D, causal, simt=True)
-    if scale is None:
-        scale = 1.0 / (D ** 0.5)
-    dev = q.device
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = torch.empty_like(q)
-    lse = torch.empty(B * H, Sq, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _build.launch("attention_simt_flash", _SIMT_ARGS, *_ptrs(q, k, v, o, lse), B, H, Sq, Sk,
-                      D, float(scale), int(bool(causal)), _simt.TYPE_CODES[q.dtype],
-                      torch.cuda.current_stream(dev).cuda_stream, entry="flash_attention_simt")
-    flash_attention_simt_kernel.launches += 1
-    return o, lse
-
-
-flash_attention_simt_kernel.launches = 0
 
 # q, k, v, o, dO, lse, dlse, stats, planes, then the outputs
 _BWD_HEAD = [ctypes.c_void_p] * 9
@@ -383,14 +353,6 @@ def flash_attention_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dl
 flash_attention_dkv_kernel.launches = 0
 
 
-def _fwd_kernel(dtype):
-    """The forward wrapper of q's dtype: the tensor-core kernel (bfloat16,
-    float16) or its CUDA-core counterpart (float32)."""
-    if dtype in _simt.TC_TYPES["flash"]:
-        return flash_attention_kernel
-    return flash_attention_simt_kernel
-
-
 class _FlashAttention(torch.autograd.Function):
     """O and LSE of flash attention, with the recompute backward."""
 
@@ -400,7 +362,7 @@ class _FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             o, lse = _flash_dense(q, k, v, causal, scale)
         else:
-            o, lse = _fwd_kernel(q.dtype)(q, k, v, causal, scale)
+            o, lse = flash_attention_kernel(q, k, v, causal, scale)
             lse = lse.reshape(B, H, Sq)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale

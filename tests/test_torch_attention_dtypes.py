@@ -1,14 +1,14 @@
-"""Port parity at float16 and float32: the four attention forward kernels'
+"""Port parity at float16 and float32: the attention forward kernels'
 plain versions and the admission by type of every attention kernel.
 
-On the card, bfloat16 q runs the tensor-core kernels, and so does float16
-q in flash and the encoder, forward and backward (``csrc/flash_attention.cu``,
-``flash_attention_bwd.cu``, ``encoder_attention.cu``,
-``encoder_attention_bwd.cu``), and float32 q in both backward kernels
-(``flash_attention_bwd.cu``, ``encoder_attention_bwd.cu``, split-bf16
-products); float32 q in the forwards, and float16 q in decode and paged,
-run the f32 CUDA-core kernels of ``csrc/attention_simt.cuh``.  Which one,
-and which instantiation, is ``ops/_simt.admit``'s decision.  Here, on the CPU, the tests hold:
+On the card, flash and the encoder, forward and backward, run the
+tensor-core kernels at bfloat16, float16 and float32
+(``csrc/flash_attention.cu``, ``flash_attention_bwd.cu``,
+``encoder_attention.cu``, ``encoder_attention_bwd.cu``; float32 as
+split-bf16 products), and decode and paged run them at bfloat16; float32
+and float16 q in decode and paged run the f32 CUDA-core kernels of
+``csrc/attention_simt.cuh``.  Which one, and which instantiation, is
+``ops/_simt.admit``'s decision.  Here, on the CPU, the tests hold:
 
 * the plain decode, paged, encoder-forward and flash-forward functions at
   float16 (what a CPU tensor runs, and the kernels' oracle in
@@ -22,14 +22,14 @@ and which instantiation, is ``ops/_simt.admit``'s decision.  Here, on the CPU, t
   the v-scale) with float32 and float16 q against the reference's kernels,
   within the reference's own int8 bound, 3e-4 (tests/test_decode_attention.py);
 * the admission lists against the ``SIMT_*`` instantiation lists of the
-  forwards' ``attention_simt.cuh`` and the ``FLASH_*`` and ``ENCODER_*``
-  lists of the tensor-core flash and encoder sources, their type codes one
-  table (``_simt.TC_TYPE_CODES``);
+  decode and paged ``attention_simt.cuh`` and the ``FLASH_*`` and
+  ``ENCODER_*`` lists of the tensor-core flash and encoder sources, their
+  type codes one table (``_simt.TC_TYPE_CODES``);
 * float64 q refused, naming the admitted types; every float32 and float16
-  backward admitted to the tensor-core kernels, the flash backward at head
-  dims 64, 128 and 256 at every type (the encoder backward at 64 and 128);
-  float16 flash and encoder never reach a CUDA-core wrapper, nor a
-  bfloat16 cast, and their wrappers refuse CPU tensors;
+  flash and encoder call, forward and backward, admitted to the
+  tensor-core kernels, flash at head dims 64, 128 and 256 at every type
+  (the encoder at 64 and 128); one wrapper a kernel at every type, no cast
+  to bfloat16, and the wrappers refuse CPU tensors;
 * a small LLaMA at float16 (head dim 64) through the paged engine, greedy
   tokens equal to the reference engine's.
 """
@@ -224,40 +224,42 @@ def _tc_built(cu, types, dims):
 
 
 def test_admission_list_is_the_cuh_instantiations():
-    """ops/_simt.py's lists are the .cuh's SIMT_* lists, and every
-    instantiation admit() can return is one a source builds: both row tiles
-    of every (q, kv) pair and head dim, flash and the encoder at float32 on
-    the CUDA cores (no float16 encoder is built there), and flash and the
-    encoder at bfloat16 and float16 on the tensor cores (flash_attention.cu's
-    FLASH_TYPES and FLASH_DIMS, encoder_attention.cu's ENCODER_TYPES and
-    ENCODER_DIMS, the head dims ``supported`` admits)."""
+    """ops/_simt.py's decode and paged lists are the .cuh's SIMT_* lists,
+    and every instantiation admit() can return is one a source builds: both
+    row tiles of every (q, kv) pair and head dim on the CUDA cores, and
+    flash and the encoder at bfloat16, float16 and float32 on the tensor
+    cores (flash_attention.cu's FLASH_TYPES and FLASH_DIMS,
+    encoder_attention.cu's ENCODER_TYPES and ENCODER_DIMS, the head dims
+    ``supported`` admits).  The CUDA-core flash and encoder forwards are
+    gone, with their lists."""
     C = {v: k for k, v in _simt.C_TYPES.items()}
     assert [(C[a], C[b]) for a, b in _cuh_list("SIMT_KV_PAIRS")] == list(_simt.KV_PAIRS)
     assert [int(d) for (d,) in _cuh_list("SIMT_KV_DIMS")] == list(_simt.KV_DIMS)
-    assert [C[t] for (t,) in _cuh_list("SIMT_FLASH_TYPES")] == list(_simt.FLASH_TYPES)
-    assert [C[t] for (t,) in _cuh_list("SIMT_ENCODER_TYPES")] == list(_simt.ENCODER_TYPES)
-    assert [int(d) for (d,) in _cuh_list("SIMT_FLASH_DIMS")] == list(_simt.FLASH_DIMS)
-    assert [int(d) for (d,) in _cuh_list("SIMT_ENCODER_DIMS")] == list(_simt.ENCODER_DIMS)
+    text = CUH.read_text()
+    for gone in ("SIMT_FLASH_TYPES", "SIMT_ENCODER_TYPES", "SIMT_FLASH_DIMS",
+                 "SIMT_ENCODER_DIMS", "SeqRows", "launch_seq", "philox"):
+        assert gone not in text
+    assert not any(hasattr(_simt, n) for n in ("FLASH_TYPES", "ENCODER_TYPES", "FLASH_DIMS",
+                                                "ENCODER_DIMS"))
+    for gone in ("attention_simt_flash.cu", "attention_simt_encoder.cu"):
+        assert not (CUH.parent / gone).exists()
     built = {(f"attention_simt_{r}", q, kv, D, rows)
              for r in ("decode", "paged") for q, kv in _simt.KV_PAIRS for D in _simt.KV_DIMS
              for rows in (_simt.DECODE_ROWS, _simt.CHUNK_ROWS)}
-    built |= {("attention_simt_flash", t, t, D, _simt.CHUNK_ROWS)
-              for t in _simt.FLASH_TYPES for D in _simt.FLASH_DIMS}
-    built |= {("attention_simt_encoder", t, t, D, _simt.CHUNK_ROWS)
-              for t in _simt.ENCODER_TYPES for D in _simt.ENCODER_DIMS}
-    assert _simt.ENCODER_TYPES == (torch.float32,)
     flash = _tc_built(FLASH_CU, "FLASH_TYPES", "FLASH_DIMS")
     enc = _tc_built(ENCODER_CU, "ENCODER_TYPES", "ENCODER_DIMS")
     built |= flash | enc
     for regime, tc in (("flash", flash), ("encoder", enc)):
-        assert set(_simt.TC_TYPES[regime]) == {b[1] for b in tc} == {torch.bfloat16, torch.float16}
+        assert (set(_simt.TC_TYPES[regime]) == {b[1] for b in tc}
+                == {torch.bfloat16, torch.float16, torch.float32})
+    assert {d for *_, d, _ in flash} == set(tfa.FWD_HEAD_DIMS)
     assert ({d for *_, d, _ in enc}
             == {d for d in range(8, 513, 8) if tea.supported(1, 128, d)})
     admitted = {tuple(_simt.admit(r, q, kv, D, rows))
                 for r in ("decode", "paged") for q, kv in _simt.KV_PAIRS for D in _simt.KV_DIMS
                 for rows in (1, _simt.DECODE_ROWS, _simt.DECODE_ROWS + 1)}
     admitted |= {tuple(_simt.admit(r, t, t, D)) for r, dims in (("flash", tfa.FWD_HEAD_DIMS),
-                                                              ("encoder", _simt.ENCODER_DIMS))
+                                                              ("encoder", (64, 128)))
                  for t in (torch.float32, torch.float16, torch.bfloat16) for D in dims}
     assert admitted == built
     for lib in {b[0] for b in built}:  # each entry's source exists
@@ -297,12 +299,11 @@ def test_backward_admission_list_is_the_cuh_instantiations():
 
 
 def _encoder_refusals(regime, q16, q32):
-    """(wrapper, args, message): each encoder forward wrapper called with
-    the type of the other kernel, and the kernel its refusal names; the one
-    backward wrapper, which takes every type, called with float64."""
+    """(wrapper, args, message): the one encoder forward wrapper and the one
+    backward wrapper, each of which takes every type, called with float64,
+    the refusal naming the admitted types."""
     if regime == "encoder":
-        return [(tea.encoder_attention_simt_kernel, (q16,) * 3, "runs encoder_attention_kernel "),
-                (tea.encoder_attention_kernel, (q32,) * 3, "runs encoder_attention_simt_kernel ")]
+        return [(tea.encoder_attention_kernel, (q32.double(),) * 3, "bfloat16, float32, float16")]
     return [(tea.encoder_attention_bwd_kernel, (q32.double(),) * 4, "bfloat16, float32, float16")]
 
 
@@ -311,29 +312,21 @@ def _encoder_refusals(regime, q16, q32):
 def test_admission_picks_kernel_by_q_dtype(regime):
     """decode and paged: bfloat16 q on the tensor-core kernels, every
     (q, kv) pair of float32 and float16 on the CUDA-core ones, by rows.
-    flash and the encoder forward: bfloat16 and float16 on the tensor-core
-    kernel, float32 on the CUDA-core one; both backward kernels: every type
-    on the tensor cores (float32 as split-bf16 products); float16 against
-    bfloat16 k/v is refused (no cast reaches a kernel), and each forward
-    wrapper refuses the type of the other, naming the kernel it runs."""
+    flash and the encoder, forward and backward: every type on the
+    tensor-core kernels (float32 as split-bf16 products); float16 against
+    bfloat16 k/v and float32 against float16 are refused (no cast reaches a
+    kernel), and each wrapper refuses float64, naming the types it takes."""
+    tc_types = (torch.bfloat16, torch.float16, torch.float32)
     if regime.startswith("encoder"):
         tc_lib = "encoder_attention" + ("_bwd" if regime == "encoder_bwd" else "")
-        tc_types = (torch.bfloat16, torch.float16) + (
-            (torch.float32,) if regime == "encoder_bwd" else ())
         for t in tc_types:
             for D in (64, 128):
                 got = _simt.admit(regime, t, t, D)
                 assert not got.simt and got.lib == tc_lib and (got.q, got.kv, got.D) == (t, t, D)
         with pytest.raises(ValueError, match="q float16 takes k/v of float16"):
             _simt.admit(regime, torch.float16, torch.bfloat16, 128)
-        if regime == "encoder":
-            got = _simt.admit(regime, torch.float32, torch.float32, 128)
-            assert got.simt and got.lib == f"attention_simt_{regime}"
-            with pytest.raises(ValueError, match="one type of float32$"):
-                _simt.admit(regime, torch.float32, torch.float16, 128)
-        else:
-            with pytest.raises(ValueError, match="q float32 takes k/v of float32"):
-                _simt.admit(regime, torch.float32, torch.float16, 128)
+        with pytest.raises(ValueError, match="q float32 takes k/v of float32"):
+            _simt.admit(regime, torch.float32, torch.float16, 128)
         q16, q32 = (torch.zeros(1, 128, 2, 64, dtype=t) for t in (torch.float16, torch.float32))
         for fn, args, msg in _encoder_refusals(regime, q16, q32):
             before = fn.launches
@@ -343,25 +336,19 @@ def test_admission_picks_kernel_by_q_dtype(regime):
         return
     if regime.startswith("flash"):
         tc_lib = "flash_attention" + ("_bwd" if regime == "flash_bwd" else "")
-        tc_types = (torch.bfloat16, torch.float16) + (
-            (torch.float32,) if regime == "flash_bwd" else ())
         for t in tc_types:
             for D in (64, 128, 256):
                 got = _simt.admit(regime, t, t, D)
                 assert not got.simt and got.lib == tc_lib and (got.q, got.kv, got.D) == (t, t, D)
-        if regime == "flash":
-            got = _simt.admit(regime, torch.float32, torch.float32, 128)
-            assert got.simt and got.lib == f"attention_simt_{regime}"
         with pytest.raises(ValueError, match="q float16 takes k/v of float16"):
             _simt.admit(regime, torch.float16, torch.bfloat16, 128)
-        q16, q32, q64 = (torch.zeros(1, 128, 2, 64, dtype=t)
-                         for t in (torch.float16, torch.float32, torch.float64))
+        with pytest.raises(ValueError, match="q float32 takes k/v of float32"):
+            _simt.admit(regime, torch.float32, torch.float16, 128)
+        q16, q64 = (torch.zeros(1, 128, 2, 64, dtype=t) for t in (torch.float16, torch.float64))
         lse = torch.zeros(1, 2, 128)
         if regime == "flash":
-            refusals = [(tfa.flash_attention_simt_kernel, (q16, q16, q16),
-                         "runs flash_attention_kernel"),
-                        (tfa.flash_attention_kernel, (q32, q32, q32),
-                         "runs flash_attention_simt_kernel")]
+            refusals = [(tfa.flash_attention_kernel, (q64, q64, q64),
+                         "bfloat16, float32, float16")]
         else:  # one backward at every type: the split pass is float32's alone
             refusals = [(tfa.flash_attention_bwd_split, (q16,) * 4,
                          "the split pass takes float32")]
@@ -396,8 +383,8 @@ def test_f64_q_refused_naming_admitted_dtypes(regime):
                "paged": lambda: tda.paged_attention_simt_kernel(
                    q[:, :1], q.reshape(1, 2, 128, 64), q.reshape(1, 2, 128, 64),
                    torch.ones(1, dtype=torch.int32), torch.zeros(1, 1, dtype=torch.int32)),
-               "flash": lambda: tfa.flash_attention_simt_kernel(q, q, q),
-               "encoder": lambda: tea.encoder_attention_simt_kernel(q, q, q)}
+               "flash": lambda: tfa.flash_attention_kernel(q, q, q),
+               "encoder": lambda: tea.encoder_attention_kernel(q, q, q)}
     with pytest.raises(ValueError, match="bfloat16, float32, float16"):
         kernels[regime]()
 
@@ -458,16 +445,17 @@ def test_backward_refused_naming_queue_2_item_11(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
 def test_simt_wrappers_reject_cpu_tensors(dtype):
-    """The wrappers of dtype's kernels (the CUDA-core ones, but flash and
-    the encoder at float16, which run the tensor-core ones) launch on CUDA
-    tensors only and never run the plain version; a refused call does not
-    count."""
+    """The wrappers of dtype's kernels (the tensor-core flash and encoder
+    kernels, forward and backward, and the CUDA-core decode kernel) launch
+    on CUDA tensors only and never run the plain version; a refused call
+    does not count.  The CUDA-core flash and encoder forward wrappers, and
+    the helpers that picked between two forward wrappers, are gone."""
     q = torch.zeros(1, 128, 2, 64, dtype=dtype)
     lse = torch.zeros(1, 2, 128)
     stats, dq, dkv = (tfa.flash_attention_bwd_stats, tfa.flash_attention_dq_kernel,
                       tfa.flash_attention_dkv_kernel)
-    calls = [(tfa._fwd_kernel(dtype), (q, q, q)),
-             (tea._fwd_kernel(dtype), (q, q, q)),
+    calls = [(tfa.flash_attention_kernel, (q, q, q)),
+             (tea.encoder_attention_kernel, (q, q, q)),
              (stats, (q, q, lse)),
              (dq, (q, q, q, q, q, lse)),
              (dkv, (q, q, q, q, q, lse)),
@@ -480,58 +468,51 @@ def test_simt_wrappers_reject_cpu_tensors(dtype):
         with pytest.raises(ValueError, match="not a CUDA device"):
             fn(*args)
         assert fn.launches == before
-    assert (tfa._fwd_kernel(dtype) is tfa.flash_attention_kernel) == (dtype == torch.float16)
-    other, kernel = ((tfa.flash_attention_simt_kernel, "flash_attention_kernel")
-                     if dtype == torch.float16 else
-                     (tfa.flash_attention_kernel, "flash_attention_simt_kernel"))
-    with pytest.raises(ValueError, match=f"runs {kernel}"):
-        other(q, q, q)  # each flash kernel takes its own types only
+    for mod, gone in ((tfa, "flash_attention_simt_kernel"), (tea, "encoder_attention_simt_kernel")):
+        assert not hasattr(mod, gone) and not hasattr(mod, "_fwd_kernel")
+        assert gone not in mod.__all__
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16],
                          ids=["f32", "f16", "bf16"])
 def test_encoder_kernel_helpers_pick_by_q_dtype(dtype):
-    """``_fwd_kernel`` of the encoder hands q's dtype to the wrapper of the
-    kernel ``_simt.admit`` picks for it: bfloat16 and float16 to the
-    tensor-core kernel, float32 to the CUDA-core one; the flash forward's
-    helper agrees.  Both backward kernels admit every type to the tensor
-    cores, so the encoder's backward has one wrapper,
-    ``encoder_attention_bwd_kernel``, and no helper picks."""
-    tc = dtype != torch.float32
-    assert tc == (dtype in _simt.TC_TYPES["encoder"])
-    assert tea._fwd_kernel(dtype) is (tea.encoder_attention_kernel if tc
-                                      else tea.encoder_attention_simt_kernel)
+    """Every type runs one wrapper a kernel, the tensor-core one: the
+    encoder's and flash's forward and backward are admitted to their
+    tensor-core sources at ``dtype``, float32 too, so no helper picks
+    between wrappers, and the autograd Functions call the tensor-core
+    wrappers directly."""
+    assert dtype in _simt.TC_TYPES["encoder"] and dtype in _simt.TC_TYPES["flash"]
+    assert not hasattr(tea, "_fwd_kernel") and not hasattr(tfa, "_fwd_kernel")
     assert not hasattr(tea, "_bwd_kernel")
     assert not hasattr(tea, "encoder_attention_simt_bwd_kernel")
-    inst = _simt.admit("encoder", dtype, dtype, 64)
-    assert inst.simt != tc
-    assert inst.lib == ("encoder_attention" if tc else "attention_simt_encoder")
-    inst = _simt.admit("encoder_bwd", dtype, dtype, 64)
-    assert not inst.simt and inst.lib == "encoder_attention_bwd"
-    assert (tfa._fwd_kernel(dtype) is tfa.flash_attention_kernel) == tc
+    for regime, lib in (("encoder", "encoder_attention"), ("encoder_bwd", "encoder_attention_bwd"),
+                        ("flash", "flash_attention"), ("flash_bwd", "flash_attention_bwd")):
+        inst = _simt.admit(regime, dtype, dtype, 64)
+        assert not inst.simt and inst.lib == lib
     assert dtype in _simt.TC_TYPES["flash_bwd"] and dtype in _simt.TC_TYPES["encoder_bwd"]
+    assert _simt.TC_TYPE_CODES[dtype] == tfa.TYPE_CODES[dtype]
 
 
 def test_f16_encoder_wrappers_refuse_cpu_and_cuda_core_wrappers_refuse_f16():
-    """float16 runs the tensor-core encoder wrappers, which launch on CUDA
-    tensors only (on the CPU the plain versions run through the autograd
-    Function, never through a wrapper); the CUDA-core forward wrapper
-    refuses float16, naming the tensor-core kernel, and casts nothing; a
-    refused call counts no launch and no copy."""
-    q = torch.zeros(1, 256, 2, 64, dtype=torch.float16)
-    lse = torch.zeros(2, 256)
+    """float16 and float32 run the tensor-core encoder wrappers, which
+    launch on CUDA tensors only (on the CPU the plain versions run through
+    the autograd Function, never through a wrapper), and cast nothing; a
+    refused call counts no launch and no copy.  No CUDA-core encoder
+    forward wrapper is left to refuse a type."""
+    assert not hasattr(tea, "encoder_attention_simt_kernel")
     copies = tea._check_inputs.copies
-    for fn, args, msg in [
-            (tea.encoder_attention_kernel, (q, q, q), "not a CUDA device"),
-            (tea.encoder_attention_bwd_kernel, (q, q, q, q), "not a CUDA device"),
-            (tea.encoder_attention_simt_kernel, (q, q, q),
-             r"float16 runs encoder_attention_kernel \(csrc/encoder_attention.cu\)")]:
-        before = fn.launches
-        with pytest.raises(ValueError, match=msg):
-            fn(*args, lse=lse) if fn is tea.encoder_attention_bwd_kernel else fn(*args)
-        assert fn.launches == before
+    for dt in (torch.float16, torch.float32):
+        q = torch.zeros(1, 256, 2, 64, dtype=dt)
+        lse = torch.zeros(2, 256)
+        for fn, args in [(tea.encoder_attention_kernel, (q, q, q)),
+                         (tea.encoder_attention_bwd_kernel, (q, q, q, q))]:
+            before = fn.launches
+            with pytest.raises(ValueError, match="not a CUDA device"):
+                fn(*args, lse=lse) if fn is tea.encoder_attention_bwd_kernel else fn(*args)
+            assert fn.launches == before
     assert tea._check_inputs.copies == copies
     # the float16 forward and backward on CPU tensors: the plain versions, in float16
+    q = torch.zeros(1, 256, 2, 64, dtype=torch.float16)
     qr = q.clone().requires_grad_(True)
     o = tea.encoder_attention(qr, q, q, causal=True)
     o.sum().backward()

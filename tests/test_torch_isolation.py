@@ -100,10 +100,9 @@ def test_kernel_sources_ship_as_package_data():
 
     text = (ROOT / "pyproject.toml").read_text()
     assert '"paddle_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
-    kernels = ["attention_simt_decode", "attention_simt_encoder", "attention_simt_flash",
-               "attention_simt_paged", "decode_attention", "encoder_attention",
-               "encoder_attention_bwd", "flash_attention", "flash_attention_bwd",
-               "fused_conv_bn", "fused_ln", "paged_attention"]
+    kernels = ["attention_simt_decode", "attention_simt_paged", "decode_attention",
+               "encoder_attention", "encoder_attention_bwd", "flash_attention",
+               "flash_attention_bwd", "fused_conv_bn", "fused_ln", "paged_attention"]
     assert _build.sources() == kernels  # one library per .cu, built at first use
     for name in kernels:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
