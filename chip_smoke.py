@@ -44,13 +44,18 @@ Phases:
                     slices of one packed [B, S, 3, H, D] tensor, fed to both
                     kernels with no copy, and time the kernels and their
                     SDPA yardsticks from CUDA-graph replays (device time).
-                    Decode and paged at float32 and float16 (the f32
-                    CUDA-core kernels of attention_simt.cuh, the ``*_simt``
-                    rows): S = 1 and S = 5 over ragged, stale slots,
-                    256-token chunks off the page grid, pages of 16 and
-                    128, GQA 64/8, head dims 64 and 256, int8 caches under
-                    float32 and float16 q, and float16 q against float32
-                    pools (a float16 model's engines).  The flash and
+                    Decode and paged at float32 and float16 (the
+                    ``_f32`` and ``_f16`` rows, by q's type: the
+                    kv_attention.cuh kernels' float32 and float16
+                    instantiations on the tensor cores, float32 as
+                    split-bf16 products): S = 1 and S = 5 over ragged,
+                    stale slots, 256-token chunks off the page grid, pages
+                    of 16 and 128, GQA 64/8, head dims 64 and 256, int8
+                    caches under float32 and float16 q, and float16 q
+                    against float32 pools (a float16 model's engines),
+                    with a "lo plane dropped" fault among the planted ones
+                    where a cache is float32 and launches counted around
+                    each call.  The flash and
                     encoder forwards at float32 (the ``_f32`` and
                     ``_d256_f32`` rows: the wgmma kernels' float32
                     instantiations, split-bf16 products, the planes made
@@ -168,11 +173,10 @@ time goes.
                     not bf16) and the no-cache forwards at [1, 2048] and
                     [4, 512] (their walls beside the dense-math forward's);
                     BERT-base eval on [32, 128] at float32 and at float16
-                    (the fused-LN kernels at float16).  Decode and paged
-                    launches are the f32 CUDA-core kernels'; flash and the
-                    encoder (generate()'s prefill, the forwards, BERT's
-                    eval) run the tensor-core kernels, float32 as
-                    split-bf16 products; logits within
+                    (the fused-LN kernels at float16).  Every attention
+                    launch (decode, paged, generate()'s prefill, the
+                    forwards, BERT's eval) runs the tensor-core kernels,
+                    float32 as split-bf16 products; logits within
                     F32_LOGIT_TOL (F16_LOGIT_TOL, INT8_LOGIT_TOL); peak
                     memory per model.
  12. train        — bench.py's training configuration (hidden 2048, 12
@@ -294,11 +298,19 @@ KERNELS = {
                       "paddle_tpu/ops/fused_conv_bn.py:66"),
     "fused_conv_bn_bwd": ("paddle_tpu_torch/csrc/fused_conv_bn.cu",
                           "paddle_tpu/ops/fused_conv_bn.py:139"),
-    # decode and paged at float32 and float16: f32 on the CUDA cores
-    "paged_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_paged.cu",
-                             "paddle_tpu/ops/decode_attention.py:313"),
-    "decode_attention_simt": ("paddle_tpu_torch/csrc/attention_simt_decode.cu",
-                              "paddle_tpu/ops/decode_attention.py:66"),
+    # decode and paged at float32 and float16 q: the kernels' float32 and
+    # float16 instantiations (float32 as split-bf16 products), their
+    # launches the wrappers' in the main paths' float32 and float16 runs
+    # (INSTANTIATIONS); float16's paged row leads with float16 q on float32
+    # pools, what a float16 model's engines run
+    "paged_attention_f32": ("paddle_tpu_torch/csrc/paged_attention.cu",
+                            "paddle_tpu/ops/decode_attention.py:313"),
+    "paged_attention_f16": ("paddle_tpu_torch/csrc/paged_attention.cu",
+                            "paddle_tpu/ops/decode_attention.py:313"),
+    "decode_attention_f32": ("paddle_tpu_torch/csrc/decode_attention.cu",
+                             "paddle_tpu/ops/decode_attention.py:66"),
+    "decode_attention_f16": ("paddle_tpu_torch/csrc/decode_attention.cu",
+                             "paddle_tpu/ops/decode_attention.py:66"),
     # the flash and encoder forwards at float32: the wgmma kernels' float32
     # instantiations, split-bf16 products, the planes made in shared memory;
     # their launches the wrappers' in the main paths' float32 runs
@@ -1843,25 +1855,23 @@ def paged_kernel_cases():
     return cases
 
 
-# --------------------------------------- f32 and f16 attention (CUDA cores)
+# ------------------------------------------------ f32 and f16 attention
 
-# The f32 CUDA-core decode and paged kernels (csrc/attention_simt.cuh), and
-# the flash and encoder forwards at float16 and float32 (the tensor-core
-# kernels), vs their plain versions in f32 on the same values: max |kernel
-# - plain| over max |plain|.  float32 (q, k and v f32) at F32_RTOL: on the
-# CUDA cores the same f32 products summed in another order; on the tensor
-# cores three bf16 products a product (lo x lo, under 2^-16 of the rest,
-# left out).  float16 writes its output in float16 (2^-11 of |out|)
-# and rounds p to float16 before p.v as the reference does: F16_RTOL, under
-# bf16's 5e-3.  int8 caches round p to bf16 whatever q's type, as the bf16
-# kernels do: KERNEL_RTOL["int8"].  A float16 model's engines keep float32
-# pools, so a float16 q against float32 k/v is a case of its own.
+# The decode, paged, flash and encoder kernels at float16 and float32 (on
+# the tensor cores, float32 as split-bf16 products) vs their plain versions
+# in f32 on the same values: max |kernel - plain| over max |plain|.
+# float32 (q, k and v f32) at F32_RTOL: three bf16 products a product (lo x
+# lo, under 2^-16 of the rest, left out).  float16 writes its output in
+# float16 (2^-11 of |out|) and rounds p to float16 before p.v as the
+# reference does: F16_RTOL, under bf16's 5e-3.  int8 caches round p to bf16
+# whatever q's type, as the bf16 kernels do: KERNEL_RTOL["int8"].  A
+# float16 model's engines keep float32 pools, so a float16 q against
+# float32 k/v is a case of its own (float16 output: F16_RTOL).
 F16_RTOL = 2e-3
-SIMT_KERNELS = ("decode_attention", "paged_attention")
 TAGS = {torch.float32: "f32", torch.float16: "f16", torch.int8: "int8", torch.bfloat16: "bf16"}
 
 
-def simt_tol(q_dtype, kv_dtype):
+def kv_tol(q_dtype, kv_dtype):
     if kv_dtype == torch.int8:
         return KERNEL_RTOL["int8"]
     return F32_RTOL if torch.float32 == q_dtype == kv_dtype else F16_RTOL
@@ -1872,7 +1882,7 @@ def typed_tol(dtype, backward=False):
     its plain version: F32_RTOL, F16_RTOL, or the bf16 kernels' gates."""
     if dtype == torch.bfloat16:
         return BWD_RTOL if backward else KERNEL_RTOL["bf16"]
-    return simt_tol(dtype, dtype)
+    return kv_tol(dtype, dtype)
 
 
 def rate_key(*dtypes):
@@ -1882,14 +1892,17 @@ def rate_key(*dtypes):
     return "f32_flops" if torch.float32 in dtypes else "tc_flops"
 
 
-def simt_kv_case(kind, name, B, S, H, Hkv, offsets, q_dtype, kv_dtype, seed, ps=128, D=128,
-                 L=2048):
-    """The f32 CUDA-core static decode (``kind`` "decode": a head-major
-    [B, Hkv, L, D] cache) or paged kernel (pages of ``ps``) vs its plain
-    version in f32, over stale rows (1e4) past each slot's length and a
-    poisoned trash page; planted faults as the bf16 cases'.  The kernel,
-    its plain version and SDPA (on the dequantized, GQA-expanded cache; at
-    float32 where the cache is float32, else at q's dtype) are timed."""
+def typed_kv_case(kind, name, B, S, H, Hkv, offsets, q_dtype, kv_dtype, seed, ps=128, D=128,
+                  L=2048):
+    """The static decode (``kind`` "decode": a head-major [B, Hkv, L, D]
+    cache) or paged kernel (pages of ``ps``) at q of ``q_dtype`` against a
+    cache of ``kv_dtype`` vs its plain version in f32, over stale rows (1e4)
+    past each slot's length and a poisoned trash page; planted faults as the
+    bf16 cases', and where the cache is float32 also its lo planes dropped
+    (the plain version on k and v rounded to bf16); one launch counted
+    around the call.  The kernel, its plain version and SDPA (on the
+    dequantized, GQA-expanded cache; at float32 where the cache is float32,
+    else at q's dtype) are timed."""
     from paddle_tpu_torch.models.kv_cache import _quantize_kv
     from paddle_tpu_torch.ops import decode_attention as da
 
@@ -1931,34 +1944,43 @@ def simt_kv_case(kind, name, B, S, H, Hkv, offsets, q_dtype, kv_dtype, seed, ps=
     f32 = [None if x is None else x.float() for x in scales]
     k32, v32 = (k, v) if quant else (k.float(), v.float())
     if kind == "decode":
+        wrapper = da.decode_attention_kernel
+
         def kernel():
-            return da.decode_attention_simt_kernel(q, k, v, lengths, *scales, scale)
+            return wrapper(q, k, v, lengths, *scales, scale)
 
         def plain():
             return da._decode_dense(q, k, v, off, *scales, scale)
 
-        def oracle(qq, o_):
-            return da._decode_dense(qq, k32, v32, o_, *f32, scale)
+        def oracle(qq, o_, kk=k32, vv=v32):
+            return da._decode_dense(qq, kk, vv, o_, *f32, scale)
     else:
+        wrapper = da.paged_attention_kernel
+
         def kernel():
-            return da.paged_attention_simt_kernel(q, k, v, lengths, tbl, *scales, scale)
+            return wrapper(q, k, v, lengths, tbl, *scales, scale)
 
         def plain():
             return da._paged_dense(q, k, v, off, tbl, *scales, scale)
 
-        def oracle(qq, o_):
-            return da._paged_dense(qq, k32, v32, o_, tbl, *f32, scale)
+        def oracle(qq, o_, kk=k32, vv=v32):
+            return da._paged_dense(qq, kk, vv, o_, tbl, *f32, scale)
 
-    got = kernel()
+    got, n_launch = counted(kernel, wrapper, 1)
     same_bits = bool(torch.equal(got, kernel()))
     torch.cuda.synchronize()
     want = oracle(q.float(), off)
-    res = gate(name, got, want, {"uniform_weights": oracle(torch.zeros_like(want), off),
-                                 "causal_end_short": oracle(q.float(), off - 1)},
-               simt_tol(q_dtype, kv_dtype), kind=kind, B=B, S=S, H=H, Hkv=Hkv, D=D,
-               ps=ps if tbl is not None else None, cap=cap, q_dtype=TAGS[q_dtype],
-               kv_dtype=TAGS[kv_dtype], max_len=max(offsets) + S, same_bits=same_bits,
-               out_dtype=TAGS.get(got.dtype), ok=same_bits and got.dtype == q_dtype)
+    faults = {"uniform_weights": oracle(torch.zeros_like(want), off),
+              "causal_end_short": oracle(q.float(), off - 1)}
+    if kv_dtype == q_dtype == torch.float32:  # what K's and V's hi planes alone would give
+        faults["lo_plane_dropped"] = oracle(q.float(), off, k32.bfloat16().float(),
+                                            v32.bfloat16().float())
+    res = gate(name, got, want, faults, kv_tol(q_dtype, kv_dtype), kind=kind, B=B, S=S, H=H,
+               Hkv=Hkv, D=D, ps=ps if tbl is not None else None, cap=cap,
+               q_dtype=TAGS[q_dtype], kv_dtype=TAGS[kv_dtype], max_len=max(offsets) + S,
+               kernel=wrapper.__name__, same_bits=same_bits, launches_counted=n_launch,
+               out_dtype=TAGS.get(got.dtype),
+               ok=same_bits and n_launch and got.dtype == q_dtype)
     res["ms"], res["eager_ms"] = graph_ms(kernel), cuda_ms(kernel, 20)
     res["plain_ms"] = cuda_ms(plain, 5)
     # yardstick: SDPA on the dequantized, GQA-expanded cache with a per-slot
@@ -2105,21 +2127,21 @@ def typed_seq_case(name, kind, B, H, Sq, Sk, D, causal, dtype, seed, rate=0.0, p
     return res
 
 
-def simt_kernel_cases():
-    """The f32 CUDA-core decode and paged kernels' cases at float32 and
-    float16, the main paths' shapes, the float32 case each main path runs
-    most first: LLaMA-2-7B widths (S = 1 at 8 ragged slots; the verify's
-    S = 5; 256-token chunks off the page grid; pages of 16 and 128), 70B's
-    GQA 64/8, head dims 64 and 256, int8 caches under float32 and float16
-    q, and the float16 engines' float16 q against float32 pools (flash and
-    the encoder at float16 and float32: the tensor-core kernels' _f16 and
-    _f32 rows)."""
+def typed_kv_cases():
+    """The decode and paged kernels' float32 and float16 instantiations
+    (the ``_f32`` and ``_f16`` rows, by q's type), the main paths' shapes,
+    the case each main path runs most first in each row: LLaMA-2-7B widths
+    (S = 1 at 8 ragged slots; the verify's S = 5; 256-token chunks off the
+    page grid; pages of 16 and 128), 70B's GQA 64/8, head dims 64 and 256,
+    int8 caches under float32 and float16 q, and the float16 engines'
+    float16 q against float32 pools, which leads the paged float16 row
+    (float16 generate() runs a float16 static cache)."""
     f32, f16, i8 = torch.float32, torch.float16, torch.int8
-    out = {f"{k}_simt": [] for k in SIMT_KERNELS}
-    for kind, key in (("decode", "decode_attention_simt"), ("paged", "paged_attention_simt")):
+    out = {f"{k}_attention_{TAGS[t]}": [] for k in ("decode", "paged") for t in (f32, f16)}
+    for kind in ("decode", "paged"):
         specs = [  # (name, B, S, H, Hkv, offsets, q, kv, extra)
             ("7b_decode", 8, 1, 32, 32, RAGGED, f32, f32, {}),
-            ("7b_decode", 8, 1, 32, 32, RAGGED, f16, f16, {}),
+            ("7b_decode", 8, 1, 32, 32, RAGGED, f16, f16, {}),   # float16 generate()
             ("7b_decode", 8, 1, 32, 32, RAGGED, f16, f32, {}),   # a float16 model's engines
             ("7b_verify_s5", 8, VERIFY_S, 32, 32, VERIFY, f32, f32, {}),
             ("7b_verify_s5", 8, VERIFY_S, 32, 32, VERIFY, f16, f16, {}),
@@ -2140,15 +2162,33 @@ def simt_kernel_cases():
                 ("70b_gqa_chunk256", 2, 256, 64, 8, [1280, 384], f32, f32, {}),
                 ("7b_chunk256", 2, 256, 32, 32, [1280, 384], f32, i8, {}),
                 ("7b_chunk256", 2, 256, 32, 32, [1280, 384], f16, i8, {}),
+                # the other loads and layouts: pages of 24 (cp.async, no TMA),
+                # head dim 256 with planes (a one-stage ring; 64-row chunk
+                # tiles whose warpgroups own half of O each)
+                ("7b_decode_ps24", 8, 1, 32, 32, RAGGED, f32, f32, dict(ps=24)),
+                ("7b_chunk64_ps24", 2, 64, 32, 32, [1280, 384], f32, f32, dict(ps=24)),
+                ("d256_decode", 8, 1, 16, 16, RAGGED, f32, f32, dict(D=256)),
+                ("d256_decode_ps24", 4, 1, 16, 16, RAGGED[:4], f16, f32, dict(D=256, ps=24)),
+                ("d256_chunk64", 2, 64, 16, 8, [300, 40], f32, f32, dict(D=256)),
+                ("d256_chunk64_ps24", 2, 64, 16, 8, [300, 40], f16, f32, dict(D=256, ps=24)),
+                ("d256_chunk64", 2, 64, 16, 8, [300, 40], f16, i8, dict(D=256)),
             ]
         else:
             specs += [("7b_decode_l2000", 8, 1, 32, 32, [min(o, 1999) for o in RAGGED], f32, f32,
-                       dict(L=2000))]
+                       dict(L=2000)),
+                      ("d256_decode", 8, 1, 16, 16, RAGGED, f32, f32, dict(D=256)),
+                      ("d256_decode_l2000", 4, 1, 16, 16, [1999, 1500, 300, 37], f32, f32,
+                       dict(D=256, L=2000)),
+                      ("d256_verify_s5", 4, VERIFY_S, 16, 16, VERIFY[:4], f32, i8, dict(D=256)),
+                      ("70b_gqa_verify_s5", 4, VERIFY_S, 64, 8, VERIFY[:4], f32, f32, {})]
         for i, (name, B, S, H, Hkv, offs, qt, kvt, extra) in enumerate(specs):
             tag = TAGS[qt] if qt == kvt else f"{TAGS[qt]}_{TAGS[kvt]}kv"
-            out[key].append(simt_kv_case(kind, f"{name}_{tag}", B, S, H, Hkv, offs, qt, kvt,
-                                         100 + i, **extra))
+            key = f"{kind}_attention_{TAGS[qt]}"
+            out[key].append(typed_kv_case(kind, f"{name}_{tag}", B, S, H, Hkv, offs, qt, kvt,
+                                          100 + i, **extra))
             log_case(key, out[key][-1])
+    rows = out["paged_attention_f16"]  # a float16 model's engines lead the paged float16 row
+    rows.insert(0, rows.pop(1))
     return out
 
 
@@ -2440,7 +2480,7 @@ def kernel_phase():
         out[kern] += cases
     out["philox"] = [philox_case()]
     out.update(conv_bn_kernel_cases())
-    out.update(simt_kernel_cases())
+    out.update(typed_kv_cases())
     out.update(f32_forward_cases())
     out.update(f32_encoder_bwd_cases())
     f16_against_bf16(out)
@@ -2609,8 +2649,6 @@ def counters():
             "fused_ln_bwd": fl.fused_ln_bwd_kernel,
             "fused_conv_bn": fcb.fused_conv_bn_kernel,
             "fused_conv_bn_bwd": fcb.fused_conv_bn_bwd_kernel,
-            "paged_attention_simt": da.paged_attention_simt_kernel,
-            "decode_attention_simt": da.decode_attention_simt_kernel,
             "flash_attention_bwd_stats": fa.flash_attention_bwd_stats,
             "flash_attention_bwd_split": fa.flash_attention_bwd_split}
 
@@ -2635,33 +2673,19 @@ def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def kernel_for(name, dtype):
-    """The counter an attention kernel's launch at q's ``dtype`` adds to:
-    the tensor-core kernel's (bf16, and every type in flash and the
-    encoder: the admission's ``_simt.TC_TYPES``), or its f32 CUDA-core
-    counterpart's (``_simt``: decode and paged at float32 and float16)."""
-    from paddle_tpu_torch.ops import _simt
-
-    regime = {"flash_attention": "flash", "encoder_attention": "encoder",
-              "encoder_attention_bwd": "encoder_bwd"}.get(
-                  name, "flash_bwd" if name.startswith("flash_attention_") else None)
-    return name if dtype in _simt.TC_TYPES.get(regime, (torch.bfloat16,)) else f"{name}_simt"
-
-
 def model_dtype(model):
     return next(model.parameters()).dtype
 
 
-def prefill_kernel(cfg, B, S, dtype=torch.bfloat16):
-    """The kernel a no-cache prefill of [B, S] tokens at ``dtype`` runs per
-    layer: the reference's routing (encoder, flash, or None for dense
-    math), at the type's kernel (``kernel_for``)."""
+def prefill_kernel(cfg, B, S):
+    """The kernel a no-cache prefill of [B, S] tokens runs per layer, at any
+    type: the reference's routing (encoder, flash, or None for dense
+    math)."""
     from paddle_tpu_torch.nn.functional.attention import _reference_kernel
 
     H, D = cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads
     q = torch.empty(B, S, H, D, device="meta")
-    kern = _reference_kernel(q, q, None, True, "auto")
-    return kern and kernel_for(kern, dtype)
+    return _reference_kernel(q, q, None, True, "auto")
 
 
 def logit_tol(dtype, cache_dtype=None):
@@ -2762,8 +2786,8 @@ def generate_run(model, name, B, S0, n_new, cache_dtype, seed):
     wall = time.perf_counter() - t0
     launches = read_counts()                             # ... and ends here
     L, dt = cfg.num_hidden_layers, model_dtype(model)
-    expected = {kernel_for("decode_attention", dt): L * (n_new - 1)}
-    kern = prefill_kernel(cfg, B, S0, dt)
+    expected = {"decode_attention": L * (n_new - 1)}
+    kern = prefill_kernel(cfg, B, S0)
     if kern:
         expected[kern] = L
     path = static_path_logits(model, ids, out, cache_dtype)
@@ -2858,17 +2882,16 @@ def engine_run(model, name, eng, waves, check, split=None, verify=0):
     L, dt = cfg.num_hidden_layers, model_dtype(model)
     verifies = st["spec"]["verify_calls"] if st["spec"] else 0
     if eng.paged:
-        expected = {kernel_for("paged_attention", dt): L * (st["prefill_chunks"]
-                                                            + st["decode_ticks"] + verifies)}
+        expected = {"paged_attention": L * (st["prefill_chunks"] + st["decode_ticks"] + verifies)}
     else:
-        expected = {kernel_for("decode_attention", dt): L * (st["decode_steps"] + verifies)}
+        expected = {"decode_attention": L * (st["decode_steps"] + verifies)}
         for Lb, count in st["prefill_buckets"].items():
-            kern = prefill_kernel(cfg, 1, Lb, dt)
+            kern = prefill_kernel(cfg, 1, Lb)
             if kern:
                 expected[kern] = expected.get(kern, 0) + L * count
     valid = all(len(o) == r["max_new"] and all(0 <= t < cfg.vocab_size for t in o)
                 for o, r in zip(outs, reqs))
-    res = dict(path=name, cache=eng.cache_dtype or TAGS[eng.caches[0][0].dtype],
+    res = dict(path=name, dtype=TAGS[dt], cache=eng.cache_dtype or TAGS[eng.caches[0][0].dtype],
                requests=len(reqs),
                warmup_s=warm, wall_s=wall, launches=launches, expected_launches=expected,
                prefill_chunks=st["prefill_chunks"], decode_ticks=st["decode_ticks"],
@@ -3105,7 +3128,7 @@ def decode_breakdown(model, layout, ticks=8, spec_k=0):
         for e in kern:
             us = e.time_range.elapsed_us()
             low = e.name.lower()
-            kind = ("attention" if "kv_attention" in low or "simt_attention" in low else
+            kind = ("attention" if "kv_attention" in low else
                     "matmul" if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma")) else
                     "other")
             by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / ticks
@@ -3672,11 +3695,12 @@ def flash_launches(n, dtype):
     statistics pass and, at float32, its split pass."""
     bwd = ["flash_attention_bwd_stats", "flash_attention_dq", "flash_attention_dkv"]
     bwd += ["flash_attention_bwd_split"] if dtype == torch.float32 else []
-    return {kernel_for(k, dtype): n for k in ["flash_attention"] + bwd}
+    return {k: n for k in ["flash_attention"] + bwd}
 
 
-def encoder_launches(n, dtype):
-    return {kernel_for(k, dtype): n for k in ("encoder_attention", "encoder_attention_bwd")}
+def encoder_launches(n):
+    """Expected launches of ``n`` encoder forwards and backwards, at any type."""
+    return {k: n for k in ("encoder_attention", "encoder_attention_bwd")}
 
 
 def log_parity(r, card):
@@ -3723,7 +3747,7 @@ def train_phase(card, device="cuda", layers=12, parity_layers=2, heads=(16, 8), 
             D = small.config.hidden_size // small.config.num_attention_heads
             checks = [grad_parity(small, 2, 2048, 3, flash_launches(L, tdt), tol, scale)]
             if D != 256:
-                checks.append(grad_parity(small, 2, 512, 4, encoder_launches(L, tdt), tol, scale))
+                checks.append(grad_parity(small, 2, 512, 4, encoder_launches(L), tol, scale))
             del small
             for r in checks:
                 log_parity(r, card)
@@ -3745,7 +3769,7 @@ def train_phase(card, device="cuda", layers=12, parity_layers=2, heads=(16, 8), 
                               profiled=True)]
             if D != 256:  # float32's step profiled: its encoder backward's device time
                 part.append(train_run(model, f"b32_s512_accum2_clip{tag}", 32, 512, 1,
-                                      encoder_launches(2 * layers, tdt), steps=min(steps, 5),
+                                      encoder_launches(2 * layers), steps=min(steps, 5),
                                       warmup=warmup, accum_steps=2,
                                       grad_clip=ClipGradByGlobalNorm(1.0),
                                       profiled=dt == "float32"))
@@ -3853,7 +3877,7 @@ def ln_launches(n, bwd=True):
 def ernie_per_layer(L, dtype=torch.bfloat16):
     """Launches of one step of an ``L``-layer ERNIE at ``dtype``: the fused
     LN kernels and the encoder kernels of that type."""
-    return {**ln_launches(2 * L), **encoder_launches(L, dtype)}
+    return {**ln_launches(2 * L), **encoder_launches(L)}
 
 
 def ernie_grad_parity(model, batch, tol=GRAD_RTOL):
@@ -3946,7 +3970,7 @@ def ernie_eval(model, batch, tol=LOGIT_TOL):
     drift = (logits.float() - want.float()).abs().max().item()
     std = want.float().std().item()
     expected = {**ln_launches(2 * L, bwd=False),
-                kernel_for("encoder_attention", model_dtype(model)): L}
+                "encoder_attention": L}
     return dict(layers=L, logits_shape=list(logits.shape), max_logit_drift=drift,
                 logit_std=std, drift_in_std=drift / std, logit_tol_in_std=tol,
                 nsp_drift=(nsp.float() - want_nsp.float()).abs().max().item(),
@@ -4317,7 +4341,7 @@ def forward_run(model, name, B, S, seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()                             # ... and ends here
-    kern = prefill_kernel(cfg, B, S, dt)
+    kern = prefill_kernel(cfg, B, S)
     expected = {kern: cfg.num_hidden_layers} if kern else {}
     flash = cfg.use_flash_attention
     cfg.use_flash_attention = False
@@ -4374,9 +4398,9 @@ def dtypes_phase(card):
     [1, 2048] (flash) and [4, 512] (the encoder), both on the tensor cores;
     then BERT-base at float32 and at float16 (eval, [32, 128]; float16
     through the fused-LN kernels and the tensor-core encoder kernel at
-    float16).  Decode and paged launches are the f32 CUDA-core kernels';
-    flash and the encoder (generate()'s prefill, the forwards, BERT's eval)
-    run the tensor-core kernels, float32 as split-bf16 products."""
+    float16).  Decode, paged, flash and the encoder (generate()'s prefill,
+    the forwards, BERT's eval) run the tensor-core kernels at either type,
+    float32 as split-bf16 products."""
     import numpy as np
 
     runs, extra = [], {}
@@ -4540,8 +4564,8 @@ def main(argv=None):
     if "dtypes" in paths:
         t_ph = time.perf_counter()
         log("[dtypes] LLaMA-2-7B widths at float32 and float16, BERT-base at float32 and "
-            "float16: decode and paged on the f32 CUDA-core kernels, flash and the encoder on "
-            "wgmma (float32 as split-bf16 products)")
+            "float16: every attention kernel on the tensor cores (float32 as split-bf16 "
+            "products)")
         runs, report["dtypes"] = dtypes_phase(report["card"])
         report["paths"] += runs
         ok &= all(r["ok"] for r in runs)

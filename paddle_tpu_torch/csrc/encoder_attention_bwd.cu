@@ -113,7 +113,7 @@
 #include "encoder_wgmma.cuh"
 #include "split_bf16.cuh"
 
-// The instantiations, one list each (paddle_tpu_torch/ops/_simt.py
+// The instantiations, one list each (paddle_tpu_torch/ops/_admit.py
 // TC_TYPES, TC_TYPE_CODES; a CPU test parses these lines against them):
 // (element type, its type code), and the head dims.
 #define ENCODER_BWD_TYPES(X) X(__nv_bfloat16, 1) X(__half, 2) X(float, 0)

@@ -1,5 +1,7 @@
-// Ragged paged attention for Hopper (sm_90a), bf16 or int8 page pools, head
-// dims 64, 128 and 256.
+// Ragged paged attention for Hopper (sm_90a): q bf16, float16 or float32
+// against page pools of bf16, float16, float32 or int8 (kv_attention.cuh
+// KV_PAIRS; a float16 model's engines keep float32 pools), head dims 64, 128
+// and 256.
 //
 // Replaces: paddle_tpu/ops/decode_attention.py `_paged_kernel` (launched by
 // `_paged_pallas`).  One kernel serves every query block the paged serving
@@ -7,13 +9,14 @@
 // per-slot offset.  For q [B, S, H, D] against page pools [P, Hkv, ps, D]
 // walked through page_tbl [B, M], query position s of slot b attends keys
 // [0, lengths[b] - S + s] (lengths = offset + S), and query head h reads
-// kv head h / (H / Hkv).
+// kv head h / (H / Hkv); the output is in q's type.
 //
 // What bounds it on this card: a decode tick is memory bound.  It must read
 // the K and V rows of every valid token once (2 * Hkv * D bytes per token in
-// bf16, half of that in int8), so its floor is those bytes over the H100's
-// 3.35 TB/s; its arithmetic (4 * rows * keys * D operations) is two orders
-// below the tensor-core rate.  A prefill chunk reads the same bytes but
+// bf16 and float16, twice that in float32, half of that in int8), so its
+// floor is those bytes over the H100's 3.35 TB/s; its arithmetic (4 * rows
+// * keys * D operations, three bf16 products a product at float32) is two
+// orders below the tensor-core rate.  A prefill chunk reads the same bytes but
 // does S * rep times the arithmetic (4 * D * 256 * 1,500 operations a head
 // for a 256-token chunk at offset 1,280): it leans on the tensor cores, and
 // only `wgmma` reaches their rate.
@@ -30,7 +33,9 @@
 // table on the device and uses the page index as a TMA coordinate into a
 // map over the pool's P * Hkv * ps rows (int8 pages and their scales by
 // bulk copies; page sizes that do not tile 64-key runs, row by row with
-// cp.async).  A live slot's walk never goes past its last valid page, so
+// cp.async); a float32 pool's tiles are split into their bf16 planes in
+// shared memory, never in device memory.  A live slot's walk never goes
+// past its last valid page, so
 // it never touches the trash page 0; an idle slot, whose row the engine
 // masks to page 0 at length 1, reads one run of it and its output is
 // discarded.
@@ -41,9 +46,11 @@
 #include "kv_attention.cuh"
 
 // Plain C interface (bound with ctypes).  Returns a cudaError_t: 0 on a
-// clean launch.  Pointers are device pointers; `quant` selects int8 pools
-// with f32 scale pools (ks/vs ignored otherwise).  `part` (f32, splits * B
-// * Hkv * 16 * (D + 2)) and `ticket` (int32 [B * Hkv], zero) serve the
+// clean launch.  Pointers are device pointers; q_type and kv_type are type
+// codes (kv_attention.cuh KV_TYPES: 0 float32, 1 bf16, 2 float16, 3 int8),
+// a pair of KV_PAIRS, and out is of q's type; int8 pools take f32 scale
+// pools ks/vs [P, Hkv, ps] (ignored otherwise).  `part` (f32, splits * B *
+// Hkv * 16 * (D + 2)) and `ticket` (int32 [B * Hkv], zero) serve the
 // split-K merge of the decode regime (S * H / Hkv <= 16) when splits > 1;
 // `split_keys` keys a split, a multiple of 64, splits * split_keys >= M * ps.
 extern "C" int paged_attention_launch(const void* q, const void* k, const void* v,
@@ -51,15 +58,16 @@ extern "C" int paged_attention_launch(const void* q, const void* k, const void* 
                                       const void* lengths, const void* page_tbl,
                                       void* out, void* part, void* ticket, int B, int S, int H,
                                       int Hkv, int D, int P, int ps, int M, float scale,
-                                      int quant, int splits, int split_keys, void* stream) {
+                                      int q_type, int kv_type, int splits, int split_keys,
+                                      void* stream) {
   using namespace kv_attention;
   if (P <= 0 || ps <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
-  const Params p{static_cast<const bf16*>(q), k, v, static_cast<const float*>(ks),
-                 static_cast<const float*>(vs), static_cast<const int*>(lengths),
-                 static_cast<bf16*>(out), static_cast<float*>(part), static_cast<int*>(ticket),
-                 B, S, H, Hkv, /*rep: launch() sets it*/ 0, scale * kLog2e, split_keys};
-  return (int)launch(p, PagedRows{static_cast<const int*>(page_tbl), Hkv, ps, M, P}, D,
-                     quant != 0, splits, M * ps, static_cast<cudaStream_t>(stream));
+  const Params p{q, k, v, static_cast<const float*>(ks), static_cast<const float*>(vs),
+                 static_cast<const int*>(lengths), out, static_cast<float*>(part),
+                 static_cast<int*>(ticket), B, S, H, Hkv, /*rep: launch_kv() sets it*/ 0,
+                 scale * kLog2e, split_keys};
+  return (int)launch_kv(p, PagedRows{static_cast<const int*>(page_tbl), Hkv, ps, M, P}, D, q_type,
+                        kv_type, splits, M * ps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* paged_attention_error_string(int err) {

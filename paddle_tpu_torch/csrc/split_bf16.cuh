@@ -1,7 +1,8 @@
 // Float32 products on the bf16 tensor cores, as split-bf16 products: the
 // device code that the float32 instantiations of the flash and encoder
 // kernels, forward and backward (flash_attention.cu, flash_attention_bwd.cu,
-// encoder_attention.cu, encoder_attention_bwd.cu), share.
+// encoder_attention.cu, encoder_attention_bwd.cu), and of the decode and
+// paged kernels (kv_attention.cuh), share.
 //
 // Each f32 operand x is two bf16 planes, hi = RN(x) and lo = RN(x - hi)
 // (about 16 of f32's 24 bits), and each product A B is the sum of the terms
@@ -45,21 +46,22 @@ struct Plane {
   __host__ __device__ constexpr operator int() const { return V; }
 };
 
-// f(a, b, first) for each term of a product over P planes: (0, 0) alone at
-// P = 1, SPLIT_BF16_TERMS at P = 2; a and b are compile-time plane
+// f(a, b, first) for each term of a product of an operand of PA planes by
+// one of PB planes: the terms of SPLIT_BF16_TERMS whose planes both
+// operands have, in its order: (0, 0) alone at PA = PB = 1, all three at
+// PA = PB = 2, and at PA = 2, PB = 1 (a float32 or float16 q against a
+// 16-bit cache) lo x B then hi x B.  a and b are compile-time plane
 // indices, `first` marks the term that starts the accumulator.
-template <int P, typename F>
+template <int PA, int PB = PA, typename F>
 __device__ __forceinline__ void for_terms(F&& f) {
-  if constexpr (P == 1) {
-    f(Plane<0>(), Plane<0>(), true);
-  } else {
-    bool first = true;
-#define X(A, B)                     \
-  f(Plane<A>(), Plane<B>(), first); \
-  first = false;
-    SPLIT_BF16_TERMS(X)
-#undef X
+  bool first = true;
+#define X(A, B)                         \
+  if constexpr (A < PA && B < PB) {     \
+    f(Plane<A>(), Plane<B>(), first);   \
+    first = false;                      \
   }
+  SPLIT_BF16_TERMS(X)
+#undef X
 }
 
 // The A fragments of an m64 x N accumulator for the products: rounded to T,
@@ -102,17 +104,20 @@ __device__ __forceinline__ uint32_t split_pair(float x0, float x1, uint32_t& lo)
 // the same swizzle): hi then lo of each row, split_pair's values, the
 // layout the products read.  A row's bytes are the same D / 32 128-byte
 // lines of the tile in both layouts, so the warp that owns a row reads it
-// whole, syncs, and writes it back: the block's warps take 4 rows a round
-// each and need no barrier among themselves.  The caller fences
-// (fence_async_shared) and syncs the block before a product reads the tile.
+// whole, syncs, and writes it back: split_rows makes the calling warp's
+// rows (4-row groups from r0, every `step` rows, below r1), and
+// split_tile's warps take 4 rows a round each and need no barrier among
+// themselves.  The caller fences (fence_async_shared) and syncs the block
+// (or, where the warp alone reads its rows, the warp) before a product
+// reads the tile.
 template <int D, int ROWS>
-__device__ __forceinline__ void split_tile(bf16* tile) {
+__device__ __forceinline__ void split_rows(bf16* tile, int r0, int r1, int step) {
   static_assert(D % 64 == 0 && ROWS % 4 == 0, "whole 64-column pairs of panels, 4 rows a round");
   constexpr int J = D / 64;          // the lane's column pairs in a row: c = 64 j + 2 lane
   constexpr int kLo = J * ROWS * 128;  // bytes from a hi value to its lo value
   unsigned char* base = reinterpret_cast<unsigned char*>(tile);
   const int lane = threadIdx.x & 31;
-  for (int r0 = 4 * (threadIdx.x >> 5); r0 < ROWS; r0 += 4 * (kThreads / 32)) {
+  for (; r0 < r1; r0 += step) {
     float2 x[4][J];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -135,6 +140,12 @@ __device__ __forceinline__ void split_tile(bf16* tile) {
         *reinterpret_cast<uint32_t*>(at + kLo) = lo;
       }
   }
+}
+
+// The whole tile by the block's NT threads.
+template <int D, int ROWS, int NT = kThreads>
+__device__ __forceinline__ void split_tile(bf16* tile) {
+  split_rows<D, ROWS>(tile, 4 * (threadIdx.x >> 5), ROWS, 4 * (NT / 32));
 }
 
 // At float32 the f32 tiles of ROWS rows, as TMA wrote them, become their

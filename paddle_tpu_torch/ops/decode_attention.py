@@ -14,26 +14,28 @@ or a per-slot [B] vector), and query head h reads kv head h // (H / Hkv).
 Both dispatch on the tensor's device first: a CPU tensor takes the plain
 version (``_decode_dense``; ``_paged_dense`` gathers the pages first), a
 CUDA tensor launches a Hopper kernel or raises on a dtype or shape no
-kernel takes.  On the card the kernel follows q's type (``_simt.admit``):
-bfloat16 q (bfloat16 or int8 caches) runs ``csrc/decode_attention.cu`` and
-``csrc/paged_attention.cu`` on the tensor cores; float32 and float16 q
-(float32, float16 or int8 caches, as ``_simt.KV_PAIRS`` lists) run the f32
-CUDA-core body, ``csrc/attention_simt_decode.cu`` and
-``csrc/attention_simt_paged.cu``.  Nothing is cast to reach a kernel, and
-there is no fallback from a kernel to a plain version.  The
-reference's gates encode TPU measurements and tiling, so they are not
-copied: its ``B*H <= 192`` static-kernel gate (a v5e timing) and its
-``off_tile`` / ``query_rows_over_vmem`` paged gates.  Both Hopper kernels
-take every shape the engines produce, S > 1 included (per-row causal ends),
-at head dims 64, 128 and 256 (others raise: ROADMAP Queue 2, item 9).
+kernel takes.  On the card every (q, cache) type pair of
+``_admit.KV_PAIRS`` runs ``csrc/decode_attention.cu`` and
+``csrc/paged_attention.cu`` on the tensor cores: bfloat16 q against
+bfloat16 or int8 caches, float32 q against float32 or int8, float16 q
+against float16, float32 (a float16 model's engines) or int8; float32
+operands as split-bf16 products (``csrc/kv_attention.cuh``).  Nothing is
+cast to reach a kernel, and there is no fallback from a kernel to a plain
+version.  The reference's gates encode TPU measurements and tiling, so they
+are not copied: its ``B*H <= 192`` static-kernel gate (a v5e timing) and
+its ``off_tile`` / ``query_rows_over_vmem`` paged gates.  Both Hopper
+kernels take every shape the engines produce, S > 1 included (per-row
+causal ends), at head dims 64, 128 and 256 (others raise: ROADMAP Queue 2,
+item 9).
 
 The kernels run in two regimes on rows = S * (H / Hkv): up to 16 rows
 (decode ticks) split the keys into ``_split_plan``'s splits, fixed by the
 capacity and never by the lengths, and the last split of each (kv head,
 slot) merges the partials in split order within the launch; more rows
-(prefill chunks) run in 128-row ``wgmma`` tiles (bfloat16) or 64-row tiles
-(the CUDA-core body).  ``_split_merge_dense`` is the plain model of that
-merge and of the kernels' int8 rounding, for the tests and chip_smoke.py.
+(prefill chunks) run in ``wgmma`` tiles of 128 rows (64 at head dim 256
+where q or the cache is split into planes).  ``_split_merge_dense`` is the
+plain model of that merge and of the kernels' rounding, for the tests and
+chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -42,12 +44,12 @@ import functools
 
 import torch
 
-from . import _build, _simt
+from . import _admit, _build
 
 NEG_INF = -1e30
 # The head dims the kernels are built for, their key tile, and the most
 # query rows of one kv head (S * H / Hkv) the split-K decode regime takes.
-KV_HEAD_DIMS = (64, 128, 256)
+KV_HEAD_DIMS = _admit.KV_DIMS
 KEY_TILE = 64
 DECODE_ROWS = 16
 # Decode regime: split the keys until the grid holds about this many blocks
@@ -56,9 +58,8 @@ DECODE_ROWS = 16
 BLOCKS_PER_SM = 4
 MAX_SPLITS = 64
 
-__all__ = ["KV_HEAD_DIMS", "decode_attention", "decode_attention_kernel",
-           "decode_attention_simt_kernel", "gather_pages", "paged_decode_attention",
-           "paged_attention_kernel", "paged_attention_simt_kernel"]
+__all__ = ["KV_HEAD_DIMS", "decode_attention", "decode_attention_kernel", "gather_pages",
+           "paged_decode_attention", "paged_attention_kernel"]
 
 
 def gather_pages(pool, page_tbl):
@@ -181,28 +182,15 @@ def _check(cond, msg):
         raise ValueError(f"attention kernel: {msg}")
 
 
-def _check_head_dim(D):
-    """The head dims the kv-cache kernels are built for: 64, 128 and 256."""
-    _check(D in KV_HEAD_DIMS,
-           f"head dim {D}, the decode and paged kernels are built for "
-           f"{KV_HEAD_DIMS} (other head dims: ROADMAP Queue 2, item 9)")
-
-
-def _check_kv(q, k, v, k_scale, v_scale, kv_shape, regime, simt):
-    """Shared checks of the kv-cache kernels: the instantiation
-    ``_simt.admit`` picks for q's and k's dtypes (the CUDA-core body when
-    ``simt``, the bfloat16 kernel otherwise), q [B, S, H, D] on CUDA, k/v
-    contiguous ``kv_shape`` of one dtype, int8 with contiguous f32 scales of
-    ``kv_shape[:3]``.  Returns (q contiguous, quant, instantiation)."""
-    B, S, H, D = q.shape
+def _check_kv(q, k, v, k_scale, v_scale, kv_shape, regime):
+    """Shared checks of the kv-cache kernels: a (q, kv) type pair and head
+    dim ``_admit.admit`` admits, q [B, S, H, D] on CUDA, k/v contiguous
+    ``kv_shape`` of one dtype, int8 with contiguous f32 scales of
+    ``kv_shape[:3]``.  Returns (q contiguous, quant)."""
+    H, D = q.shape[2:]
     Hkv = kv_shape[1]
     _check(Hkv > 0 and H % Hkv == 0, f"H={H} is not a multiple of Hkv={Hkv}")
-    inst = _simt.admit(regime, q.dtype, k.dtype, D, S * (H // Hkv))
-    if not inst.simt:
-        _check_head_dim(D)
-    _check(inst.simt == simt, f"q dtype {q.dtype} runs "
-           f"{'paged' if regime == 'paged' else 'decode'}_attention"
-           f"{'_simt' if inst.simt else ''}_kernel (csrc/{inst.lib}.cu)")
+    _admit.admit(regime, q.dtype, k.dtype, D)
     quant = k_scale is not None
     dev = q.device
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
@@ -221,7 +209,7 @@ def _check_kv(q, k, v, k_scale, v_scale, kv_shape, regime, simt):
             _check(t.device == dev and t.dtype == torch.float32
                    and tuple(t.shape) == tuple(kv_shape[:3]) and t.is_contiguous(),
                    f"{name} must be contiguous float32 {tuple(kv_shape[:3])} on {dev}")
-    return q.contiguous(), quant, inst
+    return q.contiguous(), quant
 
 
 def _stream(dev):
@@ -264,22 +252,28 @@ def _workspace(q, Hkv, cap, stream):
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_PAGED_ARGS = [_PTR] * 10 + [_INT] * 8 + [ctypes.c_float] + [_INT] * 3 + [_PTR]
-_DECODE_ARGS = [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float] + [_INT] * 3 + [_PTR]
-# the CUDA-core entries: the bfloat16 kernels' arguments with (q type, kv
-# type) in place of `quant`
-_PAGED_SIMT_ARGS = [_PTR] * 10 + [_INT] * 8 + [ctypes.c_float] + [_INT] * 4 + [_PTR]
-_DECODE_SIMT_ARGS = [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float] + [_INT] * 4 + [_PTR]
+_PAGED_ARGS = [_PTR] * 10 + [_INT] * 8 + [ctypes.c_float] + [_INT] * 4 + [_PTR]
+_DECODE_ARGS = [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float] + [_INT] * 4 + [_PTR]
 
 
-def _paged(q, k_pages, v_pages, lengths, page_tbl, k_scale, v_scale, scale, simt):
-    """Check and launch a paged kernel: the CUDA-core entry of
-    ``csrc/attention_simt_paged.cu`` when ``simt``, else
-    ``csrc/paged_attention.cu``."""
+def _types(q, k):
+    """The (q, kv) type codes the C entries take (kv_attention.cuh KV_TYPES)."""
+    return _admit.KV_TYPE_CODES[q.dtype], _admit.KV_TYPE_CODES[k.dtype]
+
+
+def paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl,
+                           k_scale=None, v_scale=None, scale=None):
+    """Launch ``csrc/paged_attention.cu`` on CUDA tensors.
+
+    q [B, S, H, D] bfloat16, float16 or float32; pools [P, Hkv, ps, D] of a
+    type ``_admit.KV_PAIRS`` pairs with q's (int8 with f32 scale pools
+    [P, Hkv, ps]); lengths [B] (= offset + S); page_tbl [B, M]; D in
+    KV_HEAD_DIMS.  Returns [B, S, H, D] in q's dtype.  Raises ValueError on
+    anything else.  Every launch adds one to
+    ``paged_attention_kernel.launches``."""
     B, S, H, D = q.shape
     P, Hkv, ps = k_pages.shape[:3]
-    q, quant, inst = _check_kv(q, k_pages, v_pages, k_scale, v_scale, (P, Hkv, ps, D), "paged",
-                               simt)
+    q, quant = _check_kv(q, k_pages, v_pages, k_scale, v_scale, (P, Hkv, ps, D), "paged")
     dev = q.device
     _check(page_tbl.dim() == 2 and page_tbl.shape[0] == B,
            f"page_tbl shape {tuple(page_tbl.shape)}, need ({B}, M)")
@@ -295,29 +289,11 @@ def _paged(q, k_pages, v_pages, lengths, page_tbl, k_scale, v_scale, scale, simt
     with torch.cuda.device(dev):
         stream = _stream(dev)
         part, ticket, splits, split_keys = _workspace(q, Hkv, M * ps, stream)
-        head = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-                lengths.data_ptr(), page_tbl.data_ptr(), out.data_ptr(), part, ticket,
-                B, S, H, Hkv, D, P, ps, M, float(scale))
-        if simt:
-            _build.launch(inst.lib, _PAGED_SIMT_ARGS, *head, _simt.TYPE_CODES[q.dtype],
-                          _simt.TYPE_CODES[k_pages.dtype], splits, split_keys, stream,
-                          entry="paged_attention_simt")
-        else:
-            _build.launch(inst.lib, _PAGED_ARGS, *head, int(quant), splits, split_keys, stream)
-    return out
-
-
-def paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl,
-                           k_scale=None, v_scale=None, scale=None):
-    """Launch ``csrc/paged_attention.cu`` on CUDA tensors.
-
-    q [B, S, H, D] bf16; pools [P, Hkv, ps, D] bf16, or int8 with f32 scale
-    pools [P, Hkv, ps]; lengths [B] (= offset + S); page_tbl [B, M];
-    D in KV_HEAD_DIMS.  Returns [B, S, H, D] bf16.  Raises ValueError on
-    anything else (float32 and float16 q: ``paged_attention_simt_kernel``).
-    Every launch adds one to ``paged_attention_kernel.launches``."""
-    out = _paged(q, k_pages, v_pages, lengths, page_tbl, k_scale, v_scale, scale, simt=False)
+        _build.launch("paged_attention", _PAGED_ARGS, q.data_ptr(), k_pages.data_ptr(),
+                      v_pages.data_ptr(), k_scale.data_ptr() if quant else None,
+                      v_scale.data_ptr() if quant else None, lengths.data_ptr(),
+                      page_tbl.data_ptr(), out.data_ptr(), part, ticket, B, S, H, Hkv, D, P, ps,
+                      M, float(scale), *_types(q, k_pages), splits, split_keys, stream)
     paged_attention_kernel.launches += 1
     return out
 
@@ -325,29 +301,18 @@ def paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl,
 paged_attention_kernel.launches = 0
 
 
-def paged_attention_simt_kernel(q, k_pages, v_pages, lengths, page_tbl,
-                                k_scale=None, v_scale=None, scale=None):
-    """Launch ``csrc/attention_simt_paged.cu`` (f32 on the CUDA cores) on
-    CUDA tensors: q [B, S, H, D] float32 or float16 against pools of the
-    types ``_simt.KV_PAIRS`` pairs with it (float32, float16, or int8 with
-    f32 scale pools [P, Hkv, ps]), otherwise as ``paged_attention_kernel``.
+def decode_attention_kernel(q, k, v, lengths, k_scale=None, v_scale=None,
+                            scale=None):
+    """Launch ``csrc/decode_attention.cu`` on CUDA tensors.
+
+    q [B, S, H, D] bfloat16, float16 or float32; head-major caches k/v
+    [B, Hkv, L, D] of a type ``_admit.KV_PAIRS`` pairs with q's (int8 with
+    f32 scales [B, Hkv, L]); lengths [B] (= offset + S); D in KV_HEAD_DIMS.
     Returns [B, S, H, D] in q's dtype.  Raises ValueError on anything else.
-    Every launch adds one to ``paged_attention_simt_kernel.launches``."""
-    out = _paged(q, k_pages, v_pages, lengths, page_tbl, k_scale, v_scale, scale, simt=True)
-    paged_attention_simt_kernel.launches += 1
-    return out
-
-
-paged_attention_simt_kernel.launches = 0
-
-
-def _decode(q, k, v, lengths, k_scale, v_scale, scale, simt):
-    """Check and launch a static decode kernel: the CUDA-core entry of
-    ``csrc/attention_simt_decode.cu`` when ``simt``, else
-    ``csrc/decode_attention.cu``."""
+    Every launch adds one to ``decode_attention_kernel.launches``."""
     B, S, H, D = q.shape
     Hkv, L = k.shape[1], k.shape[2]
-    q, quant, inst = _check_kv(q, k, v, k_scale, v_scale, (B, Hkv, L, D), "decode", simt)
+    q, quant = _check_kv(q, k, v, k_scale, v_scale, (B, Hkv, L, D), "decode")
     dev = q.device
     _check(lengths.device == dev and lengths.shape == (B,),
            f"lengths must be [{B}] on q's device")
@@ -358,29 +323,11 @@ def _decode(q, k, v, lengths, k_scale, v_scale, scale, simt):
     with torch.cuda.device(dev):
         stream = _stream(dev)
         part, ticket, splits, split_keys = _workspace(q, Hkv, L, stream)
-        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-                lengths.data_ptr(), out.data_ptr(), part, ticket,
-                B, S, H, Hkv, D, L, float(scale))
-        if simt:
-            _build.launch(inst.lib, _DECODE_SIMT_ARGS, *head, _simt.TYPE_CODES[q.dtype],
-                          _simt.TYPE_CODES[k.dtype], splits, split_keys, stream,
-                          entry="decode_attention_simt")
-        else:
-            _build.launch(inst.lib, _DECODE_ARGS, *head, int(quant), splits, split_keys, stream)
-    return out
-
-
-def decode_attention_kernel(q, k, v, lengths, k_scale=None, v_scale=None,
-                            scale=None):
-    """Launch ``csrc/decode_attention.cu`` on CUDA tensors.
-
-    q [B, S, H, D] bf16; head-major caches k/v [B, Hkv, L, D] bf16, or int8
-    with f32 scales [B, Hkv, L]; lengths [B] (= offset + S); D in
-    KV_HEAD_DIMS.  Returns [B, S, H, D] bf16.  Raises ValueError on anything
-    else (float32 and float16 q: ``decode_attention_simt_kernel``).  Every
-    launch adds one to ``decode_attention_kernel.launches``."""
-    out = _decode(q, k, v, lengths, k_scale, v_scale, scale, simt=False)
+        _build.launch("decode_attention", _DECODE_ARGS, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      k_scale.data_ptr() if quant else None,
+                      v_scale.data_ptr() if quant else None, lengths.data_ptr(), out.data_ptr(),
+                      part, ticket, B, S, H, Hkv, D, L, float(scale), *_types(q, k), splits,
+                      split_keys, stream)
     decode_attention_kernel.launches += 1
     return out
 
@@ -388,38 +335,20 @@ def decode_attention_kernel(q, k, v, lengths, k_scale=None, v_scale=None,
 decode_attention_kernel.launches = 0
 
 
-def decode_attention_simt_kernel(q, k, v, lengths, k_scale=None, v_scale=None,
-                                 scale=None):
-    """Launch ``csrc/attention_simt_decode.cu`` (f32 on the CUDA cores) on
-    CUDA tensors: q [B, S, H, D] float32 or float16 against head-major
-    caches of the types ``_simt.KV_PAIRS`` pairs with it (float32, float16,
-    or int8 with f32 scales [B, Hkv, L]), otherwise as
-    ``decode_attention_kernel``.  Returns [B, S, H, D] in q's dtype.  Raises
-    ValueError on anything else.  Every launch adds one to
-    ``decode_attention_simt_kernel.launches``."""
-    out = _decode(q, k, v, lengths, k_scale, v_scale, scale, simt=True)
-    decode_attention_simt_kernel.launches += 1
-    return out
-
-
-decode_attention_simt_kernel.launches = 0
-
-
 def decode_attention(q, k, v, offset, k_scale=None, v_scale=None, scale=None):
     """Attention of q [B, S, H, D] against a head-major STATIC cache
     k/v [B, Hkv, L, D] whose first offset + s + 1 positions are visible to
     query position s (offset a scalar or a per-slot [B] vector).  int8
     caches pass per-(head, token) scales [B, Hkv, L].  CPU tensors take the
-    plain version; CUDA tensors the Hopper kernel of q's dtype
-    (``_simt.admit``).  Returns [B, S, H, D] in q's dtype."""
+    plain version; CUDA tensors the Hopper kernel.  Returns [B, S, H, D]
+    in q's dtype."""
     B, S, H, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     if q.device.type == "cpu":
         return _decode_dense(q, k, v, offset, k_scale, v_scale, scale)
     lengths = (_offsets(offset, B, q.device) + S).to(torch.int32)
-    kernel = decode_attention_kernel if q.dtype == torch.bfloat16 else decode_attention_simt_kernel
-    return kernel(q, k, v, lengths, k_scale, v_scale, scale)
+    return decode_attention_kernel(q, k, v, lengths, k_scale, v_scale, scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, offset, page_tbl,
@@ -429,8 +358,8 @@ def paged_decode_attention(q, k_pages, v_pages, offset, page_tbl,
     offset + s + 1 positions of each slot visible to query position s
     (offset a scalar or a per-slot [B] vector).  int8 pools pass
     per-(head, token) scale pools [P, Hkv, page_size].  CPU tensors take the
-    plain version; CUDA tensors the Hopper kernel of q's dtype
-    (``_simt.admit``).  Returns [B, S, H, D] in q's dtype."""
+    plain version; CUDA tensors the Hopper kernel.  Returns [B, S, H, D]
+    in q's dtype."""
     B, S, H, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)
@@ -438,5 +367,5 @@ def paged_decode_attention(q, k_pages, v_pages, offset, page_tbl,
         return _paged_dense(q, k_pages, v_pages, offset, page_tbl, k_scale,
                             v_scale, scale)
     lengths = (_offsets(offset, B, q.device) + S).to(torch.int32)
-    kernel = paged_attention_kernel if q.dtype == torch.bfloat16 else paged_attention_simt_kernel
-    return kernel(q, k_pages, v_pages, lengths, page_tbl, k_scale, v_scale, scale)
+    return paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl, k_scale, v_scale,
+                                  scale)

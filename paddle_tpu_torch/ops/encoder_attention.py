@@ -30,7 +30,7 @@ backward or raises.  Both run on the tensor cores at bfloat16, float16 and
 float32 (one ``wgmma`` design each, instantiated at the inputs' type; at
 float32 each f32 tile is split into two bf16 planes in shared memory and
 each product runs as three bf16 products, the same Philox mask from the
-same seed), as ``_simt.admit`` decides.  Nothing is cast to reach a
+same seed), as ``_admit.admit`` decides.  Nothing is cast to reach a
 kernel.  The kernels read q, k, v and dO through TMA with their own
 strides, so strided views such as the three slices of one packed
 [B, S, 3, H, D] projection launch without copies; only a view they cannot
@@ -42,7 +42,7 @@ import ctypes
 
 import torch
 
-from . import _build, _simt
+from . import _admit, _build
 from ._prng import encoder_bits, keep_mask, launch_args
 
 NEG_INF = -1e30
@@ -143,7 +143,7 @@ def _tma_strides(t):
 
 
 def _check_inputs(tensors, regime="encoder"):
-    """The kernels' admission: a type ``_simt.admit`` admits to the
+    """The kernels' admission: a type ``_admit.admit`` admits to the
     tensor-core kernels (bfloat16, float16 or float32; ``regime``
     "encoder" or "encoder_bwd"), CUDA, one dtype, one [B, S, H, D] shape
     that ``supported`` admits.  Returns the tensors as they are where the
@@ -152,7 +152,7 @@ def _check_inputs(tensors, regime="encoder"):
     q = tensors["q"]
     B, S, H, D = q.shape
     dev = q.device
-    _simt.admit(regime, q.dtype, q.dtype, D)
+    _admit.admit(regime, q.dtype, q.dtype, D)
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
     for name, t in tensors.items():
         _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
@@ -205,7 +205,7 @@ def encoder_attention_kernel(q, k, v, scale=None, causal=False, seed=None, rate=
         _build.launch("encoder_attention", _ARGS, q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, S, D,
                       *_strides(q, k, v), float(scale), int(bool(causal)),
-                      _simt.TC_TYPE_CODES[q.dtype], sp, thresh, float(inv),
+                      _admit.TC_TYPE_CODES[q.dtype], sp, thresh, float(inv),
                       torch.cuda.current_stream(dev).cuda_stream)
     encoder_attention_kernel.launches += 1
     return o, lse
@@ -261,7 +261,7 @@ def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=Non
         _build.launch("encoder_attention_bwd", _BWD_ARGS,
                       *(ptr(t) for t in (q, k, v, do, lse, stats, bits, dq, dk, dv)),
                       B, H, S, D, *_strides(q, k, v, do), float(scale), int(bool(causal)),
-                      _simt.TC_TYPE_CODES[q.dtype], sp, thresh, float(inv),
+                      _admit.TC_TYPE_CODES[q.dtype], sp, thresh, float(inv),
                       torch.cuda.current_stream(dev).cuda_stream)
     encoder_attention_bwd_kernel.launches += 1
     return dq, dk, dv

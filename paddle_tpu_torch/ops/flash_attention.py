@@ -25,7 +25,7 @@ backward or raises.  Both run on the tensor cores at every type (one
 modelled by ``_split_planes_dense``, and each product as three bf16
 products: the forward splits its f32 tiles in shared memory, the backward
 takes the planes from its split pass ``flash_attention_bwd_split``), as
-``_simt.admit`` decides.  The backward's statistics pass (and at float32
+``_admit.admit`` decides.  The backward's statistics pass (and at float32
 its split pass) runs once per backward.  Nothing is cast to reach a
 kernel.  The reference's block-size
 rules (``_auto_block``, ``block_q``/``block_k``, its autotune hook) describe
@@ -39,7 +39,7 @@ import ctypes
 
 import torch
 
-from . import _build, _simt
+from . import _admit, _build
 
 NEG_INF = -1e30
 
@@ -117,8 +117,8 @@ FWD_HEAD_DIMS = (64, 128, 256)  # csrc/flash_attention.cu FLASH_DIMS
 BWD_HEAD_DIMS = (64, 128, 256)  # csrc/flash_attention_bwd.cu FLASH_BWD_DIMS
 # The tensor-core kernels' element types and the type codes their entries
 # take (csrc/flash_attention.cu FLASH_TYPES, flash_attention_bwd.cu
-# FLASH_BWD_TYPES; _simt.TC_TYPES admits them): the encoder's table too.
-TYPE_CODES = _simt.TC_TYPE_CODES
+# FLASH_BWD_TYPES; _admit.TC_TYPES admits them): the encoder's table too.
+TYPE_CODES = _admit.TC_TYPE_CODES
 
 
 def _check_head_dim(D, backward=False):
@@ -129,13 +129,13 @@ def _check_head_dim(D, backward=False):
 
 
 def _check_inputs(tensors, B, Sq, Sk, H, D, causal, backward=False):
-    """The kernels' common admission: a type ``_simt.admit`` admits to the
+    """The kernels' common admission: a type ``_admit.admit`` admits to the
     tensor-core kernels (bfloat16, float16 or float32, forward and
     backward), CUDA, the head dim (see ``_check_head_dim``), one dtype, the
     shapes, 16-byte aligned storage."""
     q = tensors["q"]
     dev = q.device
-    _simt.admit("flash_bwd" if backward else "flash", q.dtype, q.dtype, D)
+    _admit.admit("flash_bwd" if backward else "flash", q.dtype, q.dtype, D)
     _check(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
     _check_head_dim(D, backward)
     for name, t in tensors.items():

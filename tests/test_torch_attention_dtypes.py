@@ -1,14 +1,15 @@
 """Port parity at float16 and float32: the attention forward kernels'
 plain versions and the admission by type of every attention kernel.
 
-On the card, flash and the encoder, forward and backward, run the
-tensor-core kernels at bfloat16, float16 and float32
-(``csrc/flash_attention.cu``, ``flash_attention_bwd.cu``,
-``encoder_attention.cu``, ``encoder_attention_bwd.cu``; float32 as
-split-bf16 products), and decode and paged run them at bfloat16; float32
-and float16 q in decode and paged run the f32 CUDA-core kernels of
-``csrc/attention_simt.cuh``.  Which one, and which instantiation, is
-``ops/_simt.admit``'s decision.  Here, on the CPU, the tests hold:
+On the card every attention kernel runs on the tensor cores at
+bfloat16, float16 and float32 (float32 as split-bf16 products): flash and
+the encoder, forward and backward (``csrc/flash_attention.cu``,
+``flash_attention_bwd.cu``, ``encoder_attention.cu``,
+``encoder_attention_bwd.cu``), and decode and paged
+(``csrc/decode_attention.cu``, ``paged_attention.cu``, one body in
+``kv_attention.cuh``) at every (q, cache) pair it is built for.  Which
+instantiation a call runs is ``ops/_admit.admit``'s decision.  Here, on
+the CPU, the tests hold:
 
 * the plain decode, paged, encoder-forward and flash-forward functions at
   float16 (what a CPU tensor runs, and the kernels' oracle in
@@ -21,15 +22,17 @@ and float16 q in decode and paged run the f32 CUDA-core kernels of
   scores from the int8 cache widened exactly, p rounded to bfloat16 after
   the v-scale) with float32 and float16 q against the reference's kernels,
   within the reference's own int8 bound, 3e-4 (tests/test_decode_attention.py);
-* the admission lists against the ``SIMT_*`` instantiation lists of the
-  decode and paged ``attention_simt.cuh`` and the ``FLASH_*`` and
-  ``ENCODER_*`` lists of the tensor-core flash and encoder sources, their
-  type codes one table (``_simt.TC_TYPE_CODES``);
+* the admission lists against the ``KV_*`` instantiation lists of
+  ``kv_attention.cuh`` and the ``FLASH_*`` and ``ENCODER_*`` lists of the
+  flash and encoder sources, their type codes one table
+  (``_admit.TC_TYPE_CODES``; the decode and paged entries'
+  ``_admit.KV_TYPE_CODES`` agree with it on the float types);
 * float64 q refused, naming the admitted types; every float32 and float16
   flash and encoder call, forward and backward, admitted to the
   tensor-core kernels, flash at head dims 64, 128 and 256 at every type
-  (the encoder at 64 and 128); one wrapper a kernel at every type, no cast
-  to bfloat16, and the wrappers refuse CPU tensors;
+  (the encoder at 64 and 128), every decode and paged pair at 64, 128 and
+  256; one wrapper a kernel at every type, no cast to bfloat16, and the
+  wrappers refuse CPU tensors;
 * a small LLaMA at float16 (head dim 64) through the paged engine, greedy
   tokens equal to the reference engine's.
 """
@@ -52,18 +55,19 @@ from paddle_tpu.ops import encoder_attention as jea
 from paddle_tpu_torch.convert import load_reference_state
 from paddle_tpu_torch.inference import LLMEngine
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-from paddle_tpu_torch.ops import _simt
+from paddle_tpu_torch.ops import _admit
 from paddle_tpu_torch.ops import decode_attention as tda
 from paddle_tpu_torch.ops import encoder_attention as tea
 from paddle_tpu_torch.ops import flash_attention as tfa
 
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
-CUH = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc" / "attention_simt.cuh"
+CUH = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc" / "kv_attention.cuh"
 FLASH_CU = CUH.with_name("flash_attention.cu")
 FLASH_BWD_CU = CUH.with_name("flash_attention_bwd.cu")
 ENCODER_CU = CUH.with_name("encoder_attention.cu")
 ENCODER_BWD_CU = CUH.with_name("encoder_attention_bwd.cu")
-TORCH_OF_C = {"__nv_bfloat16": torch.bfloat16, "__half": torch.float16, "float": torch.float32}
+TORCH_OF_C = {"__nv_bfloat16": torch.bfloat16, "__half": torch.float16, "float": torch.float32,
+              "int8_t": torch.int8}
 F16_TOL = 1e-2
 F16_MODEL_TOL = 4e-3
 INT8_TOL = 3e-4
@@ -215,51 +219,54 @@ def _cuh_list(name, path=CUH):
 def _tc_built(cu, types, dims):
     """The tensor-core flash or encoder instantiations a source builds: its
     (element type, type code) list against the type codes the wrappers pass
-    (_simt.TC_TYPE_CODES, which flash's TYPE_CODES is: one table, each
+    (_admit.TC_TYPE_CODES, which flash's TYPE_CODES is: one table, each
     source building a part of it), times its head dims."""
     codes = {TORCH_OF_C[c]: int(code) for c, code in _cuh_list(types, cu)}
-    assert all(_simt.TC_TYPE_CODES[t] == c for t, c in codes.items())
-    assert tfa.TYPE_CODES is _simt.TC_TYPE_CODES
+    assert all(_admit.TC_TYPE_CODES[t] == c for t, c in codes.items())
+    assert tfa.TYPE_CODES is _admit.TC_TYPE_CODES
     return {(cu.stem, t, t, int(d), None) for t in codes for (d,) in _cuh_list(dims, cu)}
 
 
 def test_admission_list_is_the_cuh_instantiations():
-    """ops/_simt.py's decode and paged lists are the .cuh's SIMT_* lists,
-    and every instantiation admit() can return is one a source builds: both
-    row tiles of every (q, kv) pair and head dim on the CUDA cores, and
-    flash and the encoder at bfloat16, float16 and float32 on the tensor
-    cores (flash_attention.cu's FLASH_TYPES and FLASH_DIMS,
-    encoder_attention.cu's ENCODER_TYPES and ENCODER_DIMS, the head dims
-    ``supported`` admits).  The CUDA-core flash and encoder forwards are
-    gone, with their lists."""
-    C = {v: k for k, v in _simt.C_TYPES.items()}
-    assert [(C[a], C[b]) for a, b in _cuh_list("SIMT_KV_PAIRS")] == list(_simt.KV_PAIRS)
-    assert [int(d) for (d,) in _cuh_list("SIMT_KV_DIMS")] == list(_simt.KV_DIMS)
-    text = CUH.read_text()
-    for gone in ("SIMT_FLASH_TYPES", "SIMT_ENCODER_TYPES", "SIMT_FLASH_DIMS",
-                 "SIMT_ENCODER_DIMS", "SeqRows", "launch_seq", "philox"):
-        assert gone not in text
-    assert not any(hasattr(_simt, n) for n in ("FLASH_TYPES", "ENCODER_TYPES", "FLASH_DIMS",
-                                                "ENCODER_DIMS"))
-    for gone in ("attention_simt_flash.cu", "attention_simt_encoder.cu"):
+    """ops/_admit.py's decode and paged lists are kv_attention.cuh's KV_*
+    lists (type codes, (q, kv) pairs, head dims), and every instantiation
+    admit() can return is one a source builds: both regimes of every (q, kv)
+    pair and head dim of the decode and paged kernels, and flash and the
+    encoder at bfloat16, float16 and float32 (flash_attention.cu's
+    FLASH_TYPES and FLASH_DIMS, encoder_attention.cu's ENCODER_TYPES and
+    ENCODER_DIMS, the head dims ``supported`` admits).  No attention body
+    is left on the CUDA cores: attention_simt.cuh and its entries are gone,
+    with their lists."""
+    codes = {TORCH_OF_C[c]: int(code) for c, code in _cuh_list("KV_TYPES")}
+    assert codes == _admit.KV_TYPE_CODES
+    assert all(_admit.KV_TYPE_CODES[t] == c for t, c in _admit.TC_TYPE_CODES.items())
+    assert {t: TORCH_OF_C[c] for t, c in _admit.C_TYPES.items()} == {t: t for t in codes}
+    assert ([(TORCH_OF_C[a], TORCH_OF_C[b]) for a, b in _cuh_list("KV_PAIRS")]
+            == list(_admit.KV_PAIRS))
+    assert ([int(d) for (d,) in _cuh_list("KV_DIMS")] == list(_admit.KV_DIMS)
+            == list(tda.KV_HEAD_DIMS))
+    for gone in ("attention_simt.cuh", "attention_simt_decode.cu", "attention_simt_paged.cu",
+                 "attention_simt_flash.cu", "attention_simt_encoder.cu"):
         assert not (CUH.parent / gone).exists()
-    built = {(f"attention_simt_{r}", q, kv, D, rows)
-             for r in ("decode", "paged") for q, kv in _simt.KV_PAIRS for D in _simt.KV_DIMS
-             for rows in (_simt.DECODE_ROWS, _simt.CHUNK_ROWS)}
+    assert not any(hasattr(_admit, n) for n in ("FLASH_TYPES", "ENCODER_TYPES", "FLASH_DIMS",
+                                                 "ENCODER_DIMS", "TYPE_CODES", "BF16_KV"))
+    built = {(f"{r}_attention", q, kv, D, split_k)
+             for r in ("decode", "paged") for q, kv in _admit.KV_PAIRS for D in _admit.KV_DIMS
+             for split_k in (True, False)}
     flash = _tc_built(FLASH_CU, "FLASH_TYPES", "FLASH_DIMS")
     enc = _tc_built(ENCODER_CU, "ENCODER_TYPES", "ENCODER_DIMS")
     built |= flash | enc
     for regime, tc in (("flash", flash), ("encoder", enc)):
-        assert (set(_simt.TC_TYPES[regime]) == {b[1] for b in tc}
+        assert (set(_admit.TC_TYPES[regime]) == {b[1] for b in tc}
                 == {torch.bfloat16, torch.float16, torch.float32})
     assert {d for *_, d, _ in flash} == set(tfa.FWD_HEAD_DIMS)
     assert ({d for *_, d, _ in enc}
             == {d for d in range(8, 513, 8) if tea.supported(1, 128, d)})
-    admitted = {tuple(_simt.admit(r, q, kv, D, rows))
-                for r in ("decode", "paged") for q, kv in _simt.KV_PAIRS for D in _simt.KV_DIMS
-                for rows in (1, _simt.DECODE_ROWS, _simt.DECODE_ROWS + 1)}
-    admitted |= {tuple(_simt.admit(r, t, t, D)) for r, dims in (("flash", tfa.FWD_HEAD_DIMS),
-                                                              ("encoder", (64, 128)))
+    admitted = {tuple(_admit.admit(r, q, kv, D, rows))
+                for r in ("decode", "paged") for q, kv in _admit.KV_PAIRS for D in _admit.KV_DIMS
+                for rows in (1, _admit.DECODE_ROWS, _admit.DECODE_ROWS + 1)}
+    admitted |= {tuple(_admit.admit(r, t, t, D)) for r, dims in (("flash", tfa.FWD_HEAD_DIMS),
+                                                               ("encoder", (64, 128)))
                  for t in (torch.float32, torch.float16, torch.bfloat16) for D in dims}
     assert admitted == built
     for lib in {b[0] for b in built}:  # each entry's source exists
@@ -268,7 +275,7 @@ def test_admission_list_is_the_cuh_instantiations():
 
 def test_backward_admission_list_is_the_cuh_instantiations():
     """No backward is built on the CUDA cores (attention_simt_bwd.cuh and
-    its entries are gone, and _simt keeps no list of them), and every
+    its entries are gone, and _admit keeps no list of them), and every
     instantiation admit() returns for "flash_bwd" and "encoder_bwd" at
     float32, float16 and bfloat16 is one a tensor-core source builds: the
     flash backward (flash_attention_bwd.cu's FLASH_BWD_TYPES and
@@ -278,17 +285,17 @@ def test_backward_admission_list_is_the_cuh_instantiations():
     for gone in ("attention_simt_bwd.cuh", "attention_simt_flash_bwd.cu",
                  "attention_simt_encoder_bwd.cu"):
         assert not (CUH.parent / gone).exists()
-    assert not any(hasattr(_simt, n) for n in ("ENCODER_BWD_TYPES", "ENCODER_BWD_DIMS",
+    assert not any(hasattr(_admit, n) for n in ("ENCODER_BWD_TYPES", "ENCODER_BWD_DIMS",
                                                 "BWD_ROWS"))
     tc = _tc_built(FLASH_BWD_CU, "FLASH_BWD_TYPES", "FLASH_BWD_DIMS")
     tc_enc = _tc_built(ENCODER_BWD_CU, "ENCODER_BWD_TYPES", "ENCODER_BWD_DIMS")
     for regime, lib in (("flash_bwd", tc), ("encoder_bwd", tc_enc)):
-        assert set(_simt.TC_TYPES[regime]) == {b[1] for b in lib} == set(_simt.TC_TYPE_CODES)
-    admitted = {tuple(_simt.admit(r, t, t, D)) for r, dims in (("flash_bwd", (64, 128, 256)),
+        assert set(_admit.TC_TYPES[regime]) == {b[1] for b in lib} == set(_admit.TC_TYPE_CODES)
+    admitted = {tuple(_admit.admit(r, t, t, D)) for r, dims in (("flash_bwd", (64, 128, 256)),
                                                                ("encoder_bwd", (64, 128)))
                 for t in (torch.float32, torch.float16, torch.bfloat16) for D in dims}
     assert admitted == tc | tc_enc
-    assert {tuple(_simt.admit("flash_bwd", t, t, D)) for t in tfa.TYPE_CODES
+    assert {tuple(_admit.admit("flash_bwd", t, t, D)) for t in tfa.TYPE_CODES
             for D in tfa.BWD_HEAD_DIMS} == tc
     assert ({d for *_, d, _ in tc_enc}
             == {d for d in range(8, 513, 8) if tea.supported(1, 128, d)})
@@ -310,9 +317,9 @@ def _encoder_refusals(regime, q16, q32):
 @pytest.mark.parametrize("regime", ["decode", "paged", "flash", "flash_bwd", "encoder",
                                     "encoder_bwd"])
 def test_admission_picks_kernel_by_q_dtype(regime):
-    """decode and paged: bfloat16 q on the tensor-core kernels, every
-    (q, kv) pair of float32 and float16 on the CUDA-core ones, by rows.
-    flash and the encoder, forward and backward: every type on the
+    """decode and paged: every (q, kv) pair built on the one kernel of
+    each, at head dims 64, 128 and 256, its regime by rows (split-K up to
+    16).  flash and the encoder, forward and backward: every type on the
     tensor-core kernels (float32 as split-bf16 products); float16 against
     bfloat16 k/v and float32 against float16 are refused (no cast reaches a
     kernel), and each wrapper refuses float64, naming the types it takes."""
@@ -321,12 +328,12 @@ def test_admission_picks_kernel_by_q_dtype(regime):
         tc_lib = "encoder_attention" + ("_bwd" if regime == "encoder_bwd" else "")
         for t in tc_types:
             for D in (64, 128):
-                got = _simt.admit(regime, t, t, D)
-                assert not got.simt and got.lib == tc_lib and (got.q, got.kv, got.D) == (t, t, D)
+                got = _admit.admit(regime, t, t, D)
+                assert got.lib == tc_lib and (got.q, got.kv, got.D) == (t, t, D)
         with pytest.raises(ValueError, match="q float16 takes k/v of float16"):
-            _simt.admit(regime, torch.float16, torch.bfloat16, 128)
+            _admit.admit(regime, torch.float16, torch.bfloat16, 128)
         with pytest.raises(ValueError, match="q float32 takes k/v of float32"):
-            _simt.admit(regime, torch.float32, torch.float16, 128)
+            _admit.admit(regime, torch.float32, torch.float16, 128)
         q16, q32 = (torch.zeros(1, 128, 2, 64, dtype=t) for t in (torch.float16, torch.float32))
         for fn, args, msg in _encoder_refusals(regime, q16, q32):
             before = fn.launches
@@ -338,12 +345,12 @@ def test_admission_picks_kernel_by_q_dtype(regime):
         tc_lib = "flash_attention" + ("_bwd" if regime == "flash_bwd" else "")
         for t in tc_types:
             for D in (64, 128, 256):
-                got = _simt.admit(regime, t, t, D)
-                assert not got.simt and got.lib == tc_lib and (got.q, got.kv, got.D) == (t, t, D)
+                got = _admit.admit(regime, t, t, D)
+                assert got.lib == tc_lib and (got.q, got.kv, got.D) == (t, t, D)
         with pytest.raises(ValueError, match="q float16 takes k/v of float16"):
-            _simt.admit(regime, torch.float16, torch.bfloat16, 128)
+            _admit.admit(regime, torch.float16, torch.bfloat16, 128)
         with pytest.raises(ValueError, match="q float32 takes k/v of float32"):
-            _simt.admit(regime, torch.float32, torch.float16, 128)
+            _admit.admit(regime, torch.float32, torch.float16, 128)
         q16, q64 = (torch.zeros(1, 128, 2, 64, dtype=t) for t in (torch.float16, torch.float64))
         lse = torch.zeros(1, 2, 128)
         if regime == "flash":
@@ -360,27 +367,27 @@ def test_admission_picks_kernel_by_q_dtype(regime):
                 fn(*args)
             assert fn.launches == before
         return
-    bf = _simt.admit(regime, torch.bfloat16, torch.int8, 128, 1)
-    assert not bf.simt and bf.lib == f"{regime}_attention"
-    for q, kv in _simt.KV_PAIRS:
-        got = _simt.admit(regime, q, kv, 128, 16)
-        assert got.simt and got.rows == 16 and (got.q, got.kv) == (q, kv)
-        assert _simt.admit(regime, q, kv, 64, 17).rows == 64
+    for q, kv in _admit.KV_PAIRS:
+        for D in (64, 128, 256):
+            got = _admit.admit(regime, q, kv, D, 16)
+            assert got.lib == f"{regime}_attention" and got.split_k
+            assert (got.q, got.kv, got.D) == (q, kv, D)
+            assert not _admit.admit(regime, q, kv, D, 17).split_k
     with pytest.raises(ValueError, match="pairs built"):  # no cast to reach a kernel
-        _simt.admit(regime, torch.float32, torch.float16, 128)
+        _admit.admit(regime, torch.float32, torch.float16, 128)
     with pytest.raises(ValueError, match="Queue 2, item 9"):
-        _simt.admit(regime, torch.float32, torch.float32, 96)
+        _admit.admit(regime, torch.float32, torch.float32, 96)
 
 
 @pytest.mark.parametrize("regime", ["decode", "paged", "flash", "encoder"])
 def test_f64_q_refused_naming_admitted_dtypes(regime):
     with pytest.raises(ValueError, match="bfloat16, float32, float16"):
-        _simt.admit(regime, torch.float64, torch.float64, 128)
+        _admit.admit(regime, torch.float64, torch.float64, 128)
     q = torch.zeros(1, 128, 2, 64, dtype=torch.float64)
-    kernels = {"decode": lambda: tda.decode_attention_simt_kernel(
+    kernels = {"decode": lambda: tda.decode_attention_kernel(
                    q[:, :1], q.reshape(1, 2, 128, 64), q.reshape(1, 2, 128, 64),
                    torch.ones(1, dtype=torch.int32)),
-               "paged": lambda: tda.paged_attention_simt_kernel(
+               "paged": lambda: tda.paged_attention_kernel(
                    q[:, :1], q.reshape(1, 2, 128, 64), q.reshape(1, 2, 128, 64),
                    torch.ones(1, dtype=torch.int32), torch.zeros(1, 1, dtype=torch.int32)),
                "flash": lambda: tfa.flash_attention_kernel(q, q, q),
@@ -404,16 +411,15 @@ def test_backward_refused_naming_queue_2_item_11(dtype):
     for regime in ("flash_bwd", "encoder_bwd"):
         lib = f"{regime[:-4]}_attention_bwd"
         for D in (64, 128, 256) if regime == "flash_bwd" else (64, 128):
-            got = _simt.admit(regime, dtype, dtype, D)
-            assert not got.simt
+            got = _admit.admit(regime, dtype, dtype, D)
             assert got.lib == lib and (got.q, got.kv, got.D) == (dtype, dtype, D)
         with pytest.raises(ValueError, match=f"q {str(dtype)[6:]} takes k/v of {str(dtype)[6:]}"):
-            _simt.admit(regime, dtype, torch.bfloat16, 64)
+            _admit.admit(regime, dtype, torch.bfloat16, 64)
     with pytest.raises(ValueError, match="head dim 96"):
         tfa._check_head_dim(96, backward=True)
     for t in (dtype, torch.bfloat16):
-        got = _simt.admit("flash_bwd", t, t, 256)
-        assert got.D == 256 and not got.simt
+        got = _admit.admit("flash_bwd", t, t, 256)
+        assert got.D == 256
     q = torch.zeros(1, 128, 2, 64, dtype=dtype)
     lse = torch.zeros(1, 2, 128)
     for fn in (tfa.flash_attention_dq_kernel, tfa.flash_attention_dkv_kernel):
@@ -444,14 +450,18 @@ def test_backward_refused_naming_queue_2_item_11(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
-def test_simt_wrappers_reject_cpu_tensors(dtype):
-    """The wrappers of dtype's kernels (the tensor-core flash and encoder
-    kernels, forward and backward, and the CUDA-core decode kernel) launch
-    on CUDA tensors only and never run the plain version; a refused call
-    does not count.  The CUDA-core flash and encoder forward wrappers, and
-    the helpers that picked between two forward wrappers, are gone."""
+def test_typed_wrappers_reject_cpu_tensors(dtype):
+    """The wrappers of dtype's kernels (flash and the encoder, forward and
+    backward, and decode and paged against a cache of q's type, float32 and
+    int8) launch on CUDA tensors only and never run the plain version; a
+    refused call does not count.  Every attention wrapper takes every type:
+    the CUDA-core wrappers, and the helpers that picked between two
+    wrappers, are gone."""
     q = torch.zeros(1, 128, 2, 64, dtype=dtype)
     lse = torch.zeros(1, 2, 128)
+    cache = q.reshape(1, 2, 128, 64)
+    lengths, tbl = torch.ones(1, dtype=torch.int32), torch.ones(1, 1, dtype=torch.int32)
+    i8, scales = cache.to(torch.int8), torch.ones(1, 2, 128)
     stats, dq, dkv = (tfa.flash_attention_bwd_stats, tfa.flash_attention_dq_kernel,
                       tfa.flash_attention_dkv_kernel)
     calls = [(tfa.flash_attention_kernel, (q, q, q)),
@@ -460,15 +470,19 @@ def test_simt_wrappers_reject_cpu_tensors(dtype):
              (dq, (q, q, q, q, q, lse)),
              (dkv, (q, q, q, q, q, lse)),
              (tea.encoder_attention_bwd_kernel, (q, q, q, q)),
-             (tda.decode_attention_simt_kernel,
-              (q[:, :1], q.reshape(1, 2, 128, 64), q.reshape(1, 2, 128, 64),
-               torch.ones(1, dtype=torch.int32)))]
+             (tda.decode_attention_kernel, (q[:, :1], cache, cache, lengths)),
+             (tda.decode_attention_kernel, (q[:, :1], cache.float(), cache.float(), lengths)),
+             (tda.decode_attention_kernel, (q[:, :1], i8, i8, lengths, scales, scales)),
+             (tda.paged_attention_kernel, (q[:, :1], cache, cache, lengths, tbl)),
+             (tda.paged_attention_kernel, (q[:, :1], cache.float(), cache.float(), lengths, tbl)),
+             (tda.paged_attention_kernel, (q[:, :1], i8, i8, lengths, tbl, scales, scales))]
     for fn, args in calls:
         before = fn.launches
         with pytest.raises(ValueError, match="not a CUDA device"):
             fn(*args)
         assert fn.launches == before
-    for mod, gone in ((tfa, "flash_attention_simt_kernel"), (tea, "encoder_attention_simt_kernel")):
+    for mod, gone in ((tfa, "flash_attention_simt_kernel"), (tea, "encoder_attention_simt_kernel"),
+                      (tda, "decode_attention_simt_kernel"), (tda, "paged_attention_simt_kernel")):
         assert not hasattr(mod, gone) and not hasattr(mod, "_fwd_kernel")
         assert gone not in mod.__all__
 
@@ -481,16 +495,16 @@ def test_encoder_kernel_helpers_pick_by_q_dtype(dtype):
     tensor-core sources at ``dtype``, float32 too, so no helper picks
     between wrappers, and the autograd Functions call the tensor-core
     wrappers directly."""
-    assert dtype in _simt.TC_TYPES["encoder"] and dtype in _simt.TC_TYPES["flash"]
+    assert dtype in _admit.TC_TYPES["encoder"] and dtype in _admit.TC_TYPES["flash"]
     assert not hasattr(tea, "_fwd_kernel") and not hasattr(tfa, "_fwd_kernel")
     assert not hasattr(tea, "_bwd_kernel")
     assert not hasattr(tea, "encoder_attention_simt_bwd_kernel")
     for regime, lib in (("encoder", "encoder_attention"), ("encoder_bwd", "encoder_attention_bwd"),
                         ("flash", "flash_attention"), ("flash_bwd", "flash_attention_bwd")):
-        inst = _simt.admit(regime, dtype, dtype, 64)
-        assert not inst.simt and inst.lib == lib
-    assert dtype in _simt.TC_TYPES["flash_bwd"] and dtype in _simt.TC_TYPES["encoder_bwd"]
-    assert _simt.TC_TYPE_CODES[dtype] == tfa.TYPE_CODES[dtype]
+        inst = _admit.admit(regime, dtype, dtype, 64)
+        assert inst.lib == lib
+    assert dtype in _admit.TC_TYPES["flash_bwd"] and dtype in _admit.TC_TYPES["encoder_bwd"]
+    assert _admit.TC_TYPE_CODES[dtype] == tfa.TYPE_CODES[dtype]
 
 
 def test_f16_encoder_wrappers_refuse_cpu_and_cuda_core_wrappers_refuse_f16():

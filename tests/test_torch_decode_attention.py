@@ -20,6 +20,7 @@ import torch
 from paddle_tpu.models import kv_cache as jkv
 from paddle_tpu.ops import decode_attention as jda
 from paddle_tpu_torch.models import kv_cache as tkv
+from paddle_tpu_torch.ops import _admit
 from paddle_tpu_torch.ops import decode_attention as tda
 
 F32_TOL = 2e-5
@@ -190,12 +191,17 @@ def test_plain_head_dims_match_reference(D, S, cache):
 def test_head_dim_admission_names_queue_2_item_9():
     """The kernels take head dims 64, 128 and 256; any other raises and
     names the ROADMAP item that tracks it.  Checked on the shape alone,
-    before any device (the wrappers check the device first)."""
-    for D in tda.KV_HEAD_DIMS:
-        tda._check_head_dim(D)
-    for D in (32, 96):
-        with pytest.raises(ValueError, match="Queue 2, item 9"):
-            tda._check_head_dim(D)
+    before any device (the wrappers' admission comes before their device
+    check)."""
+    for regime in ("decode", "paged"):
+        for D in tda.KV_HEAD_DIMS:
+            assert _admit.admit(regime, torch.bfloat16, torch.bfloat16, D).D == D
+        for D in (32, 96):
+            with pytest.raises(ValueError, match="Queue 2, item 9"):
+                _admit.admit(regime, torch.bfloat16, torch.bfloat16, D)
+    q, k = torch.zeros(1, 1, 2, 96), torch.zeros(1, 2, 64, 96)
+    with pytest.raises(ValueError, match="Queue 2, item 9"):
+        tda.decode_attention_kernel(q, k, k, torch.ones(1, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("split_keys", [64, 192])

@@ -190,7 +190,7 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
-def test_simt_backward_wrapper_rejects_cpu_tensors(dtype):
+def test_typed_backward_wrapper_rejects_cpu_tensors(dtype):
     """The one backward wrapper (the tensor-core kernel at every type,
     float32 as split-bf16 products) launches on CUDA tensors only and never
     runs the plain version; a refused call does not count.  Which of its

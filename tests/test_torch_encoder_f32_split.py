@@ -32,7 +32,7 @@ emulated in f32 from the term list parsed out of the header, and held:
   [1, 256, 2, 128] causal with q ~ N(0, 2.5^2), as chip_smoke.py's Q_STD;
   a one-term control (hi x hi alone, plain bf16) misses F32_RTOL there, so
   a lost plane shows;
-* the admission: float32 is in ``_simt.TC_TYPES["encoder"]`` and
+* the admission: float32 is in ``_admit.TC_TYPES["encoder"]`` and
   ``["encoder_bwd"]``, which are the sources' type lists, and routes to
   ``encoder_attention`` and ``encoder_attention_bwd`` at head dims 64 and
   128, both sources including the shared header and keeping no term list
@@ -48,7 +48,7 @@ import pytest
 import torch
 
 from paddle_tpu.ops import encoder_attention as jea
-from paddle_tpu_torch.ops import _simt
+from paddle_tpu_torch.ops import _admit
 from paddle_tpu_torch.ops import encoder_attention as tea
 from paddle_tpu_torch.ops import flash_attention as tfa
 
@@ -253,19 +253,19 @@ def test_packed_float32_views_read_in_place():
 
 def test_float32_forward_admitted_to_the_tensor_cores():
     """float32 is in the forward source's type list (ENCODER_TYPES, code
-    0) and in ``_simt.TC_TYPES["encoder"]``, the wrapper's admission, at
+    0) and in ``_admit.TC_TYPES["encoder"]``, the wrapper's admission, at
     head dims 64 and 128; the forward shares the header's term list."""
     text = FWD_CU.read_text()
     line = re.search(r"^#define ENCODER_TYPES\(X\)(.*)$", text, re.M).group(1)
     c_types = {"__nv_bfloat16": torch.bfloat16, "__half": torch.float16, "float": torch.float32}
     built = {c_types[t.strip()]: int(c) for t, c in
              (m.split(",") for m in re.findall(r"X\(([^)]*)\)", line))}
-    assert built == {t: _simt.TC_TYPE_CODES[t] for t in _simt.TC_TYPES["encoder"]}
+    assert built == {t: _admit.TC_TYPE_CODES[t] for t in _admit.TC_TYPES["encoder"]}
     assert built[torch.float32] == 0
     assert '#include "split_bf16.cuh"' in text and "_TERMS(X)" not in text
     for D in (64, 128):
-        inst = _simt.admit("encoder", torch.float32, torch.float32, D)
-        assert not inst.simt and inst.lib == "encoder_attention" and inst.D == D
+        inst = _admit.admit("encoder", torch.float32, torch.float32, D)
+        assert inst.lib == "encoder_attention" and inst.D == D
     assert not hasattr(tea, "encoder_attention_simt_kernel")
 
 
@@ -274,10 +274,10 @@ def test_float32_backward_admitted_to_the_tensor_cores():
     c_types = {"__nv_bfloat16": torch.bfloat16, "__half": torch.float16, "float": torch.float32}
     built = {c_types[t.strip()]: int(c) for t, c in
              (m.split(",") for m in re.findall(r"X\(([^)]*)\)", line))}
-    assert built == {t: _simt.TC_TYPE_CODES[t] for t in _simt.TC_TYPES["encoder_bwd"]}
+    assert built == {t: _admit.TC_TYPE_CODES[t] for t in _admit.TC_TYPES["encoder_bwd"]}
     assert torch.float32 in built
     for D in (64, 128):
-        inst = _simt.admit("encoder_bwd", torch.float32, torch.float32, D)
-        assert not inst.simt and inst.lib == "encoder_attention_bwd" and inst.D == D
+        inst = _admit.admit("encoder_bwd", torch.float32, torch.float32, D)
+        assert inst.lib == "encoder_attention_bwd" and inst.D == D
     # float32's whole head at D 64; at D 128 its tiles take the streamed pair
     assert tea._whole_head(128, 64, 4) and not tea._whole_head(128, 128, 4)

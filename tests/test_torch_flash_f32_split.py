@@ -27,7 +27,7 @@ header, which both sources include, and held:
   (hi x hi alone, plain bf16) misses F32_RTOL there, so a lost plane shows;
 * ``_split_planes_dense``: hi is bf16 round-to-nearest, hi + lo is x
   within 2^-16 |x|, a non-finite hi gives lo = 0, subnormals are kept;
-* the admission: float32 is in ``_simt.TC_TYPES["flash"]`` and
+* the admission: float32 is in ``_admit.TC_TYPES["flash"]`` and
   ``["flash_bwd"]``, which are the sources' type lists, and routes to
   ``flash_attention`` and ``flash_attention_bwd`` at head dims 64, 128 and
   256.
@@ -42,7 +42,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.ops import _simt
+from paddle_tpu_torch.ops import _admit
 from paddle_tpu_torch.ops import flash_attention as tfa
 
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
@@ -209,19 +209,19 @@ def test_split_planes_round_and_reproduce():
 
 def test_float32_forward_admitted_to_the_tensor_cores():
     """float32 is in the forward source's type list (FLASH_TYPES, code 0)
-    and in ``_simt.TC_TYPES["flash"]``, the wrapper's admission; the
+    and in ``_admit.TC_TYPES["flash"]``, the wrapper's admission; the
     forward shares the header's term list and keeps none of its own."""
     text = FWD_CU.read_text()
     line = re.search(r"^#define FLASH_TYPES\(X\)(.*)$", text, re.M).group(1)
     c_types = {"__nv_bfloat16": torch.bfloat16, "__half": torch.float16, "float": torch.float32}
     built = {c_types[t.strip()]: int(c) for t, c in
              (m.split(",") for m in re.findall(r"X\(([^)]*)\)", line))}
-    assert built == {t: _simt.TC_TYPE_CODES[t] for t in _simt.TC_TYPES["flash"]}
+    assert built == {t: _admit.TC_TYPE_CODES[t] for t in _admit.TC_TYPES["flash"]}
     assert built[torch.float32] == 0
     assert '#include "split_bf16.cuh"' in text and "_TERMS(X)" not in text
     for D in tfa.FWD_HEAD_DIMS:
-        inst = _simt.admit("flash", torch.float32, torch.float32, D)
-        assert not inst.simt and inst.lib == "flash_attention" and inst.D == D
+        inst = _admit.admit("flash", torch.float32, torch.float32, D)
+        assert inst.lib == "flash_attention" and inst.D == D
     assert not hasattr(tfa, "flash_attention_simt_kernel")
 
 
@@ -230,9 +230,9 @@ def test_float32_backward_admitted_to_the_tensor_cores():
     c_types = {"__nv_bfloat16": torch.bfloat16, "__half": torch.float16, "float": torch.float32}
     built = {c_types[t.strip()]: int(c) for t, c in
              (m.split(",") for m in re.findall(r"X\(([^)]*)\)", line))}
-    assert built == {t: _simt.TC_TYPE_CODES[t] for t in _simt.TC_TYPES["flash_bwd"]}
+    assert built == {t: _admit.TC_TYPE_CODES[t] for t in _admit.TC_TYPES["flash_bwd"]}
     assert torch.float32 in built
     for D in (64, 128, 256):
-        inst = _simt.admit("flash_bwd", torch.float32, torch.float32, D)
-        assert not inst.simt and inst.lib == "flash_attention_bwd" and inst.D == D
+        inst = _admit.admit("flash_bwd", torch.float32, torch.float32, D)
+        assert inst.lib == "flash_attention_bwd" and inst.D == D
     assert tfa._planes_numel(2, 3, 5, 7, 64) == 4 * 2 * 3 * 64 * (5 + 7)

@@ -100,12 +100,12 @@ def test_kernel_sources_ship_as_package_data():
 
     text = (ROOT / "pyproject.toml").read_text()
     assert '"paddle_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
-    kernels = ["attention_simt_decode", "attention_simt_paged", "decode_attention",
-               "encoder_attention", "encoder_attention_bwd", "flash_attention",
-               "flash_attention_bwd", "fused_conv_bn", "fused_ln", "paged_attention"]
+    kernels = ["decode_attention", "encoder_attention", "encoder_attention_bwd",
+               "flash_attention", "flash_attention_bwd", "fused_conv_bn", "fused_ln",
+               "paged_attention"]
     assert _build.sources() == kernels  # one library per .cu, built at first use
     for name in kernels:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
-    for header in ("attention_simt.cuh", "conv_wgmma.cuh", "encoder_wgmma.cuh",
-                   "kv_attention.cuh", "philox.cuh", "split_bf16.cuh", "wgmma_attention.cuh"):
-        assert (PKG / "csrc" / header).is_file()
+    headers = ["conv_wgmma.cuh", "encoder_wgmma.cuh", "kv_attention.cuh", "philox.cuh",
+               "split_bf16.cuh", "wgmma_attention.cuh"]
+    assert sorted(p.name for p in (PKG / "csrc").glob("*.cuh")) == headers

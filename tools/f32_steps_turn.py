@@ -41,7 +41,7 @@ r = cs.train_run(model, "b8_s2048_f32", 8, 2048, 0, cs.flash_launches(12, f32),
                  steps=cs.F32_TRAIN_STEPS, warmup=cs.F32_TRAIN_WARMUP, profiled=True)
 out["llama_b8_s2048"] = r
 show("llama b8_s2048 f32", r)
-r = cs.train_run(model, "b32_s512_accum2_clip_f32", 32, 512, 1, cs.encoder_launches(24, f32),
+r = cs.train_run(model, "b32_s512_accum2_clip_f32", 32, 512, 1, cs.encoder_launches(24),
                  steps=cs.F32_TRAIN_STEPS, warmup=cs.F32_TRAIN_WARMUP, accum_steps=2,
                  grad_clip=ClipGradByGlobalNorm(1.0), profiled=True)
 del model
