@@ -898,10 +898,12 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False, dtype=t
     cases' gate), float32 within F32_RTOL of the plain version in f32;
     planted faults: dsum taken as 0, each row's key range one short, (with
     dlse) dlse ignored and (float32) the lo planes dropped, the plain
-    backward on q, k, v and dO rounded to bf16; the statistics' own: lse in
-    natural-log units, dsum taken as 0 (and dlse ignored).  Returns
-    {"stats", "dq", "dkv"} cases (and "split" at float32), each launch
-    counted around its call."""
+    backward on q, k, v and dO rounded to bf16; the statistics against
+    ``_flash_bwd_stats_dense`` within F32_RTOL, with faults of their own:
+    lse in natural-log units, dsum taken as 0 (and dlse ignored).  The
+    statistics pass is timed from CUDA-graph replays (``eager_ms`` beside
+    it), dq and dkv from CUDA events.  Returns {"stats", "dq", "dkv"} cases
+    (and "split" at float32), each launch counted around its call."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -910,7 +912,9 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False, dtype=t
     do = randn(g, (B, Sq, H, D), dtype=dtype)
     scale = 1.0 / D ** 0.5
     o32, lse = fa._flash_dense(q.float(), k.float(), v.float(), causal, scale)
-    o = o32.to(dtype)
+    # contiguous, as the flash forward hands it to the backward (the plain
+    # forward's O is [B, H, S, D] in memory: each wrapper call would copy it)
+    o = o32.to(dtype).contiguous()
     lse = lse.contiguous()
     dlse = (torch.randn(B, H, Sq, generator=g, device="cuda") if with_dlse else None)
     f32 = dtype == torch.float32
@@ -936,12 +940,7 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False, dtype=t
     else:
         want = fa._flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse)
     # the statistics: [2, B * H, Sqp], Sq padded to 64 with zeros
-    dsum = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())
-    if with_dlse:
-        dsum = dsum - dlse
-    want_stats = torch.zeros_like(stats)
-    want_stats[0, :, :Sq] = lse.reshape(B * H, Sq) * math.log2(math.e)
-    want_stats[1, :, :Sq] = dsum.reshape(B * H, Sq)
+    want_stats = fa._flash_bwd_stats_dense(o, do, lse, dlse)
     stat_faults = {"lse_natural_log": want_stats.clone(), "dsum_zero": want_stats.clone()}
     stat_faults["lse_natural_log"][0, :, :Sq] = lse.reshape(B * H, Sq)
     stat_faults["dsum_zero"][1] = 0.0
@@ -997,12 +996,15 @@ def flash_bwd_case(name, B, H, Sq, Sk, D, causal, seed, with_dlse=False, dtype=t
             ("dkv", lambda: fa.flash_attention_dkv_kernel(*args, stats=stats, planes=planes),
              ins + 2 * nk, 8.0 * D * pairs)):
         r = res[key]
-        r["ms"] = cuda_ms(fn, iters)
-        # no one PyTorch call computes the statistics pass's pair
-        r["plain_ms"], r["library_ms"] = plain_ms, None if key == "stats" else library_ms
+        r["plain_ms"] = plain_ms
         if key == "stats":
+            # device time from CUDA-graph replays (a call of a few tens of
+            # microseconds); eager_ms also holds the wrapper's host cost; no
+            # one PyTorch call computes the statistics pass's pair
+            r["ms"], r["eager_ms"], r["library_ms"] = graph_ms(fn), cuda_ms(fn, iters), None
             r["bound_ms"], r["bound_by"], r["floors"] = bound3(nbytes, **{rate_key(dtype): ops})
         else:
+            r["ms"], r["library_ms"] = cuda_ms(fn, iters), library_ms
             r["bound_ms"], r["bound_by"], r["floors"] = bound3(nbytes, tc_flops=terms * ops)
             if f32:
                 r["floors"]["f32_ffma_ms"] = ops / H100_F32_FLOPS * 1e3

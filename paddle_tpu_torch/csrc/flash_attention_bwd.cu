@@ -70,7 +70,8 @@
 // a tile, and the walked Q and dO tiles, loaded once a block, feed both
 // halves.  64 own keys at D = 256 take 64 KB and each stage of the 64-query
 // ring another 64 KB: two stages.  ptxas -v (sm_90a) at D = 256: dK/dV 250
-// registers, dQ 197, the statistics pass 27; no spill.
+// registers, dQ 197; the statistics pass 48-62 at every instantiation; no
+// spill.
 //
 // Float32 tiles.  Two planes double shared memory against bf16 (4 bytes
 // an element), so a float32 tile is a bf16 tile of width W = 2 D, and the
@@ -97,6 +98,22 @@
 // to both entries; an entry called alone fills it first.  At float32 the
 // split pass reads 4 bytes and writes 4 an element (bytes-bound: about
 // 0.32 ms at the training shape), once for both entries.
+//
+// The statistics pass is bytes-bound: it reads o and dO once (2 D
+// elements a query and head against 2 D operations) and lse and dlse, and
+// writes the two planes: 0.0410 ms at 3.35 TB/s at the training shape in
+// bf16 and float16, 0.0811 in float32 (0.0405 / 0.0806 at [8, 2048, 8,
+// 256]).  So it is a stream: a tile is 32 queries of one b and all H heads
+// (fewer where B * Sq / 32 tiles would leave SMs idle), whose rows are
+// contiguous bytes of o and dO, read in memory order by 256 threads with
+// 16-byte read-once loads, a row spread over D * size(T) / 16 lanes (up to
+// 32; two loads a lane at float32 D = 256) and four loads of each tensor in
+// flight a lane; each row's sum is reduced across its lanes by a fixed xor
+// tree into shared memory, and the block then writes both planes as runs of
+// 32 (the last run of a b: 64, the pad's zeros included) consecutive
+// queries of a head, lse read in the same order.  A block a tile, up to
+// eight blocks a SM, then grid-stride.  No atomics: the same bits on every
+// run, whatever the grid.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (paddle_tpu_torch/ops/_build.py does this).
@@ -182,40 +199,126 @@ struct Dkv {
   static constexpr size_t kSmem = sizeof(Smem) + 1024;
 };
 
-// Two neighbouring values of a row as f32.
+// The statistics pass's shape at T and D: a row of o or dO (one (b, i, h))
+// is kPieces 16-byte pieces, read by kLanes neighbouring lanes, kPer
+// pieces each; a warp instruction reads kRowsWarp neighbouring rows (512
+// contiguous bytes), and a warp loads kGroups such row groups at once, so
+// that each lane has four 16-byte loads of each tensor in flight.
+template <typename T, int D>
+struct Stats {
+  static constexpr int kPieces = D * (int)sizeof(T) / 16;
+  static constexpr int kLanes = kPieces < 32 ? kPieces : 32;
+  static constexpr int kPer = kPieces / kLanes;
+  static constexpr int kRowsWarp = 32 / kLanes;
+  static constexpr int kGroups = 4 / kPer;
+  static constexpr int kRowsStep = kThreads / 32 * kGroups * kRowsWarp;  // rows a block a step
+  static_assert(kPieces % kLanes == 0 && kGroups * kPer == 4, "a row is whole 16-byte pieces");
+};
+constexpr int kRun = 32;          // queries a statistics tile: each head's values as runs of 32
+constexpr int kStatsHeads = 256;  // heads a statistics tile at most (32 KB of row sums)
+
+// 16 bytes that are read once: not kept in L1.
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// acc + the dot product of two 16-byte pieces of T, widened to f32, in
+// order.
 template <typename T>
-__device__ __forceinline__ float2 load_pair(const T* x, int j) {
-  if constexpr (sizeof(T) == 4)
-    return reinterpret_cast<const float2*>(x)[j];
-  else
-    return Elem<T>::widen2(reinterpret_cast<const typename Elem<T>::Pair*>(x)[j]);
+__device__ __forceinline__ float dot16(uint4 a, uint4 b, float acc) {
+  if constexpr (sizeof(T) == 4) {
+    acc = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), acc);
+    acc = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc);
+    acc = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), acc);
+    acc = fmaf(__uint_as_float(a.w), __uint_as_float(b.w), acc);
+  } else {
+    using Pair = typename Elem<T>::Pair;
+    const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      Pair pa, pb;
+      memcpy(&pa, &wa[k], 4);
+      memcpy(&pb, &wb[k], 4);
+      const float2 s = Elem<T>::widen2(pa), t = Elem<T>::widen2(pb);
+      acc = fmaf(s.x, t.x, acc);
+      acc = fmaf(s.y, t.y, acc);
+    }
+  }
+  return acc;
 }
 
 // stats[0][bh][i] = lse[bh][i] * log2(e) and stats[1][bh][i] = sum_d
 // dO[b, i, h, d] O[b, i, h, d] in f32 minus dlse[bh][i] when given, for i <
-// Sq; zeros for Sq <= i < Sqp.  One warp per (bh, i).
+// Sq; zeros for Sq <= i < Sqp (the design: the header).  A tile is kRun
+// queries i0.. of one b and the hg heads h0.. of group g (G heads a group);
+// its row rr = (i - i0) * hg + h - h0 is in memory order.
 template <typename T, int D>
-__global__ void __launch_bounds__(128) flash_dsum_kernel(const T* o, const T* dO,
-                                                         const float* lse, const float* dlse,
-                                                         float* stats, int rows, int H, int Sq,
-                                                         int Sqp) {
-  const int row = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= rows) return;  // whole warps leave together
-  const int i = row % Sqp, bh = row / Sqp;
-  float acc = 0.f;
-  if (i < Sq) {
-    const size_t base = ((size_t)((bh / H) * Sq + i) * H + bh % H) * D;
-    for (int j = lane; j < D / 2; j += 32) {
-      const float2 a = load_pair(dO + base, j), c = load_pair(o + base, j);
-      acc += a.x * c.x + a.y * c.y;
-    }
-  }
+__global__ void __launch_bounds__(kThreads) flash_dsum_kernel(const T* o, const T* dO,
+                                                              const float* lse,
+                                                              const float* dlse, float* stats,
+                                                              int B, int H, int Sq, int Sqp,
+                                                              int G) {
+  using S = Stats<T, D>;
+  constexpr int kElems = 16 / (int)sizeof(T);  // elements a piece
+  extern __shared__ float sums[];              // [kRun * hg]: the tile's row sums, memory order
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = lane / S::kLanes, piece = lane % S::kLanes;
+  const long long runs = (Sq + kRun - 1) / kRun, groups = (H + G - 1) / G;
+  const long long tiles = B * runs * groups;
+  float* const dsum = stats + (size_t)B * H * Sqp;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int g = (int)(tile % groups), r = (int)(tile / groups % runs);
+    const int b = (int)(tile / groups / runs);
+    const int h0 = g * G, hg = min(G, H - h0), i0 = r * kRun;
+    const int rows = min(kRun, Sq - i0) * hg;                  // the tile's rows below Sq
+    const unsigned long long magic = ((1ull << 32) + hg - 1) / hg;  // rr / hg = rr * magic >> 32
+    const size_t tile_at = (((size_t)b * Sq + i0) * H + h0) * D;
+    for (int base = warp * S::kGroups * S::kRowsWarp; base < rows; base += S::kRowsStep) {
+      uint4 x[S::kGroups][S::kPer], y[S::kGroups][S::kPer];
 #pragma unroll
-  for (int m = 16; m; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-  if (lane == 0) {
-    const size_t at = (size_t)bh * Sq + i;
-    stats[row] = i < Sq ? lse[at] * kLog2e : 0.f;
-    stats[(size_t)rows + row] = i < Sq ? acc - (dlse ? dlse[at] : 0.f) : 0.f;
+      for (int u = 0; u < S::kGroups; ++u) {
+        const int rr = base + u * S::kRowsWarp + sub;
+        const int il = (int)((rr * magic) >> 32);
+        const size_t at = tile_at + (size_t)(rr + il * (H - hg)) * D + piece * kElems;
+#pragma unroll
+        for (int p = 0; p < S::kPer; ++p) {
+          x[u][p] = y[u][p] = make_uint4(0u, 0u, 0u, 0u);
+          if (rr < rows) {
+            x[u][p] = ld_stream(dO + at + p * S::kLanes * kElems);
+            y[u][p] = ld_stream(o + at + p * S::kLanes * kElems);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < S::kGroups; ++u) {
+        float acc = 0.f;
+#pragma unroll
+        for (int p = 0; p < S::kPer; ++p) acc = dot16<T>(x[u][p], y[u][p], acc);
+#pragma unroll
+        for (int m = S::kLanes / 2; m; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+        const int rr = base + u * S::kRowsWarp + sub;
+        if (piece == 0 && rr < rows) sums[rr] = acc;
+      }
+    }
+    __syncthreads();
+    const int n = r == runs - 1 ? Sqp - i0 : kRun;  // 32 or 64: the last run ends at Sqp
+    const int shift = n == 64 ? 6 : 5;
+    for (int q = threadIdx.x; q < hg * n; q += kThreads) {
+      const int hl = q >> shift, il = q & (n - 1), i = i0 + il;
+      const size_t bh = (size_t)b * H + h0 + hl, at = bh * Sq + i, out = bh * Sqp + i;
+      float l2 = 0.f, ds = 0.f;
+      if (i < Sq) {
+        l2 = lse[at] * kLog2e;
+        ds = sums[il * hg + hl] - (dlse ? dlse[at] : 0.f);
+      }
+      stats[out] = l2;
+      dsum[out] = ds;
+    }
+    __syncthreads();  // the next tile's sums
   }
 }
 
@@ -507,13 +610,25 @@ BwdArgs make_args(const Inputs& in) {
   return a;
 }
 
+// The statistics pass: tiles of all H heads, or of G heads (H halved, and
+// halved again) while a tile would hold more than kStatsHeads or the card
+// would get under two tiles a SM.
 template <typename T, int D>
 cudaError_t run_stats(const Inputs& in, cudaStream_t st) {
-  const int Sqp = padded(in.Sq), rows = in.B * in.H * Sqp;
-  flash_dsum_kernel<T, D><<<(rows + 3) / 4, 128, 0, st>>>(
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long runs = (in.Sq + kRun - 1) / kRun;
+  int G = in.H;
+  while (G > 1 && (G > kStatsHeads || in.B * runs * ((in.H + G - 1) / G) < 2ll * sms))
+    G = (G + 1) / 2;
+  const long long tiles = in.B * runs * ((in.H + G - 1) / G);
+  flash_dsum_kernel<T, D><<<(unsigned)std::min(tiles, 8ll * sms), kThreads,
+                            kRun * G * sizeof(float), st>>>(
       static_cast<const T*>(in.o), static_cast<const T*>(in.dO),
-      static_cast<const float*>(in.lse), static_cast<const float*>(in.dlse), in.stats, rows,
-      in.H, in.Sq, Sqp);
+      static_cast<const float*>(in.lse), static_cast<const float*>(in.dlse), in.stats, in.B,
+      in.H, in.Sq, padded(in.Sq), G);
   return cudaGetLastError();
 }
 

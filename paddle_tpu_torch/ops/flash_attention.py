@@ -42,6 +42,7 @@ import torch
 from . import _admit, _build
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634  # csrc/wgmma_attention.cuh kLog2e
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_attention_kernel",
            "flash_attention_bwd_stats", "flash_attention_bwd_split", "flash_attention_dq_kernel",
@@ -83,17 +84,33 @@ def _flash_bwd_dense(q, k, v, o, lse, do, causal, scale, dlse=None):
     round(P (dP - dsum)), dQ = dS K * scale, dK = dS^T Q * scale, where
     round() is a cast to the input dtype (a no-op in f32).  lse and dlse
     are [B, H, Sq] f32.  Returns (dq, dk, dv) in the inputs' dtypes."""
+    B, Sq, H, _ = q.shape
     p = torch.exp(_scores(q, k, causal, scale) - lse[..., None].float())
     dof = do.float()
-    dsum = torch.einsum("bqhd,bqhd->bhq", dof, o.float())
-    if dlse is not None:
-        dsum = dsum - dlse.float()
+    dsum = _flash_bwd_stats_dense(o, do, lse, dlse)[1, :, :Sq].reshape(B, H, Sq)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
     ds = (p * (dp - dsum[..., None])).to(q.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_stats_dense(o, do, lse, dlse=None):
+    """Plain version of the backward's statistics pass
+    (``flash_attention_bwd_stats``): o, do [B, Sq, H, D], lse and the
+    optional dlse f32 with B * H * Sq values -> f32 [2, B * H, Sqp] (Sqp =
+    Sq rounded up to 64) holding lse * log2(e) and dsum = rowsum(dO * O) -
+    dlse (the sum in f32, as ``_dq_kernel`` and ``_dkv_kernel`` take it),
+    zero past Sq."""
+    B, Sq, H, _ = o.shape
+    dsum = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).reshape(B * H, Sq)
+    if dlse is not None:
+        dsum = dsum - dlse.float().reshape(B * H, Sq)
+    stats = torch.zeros(_stats_shape(B, H, Sq), dtype=torch.float32, device=o.device)
+    stats[0, :, :Sq] = lse.float().reshape(B * H, Sq) * LOG2E
+    stats[1, :, :Sq] = dsum
+    return stats
 
 
 def _split_planes_dense(x):
@@ -253,9 +270,10 @@ def flash_attention_bwd_stats(o, do, lse, dlse=None):
     up to 64) holding lse * log2(e) and dsum = rowsum(dO * O) - dlse, zero
     past Sq.  o, do [B, Sq, H, D] bfloat16, float16 or float32 on the card,
     D in {64, 128, 256}; lse and dlse f32 with B * H * Sq values (dlse may
-    be None).  The autograd backward fills it once and hands it to both
-    kernels below.  Every launch adds one to
-    ``flash_attention_bwd_stats.launches``."""
+    be None).  The pass streams o and dO in memory order with 16-byte
+    loads; ``_flash_bwd_stats_dense`` is its plain version.  The autograd
+    backward fills it once and hands it to both kernels below.  Every
+    launch adds one to ``flash_attention_bwd_stats.launches``."""
     B, Sq, H, D = o.shape
     _check_inputs({"q": o, "do": do}, B, Sq, Sq, H, D, False, backward=True)
     _check_stats({"lse": lse} if dlse is None else {"lse": lse, "dlse": dlse}, B, H, Sq,

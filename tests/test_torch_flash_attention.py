@@ -218,6 +218,40 @@ def test_autograd_raises_until_the_backward_is_ported():
                                    causal=True).shape == q.shape
 
 
+@pytest.mark.parametrize("with_dlse", [False, True], ids=["no_dlse", "dlse"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_plain_bwd_stats_layout(dtype, with_dlse):
+    """``_flash_bwd_stats_dense`` (the statistics pass's plain version and
+    its oracle on the card) at Sq = 100, not a multiple of 64: the pad up to
+    Sqp = 128 is exactly zero, row 0 is lse * log2(e), and row 1 is the
+    reference's dsum, ``jnp.sum(do.astype(f32) * o.astype(f32), -1) - dlse``
+    as ``_dq_kernel`` writes it, run in JAX on the same values (within 1e-6
+    of its max: f32 sums of 64 products in another order)."""
+    B, Sq, H, D = 2, 100, 3, 64
+    rng = np.random.RandomState(11)
+    tdt = getattr(torch, dtype)
+    o, do = (torch.from_numpy(rng.randn(B, Sq, H, D).astype(np.float32)).to(tdt)
+             for _ in range(2))
+    lse = rng.randn(B, H, Sq).astype(np.float32)
+    dlse = rng.randn(B, H, Sq).astype(np.float32) if with_dlse else None
+    stats = tfa._flash_bwd_stats_dense(o, do, torch.from_numpy(lse),
+                                       None if dlse is None else torch.from_numpy(dlse))
+    assert stats.dtype == torch.float32 and tuple(stats.shape) == (2, B * H, 128)
+    assert torch.count_nonzero(stats[:, :, Sq:]) == 0
+    np.testing.assert_allclose(stats[0, :, :Sq].numpy(),
+                               lse.reshape(B * H, Sq) * np.float32(np.log2(np.e)),
+                               rtol=1e-6, atol=0)
+    jdt = getattr(jnp, dtype)
+    jo, jdo = (jnp.asarray(t.float().numpy()).astype(jdt) for t in (o, do))
+    want = jnp.sum(jdo.astype(jnp.float32) * jo.astype(jnp.float32), -1)  # [B, Sq, H]
+    want = np.asarray(want).transpose(0, 2, 1)
+    if dlse is not None:
+        want = want - dlse
+    want = want.reshape(B * H, Sq)
+    err = np.abs(stats[1, :, :Sq].numpy() - want).max()
+    assert err <= 1e-6 * np.abs(want).max(), err
+
+
 def test_plain_backward_rounds_where_the_reference_rounds():
     """In bf16 the plain backward rounds P to bf16 for dV and dS for dQ/dK,
     as _dq_kernel/_dkv_kernel do: equal to the f32 version on the bf16
