@@ -132,7 +132,7 @@ Phases:
                     then 4 on an int8 cache at decode_chunk=4.
   6. paged_engine — the paged LLMEngine on the same model: 12 requests,
                     then 4 on an int8 pool.
-In phases 4-6 and 8-14 the launch counters are zeroed just before each run
+In phases 4-6 and 8-16 the launch counters are zeroed just before each run
 and must match the work the run did.  For the greedy outputs, each path's logits
 (teacher-forced) must stay within LOGIT_TOL (INT8_LOGIT_TOL on an int8
 cache) of the no-cache forward's with dense-math attention, and each token
@@ -157,11 +157,46 @@ time goes.
                     [4, 512]; a verify tick and a decode tick of 8 busy
                     slots under torch.profiler.  Launches equal the
                     chunks, ticks and verify calls times the layers.
- 10. gpt          — GPTConfig() (hidden 768, 12 layers of 12 heads of 64,
+ 10. tenants      — multi-tenant serving on the same model through the
+                    paged engine: an AdapterRegistry on all 7 LLaMA sites,
+                    4 random adapters of rank 16 in a pool of 3 usable
+                    pages (admissions wait for a page, LRU eviction runs);
+                    12 requests mixing the base model, the adapters, a
+                    phone-number regex and a JSON schema over a
+                    deterministic 32,000-entry vocabulary (``</s>`` the
+                    eos).  Adapter and page refcounts balance after every
+                    tick; every constrained output is accepted by its
+                    automaton and ends in eos (the regex matches, the JSON
+                    parses with the schema's keys); every second request's
+                    logits (the paged path, teacher-forced, under its
+                    adapter's page) lie within LOGIT_TOL of the dense-math
+                    forward's and its tokens equal solo
+                    generate(adapter_id=, adapters=, token_mask_fn=)'s up
+                    to a divergence at a near-tie; the LoRA epilogue alone
+                    against float32 x.A.(scale B) within LORA_RTOL.  Then
+                    decode ticks of 8 busy slots on 3 adapters against the
+                    base model (the epilogue's device share) and
+                    constrained against unconstrained (wall).
+ 11. tiers        — the host and disk kv tiers on the same model: the
+                    1,000-token system prompt served, every cached page
+                    demoted (demote_step(force=True)) and evicted from HBM,
+                    then a request on it that can only hit by promotion,
+                    from the host tier and (2 host pages, the rest spilled
+                    to files in a temporary directory the phase removes)
+                    from disk, at bf16 and on int8 caches.  Promoted pages
+                    equal the demoted ones byte for byte; the tokens equal
+                    a tier-less run's; prefill restarts at the first
+                    uncached token; refcounts and the tiers balance after
+                    every tick; on disk at bf16 a corrupted spill is
+                    quarantined and the request re-prefills from the block
+                    before it, its logits within LOGIT_TOL.  Demotion and
+                    promotion ms a page and GB/s; TTFT with a promotion hit
+                    against a full re-prefill.
+ 12. gpt          — GPTConfig() (hidden 768, 12 layers of 12 heads of 64,
                     vocab 50,304, bf16, random weights from seed 0):
                     generate() on ids [8, 256], the dense engine, and the
                     paged engine with the prefix cache and spec_k=4.
- 11. dtypes       — LLaMA-2-7B widths (16 layers, random weights) at
+ 13. dtypes       — LLaMA-2-7B widths (16 layers, random weights) at
                     float32, the config's default: generate() with ids
                     [4, 1024] on a float32 and an int8 static cache, the
                     dense engine's 12 requests, the paged engine's 12 and
@@ -179,7 +214,7 @@ time goes.
                     float32 as split-bf16 products; logits within
                     F32_LOGIT_TOL (F16_LOGIT_TOL, INT8_LOGIT_TOL); peak
                     memory per model.
- 12. train        — bench.py's training configuration (hidden 2048, 12
+ 14. train        — bench.py's training configuration (hidden 2048, 12
                     layers, bf16, random weights and tokens from seed 0)
                     through TrainStep + AdamW(3e-4, weight_decay=0.01):
                     first every parameter's gradient through the kernels
@@ -208,7 +243,7 @@ time goes.
                     at S 2048 in bf16, float32 and float16, B 8 x S 2048 in
                     bf16 and float32, the statistics pass, dq and dkv 12
                     launches a step each.
- 13. ernie        — bench.py's ERNIE-base pretraining (BertConfig.base(),
+ 15. ernie        — bench.py's ERNIE-base pretraining (BertConfig.base(),
                     bf16, B 512 x S 128, 20 masked positions, dropout 0.1,
                     random weights and batch from seed 0): gradient parity
                     of every parameter against the composed/dense paths at
@@ -225,7 +260,7 @@ time goes.
                     at float16 through the fused-LN and tensor-core
                     encoder kernels at float16 (its launches count in the
                     kernels line: float16 training is no path yet).
- 14. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
+ 16. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
                     reaches the fused 1x1-conv + BN kernels: first one
                     bottleneck block at each stage's shape, fused against
                     composed in f32 (output, every gradient, running
@@ -244,6 +279,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -2721,14 +2757,17 @@ def forward_logits(model, prompt, out):
 
 
 def judge(cases, tol):
-    """cases: [(tokens, forward logits [n, V], path logits [n, V])].  The
-    path's logits must lie within ``tol`` of the forward's; each token must
-    be the forward's argmax, unless the forward's top-2 gap is under twice
-    the drift this run measured, the most by which two logits can trade
-    places."""
+    """cases: [(tokens, forward logits [n, V], path logits [n, V][, allowed
+    [n, V] bool])].  The path's logits must lie within ``tol`` of the
+    forward's; each token must be the forward's argmax (over the tokens a
+    constraint allowed there, where a case gives them), unless the
+    forward's top-2 gap is under twice the drift this run measured, the
+    most by which two logits can trade places."""
     per, drift = [], []
-    for toks, want, path in cases:
+    for toks, want, path, *allowed in cases:
         d = (path - want).abs().amax(-1).tolist()
+        if allowed and allowed[0] is not None:
+            want = want.masked_fill(~allowed[0], float("-inf"))
         top2 = want.topk(2, dim=-1).values
         per.append((toks, want.argmax(-1).tolist(), (top2[:, 0] - top2[:, 1]).tolist()))
         drift += d
@@ -2826,7 +2865,9 @@ def generate_phase(model, card):
 def pool_balanced(eng):
     """Each page's refcount equals its holders: the slot tables that map it
     plus one if a prefix-cache node holds it; free pages hold 0 and sit in
-    the free list once; the trash page is never held."""
+    the free list once; the trash page is never held.  With adapters, their
+    pins balance too (adapters_balanced), and with the kv tiers the host
+    and disk tiers (tiers_balanced)."""
     holds = {}
     for pages in eng._slot_pages:
         for p in pages:
@@ -2838,15 +2879,18 @@ def pool_balanced(eng):
     for p in range(1, eng.num_pages):
         ref = int(eng._page_ref[p])
         ok &= ref == holds.get(p, 0) + (p in cached) and (p in free) == (ref == 0)
-    return bool(ok)
+    return (bool(ok) and (eng.adapters is None or adapters_balanced(eng))
+            and (eng._host_kv is None or tiers_balanced(eng)))
 
 
 def drive(eng, reqs):
-    """Submit ``reqs`` and tick the engine in this thread until they finish,
-    checking the pool's balance after every tick (paged).  Returns (token
-    lists, whether the pool stayed balanced)."""
+    """Submit ``reqs`` (with their adapter and constraint, where given) and
+    tick the engine in this thread until they finish, checking the pool's
+    balance after every tick (paged).  Returns (token lists, whether the
+    pool stayed balanced)."""
     futs = [eng.submit(r["prompt"], max_new_tokens=r["max_new"], do_sample=r["sampled"],
-                       temperature=0.8, top_p=0.9) for r in reqs]
+                       temperature=0.8, top_p=0.9, adapter_id=r.get("adapter"),
+                       constraint=r.get("constraint")) for r in reqs]
     balanced = True
     while not all(f.done() for f in futs) or eng._prefilling is not None:
         eng.step()
@@ -3078,22 +3122,25 @@ def serve_paged(model, n_req, rng, cache_dtype, sampled_every, check):
     return res
 
 
-def busy_engine(model, layout, spec_k=0):
+def busy_engine(model, layout, spec_k=0, engine_kw=None, submit_kw=None):
     """An engine of either layout with all 8 slots decoding at about 1k
-    tokens of context (verifying K drafts a tick with ``spec_k``)."""
+    tokens of context (verifying K drafts a tick with ``spec_k``);
+    ``engine_kw`` goes to the engine, ``submit_kw(i)`` to request i's
+    submit."""
     import numpy as np
 
     from paddle_tpu_torch.inference import LLMEngine
 
     kw = (dict(kv_layout="paged", page_size=128, prefill_chunk=256, prefix_cache=False)
           if layout == "paged" else {})
-    eng = LLMEngine(model, max_batch_slots=8, max_seq_len=2048, spec_k=spec_k, **kw)
+    eng = LLMEngine(model, max_batch_slots=8, max_seq_len=2048, spec_k=spec_k, **kw,
+                    **(engine_kw or {}))
     rng = np.random.default_rng(1)
     # a verify tick emits up to K + 1 tokens a slot: room for the 32 ticks
     # of the 8 admissions and the measured ticks, so no slot finishes early
-    for _ in range(8):
+    for i in range(8):
         eng.submit(rng.integers(1, model.config.vocab_size, 1000).tolist(),
-                   max_new_tokens=96 * (spec_k + 1))
+                   max_new_tokens=96 * (spec_k + 1), **(submit_kw(i) if submit_kw else {}))
     for _ in range(64):  # prefill every prompt
         if eng.stats()["active_slots"] == 8:
             return eng
@@ -3110,13 +3157,13 @@ def tick_ms(eng, ticks):
     return (time.perf_counter() - t0) * 1e3 / ticks
 
 
-def decode_breakdown(model, layout, ticks=8, spec_k=0):
+def decode_breakdown(model, layout, ticks=8, spec_k=0, **busy):
     """Where one decode (or, with ``spec_k``, verify) tick's time goes with
-    all 8 slots busy: host wall per tick (unprofiled, then under
-    torch.profiler) and the device time of the kernels the ticks ran, by
-    kind.  Informational: a profiler that records no device events gives
-    "not measured", not a failure."""
-    eng = busy_engine(model, layout, spec_k)
+    all 8 slots busy (``busy``: busy_engine's engine_kw and submit_kw): host
+    wall per tick (unprofiled, then under torch.profiler) and the device
+    time of the kernels the ticks ran, by kind.  Informational: a profiler
+    that records no device events gives "not measured", not a failure."""
+    eng = busy_engine(model, layout, spec_k, **busy)
     res = dict(layout=layout, spec_k=spec_k, ticks=ticks, slots=8,
                wall_ms_per_tick=tick_ms(eng, ticks))
     try:
@@ -3399,6 +3446,509 @@ def spec_generate_run(model, rng, K, B=4, S0=512, n_new=32):
         f"{verdict['exact']} exact, {verdict['near_ties']} near-ties, {verdict['failures']} "
         f"failures; {'ok' if res['ok'] else 'FAIL'}")
     return res
+
+
+# ------------------------------------------------- multi-tenant serving
+
+# The tenants phase: 4 adapters of rank 16 on every LLaMA site, in a pool of
+# 3 usable pages, so admissions wait for a page and LRU eviction runs.
+TENANT_RANK, TENANT_POOL_PAGES, TENANT_ADAPTERS = 16, 3, 4
+# The adapters' scale: with standard-normal A [d_in, 16] and B [16, d_out]
+# the delta's largest gain is about scale (sqrt(d_in) + 4)^2, 4.6 at 1e-3
+# and d_in 4096 (the Xavier-initialised base projection's is about 2), and
+# its entries about 4 sqrt(d_in) scale |x|, a quarter of the base output's:
+# the adapters change the tokens.  At 4e-3 (a gain of 18) the model
+# amplifies rounding along the adapters' 16 directions, and two sound bf16
+# paths (the paged engine's, dense math) drift apart by 0.13-0.45 in the
+# logits; at 1e-3 and below they drift as the base model's do (0.035-0.039
+# against 0.033; tools/tenant_drift.py on an H100).
+TENANT_SCALE = 1e-3
+# The deterministic vocabulary's alphabet: digits, letters and the JSON
+# punctuation the grammars below need.
+TENANT_ALPHABET = '0123456789abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ{}[]:,"-. _'
+# Bounded grammars, so every constrained request must reach eos within its
+# new tokens: a phone number, and a JSON object of a boolean, an enum and a
+# null (at most 37 characters: {"ok":false,"kind":"emu","note":null}).
+TENANT_REGEX = "[0-9][0-9][0-9]-[0-9][0-9][0-9][0-9]"
+TENANT_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "kind": {"enum": ["cat", "dog", "emu"]},
+    "note": {"type": "null"}}}
+# The 12 requests: (adapter, constraint).
+TENANT_MIX = [(None, None), ("a0", None), ("a1", "regex"), ("a2", None), (None, "schema"),
+              ("a3", None), ("a0", "schema"), (None, "regex"), ("a1", None),
+              ("a3", "schema"), ("a2", "regex"), (None, None)]
+# The direct check of the LoRA epilogue (bf16 activations and pages, bf16
+# products with f32 accumulation, the rank-16 intermediate rounded to bf16)
+# against float32 math on the adapter's own float32 weights: each rounding
+# is at most 2^-9 of its value, so a few parts in a thousand of max |ref|.
+LORA_RTOL = 1e-2
+
+
+def tenant_vocab(vocab_size, seed=0):
+    """A deterministic id -> string map without a tokenizer: each alphabet
+    character alone first (so any grammar over the alphabet can finish),
+    then strings of 1-3 characters from ``seed``; ``</s>`` at the last id,
+    the eos."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    chars = list(TENANT_ALPHABET)
+    words = ["".join(rng.choice(chars, int(rng.integers(1, 4))))
+             for _ in range(vocab_size - len(chars) - 1)]
+    return chars + words + ["</s>"]
+
+
+def adapters_balanced(eng):
+    """Each adapter's pin count equals the live requests holding its page
+    (the slots and the one mid-prefill), and each holder's page is the
+    registry's page for its adapter."""
+    reg, held = eng.adapters, {}
+    live = list(eng.slot_req) + ([eng._prefilling[0]] if eng._prefilling is not None else [])
+    for r in live:
+        if r is not None and r.adapter_page:
+            if reg._page_of.get(r.adapter_id) != r.adapter_page:
+                return False
+            held[r.adapter_id] = held.get(r.adapter_id, 0) + 1
+    return (all(ref == held.get(aid, 0) for aid, ref in reg._ref.items())
+            and not set(held) - set(reg._ref))
+
+
+def constraint_masks(tc, toks, device):
+    """The allowed-token masks [n, V] (bool, on ``device``) in force at
+    each of ``toks`` and whether the automaton accepted every token."""
+    cur, rows, ok = tc.cursor(), [], True
+    for t in toks:
+        rows.append(torch.from_numpy(cur.mask().copy()))
+        ok &= cur.advance(t)
+    return torch.stack(rows).to(device), ok
+
+
+def lora_epilogue_check(reg, adapters):
+    """The LoRA epilogue alone at the decode shape, 8 rows over the pool's
+    pages and the zero page, against float32 math on the adapters' own
+    float32 weights: x.A.(scale B) a row."""
+    from paddle_tpu_torch.ops.lora import lora_epilogue
+
+    dev = reg.pool.device
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for site in ("q", "down"):
+        a_pool, b_pool = reg.pool.site_pools()[site]
+        x = torch.randn(8, 1, a_pool.shape[1], generator=g, device=dev).to(torch.bfloat16)
+        ids = [aid for aid in sorted(adapters) if reg.page_for(aid)]
+        rows = [reg.page_for(ids[i % len(ids)]) if i % 4 else 0 for i in range(8)]
+        got = lora_epilogue(x, a_pool, b_pool, torch.tensor(rows, device=dev)).float()
+        by_page = {reg.page_for(aid): aid for aid in ids}
+        want = torch.zeros_like(got)
+        for i, p in enumerate(rows):
+            if p:
+                a, b = (torch.from_numpy(w).to(dev) for w in adapters[by_page[p]].weights[site])
+                want[i] = x[i].float() @ a @ b
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        cases.append(dict(site=site, rows=rows, rel_err=err, zero_rows_exact=all(
+            not got[i].any() for i, p in enumerate(rows) if p == 0)))
+    return dict(cases=cases, tol=LORA_RTOL,
+                ok=all(c["rel_err"] <= LORA_RTOL and c["zero_rows_exact"] for c in cases))
+
+
+def tenants_phase(model, card):
+    """Multi-tenant serving through the paged engine: 12 requests mixing the
+    base model, 4 adapters in a 3-page pool and regex- and JSON-schema-
+    constrained traffic over a 32,000-entry vocabulary; then decode ticks of
+    8 busy slots with adapters, without, and constrained."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.constrain import compile_constraint
+    from paddle_tpu_torch.models.lora import AdapterRegistry, LoraAdapter, lora_sites
+    from paddle_tpu_torch.ops import lora as oplora
+
+    cfg, dev = model.config, model.device
+    V, L = cfg.vocab_size, cfg.num_hidden_layers
+    eos = V - 1
+    vocab = tenant_vocab(V)
+    t0 = time.perf_counter()
+    grammars = {"regex": compile_constraint(TENANT_REGEX, vocab, eos),
+                "schema": compile_constraint(TENANT_SCHEMA, vocab, eos)}
+    compile_s = time.perf_counter() - t0
+    sites = lora_sites(model)
+    adapters = {f"a{i}": LoraAdapter.random(sites, TENANT_RANK, seed=200 + i, scale=TENANT_SCALE)
+                for i in range(TENANT_ADAPTERS)}
+    reg = AdapterRegistry(model, max_adapters=TENANT_POOL_PAGES, rank=TENANT_RANK)
+    for aid, ad in adapters.items():
+        reg.register(aid, ad)
+    rng = np.random.default_rng(50)
+    reqs = [dict(prompt=rng.integers(1, eos, int(rng.integers(64, 401))).tolist(),
+                 adapter=aid, kind=kind, constraint=grammars.get(kind), sampled=False,
+                 max_new={"schema": 48, "regex": 16}.get(kind, 24), check=i % 2 == 0)
+            for i, (aid, kind) in enumerate(TENANT_MIX)]
+    eng = paged_engine(model, adapters=reg, constraint_vocab=vocab, eos_token_id=eos)
+    warm = eng.warmup()
+    zero_counts()                                        # the run starts here
+    t0 = time.perf_counter()
+    outs, balanced = drive(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()                             # ... and ends here
+    st = eng.stats()
+    expected = {"paged_attention": L * (st["prefill_chunks"] + st["decode_ticks"])}
+    # every constrained output: accepted token by token, ended by eos, and
+    # its text the grammar's (the phone regex; JSON with the schema's keys)
+    grammar_ok, texts = True, []
+    for r, o in zip(reqs, outs):
+        if r["kind"] is None:
+            continue
+        _, ok = constraint_masks(r["constraint"], o, dev)
+        text = "".join(vocab[t] for t in o[:-1])
+        texts.append(text)
+        ok &= o[-1] == eos
+        if r["kind"] == "regex":
+            ok &= re.fullmatch(TENANT_REGEX, text) is not None
+        else:
+            try:
+                obj = json.loads(text)
+                ok &= (list(obj) == ["ok", "kind", "note"] and isinstance(obj["ok"], bool)
+                       and obj["kind"] in ("cat", "dog", "emu") and obj["note"] is None)
+            except ValueError:
+                ok = False
+        grammar_ok &= bool(ok)
+    # every second request: the teacher-forced paged path against the
+    # dense-math forward under the same adapter page, and solo generate()'s
+    # tokens, equal up to a divergence at a near-tie
+    cases, solo, adapter_drift = [], [], 0.0
+    for r, o in zip(reqs, outs):
+        if not r["check"]:
+            continue
+        tc = r["constraint"]
+        page = reg.acquire(r["adapter"])
+        try:
+            with (oplora.activate(reg.pool.site_pools(), torch.tensor([page], device=dev))
+                  if page else contextlib.nullcontext()):
+                want = forward_logits(model, r["prompt"], o)
+                path = paged_logits(model, r["prompt"], o)
+        finally:
+            reg.release(r["adapter"])
+        if page:
+            adapter_drift = max(adapter_drift, (want - path).abs().max().item())
+        allowed = constraint_masks(tc, o, dev)[0] if tc is not None else None
+        cases.append((o, want, path, allowed))
+        s = model.generate(torch.tensor([r["prompt"]], device=dev), max_new_tokens=r["max_new"],
+                           eos_token_id=eos, kv_layout="paged", page_size=128,
+                           adapter_id=r["adapter"], adapters=reg, token_mask_fn=tc)[0].tolist()
+        s = s[:s.index(eos) + 1] if eos in s else s
+        solo.append((o, s, want, allowed))
+    verdict = judge(cases, LOGIT_TOL)
+    solo_equal = solo_tie = solo_bad = 0
+    for o, s, want, allowed in solo:
+        j = next((i for i, (a, b) in enumerate(zip(o, s)) if a != b), None)
+        if j is None and len(o) == len(s):
+            solo_equal += 1
+            continue
+        j = min(len(o), len(s)) - 1 if j is None else j
+        w = want[j] if allowed is None else want[j].masked_fill(~allowed[j], float("-inf"))
+        top2 = w.topk(2).values
+        if (top2[0] - top2[1]).item() < verdict["tie_tol"]:
+            solo_tie += 1
+        else:
+            solo_bad += 1
+    epilogue = lora_epilogue_check(reg, adapters)
+    res = dict(path="tenants", dtype=TAGS[model_dtype(model)], cache="bf16", requests=len(reqs),
+               warmup_s=warm, wall_s=wall, constraint_compile_s=compile_s,
+               launches=launches, expected_launches=expected,
+               prefill_chunks=st["prefill_chunks"], decode_ticks=st["decode_ticks"],
+               decode_tokens=st["decode_tokens"], prefill_s=st["prefill_seconds"],
+               decode_s=st["decode_seconds"],
+               decode_tok_per_s=st["decode_tokens"] / max(st["decode_seconds"], 1e-9),
+               ttft_s=st["ttft_seconds"], adapters=st["adapters"],
+               constrained_tokens=st["constrained_tokens"],
+               constraint_rejects=st["constraint_rejects"], constrained_texts=texts,
+               pool_balanced_every_tick=balanced,
+               drained=st["kv_pages_in_use"] == 0 and st["adapters"]["pages_pinned"] == 0,
+               grammar_ok=grammar_ok, teacher_forced=verdict,
+               adapter_row_max_logit_drift=adapter_drift,
+               solo=dict(compared=len(solo), equal=solo_equal, near_tie_divergence=solo_tie,
+                         failures=solo_bad),
+               lora_epilogue=epilogue,
+               valid_ids=all(0 <= t < V for o in outs for t in o))
+    res["ok"] = (launch_check(launches, expected) and balanced and res["drained"] and grammar_ok and verdict["ok"] and solo_bad == 0
+                 and adapter_drift <= LOGIT_TOL and epilogue["ok"] and res["valid_ids"]
+                 and st["constraint_rejects"] == 0 and st["adapters"]["evictions"] > 0)
+    del eng
+    torch.cuda.empty_cache()
+    log(f"  tenants: {len(reqs)} req ({sum(r['adapter'] is not None for r in reqs)} on "
+        f"{TENANT_ADAPTERS} adapters in {TENANT_POOL_PAGES} pages, "
+        f"{sum(r['kind'] is not None for r in reqs)} constrained), "
+        f"{st['prefill_chunks']} prefills in {st['prefill_seconds']:.3f} s, "
+        f"{st['decode_tokens']} decode tok at {res['decode_tok_per_s']:.1f} tok/s, wall "
+        f"{wall:.1f} s; adapters {st['adapters']}; launches {launches} (expected {expected}); "
+        f"balanced {balanced}; grammars {grammar_ok} {texts}; teacher-forced "
+        f"drift max {verdict['max_logit_drift']:.4f} (adapter rows {adapter_drift:.4f}, tol "
+        f"{LOGIT_TOL}), {verdict['exact']} exact, {verdict['near_ties']} near-ties, "
+        f"{verdict['failures']} failures; solo {res['solo']}; epilogue "
+        f"{[(c['site'], round(c['rel_err'], 6)) for c in epilogue['cases']]} (tol "
+        f"{LORA_RTOL}); constraints compiled in {compile_s:.2f} s; "
+        f"{'ok' if res['ok'] else 'FAIL'} [{card}]")
+    ticks = tenant_ticks(model, reg, vocab, eos, card)
+    return [res], ticks
+
+
+def tenant_ticks(model, reg, vocab, eos, card):
+    """Decode ticks of 8 busy slots: on 3 adapters against the base model
+    (the LoRA epilogue's share of the device time is their difference), and
+    constrained against unconstrained (wall a tick: the masks' upload and
+    the automata on the host)."""
+    rows = dict(engine_kw=dict(adapters=reg),
+                submit_kw=lambda i: dict(adapter_id=f"a{i % TENANT_POOL_PAGES}"))
+    lora = decode_breakdown(model, "paged", **rows)
+    base = decode_breakdown(model, "paged", engine_kw=dict(adapters=reg))
+    out = dict(lora=lora, base=base)
+    if isinstance(lora.get("device_ms_per_tick"), float) and isinstance(
+            base.get("device_ms_per_tick"), float):
+        out["lora_epilogue_device_ms"] = lora["device_ms_per_tick"] - base["device_ms_per_tick"]
+        out["lora_epilogue_share"] = out["lora_epilogue_device_ms"] / lora["device_ms_per_tick"]
+    walls = {}
+    for name, kw in (("constrained", dict(constraint="[0-9a-z]+")), ("unconstrained", {})):
+        eng = busy_engine(model, "paged", engine_kw=dict(constraint_vocab=vocab, eos_token_id=eos),
+                          submit_kw=lambda i, kw=kw: kw)
+        walls[name] = tick_ms(eng, 16)
+        out[f"{name}_active_slots"] = eng.stats()["active_slots"]
+        eng.stop()
+        del eng
+        torch.cuda.empty_cache()
+    out.update(constrained_wall_ms=walls["constrained"], unconstrained_wall_ms=walls["unconstrained"])
+    log(f"  tenant ticks, 8 slots at ~1k context: {json.dumps(out)} [{card}]")
+    return out
+
+
+# --------------------------------------------------------- the kv tiers
+
+TIER_HOST_PAGES, TIER_DISK_PAGES = 16, 64
+# The disk runs keep 2 pages on the host, so the system prompt's 8 staged
+# pages mostly spill.
+TIER_SMALL_HOST = 2
+
+
+def tiers_balanced(eng):
+    """The host tier within its capacity with its bytes counted, every disk
+    entry a committed file, no partial-tail entry pointing at nothing."""
+    import os
+
+    pool = eng._host_kv
+    st = pool.stats()
+    return bool(st["host_entries"] == len(pool._host) <= pool.host_pages
+                and st["host_bytes"] == sum(pool._entry_bytes(e) for e in pool._host.values())
+                and st["disk_entries"] == len(pool._disk) <= pool.disk_pages
+                and all(os.path.exists(rec["path"]) for rec in pool._disk.values())
+                and all(keys and all(k in pool for k in keys)
+                        for keys in pool._partials.values()))
+
+
+def cached_pages(eng):
+    """{prefix key: the page's rows in every layer's pools, on the host}."""
+    return {key: [x[page].cpu() for c in eng.caches for x in c]
+            for key, _, page, _, _ in eng._prefix.lru_entries()}
+
+
+def chain_keys(prompt, ps):
+    """The prefix cache's keys of ``prompt``'s full blocks, in order."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.prefix_cache import _root_key, chained_block_key
+
+    p, key, out = np.asarray(prompt, np.int32), _root_key(None), []
+    for i in range(len(p) // ps):
+        key = chained_block_key(key, p[i * ps:(i + 1) * ps].tobytes())
+        out.append(key)
+    return out
+
+
+def tier_oracle(model, a, b, cache_dtype):
+    """The same traffic without the tiers: A (the system prompt), then B
+    hitting it in HBM (B's tokens, the oracle), then B again after every
+    cached page was evicted: a full re-prefill, its TTFT."""
+    eng = paged_engine(model, cache_dtype=cache_dtype)
+    eng.warmup()
+    drive(eng, [a])
+    (tokens,), _ = drive(eng, [b])
+    hit_ttft = eng._ttfts[-1]
+    assert eng._evict_prefix(int(eng._page_cached.sum()))
+    chunks = eng.stats()["prefill_chunks"]
+    drive(eng, [b])
+    res = dict(tokens=tokens, hbm_hit_ttft_s=hit_ttft, reprefill_ttft_s=eng._ttfts[-1],
+               reprefill_chunks=eng.stats()["prefill_chunks"] - chunks)
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def tier_run(model, name, a, b, c, cache_dtype, oracle, spill_dir):
+    """A (the system prompt alone), then every cached page demoted
+    (``demote_step(force=True)``) and its HBM copy evicted; then B, which
+    can hit only by promotion from the host tier (or, with ``spill_dir``,
+    mostly from disk).  With ``c``: B's pages demoted and evicted as well,
+    one spill of the system prompt's chain corrupted, and C, which must
+    fall back to re-prefill from the block before it."""
+    import numpy as np
+
+    disk = spill_dir is not None
+    eng = paged_engine(model, cache_dtype=cache_dtype,
+                       host_cache_pages=TIER_SMALL_HOST if disk else TIER_HOST_PAGES,
+                       disk_cache_dir=spill_dir, disk_cache_pages=TIER_DISK_PAGES if disk else 0)
+    warm = eng.warmup()
+    L, ps = model.config.num_hidden_layers, eng.ps
+    _, balanced = drive(eng, [a])
+    staged_bytes = cached_pages(eng)
+    page_bytes = sum(x.nbytes for x in next(iter(staged_bytes.values())))
+
+    def demote_all():
+        t0, n = time.perf_counter(), 0
+        while True:
+            k = eng.demote_step(force=True)
+            if not k:
+                break
+            n += k
+        return n, time.perf_counter() - t0
+
+    demoted, demote_s = demote_all()
+    balanced &= pool_balanced(eng)
+    assert eng._evict_prefix(int(eng._page_cached.sum()))
+    promote = eng._promote_from_tiers
+    timing = dict(pages=0, s=0.0)
+
+    def timed_promote(req):
+        t0 = time.perf_counter()
+        n = promote(req)
+        torch.cuda.synchronize()
+        timing["pages"] += n
+        timing["s"] += time.perf_counter() - t0
+        return n
+
+    eng._promote_from_tiers = timed_promote
+    st0 = st_w = eng.stats()
+    zero_counts()                                        # the run starts here
+    t0 = time.perf_counter()
+    (out_b,), bal = drive(eng, [b])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    balanced &= bal
+    st = eng.stats()
+    hit_b = st["prefix_cache"]["hit_tokens"] - st0["prefix_cache"]["hit_tokens"]
+    chunks_b = st["prefill_chunks"] - st0["prefill_chunks"]
+    ttft_b = eng._ttfts[-1]
+    tiers = st["prefix_cache"]["tiers"]
+    promoted_equal = all(
+        eng._prefix.node_info(k) is not None and all(
+            torch.equal(x[eng._prefix.node_info(k)[0]].cpu(), y)
+            for x, y in zip((x for cc in eng.caches for x in cc), rows))
+        for k, rows in staged_bytes.items())
+    res = dict(path="tiers", name=name, dtype=TAGS[model_dtype(model)],
+               cache=cache_dtype or "bf16", tier="disk" if disk else "host", requests=1,
+               warmup_s=warm, wall_s=wall, page_mib=page_bytes / 2**20, demoted_pages=demoted,
+               demote_ms_per_page=demote_s * 1e3 / max(demoted, 1),
+               demote_gb_per_s=demoted * page_bytes / demote_s / 1e9 if demoted else 0.0,
+               promoted_pages=timing["pages"],
+               promote_ms_per_page=timing["s"] * 1e3 / max(timing["pages"], 1),
+               promote_gb_per_s=(timing["pages"] * page_bytes / timing["s"] / 1e9
+                                 if timing["pages"] else 0.0),
+               hit_tokens=hit_b, prefill_chunks_b=chunks_b,
+               expected_chunks_b=-(-(len(b["prompt"]) - hit_b) // eng.prefill_chunk),
+               ttft_promotion_s=ttft_b, ttft_reprefill_s=oracle["reprefill_ttft_s"],
+               ttft_hbm_hit_s=oracle["hbm_hit_ttft_s"], reprefill_chunks=oracle["reprefill_chunks"],
+               promoted_equal_demoted=promoted_equal, tokens_equal_tierless=out_b == oracle["tokens"],
+               tiers=tiers)
+    ok = (promoted_equal and res["tokens_equal_tierless"] and hit_b >= SYSTEM_PROMPT - 1
+          and tiers["host"]["hit_tokens"] + tiers["disk"]["hit_tokens"] == hit_b
+          and chunks_b == res["expected_chunks_b"] and timing["pages"] == demoted
+          and (not disk or tiers["disk"]["loads"] > 0))
+    if c is not None:
+        # B's own pages go to the tiers as well; then one spill of the
+        # system prompt's chain (a disk page past the first) is corrupted
+        more, _ = demote_all()
+        assert eng._evict_prefix(int(eng._page_cached.sum()))
+        pool = eng._host_kv
+        keys = chain_keys(a["prompt"], ps)
+        j = next(i for i, k in enumerate(keys) if i > 0 and pool.tier_of(k) == "disk")
+        path = pool._disk[keys[j]]["path"]
+        with open(path, "r+b") as f:
+            f.seek(-4096, 2)
+            byte = f.read(1)
+            f.seek(-4096, 2)
+            f.write(bytes([byte[0] ^ 1]))
+        st0 = eng.stats()
+        (out_c,), bal = drive(eng, [c])
+        balanced &= bal
+    launches = read_counts()                             # ... and ends here
+    st = eng.stats()
+    expected = {"paged_attention": L * (st["prefill_chunks"] - st_w["prefill_chunks"]
+                                        + st["decode_ticks"] - st_w["decode_ticks"])}
+    if c is not None:
+        hit_c = st["prefix_cache"]["hit_tokens"] - st0["prefix_cache"]["hit_tokens"]
+        chunks_c = st["prefill_chunks"] - st0["prefill_chunks"]
+        tf = judge([(out_c, forward_logits(model, c["prompt"], out_c),
+                     paged_logits(model, c["prompt"], out_c, split=hit_c or None))], LOGIT_TOL)
+        res.update(corrupted_block=j, quarantined=st["prefix_cache"]["tiers"]["disk"]["quarantined"],
+                   hit_tokens_c=hit_c, prefill_chunks_c=chunks_c,
+                   expected_chunks_c=-(-(len(c["prompt"]) - hit_c) // eng.prefill_chunk),
+                   teacher_forced_c=tf, demoted_after_b=more)
+        ok &= (res["quarantined"] == 1 and hit_c == j * ps and chunks_c == res["expected_chunks_c"]
+               and tf["ok"])
+    res.update(launches=launches, expected_launches=expected, pool_balanced_every_tick=balanced,
+               drained=st["kv_pages_in_use"] == 0)
+    res["ok"] = bool(ok and balanced and res["drained"] and launch_check(launches, expected))
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def tiers_phase(model, card):
+    """The host and disk kv tiers through the paged engine, at bf16 and on
+    int8 caches: the 1,000-token system prompt demoted, evicted from HBM
+    and promoted back for a request on it, against the same traffic
+    without the tiers; on disk at bf16, also a corrupted spill."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(60)
+    system = rng.integers(1, vocab, SYSTEM_PROMPT).tolist()
+    a = dict(prompt=system, max_new=8, sampled=False)
+    b = dict(prompt=system + rng.integers(1, vocab, 150).tolist(), max_new=16, sampled=False)
+    c = dict(prompt=system + rng.integers(1, vocab, 120).tolist(), max_new=16, sampled=False)
+    runs = []
+    spill = tempfile.mkdtemp(prefix="kv_tiers_")
+    try:
+        for cache_dtype in (None, "int8"):
+            oracle = tier_oracle(model, a, b, cache_dtype)
+            for disk in (False, True):
+                name = f"{'disk' if disk else 'host'}_{cache_dtype or 'bf16'}"
+                sub = None
+                if disk:
+                    sub = tempfile.mkdtemp(prefix=name + "_", dir=spill)
+                runs.append(tier_run(model, name, a, b, c if disk and cache_dtype is None else None,
+                                     cache_dtype, oracle, sub))
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    for r in runs:
+        extra = ""
+        if "hit_tokens_c" in r:
+            tf = r["teacher_forced_c"]
+            extra = (f"; corrupted spill of block {r['corrupted_block']}: quarantined "
+                     f"{r['quarantined']}, C hit {r['hit_tokens_c']} tokens, "
+                     f"{r['prefill_chunks_c']} chunks (expected {r['expected_chunks_c']}), "
+                     f"drift max {tf['max_logit_drift']:.4f}, {tf['failures']} failures")
+        log(f"  tiers {r['name']}: {r['demoted_pages']} pages of {r['page_mib']:.2f} MiB demoted "
+            f"at {r['demote_ms_per_page']:.2f} ms/page ({r['demote_gb_per_s']:.2f} GB/s), "
+            f"{r['promoted_pages']} promoted at {r['promote_ms_per_page']:.2f} ms/page "
+            f"({r['promote_gb_per_s']:.2f} GB/s); B hit {r['hit_tokens']} tokens, "
+            f"{r['prefill_chunks_b']} chunks (expected {r['expected_chunks_b']}); TTFT promotion "
+            f"{r['ttft_promotion_s'] * 1e3:.1f} ms vs re-prefill {r['ttft_reprefill_s'] * 1e3:.1f} "
+            f"ms ({r['reprefill_chunks']} chunks; HBM hit {r['ttft_hbm_hit_s'] * 1e3:.1f} ms); "
+            f"promoted == demoted {r['promoted_equal_demoted']}, tokens == tier-less "
+            f"{r['tokens_equal_tierless']}; launches {r['launches']} (expected "
+            f"{r['expected_launches']}); balanced {r['pool_balanced_every_tick']}{extra}; "
+            f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
+    return runs, None
 
 
 # --------------------------------------------------------------------- gpt
@@ -4452,15 +5002,19 @@ def dtypes_phase(card):
 # ------------------------------------------------------------------- main
 
 PHASES = ("device", "build", "kernels", "generate", "dense_engine", "paged_engine",
-          "ticks", "prefix", "spec", "gpt", "dtypes", "train", "ernie", "resnet")
+          "ticks", "prefix", "spec", "tenants", "tiers", "gpt", "dtypes", "train", "ernie",
+          "resnet")
 PATH_TITLES = {"generate": "model.generate() on the static cache",
                "dense_engine": "the dense LLMEngine",
                "paged_engine": "the paged LLMEngine",
                "ticks": "both engines' decode ticks in turns",
                "prefix": "the paged LLMEngine with its prefix cache",
-               "spec": "speculative decoding (spec_k=4)"}
+               "spec": "speculative decoding (spec_k=4)",
+               "tenants": "the paged LLMEngine with LoRA adapters and constraints",
+               "tiers": "the paged LLMEngine with its host and disk kv tiers"}
 PATH_PHASES = {"dense_engine": dense_engine_phase, "paged_engine": paged_engine_phase,
-               "ticks": ticks_phase, "prefix": prefix_phase, "spec": spec_phase}
+               "ticks": ticks_phase, "prefix": prefix_phase, "spec": spec_phase,
+               "tenants": tenants_phase, "tiers": tiers_phase}
 
 
 def phase_done(report, name, t0):

@@ -36,6 +36,27 @@ paged layout hands back the pages that hold only rejected rows).  Greedy
 tokens equal those of ``spec_k=0``.  With fewer than K rows of headroom a
 tick decodes one token.
 
+MULTI-TENANT serving (paged): ``adapters=`` attaches a
+``models.lora.AdapterRegistry`` and ``submit(adapter_id=)`` decodes a
+request through that adapter's pages of the LoRA pool, per row
+(ops/lora.py), so one batch mixes adapters; admission charges the adapter
+pool like the kv pool (a request whose adapter finds every page pinned
+waits at the head of the queue), and finish, expiry, preemption and a
+failed admission release it.  ``submit(constraint=)`` (a regex, a JSON
+schema with ``constraint_vocab=``, or a compiled ``TokenConstraint``; not
+with ``spec_k``) masks each of the request's tokens to its automaton
+(inference/constrain.py): a tick with a constrained row decodes one token,
+with one [V] mask row a constrained slot.
+
+The KV TIERS (paged with the prefix cache, ``host_cache_pages`` > 0):
+``demote_step`` stages the least recently used cached pages device -> host
+into an ``inference.kv_host_cache.HostKVPool`` (overflowing to checksummed
+files under ``disk_cache_dir``) when the pool runs short of free pages or
+the device of memory, off the decode tick (the worker ``start()``
+starts); an admission first promotes the staged blocks of its prompt back
+into free pages under their keys, so prefill starts at the first token no
+tier holds.
+
 Completion by eos / max tokens / capacity frees the slot (and its pages).
 The reference compiles its prefill and decode programs with jax.jit and
 donates the caches; here both are eager PyTorch and the caches update in
@@ -43,22 +64,26 @@ place.  ``step()`` pumps one tick; ``run_until_complete()`` drains;
 ``start()`` spawns the background pump.  Greedy tokens equal the reference
 engine's on the same weights (tests/test_torch_engine.py).
 
-Not ported yet, and raising NotImplementedError (ROADMAP.md Queue 1 items
-2 and 5): LoRA adapters, constraints, kv tiers and the metrics exporter.
+Not ported yet, and raising NotImplementedError (ROADMAP.md Queue 1 item
+5): the metrics exporter.
 """
 from __future__ import annotations
 
+import json
 import queue
 import threading
 import time
 from concurrent.futures import Future
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..framework.random import get_generator
-from ..models.kv_cache import _quantize_kv, cow_copy_pages, pages_for
+from ..models.kv_cache import (
+    _quantize_kv, cow_copy_pages, gather_pages_to_host, pages_for, upload_host_pages)
+from ..ops import lora as _oplora
 from ..ops.sampling import sample_rows, spec_accept
 
 __all__ = ["LLMEngine", "ServerOverloadedError", "DeadlineExceededError"]
@@ -90,6 +115,16 @@ def _complete_future(fut, result):
         pass
 
 
+def _to_host(x):
+    """``x`` copied to the host: into pinned (page-locked) memory when it
+    lives on CUDA, so the copy runs at the link's rate and a later upload
+    can run asynchronously."""
+    if x.device.type != "cuda":
+        return x.cpu()
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return out.copy_(x)
+
+
 def _not_ported(what, item):
     return NotImplementedError(
         f"{what} is not ported to paddle_tpu_torch yet (ROADMAP.md Queue 1: "
@@ -119,6 +154,11 @@ class _Request:
     folded: int = 0           # generated tokens already appended to the prompt
                               # by earlier preemptions
     adm_skips: int = 0        # times cache-aware admission passed it over
+    adapter_id: object = None  # LoRA adapter (None: the base model)
+    adapter_page: int = 0     # its pinned pool page while admitted (0: none)
+    constraint: object = None  # compiled TokenConstraint, or None
+    cursor: object = None     # the request's automaton state
+    tier_hit_tokens: int = 0  # prompt tokens promoted from the host/disk tiers
 
 
 class LLMEngine:
@@ -129,8 +169,9 @@ class LLMEngine:
                  kv_layout=None, page_size=128, num_pages=None,
                  prefill_chunk=None, prefix_cache=None, metrics_port=None,
                  spec_k=0, spec_draft=None, cache_aware_admission=False,
-                 admission_age_cap=4, adapters=None, host_cache_pages=0,
-                 generator=None):
+                 admission_age_cap=4, adapters=None, constraint_vocab=None,
+                 host_cache_pages=0, disk_cache_dir=None, disk_cache_pages=0,
+                 demote_watermark=0.25, demote_batch=8, generator=None):
         """Arguments as in the reference engine.  The paged layout serves
         with the prefix cache unless ``prefix_cache=False``; the dense one
         ignores ``page_size``, ``num_pages`` and ``prefill_chunk``.
@@ -143,9 +184,16 @@ class LLMEngine:
         ``generate``); it excludes ``decode_chunk`` > 1.
         ``cache_aware_admission`` (paged with the prefix cache) admits the
         queued request with the longest cached prefix among the first 8,
-        the queue head after ``admission_age_cap`` bypasses.  ``generator``
-        is the torch.Generator sampled rows draw from (default: the seeded
-        generator of the model's device)."""
+        the queue head after ``admission_age_cap`` bypasses.  ``adapters``
+        (paged) is a ``models.lora.AdapterRegistry`` for
+        ``submit(adapter_id=)``; ``constraint_vocab`` (token id -> string)
+        compiles wire-form constraints.  ``host_cache_pages`` > 0 (paged,
+        prefix cache on) stages cached pages on the host, spilling to
+        ``disk_cache_pages`` files under ``disk_cache_dir``; ``demote_step``
+        stages up to ``demote_batch`` pages a pass once the pool's used
+        share (or the device memory's) passes 1 - ``demote_watermark``.
+        ``generator`` is the torch.Generator sampled rows draw from
+        (default: the seeded generator of the model's device)."""
         if kv_layout not in (None, "dense", "paged"):
             raise ValueError(
                 f"kv_layout must be None, 'dense' or 'paged', got {kv_layout!r}")
@@ -153,10 +201,18 @@ class LLMEngine:
         if not self.paged and prefix_cache:
             raise ValueError("prefix_cache requires kv_layout='paged' (sharing "
                              "rides on the page tables)")
+        if host_cache_pages and not self.paged:
+            raise ValueError("host_cache_pages requires kv_layout='paged' (the kv "
+                             "tiers stage and re-map page-pool pages)")
         if adapters is not None:
-            raise _not_ported("LoRA adapters", "item 2, part 4: LoRA, constraints")
-        if host_cache_pages:
-            raise _not_ported("the host/disk kv tiers", "item 2, part 5: KV tiers")
+            from ..models.lora import AdapterRegistry
+
+            if not self.paged:
+                raise ValueError("adapters= requires kv_layout='paged' (the adapter "
+                                 "pool rides the paged serving path)")
+            if not isinstance(adapters, AdapterRegistry):
+                raise TypeError("adapters= must be a models.lora.AdapterRegistry, "
+                                f"got {type(adapters).__name__}")
         if metrics_port is not None:
             raise _not_ported("the metrics exporter", "item 5, serving plane")
         if cache_dtype not in (None, "int8"):
@@ -236,6 +292,26 @@ class LLMEngine:
                 from .prefix_cache import PrefixCache
 
                 self._prefix = PrefixCache(self.ps)
+        self._host_kv = None
+        if host_cache_pages:
+            if self._prefix is None:
+                raise ValueError("host_cache_pages requires the prefix cache (the "
+                                 "tiers are keyed by its chained block hashes)")
+            from .kv_host_cache import HostKVPool
+
+            self._host_kv = HostKVPool(host_pages=host_cache_pages,
+                                       disk_dir=disk_cache_dir, disk_pages=disk_cache_pages)
+        self.demote_watermark = float(demote_watermark)
+        self.demote_batch = max(1, int(demote_batch))
+        self._demote_thread = None
+        self._demote_error: BaseException | None = None
+        self._demote_mutex = threading.Lock()
+        self._tier_hit_tokens = {"hbm": 0, "host": 0, "disk": 0}
+        self._kv_demotions = self._kv_promotions = 0
+        self.adapters = adapters
+        self._constraint_vocab = (list(constraint_vocab)
+                                  if constraint_vocab is not None else None)
+        self._constraint_cache = {}  # wire spec -> compiled TokenConstraint
         # prefix-cache accounting; the epoch is bumped by every insert and
         # eviction, and invalidates the requests' memoized matches
         self._prefix_hit_tokens = self._prefix_prompt_tokens = 0
@@ -274,7 +350,8 @@ class LLMEngine:
         self._counts = dict(submitted=0, admitted=0, completed=0, shed=0,
                             expired=0, preemptions=0, prefill_chunks=0,
                             decode_ticks=0, decode_steps=0, decode_tokens=0,
-                            recompute_tokens=0)
+                            recompute_tokens=0, constrained_tokens=0,
+                            constraint_rejects=0)
         self._recompute_by = dict(page_pool_dry=0, mid_verify=0, prefill_cow=0)
         self._bucket_counts: dict[int, int] = {}
         self._seconds = dict(prefill=0.0, decode=0.0)
@@ -287,11 +364,11 @@ class LLMEngine:
                adapter_id=None, constraint=None):
         """Queue one prompt; returns a Future of the generated id list.
         Sampling knobs are per request.  ``timeout`` (seconds) sets a
-        deadline; a full queue raises ServerOverloadedError."""
-        if adapter_id is not None:
-            raise _not_ported("adapter_id", "item 2, part 4: LoRA, constraints")
-        if constraint is not None:
-            raise _not_ported("constraint", "item 2, part 4: LoRA, constraints")
+        deadline; a full queue raises ServerOverloadedError.  ``adapter_id``
+        decodes through an adapter of the engine's registry; ``constraint``
+        (a regex str, a JSON-schema dict, or a compiled TokenConstraint)
+        masks decoding to its automaton.  Both are checked here, never in
+        the pump."""
         if self._pump_error is not None:
             raise RuntimeError("LLMEngine pump thread died; restart the engine"
                                ) from self._pump_error
@@ -306,12 +383,26 @@ class LLMEngine:
         arr = np.asarray(prompt_ids, np.int32).reshape(-1)
         if arr.size == 0 or arr.size > self.L - 1:
             raise ValueError(f"prompt length {arr.size} not in [1, {self.L - 1}]")
+        if adapter_id is not None:
+            if self.adapters is None:
+                raise ValueError("adapter_id= requires an engine constructed with "
+                                 "adapters= (a models.lora.AdapterRegistry)")
+            if adapter_id not in self.adapters.ids():
+                raise KeyError(f"unknown adapter {adapter_id!r}; register it on the "
+                               "engine's AdapterRegistry first")
+        try:
+            cst = self._compile_constraint(constraint)
+        except (TypeError, ValueError):
+            with self._lock:
+                self._counts["constraint_rejects"] += 1
+            raise
         now = self._clock()
         req = _Request(arr, int(max_new_tokens), Future(),
                        do_sample=bool(do_sample), temperature=float(temperature),
                        top_k=int(top_k), top_p=float(top_p),
                        deadline=(now + float(timeout)) if timeout is not None else None,
-                       submit_ts=now)
+                       submit_ts=now, adapter_id=adapter_id, constraint=cst,
+                       cursor=cst.cursor() if cst is not None else None)
         try:
             if self.max_queue_len is not None and self.max_queue_len <= 0:
                 raise queue.Full
@@ -331,6 +422,50 @@ class LLMEngine:
             raise exc
         return req.future
 
+    def _compile_constraint(self, constraint):
+        """``submit``'s ``constraint`` as a compiled TokenConstraint: wire
+        forms (regex str, JSON-schema dict) compile once per distinct spec
+        and are cached, so repeat traffic pays no rebuild."""
+        if constraint is None:
+            return None
+        if not self.paged:
+            raise ValueError("constraint= requires kv_layout='paged' (the token-mask "
+                             "path rides the paged decode tick)")
+        if self.spec_k:
+            raise ValueError("constraint= does not compose with spec_k (constraint "
+                             "masks are per-position; drafted tokens cannot be "
+                             "pre-masked)")
+        c = constraint
+        if isinstance(c, (str, dict)):
+            if self._constraint_vocab is None:
+                raise ValueError("wire-form constraints (regex str / schema dict) need "
+                                 "the engine constructed with constraint_vocab= (token "
+                                 "id -> string), or pass a compiled TokenConstraint")
+            if self.eos < 0:
+                raise ValueError("constrained decoding needs eos_token_id on the engine "
+                                 "(the automaton ends by emitting eos)")
+            # no sort_keys: a schema's property order is part of its regex
+            key = c if isinstance(c, str) else json.dumps(c)
+            with self._lock:
+                cached = self._constraint_cache.get(key)
+            if cached is None:
+                from .constrain import compile_constraint
+
+                cached = compile_constraint(c, self._constraint_vocab, self.eos)
+                with self._lock:
+                    cached = self._constraint_cache.setdefault(key, cached)
+            c = cached
+        if not hasattr(c, "cursor"):
+            raise TypeError("constraint= must be a regex str, a JSON-schema dict, or a "
+                            f"compiled TokenConstraint, got {type(c).__name__}")
+        if int(c.V) != self._vocab:
+            raise ValueError(f"constraint vocab size {c.V} != model vocab size "
+                             f"{self._vocab}")
+        if int(c.eos_token_id) != self.eos:
+            raise ValueError(f"constraint eos {int(c.eos_token_id)} != engine eos "
+                             f"{self.eos}")
+        return c
+
     def generate(self, prompt_ids, max_new_tokens=32, **sampling):
         """Blocking single-prompt convenience."""
         fut = self.submit(prompt_ids, max_new_tokens, **sampling)
@@ -339,29 +474,47 @@ class LLMEngine:
 
     def run_until_complete(self):
         """Pump ticks until the queue and all slots drain."""
-        while not self._pending.empty() \
-                or any(r is not None for r in self.slot_req) \
-                or self._prefilling is not None:
+        while self._has_work():
             self.step()
+
+    def _has_work(self):
+        """Anything queued, mid-prefill or decoding.  Read between ticks
+        without the lock (here and by the pump's idle check): a stale
+        answer costs one idle tick or one 2 ms sleep."""
+        slots = self.slot_req  # tpulint: disable=lock-guard-inference (between ticks)
+        prefilling = self._prefilling  # tpulint: disable=lock-guard-inference (same)
+        return (not self._pending.empty() or prefilling is not None
+                or any(r is not None for r in slots))
 
     def stats(self):
         """Engine-local counters and timings (host clock around work that
-        ends in a device sync)."""
+        ends in a device sync).  It takes no lock, as the reference's
+        stats() takes none: a scrape never waits behind a tick, and a value
+        may lag one tick."""
+        counts = dict(self._counts)  # tpulint: disable=lock-guard-inference (scrape)
+        seconds = dict(self._seconds)  # tpulint: disable=lock-guard-inference (scrape)
+        slots = list(self.slot_req)  # tpulint: disable=lock-guard-inference (scrape)
         ttft = np.asarray(self._ttfts, np.float64)
-        # "in use" counts pages a SLOT maps; pages only the prefix cache
-        # holds are reclaimable and reported under prefix_cache
-        layout = ({"kv_pages_in_use": self._slot_held_pages(),
-                   "kv_pages_total": self.num_pages - 1} if self.paged else
-                  {"prefill_buckets": dict(sorted(self._bucket_counts.items()))})
+        layout = {"prefill_buckets": dict(sorted(self._bucket_counts.items()))}
         prefix = None
-        if self._prefix is not None:
+        if self.paged:
+            ref = self._page_ref.copy()  # tpulint: disable=lock-guard-inference (scrape)
+            cached = self._page_cached.copy()  # tpulint: disable=lock-guard-inference (scrape)
+            # "in use" counts pages a SLOT maps; pages only the prefix cache
+            # holds are reclaimable and reported under prefix_cache
+            layout = {"kv_pages_in_use": int((ref > cached).sum()),
+                      "kv_pages_total": self.num_pages - 1}
+        index = self._prefix  # tpulint: disable=lock-guard-inference (scrape)
+        if index is not None:
             n = self._prefix_prompt_tokens
             prefix = {"hit_ratio": self._prefix_hit_tokens / n if n else 0.0,
                       "hit_tokens": self._prefix_hit_tokens, "prompt_tokens": n,
-                      "cached_pages": int(self._page_cached.sum()),
-                      "shared_pages": int((self._page_ref > 1).sum()),
-                      "nodes": len(self._prefix), "cow_copies": self._cow_copies,
+                      "cached_pages": int(cached.sum()),
+                      "shared_pages": int((ref > 1).sum()),
+                      "nodes": len(index), "cow_copies": self._cow_copies,
                       "evictions": self._prefix_evictions}
+            if self._host_kv is not None:  # absent, not zero, without the tiers
+                prefix["tiers"] = self._tier_snapshot()
         spec = None
         if self.spec_k:
             sp = self._spec
@@ -373,18 +526,19 @@ class LLMEngine:
                     "verify_calls": sp["verify_calls"],
                     "acceptance_ratio": sp["accepted"] / sp["drafted"] if sp["drafted"] else 0.0}
         return {
-            **self._counts,
+            **counts,
             **layout,
             "recompute_tokens_by_reason": dict(self._recompute_by),
             "prefix_cache": prefix,
             "spec": spec,
+            "adapters": self.adapters.stats() if self.adapters is not None else None,
             "admission_reorders": self._adm_reorders,
             "queue_depth": self._pending.qsize(),
-            "active_slots": sum(r is not None for r in self.slot_req),
+            "active_slots": sum(r is not None for r in slots),
             "n_slots": self.n_slots,
             "kv_layout": self.kv_layout,
-            "prefill_seconds": self._seconds["prefill"],
-            "decode_seconds": self._seconds["decode"],
+            "prefill_seconds": seconds["prefill"],
+            "decode_seconds": seconds["decode"],
             "ttft_seconds": {"count": int(ttft.size),
                              "mean": float(ttft.mean()) if ttft.size else 0.0,
                              "p50": float(np.median(ttft)) if ttft.size else 0.0,
@@ -398,6 +552,11 @@ class LLMEngine:
             self._pump_error = None
             self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()
+        if self._host_kv is not None and (self._demote_thread is None
+                                          or not self._demote_thread.is_alive()):
+            # the demotion worker keeps device -> host staging off the tick
+            self._demote_thread = threading.Thread(target=self._demote_loop, daemon=True)
+            self._demote_thread.start()
         return self
 
     def stop(self):
@@ -417,6 +576,12 @@ class LLMEngine:
             self._drain_queue(RuntimeError("LLMEngine stopped"))
         else:
             self._fail_pending(RuntimeError("LLMEngine stopped"))
+            if self._demote_thread is not None:
+                # the pump is gone, so the worker sees _stop at its next pass:
+                # join it before the reset below would resurrect its loop
+                self._demote_thread.join(timeout=30)
+                if not self._demote_thread.is_alive():
+                    self._demote_thread = None
             self._stop = False
 
     def warmup(self):
@@ -468,8 +633,7 @@ class LLMEngine:
     def _loop(self):
         try:
             while not self._stop:
-                if self._pending.empty() and self._prefilling is None \
-                        and all(r is None for r in self.slot_req):
+                if not self._has_work():
                     time.sleep(0.002)
                     continue
                 self.step()
@@ -493,12 +657,14 @@ class LLMEngine:
                 req, slot, _ = self._prefilling
                 self._prefilling = None
                 self._release_pages(slot)
+                self._release_adapter(req)
                 _fail_future(req.future, exc)
             for i, req in enumerate(self.slot_req):
                 if req is not None:
                     self.slot_req[i] = None
                     self.last_token[i] = self.pad
                     self._release_pages(i)
+                    self._release_adapter(req)
                     _fail_future(req.future, exc)
 
     # ---------------------------------------------------- paged internals
@@ -542,6 +708,43 @@ class LLMEngine:
         self._pt_host[slot, :] = 0
         self._pt_dirty = True
 
+    def _release_adapter(self, req):
+        """Drop a request's adapter-pool pin (a no-op for requests that hold
+        none: queued, base-model); called on every path that frees or
+        requeues a request, beside ``_release_pages``.  A preempted request
+        pins again at re-admission."""
+        if req is not None and req.adapter_page:
+            self.adapters.release(req.adapter_id)
+            req.adapter_page = 0
+
+    def _lora_ctx(self, reqs):
+        """The LoRA epilogues for the rows' adapter pages (idle rows and
+        base requests on the zero page); none without an adapter pool or
+        when every row is on the zero page, whose delta is an exact +0."""
+        pages = [r.adapter_page if r is not None else 0 for r in reqs]
+        if self.adapters is None or not any(pages):
+            return nullcontext()
+        return _oplora.activate(self.adapters.pool.site_pools(),
+                                torch.tensor(pages, dtype=torch.int64, device=self.device))
+
+    def _token_mask(self, reqs):
+        """[B, V] bool on the device: each constrained row's automaton mask,
+        all True elsewhere; None when no row is constrained."""
+        if not any(r is not None and r.cursor is not None for r in reqs):
+            return None
+        mask = np.ones((len(reqs), self._vocab), bool)
+        for i, r in enumerate(reqs):
+            if r is not None and r.cursor is not None:
+                mask[i] = r.cursor.mask()
+        return torch.from_numpy(mask).to(self.device)
+
+    def _advance_cursor(self, req, tok):
+        """Move a constrained request's automaton past an emitted token."""
+        if req.cursor is not None:
+            self._counts["constrained_tokens"] += 1
+            if not req.cursor.advance(tok):
+                self._counts["constraint_rejects"] += 1
+
     def _alloc_pages(self, slot, n):
         """Move n free pages into a slot's table (refcount 1); False
         (allocating nothing) when the pool cannot cover them even after
@@ -578,7 +781,8 @@ class LLMEngine:
         return True
 
     def _drop_cached(self, page):
-        """The cache let go of ``page`` (its node was evicted)."""
+        """The cache let go of ``page`` (its node was evicted; a page the tiers
+        staged lives on there under the same key)."""
         self._page_cached[page] = False
         self._decref(page)
         self._prefix_evictions += 1
@@ -622,22 +826,20 @@ class LLMEngine:
             return True
         return False
 
-    def _cache_insert(self, slot, prompt):
+    def _cache_insert(self, slot, prompt, adapter_id=None):
         """Index a freshly prefilled prompt's pages in the prefix cache; the
-        cache's new holds are incref'd so they outlive the slot."""
+        cache's new holds are incref'd so they outlive the slot.  The
+        adapter id seeds the chain: kv computed under one adapter matches
+        only requests for the same adapter."""
         if self._prefix is None:
             return
-        new_holds = self._prefix.insert(prompt, self._slot_pages[slot])
+        new_holds = self._prefix.insert(prompt, self._slot_pages[slot],
+                                        adapter_id=adapter_id)
         if new_holds:
             self._prefix_epoch += 1
         for page in new_holds:
             self._incref(page)
             self._page_cached[page] = True
-
-    def _slot_held_pages(self):
-        """Pages mapped by at least one slot (a page only the cache holds is
-        reclaimable, so it does not count as in use)."""
-        return int((self._page_ref > self._page_cached).sum())
 
     def _preempt_slot(self, slot, origin="decode"):
         """Recompute-style preemption: reclaim the slot's pages and REQUEUE
@@ -652,6 +854,7 @@ class LLMEngine:
         self.last_token[slot] = self.pad
         held = len(self._slot_pages[slot])
         self._release_pages(slot)
+        self._release_adapter(req)
         self._counts["preemptions"] += 1
         if req is None:
             return
@@ -709,6 +912,157 @@ class LLMEngine:
         if trimmed:
             self._pt_dirty = True
         return trimmed
+
+    # --------------------------------------------- hierarchical kv tiers
+
+    def demote_step(self, force=False):
+        """One demotion pass: stage up to ``demote_batch`` of the least
+        recently used cached pages device -> host, so that their later
+        eviction from HBM is a demotion, not a loss.  Runs on the worker
+        ``start()`` starts, or when called (tests, operators), never on the
+        decode tick.  Unless ``force``, it runs only when the larger of the
+        pool's used share and the device memory's (``mem_get_info``; 0 on
+        the CPU) passes 1 - ``demote_watermark``.  The scan and the gather
+        run under the engine lock (on CUDA the gather is queued on the
+        stream ahead of any later write to the pools); the blocking copy
+        to the host runs outside it; the commit under it again.  Returns
+        the pages staged."""
+        if self._host_kv is None:
+            return 0
+        hbm = 0.0
+        if not force and self.device.type == "cuda":
+            free, total = torch.cuda.mem_get_info(self.device)
+            hbm = 1.0 - free / total
+        with self._demote_mutex:
+            with self._lock:
+                pages_total = self.num_pages - 1
+                if not force and pages_total:
+                    used = 1.0 - len(self._free_pages) / pages_total
+                    if max(used, hbm) <= 1.0 - self.demote_watermark:
+                        return 0
+                cands = []
+                for key, parent, page, ntok, tokens in self._prefix.lru_entries():
+                    if self._page_cached[page] and key not in self._host_kv:
+                        cands.append((key, parent, ntok, tokens, page))
+                        if len(cands) >= self.demote_batch:
+                            break
+                if not cands:
+                    return 0
+                idx = torch.tensor([c[4] for c in cands], dtype=torch.int64,
+                                   device=self.device)
+                gathered = gather_pages_to_host(self.caches, idx)
+            # the blocking device -> host copy, outside the engine lock
+            host = [tuple(_to_host(x) for x in layer) for layer in gathered]
+            with self._lock:
+                staged = 0
+                for i, (key, parent, ntok, tokens, _) in enumerate(cands):
+                    blocks = [tuple(x[i] for x in layer) for layer in host]
+                    staged += self._host_kv.put(key, parent, ntok, tokens, blocks)
+                self._kv_demotions += staged
+        return staged
+
+    def _demote_loop(self):
+        """The demotion worker: polls the watermark off the tick.  A failing
+        pass stops the worker (serving goes on without demotion) and is
+        reported in the tier stats."""
+        while not self._stop:
+            try:
+                self.demote_step()
+            except Exception as e:  # noqa: BLE001 - reported in stats()
+                self._demote_error = e
+                return
+            time.sleep(0.01)
+
+    def _promote_from_tiers(self, req):
+        """Re-admit the staged blocks of ``req``'s prompt: walk its chain
+        keys; blocks the radix index lacks but a tier holds are uploaded
+        into free pages (one batched scatter a pool) and re-enter the index
+        under their keys, so the match that follows sees them as if never
+        evicted and prefill starts at the first token no tier holds.  Free
+        pages only: promotion never evicts.  A lost entry (quarantined on
+        disk) ends the chain there.  Returns the pages promoted."""
+        from .prefix_cache import _root_key, chained_block_key
+
+        prompt = np.asarray(req.prompt, np.int32)
+        usable = int(prompt.size) - 1
+        ps = self.ps
+        key, pos, plan = _root_key(req.adapter_id), 0, []
+        # a full block's key exists whenever the prompt holds all ps tokens,
+        # even where the n - 1 logits cap credits only part of it
+        while pos + ps <= int(prompt.size):
+            k = chained_block_key(key, prompt[pos:pos + ps].tobytes())
+            if self._prefix.node_info(k) is None:
+                if k not in self._host_kv:
+                    break
+                plan.append((k, key, min(ps, usable - pos)))
+            key = k
+            pos += ps
+        if pos < usable:
+            # a partial tail under the chain point: the longest common
+            # prefix wins, as in PrefixCache.match
+            best, best_t = None, 0
+            for pk, ntok, toks in self._host_kv.partial_candidates(key):
+                if self._prefix.node_info(pk) is not None:
+                    continue  # resident: the match uses it directly
+                t_max = min(int(ntok), usable - pos)
+                if t_max <= 0:
+                    continue
+                eq = np.asarray(toks, np.int32)[:t_max] == prompt[pos:pos + t_max]
+                t = t_max if eq.all() else int(np.argmin(eq))
+                if t > best_t:
+                    best, best_t = pk, t
+            if best is not None:
+                plan.append((best, key, best_t))
+        entries = []
+        for k, parent, credit in plan[:len(self._free_pages)]:
+            e = self._host_kv.get(k)
+            if e is None:
+                break  # lost mid-chain: its children are unreachable
+            entries.append((k, parent, credit, e))
+        if not entries:
+            return 0
+        popped = [self._free_pages.pop() for _ in entries]
+        first, dev = entries[0][3].blocks, self.device
+        # each block crosses to the device on its own (asynchronously from
+        # pinned host memory), the batch is stacked there
+        blocks = [tuple(torch.stack([e.blocks[li][j].to(dev, non_blocking=True)
+                                     for *_, e in entries])
+                        for j in range(len(first[li])))
+                  for li in range(len(first))]
+        try:
+            upload_host_pages(self.caches, torch.tensor(popped, dtype=torch.int64,
+                                                        device=self.device), blocks)
+        except Exception:
+            self._free_pages.extend(reversed(popped))
+            raise
+        for (k, parent, credit, e), page in zip(entries, popped):
+            self._page_ref[page] = 1
+            self._page_cached[page] = True
+            self._prefix.readmit(k, parent, page, e.ntok, e.tokens)
+            self._tier_hit_tokens[e.tier] += int(credit)
+            req.tier_hit_tokens += int(credit)
+        self._pt_dirty = True
+        self._prefix_epoch += 1
+        self._kv_promotions += len(entries)
+        return len(entries)
+
+    def _tier_snapshot(self):
+        """stats()'s "tiers" block (single reads, like stats())."""
+        hk = self._host_kv.stats()
+        pt = self._prefix_prompt_tokens
+        hits = dict(self._tier_hit_tokens)
+        return {"host": {"entries": hk["host_entries"], "capacity": hk["host_pages"],
+                         "bytes": hk["host_bytes"], "hit_tokens": hits["host"],
+                         "hit_ratio": hits["host"] / pt if pt else 0.0},
+                "disk": {"entries": hk["disk_entries"], "capacity": hk["disk_pages"],
+                         "loads": hk["disk_loads"], "quarantined": hk["quarantined"],
+                         "hit_tokens": hits["disk"],
+                         "hit_ratio": hits["disk"] / pt if pt else 0.0},
+                "hbm_hit_tokens": hits["hbm"], "demotions": self._kv_demotions,
+                "promotions": self._kv_promotions,
+                "spilled_to_disk": hk["demotions_to_disk"], "dropped": hk["dropped"],
+                "worker_error": (repr(self._demote_error)
+                                 if self._demote_error is not None else None)}
 
     # ---------------------------------------------------- dense internals
 
@@ -836,7 +1190,7 @@ class LLMEngine:
         memoized until the cache's epoch moves (a head-of-line request
         waiting on a full pool does not rehash its prompt every tick)."""
         if req.match_epoch != self._prefix_epoch or req.match_result is None:
-            req.match_result = self._prefix.match(req.prompt)
+            req.match_result = self._prefix.match(req.prompt, adapter_id=req.adapter_id)
             req.match_epoch = self._prefix_epoch
         return req.match_result
 
@@ -854,6 +1208,10 @@ class LLMEngine:
                     "request deadline expired while queued for admission"))
                 continue
             need = pages_for(req.prompt.size + 1, self.ps)
+            if self._host_kv is not None and not req.skip_cache and len(self._host_kv):
+                # re-upload the prompt's demoted blocks first; the promotion
+                # moves the prefix epoch, so the match below sees them
+                self._promote_from_tiers(req)
             matched, shared = 0, []
             if self._prefix is not None and not req.skip_cache:
                 matched, shared = self._match(req)
@@ -870,7 +1228,8 @@ class LLMEngine:
                 # map the cached prefix into the slot's table; admission is
                 # charged only for the pages past it
                 for p in shared:
-                    self._incref(p)
+                    # the holds pass to the slot's table: _release_pages drops them
+                    self._incref(p)  # tpulint: disable=refcount-balance (handed to the slot)
                 self._slot_pages[slot] = list(shared)
                 self._pt_host[slot, :len(shared)] = shared
                 self._pt_dirty = True
@@ -881,11 +1240,25 @@ class LLMEngine:
                 with self._pending.mutex:
                     self._pending.queue.appendleft(req)
                 return
+            if req.adapter_id is not None and not req.adapter_page:
+                page = self.adapters.acquire(req.adapter_id)
+                if page is None:
+                    # every adapter page is pinned by live requests: wait at
+                    # the head for a release, as for kv pages, the kv holds
+                    # rolled back so the pool stays reclaimable
+                    self._release_pages(slot)
+                    with self._pending.mutex:
+                        self._pending.queue.appendleft(req)
+                    return
+                req.adapter_page = page
             if not req.admitted:
                 req.admitted = True
                 self._prefix_prompt_tokens += int(req.prompt.size)
                 self._prefix_hit_tokens += int(matched)
                 req.hit_tokens = int(matched)
+                if self._host_kv is not None:
+                    # what the promotion above did not supply was in HBM
+                    self._tier_hit_tokens["hbm"] += max(0, int(matched) - req.tier_hit_tokens)
             # the chunked prefill starts at the first uncached token
             self._prefilling = (req, slot, matched)
             return
@@ -898,6 +1271,7 @@ class LLMEngine:
                                  and self._clock() > req.deadline):
             self._prefilling = None
             self._release_pages(slot)
+            self._release_adapter(req)
             if not req.future.done():
                 self._counts["expired"] += 1
                 _fail_future(req.future, DeadlineExceededError(
@@ -910,6 +1284,7 @@ class LLMEngine:
             # the chunk would write into a page others still read and no
             # page can be had for the fork: requeue, to prefill privately
             self._release_pages(slot)
+            self._release_adapter(req)
             req.skip_cache = True
             self._prefix_hit_tokens -= req.hit_tokens  # the hit never happened
             req.hit_tokens = 0
@@ -924,7 +1299,7 @@ class LLMEngine:
         dev = self.device
         t0 = time.perf_counter()
         try:
-            with torch.no_grad():
+            with torch.no_grad(), self._lora_ctx([req]):
                 logits, _ = self.model.prefill_chunk_step(
                     torch.from_numpy(chunk).to(dev),
                     self._paged_caches(torch.tensor([done], dtype=torch.int64, device=dev),
@@ -934,6 +1309,7 @@ class LLMEngine:
         except Exception as e:
             self._prefilling = None
             self._release_pages(slot)
+            self._release_adapter(req)
             _fail_future(req.future, e)
             return
         if dev.type == "cuda":
@@ -946,13 +1322,21 @@ class LLMEngine:
             return
         # the slot's pages hold the whole prompt: index them, before the
         # first decode write (whose COW check then sees the tail shared)
-        self._cache_insert(slot, req.prompt)
+        self._cache_insert(slot, req.prompt, req.adapter_id)
         self._prefilling = None
         self._activate(slot, req, self._host_select(row, req))
 
     def _host_select(self, row, req):
         """First (admission) token on the host: the reference's order
-        (temperature -> top-k by VALUE -> top-p over the survivors)."""
+        (constraint mask -> temperature -> top-k by VALUE -> top-p over the
+        survivors); a constrained request's automaton advances past it."""
+        if req.cursor is not None:
+            row = np.where(req.cursor.mask(), row, -np.inf)
+        tok = self._host_draw(row, req)
+        self._advance_cursor(req, tok)
+        return tok
+
+    def _host_draw(self, row, req):
         if not req.do_sample:
             return int(row.argmax())
         lt = row.astype(np.float64) / max(req.temperature, 1e-6)
@@ -988,6 +1372,10 @@ class LLMEngine:
             # capacity decode one token at a time below
             return self._spec_tick(active)
         eff = max(1, min(self.decode_chunk, headroom))
+        if any(r is not None and r.cursor is not None for r in self.slot_req):
+            # an automaton moves a token at a time, and a tick's mask holds
+            # for all its steps
+            eff = 1
         pt = None
         if self.paged:
             # grow page tables to cover this tick's writes; slots the pool
@@ -1010,6 +1398,7 @@ class LLMEngine:
                     continue  # finished earlier in this chunk: surplus
                 tok = int(nxt[i, j])
                 req.tokens.append(tok)
+                self._advance_cursor(req, tok)
                 self.last_token[i] = tok
                 self.slot_pos[i] += 1
                 emitted += 1
@@ -1049,15 +1438,16 @@ class LLMEngine:
         the selected ids [B, steps] on the host: the call's one sync."""
         dev = self.device
         knobs = self._knobs(reqs)
+        mask = self._token_mask(reqs)
         tok = torch.from_numpy(tokens).to(dev)
         p = torch.from_numpy(pos).to(dev)
         out = []
-        with torch.no_grad():
+        with torch.no_grad(), self._lora_ctx(reqs):
             for _ in range(steps):
                 caches = (self._paged_caches(p, page_tbl) if self.paged
                           else self._dense_caches(p))
                 logits, _ = self.model.generate_step(tok, caches=caches)
-                nxt = sample_rows(logits[:, -1], self._gen, *knobs)
+                nxt = sample_rows(logits[:, -1], self._gen, *knobs, mask)
                 out.append(nxt)
                 tok, p = nxt[:, None].long(), p + 1
         return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
@@ -1070,7 +1460,7 @@ class LLMEngine:
         dev = self.device
         ids = np.concatenate([last[:, None], drafts], axis=1).astype(np.int64)
         p = torch.from_numpy(pos.astype(np.int64)).to(dev)
-        with torch.no_grad():
+        with torch.no_grad(), self._lora_ctx(reqs):
             caches = (self._paged_caches(p, page_tbl) if self.paged
                       else self._dense_caches(p))
             logits, _ = self.model.verify_step(torch.from_numpy(ids).to(dev), caches)
@@ -1161,6 +1551,7 @@ class LLMEngine:
                 self.slot_req[i] = None
                 self.last_token[i] = self.pad
                 self._release_pages(i)
+                self._release_adapter(req)
                 self._counts["expired"] += 1
                 _fail_future(req.future, DeadlineExceededError(
                     f"request deadline exceeded after {len(req.tokens)} "
@@ -1171,6 +1562,7 @@ class LLMEngine:
         self.slot_req[slot] = None
         self.last_token[slot] = self.pad
         self._release_pages(slot)
+        self._release_adapter(req)
         if req is not None:
             self._counts["completed"] += 1
             _complete_future(req.future, list(req.tokens))

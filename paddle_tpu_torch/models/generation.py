@@ -18,42 +18,85 @@ the same cache layouts (the decode or paged kernel at S = K + 1), and
 correction token.  Greedy tokens equal those of ``spec_k=0``; sampled rows
 are drawn by rejection sampling.
 
-Not ported yet, and raising NotImplementedError (ROADMAP.md Queue 1 item 2,
-part 4): LoRA adapters (``adapter_id`` / ``adapters``) and constrained
-decoding (``token_mask_fn``).
+``adapter_id=`` runs every hooked projection through a LoRA adapter's
+paged epilogue (ops/lora.py), from the engine's ``AdapterRegistry`` or a
+throwaway 2-page pool; ``token_mask_fn=`` masks every step's logits with a
+``TokenConstraint``'s automaton, whose state each row carries on the
+device through the constraint's tables.
 """
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 from ..framework.random import get_generator
+from ..ops import lora as _lora
 from ..ops.sampling import sample_rows, spec_accept
 from .kv_cache import _quantize_kv
 
 __all__ = ["generate"]
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported to paddle_tpu_torch yet (ROADMAP.md Queue 1 "
-        "item 2, part 4: LoRA, constraints)")
+def _resolve_lora(model, adapter_id, adapters):
+    """-> (pool, page, release callback or None).  ``adapters`` is the
+    engine's ``AdapterRegistry`` (the adapter is pinned for the call) or an
+    ``{id: LoraAdapter}`` mapping (a throwaway 2-page pool)."""
+    if adapter_id is None:
+        return None, 0, None
+    from .lora import AdapterRegistry, build_solo_pool
+
+    if adapters is None:
+        raise ValueError("adapter_id= needs adapters= (an AdapterRegistry or an "
+                         "{id: LoraAdapter} mapping)")
+    if isinstance(adapters, AdapterRegistry):
+        page = adapters.acquire(adapter_id)
+        if page is None:
+            raise RuntimeError("adapter pool exhausted: every page is pinned by live "
+                               "requests")
+        return adapters.pool, page, (lambda: adapters.release(adapter_id))
+    return build_solo_pool(model, adapters[adapter_id]), 1, None
 
 
-def _select(logits, generator, do_sample, temperature, top_k, top_p):
-    """logits [B, V] -> token ids [B] (int64): the bare argmax when greedy,
-    else one draw per row from the masked distribution (the fused per-row
-    sampler the engine uses, with the same knobs on every row)."""
+def _resolve_constraint(token_mask_fn):
+    """``token_mask_fn`` is a compiled ``inference.constrain.TokenConstraint``
+    or a zero-arg callable returning one."""
+    if token_mask_fn is None:
+        return None
+    c = token_mask_fn() if callable(token_mask_fn) else token_mask_fn
+    if not hasattr(c, "device_tables"):
+        raise TypeError("token_mask_fn must be an inference.constrain.TokenConstraint "
+                        f"(or a zero-arg callable returning one), got {type(c).__name__}")
+    return c
+
+
+def _lora_ctx(pool, page, B, dev):
+    """The LoRA epilogues' context for every row at ``page`` (none without a
+    pool)."""
+    if pool is None:
+        return nullcontext()
+    return _lora.activate(pool.site_pools(), torch.full((B,), page, dtype=torch.int64,
+                                                        device=dev))
+
+
+def _select(logits, generator, do_sample, temperature, top_k, top_p, token_mask=None):
+    """logits [B, V] -> token ids [B] (int64): the argmax (of the logits
+    masked by ``token_mask``, bool [B, V]) when greedy, else one draw per
+    row from the masked distribution (the fused per-row sampler the engine
+    uses, with the same knobs on every row)."""
     if not do_sample:
+        if token_mask is not None:
+            logits = torch.where(token_mask, logits, torch.tensor(
+                float("-inf"), dtype=logits.dtype, device=logits.device))
         return torch.argmax(logits, dim=-1)
     B, dev = logits.shape[0], logits.device
     return sample_rows(
         logits, generator, torch.ones(B, dtype=torch.bool, device=dev),
         torch.full((B,), float(temperature), device=dev),
         torch.full((B,), int(top_k), dtype=torch.int32, device=dev),
-        torch.full((B,), float(top_p), device=dev)).long()
+        torch.full((B,), float(top_p), device=dev), token_mask).long()
 
 
 def _to_static_caches(caches, ids, total, cache_dtype, kv_layout, page_size,
@@ -137,9 +180,14 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
     per page) behind identity page tables, and share_prefix=True aliases
     the batch's page-aligned common prompt prefix onto row 0's pages.
     ``spec_k`` > 0 decodes speculatively with ``spec_drafter`` ("ngram" by
-    default, an object with ``propose``, or a draft model).  Sampled rows
-    draw from ``generator`` (default: the seeded generator of the model's
-    device)."""
+    default, an object with ``propose``, or a draft model).
+    ``adapter_id`` / ``adapters`` decode through a LoRA adapter (an
+    ``AdapterRegistry``, whose page the call pins, or an ``{id:
+    LoraAdapter}`` mapping); ``token_mask_fn`` (a ``TokenConstraint`` or a
+    zero-arg callable returning one; not with ``spec_k``) masks every
+    step's logits with the automaton's state, and its eos is the default
+    ``eos_token_id``.  Sampled rows draw from ``generator`` (default: the
+    seeded generator of the model's device)."""
     if cache_dtype not in (None, "int8"):
         raise ValueError(f"cache_dtype must be None or 'int8', got {cache_dtype!r}")
     if cache_dtype == "int8" and not getattr(model, "_supports_quant_cache", False):
@@ -155,32 +203,66 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
                          "rides on the page tables)")
     if int(spec_k) < 0:
         raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-    if adapter_id is not None or adapters is not None:
-        raise _not_ported("LoRA adapters (adapter_id / adapters)")
-    if token_mask_fn is not None:
-        raise _not_ported("constrained decoding (token_mask_fn)")
+    eos = -1 if eos_token_id is None else int(eos_token_id)
+    constraint = _resolve_constraint(token_mask_fn)
+    if constraint is not None:
+        if spec_k:
+            raise ValueError("token_mask_fn does not compose with spec_k (constraint "
+                             "masks are per-position; drafts cannot be pre-masked)")
+        vocab = getattr(getattr(model, "config", None), "vocab_size", None)
+        if vocab is not None and int(vocab) != constraint.V:
+            raise ValueError(f"constraint vocab size {constraint.V} != model vocab "
+                             f"size {int(vocab)}")
+        if eos_token_id is None:
+            eos = int(constraint.eos_token_id)
+        elif eos != int(constraint.eos_token_id):
+            raise ValueError(f"eos_token_id {eos} != the constraint's eos "
+                             f"{int(constraint.eos_token_id)}")
     dev = model.device
     ids = torch.as_tensor(input_ids).to(device=dev, dtype=torch.int64)
     B, S0 = ids.shape
     n_new = int(max_new_tokens)
-    eos = -1 if eos_token_id is None else int(eos_token_id)
     gen = generator if generator is not None else get_generator(dev)
     knobs = (gen, bool(do_sample), temperature, top_k, top_p)
-    if spec_k:
-        return _generate_spec(model, ids, n_new, knobs, eos, int(pad_token_id), cache_dtype,
-                              kv_layout, int(page_size), share_prefix, int(spec_k),
-                              spec_drafter)
+    pool, page, release = _resolve_lora(model, adapter_id, adapters)
+    try:
+        with _lora_ctx(pool, page, B, dev):
+            if spec_k:
+                return _generate_spec(model, ids, n_new, knobs, eos, int(pad_token_id),
+                                      cache_dtype, kv_layout, int(page_size), share_prefix,
+                                      int(spec_k), spec_drafter)
+            return _generate_plain(model, ids, n_new, knobs, eos, int(pad_token_id),
+                                   cache_dtype, kv_layout, int(page_size), share_prefix,
+                                   constraint)
+    finally:
+        if release is not None:
+            release()
 
+
+def _generate_plain(model, ids, n_new, knobs, eos, pad_token_id, cache_dtype, kv_layout,
+                    page_size, share_prefix, constraint):
+    """The prefill, then one decode step a token; with ``constraint`` each
+    row's automaton state rides on the device, its mask row applied before
+    each selection (finished rows park in state 0)."""
+    B, S0 = ids.shape
     logits, caches = model.generate_step(ids)
     caches = _to_static_caches(caches, ids, S0 + n_new, cache_dtype, kv_layout,
-                               int(page_size), share_prefix)
-    tok = _select(logits[:, -1], *knobs)
+                               page_size, share_prefix)
+    if constraint is not None:
+        masks, trans = constraint.device_tables(ids.device)
+        state = torch.zeros(B, dtype=torch.int64, device=ids.device)
+    tok = _select(logits[:, -1], *knobs, masks[state] if constraint is not None else None)
+    if constraint is not None:
+        state = trans[state, tok]
     done = tok == eos
     out = [tok]
     for _ in range(n_new - 1):
         logits, caches = model.generate_step(tok[:, None], caches=caches)
-        nxt = torch.where(done, int(pad_token_id), _select(logits[:, -1], *knobs))
+        mask = masks[state] if constraint is not None else None
+        nxt = torch.where(done, pad_token_id, _select(logits[:, -1], *knobs, mask))
         done = done | (nxt == eos)
+        if constraint is not None:
+            state = torch.where(done, 0, trans[state, nxt])
         out.append(nxt)
         tok = nxt
     return torch.stack(out, dim=1).to(torch.int32)

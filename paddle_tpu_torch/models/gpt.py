@@ -12,8 +12,10 @@ paged kernel).  Learned positions follow each slot's own offset.
 Positions past ``max_position_embeddings`` (only the pad rows of a chunk
 that runs past the table can reach them) read the last row of ``wpe``:
 their outputs are never used, and their cache rows lie past every valid
-length.  Not ported yet, and raising: tensor parallelism (ROADMAP.md Queue
-1 item 4, distributed) and multi-tenant LoRA (Queue 1 item 2).
+length.  The qkv, proj, fc_in and fc_out projections add the multi-tenant
+LoRA epilogue when an adapter context is active (ops/lora.py).  Not ported
+yet, and raising: tensor parallelism (ROADMAP.md Queue 1 item 4,
+distributed).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from torch import nn
 from .. import nn as pnn
 from ..core.device import resolve_device
 from ..nn import functional as F
+from ..ops import lora as _lora
 from .kv_cache import paged_attention_update, static_attention_update
 
 __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM"]
@@ -68,14 +71,27 @@ class GPTBlock(nn.Module):
         self.attn_drop = config.attention_probs_dropout_prob
 
     def _mlp(self, x):
-        return x + self.drop(self.fc_out(F.gelu(self.fc_in(self.ln_2(x)))))
+        h = self.ln_2(x)
+        u = self.fc_in(h)
+        d_in = _lora.apply_site("fc_in", h)
+        if d_in is not None:  # multi-tenant LoRA epilogues (ops/lora.py)
+            u = u + d_in
+        g = F.gelu(u)
+        y = self.fc_out(g)
+        d_out = _lora.apply_site("fc_out", g)
+        return x + self.drop(y if d_out is None else y + d_out)
 
     def forward(self, x, cache=None, use_cache=False):
         """cache: None, a growing (k, v) pair [B, S, H, D], a static 3/5-tuple
         or a paged 4/6-tuple (models/kv_cache.py).  Returns x, or (x,
         new_cache) when a cache is given or ``use_cache`` is set."""
         B, S = x.shape[0], x.shape[1]
-        qkv = self.qkv(self.ln_1(x)).reshape(B, S, 3, self.num_heads, self.head_dim)
+        h = self.ln_1(x)
+        qkv = self.qkv(h)
+        dqkv = _lora.apply_site("qkv", h)
+        if dqkv is not None:  # multi-tenant LoRA epilogue (ops/lora.py)
+            qkv = qkv + dqkv
+        qkv = qkv.reshape(B, S, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cache is not None and len(cache) in (3, 4, 5, 6):
             update = (paged_attention_update if len(cache) in (4, 6)
@@ -97,7 +113,10 @@ class GPTBlock(nn.Module):
             attn = F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=mask is None,
                 dropout_p=self.attn_drop if self.training else 0.0, training=self.training)
-        x = x + self.drop(self.proj(attn.reshape(B, S, -1)))
+        attn = attn.reshape(B, S, -1)
+        y = self.proj(attn)
+        d = _lora.apply_site("proj", attn)
+        x = x + self.drop(y if d is None else y + d)
         x = self._mlp(x)
         if use_cache or cache is not None:
             return x, new_cache

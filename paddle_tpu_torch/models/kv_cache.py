@@ -134,6 +134,30 @@ def cow_copy_pages(caches, src, dst):
     return caches
 
 
+def gather_pages_to_host(caches, pages):
+    """Gather the rows of the page ids ``pages`` ([N] int64 tensor on the
+    pools' device) from every layer's pools (k/v, plus the scale pools of
+    the int8 layout: every element is page-major [P, ...]): the device half
+    of a DEMOTION to the host tier.  One batched ``index_select`` a pool
+    for all N pages; returns per-layer tuples of new [N, ...] tensors on
+    the device, so later in-place writes to the pools (which queue behind
+    the gather on the stream) cannot reach them.  The caller copies them to
+    the host outside the engine lock."""
+    return [tuple(x.index_select(0, pages) for x in c) for c in caches]
+
+
+def upload_host_pages(caches, pages, blocks):
+    """Scatter staged page blocks back into the pools in place: the device
+    half of a PROMOTION, the dual of :func:`gather_pages_to_host`.
+    ``blocks`` mirrors the gather's output (per-layer tuples of [N, ...]
+    tensors, on the host or the device), scattered to the page ids
+    ``pages`` ([N] int64 on the pools' device).  Returns ``caches``."""
+    for c, blk in zip(caches, blocks, strict=True):
+        for x, b in zip(c, blk, strict=True):
+            x.index_copy_(0, pages, b.to(device=x.device, non_blocking=True))
+    return caches
+
+
 def _token_pages_rows(pos, page_tbl, S, page_size, max_pages):
     """Per-token (page id, row) for S new tokens starting at `pos` (scalar
     or [B]).  Positions past the table's coverage route to TRASH_PAGE

@@ -9,7 +9,9 @@ dense engine (the static decode kernel); and the PAGED 4/6-tuple caches of
 the paged engine (the ragged paged kernel); the speculative verify
 (``verify_step``, logits at every position); and the training loss
 (``LlamaForCausalLM(ids, labels=)``), differentiable through the same
-routing.  Not ported yet, and raising: tensor and sequence parallelism
+routing.  The q, k, v, o, gate, up and down projections add the
+multi-tenant LoRA epilogue when an adapter context is active
+(ops/lora.py).  Not ported yet, and raising: tensor and sequence parallelism
 (the distributed slice), and an external attention mask together with a
 static or paged cache.
 """
@@ -24,6 +26,7 @@ from torch import nn
 from .. import nn as pnn
 from ..core.device import resolve_device
 from ..nn import functional as F
+from ..ops import lora as _lora
 from .kv_cache import paged_attention_update, static_attention_update
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -115,9 +118,17 @@ class LlamaAttention(nn.Module):
         is the (k, v) pair of this call."""
         rope_cos, rope_sin = rope
         B, S = hidden_states.shape[0], hidden_states.shape[1]
-        q = self.q_proj(hidden_states).reshape(B, S, self.num_heads, self.head_dim)
-        k = self.k_proj(hidden_states).reshape(B, S, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(hidden_states).reshape(B, S, self.num_kv_heads, self.head_dim)
+        q = self.q_proj(hidden_states)
+        k = self.k_proj(hidden_states)
+        v = self.v_proj(hidden_states)
+        dq = _lora.apply_site("q", hidden_states)
+        if dq is not None:  # multi-tenant LoRA epilogues (ops/lora.py)
+            q = q + dq
+            k = k + _lora.apply_site("k", hidden_states)
+            v = v + _lora.apply_site("v", hidden_states)
+        q = q.reshape(B, S, self.num_heads, self.head_dim)
+        k = k.reshape(B, S, self.num_kv_heads, self.head_dim)
+        v = v.reshape(B, S, self.num_kv_heads, self.head_dim)
         use_cache = use_cache or cache is not None
         indexed = cache is not None and len(cache) in (3, 4, 5, 6)
         if indexed:
@@ -136,7 +147,7 @@ class LlamaAttention(nn.Module):
             update = (paged_attention_update if len(cache) in (4, 6)
                       else static_attention_update)
             new_cache, out = update(cache, q, k, v, offset)
-            return self.o_proj(out.reshape(B, S, -1)), new_cache
+            return self._o(out.reshape(B, S, -1)), new_cache
         if cache is not None:  # the growing cache: append this call's rows
             k = torch.cat([cache[0], k], dim=1)
             v = torch.cat([cache[1], v], dim=1)
@@ -149,8 +160,13 @@ class LlamaAttention(nn.Module):
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None,
             backend=backend)
-        out = self.o_proj(out.reshape(B, S, -1))
+        out = self._o(out.reshape(B, S, -1))
         return (out, new_cache) if use_cache else out
+
+    def _o(self, out):
+        y = self.o_proj(out)
+        d = _lora.apply_site("o", out)
+        return y if d is None else y + d
 
 
 class LlamaMLP(nn.Module):
@@ -163,7 +179,15 @@ class LlamaMLP(nn.Module):
         self.down_proj = pnn.Linear(inter, h, **kw)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        g, u = self.gate_proj(x), self.up_proj(x)
+        dg = _lora.apply_site("gate", x)
+        if dg is not None:  # multi-tenant LoRA epilogues (ops/lora.py)
+            g = g + dg
+            u = u + _lora.apply_site("up", x)
+        h = F.silu(g) * u
+        y = self.down_proj(h)
+        dd = _lora.apply_site("down", h)
+        return y if dd is None else y + dd
 
 
 class LlamaDecoderLayer(nn.Module):

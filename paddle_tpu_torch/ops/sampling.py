@@ -41,13 +41,18 @@ def mask_logits(logits, temperature, top_k, top_p, token_mask=None):
     return torch.where(use_p[:, None] & (lt < cutoff), neg_inf, lt)
 
 
-def sample_rows(logits, generator, do_sample, temperature, top_k, top_p):
+def sample_rows(logits, generator, do_sample, temperature, top_k, top_p, token_mask=None):
     """Per-row token selection: logits [B, V] -> int32 ids [B].  Greedy rows
-    take the raw argmax; sampled rows draw from the masked distribution
-    with ``generator``.  (The reference's ``token_mask`` comes with the
-    constraints slice.)"""
-    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    masked = mask_logits(logits, temperature, top_k, top_p)
+    take the argmax; sampled rows draw from the masked distribution with
+    ``generator``.  ``token_mask`` (bool [B, V], constrained decoding)
+    constrains both: greedy rows take the argmax of the masked logits,
+    sampled rows mask before temperature, top-k and top-p.  A row whose
+    mask is all True is untouched."""
+    src = logits if token_mask is None else torch.where(
+        token_mask, logits, torch.tensor(float("-inf"), dtype=logits.dtype,
+                                         device=logits.device))
+    greedy = torch.argmax(src, dim=-1).to(torch.int32)
+    masked = mask_logits(logits, temperature, top_k, top_p, token_mask)
     # greedy rows draw from their own one-hot, so the one draw covers every
     # row without a host round trip to split the batch
     onehot = torch.nn.functional.one_hot(greedy.long(), logits.shape[-1])

@@ -198,10 +198,14 @@ def test_sampled_requests_finish_with_valid_ids(pair):
     assert all(len(o) == 6 and all(0 <= t < 1024 for t in o) for o in outs)
 
 
-# Options ported since (slice 11: the prefix cache and speculative
-# decoding) keep their cases here and now build, reporting their state;
-# the others still raise, naming their ROADMAP item.
+# Options ported since keep their cases here.  Slice 11's (the prefix
+# cache and speculative decoding) now build, reporting their state; the
+# multi-tenant slice's (adapters, the kv tiers) are given invalid values
+# here (adapters on the dense layout or as a list, host pages without the
+# prefix cache) and raise the reference engine's error; the others still
+# raise, naming their ROADMAP item.
 _PORTED_OPTIONS = ("prefix_cache", "spec_k")
+_REJECTED_OPTIONS = ("adapters", "host_cache_pages")
 
 
 @pytest.mark.parametrize("kw", [
@@ -211,8 +215,14 @@ _PORTED_OPTIONS = ("prefix_cache", "spec_k")
     dict(kv_layout=None, metrics_port=0)],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_engine_options_raise(pair, kw):
-    _, tm = pair
+    jm, tm = pair
     args = {**ENGINE, **kw}
+    if any(k in kw for k in _REJECTED_OPTIONS):
+        with pytest.raises((TypeError, ValueError)) as want:
+            JEngine(jm, **args)
+        with pytest.raises(want.type):
+            LLMEngine(tm, **args)
+        return
     if any(k in kw for k in _PORTED_OPTIONS):
         st = LLMEngine(tm, **args).stats()
         assert (st["prefix_cache"] is not None) == (args["prefix_cache"] is not False

@@ -104,16 +104,22 @@ def test_sampled_shape_eos_pad_and_seed_determinism(pair):
                                 dict(token_mask_fn=lambda: None)],
                          ids=["spec_k", "adapter_id", "token_mask_fn"])
 def test_unported_options_raise(pair, kw):
-    """LoRA and constraints still raise, naming Queue 1 item 2; spec_k is
-    ported since (slice 11), so its case now holds its greedy tokens equal
-    to spec_k=0's (tests/test_torch_spec_decode.py holds the rest)."""
-    _, tm = pair
+    """Every option here is ported since: spec_k in slice 11, so its case
+    holds its greedy tokens equal to spec_k=0's
+    (tests/test_torch_spec_decode.py holds the rest); LoRA and constraints
+    in the multi-tenant slice, whose cases here are invalid (an adapter id missing from
+    ``adapters``, a ``token_mask_fn`` that gives no constraint) and raise
+    the reference's error (tests/test_torch_multi_tenant.py holds the
+    rest)."""
+    jm, tm = pair
     ids = torch.from_numpy(_prompts())
     if "spec_k" in kw:
         got = tm.generate(ids, max_new_tokens=2, **kw)
         assert torch.equal(got, tm.generate(ids, max_new_tokens=2))
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises((KeyError, TypeError)) as want:
+        jm.generate(paddle.to_tensor(_prompts()), max_new_tokens=2, **kw)
+    with pytest.raises(want.type):
         tm.generate(ids, max_new_tokens=2, **kw)
 
 

@@ -1,11 +1,12 @@
 """paddle_tpu_torch stands alone: it imports neither JAX nor the reference
-package, and it never carries on silently on the CPU.
+package nor ``ml_dtypes`` (importable here only because JAX is; the card's
+machine has none of them), and it never carries on silently on the CPU.
 
-- In a subprocess where ``import jax`` and ``import paddle_tpu`` fail, every
-  module of the port and ``chip_smoke.py`` import.
+- In a subprocess where ``import jax``, ``import paddle_tpu`` and ``import
+  ml_dtypes`` fail, every module of the port and ``chip_smoke.py`` import.
 - Every kernel source under ``csrc/`` (``*.cu`` and the shared ``*.cuh``)
   ships as package data.
-- An AST scan of the port's sources finds no jax/paddle_tpu import.
+- An AST scan of the port's sources finds no jax/paddle_tpu/ml_dtypes import.
 - Building the engine's model with no ``device=`` on a machine without CUDA
   raises instead of falling back to the CPU.
 """
@@ -24,6 +25,7 @@ _BLOCKED_IMPORTS = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any import of them now raises
 sys.modules["paddle_tpu"] = None
+sys.modules["ml_dtypes"] = None
 sys.path.insert(0, sys.argv[1])
 import paddle_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
@@ -35,14 +37,16 @@ for needed in ("jit.train_step", "jit._step_impl", "optimizer.optimizer", "nn.cl
                "vision.models.resnet", "vision.models._fused_resnet", "ops.fused_conv_bn",
                "nn.functional.conv", "nn.functional.pooling", "nn.layer.conv",
                "nn.layer.pooling",  # the ResNet slice's
-               "inference.prefix_cache", "models.gpt", "models.spec_decode"):  # slice 11's
+               "inference.prefix_cache", "models.gpt", "models.spec_decode",  # slice 11's
+               "ops.lora", "models.lora", "inference.constrain",
+               "inference.kv_host_cache"):  # the multi-tenant slice's
     assert "paddle_tpu_torch." + needed in names, needed
 for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1] + "/chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
+                if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
                 and sys.modules[m] is not None)
 print(len(names), leaked)
 """
@@ -53,7 +57,7 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, leaked = out.stdout.split(" ", 1)
-    assert int(n) >= 49  # every module of slices 1 to 5 and 11 was imported
+    assert int(n) >= 53  # every module of slices 1 to 5, 11 and the multi-tenant one
     assert leaked.strip() == "[]"
 
 
@@ -70,7 +74,7 @@ def _imports(path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_or_reference(path):
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")]
     assert not bad, f"{path.name} imports {bad}"
 
 
