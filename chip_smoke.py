@@ -132,13 +132,16 @@ Phases:
                     then 4 on an int8 cache at decode_chunk=4.
   6. paged_engine — the paged LLMEngine on the same model: 12 requests,
                     then 4 on an int8 pool.
-In phases 4-6 and 8-16 the launch counters are zeroed just before each run
+In phases 4-6 and 8-17 the launch counters are zeroed just before each run
 and must match the work the run did.  For the greedy outputs, each path's logits
 (teacher-forced) must stay within LOGIT_TOL (INT8_LOGIT_TOL on an int8
 cache) of the no-cache forward's with dense-math attention, and each token
 must be the forward's argmax but at near-ties.  Each engine phase ends with
 a few decode ticks of 8 busy slots under torch.profiler: where a tick's
 time goes.
+Every engine tick, verify and prefill and generate()'s decode steps run
+as replayed CUDA graphs (paddle_tpu_torch/jit/graphs.py); each replay
+adds its kernels' launches to their counters.
   7. ticks        — both engines' decode ticks, 8 busy slots, in turns
                     (dense, paged, paged, dense), unprofiled.
   8. prefix       — the paged engine with its default prefix cache on the
@@ -192,11 +195,34 @@ time goes.
                     before it, its logits within LOGIT_TOL.  Demotion and
                     promotion ms a page and GB/s; TTFT with a promotion hit
                     against a full re-prefill.
- 12. gpt          — GPTConfig() (hidden 768, 12 layers of 12 heads of 64,
+ 12. graphs       — every engine program and generate()'s decode step as
+                    CUDA graphs (paddle_tpu_torch/jit/graphs.py) against
+                    the same traffic run eagerly under disable_graphs(), in
+                    turns eager, graph, graph, eager, each turn a fresh
+                    engine with the same generator seed: the dense engine
+                    (6 requests, greedy and sampled rows, bf16; int8 at
+                    decode_chunk=4; spec_k=4), the paged engine (bf16;
+                    int8; spec_k=4 over the prefix cache; the tenants
+                    traffic: 4 adapters in a 3-page pool, regex and JSON
+                    constraints; a host-tier promotion hit of the
+                    1,000-token system prompt), and generate() (ids
+                    [4, 1024] on bf16 and int8 caches, [8, 256] sampled,
+                    [4, 512] paged and sampled).  Every turn's tokens must
+                    equal the first eager turn's bit for bit; launches
+                    equal the work; the graph turns stage and replay under
+                    torch.cuda.set_sync_debug_mode("error") (check_syncs())
+                    and capture after warmup() only what the reference
+                    compiles lazily (another effective decode chunk, the
+                    dense full-length bucket), no key twice.  Logs each
+                    turn's prefill ms a chunk, TTFT, decode tok/s, capture
+                    seconds and graph pool bytes; then decode ticks of 8
+                    busy slots eager and on graphs (dense, paged, paged on
+                    3 adapters): wall, device time, kernels, busy share.
+ 13. gpt          — GPTConfig() (hidden 768, 12 layers of 12 heads of 64,
                     vocab 50,304, bf16, random weights from seed 0):
                     generate() on ids [8, 256], the dense engine, and the
                     paged engine with the prefix cache and spec_k=4.
- 13. dtypes       — LLaMA-2-7B widths (16 layers, random weights) at
+ 14. dtypes       — LLaMA-2-7B widths (16 layers, random weights) at
                     float32, the config's default: generate() with ids
                     [4, 1024] on a float32 and an int8 static cache, the
                     dense engine's 12 requests, the paged engine's 12 and
@@ -214,7 +240,7 @@ time goes.
                     float32 as split-bf16 products; logits within
                     F32_LOGIT_TOL (F16_LOGIT_TOL, INT8_LOGIT_TOL); peak
                     memory per model.
- 14. train        — bench.py's training configuration (hidden 2048, 12
+ 15. train        — bench.py's training configuration (hidden 2048, 12
                     layers, bf16, random weights and tokens from seed 0)
                     through TrainStep + AdamW(3e-4, weight_decay=0.01):
                     first every parameter's gradient through the kernels
@@ -243,7 +269,7 @@ time goes.
                     at S 2048 in bf16, float32 and float16, B 8 x S 2048 in
                     bf16 and float32, the statistics pass, dq and dkv 12
                     launches a step each.
- 15. ernie        — bench.py's ERNIE-base pretraining (BertConfig.base(),
+ 16. ernie        — bench.py's ERNIE-base pretraining (BertConfig.base(),
                     bf16, B 512 x S 128, 20 masked positions, dropout 0.1,
                     random weights and batch from seed 0): gradient parity
                     of every parameter against the composed/dense paths at
@@ -260,7 +286,7 @@ time goes.
                     at float16 through the fused-LN and tensor-core
                     encoder kernels at float16 (its launches count in the
                     kernels line: float16 training is no path yet).
- 16. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
+ 17. resnet       — bench.py's ResNet-50 training in NHWC, the layout that
                     reaches the fused 1x1-conv + BN kernels: first one
                     bottleneck block at each stage's shape, fused against
                     composed in f32 (output, every gradient, running
@@ -2816,9 +2842,9 @@ def generate_run(model, name, B, S0, n_new, cache_dtype, seed):
     cfg = model.config
     g = torch.Generator().manual_seed(seed)
     ids = torch.randint(1, cfg.vocab_size, (B, S0), generator=g).to(model.device)
-    # a short run first, so that the timed one pays no first launch of
-    # this cache's decode path
-    model.generate(ids[:, :8], max_new_tokens=2, cache_dtype=cache_dtype)
+    # the same call first, so that the timed one pays no first launch and
+    # no capture of its decode program (jit/graphs.py)
+    model.generate(ids, max_new_tokens=n_new, cache_dtype=cache_dtype)
     torch.cuda.synchronize()
     zero_counts()                                        # the run starts here
     t0 = time.perf_counter()
@@ -2913,6 +2939,7 @@ def engine_run(model, name, eng, waves, check, split=None, verify=0):
     logit and argmax gates on the greedy requests marked ``check``."""
     cfg = model.config
     warm = eng.warmup()
+    st0 = eng.stats()  # the counters of any traffic before the run
     zero_counts()                                        # the run starts here
     t0 = time.perf_counter()
     outs, balanced = [], True
@@ -2926,17 +2953,24 @@ def engine_run(model, name, eng, waves, check, split=None, verify=0):
     st = eng.stats()
     reqs = [r for wave in waves for r in wave]
     L, dt = cfg.num_hidden_layers, model_dtype(model)
-    verifies = st["spec"]["verify_calls"] if st["spec"] else 0
+
+    def ran(key):
+        return st[key] - st0[key]
+
+    verifies = st["spec"]["verify_calls"] - st0["spec"]["verify_calls"] if st["spec"] else 0
     if eng.paged:
-        expected = {"paged_attention": L * (st["prefill_chunks"] + st["decode_ticks"] + verifies)}
+        expected = {"paged_attention": L * (ran("prefill_chunks") + ran("decode_ticks")
+                                            + verifies)}
     else:
-        expected = {"decode_attention": L * (st["decode_steps"] + verifies)}
+        expected = {"decode_attention": L * (ran("decode_steps") + verifies)}
         for Lb, count in st["prefill_buckets"].items():
             kern = prefill_kernel(cfg, 1, Lb)
             if kern:
+                count -= st0["prefill_buckets"].get(Lb, 0)
                 expected[kern] = expected.get(kern, 0) + L * count
-    valid = all(len(o) == r["max_new"] and all(0 <= t < cfg.vocab_size for t in o)
-                for o, r in zip(outs, reqs))
+    # a request ends at its max_new tokens, or earlier at the engine's eos
+    valid = all((len(o) == r["max_new"] or 0 < len(o) < r["max_new"] and o[-1] == eng.eos)
+                and all(0 <= t < cfg.vocab_size for t in o) for o, r in zip(outs, reqs))
     res = dict(path=name, dtype=TAGS[dt], cache=eng.cache_dtype or TAGS[eng.caches[0][0].dtype],
                requests=len(reqs),
                warmup_s=warm, wall_s=wall, launches=launches, expected_launches=expected,
@@ -3187,6 +3221,9 @@ def decode_breakdown(model, layout, ticks=8, spec_k=0, **busy):
             res.update(device_ms_per_tick=busy, kernels_per_tick=len(kern) / ticks,
                        device_ms_by_kind=by_kind,
                        busy_share=busy / res["profiled_wall_ms_per_tick"],
+                       # the profiler slows the host: the same device time
+                       # over the unprofiled wall
+                       busy_share_unprofiled=busy / res["wall_ms_per_tick"],
                        top_kernels=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
         else:
             res["device_ms_per_tick"] = "not measured (no device events)"
@@ -3949,6 +3986,267 @@ def tiers_phase(model, card):
             f"{r['expected_launches']}); balanced {r['pool_balanced_every_tick']}{extra}; "
             f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
     return runs, None
+
+
+# ------------------------------------------------------------------ graphs
+
+GRAPH_REQUESTS = 6  # requests a turn of an engine scenario
+GRAPH_TENANTS = 8   # the first requests of TENANT_MIX
+
+
+def graph_requests(rng, vocab, n=GRAPH_REQUESTS):
+    """``n`` requests of 64-700 prompt tokens, every second one sampled."""
+    return [dict(prompt=rng.integers(1, vocab, int(rng.integers(64, 701))).tolist(),
+                 max_new=int(rng.integers(24, 41)), sampled=i % 2 == 1) for i in range(n)]
+
+
+def graph_engine_run(model, name, make, reqs, eager, prep=None):
+    """One turn of an engine scenario: a fresh engine (``make()``), then
+    ``prep(eng)`` (traffic before the measured run), ``warmup()`` and
+    ``engine_run``'s measured drive, eagerly under ``disable_graphs()`` or
+    on graphs under ``check_syncs()`` (any synchronizing call in a
+    program's staging or replay raises).  The engine may capture after
+    warmup() only what the reference compiles lazily: another effective
+    decode chunk, the dense full-length bucket; no key twice."""
+    from paddle_tpu_torch.jit import check_syncs, disable_graphs
+
+    with disable_graphs() if eager else check_syncs():
+        eng = make()
+        if prep is not None:
+            prep(eng)
+        t0 = time.perf_counter()
+        eng.warmup()
+        warm_s = time.perf_counter() - t0
+        warm = len(eng.programs.captured)
+        pool = None if eager else eng.programs.pool_bytes()
+        res = engine_run(model, f"graphs_{name}", eng, [reqs], False)
+    captured = eng.programs.captured
+    late = captured[warm:]
+    allowed = all(k[0] == "decode" or k == ("bucket", eng.L) for k in late)
+    res.update(scenario=name, mode="eager" if eager else "graph", warmup_s=warm_s,
+               captures_at_warmup=warm, lazy_captures=[repr(k) for k in late],
+               capture_s=eng.programs.capture_seconds, node_check_s=eng.programs.node_seconds,
+               graph_pool_bytes=pool,
+               replays=eng.programs.replays,
+               prefill_s_per_chunk=res["prefill_s"] / max(res["prefill_chunks"], 1))
+    res["captures_ok"] = (not captured if eager else
+                          allowed and len(set(captured)) == len(captured) and warm > 0)
+    res["ok"] = bool(res["ok"] and res["captures_ok"])
+    eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def graph_scenario(model, name, make, reqs, prep=None, check=None):
+    """Turns eager, graph, graph, eager of one scenario: every turn's tokens
+    must equal the first eager turn's, bit for bit; ``check(res)`` adds a
+    scenario's own gate."""
+    runs = [graph_engine_run(model, name, make, reqs, eager, prep)
+            for eager in (True, False, False, True)]
+    outs = [r.pop("outputs") for r in runs]
+    for r, o in zip(runs, outs):
+        r["tokens_equal_eager"] = o == outs[0]
+        r["ok"] = bool(r["ok"] and r["tokens_equal_eager"] and (check is None or check(r)))
+    return runs
+
+
+# peak growth allowed on a reused generate() signature, in static caches:
+# the held cache overlaps the prefill's working set (under one cache); a
+# second cache, as a copy-in design makes, reaches one
+GENERATE_PEAK_SHARE = 1.0
+
+
+def graph_generate(model, name, B, S0, n_new, seed, cache_dtype=None, kv_layout=None,
+                   sampled=False, adapter=False):
+    """generate() in turns eager, graph, graph, eager, sampled rows drawn
+    from a fresh generator of one seed each turn, with ``adapter`` a fresh
+    {id: LoraAdapter} mapping of a fresh adapter object each turn: tokens
+    equal bit for bit, the launches equal to the work, one capture in all
+    (the program is keyed by the signature, not by the caller's objects),
+    and the second graph turn, which writes its prefill into the program's
+    static cache, peaks less than GENERATE_PEAK_SHARE of that cache above
+    the first eager turn, which started with no program held (the held
+    cache overlaps only the prefill's working set)."""
+    from paddle_tpu_torch.jit import check_syncs, disable_graphs
+    from paddle_tpu_torch.models.generation import free_programs
+    from paddle_tpu_torch.models.lora import LoraAdapter, lora_sites
+
+    cfg = model.config
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(1, cfg.vocab_size, (B, S0), generator=g).to(model.device)
+    L = cfg.num_hidden_layers
+    decode = "paged_attention" if kv_layout == "paged" else "decode_attention"
+    expected = {decode: L * (n_new - 1)}
+    kern = prefill_kernel(cfg, B, S0)
+    if kern:
+        expected[kern] = L
+    free_programs(model)
+    torch.cuda.empty_cache()
+    runs, outs = [], []
+    for eager in (True, False, False, True):
+        kw = {}
+        if adapter:
+            kw = dict(adapter_id="t", adapters={"t": LoraAdapter.random(
+                lora_sites(model), TENANT_RANK, seed=seed, scale=TENANT_SCALE)})
+        with disable_graphs() if eager else check_syncs():
+            torch.cuda.synchronize()
+            progs = model.__dict__.get("_generate_programs")
+            captured = len(progs.captured) if progs is not None else 0
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()                                # the run starts here
+            t0 = time.perf_counter()
+            out = model.generate(ids, max_new_tokens=n_new, do_sample=sampled, temperature=0.8,
+                                 top_p=0.9, cache_dtype=cache_dtype, kv_layout=kv_layout,
+                                 generator=torch.Generator(device=model.device).manual_seed(seed),
+                                 **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()                     # ... and ends here
+            peak = torch.cuda.max_memory_allocated()
+        progs = model._generate_programs
+        (prog,) = [progs.get(k) for k in progs.keys()]
+        cache = sum(t.numel() * t.element_size() for t in prog.inputs.values())
+        outs.append(out.tolist())
+        runs.append(dict(path="graphs_generate", scenario=name, mode="eager" if eager else "graph",
+                         B=B, prompt=S0, new_tokens=n_new, cache=cache_dtype or "bf16",
+                         kv_layout=kv_layout or "static", sampled=sampled, adapter=adapter,
+                         wall_s=wall, decode_tok_per_s=B * (n_new - 1) / wall, launches=launches,
+                         expected_launches=expected, captures=len(progs.captured) - captured,
+                         peak_bytes=peak, static_cache_bytes=cache,
+                         ok=launch_check(launches, expected)))
+    first_graph = runs[1]
+    for r in runs:
+        r["captures_ok"] = r["captures"] == (1 if r is first_graph else 0)
+    reuse = runs[2]
+    reuse["peak_over_eager_bytes"] = reuse["peak_bytes"] - runs[0]["peak_bytes"]
+    reuse["peak_ok"] = (reuse["peak_over_eager_bytes"]
+                        < GENERATE_PEAK_SHARE * reuse["static_cache_bytes"])
+    for r, o in zip(runs, outs):
+        r["tokens_equal_eager"] = o == outs[0]
+        r["ok"] = bool(r["ok"] and r["tokens_equal_eager"] and r["captures_ok"]
+                       and r.get("peak_ok", True))
+    free_programs(model)
+    return runs
+
+
+def graph_ticks(model, reg):
+    """Decode ticks of 8 busy slots, eager (disable_graphs()) then on
+    graphs: dense, paged, and paged on 3 adapters."""
+    from paddle_tpu_torch.jit import disable_graphs
+
+    lora = dict(engine_kw=dict(adapters=reg),
+                submit_kw=lambda i: dict(adapter_id=f"a{i % TENANT_POOL_PAGES}"))
+    out = {}
+    for name, layout, kw in (("dense", "dense", {}), ("paged", "paged", {}),
+                             ("paged_lora3", "paged", lora)):
+        for mode in ("eager", "graph"):
+            with disable_graphs() if mode == "eager" else contextlib.nullcontext():
+                out[f"{name}_{mode}"] = decode_breakdown(model, layout, **kw)
+    return out
+
+
+def graphs_phase(model, card):
+    """Every engine program and generate()'s decode step as CUDA graphs
+    against the same traffic run eagerly, in turns E G G E: the dense
+    engine (bf16 greedy and sampled rows; int8 at decode_chunk=4; spec_k=4),
+    the paged engine (bf16; int8; spec_k=4 over the prefix cache; tenants:
+    adapters in a 3-page pool, regex and JSON constraints; a host-tier
+    promotion hit), generate() (static bf16 and int8, sampled, paged);
+    then decode ticks eager and on graphs."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.inference.constrain import compile_constraint
+    from paddle_tpu_torch.models.lora import AdapterRegistry, LoraAdapter, lora_sites
+
+    cfg, dev = model.config, model.device
+    V = cfg.vocab_size
+    eos = V - 1
+    rng = np.random.default_rng(70)
+    mixed = graph_requests(rng, V)
+
+    def dense(**kw):
+        return LLMEngine(model, max_batch_slots=8, max_seq_len=2048,
+                         generator=torch.Generator(device=dev).manual_seed(5), **kw)
+
+    vocab = tenant_vocab(V)
+    grammars = {"regex": compile_constraint(TENANT_REGEX, vocab, eos),
+                "schema": compile_constraint(TENANT_SCHEMA, vocab, eos)}
+    adapters = {f"a{i}": LoraAdapter.random(lora_sites(model), TENANT_RANK, seed=200 + i,
+                                            scale=TENANT_SCALE) for i in range(TENANT_ADAPTERS)}
+
+    def registry():
+        reg = AdapterRegistry(model, max_adapters=TENANT_POOL_PAGES, rank=TENANT_RANK)
+        for aid, ad in adapters.items():
+            reg.register(aid, ad)
+        return reg
+
+    tenant_reqs = [dict(prompt=rng.integers(1, eos, int(rng.integers(64, 401))).tolist(),
+                        adapter=aid, constraint=grammars.get(kind), sampled=False,
+                        max_new={"schema": 48, "regex": 16}.get(kind, 24))
+                   for aid, kind in TENANT_MIX[:GRAPH_TENANTS]]
+    system = rng.integers(1, V, SYSTEM_PROMPT).tolist()
+    tier_a = dict(prompt=system, max_new=8, sampled=False)
+    tier_b = dict(prompt=system + rng.integers(1, V, 150).tolist(), max_new=16, sampled=True)
+
+    def tier_prep(eng):
+        drive(eng, [tier_a])
+        while eng.demote_step(force=True):
+            pass
+        assert eng._evict_prefix(int(eng._page_cached.sum()))
+
+    scenarios = [
+        ("dense_bf16", lambda: dense(), mixed, None, None),
+        ("dense_int8_chunk4", lambda: dense(cache_dtype="int8", decode_chunk=4), mixed, None,
+         None),
+        ("dense_spec4", lambda: dense(spec_k=4), mixed, None, None),
+        ("paged_bf16", lambda: paged_engine(model, prefix_cache=False), mixed, None, None),
+        ("paged_int8", lambda: paged_engine(model, prefix_cache=False, cache_dtype="int8"),
+         mixed, None, None),
+        ("paged_spec4", lambda: paged_engine(model, spec_k=4), mixed, None, None),
+        ("tenants", lambda: paged_engine(model, adapters=registry(), constraint_vocab=vocab,
+                                         eos_token_id=eos), tenant_reqs, None, None),
+        ("tiers_host", lambda: paged_engine(model, host_cache_pages=TIER_HOST_PAGES), [tier_b],
+         tier_prep, lambda r: r["prefix_cache"]["tiers"]["promotions"] > 0),
+    ]
+    runs = []
+    for name, make, reqs, prep, check in scenarios:
+        runs += graph_scenario(model, name, make, reqs, prep, check)
+    for name, args, kw in (("b4_s1024_bf16", (4, 1024, 32, 1), {}),
+                           ("b4_s1024_int8", (4, 1024, 32, 1), dict(cache_dtype="int8")),
+                           ("b8_s256_sampled", (8, 256, 32, 2), dict(sampled=True)),
+                           ("b4_s512_paged_sampled_lora", (4, 512, 32, 3),
+                            dict(kv_layout="paged", sampled=True, adapter=True))):
+        runs += graph_generate(model, "generate_" + name, *args, **kw)
+    torch.cuda.empty_cache()
+    ticks = graph_ticks(model, registry())
+    for r in runs:
+        if r["path"] == "graphs_generate":
+            peak = ""
+            if "peak_ok" in r:
+                peak = (f"; reused signature peaks {r['peak_over_eager_bytes'] / 2**20:.1f} MiB "
+                        f"above the first eager turn (static cache "
+                        f"{r['static_cache_bytes'] / 2**20:.1f} MiB, limit "
+                        f"{GENERATE_PEAK_SHARE} of it)")
+            log(f"  {r['scenario']} {r['mode']}: wall {r['wall_s']:.3f} s "
+                f"({r['decode_tok_per_s']:.1f} tok/s incl. prefill); launches {r['launches']} "
+                f"(expected {r['expected_launches']}); captures {r['captures']}; tokens == "
+                f"eager {r['tokens_equal_eager']}{peak}; {'ok' if r['ok'] else 'FAIL'} [{card}]")
+            continue
+        log(f"  {r['scenario']} {r['mode']}: {r['requests']} req, {r['prefill_chunks']} prefills "
+            f"at {r['prefill_s_per_chunk'] * 1e3:.2f} ms each, TTFT mean "
+            f"{r['ttft_s']['mean'] * 1e3:.1f} ms; {r['decode_tokens']} decode tok at "
+            f"{r['decode_tok_per_s']:.1f} tok/s; wall {r['wall_s']:.2f} s; warmup "
+            f"{r['warmup_s']:.2f} s ({r['captures_at_warmup']} captures, "
+            f"{r['capture_s']:.3f} s capturing, {r['node_check_s'] * 1e3:.1f} ms of it reading "
+            f"nodes, pool {r['graph_pool_bytes']} B); lazy "
+            f"{r['lazy_captures']}; replays {r['replays']}; launches {r['launches']} "
+            f"(expected {r['expected_launches']}); tokens == eager {r['tokens_equal_eager']}; "
+            f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
+    for name, t in ticks.items():
+        log(f"  tick {name}: {json.dumps(t)} [{card}]")
+    return runs, ticks
 
 
 # --------------------------------------------------------------------- gpt
@@ -5002,8 +5300,8 @@ def dtypes_phase(card):
 # ------------------------------------------------------------------- main
 
 PHASES = ("device", "build", "kernels", "generate", "dense_engine", "paged_engine",
-          "ticks", "prefix", "spec", "tenants", "tiers", "gpt", "dtypes", "train", "ernie",
-          "resnet")
+          "ticks", "prefix", "spec", "tenants", "tiers", "graphs", "gpt", "dtypes", "train",
+          "ernie", "resnet")
 PATH_TITLES = {"generate": "model.generate() on the static cache",
                "dense_engine": "the dense LLMEngine",
                "paged_engine": "the paged LLMEngine",
@@ -5011,10 +5309,11 @@ PATH_TITLES = {"generate": "model.generate() on the static cache",
                "prefix": "the paged LLMEngine with its prefix cache",
                "spec": "speculative decoding (spec_k=4)",
                "tenants": "the paged LLMEngine with LoRA adapters and constraints",
-               "tiers": "the paged LLMEngine with its host and disk kv tiers"}
+               "tiers": "the paged LLMEngine with its host and disk kv tiers",
+               "graphs": "both engines and generate() on CUDA graphs against eager"}
 PATH_PHASES = {"dense_engine": dense_engine_phase, "paged_engine": paged_engine_phase,
                "ticks": ticks_phase, "prefix": prefix_phase, "spec": spec_phase,
-               "tenants": tenants_phase, "tiers": tiers_phase}
+               "tenants": tenants_phase, "tiers": tiers_phase, "graphs": graphs_phase}
 
 
 def phase_done(report, name, t0):

@@ -58,11 +58,25 @@ into free pages under their keys, so prefill starts at the first token no
 tier holds.
 
 Completion by eos / max tokens / capacity frees the slot (and its pages).
-The reference compiles its prefill and decode programs with jax.jit and
-donates the caches; here both are eager PyTorch and the caches update in
-place.  ``step()`` pumps one tick; ``run_until_complete()`` drains;
-``start()`` spawns the background pump.  Greedy tokens equal the reference
-engine's on the same weights (tests/test_torch_engine.py).
+PROGRAMS (jit/graphs.py): the reference compiles its programs with jax.jit
+and donates the caches; here each is a ``Program`` over static inputs,
+keyed as the reference's jit caches are, and on CUDA one captured graph
+replayed per call (the caches update in place): the decode tick per
+effective chunk ``("decode", eff, lora)`` (``_decode_jit[eff]``), the
+verify ``("verify", K, lora)`` (``_verify_jit``), the paged chunk prefill
+``("chunk", lora)``, ONE program for every offset and prompt length
+(``_prefill_jit["chunk"]``), and the dense prefill and slot write of each
+prompt bucket ``("bucket", Lb)`` (``_prefill_jit[Lb]`` and ``[("w",
+Lb)]``); ``lora`` is the variant with the LoRA epilogue.  A tick stages
+its host inputs (tokens, positions, knobs, the page table, the adapter
+rows, the token mask, whose rows are all True but the constrained ones)
+with one copy, replays, and reads its tokens back with one copy.
+``warmup()`` captures what the reference's compiles; later effective
+chunks (and the dense full-length bucket) are captured when first met.
+The COW copy, the tier gather and upload and ``demote_step`` stay eager
+single copies.  ``step()`` pumps one tick; ``run_until_complete()``
+drains; ``start()`` spawns the background pump.  Greedy tokens equal the
+reference engine's on the same weights (tests/test_torch_engine.py).
 
 Not ported yet, and raising NotImplementedError (ROADMAP.md Queue 1 item
 5): the metrics exporter.
@@ -81,6 +95,7 @@ import numpy as np
 import torch
 
 from ..framework.random import get_generator
+from ..jit.graphs import Program, Programs
 from ..models.kv_cache import (
     _quantize_kv, cow_copy_pages, gather_pages_to_host, pages_for, upload_host_pages)
 from ..ops import lora as _oplora
@@ -286,8 +301,6 @@ class LLMEngine:
             self._page_cached = np.zeros(P, bool)  # held by a cache node
             self._slot_pages: list[list[int]] = [[] for _ in range(B)]
             self._pt_host = np.zeros((B, self.M), np.int32)
-            self._pt_dev = torch.from_numpy(self._pt_host).to(dev)
-            self._pt_dirty = False
             if prefix_cache is None or prefix_cache:  # the reference's default: on
                 from .prefix_cache import PrefixCache
 
@@ -356,6 +369,10 @@ class LLMEngine:
         self._bucket_counts: dict[int, int] = {}
         self._seconds = dict(prefill=0.0, decode=0.0)
         self._ttfts: list[float] = []
+        # the engine's programs (jit/graphs.py), and per decode program the
+        # mask rows its host twin holds not all True
+        self.programs = Programs(dev)
+        self._masked_rows: dict = {}
 
     # ------------------------------------------------------------- public
 
@@ -585,40 +602,37 @@ class LLMEngine:
             self._stop = False
 
     def warmup(self):
-        """Run every prefill shape once, then one decode call at the
-        configured ``decode_chunk`` (and one verify with ``spec_k``), against
-        the idle caches, so the first request pays no kernel build or
-        first-launch cost: one prefill chunk (paged; garbage rows land in
-        the trash page), or each prompt bucket's prefill and slot write
-        (dense; admission rewrites the rows).  Returns the wall seconds."""
+        """Make (and on CUDA capture) every program the reference's warmup()
+        compiles, run once against the idle caches, so the first request
+        pays no kernel build, first launch or capture: the prefill chunk
+        (paged; garbage rows land in the trash page) or each prompt
+        bucket's prefill and slot write (dense; admission rewrites the
+        rows), then the decode tick at the configured ``decode_chunk`` (and
+        the verify with ``spec_k``); with adapters, each program's LoRA
+        variant too.  Returns the wall seconds."""
         t0 = time.perf_counter()
         with self._lock:
             if self._prefilling is not None or any(r is not None for r in self.slot_req):
                 raise RuntimeError("warmup() requires an idle engine")
-            dev, B = self.device, self.n_slots
-            with torch.no_grad():
-                if self.paged:
-                    ids = torch.full((1, self.prefill_chunk), self.pad,
-                                     dtype=torch.int64, device=dev)
-                    zero_row = torch.zeros((1, self.M), dtype=torch.int32, device=dev)
-                    self.model.prefill_chunk_step(
-                        ids, self._paged_caches(torch.zeros(1, dtype=torch.int64, device=dev),
-                                                zero_row), 0)
-                else:
-                    for Lb in self.buckets:
-                        ids = torch.full((1, Lb), self.pad, dtype=torch.int64, device=dev)
-                        _, kvs = self.model.prefill_step(ids, Lb - 1)
-                        self._write_slot(0, kvs)
-                tok = np.full((B, 1), self.pad, np.int64)
-                pt = (torch.zeros((B, self.M), dtype=torch.int32, device=dev)
-                      if self.paged else None)
+            B = self.n_slots
+            variants = [None] + ([np.zeros(B, np.int64)] if self.adapters is not None else [])
+            if self.paged:
+                C = self.prefill_chunk
+                for rows in variants:
+                    self._prefill_call(np.full((1, C), self.pad, np.int64), 0,
+                                       np.zeros((1, self.M), np.int32), 0,
+                                       None if rows is None else rows[:1], read=False)
+            else:
+                for Lb in self.buckets:
+                    self._bucket_call(np.full((1, Lb), self.pad, np.int64), Lb - 1, 0)
+            tok = np.full((B, 1), self.pad, np.int64)
+            pt = np.zeros((B, self.M), np.int32) if self.paged else None
+            for rows in variants:
                 self._decode(tok, np.zeros(B, np.int64), [None] * B,
-                             max(1, min(self.decode_chunk, self.L - 1)), pt)
+                             max(1, min(self.decode_chunk, self.L - 1)), pt, rows)
                 if self.spec_k:
                     self._verify(np.full(B, self.pad, np.int32), np.zeros(B, np.int32),
-                                 np.zeros((B, self.spec_k), np.int32), [None] * B, pt)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                                 np.zeros((B, self.spec_k), np.int32), [None] * B, pt, rows)
         return time.perf_counter() - t0
 
     # ------------------------------------------------------------ pumping
@@ -669,13 +683,6 @@ class LLMEngine:
 
     # ---------------------------------------------------- paged internals
 
-    def _pt_device(self):
-        """Device copy of the page table, uploaded at most once per consumer."""
-        if self._pt_dirty:
-            self._pt_dev = torch.from_numpy(self._pt_host).to(self.device)
-            self._pt_dirty = False
-        return self._pt_dev
-
     def _paged_caches(self, pos, page_tbl):
         """Per-layer paged tuples (k, v, pos, tbl[, ks, vs]) over the pools."""
         return [(c[0], c[1], pos, page_tbl) + tuple(c[2:]) for c in self.caches]
@@ -706,7 +713,6 @@ class LLMEngine:
             self._decref(page)
         self._slot_pages[slot] = []
         self._pt_host[slot, :] = 0
-        self._pt_dirty = True
 
     def _release_adapter(self, req):
         """Drop a request's adapter-pool pin (a no-op for requests that hold
@@ -717,26 +723,37 @@ class LLMEngine:
             self.adapters.release(req.adapter_id)
             req.adapter_page = 0
 
-    def _lora_ctx(self, reqs):
-        """The LoRA epilogues for the rows' adapter pages (idle rows and
-        base requests on the zero page); none without an adapter pool or
-        when every row is on the zero page, whose delta is an exact +0."""
+    def _lora_rows(self, reqs):
+        """The rows' adapter pages (idle rows and base requests on the zero
+        page) for a program's LoRA variant; None, the variant without the
+        epilogue, without an adapter pool or when every row is on the zero
+        page, whose delta is an exact +0."""
         pages = [r.adapter_page if r is not None else 0 for r in reqs]
         if self.adapters is None or not any(pages):
-            return nullcontext()
-        return _oplora.activate(self.adapters.pool.site_pools(),
-                                torch.tensor(pages, dtype=torch.int64, device=self.device))
-
-    def _token_mask(self, reqs):
-        """[B, V] bool on the device: each constrained row's automaton mask,
-        all True elsewhere; None when no row is constrained."""
-        if not any(r is not None and r.cursor is not None for r in reqs):
             return None
-        mask = np.ones((len(reqs), self._vocab), bool)
-        for i, r in enumerate(reqs):
-            if r is not None and r.cursor is not None:
-                mask[i] = r.cursor.mask()
-        return torch.from_numpy(mask).to(self.device)
+        return np.asarray(pages, np.int64)
+
+    def _lora_scope(self, rows):
+        """Inside a program's body: the LoRA epilogues over its static rows
+        input (none for the variant without it)."""
+        if rows is None:
+            return nullcontext()
+        return _oplora.activate(self.adapters.pool.site_pools(), rows)
+
+    def _stage_mask(self, prog, reqs):
+        """Write each constrained row's automaton mask into the decode
+        program's mask input (all True elsewhere: an exact no-op in
+        ``sample_rows``), resetting the rows an earlier tick masked."""
+        rows = [i for i, r in enumerate(reqs) if r is not None and r.cursor is not None]
+        stale = self._masked_rows.get(prog.key, ())
+        if not rows and not stale:
+            return
+        mask = prog.host_view("mask")
+        for i in stale:
+            mask[i] = True
+        for i in rows:
+            mask[i] = reqs[i].cursor.mask()
+        self._masked_rows[prog.key] = rows
 
     def _advance_cursor(self, req, tok):
         """Move a constrained request's automaton past an emitted token."""
@@ -758,7 +775,6 @@ class LLMEngine:
             self._page_ref[page] = 1
             self._pt_host[slot, len(self._slot_pages[slot])] = page
             self._slot_pages[slot].append(page)
-        self._pt_dirty = True
         return True
 
     def _evict_prefix(self, need):
@@ -814,7 +830,6 @@ class LLMEngine:
                 raise
             pages[idx] = new
             self._pt_host[slot, idx] = new
-            self._pt_dirty = True
             self._decref(old)
             self._cow_copies += 1
             return True
@@ -909,8 +924,6 @@ class LLMEngine:
             self._pt_host[slot, len(pages)] = 0
             self._decref(page)
             trimmed += 1
-        if trimmed:
-            self._pt_dirty = True
         return trimmed
 
     # --------------------------------------------- hierarchical kv tiers
@@ -1041,7 +1054,6 @@ class LLMEngine:
             self._prefix.readmit(k, parent, page, e.ntok, e.tokens)
             self._tier_hit_tokens[e.tier] += int(credit)
             req.tier_hit_tokens += int(credit)
-        self._pt_dirty = True
         self._prefix_epoch += 1
         self._kv_promotions += len(entries)
         return len(entries)
@@ -1078,18 +1090,48 @@ class LLMEngine:
 
     def _write_slot(self, slot, kvs):
         """Write a prefill's per-layer (k, v) [1, Lb, H, D] into rows
-        [0, Lb) of a slot's static buffers (quantized for int8)."""
+        [0, Lb) of the static buffers of slot ``slot``, a [1] index tensor
+        on the device (quantized for int8)."""
         for c, (k, v) in zip(self.caches, kvs, strict=True):
             Lb = k.shape[1]
             for buf, sbuf, kv in ((c[0], c[2] if len(c) == 4 else None, k),
                                   (c[1], c[3] if len(c) == 4 else None, v)):
                 hm = kv.transpose(1, 2)  # [1, H, Lb, D]
                 if sbuf is None:
-                    buf[slot:slot + 1, :, :Lb] = hm
+                    buf[:, :, :Lb].index_copy_(0, slot, hm.to(buf.dtype))
                 else:
                     q, scale = _quantize_kv(hm)
-                    buf[slot:slot + 1, :, :Lb] = q
-                    sbuf[slot:slot + 1, :, :Lb] = scale
+                    buf[:, :, :Lb].index_copy_(0, slot, q)
+                    sbuf[:, :, :Lb].index_copy_(0, slot, scale)
+
+    def _bucket_program(self, Lb):
+        """The dense admission of prompt bucket ``Lb``: the padded prefill,
+        the next-token logits at ``last`` (n - 1) and the slot write into
+        ``slot``, both device indices (the reference's ``_prefill_jit[Lb]``
+        and ``[("w", Lb)]``)."""
+        def build():
+            def body(ids, last, slot):
+                with torch.no_grad():
+                    # causal attention: positions >= n never influence
+                    # position n - 1, so the padded prefill's first n k/v
+                    # rows are exact
+                    logits, kvs = self.model.prefill_step(ids, last)
+                    self._write_slot(slot, kvs)
+                    return logits[0, 0].float()
+
+            return Program(self.programs, key, body, dict(
+                ids=torch.full((1, Lb), self.pad, dtype=torch.int64),
+                last=torch.zeros(1, dtype=torch.int64), slot=torch.zeros(1, dtype=torch.int64)))
+
+        key = ("bucket", int(Lb))
+        return self.programs.get(key, build)
+
+    def _bucket_call(self, padded, last, slot):
+        """Run a bucket's admission program; returns its logits row on the
+        host."""
+        prog = self._bucket_program(padded.shape[1])
+        prog.stage(ids=padded, last=last, slot=slot)
+        return prog.fetch(prog())
 
     def _admit(self):
         """Dense admission: each free slot takes the next live queued
@@ -1121,16 +1163,8 @@ class LLMEngine:
         Lb = self._bucket(n)
         padded = np.full((1, Lb), self.pad, np.int64)
         padded[0, :n] = req.prompt
-        dev = self.device
         t0 = time.perf_counter()
-        with torch.no_grad():
-            # causal attention: positions >= n never influence position
-            # n - 1, so the padded prefill's first n k/v rows are exact
-            logits, kvs = self.model.prefill_step(torch.from_numpy(padded).to(dev), n - 1)
-            row = logits[0, 0].float().cpu().numpy()
-            self._write_slot(slot, kvs)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        row = self._bucket_call(padded, n - 1, slot)
         self._seconds["prefill"] += time.perf_counter() - t0
         self._counts["prefill_chunks"] += 1
         self._bucket_counts[Lb] = self._bucket_counts.get(Lb, 0) + 1
@@ -1232,7 +1266,6 @@ class LLMEngine:
                     self._incref(p)  # tpulint: disable=refcount-balance (handed to the slot)
                 self._slot_pages[slot] = list(shared)
                 self._pt_host[slot, :len(shared)] = shared
-                self._pt_dirty = True
             if not self._alloc_pages(slot, need - len(shared)):
                 # admission by free pages: the head waits for reclamation,
                 # its shared holds rolled back so the cache stays evictable
@@ -1296,24 +1329,18 @@ class LLMEngine:
             return
         chunk = np.full((1, C), self.pad, np.int64)
         chunk[0, :m] = req.prompt[done:done + m]
-        dev = self.device
+        rows = self._lora_rows([req])
         t0 = time.perf_counter()
         try:
-            with torch.no_grad(), self._lora_ctx([req]):
-                logits, _ = self.model.prefill_chunk_step(
-                    torch.from_numpy(chunk).to(dev),
-                    self._paged_caches(torch.tensor([done], dtype=torch.int64, device=dev),
-                                       self._pt_device()[slot:slot + 1]),
-                    m - 1)
-                row = logits[0, 0].float().cpu().numpy() if done + m >= n else None
+            # the logits row is read on the final chunk only
+            row = self._prefill_call(chunk, done, self._pt_host[slot:slot + 1], m - 1, rows,
+                                     read=done + m >= n)
         except Exception as e:
             self._prefilling = None
             self._release_pages(slot)
             self._release_adapter(req)
             _fail_future(req.future, e)
             return
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
         self._seconds["prefill"] += time.perf_counter() - t0
         self._counts["prefill_chunks"] += 1
         done += m
@@ -1325,6 +1352,41 @@ class LLMEngine:
         self._cache_insert(slot, req.prompt, req.adapter_id)
         self._prefilling = None
         self._activate(slot, req, self._host_select(row, req))
+
+    def _prefill_program(self, lora):
+        """The paged chunk prefill, ONE program for every offset and prompt
+        length (the reference's ``_prefill_jit["chunk"]``): ``C`` tokens
+        written at ``pos`` through the slot's table row, the logits at the
+        device index ``last``."""
+        def build():
+            def body(ids, pos, table, last, rows=None):
+                with torch.no_grad(), self._lora_scope(rows):
+                    logits, _ = self.model.prefill_chunk_step(
+                        ids, self._paged_caches(pos, table), last)
+                    return logits[0, 0].float()
+
+            ins = dict(ids=torch.full((1, self.prefill_chunk), self.pad, dtype=torch.int64),
+                       pos=torch.zeros(1, dtype=torch.int64),
+                       table=torch.zeros((1, self.M), dtype=torch.int32),
+                       last=torch.zeros(1, dtype=torch.int64))
+            if lora:
+                ins["rows"] = torch.zeros(1, dtype=torch.int64)
+            return Program(self.programs, key, body, ins)
+
+        key = ("chunk", bool(lora))
+        return self.programs.get(key, build)
+
+    def _prefill_call(self, chunk, done, table_row, last, rows, read):
+        """Run one chunk; its logits row on the host when ``read`` (else
+        None, once the chunk is done)."""
+        prog = self._prefill_program(rows is not None)
+        prog.stage(ids=chunk, pos=done, table=table_row, last=last,
+                   **({} if rows is None else {"rows": rows}))
+        out = prog()
+        if read:
+            return prog.fetch(out)
+        prog.wait()
+        return None
 
     def _host_select(self, row, req):
         """First (admission) token on the host: the reference's order
@@ -1386,7 +1448,8 @@ class LLMEngine:
             pt = self._active_table()
         t0 = time.perf_counter()
         nxt = self._decode(self.last_token.astype(np.int64)[:, None],
-                           self.slot_pos.astype(np.int64), self.slot_req, eff, pt)
+                           self.slot_pos.astype(np.int64), self.slot_req, eff, pt,
+                           self._lora_rows(self.slot_req))
         self._seconds["decode"] += time.perf_counter() - t0
         self._counts["decode_ticks"] += 1
         self._counts["decode_steps"] += eff
@@ -1409,64 +1472,119 @@ class LLMEngine:
         return emitted
 
     def _active_table(self):
-        """The page table a decode or verify call sees, on the device, with
-        INACTIVE slots masked to the trash page: a mid-prefill slot already
-        owns real pages, and the call's garbage scatter for it must not
-        clobber its prompt rows."""
+        """The page table a decode or verify call sees (host), with INACTIVE
+        slots masked to the trash page: a mid-prefill slot already owns real
+        pages, and the call's garbage scatter for it must not clobber its
+        prompt rows."""
         pt = self._pt_host.copy()
         for i, r in enumerate(self.slot_req):
             if r is None:
                 pt[i, :] = 0
-        return torch.from_numpy(pt).to(self.device)
+        return pt
 
     def _knobs(self, reqs):
-        """Per-slot sampling knobs as device tensors (do_sample, temperature,
+        """Per-slot sampling knobs as host arrays (do_sample, temperature,
         top_k, top_p); idle slots are greedy."""
-        dev = self.device
-        return (torch.tensor([r is not None and r.do_sample for r in reqs], device=dev),
-                torch.tensor([r.temperature if r is not None else 1.0 for r in reqs],
-                             dtype=torch.float32, device=dev),
-                torch.tensor([r.top_k if r is not None else 0 for r in reqs],
-                             dtype=torch.int32, device=dev),
-                torch.tensor([r.top_p if r is not None else 1.0 for r in reqs],
-                             dtype=torch.float32, device=dev))
+        return dict(do_sample=np.array([r is not None and r.do_sample for r in reqs]),
+                    temperature=np.array([r.temperature if r is not None else 1.0
+                                          for r in reqs], np.float32),
+                    top_k=np.array([r.top_k if r is not None else 0 for r in reqs], np.int32),
+                    top_p=np.array([r.top_p if r is not None else 1.0 for r in reqs],
+                                   np.float32))
 
-    def _decode(self, tokens, pos, reqs, steps, page_tbl):
+    def _slot_inputs(self, lora):
+        """Initial values of the per-slot inputs of a decode or verify
+        program: positions, knobs, the page table (paged), the adapter
+        rows (the LoRA variant)."""
+        B = self.n_slots
+        ins = dict(pos=torch.zeros(B, dtype=torch.int64),
+                   do_sample=torch.zeros(B, dtype=torch.bool), temperature=torch.ones(B),
+                   top_k=torch.zeros(B, dtype=torch.int32), top_p=torch.ones(B))
+        if self.paged:
+            ins["table"] = torch.zeros((B, self.M), dtype=torch.int32)
+        if lora:
+            ins["rows"] = torch.zeros(B, dtype=torch.int64)
+        return ins
+
+    def _slot_values(self, pos, reqs, page_tbl, rows):
+        """This call's values of ``_slot_inputs``."""
+        vals = dict(pos=pos, **self._knobs(reqs))
+        if self.paged:
+            vals["table"] = page_tbl
+        if rows is not None:
+            vals["rows"] = rows
+        return vals
+
+    def _caches_at(self, pos, table):
+        return self._paged_caches(pos, table) if self.paged else self._dense_caches(pos)
+
+    def _decode_program(self, steps, lora):
+        """``steps`` decode steps for every slot (the reference's
+        ``_decode_jit[steps]``), the token mask always an input."""
+        def build():
+            def body(tok, pos, do_sample, temperature, top_k, top_p, mask, table=None,
+                     rows=None):
+                knobs = (do_sample, temperature, top_k, top_p)
+                out = []
+                with torch.no_grad(), self._lora_scope(rows):
+                    for _ in range(steps):
+                        logits, _ = self.model.generate_step(tok, caches=self._caches_at(pos, table))
+                        nxt = sample_rows(logits[:, -1], self._gen, *knobs, mask)
+                        out.append(nxt)
+                        tok, pos = nxt[:, None].long(), pos + 1
+                return torch.stack(out, dim=1)
+
+            B = self.n_slots
+            ins = dict(tok=torch.full((B, 1), self.pad, dtype=torch.int64),
+                       **self._slot_inputs(lora),
+                       mask=torch.ones((B, self._vocab), dtype=torch.bool))
+            return Program(self.programs, key, body, ins, generators=(self._gen,))
+
+        key = ("decode", int(steps), bool(lora))
+        return self.programs.get(key, build)
+
+    def _decode(self, tokens, pos, reqs, steps, page_tbl, rows=None):
         """``steps`` decode steps for every slot (idle ones included, on
         garbage that no live row reads), each step's tokens selected on
-        the device per the slot's knobs and fed to the next step.  Returns
-        the selected ids [B, steps] on the host: the call's one sync."""
-        dev = self.device
-        knobs = self._knobs(reqs)
-        mask = self._token_mask(reqs)
-        tok = torch.from_numpy(tokens).to(dev)
-        p = torch.from_numpy(pos).to(dev)
-        out = []
-        with torch.no_grad(), self._lora_ctx(reqs):
-            for _ in range(steps):
-                caches = (self._paged_caches(p, page_tbl) if self.paged
-                          else self._dense_caches(p))
-                logits, _ = self.model.generate_step(tok, caches=caches)
-                nxt = sample_rows(logits[:, -1], self._gen, *knobs, mask)
-                out.append(nxt)
-                tok, p = nxt[:, None].long(), p + 1
-        return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+        the device per the slot's knobs and fed to the next step; ``rows``
+        the adapter pages (the LoRA variant) or None.  Returns the selected
+        ids [B, steps] on the host: the call's one sync."""
+        prog = self._decode_program(steps, rows is not None)
+        self._stage_mask(prog, reqs)
+        prog.stage(tok=tokens, **self._slot_values(pos, reqs, page_tbl, rows))
+        return prog.fetch(prog()).astype(np.int32)
 
-    def _verify(self, last, pos, drafts, reqs, page_tbl):
+    def _verify_program(self, lora):
+        """The speculative verify (the reference's ``_verify_jit``): every
+        slot scores [last token, K drafts] and ``spec_accept`` decides."""
+        K = self.spec_k
+
+        def build():
+            def body(ids, drafts, pos, do_sample, temperature, top_k, top_p, table=None,
+                     rows=None):
+                with torch.no_grad(), self._lora_scope(rows):
+                    logits, _ = self.model.verify_step(ids, self._caches_at(pos, table))
+                    out, n_acc = spec_accept(logits, drafts, self._gen, do_sample,
+                                             temperature, top_k, top_p)
+                    return torch.cat([out, n_acc[:, None]], dim=1)
+
+            B = self.n_slots
+            ins = dict(ids=torch.zeros((B, K + 1), dtype=torch.int64),
+                       drafts=torch.zeros((B, K), dtype=torch.int32), **self._slot_inputs(lora))
+            return Program(self.programs, key, body, ins, generators=(self._gen,))
+
+        key = ("verify", K, bool(lora))
+        return self.programs.get(key, build)
+
+    def _verify(self, last, pos, drafts, reqs, page_tbl, rows=None):
         """One verify call for the whole pool: every slot scores [last token,
         K drafts] at rows pos .. pos + K (idle slots on garbage no live row
         reads) and ``spec_accept`` decides on the device.  Returns (out
         [B, K+1], n_accept [B]) on the host: the call's one sync."""
-        dev = self.device
-        ids = np.concatenate([last[:, None], drafts], axis=1).astype(np.int64)
-        p = torch.from_numpy(pos.astype(np.int64)).to(dev)
-        with torch.no_grad(), self._lora_ctx(reqs):
-            caches = (self._paged_caches(p, page_tbl) if self.paged
-                      else self._dense_caches(p))
-            logits, _ = self.model.verify_step(torch.from_numpy(ids).to(dev), caches)
-            out, n_acc = spec_accept(logits, torch.from_numpy(drafts).to(dev), self._gen,
-                                     *self._knobs(reqs))
-            both = torch.cat([out, n_acc[:, None]], dim=1).cpu().numpy().astype(np.int32)
+        prog = self._verify_program(rows is not None)
+        prog.stage(ids=np.concatenate([last[:, None], drafts], axis=1), drafts=drafts,
+                   **self._slot_values(pos, reqs, page_tbl, rows))
+        both = prog.fetch(prog()).astype(np.int32)
         return both[:, :-1], both[:, -1]
 
     def _spec_tick(self, active):
@@ -1490,7 +1608,8 @@ class LLMEngine:
             req = self.slot_req[i]
             drafts[i] = self._drafter.propose(
                 np.concatenate([req.prompt, np.asarray(req.tokens[req.folded:], np.int32)]), K)
-        out, n_acc = self._verify(self.last_token, self.slot_pos, drafts, self.slot_req, pt)
+        out, n_acc = self._verify(self.last_token, self.slot_pos, drafts, self.slot_req, pt,
+                                  self._lora_rows(self.slot_req))
         self._seconds["decode"] += time.perf_counter() - t0
         emitted = accepted = rb_pages = 0
         for i in active:

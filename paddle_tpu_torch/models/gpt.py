@@ -28,7 +28,7 @@ from .. import nn as pnn
 from ..core.device import resolve_device
 from ..nn import functional as F
 from ..ops import lora as _lora
-from .kv_cache import paged_attention_update, static_attention_update
+from .kv_cache import paged_attention_update, position_rows, static_attention_update
 
 __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM"]
 
@@ -233,17 +233,17 @@ class GPTForCausalLM(nn.Module):
 
     def prefill_step(self, input_ids, last_index):
         """Bucket-padded prefill (dense-engine admission): logits [B, 1, V]
-        at ``last_index`` and per-layer (k, v)."""
+        at ``last_index`` (an int or a one-element device index tensor) and
+        per-layer (k, v)."""
         hidden, caches = self.gpt(input_ids, use_cache=True)
-        i = int(last_index)
-        return self.lm_head(hidden[:, i:i + 1]), caches
+        return self.lm_head(position_rows(hidden, last_index)), caches
 
     def prefill_chunk_step(self, input_ids, caches, last_index):
         """One chunk of a paged prefill (see llama.py): logits [B, 1, V] at
-        ``last_index`` and the caches."""
+        ``last_index`` (an int or a one-element device index tensor) and the
+        caches."""
         hidden, caches = self.gpt(input_ids, caches=caches)
-        i = int(last_index)
-        return self.lm_head(hidden[:, i:i + 1]), caches
+        return self.lm_head(position_rows(hidden, last_index)), caches
 
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
                  temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,

@@ -116,6 +116,16 @@ def static_attention_update(cache, q, k, v, offset):
     return new_cache, decode_attention(q, k_b, v_b, offset)
 
 
+def position_rows(hidden, index):
+    """``hidden`` [B, S, ...] at position ``index``, kept as [B, 1, ...]: an
+    int, or a device index tensor of one element, so that one captured
+    program serves every prompt length (jit/graphs.py)."""
+    if isinstance(index, torch.Tensor):
+        return hidden.index_select(1, index.reshape(1).to(hidden.device, torch.int64))
+    i = int(index)
+    return hidden[:, i:i + 1]
+
+
 def pages_for(n_tokens, page_size):
     """Pages needed to hold n_tokens (host-side allocator arithmetic)."""
     return -(-int(n_tokens) // int(page_size))

@@ -27,7 +27,7 @@ from .. import nn as pnn
 from ..core.device import resolve_device
 from ..nn import functional as F
 from ..ops import lora as _lora
-from .kv_cache import paged_attention_update, static_attention_update
+from .kv_cache import paged_attention_update, position_rows, static_attention_update
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -320,19 +320,19 @@ class LlamaForCausalLM(nn.Module):
         """Bucket-padded prefill (dense-engine admission): the prompt is
         padded past ``last_index``, so the next-token logits are taken
         there (causal attention keeps positions <= last_index exact under
-        the padding).  Returns (logits [B, 1, V], per-layer (k, v))."""
+        the padding); ``last_index`` is an int or a one-element device
+        index tensor.  Returns (logits [B, 1, V], per-layer (k, v))."""
         hidden, caches = self.llama(input_ids, use_cache=True)
-        i = int(last_index)
-        return self.lm_head(hidden[:, i:i + 1]), caches
+        return self.lm_head(position_rows(hidden, last_index)), caches
 
     def prefill_chunk_step(self, input_ids, caches, last_index):
         """One CHUNK of a paged prefill: input_ids [B, C] are the next C prompt
         tokens (pad-padded past ``last_index`` on the final chunk); the paged
         caches carry pos = tokens already prefilled.  Returns (logits
-        [B, 1, V] at ``last_index``, caches)."""
+        [B, 1, V] at ``last_index``, an int or a one-element device index
+        tensor, and the caches)."""
         hidden, caches = self.llama(input_ids, caches=caches)
-        i = int(last_index)
-        return self.lm_head(hidden[:, i:i + 1]), caches
+        return self.lm_head(position_rows(hidden, last_index)), caches
 
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
                  temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -29,6 +30,30 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _libs: dict[str, ctypes.CDLL] = {}
+
+# while this thread captures a CUDA graph (jit/graphs.py), the tally that
+# count() adds the captured launches to; None otherwise
+_capture = threading.local()
+
+
+def count(fn, attr: str = "launches") -> None:
+    """One launch of ``fn``'s kernel (or, with ``attr``, one event of another
+    counter): adds one to ``fn.<attr>``.  A launch made while this thread's
+    current stream captures a graph for ``jit/graphs.py`` runs only when
+    the graph replays, so it goes into the capture's tally instead, which
+    the program checks against the graph's kernel nodes and adds at each
+    replay."""
+    tally = getattr(_capture, "tally", None)
+    if tally is not None and _capturing():
+        tally[(fn, attr)] = tally.get((fn, attr), 0) + 1
+    else:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+def _capturing() -> bool:
+    import torch
+
+    return torch.cuda.is_current_stream_capturing()
 
 
 def nvcc_path() -> str:

@@ -228,7 +228,11 @@ def _tickets(dev, stream, n):
     """The split-K merge's ticket counters for launches on ``stream`` of
     ``dev``: int32, at least n, zero between launches (the last block of
     each (kv head, slot) resets its own).  One buffer a stream, so launches
-    that may overlap never share a counter; grown, never shrunk."""
+    that may overlap never share a counter; grown, never shrunk.  A
+    captured program (jit/graphs.py) bakes in the buffer of its capture
+    stream: its warm-up on that stream makes it, and the capture checks
+    that this table did not change; the replays of one owner run one at a
+    time."""
     t = _TICKETS.get((dev, stream))
     if t is None or t.numel() < n:
         t = _TICKETS[(dev, stream)] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
@@ -294,7 +298,7 @@ def paged_attention_kernel(q, k_pages, v_pages, lengths, page_tbl,
                       v_scale.data_ptr() if quant else None, lengths.data_ptr(),
                       page_tbl.data_ptr(), out.data_ptr(), part, ticket, B, S, H, Hkv, D, P, ps,
                       M, float(scale), *_types(q, k_pages), splits, split_keys, stream)
-    paged_attention_kernel.launches += 1
+    _build.count(paged_attention_kernel)
     return out
 
 
@@ -328,7 +332,7 @@ def decode_attention_kernel(q, k, v, lengths, k_scale=None, v_scale=None,
                       v_scale.data_ptr() if quant else None, lengths.data_ptr(), out.data_ptr(),
                       part, ticket, B, S, H, Hkv, D, L, float(scale), *_types(q, k), splits,
                       split_keys, stream)
-    decode_attention_kernel.launches += 1
+    _build.count(decode_attention_kernel)
     return out
 
 

@@ -165,7 +165,7 @@ def _check_inputs(tensors, regime="encoder"):
     for t in tensors.values():
         if not tma_readable(tuple(t.shape), t.stride(), t.data_ptr(), t.element_size()):
             t = t.clone(memory_format=torch.contiguous_format)  # fresh, aligned storage
-            _check_inputs.copies += 1
+            _build.count(_check_inputs, "copies")
             _check(t.data_ptr() % 16 == 0, "storage not 16-byte aligned")
         out.append(t)
     return out
@@ -207,7 +207,7 @@ def encoder_attention_kernel(q, k, v, scale=None, causal=False, seed=None, rate=
                       *_strides(q, k, v), float(scale), int(bool(causal)),
                       _admit.TC_TYPE_CODES[q.dtype], sp, thresh, float(inv),
                       torch.cuda.current_stream(dev).cuda_stream)
-    encoder_attention_kernel.launches += 1
+    _build.count(encoder_attention_kernel)
     return o, lse
 
 
@@ -263,7 +263,7 @@ def encoder_attention_bwd_kernel(q, k, v, do, scale=None, causal=False, seed=Non
                       B, H, S, D, *_strides(q, k, v, do), float(scale), int(bool(causal)),
                       _admit.TC_TYPE_CODES[q.dtype], sp, thresh, float(inv),
                       torch.cuda.current_stream(dev).cuda_stream)
-    encoder_attention_bwd_kernel.launches += 1
+    _build.count(encoder_attention_bwd_kernel)
     return dq, dk, dv
 
 

@@ -198,7 +198,7 @@ def flash_attention_kernel(q, k, v, causal=False, scale=None):
         _build.launch("flash_attention", _ARGS, *_ptrs(q, k, v, o, lse), B, H, Sq, Sk,
                       D, float(scale), int(bool(causal)), TYPE_CODES[q.dtype],
                       torch.cuda.current_stream(dev).cuda_stream)
-    flash_attention_kernel.launches += 1
+    _build.count(flash_attention_kernel)
     return o, lse
 
 
@@ -287,7 +287,7 @@ def flash_attention_bwd_stats(o, do, lse, dlse=None):
                       None if dlse is None else dlse.data_ptr(), stats.data_ptr(), B, H, Sq, D,
                       TYPE_CODES[o.dtype], torch.cuda.current_stream(o.device).cuda_stream,
                       entry="flash_attention_dsum")
-    flash_attention_bwd_stats.launches += 1
+    _build.count(flash_attention_bwd_stats)
     return stats
 
 
@@ -314,7 +314,7 @@ def flash_attention_bwd_split(q, k, v, do):
                       + [ctypes.c_void_p], *_ptrs(q, k, v, do, planes), B, H, Sq, Sk, D,
                       torch.cuda.current_stream(q.device).cuda_stream,
                       entry="flash_attention_split")
-    flash_attention_bwd_split.launches += 1
+    _build.count(flash_attention_bwd_split)
     return planes
 
 
@@ -341,7 +341,7 @@ def flash_attention_dq_kernel(q, k, v, o, do, lse, causal=False, scale=None, dls
                       *head, *_ptrs(dq), *shape, scale, int(bool(causal)), ready,
                       TYPE_CODES[dq.dtype], torch.cuda.current_stream(dev).cuda_stream,
                       entry="flash_attention_dq")
-    flash_attention_dq_kernel.launches += 1
+    _build.count(flash_attention_dq_kernel)
     return dq
 
 
@@ -364,7 +364,7 @@ def flash_attention_dkv_kernel(q, k, v, o, do, lse, causal=False, scale=None, dl
                       *head, *_ptrs(dk, dv), *shape, scale, int(bool(causal)), ready,
                       TYPE_CODES[dk.dtype], torch.cuda.current_stream(dev).cuda_stream,
                       entry="flash_attention_dkv")
-    flash_attention_dkv_kernel.launches += 1
+    _build.count(flash_attention_dkv_kernel)
     return dk, dv
 
 

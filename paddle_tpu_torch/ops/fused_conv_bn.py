@@ -275,7 +275,7 @@ def _fwd_launch(x, w2, scale, offset, relu, wv):
                       of.data_ptr(), y.data_ptr(), part.data_ptr(), M, K, C, Wp, wv,
                       int(bool(relu)), int(bf16), plan.fwd_rows, plan.bn, _stream(x.device),
                       entry="fused_conv_bn_fwd")
-    fused_conv_bn_kernel.launches += 1
+    _build.count(fused_conv_bn_kernel)
     return y, part
 
 
@@ -323,7 +323,7 @@ def _bwd_launch(dy, y, x, w2, scale, offset, ds1, ds2, relu, wv):
                       part.data_ptr(), dwp.data_ptr(), None if dyt is None else dyt.data_ptr(),
                       M, K, C, Wp, wv, int(bool(relu)), int(bf16), plan.bwd_rows, plan.dw_rows,
                       int(plan.one_pass), plan.bn, _stream(dev), entry="fused_conv_bn_bwd")
-    fused_conv_bn_bwd_kernel.launches += 1
+    _build.count(fused_conv_bn_bwd_kernel)
     return dx, dwp, None if sc is None else part
 
 

@@ -243,7 +243,7 @@ def fused_ln_kernel(x, y, gamma, beta, seed, rate, eps, upscale=True):
                       b.data_ptr(), sp, out.data_ptr(), s.data_ptr(), n, h, code, thresh,
                       float(scale), float(eps), plan.k, plan.cl, plan.threads, teams,
                       torch.cuda.current_stream(x.device).cuda_stream, entry="fused_ln_fwd")
-    fused_ln_kernel.launches += 1
+    _build.count(fused_ln_kernel)
     return out, s
 
 
@@ -275,7 +275,7 @@ def fused_ln_bwd_kernel(s, gamma, dz, seed, rate, eps, upscale=True):
                       code, thresh, float(scale), float(eps), plan.k, plan.cl,
                       plan.threads, teams, torch.cuda.current_stream(s.device).cuda_stream,
                       entry="fused_ln_bwd")
-    fused_ln_bwd_kernel.launches += 1
+    _build.count(fused_ln_bwd_kernel)
     return dx, dy, dgp, dbp
 
 

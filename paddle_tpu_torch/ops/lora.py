@@ -51,7 +51,9 @@ def _current():
 def activate(site_pools, rows):
     """Make ``site_pools`` ({site: (a_pool, b_pool)}) and the per-row page
     ids ``rows`` [B] visible to ``apply_site`` in this thread for the
-    duration of the block."""
+    duration of the block.  Inside a program's body (jit/graphs.py)
+    ``rows`` is the program's static rows input, so a captured graph reads
+    each call's pages from it."""
     prev = _current()
     _tls.ctx = (dict(site_pools), rows)
     try:

@@ -24,21 +24,22 @@ def mask_logits(logits, temperature, top_k, top_p, token_mask=None):
     disables).  Returns f32 logits with masked-out entries at -inf."""
     V = logits.shape[-1]
     lt = logits.float() / torch.clamp(temperature.float(), min=1e-6)[:, None]
-    neg_inf = torch.tensor(float("-inf"), device=lt.device)
+    neg_inf = float("-inf")  # a scalar: no host-to-device copy (a captured
+    # program may not make one)
     if token_mask is not None:
-        lt = torch.where(token_mask, lt, neg_inf)
+        lt = lt.masked_fill(~token_mask, neg_inf)
     k = top_k.to(torch.int64)
     use_k = (k > 0) & (k < V)
     sorted_lt = torch.sort(lt, dim=-1, descending=True).values
     kth = torch.gather(sorted_lt, -1, torch.clamp(k - 1, 0, V - 1)[:, None])
-    lt = torch.where(use_k[:, None] & (lt < kth), neg_inf, lt)
+    lt = lt.masked_fill(use_k[:, None] & (lt < kth), neg_inf)
     use_p = top_p < 1.0
     sorted_lt = torch.sort(lt, dim=-1, descending=True).values
     cum = torch.cumsum(torch.softmax(sorted_lt, dim=-1), dim=-1)
     # keep the smallest set with cumulative prob >= top_p (always >= 1 token)
     cutoff_idx = torch.sum(cum < top_p[:, None].float(), dim=-1, keepdim=True)
     cutoff = torch.gather(sorted_lt, -1, torch.clamp(cutoff_idx, max=V - 1))
-    return torch.where(use_p[:, None] & (lt < cutoff), neg_inf, lt)
+    return lt.masked_fill(use_p[:, None] & (lt < cutoff), neg_inf)
 
 
 def sample_rows(logits, generator, do_sample, temperature, top_k, top_p, token_mask=None):
@@ -48,9 +49,7 @@ def sample_rows(logits, generator, do_sample, temperature, top_k, top_p, token_m
     constrains both: greedy rows take the argmax of the masked logits,
     sampled rows mask before temperature, top-k and top-p.  A row whose
     mask is all True is untouched."""
-    src = logits if token_mask is None else torch.where(
-        token_mask, logits, torch.tensor(float("-inf"), dtype=logits.dtype,
-                                         device=logits.device))
+    src = logits if token_mask is None else logits.masked_fill(~token_mask, float("-inf"))
     greedy = torch.argmax(src, dim=-1).to(torch.int32)
     masked = mask_logits(logits, temperature, top_k, top_p, token_mask)
     # greedy rows draw from their own one-hot, so the one draw covers every
@@ -97,7 +96,7 @@ def spec_accept(logits, drafts, generator, do_sample, temperature, top_k, top_p)
     col = torch.gather(masked, 1, n_acc.long()[:, None, None].expand(B, 1, V))[:, 0]
     rej = torch.gather(drafts.long(), 1, torch.clamp(n_acc.long(), 0, K - 1)[:, None])
     drop = (n_acc < K)[:, None] & (torch.arange(V, device=dev)[None, :] == rej)
-    col = torch.where(drop, torch.tensor(float("-inf"), device=dev), col)
+    col = col.masked_fill(drop, float("-inf"))
     corr = torch.multinomial(torch.softmax(col, dim=-1), 1, generator=generator)[:, 0]
     s_out = torch.cat([drafts, torch.zeros((B, 1), dtype=torch.int32, device=dev)], dim=-1)
     at = torch.arange(K + 1, device=dev)[None, :] == n_acc[:, None]
