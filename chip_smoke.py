@@ -122,6 +122,18 @@ Phases:
                     and encoder libraries, and the kernels phase fails
                     where one (the float32 backward kernels included) has
                     none or float16 has another count than bf16.
+                    The fused Adam / AdamW update (csrc/fused_adam.cu)
+                    against its plain chain after 3 steps, bit for bit
+                    (p, m, v and the pows), the same bits twice, one
+                    launch a table of parameters, with a beta1 one unit
+                    in the last place off and one element left
+                    un-updated as planted faults: at the LLaMA training
+                    configuration's parameter list in bf16 and float32
+                    (timed beside the chain and torch._fused_adamw_), and
+                    small lists at float32, bf16 and float16 (decay on
+                    and off, L2 and decoupled, per-parameter
+                    coefficients, misaligned parameters, more parameters
+                    than a launch holds).
   4. generate     — model.generate() at LLaMA-2-7B widths (16 layers, bf16,
                     random weights from a seed): ids [4, 1024] (flash
                     prefill) on a bf16 and an int8 cache, and ids [8, 256]
@@ -296,6 +308,17 @@ adds its kernels' launches to their counters.
                     timed steps on one batch (fused conv + BN forward 16
                     and backward 32 launches a step), one step profiled;
                     then the eval forward (no fused launch).
+Phases 15-17 train on CUDA graphs: TrainStep captures forward, backward,
+clipping and update into one graph per key and replays it (the fused
+Adam update one launch a step); each configuration also runs eagerly
+under disable_graphs() in the same call (graph_train: step ms both ways,
+device ms and busy share from one profiled step each, capture seconds,
+graph pool bytes, peak memory, the graph's peak at most GRAPH_PEAK_SHARE
+times eager's, launches equal the work on both), and the oracle turns
+(oracle_turns: E G G E from one saved state, 3 steps a turn; E/G at
+float32 ERNIE) must give the same losses, parameters, BN buffers and
+optimizer moments bit for bit, on LLaMA b8_s2048 and
+b32_s512_accum2_clip bf16, ERNIE bf16 and ResNet-50 bf16.
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before
 that line.  Without CUDA, or without the repository beside this file, it
@@ -306,6 +329,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import re
@@ -447,6 +471,11 @@ KERNELS = {
                               "paddle_tpu/ops/encoder_attention.py:78"),
     "encoder_attention_bwd_f16": ("paddle_tpu_torch/csrc/encoder_attention_bwd.cu",
                                   "paddle_tpu/ops/encoder_attention.py:101"),
+    # the fused Adam / AdamW update: replaces no TPU kernel (the reference's
+    # update is jnp code that XLA fuses into its jitted train step), so null
+    # in the kernels line; its launches the train and ernie runs' AdamW
+    # steps, at every dtype
+    "fused_adam": ("paddle_tpu_torch/csrc/fused_adam.cu", None),
 }
 # A run's field and value -> the suffix of the KERNELS rows of that
 # instantiation: every launch in a run at head dim 256 (or at float16, or
@@ -2484,6 +2513,199 @@ def encoder_f16_cases():
     return out, twins
 
 
+# ------------------------------------------------------------ fused Adam
+
+# The fused Adam / AdamW update (csrc/fused_adam.cu) against its plain
+# chain (ops/fused_adam.py adam_update_dense) on the same tensors: every
+# step of the chain is one IEEE-rounded operation in a known type, and the
+# kernel performs the same ones, so the gate is 0: p, m, v and the pows
+# equal bit for bit after ADAM_STEPS steps.  AdamW(3e-4, weight_decay=0.01)
+# as the training runs use it; the betas and eps are Adam's defaults.
+ADAM_LR, ADAM_DECAY, ADAM_STEPS = 3e-4, 0.01, 3
+ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
+# Small parameter lists: odd lengths (the scalar tail after the 16-byte
+# pieces), a parameter of 1 element, and one more than a launch's table
+# holds in the many-parameter case.
+ADAM_SMALL = [(1000, 37), (4097,), (8, 8), (1,), (3, 5, 7)]
+
+
+def adam_inputs(shapes, dtype, seed, steps=ADAM_STEPS, g_floor=0.0, misaligned=False):
+    """Parameters N(0, 0.05) and ``steps`` gradients N(0, 1e-3) of ``shapes``
+    at ``dtype`` on the card, from ``seed``; gradients at least ``g_floor``
+    in magnitude (float16: (1 - beta2) g^2 underflows below about 7.7e-3);
+    ``misaligned`` makes each parameter a view one element into a larger
+    buffer (the kernel's unaligned path)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape, std):
+        n = math.prod(shape)
+        t = torch.randn(n + misaligned, generator=g, device="cuda") * std
+        return t[misaligned:].reshape(shape)
+
+    params = [draw(s, 0.05).to(dtype) for s in shapes]
+    grads = []
+    for _ in range(steps):
+        gs = []
+        for s in shapes:
+            x = draw(s, 1e-3 if not g_floor else 1.0)
+            if g_floor:
+                x = torch.where(x.abs() < g_floor, torch.full_like(x, g_floor), x)
+            gs.append(x.to(dtype))
+        grads.append(gs)
+    return params, grads
+
+
+def adam_run(params, grads, coeffs, mode, update, beta1=ADAM_BETAS[0], skip=None):
+    """Fresh copies of ``params`` and zero moments, then one update a step
+    through ``update`` ("kernel": ops/fused_adam.py adam_update, one launch
+    a MAX_PARAMS parameters; "plain": adam_update_dense a parameter);
+    ``skip`` (i, j): element j of parameter i keeps its value (a fault).
+    Returns the parameters and states."""
+    from paddle_tpu_torch.ops import fused_adam as FA
+
+    ps = [p.detach().clone() for p in params]
+    sts = [{"moment1": torch.zeros_like(p), "moment2": torch.zeros_like(p),
+            "beta1_pow": torch.ones((), device="cuda"), "beta2_pow": torch.ones((), device="cuda")}
+           for p in ps]
+    lr = torch.tensor(ADAM_LR, dtype=torch.float32, device="cuda")
+    b2, eps = ADAM_BETAS[1], ADAM_EPS
+    for gs in grads:
+        old = ps[skip[0]].flatten()[skip[1]].clone() if skip else None
+        if update == "kernel":
+            FA.adam_update(list(zip(ps, gs, sts, coeffs)), lr, mode, beta1, b2, eps)
+        else:
+            for p, gr, st, c in zip(ps, gs, sts, coeffs):
+                FA.adam_update_dense(p, gr, st, lr, c, mode, beta1, b2, eps)
+        if skip:
+            ps[skip[0]].view(-1)[skip[1]] = old
+    return ps, sts
+
+
+def adam_tensors(ps, sts):
+    return list(ps) + [st[k] for st in sts for k in ("moment1", "moment2", "beta1_pow",
+                                                     "beta2_pow")]
+
+
+def adam_diff(a, b):
+    """Max |a - b| over corresponding tensors, and whether all are equal bit
+    for bit."""
+    err, same = 0.0, True
+    for x, y in zip(a, b):
+        same &= bool(torch.equal(x, y))
+        if x.numel():
+            err = max(err, (x.float() - y.float()).abs().max().item())
+    return err, same
+
+
+def adam_case(name, shapes, dtype, mode, coeffs, seed, timed=False, g_floor=0.0,
+              misaligned=False):
+    """The fused update against its plain chain after ADAM_STEPS steps from
+    the same parameters, gradients and zero moments: p, m, v and the pows
+    equal bit for bit (gate 0), the same bits twice, one launch a
+    MAX_PARAMS parameters a step; planted faults, which must differ: the
+    chain with beta1 one unit in the last place of the parameters' type
+    off, and one element of the chain's result left un-updated.  Timed
+    (kernel, the plain chain, torch._fused_adamw_ on the same tensors as
+    the yardstick: it rounds bf16 moments otherwise, so it is timed only)
+    on the main paths' lists."""
+    from paddle_tpu_torch.ops import fused_adam as FA
+
+    params, grads = adam_inputs(shapes, dtype, seed, g_floor=g_floor, misaligned=misaligned)
+    before = FA.fused_adam_kernel.launches
+    got = adam_tensors(*adam_run(params, grads, coeffs, mode, "kernel"))
+    launches = FA.fused_adam_kernel.launches - before
+    expected = ADAM_STEPS * -(-len(shapes) // FA.MAX_PARAMS)
+    again = adam_tensors(*adam_run(params, grads, coeffs, mode, "kernel"))
+    want = adam_tensors(*adam_run(params, grads, coeffs, mode, "plain"))
+    torch.cuda.synchronize()
+    err, bits = adam_diff(got, want)
+    _, same = adam_diff(got, again)
+    del again
+    top = max(t.float().abs().max().item() for t in want if t.numel())
+    b1_off = torch.tensor(ADAM_BETAS[0], dtype=dtype)
+    b1_off = float(torch.nextafter(b1_off.float(), torch.tensor(1.0)).to(dtype)
+                   if dtype == torch.float32 else
+                   (b1_off.view(torch.int16) + 1).view(dtype).float())
+    moved = int((want[0] != params[0]).flatten().nonzero()[0])
+    faults = {}
+    for fname, kw in (("beta1_one_ulp_off", dict(beta1=b1_off)), ("one_element_skipped",
+                                                                   dict(skip=(0, moved)))):
+        f = adam_tensors(*adam_run(params, grads, coeffs, mode, "plain", **kw))
+        faults[fname] = adam_diff(f, got)[0] / top
+        del f
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    ok = bits and same and finite and launches == expected and min(faults.values()) > 0
+    n = sum(math.prod(s) for s in shapes)
+    res = dict(name=name, kind="fused_adam", dtype=TAGS[dtype], mode=mode, params=len(shapes),
+               elements=n, steps=ADAM_STEPS, max_abs_err=err, max_abs_want=top, rel_err=err / top,
+               fault_rel=faults, finite=finite, tol=0.0, bit_equal=bits, same_bits=same,
+               launches_counted=launches, expected_launches=expected, ok=ok)
+    # 4 tensors read and 3 written, each element once
+    res["bound_ms"], res["bound_by"], res["floors"] = bound3(7 * n * params[0].element_size())
+    if timed:
+        ps, sts = adam_run(params, grads[:1], coeffs, mode, "kernel")
+        gs = grads[0]
+        lr = torch.tensor(ADAM_LR, dtype=torch.float32, device="cuda")
+        items = list(zip(ps, gs, sts, coeffs))
+        b1, b2 = ADAM_BETAS
+        res["ms"] = cuda_ms(lambda: FA.adam_update(items, lr, mode, b1, b2, ADAM_EPS), 10)
+        res["plain_ms"] = cuda_ms(lambda: [FA.adam_update_dense(p, g_, st, lr, c, mode, b1, b2,
+                                                                 ADAM_EPS)
+                                           for p, g_, st, c in items], 3)
+        try:
+            steps = [torch.ones((), device="cuda") for _ in ps]
+            m1 = [st["moment1"] for st in sts]
+            m2 = [st["moment2"] for st in sts]
+            res["library_ms"] = cuda_ms(lambda: torch._fused_adamw_(
+                ps, list(gs), m1, m2, [], steps, lr=ADAM_LR, beta1=b1, beta2=b2,
+                weight_decay=ADAM_DECAY, eps=ADAM_EPS, amsgrad=False, maximize=False), 10)
+        except Exception as e:  # noqa: BLE001 - a yardstick, not a gate
+            res["library_ms"], res["library_error"] = None, repr(e)
+        del ps, sts, items
+    return res
+
+
+def fused_adam_cases():
+    """The fused update's cases: first the LLaMA training configuration's
+    parameter list (bench.py's, 738.3 M parameters) at bf16, the main path's
+    shape, and at float32 (both timed); then small lists at float32, bf16
+    and float16, decay on and off, Adam's L2 decay and AdamW's decoupled
+    one with per-parameter coefficients, misaligned parameters, and more
+    parameters than a launch's table holds."""
+    from paddle_tpu_torch.ops import fused_adam as FA
+
+    model = train_model(TRAIN_CFG["num_hidden_layers"])
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model
+    torch.cuda.empty_cache()
+    cases = []
+    decay = [ADAM_DECAY] * len(shapes)
+    for dt, seed in ((torch.bfloat16, 301), (torch.float32, 302)):
+        cases.append(adam_case(f"llama_b8_s2048_{TAGS[dt]}", shapes, dt, "decoupled", decay,
+                               seed, timed=True))
+        torch.cuda.empty_cache()
+    small = ADAM_SMALL
+    every_other = [ADAM_DECAY * (i % 2) for i in range(len(small))]
+    for i, (dt, mode, coeffs, floor, mis) in enumerate([
+            (torch.float32, "decoupled", [ADAM_DECAY] * len(small), 0.0, False),
+            (torch.float32, "l2", [ADAM_DECAY] * len(small), 0.0, False),
+            (torch.bfloat16, "decoupled", [0.0] * len(small), 0.0, False),
+            (torch.bfloat16, "decoupled", every_other, 0.0, True),
+            (torch.bfloat16, "l2", [ADAM_DECAY] * len(small), 0.0, False),
+            (torch.float16, "decoupled", [ADAM_DECAY] * len(small), 0.05, False),
+            (torch.float16, "decoupled", [0.0] * len(small), 0.05, True),
+            (torch.float16, "l2", every_other, 0.05, False)]):
+        name = (f"small_{TAGS[dt]}_{mode}_{'decay' if any(coeffs) else 'nodecay'}"
+                + ("_mixed" if 0 < sum(map(bool, coeffs)) < len(coeffs) else "")
+                + ("_misaligned" if mis else ""))
+        cases.append(adam_case(name, small, dt, mode, coeffs, 310 + i, g_floor=floor,
+                               misaligned=mis))
+    many = [(64,)] * (FA.MAX_PARAMS + 1)
+    cases.append(adam_case("many_params_bf16", many, torch.bfloat16, "decoupled",
+                           [ADAM_DECAY] * len(many), 330))
+    return cases
+
+
 def kernel_phase():
     """Every kernel against its plain version at the main paths' shapes.
     Returns {kernel name: [case, ...]}; the first case of each is the one
@@ -2547,6 +2769,9 @@ def kernel_phase():
     out.update(typed_kv_cases())
     out.update(f32_forward_cases())
     out.update(f32_encoder_bwd_cases())
+    out["fused_adam"] = fused_adam_cases()
+    for c in out["fused_adam"]:
+        log_fused_adam(c)
     f16_against_bf16(out)
     zero_counts()  # comparison launches do not count
     return out
@@ -2665,6 +2890,18 @@ def typed_faults(by_instance):
     return missing, unequal
 
 
+def log_fused_adam(c):
+    times = (f" kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  _fused_adamw_ "
+             + ("n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms")
+             + f"  bound {c['bound_ms']:.4f} ms ({c['bound_by']})") if "ms" in c else ""
+    log(f"  fused_adam            {c['name']:34s} {c['params']} params {c['elements']} elements: "
+        f"bit-equal {c['bit_equal']} (max err {c['max_abs_err']:.3e}), same bits "
+        f"{c['same_bits']}, launches {c['launches_counted']} (expected "
+        f"{c['expected_launches']}); planted faults "
+        + ", ".join(f"{k} {v:.3e}" for k, v in c["fault_rel"].items())
+        + f"{times} {'ok' if c['ok'] else 'FAIL'}")
+
+
 def log_case(kern, c):
     if "ms" not in c:
         return
@@ -2699,6 +2936,7 @@ def counters():
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import encoder_attention as ea
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_adam as fad
     from paddle_tpu_torch.ops import fused_conv_bn as fcb
     from paddle_tpu_torch.ops import fused_ln as fl
 
@@ -2714,7 +2952,8 @@ def counters():
             "fused_conv_bn": fcb.fused_conv_bn_kernel,
             "fused_conv_bn_bwd": fcb.fused_conv_bn_bwd_kernel,
             "flash_attention_bwd_stats": fa.flash_attention_bwd_stats,
-            "flash_attention_bwd_split": fa.flash_attention_bwd_split}
+            "flash_attention_bwd_split": fa.flash_attention_bwd_split,
+            "fused_adam": fad.fused_adam_kernel}
 
 
 def zero_counts():
@@ -4340,6 +4579,15 @@ def sync():
         torch.cuda.synchronize()
 
 
+def release():
+    """Collect what only a reference cycle still holds (a model's
+    generate() program holds the model), then hand the allocator's cached
+    blocks back: a training phase starts from an empty card."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def train_model(layers, device="cuda", **over):
     """The training configuration at ``layers`` layers, random weights from
     seed 0."""
@@ -4409,6 +4657,8 @@ def grad_parity(model, B, S, seed, expected, tol=GRAD_RTOL, grad_scale=1.0):
 
 def train_kind(name):
     low = name.lower()
+    if "fused_adam_kernel" in low:
+        return "optimizer"
     if "fused_ln_fwd_kernel" in low or "fused_ln_bwd_kernel" in low:
         return low[low.index("fused_ln_"):][:12]  # fused_ln_fwd / fused_ln_bwd
     # flash_dq_kernel, flash_dkv_kernel, flash_dsum_kernel, flash_split_kernel
@@ -4433,9 +4683,11 @@ def train_profile(step, batch, kind=train_kind, kinds=TRAIN_KINDS, span_kinds=("
     """One step under torch.profiler: device time by ``kind`` of kernel
     name (LLaMA and ERNIE: matmul, attention forward and backward, fused LN,
     the optimizer, other) and the busy share.  The optimizer's kernels are
-    those of ``span_kinds`` that start inside the device span of
-    TrainStep's "TrainStep.optimizer" label.  Informational: a profiler
-    that records no device events gives "not measured", not a failure."""
+    the fused Adam update's, by name, and those of ``span_kinds`` that
+    start inside the device span of TrainStep's "TrainStep.optimizer"
+    label, which an eager step has and a graph replay has not.
+    Informational: a profiler that records no device events gives "not
+    measured", not a failure."""
     res = {}
     try:
         from torch.profiler import ProfilerActivity, profile
@@ -4459,9 +4711,10 @@ def train_profile(step, batch, kind=train_kind, kinds=TRAIN_KINDS, span_kinds=("
             ms = e.time_range.elapsed_us() / 1e3
             by_kind[k] += ms
             by_name[e.name] = by_name.get(e.name, 0.0) + ms
-        res["optimizer_from"] = ("device span of TrainStep.optimizer" if spans else
-                                 "not measured: no device span of TrainStep.optimizer, "
-                                 "its kernels count as other")
+        res["optimizer_from"] = ("fused_adam by name; device span of TrainStep.optimizer"
+                                 if spans else "fused_adam by name; no device span of "
+                                 "TrainStep.optimizer (a graph replay): other optimizer "
+                                 "kernels count as other")
         if kern:
             busy = sum(by_kind.values())
             # eager copies and adds (ERNIE's q/k/v copies and the qkv
@@ -4485,27 +4738,224 @@ def train_profile(step, batch, kind=train_kind, kinds=TRAIN_KINDS, span_kinds=("
 def timed_steps(step, batch, steps, warmup):
     """``warmup`` steps, then ``steps`` timed ones on the host clock, each
     ending in reading the loss, with the launch counters zeroed just before
-    the timed steps and read just after (and the peak memory reset).
-    Returns (every loss, ms per timed step, launches)."""
-    losses = [float(step(*batch)) for _ in range(warmup)]
+    the timed steps and read just after.  Returns (every loss, ms per timed
+    step, launches, the peak allocated memory over the warm-up and timed
+    steps: the capture, in a graph run's warm-up, included)."""
     sync()
     if torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(*batch)) for _ in range(warmup)]
+    sync()
     zero_counts()                                        # the run starts here
     ms = []
     for _ in range(steps):
         t0 = time.perf_counter()
         losses.append(float(step(*batch)))               # the host waits for the loss
         ms.append((time.perf_counter() - t0) * 1e3)
-    return losses, ms, read_counts()                     # ... and ends here
+    launches = read_counts()                             # ... and ends here
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else None
+    return losses, ms, launches, peak
+
+
+# The train programs: every timed training run is a TrainStep on CUDA
+# graphs (jit/train_step.py: one captured graph a key, forward, backward,
+# clipping and update) beside the same step run eagerly under
+# disable_graphs() in the same call (EAGER_STEPS timed steps after one
+# warm-up; eager first, so that the capture finds the eager run's cache
+# emptied).  The oracle, on the bf16 configurations and ERNIE at float32:
+# turns of TURN_STEPS steps from one saved state (parameters, buffers,
+# optimizer state; the device generator reseeded by seed(TURN_SEED)),
+# eager (E) and on the graph (G), whose losses and final state must equal
+# the first E turn's bit for bit.  The turns run under
+# torch.use_deterministic_algorithms(True, warn_only=True): torch's own
+# embedding backward is not deterministic at ERNIE's two-row token-type
+# table (two eager float32 passes from the same state differ there on an
+# H100), and the mode picks its deterministic path in both kinds of turn
+# alike.  The oracle's program is dropped after it, so the
+# timed graph run captures in the default mode.
+EAGER_STEPS = 3
+TURN_STEPS, TURN_SEED = 3, 7
+# Peak allocated memory of the graph run (its warm-up and capture
+# included) over the eager run's: the capture's private pool holds the
+# step's activations once (the warm-up's cache is emptied first).
+GRAPH_PEAK_SHARE = 1.10
+
+
+def train_state(step):
+    """Every tensor a train step writes, by name: parameters, buffers, the
+    optimizer's state."""
+    model, opt = step.model, step.optimizer
+    out = {f"param.{n}": p for n, p in model.named_parameters()}
+    out.update({f"buffer.{n}": b for n, b in model.named_buffers()})
+    for n, p in model.named_parameters():
+        for k, t in opt._accumulators.get(p, {}).items():
+            out[f"opt.{n}.{k}"] = t
+    return out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms(True, warn_only=True) within the
+    block, its warnings silenced."""
+    import warnings
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def oracle_turns(step, batch, per_step, order="EGGE", steps=TURN_STEPS):
+    """Turns of ``steps`` steps of ``step`` in ``order`` (E: eager under
+    disable_graphs() and set_sync_debug_mode("error"), the proof that the
+    body makes no host sync; G: on the graph, staging and replays under
+    check_syncs()), each from the same saved state with seed(TURN_SEED),
+    all under ``deterministic()``.  Every turn's losses and final
+    parameters, buffers and optimizer state must equal the first E turn's
+    bit for bit, and its launches the work.  The step's programs are
+    dropped afterwards."""
+    from paddle_tpu_torch import seed as reseed
+    from paddle_tpu_torch.jit import check_syncs, disable_graphs
+    from paddle_tpu_torch.jit.graphs import _sync_debug
+
+    opt = step.optimizer
+    for p in step.model.parameters():
+        if p.requires_grad:
+            opt._state_for(p)
+    state = train_state(step)
+    saved = {k: t.detach().clone() for k, t in state.items()}
+    count0 = opt._step_count
+    expected = {k: n * steps for k, n in per_step.items()}
+    turns, first = [], None
+    for kind in order:
+        cuda = torch.cuda.is_available()
+        start = torch.cuda.memory_allocated() if cuda else None
+        with torch.no_grad():
+            for k, t in state.items():
+                t.copy_(saved[k])
+        opt._step_count = count0
+        reseed(TURN_SEED)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with deterministic(), (disable_graphs() if kind == "E" else contextlib.nullcontext()), \
+                (_sync_debug(True) if kind == "E" else check_syncs()):
+            outs = [step(*batch) for _ in range(steps)]
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        losses = torch.stack([o.detach().reshape(()) for o in outs])
+        if first is None:
+            first = (losses, {k: t.detach().clone() for k, t in state.items()})
+            differ, same_loss = [], True
+        else:
+            differ = [k for k, t in state.items() if not torch.equal(t, first[1][k])]
+            same_loss = bool(torch.equal(losses, first[0]))
+        turns.append(dict(kind=kind, losses=[float(x) for x in losses], wall_ms=wall,
+                          start_mem_bytes=start,
+                          peak_mem_bytes=torch.cuda.max_memory_allocated() if cuda else None,
+                          launches=launches,
+                          launches_ok=launch_check(launches, expected), losses_equal=same_loss,
+                          n_differing=len(differ), differing=differ[:8]))
+    del saved, first
+    captured = list(step.programs.captured) if step.programs.cuda else []
+    step.free_programs()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    ok = (all(t["losses_equal"] and not t["n_differing"] and t["launches_ok"] for t in turns)
+          and (not step.programs.cuda or len(captured) == 1))
+    return dict(order=order, steps=steps, seed=TURN_SEED, state_tensors=len(state),
+                expected_launches=expected, turns=turns, captured=len(captured), ok=ok)
+
+
+def graph_train(step, batch, per_step, steps, warmup, oracle=None, profiled=False,
+                eager_steps=EAGER_STEPS, **profile_kw):
+    """One configuration on graphs and eagerly in this call: the oracle
+    turns (``oracle``, e.g. "EGGE"), then EAGER_STEPS eager steps after one
+    warm-up under disable_graphs(), then ``warmup`` and ``steps`` steps on
+    the graph (its capture in the first call of the key, which is that
+    call's step), each run with its own launches, and one profiled step
+    each way (``profiled``).  Gates: losses finite (and falling over the
+    graph run), launches
+    the work in both runs, one captured program, and the graph run's peak
+    (its capture included) at most GRAPH_PEAK_SHARE times the eager run's."""
+    from paddle_tpu_torch.jit import disable_graphs
+
+    res = {}
+    if oracle:
+        res["oracle"] = oracle_turns(step, batch, per_step, oracle)
+    with disable_graphs():
+        e_losses, e_ms, e_launches, e_peak = timed_steps(step, batch, eager_steps, 1)
+        if profiled:
+            res["profile_eager"] = train_profile(step, batch, **profile_kw)
+    sync()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    progs = step.programs
+    before = len(progs.captured), progs.capture_seconds, progs.node_seconds
+    losses, ms, launches, peak = timed_steps(step, batch, steps, warmup)
+    if profiled:
+        res["profile"] = train_profile(step, batch, **profile_kw)
+    captured = len(progs.captured) - before[0]
+    e_expected = {k: n * eager_steps for k, n in per_step.items()}
+    expected = {k: n * steps for k, n in per_step.items()}
+    peak_graph, peak_eager = peak, e_peak
+    share = peak_graph / peak_eager if peak_eager else None
+    res.update(losses=losses, step_ms=sorted(ms)[len(ms) // 2], step_ms_all=ms,
+               launches=launches, expected_launches=expected, peak_mem_bytes=peak_graph,
+               eager_losses=e_losses, eager_step_ms=sorted(e_ms)[len(e_ms) // 2],
+               eager_step_ms_all=e_ms, eager_steps=eager_steps, eager_launches=e_launches,
+               eager_expected_launches=e_expected, eager_peak_mem_bytes=peak_eager,
+               peak_share=share, captured=captured, replays=progs.replays,
+               capture_s=progs.capture_seconds - before[1],
+               node_s=progs.node_seconds - before[2], pool_bytes=progs.pool_bytes())
+    # the loss must fall over the graph run's steps; the eager run's few
+    # steps continue from wherever the oracle's turns left the weights
+    res["ok"] = (all(math.isfinite(x) for x in losses + e_losses) and losses[-1] < losses[0]
+                 and launch_check(launches, expected)
+                 and launch_check(e_launches, e_expected)
+                 and (not progs.cuda or (captured == 1 and share <= GRAPH_PEAK_SHARE))
+                 and (not oracle or res["oracle"]["ok"]))
+    return res
+
+
+def graph_line(r):
+    """The graph and eager numbers of a training run, for its log line."""
+    o = r.get("oracle")
+    orc = "" if o is None else (
+        f"; oracle {o['order']} x {o['steps']} steps: " + ", ".join(
+            f"{t['kind']} {t['wall_ms']:.0f} ms{'' if t['losses_equal'] and not t['n_differing'] else ' DIFFERS ' + str(t['differing'])}"
+            + ("" if t["launches_ok"] else " LAUNCHES") for t in o["turns"])
+        + f" {'ok' if o['ok'] else 'FAIL'}")
+    busy = []
+    for key in ("profile_eager", "profile"):
+        pr = r.get(key) or {}
+        if isinstance(pr.get("device_ms"), float):
+            busy.append(f"{pr['device_ms']:.2f} ms device, {pr['busy_share']:.1%} busy, "
+                        f"{pr['kernels']} kernels")
+        else:
+            busy.append(str(pr.get("device_ms", "not profiled")))
+    pool = r["pool_bytes"]
+    return (f"graph {r['step_ms']:.2f} ms / eager {r['eager_step_ms']:.2f} ms a step "
+            f"(eager {busy[0]}; graph {busy[1]}); captured {r['captured']} in "
+            f"{r['capture_s']:.2f} s (nodes {r['node_s']:.2f} s), pool "
+            f"{(pool or 0) / 2**30:.2f} GiB, peak {(r['peak_mem_bytes'] or 0) / 2**30:.2f} / "
+            f"{(r['eager_peak_mem_bytes'] or 0) / 2**30:.2f} GiB"
+            + ("" if r["peak_share"] is None else f" ({r['peak_share']:.3f})") + orc)
 
 
 def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP,
-              accum_steps=1, grad_clip=None, profiled=False):
-    """TrainStep + AdamW(3e-4, weight_decay=0.01) on one fixed batch:
-    ``warmup`` steps, then ``steps`` timed ones with the launch counters
-    zeroed just before; ``per_step`` is each kernel's expected launches per
-    step."""
+              accum_steps=1, grad_clip=None, profiled=False, oracle=None):
+    """TrainStep + AdamW(3e-4, weight_decay=0.01) on one fixed batch, on the
+    graph and eagerly (``graph_train``); ``per_step`` is each kernel's
+    expected launches per step (the fused update's one added here)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import AdamW
 
@@ -4513,29 +4963,23 @@ def train_run(model, name, B, S, seed, per_step, steps=TRAIN_STEPS, warmup=TRAIN
     step = TrainStep(model, lm_loss(model), AdamW(3e-4, weight_decay=0.01, grad_clip=grad_clip),
                      accum_steps=accum_steps)
     batch = token_batch(cfg, B, S, seed, model.device)
-    losses, ms, launches = timed_steps(step, batch, steps, warmup)
+    per_step = {**per_step, "fused_adam": 1}
+    g = graph_train(step, batch, per_step, steps, warmup, oracle=oracle, profiled=profiled)
     copies = input_copies()
-    step_ms = sorted(ms)[len(ms) // 2]
+    step.free_programs()
     tokens = B * S
     # bench.py's count: 6 N per token, plus the causal attention products
     flops = (6 * model.num_params * tokens
              + 3 * 2 * B * S * S * cfg.hidden_size * cfg.num_hidden_layers)
-    expected = {k: n * steps for k, n in per_step.items()}
+    step_ms = g["step_ms"]
     res = dict(path="train", name=name, B=B, S=S,
                D=cfg.hidden_size // cfg.num_attention_heads, accum_steps=accum_steps,
                grad_clip=repr(grad_clip), layers=cfg.num_hidden_layers,
-               params=model.num_params, warmup=warmup, steps=steps, losses=losses,
-               step_ms=step_ms, step_ms_all=ms, tokens_per_s=tokens / step_ms * 1e3,
+               params=model.num_params, warmup=warmup, steps=steps,
+               tokens_per_s=tokens / step_ms * 1e3,
                flops_per_step=flops, mfu=flops / (step_ms / 1e3) / H100_BF16_FLOPS,
                f32_peak_share=flops / (step_ms / 1e3) / H100_F32_FLOPS,
-               dtype=TAGS[model_dtype(model)],
-               peak_mem_bytes=(torch.cuda.max_memory_allocated()
-                               if torch.cuda.is_available() else None),
-               launches=launches, expected_launches=expected, encoder_input_copies=copies)
-    res["ok"] = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-                 and launch_check(launches, expected))
-    if profiled:
-        res["profile"] = train_profile(step, batch)
+               dtype=TAGS[model_dtype(model)], encoder_input_copies=copies, **g)
     return res
 
 
@@ -4565,9 +5009,8 @@ def log_parity(r, card):
 def log_train_run(r, card):
     log(f"  {r['name']}: step {r['step_ms']:.1f} ms (median of {r['steps']}), "
         f"{r['tokens_per_s']:.0f} tok/s, MFU {r['mfu']:.4f} (of bf16 peak; "
-        f"{r['f32_peak_share']:.4f} of the f32 peak), peak "
-        f"{(r['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; loss {r['losses'][0]:.4f} -> "
-        f"{r['losses'][-1]:.4f}; launches {r['launches']} (expected "
+        f"{r['f32_peak_share']:.4f} of the f32 peak); {graph_line(r)}; loss "
+        f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; launches {r['launches']} (expected "
         f"{r['expected_launches']}); profile {json.dumps(r.get('profile'))}; "
         f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
 
@@ -4614,18 +5057,19 @@ def train_phase(card, device="cuda", layers=12, parity_layers=2, heads=(16, 8), 
             steps, warmup = ((TRAIN_STEPS, TRAIN_WARMUP) if dt == "bfloat16"
                              else (F32_TRAIN_STEPS, F32_TRAIN_WARMUP))
             tag = ("" if D == 128 else f"_d{D}") + ("" if dt == "bfloat16" else f"_{TAGS[tdt]}")
+            # the oracle's E G G E turns on the bf16 runs at D = 128
+            oracle = "EGGE" if dt == "bfloat16" and D == 128 else None
             part = [train_run(model, f"b8_s2048{tag}", 8, 2048, 0,
                               flash_launches(layers, tdt), steps=steps, warmup=warmup,
-                              profiled=True)]
-            if D != 256:  # float32's step profiled: its encoder backward's device time
+                              profiled=True, oracle=oracle)]
+            if D != 256:
                 part.append(train_run(model, f"b32_s512_accum2_clip{tag}", 32, 512, 1,
                                       encoder_launches(2 * layers), steps=min(steps, 5),
                                       warmup=warmup, accum_steps=2,
-                                      grad_clip=ClipGradByGlobalNorm(1.0),
-                                      profiled=dt == "float32"))
+                                      grad_clip=ClipGradByGlobalNorm(1.0), profiled=True,
+                                      oracle=oracle))
             del model
-            if torch.cuda.is_available():
-                torch.cuda.empty_cache()
+            release()
             for r in part:
                 log_train_run(r, card)
             runs += part
@@ -4830,39 +5274,34 @@ def ernie_eval(model, batch, tol=LOGIT_TOL):
                     and launch_check(launches, expected)))
 
 
-def ernie_train(model, batch, steps=ERNIE_STEPS, warmup=ERNIE_WARMUP, profiled=True):
+def ernie_train(model, batch, steps=ERNIE_STEPS, warmup=ERNIE_WARMUP, profiled=True,
+                oracle=None):
     """TrainStep + AdamW(1e-4, weight_decay=0.01) on one fixed batch at
-    dropout 0.1: ``warmup`` steps, then ``steps`` timed ones with the
-    launch counters zeroed just before."""
+    dropout 0.1, on the graph and eagerly (``graph_train``)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import AdamW
 
     cfg = model.config
     step = TrainStep(model, ernie_loss(model), AdamW(1e-4, weight_decay=0.01))
-    losses, ms, launches = timed_steps(step, batch, steps, warmup)
+    dt = model_dtype(model)
+    per_step = {**ernie_per_layer(cfg.num_hidden_layers, dt), "fused_adam": 1}
+    g = graph_train(step, batch, per_step, steps, warmup, oracle=oracle, profiled=profiled)
+    step.free_programs()
     copies = input_copies()
     B, S = batch[0].shape
     P = batch[2].shape[1]
-    step_ms = sorted(ms)[len(ms) // 2]
+    step_ms = g["step_ms"]
     flops = ernie_flops(cfg, B, S, P)
-    dt = model_dtype(model)
-    expected = {k: n * steps for k, n in ernie_per_layer(cfg.num_hidden_layers, dt).items()}
     tag = "" if dt == torch.bfloat16 else f"_{TAGS[dt]}"
     res = dict(path="ernie", name=f"b{B}_s{S}_p{P}_drop{cfg.hidden_dropout_prob}{tag}", B=B, S=S,
                masked_per_seq=P, layers=cfg.num_hidden_layers, params=model.num_params,
-               warmup=warmup, steps=steps, losses=losses, step_ms=step_ms, step_ms_all=ms,
-               tokens_per_s=B * S / step_ms * 1e3, flops_per_step=flops,
-               mfu=flops / (step_ms / 1e3) / H100_BF16_FLOPS,
+               warmup=warmup, steps=steps, tokens_per_s=B * S / step_ms * 1e3,
+               flops_per_step=flops, mfu=flops / (step_ms / 1e3) / H100_BF16_FLOPS,
                f32_peak_share=flops / (step_ms / 1e3) / H100_F32_FLOPS, dtype=TAGS[dt],
-               peak_mem_bytes=(torch.cuda.max_memory_allocated()
-                               if torch.cuda.is_available() else None),
-               launches=launches, expected_launches=expected, encoder_input_copies=copies)
+               encoder_input_copies=copies, **g)
     # BERT's q, k, v are strided views of one packed projection: the
     # encoder kernels must read them in place
-    res["ok"] = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-                 and launch_check(launches, expected) and copies == 0)
-    if profiled:
-        res["profile"] = train_profile(step, batch)
+    res["ok"] = g["ok"] and copies == 0
     return res
 
 
@@ -4908,14 +5347,15 @@ def ernie_phase(card, device="cuda", layers=12, parity_layers=2, B=ERNIE_B, S=ER
         f"{ev['max_logit_drift']:.4f} = {ev['drift_in_std']:.4f} std (std "
         f"{ev['logit_std']:.3f}; tol {ev['logit_tol_in_std']} std); launches {ev['launches']} "
         f"(expected {ev['expected_launches']}); {'ok' if ev['ok'] else 'FAIL'} [{card}]")
-    run = ernie_train(model, batch, steps, warmup, profiled=device != "cpu")
+    # the oracle: E G G E turns at bf16, one E/G pair at float32
+    run = ernie_train(model, batch, steps, warmup, profiled=device != "cpu",
+                      oracle="EG" if f32 else "EGGE")
     del model
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     log(f"  {run['name']}: step {run['step_ms']:.2f} ms (median of {run['steps']}), "
         f"{run['tokens_per_s']:.0f} tok/s, MFU {run['mfu']:.4f} ({run['f32_peak_share']:.4f} "
-        f"of the f32 peak), peak "
-        f"{(run['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; loss {run['losses'][0]:.4f} -> "
+        f"of the f32 peak); {graph_line(run)}; loss {run['losses'][0]:.4f} -> "
         f"{run['losses'][-1]:.4f}; launches {run['launches']} (expected "
         f"{run['expected_launches']}); encoder input copies {run['encoder_input_copies']} "
         f"(expected 0); profile {json.dumps(run.get('profile'))}; "
@@ -5069,9 +5509,9 @@ def resnet_batch(B, S, dtype, device, seed=0):
     return x.to(device=device, dtype=dtype), y.to(device)
 
 
-def resnet_train(model, batch, steps, warmup, profiled):
-    """TrainStep + Momentum(0.1, 0.9) on one fixed batch: ``warmup`` steps,
-    then ``steps`` timed ones with the launch counters zeroed just before."""
+def resnet_train(model, batch, steps, warmup, profiled, oracle=None):
+    """TrainStep + Momentum(0.1, 0.9) on one fixed batch, on the graph and
+    eagerly (``graph_train``)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn import CrossEntropyLoss
     from paddle_tpu_torch.optimizer import Momentum
@@ -5082,25 +5522,19 @@ def resnet_train(model, batch, steps, warmup, profiled):
         return ce(model(x).float(), y)
 
     step = TrainStep(model, loss_fn, Momentum(learning_rate=0.1, momentum=0.9))
-    losses, ms, launches = timed_steps(step, batch, steps, warmup)
+    per_step = {"fused_conv_bn": 16, "fused_conv_bn_bwd": 32}
+    g = graph_train(step, batch, per_step, steps, warmup, oracle=oracle, profiled=profiled,
+                    kind=resnet_kind, kinds=RESNET_KINDS, span_kinds=("other", "bn_elementwise"))
+    step.free_programs()
     B, S = batch[0].shape[0], batch[0].shape[1]
-    step_ms = sorted(ms)[len(ms) // 2]
+    step_ms = g["step_ms"]
     flops = RESNET_TRAIN_FLOPS * B * (S / 224) ** 2
-    expected = {"fused_conv_bn": 16 * steps, "fused_conv_bn_bwd": 32 * steps}
     finite_stats = all(bool(torch.isfinite(b).all()) for b in model.buffers())
     res = dict(path="resnet", name=f"resnet50_nhwc_b{B}_s{S}", B=B, S=S, warmup=warmup,
-               steps=steps, losses=losses, step_ms=step_ms, step_ms_all=ms,
-               images_per_s=B / step_ms * 1e3, flops_per_step=flops,
+               steps=steps, images_per_s=B / step_ms * 1e3, flops_per_step=flops,
                mfu=flops / (step_ms / 1e3) / H100_BF16_FLOPS, params=model.num_params,
-               peak_mem_bytes=(torch.cuda.max_memory_allocated()
-                               if torch.cuda.is_available() else None),
-               running_stats_finite=finite_stats, launches=launches,
-               expected_launches=expected)
-    res["ok"] = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-                 and finite_stats and launch_check(launches, expected))
-    if profiled:
-        res["profile"] = train_profile(step, batch, resnet_kind, RESNET_KINDS,
-                                       ("other", "bn_elementwise"))
+               running_stats_finite=finite_stats, **g)
+    res["ok"] = g["ok"] and finite_stats
     return res
 
 
@@ -5144,14 +5578,15 @@ def resnet_phase(card, device="cuda", B=RESNET_B, S=RESNET_S, steps=RESNET_STEPS
     log(f"  model: {model.num_params / 1e6:.2f} M params, NHWC, {dtype}, init "
         f"{time.perf_counter() - t0:.1f} s")
     with forced_fused(device == "cpu"):
-        run = resnet_train(model, batch, steps, warmup, profiled=device != "cpu")
+        run = resnet_train(model, batch, steps, warmup, profiled=device != "cpu",
+                           oracle="EGGE")
     ev = resnet_eval(model, batch)
     del model
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     log(f"  {run['name']}: step {run['step_ms']:.2f} ms (median of {run['steps']}), "
-        f"{run['images_per_s']:.1f} images/s, MFU {run['mfu']:.4f}, peak "
-        f"{(run['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; loss {run['losses'][0]:.4f} -> "
+        f"{run['images_per_s']:.1f} images/s, MFU {run['mfu']:.4f}; {graph_line(run)}; loss "
+        f"{run['losses'][0]:.4f} -> "
         f"{run['losses'][-1]:.4f}; launches {run['launches']} (expected "
         f"{run['expected_launches']}); profile {json.dumps(run.get('profile'))}; "
         f"{'ok' if run['ok'] else 'FAIL'} [{card}]")
@@ -5426,6 +5861,8 @@ def main(argv=None):
         ok &= all(r["ok"] for r in runs)
         phase_done(report, "dtypes", t_ph)
     if "train" in paths:
+        release()
+        log(f"[train] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated at the start")
         t_ph = time.perf_counter()
         log("[train] bench.py's LLaMA training configuration through TrainStep + AdamW, at "
             "16 heads of 128 and 8 heads of 256")
@@ -5434,6 +5871,8 @@ def main(argv=None):
         ok &= all(r["ok"] for r in report["train_grad_parity"] + runs)
         phase_done(report, "train", t_ph)
     if "ernie" in paths:
+        release()
+        log(f"[ernie] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated at the start")
         t_ph = time.perf_counter()
         log("[ernie] bench.py's ERNIE-base pretraining through TrainStep + AdamW, bf16 and "
             "float32; float16 gradient parity through the fused-LN and tensor-core encoder "
@@ -5449,6 +5888,8 @@ def main(argv=None):
                   + [report["ernie_f16_parity"]] + runs)
         phase_done(report, "ernie", t_ph)
     if "resnet" in paths:
+        release()
+        log(f"[resnet] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated at the start")
         t_ph = time.perf_counter()
         log("[resnet] bench.py's ResNet-50 in NHWC through TrainStep + Momentum")
         report["resnet_checks"], runs = resnet_phase(report["card"])

@@ -6,8 +6,11 @@ trainable parameter with torch autograd.  With ``accum_steps > 1`` it
 splits the batch axis into that many equal microbatches, runs them one
 after the other and averages their gradients and losses (the loss in f32),
 as the reference's ``lax.scan`` does; auxiliary outputs are the last
-microbatch's.  There is no counterpart of the reference's in-graph loss
-scaling: ``TrainStep`` raises on ``scaler=``.
+microbatch's.  It makes no host sync and no pageable copy, and what it
+allocates lives for the step alone, so that ``jit/train_step.py`` can
+capture it (with the update) into one CUDA graph.  There is no
+counterpart of the reference's in-graph loss scaling: ``TrainStep``
+raises on ``scaler=``.
 """
 from __future__ import annotations
 

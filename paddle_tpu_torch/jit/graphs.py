@@ -18,17 +18,23 @@ memory pool (only one program of an owner runs at a time) with
 ``capture_error_mode="thread_local"``, so another thread's copies do not
 void the capture.  Every later call uploads its inputs and replays the
 graph on the current stream, and its outputs are the graph's static
-outputs, valid until the next call of any program of the owner.  A capture
-or a replay that fails raises: nothing falls back to eager.
+outputs, valid until the next call of any program of the owner, or, for a
+program made with ``fresh=True`` (a train step), copies of them made on
+the stream after the replay.  A program made with ``release_warmup=True``
+hands the warm-up's cached blocks back to the driver before it captures,
+so that the capture's private pool can take that memory (a train step's
+activations would otherwise be held twice).  A capture or a replay that
+fails raises: nothing falls back to eager.
 
 The kernel wrappers count their launches (``<wrapper>.launches``, through
-``ops._build.count``).  A launch made while this thread captures only
-records the kernel in the graph, so it goes into the capture's tally (a
-thread-local one: another thread's launches count as they run).  The
-capture then reads the graph's kernel nodes through the driver, names the
-wrapper of each node of the port's kernels by its mangled name, and raises
-unless the nodes equal the tally; each replay adds those node counts, the
-launches the replay makes.
+``ops._build.count``).  A launch made on the capture stream only records
+the kernel in the graph, so it goes into the capture's tally, from any
+thread (autograd launches a captured backward's kernels from its own
+worker thread, on the stream of their forward); launches on other streams
+count as they run.  The capture then reads the graph's kernel nodes
+through the driver, names the wrapper of each node of the port's kernels
+by its mangled name, and raises unless the nodes equal the tally; each
+replay adds those node counts, the launches the replay makes.
 
 A CPU device runs every body eagerly on the same static inputs, as the
 caller asked for the CPU.  ``disable_graphs()`` runs the bodies that this
@@ -78,19 +84,41 @@ def _graphs_enabled():
     return not getattr(_flags, "disabled", 0)
 
 
-# The port's kernels by launch counter: a kernel node of a graph is the
-# launch of the wrapper whose every part is in its mangled name.
+# The port's kernels by launch counter: a kernel node of a graph is a
+# launch of the wrapper that lists a tuple of parts all of which are in its
+# mangled name (gemm_f32<0> and <1> of csrc/fused_conv_bn.cu: the float32
+# forward and dX pass).
 _KERNEL_NODES = {
-    "paged_attention_kernel": ("kv_", "PagedRows"),    # kv_attention.cuh, paged rows
-    "decode_attention_kernel": ("kv_", "StaticRows"),  # the same kernels, static rows
-    "flash_attention_kernel": ("flash_fwd_kernel",),
-    "encoder_attention_kernel": ("encoder_fwd_",),
+    "paged_attention_kernel": (("kv_", "PagedRows"),),    # kv_attention.cuh, paged rows
+    "decode_attention_kernel": (("kv_", "StaticRows"),),  # the same kernels, static rows
+    "flash_attention_kernel": (("flash_fwd_kernel",),),
+    "encoder_attention_kernel": (("encoder_fwd_",),),
+    "flash_attention_bwd_stats": (("flash_dsum_kernel",),),
+    "flash_attention_bwd_split": (("flash_split_kernel",),),
+    "flash_attention_dq_kernel": (("flash_dq_kernel",),),
+    "flash_attention_dkv_kernel": (("flash_dkv_kernel",),),
+    "encoder_attention_bwd_kernel": (("encoder_bwd_head",), ("encoder_dq",)),
+    "fused_ln_kernel": (("fused_ln_fwd_kernel",),),
+    "fused_ln_bwd_kernel": (("fused_ln_bwd_kernel",),),
+    "fused_conv_bn_kernel": (("fcbn_fwd_",), ("8gemm_f32ILi0E",)),
+    "fused_conv_bn_bwd_kernel": (("fcbn_bwd1_",), ("fcbn_dx_",), ("8gemm_f32ILi1E",)),
+    "fused_adam_kernel": (("fused_adam_kernel",),),
 }
+# The second kernel of a launch that runs two, by its parts -> the parts of
+# the launch's first: the encoder's streamed dK/dV after its dQ, the fused
+# conv + BN's dW pass after its dX pass (bf16 and float32).  A graph must
+# hold as many of each as of its first.
+_SECOND_NODES = {("encoder_dkv",): ("encoder_dq",), ("fcbn_dw_",): ("fcbn_dx_",),
+                 ("8gemm_f32ILi2E",): ("8gemm_f32ILi1E",)}
+
+
+def _match(name, parts):
+    return all(p in name for p in parts)
 
 
 def _wrapper_of(name):
-    for fn_name, parts in _KERNEL_NODES.items():
-        if all(p in name for p in parts):
+    for fn_name, alternatives in _KERNEL_NODES.items():
+        if any(_match(name, parts) for parts in alternatives):
             return fn_name
     return None
 
@@ -238,13 +266,17 @@ class Program:
     writes in place; ``body`` takes all of them by name and returns a
     tensor or a tuple of tensors; ``generators`` are the torch.Generators
     the body draws from (registered with the graph, so that replays draw as
-    eager calls do)."""
+    eager calls do); ``fresh`` hands out copies of the tensor outputs at
+    each replay; ``release_warmup`` empties the allocator's cache between
+    the warm-up and the capture."""
 
     ALIGN = 16
 
-    def __init__(self, owner: Programs, key, body, inputs, generators=(), statics=None):
+    def __init__(self, owner: Programs, key, body, inputs, generators=(), statics=None,
+                 fresh=False, release_warmup=False):
         self.owner, self.key, self.body = owner, key, body
         self.generators = tuple(generators)
+        self.fresh, self.release_warmup = fresh, release_warmup
         layout, off = {}, 0
         for name, init in inputs.items():
             n = init.numel() * init.element_size()
@@ -258,15 +290,16 @@ class Program:
         for name, (_, _, init) in layout.items():
             self.host[name].copy_(init)
         self._staged = bool(layout)  # whether a call uploads the packed buffer
+        self._uploaded = None    # event after the last upload (CUDA)
         if pinned:
-            self._dev_buf = self._host_buf.to(dev)
+            self._dev_buf = torch.empty_like(self._host_buf, device=dev)
+            self._upload()       # no host sync: a program may be made inside a sync check
             self.inputs = {name: self._dev_buf[o:o + n].view(init.dtype).view(init.shape)
                            for name, (o, n, init) in layout.items()}
         else:
             self._dev_buf = self._host_buf  # the CPU reads its inputs in place
             self.inputs = dict(self.host)
         self.inputs.update(statics or {})
-        self._uploaded = None    # event after the last upload (CUDA)
         self._fetch_bufs = {}    # pinned host buffers of fetched outputs
         self.graph = None
         self.outputs = None
@@ -328,11 +361,16 @@ class Program:
         for fn, attr, n in self._delta:
             setattr(fn, attr, getattr(fn, attr) + n)
         owner.replays += 1
-        return self.outputs
+        if not self.fresh:
+            return self.outputs
+        if isinstance(self.outputs, tuple):
+            return tuple(o.clone() if torch.is_tensor(o) else o for o in self.outputs)
+        return self.outputs.clone()
 
     def _capture(self):
         from ..ops import _build
         from ..ops import decode_attention as _da
+        from ..ops import fused_adam as _fa
 
         owner = self.owner
         cur = torch.cuda.current_stream(owner.device)
@@ -340,17 +378,20 @@ class Program:
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             result = self.body(**self.inputs)  # the warm-up is this call's result
-        # the capture stream's split-K tickets, made by the warm-up
+        if self.release_warmup:
+            torch.cuda.empty_cache()
+        # the capture stream's ticket counters (split-K decode, the fused
+        # Adam update's pows), made by the warm-up
         def tickets():
-            return {k: t for k, t in _da._TICKETS.items() if k[1] == side.cuda_stream}
+            return {(mod.__name__, k): t for mod in (_da, _fa) for k, t in mod._TICKETS.items()
+                    if k[1] == side.cuda_stream}
 
         before = tickets()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in self.generators:
             graph.register_generator_state(gen)
         t0 = time.perf_counter()
-        tally = _build._capture.tally = {}
-        try:
+        with _build.capture_tally(side.cuda_stream) as tally:
             with torch.cuda.stream(side):
                 graph.capture_begin(pool=owner.pool(), capture_error_mode="thread_local")
                 try:
@@ -362,12 +403,10 @@ class Program:
                         pass
                     raise
                 graph.capture_end()
-        finally:
-            _build._capture.tally = None
         cur.wait_stream(side)
         after = tickets()
         if after.keys() != before.keys() or any(after[k] is not t for k, t in before.items()):
-            raise RuntimeError(f"program {self.key!r}: the split-K tickets of the capture "
+            raise RuntimeError(f"program {self.key!r}: the ticket counters of the capture "
                                "stream changed during capture (the warm-up must make them)")
         t1 = time.perf_counter()
         self._delta = self._node_counts(graph, tally)
@@ -384,15 +423,23 @@ class Program:
         capture; other counters (the encoder's input copies) as tallied."""
         from ..ops import _build
 
-        nodes = {}
+        nodes, parts = {}, {}
         for name in kernel_names(graph):
             fn_name = _wrapper_of(name)
             if fn_name is not None:
                 nodes[fn_name] = nodes.get(fn_name, 0) + 1
+            for p in (*_SECOND_NODES, *_SECOND_NODES.values()):
+                if _match(name, p):
+                    parts[p] = parts.get(p, 0) + 1
         launched = {fn.__name__: n for (fn, attr), n in tally.items() if attr == "launches"}
         if nodes != launched:
             raise RuntimeError(f"program {self.key!r}: the graph holds the kernels {nodes} "
                                f"but the wrappers launched {launched} during capture")
+        unpaired = {p[0]: (parts.get(p, 0), parts.get(lead, 0))
+                    for p, lead in _SECOND_NODES.items() if parts.get(p, 0) != parts.get(lead, 0)}
+        if unpaired:
+            raise RuntimeError(f"program {self.key!r}: second kernels of a launch without their "
+                               f"first ones (seconds, firsts): {unpaired}")
         return tuple((fn, attr, n) for (fn, attr), n in tally.items() if n)
 
     def fetch(self, t):

@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
@@ -31,29 +32,57 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: dict[str, ctypes.CDLL] = {}
 
-# while this thread captures a CUDA graph (jit/graphs.py), the tally that
-# count() adds the captured launches to; None otherwise
-_capture = threading.local()
+# the tallies of the graphs being captured for jit/graphs.py, by the handle
+# of the capturing stream; count() adds a launch made on such a stream, by
+# any thread (autograd runs a backward on its own worker thread), to it
+_tallies: dict[int, dict] = {}
+_tally_lock = threading.Lock()
 
 
 def count(fn, attr: str = "launches") -> None:
     """One launch of ``fn``'s kernel (or, with ``attr``, one event of another
-    counter): adds one to ``fn.<attr>``.  A launch made while this thread's
-    current stream captures a graph for ``jit/graphs.py`` runs only when
-    the graph replays, so it goes into the capture's tally instead, which
-    the program checks against the graph's kernel nodes and adds at each
-    replay."""
-    tally = getattr(_capture, "tally", None)
-    if tally is not None and _capturing():
-        tally[(fn, attr)] = tally.get((fn, attr), 0) + 1
-    else:
-        setattr(fn, attr, getattr(fn, attr) + 1)
+    counter): adds one to ``fn.<attr>``.  A launch made on a stream that is
+    capturing a graph for ``jit/graphs.py`` (``capture_tally``) runs only
+    when the graph replays, so it goes into that capture's tally instead,
+    whichever thread made it; the program checks the tally against the
+    graph's kernel nodes and adds it at each replay."""
+    if _tallies:
+        stream = _capture_stream()
+        if stream is not None:
+            with _tally_lock:
+                tally = _tallies.get(stream)
+                if tally is not None:
+                    tally[(fn, attr)] = tally.get((fn, attr), 0) + 1
+                    return
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
-def _capturing() -> bool:
+def _capture_stream():
+    """The handle of this thread's current stream while it captures a
+    graph, else None."""
     import torch
 
-    return torch.cuda.is_current_stream_capturing()
+    if not torch.cuda.is_current_stream_capturing():
+        return None
+    return torch.cuda.current_stream().cuda_stream
+
+
+@contextmanager
+def capture_tally(stream: int):
+    """Within the block, launches that any thread makes on the capturing
+    stream of handle ``stream`` go into the yielded tally, {(fn, attr):
+    count}, instead of their counters; launches on other streams count as
+    they run."""
+    tally: dict = {}
+    with _tally_lock:
+        if stream in _tallies:
+            raise RuntimeError(f"stream {stream:#x} already has a capture tally")
+        _tallies[stream] = tally
+    try:
+        yield tally
+    finally:
+        with _tally_lock:
+            del _tallies[stream]
 
 
 def nvcc_path() -> str:

@@ -21,9 +21,16 @@ moment by bf16(0.999) = 1.0); ``_like`` does the same, where torch would
 multiply by the unrounded scalar.
 
 Unlike the reference, whose arrays are immutable, the port updates each
-parameter in place (``copy_`` under ``torch.no_grad()``), so no second copy
-of the weights is ever allocated.  ``step()`` reads ``param.grad``;
-``jit.TrainStep`` hands its gradients to ``_update`` directly.  Not ported
+parameter and its state in place (``copy_`` under ``torch.no_grad()``), so
+no second copy of the weights is ever allocated and a captured train step
+(jit/train_step.py), which replays on the tensors it saw at capture, reads
+this step's moments at the next.  Adam and AdamW update CUDA parameters by
+one fused launch a (dtype, decay mode) group (``ops/fused_adam.py``, the
+same operations and roundings as the chain); CPU ones take the chain.
+``step()`` reads ``param.grad``; ``jit.TrainStep`` hands its gradients to
+``_update`` directly, with the learning rate as an f32 scalar it staged on
+the device (a Python float would be a pageable copy, which a capture
+forbids).  Not ported
 yet, and raising NotImplementedError: learning-rate schedulers (ROADMAP.md
 Queue 1 item 6, the rest of the surface), regularizer objects as
 ``weight_decay`` (the same item) and the optimizers other than SGD,
@@ -40,6 +47,17 @@ def _like(x, t):
     """The Python scalar ``x`` rounded to ``t``'s dtype, as JAX rounds a
     weakly typed scalar before an operation in that dtype."""
     return torch.tensor(x, dtype=t.dtype).item()
+
+
+def _lr_on(lr, device, made):
+    """The learning rate as an f32 scalar on ``device``: a tensor as given
+    (moved if it lies elsewhere), a float made into one once a call
+    (``made`` holds them by device)."""
+    if torch.is_tensor(lr):
+        return lr if lr.device == device else lr.to(device)
+    if device not in made:
+        made[device] = torch.tensor(lr, dtype=torch.float32, device=device)
+    return made[device]
 
 
 def _not_ported(what):
@@ -150,14 +168,16 @@ class Optimizer:
 
     @torch.no_grad()
     def _update(self, params_and_grads, lr):
-        """Clip, then update each parameter in place; ``lr`` a float."""
-        lr_on = {}
+        """Clip, then update each parameter and its state tensors in place;
+        ``lr`` a float or an f32 scalar tensor on the parameters' device."""
+        made = {}
         for p, g in self._clipped_grads(params_and_grads):
-            if p.device not in lr_on:
-                lr_on[p.device] = torch.tensor(lr, dtype=torch.float32, device=p.device)
-            new_p, self._accumulators[p] = self._apply_update(
-                p.detach(), g, self._state_for(p), lr_on[p.device],
-                self._param_decay_coeff(p))
+            state = self._state_for(p)
+            new_p, new_state = self._apply_update(p.detach(), g, state,
+                                                  _lr_on(lr, p.device, made),
+                                                  self._param_decay_coeff(p))
+            for k, v in new_state.items():
+                state[k].copy_(v)
             p.copy_(new_p)
 
     def step(self):
@@ -216,15 +236,28 @@ class Adam(Optimizer):
                 "beta2_pow": one.clone()}
 
     def _update_rule(self, p, g, state, lr):
-        b1, b2 = self._beta1, self._beta2
-        m = _like(b1, g) * state["moment1"] + _like(1 - b1, g) * g
-        v = _like(b2, g) * state["moment2"] + _like(1 - b2, g) * g.square()
-        b1p = state["beta1_pow"] * b1
-        b2p = state["beta2_pow"] * b2
-        mhat = m / (1 - b1p).to(m.dtype)
-        vhat = v / (1 - b2p).to(v.dtype)
-        new_p = p.float() - lr * mhat.float() / (vhat.sqrt() + _like(self._eps, v)).float()
+        from ..ops.fused_adam import adam_rule
+
+        new_p, m, v, b1p, b2p = adam_rule(p, g, state["moment1"], state["moment2"],
+                                          state["beta1_pow"], state["beta2_pow"], lr,
+                                          self._beta1, self._beta2, self._eps)
         return new_p, {"moment1": m, "moment2": v, "beta1_pow": b1p, "beta2_pow": b2p}
+
+    @torch.no_grad()
+    def _update(self, params_and_grads, lr):
+        """Clip, then update every parameter and its state in place, one
+        ``ops/fused_adam.py adam_update`` per (device, dtype, decay mode)
+        group: one kernel launch on CUDA, the plain chain on the CPU."""
+        from ..ops.fused_adam import adam_update
+
+        groups, made = {}, {}
+        for p, g in self._clipped_grads(params_and_grads):
+            coeff, mode, _ = self._param_decay_coeff(p)
+            groups.setdefault((p.device, p.dtype, mode), []).append(
+                (p, g, self._state_for(p), coeff))
+        for (dev, _, mode), items in groups.items():
+            adam_update(items, _lr_on(lr, dev, made), mode, self._beta1, self._beta2,
+                        self._eps)
 
 
 class AdamW(Adam):

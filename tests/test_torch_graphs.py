@@ -351,9 +351,9 @@ def test_program_stages_into_one_packed_buffer():
 
 
 def test_capture_tally_and_kernel_node_names(monkeypatch):
-    """A wrapper's launch counts at once, or, while this thread captures
-    for a program, goes into the capture's tally; each kernel node name of
-    the port's kernels maps to its wrapper, and no other kernel does."""
+    """A wrapper's launch counts at once, or, while its stream captures for
+    a program, goes into the capture's tally; each kernel node name of the
+    port's kernels maps to its wrapper, and no other kernel does."""
     from paddle_tpu_torch.jit import graphs
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import decode_attention as da
@@ -361,14 +361,10 @@ def test_capture_tally_and_kernel_node_names(monkeypatch):
     before = da.paged_attention_kernel.launches
     _build.count(da.paged_attention_kernel)
     assert da.paged_attention_kernel.launches == before + 1
-    monkeypatch.setattr(_build, "_capturing", lambda: True)
-    _build._capture.tally = {}
-    try:
+    monkeypatch.setattr(_build, "_capture_stream", lambda: 7)  # a capturing stream's handle
+    with _build.capture_tally(7) as tally:
         _build.count(da.paged_attention_kernel)
         _build.count(da.paged_attention_kernel)
-        tally = _build._capture.tally
-    finally:
-        _build._capture.tally = None
     assert tally == {(da.paged_attention_kernel, "launches"): 2}
     assert da.paged_attention_kernel.launches == before + 1
     names = {

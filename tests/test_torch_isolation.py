@@ -105,8 +105,8 @@ def test_kernel_sources_ship_as_package_data():
     text = (ROOT / "pyproject.toml").read_text()
     assert '"paddle_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
     kernels = ["decode_attention", "encoder_attention", "encoder_attention_bwd",
-               "flash_attention", "flash_attention_bwd", "fused_conv_bn", "fused_ln",
-               "paged_attention"]
+               "flash_attention", "flash_attention_bwd", "fused_adam", "fused_conv_bn",
+               "fused_ln", "paged_attention"]
     assert _build.sources() == kernels  # one library per .cu, built at first use
     for name in kernels:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
